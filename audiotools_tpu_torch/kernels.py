@@ -1,0 +1,121 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+The sources compile with ``nvcc`` into one shared library with a plain
+C interface, loaded through ctypes.  The build runs on first use, from
+the package's own sources, into ``build/`` beside this file; the
+library's name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one is reused.  Nothing here runs
+at import time: the CPU-only test hosts have no ``nvcc``.
+
+Each binding takes torch CUDA tensors, launches on the current stream
+without synchronising, and raises if the launch reports an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+build_log = ""
+
+
+def nvcc_path():
+    """the CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else
+    the toolkit's default install location"""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin",
+                                       "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH); the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cu")))
+
+
+def library_path():
+    """where the library for the current sources and flags lives"""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR,
+                        "libatpu_kernels-%s.so" % digest.hexdigest()[:16])
+
+
+def build():
+    """compiles csrc/*.cu unless the library for these sources exists;
+    returns its path.  Raises RuntimeError with the compiler's output
+    if nvcc fails."""
+    global build_log
+    so_path = library_path()
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (so_path, os.getpid())
+    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp] + _sources()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            proc.returncode, " ".join(cmd), build_log))
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def load():
+    """builds on first use and returns the bound ctypes library"""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.atpu_scatter_words.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.atpu_scatter_words.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _stream_ptr(device):
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def scatter_words(idx, val, out):
+    """launches csrc/scatter_words.cu: ORs val[s, m] into
+    out[s, idx[s, m]] for idx in [0, n_words)
+
+    idx, val: contiguous int32 CUDA tensors [S, M]; out: zeroed
+    contiguous int32 CUDA tensor [S, n_words] on the same device.  The
+    caller (ops/bitpack.scatter_words) validates the arguments."""
+    import torch
+    lib = load()
+    (S, M) = idx.shape
+    with torch.cuda.device(idx.device):
+        rc = lib.atpu_scatter_words(
+            ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(val.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), S, M, out.shape[1],
+            _stream_ptr(idx.device))
+    if rc != 0:
+        raise RuntimeError("scatter_words kernel launch failed: CUDA "
+                           "error %d" % (rc,))
