@@ -1,0 +1,338 @@
+"""The port's host C++ library: FLAC emit, decode and scan, and MD5.
+
+``hostkernels.cpp`` beside this file is a copy of the FLAC, CRC and
+MD5 parts of the reference package's host library; the wrappers here
+are the reference's (``audiotools_tpu/_native``), for the entry points
+the port calls.  The library compiles with g++ on first use into the
+package's ``build/`` directory; its name carries a hash of the source,
+and it is written to a temporary file first and renamed into place,
+so that several processes may build it at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "hostkernels.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
+GXX_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC",
+             "-std=c++17", "-fno-exceptions"]
+
+_lib = None
+
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+_U8 = ctypes.POINTER(ctypes.c_uint8)
+_U32 = ctypes.POINTER(ctypes.c_uint32)
+
+
+class CapacityError(ValueError):
+    """a single FLAC frame exceeded the scan's partition capacity;
+    the caller decodes that stream on the host path instead"""
+
+
+class EmitOverflow(ValueError):
+    """the decision array implied more output bytes than the emitter's
+    worst-case buffer"""
+
+
+def _build():
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    so_path = os.path.join(BUILD_DIR, "libatpu_host-%s.so"
+                           % digest.hexdigest()[:16])
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp_path = "%s.%d.tmp" % (so_path, os.getpid())
+    flags = GXX_FLAGS
+    proc = subprocess.run(["g++"] + flags + ["-o", tmp_path, _SRC],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        # targets g++ cannot tune for
+        flags = [f for f in flags if f != "-march=native"]
+        proc = subprocess.run(["g++"] + flags + ["-o", tmp_path, _SRC],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise ImportError("failed to build the port's host library:\n"
+                          + proc.stderr)
+    os.replace(tmp_path, so_path)
+    return so_path
+
+
+def get_lib():
+    """the loaded host library, built on first use"""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(_build())
+
+    lib.atpu_flac_decode.restype = ctypes.c_int64
+    lib.atpu_flac_decode.argtypes = [
+        _U8,                # data
+        ctypes.c_int64,     # data_len
+        ctypes.c_int32,     # stream_bps
+        ctypes.c_int32,     # stream_channels
+        ctypes.c_int64,     # max_samples
+        _I32,               # out_samples
+        _I64,               # consumed_bytes
+        ctypes.c_int32,     # verify_crc
+        _U8,                # md5_state (nullable)
+    ]
+
+    lib.atpu_flac_scan.restype = ctypes.c_int64
+    lib.atpu_flac_scan.argtypes = [
+        _U8,                # data
+        ctypes.c_int64,     # data_len
+        ctypes.c_int32,     # stream_bps
+        ctypes.c_int32,     # stream_channels
+        ctypes.c_int64,     # max_samples
+        ctypes.c_int32,     # max_frames
+        ctypes.c_int32,     # max_parts
+        ctypes.c_int32,     # verify_crc
+        ctypes.c_int32,     # chunk_codes
+        _I32,               # frame_meta [max_frames, 4]
+        _I32,               # sub_meta [max_frames*8, 8]
+        _I32,               # warmup [max_frames*8, 32]
+        _I32,               # qlp [max_frames*8, 32]
+        _I32,               # part_meta [max_parts, 8]
+        _I64,               # counts [6]
+    ]
+
+    emit_args = [
+        _I32,               # blocks [F, max_block, ch]
+        _I64,               # frame_numbers
+        _I32,               # block_sizes
+        _I32,               # packed decisions
+        ctypes.c_int64,     # n_frames
+        ctypes.c_int32,     # max_subframes
+        ctypes.c_int32,     # max_order
+        ctypes.c_int32,     # max_partitions
+        ctypes.c_int32,     # max_block
+        ctypes.c_int32,     # sample_rate
+        ctypes.c_int32,     # stream_bps
+        ctypes.c_int32,     # stream_channels
+        ctypes.c_int32,     # qlp_precision
+        ctypes.c_int32,     # compact row layout flag
+    ]
+    lib.atpu_flac_emit_frames2.restype = ctypes.c_int64
+    lib.atpu_flac_emit_frames2.argtypes = emit_args + [
+        ctypes.c_int32,     # emit_max_rice (-1 = off)
+        _I32,               # probe_thr [F] (nullable)
+        _U8,                # probe_out [F] (nullable)
+        _U8,                # out
+        _I64,               # out_lens (cumulative ends)
+        ctypes.c_int64,     # out_capacity
+    ]
+    lib.atpu_flac_emit_frames2rb.restype = ctypes.c_int64
+    lib.atpu_flac_emit_frames2rb.argtypes = emit_args + [
+        _U8,                # out
+        _I64,               # out_lens (cumulative ends)
+        ctypes.c_int64,     # out_capacity
+        _U32,               # rb_words
+        _I64,               # rb_bits
+        ctypes.c_int64,     # rb_stride
+    ]
+
+    lib.atpu_md5_init.restype = None
+    lib.atpu_md5_init.argtypes = [_U8]
+    lib.atpu_md5_update.restype = None
+    lib.atpu_md5_update.argtypes = [_U8, _U8, ctypes.c_int64]
+    lib.atpu_md5_update_pcm.restype = None
+    lib.atpu_md5_update_pcm.argtypes = [_U8, _I32, ctypes.c_int64,
+                                        ctypes.c_int32, ctypes.c_int32]
+    lib.atpu_md5_final.restype = None
+    lib.atpu_md5_final.argtypes = [_U8, _U8]
+
+    _lib = lib
+    return lib
+
+
+def _as_ptr(array, ctype):
+    return array.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def flac_emit_frames2(blocks, frame_numbers, block_sizes, packed,
+                      max_subframes, max_order, max_partitions,
+                      sample_rate, stream_bps, stream_channels,
+                      qlp_precision, compact=False,
+                      rb_words=None, rb_bits=None,
+                      emit_max_rice=None):
+    """emits FLAC frames from raw PCM blocks + packed decision rows
+
+    blocks: int32 [n_frames, max_block, channels] interleaved PCM
+    packed: int32 decision rows (the compact layout with compact=True)
+    rb_words/rb_bits: optional device-packed residual partition blocks,
+            uint32 [n_frames * max_subframes, rb_stride] big-endian
+            word rows + exact bit lengths: FIXED/LPC subframes splice
+            these bits instead of re-deriving residuals on the host
+    emit_max_rice: emit-stage exact Rice re-search bound; None derives
+            14/30 from stream_bps when ATPU_EMIT_EXACT_RICE is active
+            (the default), -1 disables.  Ignored on the splice path.
+    returns (frame bytes, per-frame byte lengths int64 array)"""
+    lib = get_lib()
+    if emit_max_rice is None:
+        from ..ref.flac_enc import emit_exact_rice_enabled
+        emit_max_rice = ((14 if stream_bps <= 16 else 30)
+                         if emit_exact_rice_enabled() else -1)
+
+    blocks = np.ascontiguousarray(blocks, dtype=np.int32)
+    frame_numbers = np.ascontiguousarray(frame_numbers, dtype=np.int64)
+    block_sizes = np.ascontiguousarray(block_sizes, dtype=np.int32)
+    packed = np.ascontiguousarray(packed, dtype=np.int32)
+    n_frames = len(frame_numbers)
+    max_block = blocks.shape[1]
+
+    worst = int(n_frames) * (max_block * max_subframes * 5 + 1024)
+    out = np.empty(worst, dtype=np.uint8)
+    out_ends = np.empty(n_frames, dtype=np.int64)
+    common = (_as_ptr(blocks, ctypes.c_int32),
+              _as_ptr(frame_numbers, ctypes.c_int64),
+              _as_ptr(block_sizes, ctypes.c_int32),
+              _as_ptr(packed, ctypes.c_int32),
+              n_frames, max_subframes, max_order, max_partitions,
+              max_block, sample_rate, stream_bps, stream_channels,
+              qlp_precision, 1 if compact else 0)
+
+    if rb_words is not None:
+        rb_words = np.ascontiguousarray(rb_words, dtype=np.uint32)
+        rb_bits = np.ascontiguousarray(rb_bits, dtype=np.int64)
+        if rb_words.shape[0] != n_frames * max_subframes:
+            raise ValueError("rb_words row count mismatch")
+        total = lib.atpu_flac_emit_frames2rb(
+            *common, _as_ptr(out, ctypes.c_uint8),
+            _as_ptr(out_ends, ctypes.c_int64), worst,
+            _as_ptr(rb_words, ctypes.c_uint32),
+            _as_ptr(rb_bits, ctypes.c_int64), rb_words.shape[1])
+    else:
+        total = lib.atpu_flac_emit_frames2(
+            *common, int(emit_max_rice), None, None,
+            _as_ptr(out, ctypes.c_uint8),
+            _as_ptr(out_ends, ctypes.c_int64), worst)
+    if total == -31:
+        raise EmitOverflow(
+            "frame emit overflow: decision array implies more than "
+            "%d bytes (analysis produced unsafe Rice parameters)"
+            % (worst,))
+    if total < 0:
+        raise ValueError("frame emit error (code %d)" % (total,))
+    lens = np.diff(np.concatenate([[0], out_ends]))
+    return (out[:total].tobytes(), lens)
+
+
+def flac_decode(data, stream_bps, stream_channels, max_samples,
+                verify_crc=True, md5=None):
+    """decodes FLAC frame data
+
+    md5: optional MD5 instance; when given, the decoded samples are
+    folded into it inside the native loop
+
+    returns (samples int32 [frames, channels], consumed_bytes)"""
+    lib = get_lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max_samples * stream_channels, dtype=np.int32)
+    consumed = ctypes.c_int64(0)
+    decoded = lib.atpu_flac_decode(
+        _as_ptr(buf, ctypes.c_uint8), len(buf), stream_bps,
+        stream_channels, max_samples, _as_ptr(out, ctypes.c_int32),
+        ctypes.byref(consumed), 1 if verify_crc else 0,
+        (_as_ptr(md5._state, ctypes.c_uint8) if md5 is not None
+         else None))
+    if decoded < 0:
+        raise ValueError("truncated or corrupt FLAC stream "
+                         "(native code %d)" % (decoded,))
+    return (out[:decoded * stream_channels].reshape(-1, stream_channels),
+            consumed.value)
+
+
+def flac_scan(data, stream_bps, stream_channels, max_samples,
+              max_frames, max_parts, verify_crc=True, chunk_codes=0):
+    """structural scan of FLAC frame data for the device decode path
+
+    Parses frames (validating CRC-8/16) and records predictor metadata
+    and residual-partition bit spans without extracting residuals.
+    chunk_codes > 0 splits every residual run into records of at most
+    chunk_codes codes with exact bit offsets, breaking at destination
+    multiples of chunk_codes.
+
+    returns a dict of numpy arrays:
+      frame_meta [F, 4]  {block_size, assignment, bps, byte_len}
+      sub_meta   [S, 8]  {frame_idx, type, order, wasted, shift, ebps,
+                          const_val, porder}
+      warmup     [S, 32], qlp [S, 32]
+      part_meta  [P, 8]  {sub_idx, dest_off, count, rice_k, raw_bits,
+                          bit_off, bit_len, 0}
+      consumed_bytes, total_pcm_frames
+    raises CapacityError when the first frame exceeds max_parts and
+    ValueError on a corrupt stream"""
+    lib = get_lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    frame_meta = np.zeros((max_frames, 4), dtype=np.int32)
+    sub_meta = np.zeros((max_frames * 8, 8), dtype=np.int32)
+    warmup = np.zeros((max_frames * 8, 32), dtype=np.int32)
+    qlp = np.zeros((max_frames * 8, 32), dtype=np.int32)
+    part_meta = np.zeros((max_parts, 8), dtype=np.int32)
+    counts = np.zeros(6, dtype=np.int64)
+    rc = lib.atpu_flac_scan(
+        _as_ptr(buf, ctypes.c_uint8), len(buf),
+        stream_bps, stream_channels, max_samples,
+        max_frames, max_parts, 1 if verify_crc else 0, int(chunk_codes),
+        _as_ptr(frame_meta, ctypes.c_int32),
+        _as_ptr(sub_meta, ctypes.c_int32),
+        _as_ptr(warmup, ctypes.c_int32),
+        _as_ptr(qlp, ctypes.c_int32),
+        _as_ptr(part_meta, ctypes.c_int32),
+        _as_ptr(counts, ctypes.c_int64))
+    if rc == -30:
+        raise CapacityError("frame exceeds scan partition capacity")
+    if rc < 0:
+        raise ValueError("truncated or corrupt FLAC stream "
+                         "(native code %d)" % (rc,))
+    (n_frames, n_subs, n_parts, consumed, total_pcm, _) = counts
+    return {
+        "frame_meta": frame_meta[:n_frames],
+        "sub_meta": sub_meta[:n_subs],
+        "warmup": warmup[:n_subs],
+        "qlp": qlp[:n_subs],
+        "part_meta": part_meta[:n_parts],
+        "consumed_bytes": int(consumed),
+        "total_pcm_frames": int(total_pcm),
+    }
+
+
+class MD5:
+    """a hashlib-like MD5 which hashes int32 PCM without byte copies"""
+
+    def __init__(self):
+        self._state = np.zeros(128, dtype=np.uint8)
+        self._lib = get_lib()
+        self._lib.atpu_md5_init(_as_ptr(self._state, ctypes.c_uint8))
+
+    def update(self, data):
+        buf = np.frombuffer(data, dtype=np.uint8)
+        self._lib.atpu_md5_update(
+            _as_ptr(self._state, ctypes.c_uint8),
+            _as_ptr(buf, ctypes.c_uint8), len(buf))
+
+    def update_pcm(self, samples, bits_per_sample, is_signed=True):
+        """hashes int32 samples as packed little-endian PCM"""
+        samples = np.ascontiguousarray(samples, dtype=np.int32)
+        self._lib.atpu_md5_update_pcm(
+            _as_ptr(self._state, ctypes.c_uint8),
+            _as_ptr(samples, ctypes.c_int32),
+            samples.size, bits_per_sample // 8,
+            1 if is_signed else 0)
+
+    def digest(self):
+        out = np.zeros(16, dtype=np.uint8)
+        self._lib.atpu_md5_final(
+            _as_ptr(self._state, ctypes.c_uint8),
+            _as_ptr(out, ctypes.c_uint8))
+        return out.tobytes()

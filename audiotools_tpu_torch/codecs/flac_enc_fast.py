@@ -1,5 +1,6 @@
 """Batched FLAC encoder on a torch device: analysis and residual
-packing on the device, frame emit in the reference's C++ host kernel.
+packing on the device, frame emit in the port's copy of the
+reference's C++ host kernel (``_native``).
 
 Port of the reference's device-pack configuration
 (``audiotools_tpu/codecs/flac_enc_fast.py`` with ``ATPU_PALLAS=1``):
@@ -20,8 +21,8 @@ card runs whatever of batch i+1 is still queued while the host emits
 batch i.  One host thread both enqueues the analysis's kernels and
 emits, so when enqueueing is what limits the card (it is, at bench
 shape) the two host stages add rather than overlap.  The short tail
-block goes through the reference's scalar oracle encoder, as in the
-reference.
+block goes through the scalar oracle encoder (the port's copy in
+``ref/``), as in the reference.
 
 The device sees exact samples, so there is no quantized upload wire
 here.  When a batch's pack reports ``ok = False`` (a row over capacity
@@ -38,12 +39,11 @@ import time
 import numpy as np
 import torch
 
-from audiotools_tpu import _native
-from audiotools_tpu.pcmstream import BufferedPCMReader
-from audiotools_tpu.ref import flac_enc as oracle
-
+from .. import _native
 from .._device import resolve_device
 from ..ops import bitpack, flac_frames, lpc as lpc_ops
+from ..pcm import BufferedPCMReader
+from ..ref import flac_enc as oracle
 
 # batches whose device pack reported ok=False and were emitted without
 # the packed bits (process-wide count, for reports)

@@ -2,7 +2,8 @@
 
 The sources compile with ``nvcc`` into one shared library with a plain
 C interface, loaded through ctypes.  The build runs on first use, from
-the package's own sources, into ``build/`` beside this file; the
+the package's own sources, into ``build/`` beside this file: one
+``nvcc -c`` per source, all started together, then one link.  The
 library's name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is reused.  Nothing here runs
 at import time: the CPU-only test hosts have no ``nvcc``.
@@ -24,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""
@@ -72,13 +73,34 @@ def build():
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (so_path, os.getpid())
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp] + _sources()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc = nvcc_path()
+    stem = "%s.%d" % (so_path, os.getpid())
+    objects = ["%s.%s.o" % (stem, os.path.basename(src))
+               for src in _sources()]
+    compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc] + NVCC_FLAGS + ["-c", src, "-o", obj]
+                            for (src, obj) in zip(_sources(), objects))]
+    logs = []
+    failed = None
+    for (cmd, proc) in compiles:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    tmp = stem + ".tmp"
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", tmp] + objects
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode)
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    build_log = "".join(logs)
+    if failed is not None:
         raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), build_log))
+            failed[1], " ".join(failed[0]), build_log))
     os.replace(tmp, so_path)
     return so_path
 
@@ -92,6 +114,16 @@ def load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.atpu_scatter_words.restype = ctypes.c_int
+        lib.atpu_rice_decode.argtypes = (
+            [ctypes.c_void_p] * 6 +
+            [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p])
+        lib.atpu_rice_decode.restype = ctypes.c_int
+        lib.atpu_flac_synth.argtypes = (
+            [ctypes.c_void_p] * 5 +
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p])
+        lib.atpu_flac_synth.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -118,4 +150,47 @@ def scatter_words(idx, val, out):
             _stream_ptr(idx.device))
     if rc != 0:
         raise RuntimeError("scatter_words kernel launch failed: CUDA "
+                           "error %d" % (rc,))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def rice_decode(words, word_base, base_bits, k, raw_bits, count, W, out):
+    """launches csrc/rice_decode.cu: decodes the records (word_base,
+    base_bits, k, raw_bits, count) of a bucket with W window words
+    from ``words`` into ``out`` [P, C]
+
+    All contiguous int32 CUDA tensors on one device; the caller
+    (ops/rice_decode.decode_partitions) validates the arguments."""
+    import torch
+    lib = load()
+    (P, C) = out.shape
+    with torch.cuda.device(words.device):
+        rc = lib.atpu_rice_decode(
+            _ptr(words), _ptr(word_base), _ptr(base_bits), _ptr(k),
+            _ptr(raw_bits), _ptr(count), P, words.shape[0], W, C,
+            _ptr(out), _stream_ptr(words.device))
+    if rc != 0:
+        raise RuntimeError("rice_decode kernel launch failed: CUDA "
+                           "error %d" % (rc,))
+
+
+def flac_synth(residuals, warmup, qlp, shift, order, out):
+    """launches csrc/flac_synth.cu: inverts the predictors of the rows
+    of ``residuals`` [S, n] into ``out`` [S, n]
+
+    All contiguous int32 CUDA tensors on one device; the caller
+    (ops/flac_synth.synthesize) validates the arguments."""
+    import torch
+    lib = load()
+    (S, n) = residuals.shape
+    with torch.cuda.device(residuals.device):
+        rc = lib.atpu_flac_synth(
+            _ptr(residuals), _ptr(warmup), _ptr(qlp), _ptr(shift),
+            _ptr(order), S, n, qlp.shape[1], _ptr(out),
+            _stream_ptr(residuals.device))
+    if rc != 0:
+        raise RuntimeError("flac_synth kernel launch failed: CUDA "
                            "error %d" % (rc,))

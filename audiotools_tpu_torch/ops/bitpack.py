@@ -25,11 +25,19 @@ from __future__ import annotations
 
 import torch
 
-from audiotools_tpu.ops.pallas_bitpack import (  # noqa: F401 (re-export)
-    residual_words_capacity)
-
 from . import flac_frames as ff
 from .bits import U32_MASK, i32_to_u32, u32_to_i32
+
+
+def residual_words_capacity(n, bps, max_parts):
+    """output width (u32 words) per CHOSEN coded subframe
+
+    A coded (FIXED/LPC) choice implies the whole subframe costs less
+    than VERBATIM, so its residual partition block is bounded by
+    ~bps_subframe * n bits; bps + 2 covers the +1-bit side channel with
+    a margin, plus the method/porder header and parameter fields."""
+    bits = n * (bps + 2) + max_parts * 5 + 96
+    return (bits + 31) // 32
 
 
 def tokenize(res, orders, porders, params, n, max_parts):

@@ -24,12 +24,40 @@ import os
 
 import torch
 
-from audiotools_tpu.ops.flac_frames import (  # noqa: F401 (re-exports)
-    CHOICE_CONSTANT, CHOICE_FIXED, CHOICE_LPC, CHOICE_VERBATIM,
-    PACKED_SCALARS, compact_width, valid_partition_orders)
-
 from . import lpc as lpc_ops
 from .bits import exact_exp2
+
+(CHOICE_CONSTANT, CHOICE_VERBATIM, CHOICE_FIXED, CHOICE_LPC) = range(4)
+
+# packed decision row layout (int32), per subframe:
+#   [choice, wasted, order, porder, shift, sub_bits, qlp*K, rice*P]
+# full row: [assignment] + max_subframes * W where W = 6 + K + P
+PACKED_SCALARS = 6
+
+
+def compact_width(max_lpc_order, max_parts):
+    """per-subframe width of the COMPACT decision layout (the wire
+    format for device->host decision downloads): one bit-packed
+    scalar word [choice(4b) | wasted<<4 (6b) | order<<10 (6b) |
+    porder<<16 (4b) | shift<<20 (5b)], qlp coefficients as int16
+    pairs, Rice parameters as u8 quads"""
+    Kp = max(max_lpc_order, 1)
+    return 1 + (Kp + 1) // 2 + (max_parts + 3) // 4
+
+
+def valid_partition_orders(block_size, max_porder, max_pred_order):
+    """the contiguous list of partition orders the search visits
+
+    stops at the first porder where block_size stops dividing evenly
+    or where the first partition would go non-positive"""
+    porders = []
+    for porder in range(0, max_porder + 1):
+        if block_size % (1 << porder):
+            break
+        if (porder > 0) and ((block_size >> porder) <= max_pred_order):
+            break
+        porders.append(porder)
+    return porders
 
 
 def _check_rice_mode():

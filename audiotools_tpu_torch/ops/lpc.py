@@ -20,10 +20,11 @@ import math
 import numpy as np
 import torch
 
-from audiotools_tpu.ops.lpc import tukey_window_df
-
+from ..ref.scalar_lpc import tukey_window as tukey_window_f64
 from . import df as dfm
 from .bits import exact_exp2
+
+_window_df_cache = {}
 
 
 def f32round(x):
@@ -39,12 +40,25 @@ def int_bit_length(v):
     return out
 
 
-def window_to_torch(window_pair, device):
-    """the host-split (hi, lo) Tukey window from the reference's
-    ``lpc.tukey_window_df`` -> a pair of float64 tensors on ``device``
+def tukey_window_df(n, alpha=0.5):
+    """the Tukey window (the scalar oracle's, computed as the reference
+    computes it) split into a double-f32 (hi, lo) pair of float64 numpy
+    arrays on the host
 
-    The split must happen in host IEEE f64 (see the reference); the
-    port takes the same numpy arrays as they are."""
+    The split must happen in host IEEE f64 so that every backend sees
+    the same f32-valued halves."""
+    key = (n, alpha)
+    if key not in _window_df_cache:
+        w = tukey_window_f64(n, alpha)
+        hi = w.astype(np.float32).astype(np.float64)
+        lo = (w - hi).astype(np.float32).astype(np.float64)
+        _window_df_cache[key] = (hi, lo)
+    return _window_df_cache[key]
+
+
+def window_to_torch(window_pair, device):
+    """a host-split (hi, lo) window pair from ``tukey_window_df`` -> a
+    pair of float64 tensors on ``device``"""
     (hi, lo) = window_pair
     return (torch.as_tensor(np.asarray(hi, dtype=np.float64),
                             device=device),
@@ -53,8 +67,8 @@ def window_to_torch(window_pair, device):
 
 
 def tukey_window(block_size, device):
-    """the reference's (hi, lo) Tukey window for ``block_size``, made
-    on the host by ``lpc.tukey_window_df`` and moved to ``device``"""
+    """the (hi, lo) Tukey window for ``block_size``, made on the host
+    by ``tukey_window_df`` and moved to ``device``"""
     return window_to_torch(tukey_window_df(block_size), device)
 
 

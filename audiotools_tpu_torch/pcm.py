@@ -1,9 +1,11 @@
-"""PCM in and out around the port's encoder.
+"""PCM in and out around the port's codecs.
 
-The reader and the FLAC frame decoder are the reference's host layers
-(``audiotools_tpu.pcm``, ``pcmstream`` and the ``_native`` C++
-decoder), which load without jax.  They are re-exported here so that a
-caller of the port names no module of the reference package.
+The port's readers follow the reference's PCMReader protocol: an
+object with ``sample_rate``, ``channels``, ``channel_mask`` and
+``bits_per_sample`` and a ``read(pcm_frames)`` that returns a frame
+list (empty at the end) whose ``samples`` are int32 [frames,
+channels].  The encoder and decoder accept any such reader, the
+reference's included; this module has the port's own.
 """
 
 from __future__ import annotations
@@ -12,58 +14,198 @@ import io
 
 import numpy as np
 
-from audiotools_tpu import _native
-from audiotools_tpu.pcm import FrameList
-from audiotools_tpu.pcmstream import PCMReader
+from . import _native
+
+# frames a buffered read asks of the wrapped reader at least
+# (the reference's FRAMELIST_SIZE)
+FRAMELIST_SIZE = 0x100000 // 4
 
 # channel masks of the WAVE/FLAC default layouts, by channel count
-_CHANNEL_MASKS = {1: 0x4, 2: 0x3}
+CHANNEL_MASKS = {1: 0x0004, 2: 0x0003, 3: 0x0007, 4: 0x0033,
+                 5: 0x0037, 6: 0x003F, 7: 0x013F, 8: 0x063F}
+
+
+class FrameList:
+    """int32 PCM samples [frames, channels] in interleaved (WAVE)
+    channel order, with their bits per sample"""
+
+    __slots__ = ("samples", "bits_per_sample")
+
+    def __init__(self, samples, bits_per_sample):
+        self.samples = samples
+        self.bits_per_sample = bits_per_sample
+
+    @property
+    def frames(self):
+        return self.samples.shape[0]
+
+    @property
+    def channels(self):
+        return self.samples.shape[1]
+
+    def to_bytes(self, is_big_endian, is_signed):
+        """the samples as packed PCM bytes (8, 16 or 24 bits)"""
+        width = self.bits_per_sample // 8
+        values = self.samples.astype(np.int64).reshape(-1)
+        if not is_signed:
+            values = values + (1 << (self.bits_per_sample - 1))
+        shifts = np.arange(width, dtype=np.int64) * 8
+        if is_big_endian:
+            shifts = shifts[::-1]
+        return ((values[:, None] >> shifts) & 0xFF).astype(
+            np.uint8).tobytes()
+
+
+def empty_framelist(channels, bits_per_sample):
+    return FrameList(np.zeros((0, channels), dtype=np.int32),
+                     bits_per_sample)
+
+
+class _ArrayReader:
+    """a PCMReader over an int32 sample array [frames, channels]"""
+
+    def __init__(self, samples, bits_per_sample, sample_rate):
+        self.samples = np.ascontiguousarray(samples, dtype=np.int32)
+        self.sample_rate = sample_rate
+        self.channels = self.samples.shape[1]
+        self.channel_mask = CHANNEL_MASKS.get(self.channels, 0)
+        self.bits_per_sample = bits_per_sample
+        self.offset = 0
+
+    def read(self, pcm_frames):
+        """up to max(pcm_frames, 1) frames; empty at the end"""
+        start = self.offset
+        self.offset = min(start + max(int(pcm_frames), 1),
+                          self.samples.shape[0])
+        return FrameList(self.samples[start:self.offset],
+                         self.bits_per_sample)
+
+    def close(self):
+        pass
 
 
 def reader_from_array(samples, bits_per_sample, sample_rate=44100):
     """a PCMReader over int32 ``samples`` [frames, channels]"""
-    samples = np.asarray(samples, dtype=np.int32)
-    channels = samples.shape[1]
-    data = FrameList._wrap(samples, bits_per_sample).to_bytes(False, True)
-    return PCMReader(io.BytesIO(data), sample_rate, channels,
-                     _CHANNEL_MASKS.get(channels, 0), bits_per_sample)
+    return _ArrayReader(samples, bits_per_sample, sample_rate)
+
+
+class BufferedPCMReader:
+    """a PCMReader which reads exact counts of PCM frames from any
+    PCMReader (the reference's ``pcmstream.BufferedPCMReader``)"""
+
+    def __init__(self, pcmreader):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = pcmreader.channels
+        self.channel_mask = pcmreader.channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        self.buffer = np.zeros((0, self.channels), dtype=np.int32)
+        self.closed = False
+
+    def read(self, pcm_frames):
+        """exactly pcm_frames frames (fewer only at the end), never
+        more; asks the wrapped reader for all that is missing in one
+        call, and loops because a reader may return less"""
+        if self.closed:
+            raise ValueError("stream is closed")
+        pieces = [self.buffer] if self.buffer.shape[0] else []
+        have = self.buffer.shape[0]
+        while have < pcm_frames:
+            frame = self.pcmreader.read(max(pcm_frames - have,
+                                            FRAMELIST_SIZE))
+            if frame.frames == 0:
+                break
+            pieces.append(np.asarray(frame.samples, dtype=np.int32))
+            have += frame.frames
+        if not pieces:
+            buf = self.buffer
+        elif len(pieces) == 1:
+            buf = pieces[0]
+        else:
+            buf = np.concatenate(pieces, axis=0)
+        self.buffer = buf[pcm_frames:]
+        return FrameList(buf[:pcm_frames], self.bits_per_sample)
+
+    def close(self):
+        self.closed = True
+        self.pcmreader.close()
+
+
+def read_flac_metadata(file):
+    """reads a FLAC stream's marker and metadata blocks from a binary
+    file object, leaving it at the first frame
+
+    returns a dict: minimum_block_size, maximum_block_size,
+    sample_rate, channels, bits_per_sample, total_frames, md5sum (16
+    bytes) from STREAMINFO, and seektable, a list of (sample_number,
+    byte_offset, frame_count) seekpoints.  Raises ValueError when the
+    stream has no FLAC marker or no STREAMINFO, or ends inside its
+    metadata."""
+    def read(size):
+        data = file.read(size)
+        if len(data) != size:
+            raise ValueError("truncated FLAC metadata")
+        return data
+
+    if file.read(4) != b"fLaC":
+        raise ValueError("invalid FLAC file (no 'fLaC' marker)")
+    meta = None
+    seektable = []
+    last = 0
+    while not last:
+        header = read(4)
+        (last, block_type) = (header[0] >> 7, header[0] & 0x7F)
+        body = read(int.from_bytes(header[1:4], "big"))
+        if block_type == 0 and len(body) >= 34:
+            info = int.from_bytes(body[10:18], "big")
+            meta = dict(
+                minimum_block_size=int.from_bytes(body[0:2], "big"),
+                maximum_block_size=int.from_bytes(body[2:4], "big"),
+                sample_rate=info >> 44,
+                channels=((info >> 41) & 0x7) + 1,
+                bits_per_sample=((info >> 36) & 0x1F) + 1,
+                total_frames=info & ((1 << 36) - 1),
+                md5sum=bytes(body[18:34]))
+        elif block_type == 3:
+            seektable = [
+                (int.from_bytes(body[i:i + 8], "big"),
+                 int.from_bytes(body[i + 8:i + 16], "big"),
+                 int.from_bytes(body[i + 16:i + 18], "big"))
+                for i in range(0, len(body) - 17, 18)]
+    if meta is None:
+        raise ValueError("no STREAMINFO block found")
+    meta["seektable"] = seektable
+    return meta
 
 
 def streaminfo(data):
     """(sample_rate, channels, bits_per_sample, total_frames,
     first_frame_offset) of a FLAC stream's bytes
 
-    raises ValueError when the bytes do not start with a FLAC header
-    and a STREAMINFO block"""
-    if data[:4] != b"fLaC" or len(data) < 42 or data[4] & 0x7F != 0:
-        raise ValueError("not a FLAC stream with a leading STREAMINFO")
-    info = int.from_bytes(data[18:26], "big")
-    sample_rate = info >> 44
-    channels = ((info >> 41) & 0x7) + 1
-    bits_per_sample = ((info >> 36) & 0x1F) + 1
-    total_frames = info & ((1 << 36) - 1)
-    offset = 4
-    while True:
-        last = data[offset] >> 7
-        offset += 4 + int.from_bytes(data[offset + 1:offset + 4], "big")
-        if last:
-            break
-    return (sample_rate, channels, bits_per_sample, total_frames, offset)
+    raises ValueError when the bytes are not a FLAC stream with a
+    STREAMINFO block"""
+    f = io.BytesIO(data)
+    meta = read_flac_metadata(f)
+    return (meta["sample_rate"], meta["channels"], meta["bits_per_sample"],
+            meta["total_frames"], f.tell())
 
 
 def decode_flac(data):
-    """a whole FLAC stream's bytes -> int32 samples [frames, channels]
+    """a whole FLAC stream's bytes -> int32 samples [frames, channels],
+    decoded on the host by the port's C++ decoder
 
     every frame's CRC and the stream's MD5 are checked; raises
     ValueError when the frames hold fewer samples than STREAMINFO
     announces or their MD5 is not the one it records"""
-    (_rate, channels, bps, total, offset) = streaminfo(data)
+    f = io.BytesIO(data)
+    meta = read_flac_metadata(f)
+    (channels, total) = (meta["channels"], meta["total_frames"])
     md5 = _native.MD5()
-    (samples, _consumed) = _native.flac_decode(data[offset:], bps,
-                                                channels, total, md5=md5)
+    (samples, _consumed) = _native.flac_decode(
+        data[f.tell():], meta["bits_per_sample"], channels, total, md5=md5)
     if samples.shape[0] != total:
         raise ValueError("decoded %d of %d frames"
                          % (samples.shape[0], total))
-    if md5.digest() != bytes(data[26:42]):
+    if md5.digest() != meta["md5sum"]:
         raise ValueError("decoded samples do not match the stream's MD5")
     return samples

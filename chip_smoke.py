@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """On-card smoke test of the PyTorch/CUDA port (audiotools_tpu_torch).
 
-Drives the port's main path, bit-exact FLAC -8 encode of 44.1 kHz
-stereo with device analysis and device residual packing, on one CUDA
-card, in phases that each print one line:
+Drives the port's main paths on one CUDA card: bit-exact FLAC -8
+encode of 44.1 kHz stereo with device analysis and device residual
+packing, and FLAC decode with device Rice decoding and synthesis.  Its
+phases each print one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them;
@@ -19,11 +20,22 @@ card, in phases that each print one line:
 5. throughput: bench.py's encode (its signal and options, 16 batches
    of 1024 frames, 12.7 minutes of audio), repeated, each run
    decode-verified bit-exactly, with the launch counter reset just
-   before each run and read just after.
+   before each run and read just after;
+6. decode kernels vs plain: rice_decode and flac_synth on the card
+   against their plain versions on the card, on the records (one row
+   per non-empty bucket) and subframe arrays of the port's scan of a
+   1024-frame bench-shaped stream; must be equal; timed with CUDA
+   events;
+7. decode identity: phase 4's stream decoded on the card equals its
+   input and the port's plain decode on the CPU, its MD5 checked;
+8. decode throughput: phase 5's stream decoded on the card, repeated,
+   each run bit-exact with its MD5 checked, no chunk on the host path,
+   the launch counters reset just before each run and read just after.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
-script exits nonzero without the result line.  Usage:
+script exits nonzero without the result line.  It imports nothing of
+jax or of the reference package, and checks so at the end.  Usage:
 
     python3 chip_smoke.py
 """
@@ -47,6 +59,12 @@ OPTS = dict(block_size=4096, max_lpc_order=12, mid_side=True,
 THROUGHPUT_BATCHES = 16
 THROUGHPUT_RUNS = 3
 TIMING_RUNS = 15
+PLAIN_SYNTH_RUNS = 3
+# H100 SXM peaks (NVIDIA data sheet): device memory bandwidth, and the
+# float32 rate outside the tensor cores, the nearest listed rate for
+# the kernels' scalar integer arithmetic
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def line(phase, **fields):
@@ -67,6 +85,24 @@ def median_ms(fn, runs=TIMING_RUNS):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over its memory rate and the operations over
+    its peak rate"""
+    (by_bytes, by_ops) = (n_bytes / PEAK_BYTES_PER_S * 1e3,
+                          n_ops / PEAK_OPS_PER_S * 1e3)
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def loaded_forbidden_modules():
+    """modules of jax or of the reference package in this process
+    (audiotools_tpu_torch is the port, not the reference)"""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "audiotools_tpu") or
+                  m.startswith(("jax.", "audiotools_tpu.")))
 
 
 def program_signal(n_frames, seed=7):
@@ -90,11 +126,14 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs one CUDA card")
     sys.path.insert(0, ROOT)
-    from audiotools_tpu_torch import kernels
+    from audiotools_tpu_torch import _native, kernels
+    from audiotools_tpu_torch.codecs import flac_dec
     from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
-    from audiotools_tpu_torch.pcm import decode_flac, reader_from_array
-    from audiotools_tpu_torch.ops import bitpack, flac_frames
+    from audiotools_tpu_torch.pcm import (decode_flac, reader_from_array,
+                                          streaminfo)
+    from audiotools_tpu_torch.ops import bitpack, flac_frames, flac_synth
     from audiotools_tpu_torch.ops import lpc as lpc_ops
+    from audiotools_tpu_torch.ops import rice_decode
 
     dev = torch.device("cuda", 0)
 
@@ -151,11 +190,28 @@ def main():
         idx, val, n_words)))
     ms = float(np.median(kernel_ms))
     pms = float(np.median(plain_ms))
+    # one library call for the same function: the payload bits are
+    # disjoint, so adding the contributions equals or-ing them (the
+    # kernel's dropped indices are masked beforehand)
+    inside = (idx >= 0) & (idx < n_words)
+    idx64 = torch.where(inside, idx, 0).to(torch.int64)
+    val_in = torch.where(inside, val, 0)
+    scatter_add = (lambda: torch.zeros_like(want).scatter_add_(
+        1, idx64, val_in))
+    if not torch.equal(scatter_add(), want):
+        raise AssertionError("scatter_add_ != plain scatter_words")
+    lib_ms = median_ms(scatter_add)
+    (sw_bound, sw_bound_by) = bound(
+        2 * idx.numel() * 4 + want.numel() * 4, 0)
     line("kernel_vs_plain", kernel="scatter_words",
          shape=[int(idx.shape[0]), int(idx.shape[1]), n_words],
          equal=True, max_abs_err=err, ms=ms, plain_ms=pms,
-         ms_runs=kernel_ms, plain_ms_runs=plain_ms)
-    del idx, val, got, want, blocks
+         ms_runs=kernel_ms, plain_ms_runs=plain_ms, library_ms=lib_ms,
+         bound_ms=sw_bound)
+    scatter_words_row = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=sw_bound, bound_by=sw_bound_by,
+                             library_ms=lib_ms)
+    del idx, idx64, val, val_in, inside, got, want, blocks
 
     # ---- 4. slice identity against the plain versions ------------------
     rng = np.random.default_rng(9)
@@ -189,9 +245,11 @@ def main():
          bit_exact=True, scatter_words_launches=slice_launches)
 
     # ---- 5. bench-shaped throughput on the main path -------------------
+    one_batch = io.BytesIO()
     port_enc.encode_flac_fast(
-        io.BytesIO(), reader_from_array(program_signal(n * frames), 16),
+        one_batch, reader_from_array(program_signal(n * frames), 16),
         device="cuda", **opts)
+    one_batch = one_batch.getvalue()
     sig = program_signal(n * frames * THROUGHPUT_BATCHES)
     n_frames = sig.shape[0]
     runs = []
@@ -214,13 +272,14 @@ def main():
         if not np.array_equal(decode_flac(data), sig):
             raise AssertionError("bench-shaped encode does not decode "
                                  "bit-exactly")
+        bench_stream = data
         runs.append(dict(
             wall_s=wall, Msamples_per_s=n_frames * 2 / wall / 1e6,
             ratio=len(data) / (sig.size * 2), stage_s=timings,
             fallback_batches=port_enc.fallback_batches - fallback0,
             peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9,
             scatter_words_launches=launches))
-        del out, data
+        del out
     rates = [r["Msamples_per_s"] for r in runs]
     rate = float(np.median(rates))
     launches = runs[0]["scatter_words_launches"]
@@ -230,14 +289,170 @@ def main():
          realtime=rate * 1e6 / 2 / SAMPLE_RATE, bit_exact=True,
          runs=runs)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port pulled in jax")
-    print(json.dumps({"kernels": [{
-        "name": "scatter_words", "route": "cuda",
-        "source": "audiotools_tpu_torch/csrc/scatter_words.cu",
-        "replaces": "audiotools_tpu/ops/pallas_bitpack.py:195",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": pms}]}), flush=True)
+    # ---- 6. decode kernels vs plain at the main path's shapes ----------
+    frame_bytes = one_batch[streaminfo(one_batch)[4]:]
+    scan = _native.flac_scan(
+        frame_bytes, 16, 2, max_samples=frames * n, max_frames=frames,
+        max_parts=flac_dec.MAX_PARTS, chunk_codes=flac_dec.CHUNK_CODES)
+    if scan["frame_meta"].shape[0] != frames:
+        raise AssertionError("scan found %d of %d frames"
+                             % (scan["frame_meta"].shape[0], frames))
+    batch = flac_dec.HostBatch(scan, frame_bytes, 2, 16)
+    # the words each bucket's records span (HostBatch's bucket rule)
+    part_meta = scan["part_meta"]
+    w_need = ((part_meta[:, 5] & 31) + part_meta[:, 6] + 31) >> 5
+    assigned = np.zeros(len(part_meta), dtype=bool)
+    span_words = []
+    for (W, C) in flac_dec.BUCKETS:
+        sel = (~assigned) & (w_need <= W) & (part_meta[:, 2] <= C)
+        assigned |= sel
+        if sel.any():
+            span_words.append(int(w_need[sel].sum()))
+    tensors = flac_dec.upload_batch(batch, dev)
+    torch.cuda.synchronize()
+    rice_rows = []
+    vals = []
+    for (b, (W, C)) in enumerate(batch.buckets):
+        args = ([tensors["words"]] + list(tensors["bucket%d" % b][:5])
+                + [W, C])
+        got = rice_decode.decode_partitions(*args)
+        want = rice_decode.decode_partitions_plain(*args)
+        torch.cuda.synchronize()
+        b_err = int((got.to(torch.int64) - want.to(torch.int64))
+                    .abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError("rice_decode kernel != plain version in "
+                                 "bucket (%d, %d) (max abs err %d)"
+                                 % (W, C, b_err))
+        P = int(got.shape[0])
+        codes = int(np.minimum(batch.arrays["bucket%d" % b][4], C).sum())
+        # inputs read once (the records' word spans, five int32 fields
+        # a record), the [P, C] output written once; ~30 integer
+        # operations a code
+        (b_bound, b_bound_by) = bound(
+            span_words[b] * 4 + P * 5 * 4 + P * C * 4, 30 * codes)
+        rice_rows.append(dict(
+            bucket=[W, C], records=P, codes=codes, max_abs_err=b_err,
+            ms=median_ms(lambda: rice_decode.decode_partitions(*args)),
+            plain_ms=median_ms(
+                lambda: rice_decode.decode_partitions_plain(*args), 3),
+            bound_ms=b_bound, bound_by=b_bound_by))
+        vals.append(got)
+        del want
+    line("kernel_vs_plain", kernel="rice_decode", frames=frames,
+         buckets=rice_rows, equal=True)
+    rice_row = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rice_rows),
+        ms=sum(r["ms"] for r in rice_rows),
+        plain_ms=sum(r["plain_ms"] for r in rice_rows),
+        bound_ms=sum(r["bound_ms"] for r in rice_rows),
+        bound_by="bytes" if all(r["bound_by"] == "bytes"
+                                for r in rice_rows) else "operations",
+        library_ms=None)
+
+    planes = flac_dec.assemble_residuals(batch, tensors, vals)
+    synth_args = [planes.contiguous(), tensors["warmup"], tensors["qlp"],
+                  tensors["sub"][0], tensors["sub"][1]]
+    got = flac_synth.synthesize(*synth_args)
+    want = flac_synth.synthesize_plain(*synth_args)
+    torch.cuda.synchronize()
+    s_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("flac_synth kernel != plain version (max abs "
+                             "err %d)" % (s_err,))
+    (S, nn) = planes.shape
+    Kw = int(tensors["qlp"].shape[1])
+    # residuals read and samples written once, warmup/qlp/shift/order
+    # read once; a multiply and an add per coefficient column a sample
+    (s_bound, s_bound_by) = bound(
+        2 * S * nn * 4 + 2 * S * Kw * 4 + 2 * S * 4, 2 * S * nn * Kw)
+    synth_row = dict(
+        max_abs_err=s_err,
+        ms=median_ms(lambda: flac_synth.synthesize(*synth_args)),
+        plain_ms=median_ms(lambda: flac_synth.synthesize_plain(*synth_args),
+                           PLAIN_SYNTH_RUNS),
+        bound_ms=s_bound, bound_by=s_bound_by, library_ms=None)
+    line("kernel_vs_plain", kernel="flac_synth", shape=[S, nn, Kw],
+         equal=True, **synth_row)
+    del batch, tensors, vals, planes, synth_args, got, want
+
+    # ---- 7. decode identity --------------------------------------------
+    rice_decode.decode_partitions.launches = 0
+    flac_synth.synthesize.launches = 0
+    on_card = flac_dec.decode_flac(plain, device="cuda")
+    id_launches = (rice_decode.decode_partitions.launches,
+                   flac_synth.synthesize.launches)
+    if min(id_launches) <= 0:
+        raise AssertionError("card decode never launched its kernels")
+    if not np.array_equal(on_card, arr):
+        raise AssertionError("card decode differs from the input")
+    if not np.array_equal(on_card, flac_dec.decode_flac(plain,
+                                                        device="cpu")):
+        raise AssertionError("card decode differs from the plain versions' "
+                             "on the CPU")
+    line("decode_identity", frames=int(arr.shape[0]), bit_exact=True,
+         md5_checked=True, rice_decode_launches=id_launches[0],
+         flac_synth_launches=id_launches[1])
+
+    # ---- 8. bench-shaped decode throughput on the main path ------------
+    dec_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        host0 = flac_dec.host_chunks
+        rice_decode.decode_partitions.launches = 0
+        flac_synth.synthesize.launches = 0
+        t0 = time.perf_counter()
+        dec = flac_dec.TorchFlacDecoder(io.BytesIO(bench_stream),
+                                        device="cuda")
+        pieces = []
+        while True:
+            framelist = dec.read(frames * n)
+            if framelist.frames == 0:
+                break
+            pieces.append(framelist.samples)
+        wall = time.perf_counter() - t0
+        dec_launches = (rice_decode.decode_partitions.launches,
+                        flac_synth.synthesize.launches)
+        if min(dec_launches) <= 0:
+            raise AssertionError("main decode path never launched its "
+                                 "kernels")
+        if flac_dec.host_chunks != host0:
+            raise AssertionError("main decode path sent %d chunks to the "
+                                 "host decoder"
+                                 % (flac_dec.host_chunks - host0))
+        if not np.array_equal(np.concatenate(pieces), sig):
+            raise AssertionError("bench-shaped decode is not bit-exact")
+        dec_runs.append(dict(
+            wall_s=wall, Msamples_per_s=n_frames * 2 / wall / 1e6,
+            stage_s=dict(dec.timings), host_chunks=0,
+            rice_decode_launches=dec_launches[0],
+            flac_synth_launches=dec_launches[1]))
+        del dec, pieces
+    dec_rates = [r["Msamples_per_s"] for r in dec_runs]
+    dec_rate = float(np.median(dec_rates))
+    line("decode_throughput", audio_seconds=n_frames / SAMPLE_RATE,
+         batch_frames=flac_dec.MAX_BATCH_FRAMES, Msamples_per_s=dec_rate,
+         Msamples_per_s_runs=dec_rates,
+         realtime=dec_rate * 1e6 / 2 / SAMPLE_RATE, bit_exact=True,
+         md5_checked=True, runs=dec_runs)
+
+    forbidden = loaded_forbidden_modules()
+    if forbidden:
+        raise AssertionError("the port loaded jax or the reference: %s"
+                             % (forbidden,))
+    kernels_line = []
+    for (kname, source, replaces, kl, row) in (
+            ("scatter_words", "scatter_words.cu", "pallas_bitpack.py:195",
+             launches, scatter_words_row),
+            ("rice_decode", "rice_decode.cu", "rice_decode.py:309",
+             dec_runs[0]["rice_decode_launches"], rice_row),
+            ("flac_synth", "flac_synth.cu", "flac_synth.py:96",
+             dec_runs[0]["flac_synth_launches"], synth_row)):
+        kernels_line.append(dict(
+            name=kname, route="cuda",
+            source="audiotools_tpu_torch/csrc/" + source,
+            replaces="audiotools_tpu/ops/" + replaces, launches=kl,
+            **row))
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

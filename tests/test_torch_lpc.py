@@ -145,3 +145,12 @@ def test_analysis_chain_matches_jax():
                         (coeffs_t, coeffs), (errors_t, errors),
                         (qlp_t, qlp), (shifts_t, shifts), (res_t, res)]:
         same(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [192, 1152, 4096])
+def test_tukey_window_matches_reference(n):
+    """the port's own host-split window equals the reference's bit for
+    bit"""
+    (hi, lo) = port.tukey_window_df(n)
+    (want_hi, want_lo) = ref.tukey_window_df(n)
+    assert np.array_equal(hi, want_hi) and np.array_equal(lo, want_lo)

@@ -1,6 +1,8 @@
 """The port's PCM helpers: ``reader_from_array`` feeds the encoder the
-same bytes as the reference's reader, and ``decode_flac`` returns the
-samples of a FLAC stream after checking its STREAMINFO and MD5."""
+same samples as the reference's reader, ``BufferedPCMReader`` and
+``FrameList.to_bytes`` behave as the reference's, and ``decode_flac``
+returns the samples of a FLAC stream after checking its STREAMINFO and
+MD5."""
 
 import io
 
@@ -9,7 +11,7 @@ import pytest
 import torch
 
 from audiotools_tpu import pcm as ref_pcm
-from audiotools_tpu.pcmstream import PCMReader
+from audiotools_tpu.pcmstream import BufferedPCMReader, PCMReader
 from audiotools_tpu_torch import pcm
 from audiotools_tpu_torch.codecs import flac_enc_fast as port
 
@@ -66,3 +68,57 @@ def test_decode_checks_md5():
 def test_decode_refuses_other_streams():
     with pytest.raises(ValueError, match="FLAC"):
         pcm.decode_flac(b"RIFF" + bytes(60))
+
+
+class _Ragged:
+    """a PCMReader that returns fewer frames than asked, in a fixed
+    cycle of sizes"""
+
+    def __init__(self, arr, bps, framelist):
+        self.arr = arr
+        self.pos = 0
+        self.sizes = [1, 700, 3, 5000, 64]
+        self.calls = 0
+        self.framelist = framelist
+        (self.sample_rate, self.channels, self.channel_mask,
+         self.bits_per_sample) = (44100, arr.shape[1], 3, bps)
+
+    def read(self, pcm_frames):
+        take = min(pcm_frames, self.sizes[self.calls % len(self.sizes)])
+        self.calls += 1
+        chunk = self.arr[self.pos:self.pos + take]
+        self.pos += chunk.shape[0]
+        return self.framelist(chunk)
+
+    def close(self):
+        pass
+
+
+def test_buffered_reader_matches_reference():
+    """exact counts (fewer only at the end) over a reader that returns
+    ragged chunks, of the port's or the reference's frame lists"""
+    arr = signal(16, 2, 20000)
+    sizes = [0, 1, 4096, 3, 9000, 6000, 4096, 4096]
+    for framelist in (lambda a: ref_pcm.FrameList._wrap(a, 16),
+                      lambda a: pcm.FrameList(a, 16)):
+        got = pcm.BufferedPCMReader(_Ragged(arr, 16, framelist))
+        want = BufferedPCMReader(_Ragged(
+            arr, 16, lambda a: ref_pcm.FrameList._wrap(a, 16)))
+        for size in sizes:
+            (a, b) = (got.read(size), want.read(size))
+            assert a.frames == b.frames
+            assert np.array_equal(a.samples, b.samples)
+        got.close()
+        with pytest.raises(ValueError):
+            got.read(1)
+
+
+@pytest.mark.parametrize("bps", [8, 16, 24])
+def test_to_bytes_matches_reference(bps):
+    arr = signal(bps, 2, 100)
+    fl = pcm.FrameList(arr, bps)
+    ref = ref_pcm.FrameList._wrap(arr, bps)
+    for big_endian in (False, True):
+        for signed in (False, True):
+            assert (fl.to_bytes(big_endian, signed) ==
+                    ref.to_bytes(big_endian, signed))
