@@ -8,6 +8,8 @@ names it (the unit tests do, to run the kernels' plain versions).
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -31,3 +33,39 @@ def resolve_device(device):
     if device.type == "cpu":
         return device
     raise ValueError("unsupported device type %r" % (device.type,))
+
+
+class StageMarks:
+    """marks between a batch's device stages: CUDA events recorded on
+    the current stream on a card, host clock readings on the CPU"""
+
+    def __init__(self, device):
+        self.on_cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.on_cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self):
+        """the spans between consecutive marks, in seconds; on a card
+        this waits for the last mark"""
+        if not self.on_cuda:
+            return [b - a for (a, b) in zip(self.marks, self.marks[1:])]
+        self.marks[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3
+                for (a, b) in zip(self.marks, self.marks[1:])]
+
+
+def fetch_async(tensor):
+    """a CUDA tensor's copy into pinned host memory, enqueued on the
+    current stream (valid once the stream reaches it); a CPU tensor as
+    it is"""
+    if tensor.device.type != "cuda":
+        return tensor
+    pinned = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    return pinned.copy_(tensor, non_blocking=True)

@@ -1,12 +1,12 @@
-"""The port's host C++ library: FLAC emit, decode and scan, and MD5.
+"""The port's host C++ library: FLAC, ALAC and TTA host kernels, and MD5.
 
-``hostkernels.cpp`` beside this file is a copy of the FLAC, CRC and
-MD5 parts of the reference package's host library; the wrappers here
-are the reference's (``audiotools_tpu/_native``), for the entry points
-the port calls.  The library compiles with g++ on first use into the
-package's ``build/`` directory; its name carries a hash of the source,
-and it is written to a temporary file first and renamed into place,
-so that several processes may build it at once.
+``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
+CRC and MD5 parts of the reference package's host library; the
+wrappers here are the reference's (``audiotools_tpu/_native``), for
+the entry points the port calls.  The library compiles with g++ on
+first use into the package's ``build/`` directory; its name carries a
+hash of the source, and it is written to a temporary file first and
+renamed into place, so that several processes may build it at once.
 """
 
 from __future__ import annotations
@@ -139,6 +139,109 @@ def get_lib():
         _U32,               # rb_words
         _I64,               # rb_bits
         ctypes.c_int64,     # rb_stride
+    ]
+
+    lib.atpu_alac_emit_framesets.restype = ctypes.c_int64
+    lib.atpu_alac_emit_framesets.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),   # blocks [B, max_n, ch]
+        ctypes.POINTER(ctypes.c_int32),   # ns [B]
+        ctypes.c_int64,                   # n_blocks
+        ctypes.POINTER(ctypes.c_int32),   # layout_off [G]
+        ctypes.POINTER(ctypes.c_int32),   # layout_w [G]
+        ctypes.c_int32,                   # n_groups
+        ctypes.POINTER(ctypes.c_int32),   # packed [B,G,5,2,15]
+        ctypes.c_int32,                   # ch_total
+        ctypes.c_int32,                   # max_n
+        ctypes.c_int32,                   # block_size
+        ctypes.c_int32,                   # initial_history
+        ctypes.c_int32,                   # history_multiplier
+        ctypes.c_int32,                   # maximum_k
+        ctypes.c_int32,                   # interlacing_shift
+        ctypes.c_int32,                   # min_lw
+        ctypes.c_int32,                   # max_lw
+        ctypes.c_int32,                   # bps
+        ctypes.POINTER(ctypes.c_uint8),   # out
+        ctypes.POINTER(ctypes.c_int64),   # out_ends
+    ]
+
+    lib.atpu_alac_decode.restype = ctypes.c_int64
+    lib.atpu_alac_decode.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),   # data
+        ctypes.c_int64,                   # len
+        ctypes.c_int32,                   # bps
+        ctypes.c_int32,                   # channels
+        ctypes.c_int32,                   # samples_per_frame
+        ctypes.c_int32,                   # initial_history
+        ctypes.c_int32,                   # history_multiplier
+        ctypes.c_int32,                   # maximum_k
+        ctypes.c_int64,                   # max_frames
+        ctypes.POINTER(ctypes.c_int32),   # out
+        ctypes.POINTER(ctypes.c_int64),   # consumed
+    ]
+
+    lib.atpu_alac_scan.restype = ctypes.c_int64
+    lib.atpu_alac_scan.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),   # data
+        ctypes.c_int64,                   # len
+        ctypes.c_int32,                   # bps
+        ctypes.c_int32,                   # channels
+        ctypes.c_int32,                   # samples_per_frame
+        ctypes.c_int32,                   # initial_history
+        ctypes.c_int32,                   # history_multiplier
+        ctypes.c_int32,                   # maximum_k
+        ctypes.c_int64,                   # max_frames
+        ctypes.c_int64,                   # max_subs
+        ctypes.POINTER(ctypes.c_int32),   # res_out
+        ctypes.POINTER(ctypes.c_int32),   # sub_meta
+        ctypes.POINTER(ctypes.c_int32),   # qlp_out
+        ctypes.POINTER(ctypes.c_int32),   # pair_meta
+        ctypes.POINTER(ctypes.c_int32),   # lsb_out
+        ctypes.POINTER(ctypes.c_int32),   # fs_count
+        ctypes.POINTER(ctypes.c_int64),   # info
+    ]
+
+    lib.atpu_tta_encode_frames.restype = ctypes.c_int64
+    lib.atpu_tta_encode_frames.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),   # samples [total, ch]
+        ctypes.POINTER(ctypes.c_int32),   # frame_sizes
+        ctypes.c_int64,                   # n_tta_frames
+        ctypes.c_int32,                   # channels
+        ctypes.c_int32,                   # bps
+        ctypes.POINTER(ctypes.c_uint8),   # out
+        ctypes.POINTER(ctypes.c_int64),   # out_ends
+    ]
+
+    lib.atpu_tta_pack_frames.restype = ctypes.c_int64
+    lib.atpu_tta_pack_frames.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),   # residuals [total, ch]
+        ctypes.POINTER(ctypes.c_int32),   # frame_sizes
+        ctypes.c_int64,                   # n_tta_frames
+        ctypes.c_int32,                   # channels
+        ctypes.POINTER(ctypes.c_uint8),   # out
+        ctypes.POINTER(ctypes.c_int64),   # out_ends
+    ]
+
+    lib.atpu_tta_decode_frame.restype = ctypes.c_int64
+    lib.atpu_tta_decode_frame.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),   # data
+        ctypes.c_int64,                   # len
+        ctypes.c_int64,                   # n
+        ctypes.c_int32,                   # channels
+        ctypes.c_int32,                   # bps
+        ctypes.POINTER(ctypes.c_int32),   # out
+        ctypes.c_int32,                   # verify_crc
+    ]
+
+    lib.atpu_tta_scan_residuals.restype = ctypes.c_int64
+    lib.atpu_tta_scan_residuals.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),   # data (concatenated frames)
+        ctypes.c_int64,                   # len
+        ctypes.POINTER(ctypes.c_int64),   # frame_lens
+        ctypes.POINTER(ctypes.c_int32),   # frame_sizes
+        ctypes.c_int64,                   # n_tta_frames
+        ctypes.c_int32,                   # channels
+        ctypes.POINTER(ctypes.c_int32),   # out [total, ch]
+        ctypes.c_int32,                   # verify_crc
     ]
 
     lib.atpu_md5_init.restype = None
@@ -305,6 +408,213 @@ def flac_scan(data, stream_bps, stream_channels, max_samples,
         "consumed_bytes": int(consumed),
         "total_pcm_frames": int(total_pcm),
     }
+
+
+def alac_emit_framesets(blocks, ns, layout, packed,
+                        block_size, initial_history,
+                        history_multiplier, maximum_k,
+                        interlacing_shift, min_lw, max_lw, bps):
+    """emits ALAC framesets from raw PCM + packed LPC candidates
+
+    blocks: int32 [B, max_n, ch] wave-order PCM
+    packed: int32 [B, G, 5, 2, 15] LPC candidate rows (device output)
+    returns (frameset bytes, per-frameset byte sizes int64 array)"""
+
+    lib = get_lib()
+    blocks = np.ascontiguousarray(blocks, dtype=np.int32)
+    ns = np.ascontiguousarray(ns, dtype=np.int32)
+    packed = np.ascontiguousarray(packed, dtype=np.int32)
+    (B, max_n, ch) = blocks.shape
+    layout_off = np.asarray([off for (off, _w) in layout],
+                            dtype=np.int32)
+    layout_w = np.asarray([w for (_off, w) in layout], dtype=np.int32)
+
+    worst = int(B) * (max_n * ch * ((bps // 8) + 2) + 256)
+    out = np.empty(worst, dtype=np.uint8)
+    out_ends = np.empty(B, dtype=np.int64)
+
+    total = lib.atpu_alac_emit_framesets(
+        _as_ptr(blocks, ctypes.c_int32),
+        _as_ptr(ns, ctypes.c_int32),
+        B,
+        _as_ptr(layout_off, ctypes.c_int32),
+        _as_ptr(layout_w, ctypes.c_int32),
+        len(layout),
+        _as_ptr(packed, ctypes.c_int32),
+        ch, max_n, block_size, initial_history, history_multiplier,
+        maximum_k, interlacing_shift, min_lw, max_lw, bps,
+        _as_ptr(out, ctypes.c_uint8),
+        _as_ptr(out_ends, ctypes.c_int64))
+    if total < 0:
+        raise ValueError("ALAC emit error (code %d)" % (total,))
+    lens = np.diff(np.concatenate([[0], out_ends]))
+    return (out[:total].tobytes(), lens)
+
+
+def alac_decode(data, bps, channels, samples_per_frame,
+                initial_history, history_multiplier, maximum_k,
+                max_frames):
+    """decodes ALAC framesets into int32 [frames, channels] wave order
+
+    returns (samples, consumed_bytes)"""
+
+    lib = get_lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max_frames * channels, dtype=np.int32)
+    consumed = ctypes.c_int64(0)
+    decoded = lib.atpu_alac_decode(
+        _as_ptr(buf, ctypes.c_uint8), len(buf),
+        bps, channels, samples_per_frame,
+        initial_history, history_multiplier, maximum_k,
+        max_frames,
+        _as_ptr(out, ctypes.c_int32),
+        ctypes.byref(consumed))
+    if decoded < 0:
+        raise ValueError("truncated or corrupt ALAC stream "
+                         "(native code %d)" % (decoded,))
+    return (out[:decoded * channels].reshape(-1, channels),
+            consumed.value)
+
+
+def alac_scan(data, bps, channels, samples_per_frame,
+              initial_history, history_multiplier, maximum_k,
+              max_frames, max_subs):
+    """structural scan for the device ALAC decode path
+
+    returns a dict of numpy arrays (see atpu_alac_scan's layout doc):
+    residuals [n_subs, spf], sub_meta [n_subs, 8], qlp [n_subs, 32],
+    pair_meta [n_pairs, 8], lsbs [n_pairs, spf, 2],
+    fs_count [n_fs], total_frames, consumed_bytes"""
+
+    lib = get_lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    spf = samples_per_frame
+    res = np.zeros((max_subs, spf), dtype=np.int32)
+    sub_meta = np.zeros((max_subs, 8), dtype=np.int32)
+    qlp = np.zeros((max_subs, 32), dtype=np.int32)
+    max_pairs = max_subs
+    pair_meta = np.zeros((max_pairs, 8), dtype=np.int32)
+    lsbs = np.zeros((max_pairs, spf, 2), dtype=np.int32)
+    fs_count = np.zeros(max_subs, dtype=np.int32)
+    info = np.zeros(5, dtype=np.int64)
+    rc = lib.atpu_alac_scan(
+        _as_ptr(buf, ctypes.c_uint8), len(buf),
+        bps, channels, samples_per_frame,
+        initial_history, history_multiplier, maximum_k,
+        max_frames, max_subs,
+        _as_ptr(res, ctypes.c_int32),
+        _as_ptr(sub_meta, ctypes.c_int32),
+        _as_ptr(qlp, ctypes.c_int32),
+        _as_ptr(pair_meta, ctypes.c_int32),
+        _as_ptr(lsbs, ctypes.c_int32),
+        _as_ptr(fs_count, ctypes.c_int32),
+        _as_ptr(info, ctypes.c_int64))
+    if rc < 0:
+        raise ValueError("truncated or corrupt ALAC stream "
+                         "(native scan code %d)" % (rc,))
+    (n_subs, n_pairs, n_fs, total, consumed) = (
+        int(info[0]), int(info[1]), int(info[2]), int(info[3]),
+        int(info[4]))
+    return {
+        "residuals": res[:n_subs],
+        "sub_meta": sub_meta[:n_subs],
+        "qlp": qlp[:n_subs],
+        "pair_meta": pair_meta[:n_pairs],
+        "lsbs": lsbs[:n_pairs],
+        "fs_count": fs_count[:n_fs],
+        "total_frames": total,
+        "consumed_bytes": consumed,
+    }
+
+
+def tta_scan_residuals(data, frame_lens, frame_sizes, channels,
+                       verify_crc=True):
+    """entropy-unpacks concatenated TTA frames (adaptive Rice +
+    CRC-32) WITHOUT the filter chain — the device decode path's host
+    half (ops/tta_synth.py inverts the filters)
+
+    returns int32 [total, channels] residuals"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    frame_lens = np.ascontiguousarray(frame_lens, dtype=np.int64)
+    frame_sizes = np.ascontiguousarray(frame_sizes, dtype=np.int32)
+    total = int(frame_sizes.sum())
+    out = np.empty((total, channels), dtype=np.int32)
+    rc = lib.atpu_tta_scan_residuals(
+        _as_ptr(buf, ctypes.c_uint8), len(buf),
+        _as_ptr(frame_lens, ctypes.c_int64),
+        _as_ptr(frame_sizes, ctypes.c_int32),
+        len(frame_sizes), channels,
+        _as_ptr(out, ctypes.c_int32),
+        1 if verify_crc else 0)
+    if rc < 0:
+        raise ValueError("truncated or corrupt TTA stream "
+                         "(native code %d)" % (rc,))
+    return out
+
+
+def tta_encode_frames(samples, frame_sizes, channels, bps):
+    """encodes TTA frames from int32 [total, ch] PCM
+
+    returns (bytes, per-frame byte sizes int64 array)"""
+    lib = get_lib()
+    samples = np.ascontiguousarray(samples, dtype=np.int32)
+    frame_sizes = np.ascontiguousarray(frame_sizes, dtype=np.int32)
+    F = len(frame_sizes)
+    worst = samples.size * ((bps // 8) + 2) + 64 * F + 1024
+    out = np.empty(worst, dtype=np.uint8)
+    out_ends = np.empty(F, dtype=np.int64)
+    total = lib.atpu_tta_encode_frames(
+        _as_ptr(samples, ctypes.c_int32),
+        _as_ptr(frame_sizes, ctypes.c_int32),
+        F, channels, bps,
+        _as_ptr(out, ctypes.c_uint8),
+        _as_ptr(out_ends, ctypes.c_int64))
+    if total < 0:
+        raise ValueError("TTA encode error (code %d)" % (total,))
+    lens = np.diff(np.concatenate([[0], out_ends]))
+    return (out[:total].tobytes(), lens)
+
+
+def tta_pack_frames(residuals, frame_sizes, channels):
+    """packs precomputed TTA filter residuals (the back half of a
+    device encode analysis, which the port does not have yet) with the
+    adaptive Rice coder + per-frame CRC-32
+
+    residuals: int32 [total, ch]; returns (bytes, per-frame sizes)"""
+    lib = get_lib()
+    residuals = np.ascontiguousarray(residuals, dtype=np.int32)
+    frame_sizes = np.ascontiguousarray(frame_sizes, dtype=np.int32)
+    F = len(frame_sizes)
+    worst = residuals.size * 6 + 64 * F + 1024
+    out = np.empty(worst, dtype=np.uint8)
+    out_ends = np.empty(F, dtype=np.int64)
+    total = lib.atpu_tta_pack_frames(
+        _as_ptr(residuals, ctypes.c_int32),
+        _as_ptr(frame_sizes, ctypes.c_int32),
+        F, channels,
+        _as_ptr(out, ctypes.c_uint8),
+        _as_ptr(out_ends, ctypes.c_int64))
+    if total < 0:
+        raise ValueError("TTA pack error (code %d)" % (total,))
+    lens = np.diff(np.concatenate([[0], out_ends]))
+    return (out[:total].tobytes(), lens)
+
+
+def tta_decode_frame(data, n, channels, bps, verify_crc=True):
+    """decodes one TTA frame of n PCM frames
+
+    returns (samples int32 [n, ch], consumed_bytes)"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    out = np.empty(n * channels, dtype=np.int32)
+    consumed = lib.atpu_tta_decode_frame(
+        _as_ptr(buf, ctypes.c_uint8), len(buf), n, channels, bps,
+        _as_ptr(out, ctypes.c_int32), 1 if verify_crc else 0)
+    if consumed < 0:
+        raise ValueError("truncated or corrupt TTA stream "
+                         "(native code %d)" % (consumed,))
+    return (out.reshape(n, channels), consumed)
 
 
 class MD5:

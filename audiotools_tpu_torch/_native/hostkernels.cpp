@@ -1,8 +1,8 @@
-// Host-side FLAC kernels of the PyTorch/CUDA port.
+// Host-side FLAC, ALAC and TTA kernels of the PyTorch/CUDA port.
 //
-// A copy of the FLAC, CRC and MD5 parts of the reference package's
-// host library (audiotools_tpu/_native/hostkernels.cpp), so that the
-// port loads nothing of the reference.  Entry points, layouts and
+// A copy of the FLAC, ALAC, TTA, CRC and MD5 parts of the reference
+// package's host library (audiotools_tpu/_native/hostkernels.cpp), so
+// that the port loads nothing of the reference.  Entry points, layouts and
 // error codes are the reference's, unchanged:
 //   * atpu_flac_emit_frames2 / atpu_flac_emit_frames2rb: FLAC frame
 //     emit from packed decision rows (the batched encoder's emitter),
@@ -11,9 +11,16 @@
 //   * atpu_pack_pcm / atpu_unpack_pcm, atpu_crc8 / atpu_crc16;
 //   * atpu_flac_decode: the complete host FLAC frame decoder;
 //   * atpu_flac_scan: the structural scan of the device decode path
-//     (frame/subframe metadata and residual-partition bit spans).
-// The reference's ALAC, TTA, Shorten, WavPack, MLP, quantized-upload
-// and filter kernels are not copied.
+//     (frame/subframe metadata and residual-partition bit spans);
+//   * atpu_alac_emit_framesets / atpu_alac_decode / atpu_alac_scan:
+//     the ALAC adaptive emitter, host decoder and the structural scan
+//     of the device decode path;
+//   * atpu_tta_encode_frames / atpu_tta_pack_frames /
+//     atpu_tta_decode_frame / atpu_tta_scan_residuals: the TTA host
+//     encoder, residual packer, frame decoder and the entropy scan of
+//     the device decode path.
+// The reference's Shorten, WavPack, MLP, MPEG, quantized-upload and
+// filter kernels are not copied.
 //
 // Build: g++ -O3 -shared -fPIC (see __init__.py); loaded via ctypes.
 
@@ -176,6 +183,78 @@ struct BitWriter {
             flush_bytes();
         }
     }
+};
+
+// ---------------------------------------------------------- bit reader --
+struct BitReader {
+    const uint8_t* data;
+    int64_t len;
+    int64_t pos;       // byte position
+    uint64_t acc;
+    int bits;
+    bool error;
+
+    BitReader(const uint8_t* d, int64_t n)
+        : data(d), len(n), pos(0), acc(0), bits(0), error(false) {}
+
+    inline bool refill(int need) {
+        while (bits < need) {
+            if (pos >= len) { error = true; return false; }
+            acc = (acc << 8) | data[pos++];
+            bits += 8;
+        }
+        return true;
+    }
+
+    inline uint64_t get(int n) {
+        if (n == 0) return 0;
+        uint64_t value = 0;
+        while (n > 56) {
+            if (!refill(8)) return 0;
+            value = (value << 8) | ((acc >> (bits - 8)) & 0xFF);
+            bits -= 8;
+            n -= 8;
+        }
+        if (!refill(n)) return 0;
+        value = (value << n) | ((acc >> (bits - n)) & ((1ULL << n) - 1));
+        bits -= n;
+        return value;
+    }
+
+    inline int64_t get_signed(int n) {
+        uint64_t v = get(n);
+        if (n && (v & (1ULL << (n - 1)))) {
+            return (int64_t)v - (1LL << n);
+        }
+        return (int64_t)v;
+    }
+
+    // counts zero bits before the next 1 bit
+    inline int64_t unary() {
+        int64_t count = 0;
+        for (;;) {
+            if (bits == 0) {
+                if (pos >= len) { error = true; return 0; }
+                acc = data[pos++];
+                bits = 8;
+            }
+            uint64_t window = acc & ((1ULL << bits) - 1);
+            if (window == 0) {
+                count += bits;
+                bits = 0;
+                continue;
+            }
+            // index of highest set bit within window
+            int high = 63 - __builtin_clzll(window);
+            count += bits - 1 - high;
+            bits = high;        // consume through the 1 bit
+            return count;
+        }
+    }
+
+    inline void byte_align() { bits -= bits % 8; }
+
+    inline int64_t byte_pos() const { return pos - bits / 8; }
 };
 
 
@@ -2572,3 +2651,1517 @@ extern "C" int64_t atpu_flac_scan(const uint8_t* data,
 }
 
 }  // extern "C"
+
+// ======================================================================
+// ALAC (Apple Lossless) — host-side adaptive encode/decode kernels.
+//
+// Role of reference src/encoders/alac.c / src/decoders/alac.c
+// (behavioral spec: audiotools/py_encoders/alac.py, py_decoders/alac.py,
+// mirrored by audiotools_tpu/ref/alac.py).  ALAC's residual filter
+// adapts its coefficients per sample and its Rice variant carries a
+// running history — true recurrences, so they run here on the host;
+// the batched device kernel (ops/alac_frames.py) supplies the LPC
+// coefficient candidates (qlp4/qlp8 per block, group, leftweight,
+// channel), computed with the shared contraction-immune numerics, and
+// this emitter makes all size decisions from exact candidate bits.
+
+namespace alac {
+
+constexpr int QLP_SHIFT = 9;
+// qlp4[4] + qlp8[8] + degenerate + est4 + est8
+constexpr int PACKED_COLS = 15;
+constexpr int N_LW = 5;
+
+struct Opts {
+    int block_size;
+    int initial_history;
+    int history_multiplier;
+    int maximum_k;
+    int interlacing_shift;
+    int min_lw, max_lw;
+    int bps;
+};
+
+static inline int ilog2_floor(uint32_t v) {
+    return (v == 0) ? -1 : (31 - __builtin_clz(v));
+}
+
+static inline int32_t trunc_bits(int64_t v, int bits) {
+    const int64_t mask = (1LL << bits) - 1;
+    int64_t t = v & mask;
+    if (t & (1LL << (bits - 1))) t -= (1LL << bits);
+    return (int32_t)t;
+}
+
+static inline int sign_only(int64_t v) { return (v > 0) - (v < 0); }
+
+// sign-adaptive LPC residual producer (py_encoders/alac.py:349-397).
+// Generates residuals on demand so the Rice coder consumes them in
+// the same pass — no intermediate buffer, one traversal per
+// candidate.  Templated on ORDER (4 or 8 in practice) so the MAC and
+// adaptation loops fully unroll.  The coefficient state adapts per
+// sample (mutating a local copy).
+template <int ORDER>
+struct AdaptiveProducer {
+    const int32_t* ch;
+    int64_t n;
+    int sample_size;
+    int32_t qlp[ORDER];
+    int64_t i;
+
+    AdaptiveProducer(const int32_t* channel, int64_t count, int ss,
+                     const int32_t* coeffs)
+        : ch(channel), n(count), sample_size(ss), i(0) {
+        for (int j = 0; j < ORDER; j++) qlp[j] = coeffs[j];
+    }
+
+    inline int32_t next() {
+        const int64_t pos = i++;
+        if (pos == 0) return ch[0];
+        if (pos <= ORDER)
+            return trunc_bits((int64_t)ch[pos] - ch[pos - 1],
+                              sample_size);
+        const int64_t base = ch[pos - ORDER - 1];
+        int64_t lpc_sum = 0;
+        for (int j = 0; j < ORDER; j++)
+            lpc_sum += (int64_t)qlp[j] * (ch[pos - 1 - j] - base);
+        int64_t residual = trunc_bits(
+            ch[pos] - base -
+            ((lpc_sum + (1LL << (QLP_SHIFT - 1))) >> QLP_SHIFT),
+            sample_size);
+        const int32_t out = (int32_t)residual;
+        if (residual > 0) {
+            for (int j = 0; j < ORDER && residual > 0; j++) {
+                const int64_t diff = base - ch[pos - ORDER + j];
+                const int sign = sign_only(diff);
+                qlp[ORDER - j - 1] -= sign;
+                residual -= (((diff * sign) >> QLP_SHIFT) * (j + 1));
+            }
+        } else if (residual < 0) {
+            for (int j = 0; j < ORDER && residual < 0; j++) {
+                const int64_t diff = base - ch[pos - ORDER + j];
+                const int sign = sign_only(diff);
+                qlp[ORDER - j - 1] += sign;
+                residual -= (((diff * -sign) >> QLP_SHIFT) * (j + 1));
+            }
+        }
+        return out;
+    }
+};
+
+struct BitCounter {
+    int64_t total = 0;
+    inline void put(uint64_t, int64_t nbits) { total += nbits; }
+};
+
+// reciprocal table for division by (2^k - 1), k = 1..14:
+// q = (u * RECIP[k]) >> 47 is exact for u < 2^33 (verified vs plain
+// division at table build)
+struct RiceRecip {
+    uint64_t m[15];
+    RiceRecip() {
+        for (int k = 1; k <= 14; k++) {
+            const uint64_t d = (1ULL << k) - 1;
+            m[k] = ((1ULL << 47) + d - 1) / d;   // ceil(2^47 / d)
+        }
+    }
+};
+static const RiceRecip rice_recip;
+
+template <typename Sink>
+static inline void put_residual(Sink& w, uint32_t unsigned_v, int k,
+                                int sample_size) {
+    const uint32_t div = (1u << k) - 1;
+    const uint32_t MSB = (uint32_t)(((unsigned __int128)unsigned_v *
+                                     rice_recip.m[k]) >> 47);
+    const uint32_t LSB = unsigned_v - MSB * div;
+    if (MSB > 8) {
+        w.put(0x1FF, 9);
+        w.put(unsigned_v, sample_size);
+    } else {
+        // MSB one-bits then a zero stop bit
+        w.put(((1ULL << MSB) - 1) << 1, MSB + 1);
+        if (k > 1) {
+            if (LSB > 0) w.put(LSB + 1, k);
+            else w.put(0, k - 1);
+        }
+    }
+}
+
+// history-adaptive residual block (py_encoders/alac.py:400-435),
+// pulling residuals from an AdaptiveProducer in the same pass;
+// returns false on residual overflow (caller falls back uncompressed)
+template <typename Sink, typename Prod>
+static bool put_residual_block(Sink& w, const Opts& o,
+                               int sample_size, Prod& p, int64_t n) {
+    int64_t history = o.initial_history;
+    int sign_modifier = 0;
+    int64_t i = 0;
+    int32_t pending = 0;
+    bool has_pending = false;
+    while (i < n) {
+        const int64_t r = has_pending ? pending : p.next();
+        has_pending = false;
+        const uint64_t unsigned_v = (r >= 0) ? (uint64_t)(r * 2)
+                                             : (uint64_t)(-r * 2 - 1);
+        if (unsigned_v >= (1ULL << sample_size)) return false;
+        int k = ilog2_floor((uint32_t)((history >> 9) + 3));
+        if (k > o.maximum_k) k = o.maximum_k;
+        put_residual(w, (uint32_t)(unsigned_v - sign_modifier), k,
+                     sample_size);
+        sign_modifier = 0;
+        if (unsigned_v <= 0xFFFF) {
+            history += (int64_t)(unsigned_v * o.history_multiplier) -
+                       ((history * o.history_multiplier) >> 9);
+            i += 1;
+            if (history < 128 && i < n) {
+                int zk = 7 - ilog2_floor((uint32_t)history) +
+                         (int)((history + 16) >> 6);
+                if (zk > o.maximum_k) zk = o.maximum_k;
+                uint32_t zeroes = 0;
+                while (i < n) {
+                    const int32_t z = p.next();
+                    if (z == 0) {
+                        zeroes++;
+                        i++;
+                    } else {
+                        pending = z;
+                        has_pending = true;
+                        break;
+                    }
+                }
+                put_residual(w, zeroes, zk, 16);
+                if (zeroes < 65535) sign_modifier = 1;
+                history = 0;
+            }
+        } else {
+            i += 1;
+            history = 0xFFFF;
+        }
+    }
+    return true;
+}
+
+template <typename Sink>
+static void put_subframe_header(Sink& w, const int32_t* qlp,
+                                int order) {
+    w.put(0, 4);
+    w.put(QLP_SHIFT, 4);
+    w.put(4, 3);
+    w.put(order, 5);
+    for (int i = 0; i < order; i++)
+        w.put((uint64_t)(qlp[i] & 0xFFFF), 16);
+}
+
+// runs one (channel, order) candidate through producer + rice sink
+template <typename Sink>
+static bool run_candidate(Sink& w, const Opts& o, int sample_size,
+                          const int32_t* channel, int64_t n,
+                          const int32_t* qlp, int order) {
+    if (order == 4) {
+        AdaptiveProducer<4> p(channel, n, sample_size, qlp);
+        return put_residual_block(w, o, sample_size, p, n);
+    } else {
+        AdaptiveProducer<8> p(channel, n, sample_size, qlp);
+        return put_residual_block(w, o, sample_size, p, n);
+    }
+}
+
+// per-(leftweight, channel) candidate state for one frame group
+struct Candidate {
+    int order;                 // chosen order (4 or 8)
+    const int32_t* qlp;        // chosen coefficients (packed row)
+};
+
+struct Scratch {
+    int32_t* ch[2];            // shifted channels
+};
+
+static const int32_t ZERO_QLP[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+
+// selects one channel's order-4 vs order-8 candidate from the
+// device-computed residual-size estimates (packed cols 13/14; the
+// same policy as ref/alac.py calculate_lpc_coefficients) — the
+// adaptive recurrence only runs for the winner, at write time
+static Candidate pick_channel(const int32_t* packed_row) {
+    if (packed_row[12] != 0)                    // degenerate
+        return Candidate{4, ZERO_QLP};
+    if (packed_row[13] <= packed_row[14])
+        return Candidate{4, packed_row};
+    return Candidate{8, packed_row + 4};
+}
+
+// writes the residual block for a decided candidate; returns false
+// on residual overflow (caller rolls the writer back)
+template <typename Sink>
+static bool write_candidate_residuals(Sink& w, const Opts& o,
+                                      int sample_size,
+                                      const int32_t* channel,
+                                      int64_t n, const Candidate& c) {
+    return run_candidate(w, o, sample_size, channel, n, c.qlp,
+                         c.order);
+}
+
+}  // namespace alac
+
+extern "C" {
+
+// Emits ALAC framesets (one per block) from raw PCM + LPC candidates.
+//
+// blocks: int32 [n_blocks, max_n, ch_total] interleaved, WAVE order
+// ns: per-block sample counts
+// layout_off/layout_w: [n_groups] channel group offsets/widths
+// packed: int32 [n_blocks, n_groups, 5, 2, 13] per-(leftweight,
+//   channel) qlp4[4] + qlp8[8] + degenerate flag (device output)
+// out/out_ends: frameset bytes and cumulative end offsets
+// returns total bytes or negative error code
+int64_t atpu_alac_emit_framesets(const int32_t* blocks,
+                                 const int32_t* ns,
+                                 int64_t n_blocks,
+                                 const int32_t* layout_off,
+                                 const int32_t* layout_w,
+                                 int32_t n_groups,
+                                 const int32_t* packed,
+                                 int32_t ch_total,
+                                 int32_t max_n,
+                                 int32_t block_size,
+                                 int32_t initial_history,
+                                 int32_t history_multiplier,
+                                 int32_t maximum_k,
+                                 int32_t interlacing_shift,
+                                 int32_t min_lw,
+                                 int32_t max_lw,
+                                 int32_t bps,
+                                 uint8_t* out,
+                                 int64_t* out_ends) {
+    using namespace alac;
+    Opts o{block_size, initial_history, history_multiplier, maximum_k,
+           interlacing_shift, min_lw, max_lw, bps};
+
+    static thread_local int32_t* buf = nullptr;
+    static thread_local int64_t buf_n = 0;
+    if (max_n > buf_n) {
+        delete[] buf;
+        buf = new int32_t[(int64_t)max_n * 8];
+        buf_n = max_n;
+    }
+    Scratch s;
+    s.ch[0] = buf;
+    s.ch[1] = buf + max_n;
+    int32_t* raw0 = buf + 2 * (int64_t)max_n;  // unshifted channels
+    int32_t* raw1 = buf + 3 * (int64_t)max_n;
+    int32_t* cor0 = buf + 4 * (int64_t)max_n;  // correlated pair
+    int32_t* cor1 = buf + 5 * (int64_t)max_n;
+
+    const int lsb_bytes = (bps > 16) ? (bps - 16) / 8 : 0;
+    const int lsb_shift = lsb_bytes * 8;
+
+    for (int64_t b = 0; b < n_blocks; b++) {
+        const int64_t n = ns[b];
+        const int32_t* pcm = blocks + b * (int64_t)max_n * ch_total;
+        BitWriter w(out, (b == 0) ? 0 : out_ends[b - 1]);
+
+        for (int g = 0; g < n_groups; g++) {
+            const int off = layout_off[g];
+            const int width = layout_w[g];
+            const int32_t* prow_base =
+                packed + ((b * n_groups + g) * N_LW) * 2 * PACKED_COLS;
+
+            w.put(width - 1, 3);
+
+            // gather raw + shifted channels
+            for (int64_t i = 0; i < n; i++)
+                raw0[i] = pcm[i * ch_total + off];
+            if (width == 2)
+                for (int64_t i = 0; i < n; i++)
+                    raw1[i] = pcm[i * ch_total + off + 1];
+            for (int64_t i = 0; i < n; i++)
+                s.ch[0][i] = raw0[i] >> lsb_shift;
+            if (width == 2)
+                for (int64_t i = 0; i < n; i++)
+                    s.ch[1][i] = raw1[i] >> lsb_shift;
+
+            // uncompressed frame size (always a candidate)
+            const bool partial = (n != block_size);
+            const int64_t unc_bits = 16 + 1 + 2 + 1 +
+                (partial ? 32 : 0) + n * width * bps;
+
+            bool write_uncompressed = (n < 10);
+            int chosen_lw = 0;
+            Candidate chosen[2];
+
+            if (!write_uncompressed && width == 1) {
+                chosen[0] = pick_channel(prow_base);
+            } else if (!write_uncompressed) {
+                // leftweight from the device residual estimates:
+                // lowest min(est4, est8) sum over both correlated
+                // channels, ties to the lowest leftweight (the
+                // oracle's encode_compressed_frame policy)
+                int64_t best_score = 0;
+                for (int lw = min_lw; lw <= max_lw; lw++) {
+                    const int32_t* prow0 = prow_base +
+                        (lw * 2 + 0) * PACKED_COLS;
+                    const int32_t* prow1 = prow_base +
+                        (lw * 2 + 1) * PACKED_COLS;
+                    const int64_t score =
+                        (int64_t)(prow0[13] < prow0[14] ? prow0[13]
+                                                        : prow0[14]) +
+                        (int64_t)(prow1[13] < prow1[14] ? prow1[13]
+                                                        : prow1[14]);
+                    if (lw == min_lw || score < best_score) {
+                        best_score = score;
+                        chosen_lw = lw;
+                    }
+                }
+                chosen[0] = pick_channel(
+                    prow_base + (chosen_lw * 2 + 0) * PACKED_COLS);
+                chosen[1] = pick_channel(
+                    prow_base + (chosen_lw * 2 + 1) * PACKED_COLS);
+            }
+
+            // write the compressed frame speculatively; roll the
+            // writer back to this snapshot on residual overflow or
+            // when the exact size loses to the uncompressed frame
+            const BitWriter snapshot = w;
+            bool ok = !write_uncompressed;
+            if (ok && width == 1) {
+                const int sample_size = bps - lsb_shift;
+                w.put(0, 16);
+                w.put(partial ? 1 : 0, 1);
+                w.put(lsb_bytes, 2);
+                w.put(0, 1);
+                if (partial) w.put((uint64_t)n, 32);
+                w.put(0, 8);
+                w.put(0, 8);
+                put_subframe_header(w, chosen[0].qlp, chosen[0].order);
+                if (lsb_bytes > 0) {
+                    const uint32_t lmask = (1u << lsb_shift) - 1;
+                    for (int64_t i = 0; i < n; i++)
+                        w.put((uint32_t)raw0[i] & lmask, lsb_shift);
+                }
+                ok = write_candidate_residuals(
+                    w, o, sample_size, s.ch[0], n, chosen[0]);
+            } else if (ok) {
+                const int sample_size = bps - lsb_shift + 1;
+                w.put(0, 16);
+                w.put(partial ? 1 : 0, 1);
+                w.put(lsb_bytes, 2);
+                w.put(0, 1);
+                if (partial) w.put((uint64_t)n, 32);
+                w.put(interlacing_shift, 8);
+                w.put(chosen_lw, 8);
+                put_subframe_header(w, chosen[0].qlp, chosen[0].order);
+                put_subframe_header(w, chosen[1].qlp, chosen[1].order);
+                if (lsb_bytes > 0) {
+                    const uint32_t lmask = (1u << lsb_shift) - 1;
+                    for (int64_t i = 0; i < n; i++) {
+                        w.put((uint32_t)raw0[i] & lmask, lsb_shift);
+                        w.put((uint32_t)raw1[i] & lmask, lsb_shift);
+                    }
+                }
+                const int32_t* c0;
+                const int32_t* c1;
+                if (chosen_lw == 0) {
+                    c0 = s.ch[0];
+                    c1 = s.ch[1];
+                } else {
+                    for (int64_t i = 0; i < n; i++) {
+                        const int64_t a = s.ch[0][i];
+                        const int64_t bb = s.ch[1][i];
+                        cor0[i] = (int32_t)(bb +
+                            (((a - bb) * chosen_lw) >>
+                             interlacing_shift));
+                        cor1[i] = (int32_t)(a - bb);
+                    }
+                    c0 = cor0;
+                    c1 = cor1;
+                }
+                ok = write_candidate_residuals(
+                    w, o, sample_size, c0, n, chosen[0]);
+                if (ok)
+                    ok = write_candidate_residuals(
+                        w, o, sample_size, c1, n, chosen[1]);
+            }
+            if (ok) {
+                const int64_t comp_bits =
+                    (w.pos * 8 + w.bits) -
+                    (snapshot.pos * 8 + snapshot.bits);
+                if (comp_bits >= unc_bits) ok = false;
+            }
+            if (!ok) {
+                w = snapshot;
+                w.put(0, 16);
+                w.put(partial ? 1 : 0, 1);
+                w.put(0, 2);
+                w.put(1, 1);
+                if (partial) w.put((uint64_t)n, 32);
+                const uint64_t mask = (1ULL << bps) - 1;
+                for (int64_t i = 0; i < n; i++) {
+                    w.put((uint64_t)raw0[i] & mask, bps);
+                    if (width == 2)
+                        w.put((uint64_t)raw1[i] & mask, bps);
+                }
+            }
+        }
+
+        w.put(7, 3);          // end-of-frameset
+        w.byte_align();
+        out_ends[b] = w.pos;
+    }
+    return (n_blocks > 0) ? out_ends[n_blocks - 1] : 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// ALAC decoder (role of reference src/decoders/alac.c): framesets ->
+// interleaved wave-order PCM.  Mirrors ref/alac.py ALACDecoder.
+
+namespace alac {
+
+// ALAC frameset channel order -> wave order (ref/alac.py WAVE_ORDER)
+static const int WAVE_ORDER_TBL[9][8] = {
+    {},
+    {0},
+    {0, 1},
+    {1, 2, 0},
+    {1, 2, 0, 3},
+    {1, 2, 0, 3, 4},
+    {1, 2, 0, 5, 3, 4},
+    {1, 2, 0, 6, 3, 4, 5},
+    {3, 4, 0, 7, 5, 6, 1, 2},
+};
+
+// reads one adaptive residual (ref/alac.py:666-679)
+static inline int64_t read_residual(BitReader& r, int k,
+                                    int sample_size) {
+    // limited unary: up to 8 one-bits then a zero; 9 ones = escape
+    int msb = 0;
+    while (msb < 9 && r.get(1) == 1) msb++;
+    if (r.error) return 0;
+    if (msb == 9) return (int64_t)r.get(sample_size);
+    if (k == 0) return msb;
+    const int64_t hi = (k > 1) ? (int64_t)r.get(k - 1) : 0;
+    if (hi != 0) {
+        const int64_t lsb = (hi << 1) | r.get(1);
+        return (int64_t)msb * ((1LL << k) - 1) + (lsb - 1);
+    }
+    return (int64_t)msb * ((1LL << k) - 1);
+}
+
+struct DecOpts {
+    int initial_history, history_multiplier, maximum_k;
+};
+
+// ref/alac.py:627-664
+static bool read_residuals(BitReader& r, const DecOpts& o,
+                           int sample_size, int64_t count,
+                           int32_t* out) {
+    int64_t history = o.initial_history;
+    int sign_modifier = 0;
+    int64_t i = 0;
+    while (i < count) {
+        int k = ilog2_floor((uint32_t)((history >> 9) + 3));
+        if (k > o.maximum_k) k = o.maximum_k;
+        const int64_t unsigned_v = read_residual(r, k, sample_size) +
+                                   sign_modifier;
+        sign_modifier = 0;
+        out[i] = (unsigned_v & 1)
+            ? (int32_t)(-((unsigned_v + 1) >> 1))
+            : (int32_t)(unsigned_v >> 1);
+        if (unsigned_v <= 0xFFFF)
+            history += (unsigned_v * o.history_multiplier) -
+                       ((history * o.history_multiplier) >> 9);
+        else
+            history = 0xFFFF;
+        if (history < 128 && (i + 1) < count) {
+            int zk = 7 - ilog2_floor((uint32_t)history) +
+                     (int)((history + 16) >> 6);
+            if (zk > o.maximum_k) zk = o.maximum_k;
+            const int64_t zeroes = read_residual(r, zk, 16);
+            if (zeroes > 0) {
+                for (int64_t z = 0; z < zeroes && (i + 1) < count;
+                     z++) {
+                    i += 1;
+                    out[i] = 0;
+                }
+                // the spec extends exactly `zeroes` zeros; bail on
+                // malformed streams that would overrun
+            }
+            history = 0;
+            if (zeroes <= 0xFFFF) sign_modifier = 1;
+        }
+        i += 1;
+        if (r.error) return false;
+    }
+    return true;
+}
+
+// ref/alac.py:681-730 — in-place residual -> sample synthesis with
+// sign-adaptive coefficient updates
+static void decode_subframe(int32_t* qlp, int order, int shift,
+                            int sample_size, int32_t* data,
+                            int64_t count) {
+    if (order >= 31) {
+        for (int64_t i = 1; i < count; i++)
+            data[i] = trunc_bits((int64_t)data[i - 1] + data[i],
+                                 sample_size);
+        return;
+    }
+    for (int i = 1; i <= order && i < count; i++)
+        data[i] = trunc_bits((int64_t)data[i - 1] + data[i],
+                             sample_size);
+    for (int64_t i = order + 1; i < count; i++) {
+        int64_t residual = data[i];
+        const int64_t base = data[i - order - 1];
+        int64_t lpc_sum = 0;
+        for (int j = 0; j < order; j++)
+            lpc_sum += ((int64_t)data[i - 1 - j] - base) * qlp[j];
+        int64_t outval = ((1LL << (shift - 1)) + lpc_sum) >> shift;
+        data[i] = trunc_bits(outval + residual + base, sample_size);
+
+        // buf = samples[-order-2 : -1] relative to position i
+        const int32_t* buf = data + (i - order - 1);
+        if (residual > 0) {
+            for (int pn = order - 1; pn >= 0 && residual > 0; pn--) {
+                const int64_t val = (int64_t)buf[0] -
+                                    buf[order - pn];
+                const int sign = sign_only(val);
+                qlp[pn] -= sign;
+                residual -= (((val * sign) >> shift) * (order - pn));
+            }
+        } else if (residual < 0) {
+            for (int pn = order - 1; pn >= 0 && residual < 0; pn--) {
+                const int64_t val = (int64_t)buf[0] -
+                                    buf[order - pn];
+                const int sign = -sign_only(val);
+                qlp[pn] -= sign;
+                // val * sign == -|val|; the shifted negative value
+                // walks the residual back toward zero
+                residual -= (((val * sign) >> shift) * (order - pn));
+            }
+        }
+    }
+}
+
+}  // namespace alac
+
+extern "C" {
+
+// Decodes ALAC framesets into interleaved wave-order int32 PCM.
+//
+// data/len: mdat payload positioned at the first frameset
+// returns PCM frames decoded, or negative error; consumed_bytes
+// reports how much of data was read
+// Structural scan for the DEVICE ALAC decode path: walks framesets,
+// decodes the history-adaptive entropy half (bit positions are
+// data-dependent — host work, like the FLAC scan) and exports
+// residual planes + predictor metadata; the sign-adaptive predictor
+// recurrence, decorrelation and LSB merge run on device
+// (ops/alac_synth.py).  Layouts:
+//   res_out  [max_subs, spf] int32   residual planes (raw samples for
+//                                    uncompressed subframes)
+//   sub_meta [max_subs, 8]   int32   (pair_slot, chan_in_pair, order,
+//                                    shift, sample_size, count,
+//                                    is_raw, 0)
+//   qlp_out  [max_subs, 32]  int32
+//   pair_meta[max_pairs, 8]  int32   (fs_channel_base, width,
+//                                    lsb_bytes, ishift, lweight,
+//                                    count, frameset_idx, 0)
+//   lsb_out  [max_pairs, spf, 2] int32
+//   fs_count [max_framesets] int32   PCM frames per frameset
+//   info[0..4] = (n_subs, n_pairs, n_framesets, total_frames,
+//                 consumed_bytes)
+// Returns total PCM frames scanned or a negative error code.
+int64_t atpu_alac_scan(const uint8_t* data,
+                       int64_t len,
+                       int32_t bps,
+                       int32_t channels,
+                       int32_t samples_per_frame,
+                       int32_t initial_history,
+                       int32_t history_multiplier,
+                       int32_t maximum_k,
+                       int64_t max_frames,
+                       int64_t max_subs,
+                       int32_t* res_out,
+                       int32_t* sub_meta,
+                       int32_t* qlp_out,
+                       int32_t* pair_meta,
+                       int32_t* lsb_out,
+                       int32_t* fs_count,
+                       int64_t* info) {
+    using namespace alac;
+    if (channels < 1 || channels > 8) return -30;
+    DecOpts o{initial_history, history_multiplier, maximum_k};
+    const int64_t spf = samples_per_frame;
+
+    BitReader r(data, len);
+    int64_t total = 0;
+    int64_t n_subs = 0, n_pairs = 0, n_fs = 0;
+    int64_t consumed = 0;
+
+    int64_t save_subs = 0, save_pairs = 0;
+    while (total < max_frames && r.byte_pos() < len) {
+        // bail BEFORE a frameset that might not fit the batch
+        if (n_subs + channels > max_subs) break;
+        save_subs = n_subs;
+        save_pairs = n_pairs;
+        int fs_channels = 0;
+        int64_t this_count = -1;
+        int frame_channels = (int)r.get(3) + 1;
+        if (r.error) break;
+        while (frame_channels != 8) {
+            const int width = frame_channels;
+            if (fs_channels + width > channels)
+                return (total > 0) ? -100 : -31;
+
+            int32_t* pm = pair_meta + n_pairs * 8;
+            int32_t* lsb_dst = lsb_out + n_pairs * spf * 2;
+
+            r.get(16);
+            const int has_count = (int)r.get(1);
+            const int lsb_bytes = (int)r.get(2);
+            const int uncompressed = (int)r.get(1);
+            const int64_t count = has_count ? (int64_t)r.get(32)
+                                            : spf;
+            if (count > spf)
+                return (total > 0) ? -100 : -32;
+
+            int ishift = 0, lweight = 0;
+            if (uncompressed) {
+                for (int64_t i = 0; i < count; i++)
+                    for (int c = 0; c < width; c++)
+                        res_out[(n_subs + c) * spf + i] =
+                            (int32_t)r.get_signed(bps);
+                for (int c = 0; c < width; c++) {
+                    int32_t* sm = sub_meta + (n_subs + c) * 8;
+                    sm[0] = (int32_t)n_pairs;
+                    sm[1] = c;
+                    sm[2] = 0;                 // order
+                    sm[3] = 0;                 // shift
+                    sm[4] = bps;               // sample_size
+                    sm[5] = (int32_t)count;
+                    sm[6] = 1;                 // is_raw
+                    sm[7] = 0;
+                    for (int j = 0; j < 32; j++)
+                        qlp_out[(n_subs + c) * 32 + j] = 0;
+                }
+                pm[2] = 0;                     // lsb_bytes (merged)
+                pm[3] = 0;
+                pm[4] = 0;                     // lweight 0 = pass
+            } else {
+                ishift = (int)r.get(8);
+                lweight = (int)r.get(8);
+                int order[2];
+                int shift[2];
+                for (int c = 0; c < width; c++) {
+                    r.get(4);
+                    shift[c] = (int)r.get(4);
+                    r.get(3);
+                    order[c] = (int)r.get(5);
+                    if (order[c] > 32)
+                        return (total > 0) ? -100 : -33;
+                    for (int j = 0; j < 32; j++)
+                        qlp_out[(n_subs + c) * 32 + j] = 0;
+                    for (int j = 0; j < order[c]; j++)
+                        qlp_out[(n_subs + c) * 32 + j] =
+                            (int32_t)r.get_signed(16);
+                }
+                if (lsb_bytes > 0) {
+                    for (int64_t i = 0; i < count; i++)
+                        for (int c = 0; c < width; c++)
+                            lsb_dst[i * 2 + c] =
+                                (int32_t)r.get(lsb_bytes * 8);
+                }
+                const int sample_size = bps - lsb_bytes * 8 +
+                                        width - 1;
+                for (int c = 0; c < width; c++) {
+                    if (!read_residuals(
+                            r, o, sample_size, count,
+                            res_out + (n_subs + c) * spf))
+                        return (total > 0) ? -100 : -34;
+                    int32_t* sm = sub_meta + (n_subs + c) * 8;
+                    sm[0] = (int32_t)n_pairs;
+                    sm[1] = c;
+                    sm[2] = order[c];
+                    sm[3] = shift[c];
+                    sm[4] = sample_size;
+                    sm[5] = (int32_t)count;
+                    sm[6] = 0;
+                    sm[7] = 0;
+                }
+                pm[2] = lsb_bytes;
+                pm[3] = ishift;
+                pm[4] = (width == 2) ? lweight : 0;
+            }
+            pm[0] = fs_channels;
+            pm[1] = width;
+            pm[5] = (int32_t)count;
+            pm[6] = (int32_t)n_fs;
+            pm[7] = 0;
+
+            n_pairs++;
+            n_subs += width;
+            fs_channels += width;
+            if (this_count < 0) this_count = count;
+            else if (this_count != count)
+                return (total > 0) ? -100 : -35;
+
+            frame_channels = (int)r.get(3) + 1;
+            if (r.error) goto done;   // truncated buffer
+        }
+        r.byte_align();
+        if (fs_channels != channels)
+            return (total > 0) ? -100 : -37;
+        if (this_count < 0) break;
+        if (total + this_count > max_frames ||
+            r.error) {
+            n_subs = save_subs;
+            n_pairs = save_pairs;
+            break;
+        }
+        fs_count[n_fs] = (int32_t)this_count;
+        n_fs++;
+        total += this_count;
+        consumed = r.byte_pos();
+        save_subs = n_subs;
+        save_pairs = n_pairs;
+    }
+done:
+    // a frameset interrupted mid-walk (truncated buffer jumps here)
+    // must not leak its partial rows: roll back to the last COMPLETE
+    // frameset's counters
+    n_subs = save_subs;
+    n_pairs = save_pairs;
+    info[0] = n_subs;
+    info[1] = n_pairs;
+    info[2] = n_fs;
+    info[3] = total;
+    info[4] = consumed;
+    return total;
+}
+
+int64_t atpu_alac_decode(const uint8_t* data,
+                         int64_t len,
+                         int32_t bps,
+                         int32_t channels,
+                         int32_t samples_per_frame,
+                         int32_t initial_history,
+                         int32_t history_multiplier,
+                         int32_t maximum_k,
+                         int64_t max_frames,
+                         int32_t* out,
+                         int64_t* consumed_bytes) {
+    using namespace alac;
+    if (channels < 1 || channels > 8) return -30;
+    DecOpts o{initial_history, history_multiplier, maximum_k};
+
+    static thread_local int32_t* chan_buf = nullptr;
+    static thread_local int64_t chan_cap = 0;
+    const int64_t needed = (int64_t)samples_per_frame * (channels + 2);
+    if (needed > chan_cap) {
+        delete[] chan_buf;
+        chan_buf = new int32_t[needed * 2];
+        chan_cap = needed;
+    }
+    static thread_local uint32_t* lsb_buf = nullptr;
+    static thread_local int64_t lsb_cap = 0;
+    const int64_t lsb_needed = (int64_t)samples_per_frame * channels;
+    if (lsb_needed > lsb_cap) {
+        delete[] lsb_buf;
+        lsb_buf = new uint32_t[lsb_needed * 2];
+        lsb_cap = lsb_needed;
+    }
+
+    BitReader r(data, len);
+    int64_t total = 0;
+    *consumed_bytes = 0;
+
+    while (total < max_frames && r.byte_pos() < len) {
+        // one frameset
+        int32_t* frameset[8];
+        int fs_channels = 0;
+        int64_t fs_count = -1;
+
+        int frame_channels = (int)r.get(3) + 1;
+        if (r.error) break;
+        while (frame_channels != 8) {
+            const int width = frame_channels;
+            if (fs_channels + width > channels)
+                return (total > 0) ? total : -31;
+            int32_t* ch0 = chan_buf +
+                (int64_t)fs_channels * samples_per_frame;
+            int32_t* ch1 = ch0 + samples_per_frame;
+
+            r.get(16);
+            const int has_count = (int)r.get(1);
+            const int lsb_bytes = (int)r.get(2);
+            const int uncompressed = (int)r.get(1);
+            const int64_t count = has_count ? (int64_t)r.get(32)
+                                            : samples_per_frame;
+            if (count > samples_per_frame)
+                return (total > 0) ? total : -32;
+
+            if (uncompressed) {
+                for (int64_t i = 0; i < count; i++)
+                    for (int c = 0; c < width; c++)
+                        (c == 0 ? ch0 : ch1)[i] =
+                            (int32_t)r.get_signed(bps);
+            } else {
+                const int ishift = (int)r.get(8);
+                const int lweight = (int)r.get(8);
+                int32_t qlp[2][32];
+                int order[2];
+                int shift[2];
+                for (int c = 0; c < width; c++) {
+                    r.get(4);
+                    shift[c] = (int)r.get(4);
+                    r.get(3);
+                    order[c] = (int)r.get(5);
+                    if (order[c] > 32)
+                        return (total > 0) ? total : -33;
+                    for (int j = 0; j < order[c]; j++)
+                        qlp[c][j] = (int32_t)r.get_signed(16);
+                }
+                if (lsb_bytes > 0)
+                    for (int64_t i = 0; i < count * width; i++)
+                        lsb_buf[i] = (uint32_t)r.get(lsb_bytes * 8);
+                const int sample_size = bps - lsb_bytes * 8 +
+                                        width - 1;
+                for (int c = 0; c < width; c++) {
+                    int32_t* dst = (c == 0) ? ch0 : ch1;
+                    if (!read_residuals(r, o, sample_size, count,
+                                        dst))
+                        return (total > 0) ? total : -34;
+                    decode_subframe(qlp[c], order[c], shift[c],
+                                    sample_size, dst, count);
+                }
+                if (width == 2 && lweight != 0) {
+                    for (int64_t i = 0; i < count; i++) {
+                        const int64_t right = ch0[i] -
+                            (((int64_t)ch1[i] * lweight) >> ishift);
+                        ch0[i] = (int32_t)(ch1[i] + right);
+                        ch1[i] = (int32_t)right;
+                    }
+                }
+                if (lsb_bytes > 0) {
+                    const int ls = lsb_bytes * 8;
+                    for (int c = 0; c < width; c++) {
+                        int32_t* dst = (c == 0) ? ch0 : ch1;
+                        for (int64_t i = 0; i < count; i++)
+                            dst[i] = (int32_t)(((int64_t)dst[i] << ls) |
+                                               lsb_buf[i * width + c]);
+                    }
+                }
+            }
+
+            for (int c = 0; c < width; c++)
+                frameset[fs_channels + c] =
+                    (c == 0 ? ch0 : ch1);
+            fs_channels += width;
+            if (fs_count < 0) fs_count = count;
+            else if (fs_count != count)
+                return (total > 0) ? total : -35;
+
+            frame_channels = (int)r.get(3) + 1;
+            if (r.error) return total;   // truncated buffer
+        }
+        r.byte_align();
+        if (fs_channels != channels)
+            return (total > 0) ? total : -37;
+        if (fs_count < 0) break;
+        if (total + fs_count > max_frames) break;
+
+        // reorder ALAC frameset channels into wave order
+        const int* order_tbl = WAVE_ORDER_TBL[channels];
+        int32_t* dst = out + total * channels;
+        for (int c = 0; c < channels; c++) {
+            const int32_t* src = frameset[order_tbl[c]];
+            for (int64_t i = 0; i < fs_count; i++)
+                dst[i * channels + c] = src[i];
+        }
+        if (r.error) return total;       // truncated buffer
+        total += fs_count;
+        *consumed_bytes = r.byte_pos();
+    }
+    return total;
+}
+
+}  // extern "C"
+
+
+// ======================================================================
+// TTA (True Audio) — host codec kernels.
+//
+// Role of reference src/encoders/tta.c / src/decoders/tta.c (spec:
+// audiotools/py_encoders/tta.py, py_decoders/tta.py, mirrored by
+// audiotools_tpu/ref/tta.py).  The hybrid filter, fixed predictor and
+// two-level adaptive Rice coder are all per-sample recurrences with
+// 32-bit wraparound — host-serial by nature.  TTA bitstreams are
+// little-endian (LSB-first).
+
+namespace tta {
+
+struct LEWriter {
+    uint8_t* out;
+    int64_t pos;
+    uint64_t acc = 0;
+    int bits = 0;
+    explicit LEWriter(uint8_t* buffer, int64_t start)
+        : out(buffer), pos(start) {}
+    inline void put(uint64_t value, int nbits) {
+        acc |= (value & ((nbits >= 64) ? ~0ULL
+                                       : ((1ULL << nbits) - 1)))
+               << bits;
+        bits += nbits;
+        while (bits >= 8) {
+            out[pos++] = (uint8_t)acc;
+            acc >>= 8;
+            bits -= 8;
+        }
+    }
+    inline void put_unary1(uint32_t value) {
+        // value one-bits then a zero bit
+        while (value >= 32) {
+            put(0xFFFFFFFFu, 32);
+            value -= 32;
+        }
+        put((1ULL << value) - 1, value + 1);
+    }
+    inline void byte_align() {
+        if (bits) {
+            out[pos++] = (uint8_t)acc;
+            acc = 0;
+            bits = 0;
+        }
+    }
+};
+
+struct LEReader {
+    const uint8_t* data;
+    int64_t len;
+    int64_t pos = 0;
+    uint64_t acc = 0;
+    int bits = 0;
+    bool error = false;
+    LEReader(const uint8_t* d, int64_t n) : data(d), len(n) {}
+    // bulk refill: one 8-byte little-endian load appends every whole
+    // byte that fits (vs the byte-at-a-time feed loop, which costs a
+    // loop iteration per byte on the residual-decode hot path)
+    inline void refill_bulk() {
+        if (__builtin_expect(pos + 8 <= len, 1)) {
+            const int take = (64 - bits) >> 3;
+            if (take) {
+                uint64_t w;
+                memcpy(&w, data + pos, 8);
+                const int tb = take * 8;
+                if (tb < 64) w &= (1ULL << tb) - 1;
+                acc |= w << bits;
+                pos += take;
+                bits += tb;
+            }
+        }
+    }
+    inline uint64_t get(int nbits) {
+        if (__builtin_expect(bits < nbits, 0)) {
+            refill_bulk();
+            while (bits < nbits) {
+                if (pos >= len) { error = true; return 0; }
+                acc |= ((uint64_t)data[pos++]) << bits;
+                bits += 8;
+            }
+        }
+        const uint64_t v = acc & ((nbits >= 64) ? ~0ULL
+                                                : ((1ULL << nbits) - 1));
+        acc = (nbits >= 64) ? 0 : (acc >> nbits);
+        bits -= nbits;
+        return v;
+    }
+    inline uint32_t unary1() {
+        // counts one-bits before the next zero bit
+        uint32_t count = 0;
+        for (;;) {
+            if (bits == 0) {
+                refill_bulk();
+                if (bits == 0) {
+                    if (pos >= len) { error = true; return count; }
+                    acc = data[pos++];
+                    bits = 8;
+                }
+            }
+            if ((acc & 1) == 0) {
+                acc >>= 1;
+                bits -= 1;
+                return count;
+            }
+            // count trailing ones (bits may be up to 64 after a bulk
+            // refill: guard ~acc == 0 AND the tz+1 == 64 shift, which
+            // is UB and leaves acc unshifted on x86)
+            const uint64_t inv = ~acc;
+            if (inv == 0 || __builtin_ctzll(inv) >= bits) {
+                count += bits;
+                acc = 0;
+                bits = 0;
+            } else {
+                const int tz = __builtin_ctzll(inv);
+                count += tz;
+                acc = (tz + 1 >= 64) ? 0 : (acc >> (tz + 1));
+                bits -= (tz + 1);
+                return count;
+            }
+        }
+    }
+    inline void byte_align() {
+        // drop only the partial byte: bulk refills may have whole
+        // unread bytes buffered in acc
+        const int drop = bits & 7;
+        acc >>= drop;
+        bits -= drop;
+    }
+    inline int64_t byte_pos() const { return pos - bits / 8; }
+};
+
+static const uint32_t* crc32_table() {
+    static uint32_t table[256];
+    static bool done = false;
+    if (!done) {
+        for (uint32_t b = 0; b < 256; b++) {
+            uint32_t c = b;
+            for (int i = 0; i < 8; i++)
+                c = (c & 1) ? (0xEDB88320u ^ (c >> 1)) : (c >> 1);
+            table[b] = c;
+        }
+        done = true;
+    }
+    return table;
+}
+
+static uint32_t crc32_buf(const uint8_t* p, int64_t n) {
+    const uint32_t* table = crc32_table();
+    uint32_t crc = 0xFFFFFFFFu;
+    for (int64_t i = 0; i < n; i++)
+        crc = table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    return crc ^ 0xFFFFFFFFu;
+}
+
+static inline int shift_for(int bps) { return (bps == 8) ? 4 : 5; }
+static inline int fshift_for(int bps) { return (bps == 16) ? 9 : 10; }
+
+struct Filter {
+    int32_t qm[8] = {0};
+    int32_t dx[8] = {0};
+    int32_t dl[8] = {0};
+    int32_t prev_res = 0;
+
+    // shared state stepping for encode (residual from p) and decode
+    // (p from residual); ref/tta.py tta_filter/tta_unfilter
+    inline void adapt() {
+        if (prev_res < 0)
+            for (int j = 0; j < 8; j++) qm[j] -= dx[j];
+        else if (prev_res > 0)
+            for (int j = 0; j < 8; j++) qm[j] += dx[j];
+    }
+    inline int32_t dot(int round_v) const {
+        int64_t sum = round_v;
+        for (int j = 0; j < 8; j++)
+            sum += (int64_t)dl[j] * qm[j];
+        return (int32_t)(uint32_t)sum;     // 32-bit wraparound
+    }
+    inline void shift_state(int32_t p) {
+        dx[0] = dx[1]; dx[1] = dx[2]; dx[2] = dx[3]; dx[3] = dx[4];
+        dx[4] = (dl[4] >= 0) ? 1 : -1;
+        dx[5] = (dl[5] >= 0) ? 2 : -2;
+        dx[6] = (dl[6] >= 0) ? 2 : -2;
+        dx[7] = (dl[7] >= 0) ? 4 : -4;
+        const int32_t d7 = p - dl[7];
+        const int32_t d6 = -dl[6] + d7;
+        const int32_t d5 = -dl[5] + d6;
+        dl[0] = dl[1]; dl[1] = dl[2]; dl[2] = dl[3]; dl[3] = dl[4];
+        dl[4] = d5; dl[5] = d6; dl[6] = d7; dl[7] = p;
+    }
+};
+
+struct Rice {
+    int k0 = 10, k1 = 10;
+    int64_t sum0 = 1 << 14, sum1 = 1 << 14;
+};
+
+}  // namespace tta
+
+extern "C" {
+
+// Encodes TTA frames from interleaved PCM.
+//
+// samples: int32 [total_frames, channels]; frame_sizes: PCM frames
+// per TTA frame.  Writes each frame's payload + little-endian CRC-32
+// to out; out_ends holds cumulative byte offsets.
+int64_t atpu_tta_encode_frames(const int32_t* samples,
+                               const int32_t* frame_sizes,
+                               int64_t n_tta_frames,
+                               int32_t channels,
+                               int32_t bps,
+                               uint8_t* out,
+                               int64_t* out_ends) {
+    using namespace tta;
+    const int shift = shift_for(bps);
+    const int fshift = fshift_for(bps);
+    const int32_t round_v = 1 << (fshift - 1);
+
+    static thread_local int32_t* cor = nullptr;
+    static thread_local int64_t cor_cap = 0;
+
+    int64_t sample_pos = 0;
+    int64_t out_pos = 0;
+    for (int64_t f = 0; f < n_tta_frames; f++) {
+        const int64_t n = frame_sizes[f];
+        if (n * channels > cor_cap) {
+            delete[] cor;
+            cor = new int32_t[n * channels * 2];
+            cor_cap = n * channels;
+        }
+        const int32_t* pcm = samples + sample_pos * channels;
+
+        // channel decorrelation (ref/tta.py correlate_channels)
+        if (channels == 1) {
+            for (int64_t i = 0; i < n; i++) cor[i] = pcm[i];
+        } else {
+            for (int64_t i = 0; i < n; i++) {
+                const int32_t* row = pcm + i * channels;
+                int32_t* crow = cor + i * channels;
+                for (int c = 0; c < channels - 1; c++)
+                    crow[c] = row[c + 1] - row[c];
+                const int32_t prev = crow[channels - 2];
+                const int32_t half = (prev >= 0) ? (prev / 2)
+                                                 : -((-prev) / 2);
+                crow[channels - 1] = row[channels - 1] - half;
+            }
+        }
+
+        LEWriter w(out, out_pos);
+        Filter filt[8];
+        Rice rice[8];
+        int32_t prev_cor[8] = {0};   // for the fixed predictor
+
+        for (int64_t i = 0; i < n; i++) {
+            for (int c = 0; c < channels; c++) {
+                const int32_t x = cor[i * channels + c];
+                // fixed predictor
+                int32_t predicted;
+                if (i == 0) {
+                    predicted = x;
+                } else {
+                    const int32_t prev = prev_cor[c];
+                    predicted = x -
+                        (int32_t)((((int64_t)prev << shift) - prev) >>
+                                  shift);
+                }
+                prev_cor[c] = x;
+
+                // hybrid adaptive filter
+                Filter& ft = filt[c];
+                int32_t residual;
+                if (i == 0) {
+                    residual = predicted + (round_v >> fshift);
+                } else {
+                    ft.adapt();
+                    residual = predicted - (ft.dot(round_v) >> fshift);
+                }
+                ft.prev_res = residual;
+                ft.shift_state(predicted);
+
+                // two-level adaptive Rice
+                Rice& rc = rice[c];
+                const uint32_t unsigned_v = (residual > 0)
+                    ? (uint32_t)(residual * 2 - 1)
+                    : (uint32_t)(-residual) * 2;
+                if (unsigned_v < (1u << rc.k0)) {
+                    w.put(0, 1);
+                    w.put(unsigned_v, rc.k0);
+                } else {
+                    const uint32_t shifted = unsigned_v -
+                        (1u << rc.k0);
+                    const uint32_t msb = 1 + (shifted >> rc.k1);
+                    const uint32_t lsb = shifted -
+                        ((msb - 1) << rc.k1);
+                    w.put_unary1(msb);
+                    w.put(lsb, rc.k1);
+                    rc.sum1 += shifted - (rc.sum1 >> 4);
+                    if (rc.sum1 < (1LL << (rc.k1 + 4))) {
+                        if (rc.k1 > 0) rc.k1 -= 1;
+                    } else if (rc.sum1 > (1LL << (rc.k1 + 5))) {
+                        rc.k1 += 1;
+                    }
+                }
+                rc.sum0 += unsigned_v - (rc.sum0 >> 4);
+                if (rc.sum0 < (1LL << (rc.k0 + 4))) {
+                    if (rc.k0 > 0) rc.k0 -= 1;
+                } else if (rc.sum0 > (1LL << (rc.k0 + 5))) {
+                    rc.k0 += 1;
+                }
+            }
+        }
+        w.byte_align();
+        const uint32_t crc = crc32_buf(out + out_pos, w.pos - out_pos);
+        out[w.pos] = (uint8_t)crc;
+        out[w.pos + 1] = (uint8_t)(crc >> 8);
+        out[w.pos + 2] = (uint8_t)(crc >> 16);
+        out[w.pos + 3] = (uint8_t)(crc >> 24);
+        out_pos = w.pos + 4;
+        out_ends[f] = out_pos;
+        sample_pos += n;
+    }
+    return out_pos;
+}
+
+// Packs PRECOMPUTED TTA residuals (the device analysis path,
+// ATPU_TTA_BACKEND=jax: ops/tta_scan.py runs the decorrelation +
+// fixed predictor + hybrid adaptive filter as batched scans and this
+// kernel serializes them) with the two-level adaptive Rice coder and
+// per-frame CRC-32 — the byte-serial tail of atpu_tta_encode_frames.
+//
+// residuals: int32 [total_frames, channels] filter output in frame
+// order; frame_sizes: PCM frames per TTA frame.  Byte-identical to
+// the fused encoder for identical residuals.
+int64_t atpu_tta_pack_frames(const int32_t* residuals,
+                             const int32_t* frame_sizes,
+                             int64_t n_tta_frames,
+                             int32_t channels,
+                             uint8_t* out,
+                             int64_t* out_ends) {
+    using namespace tta;
+    int64_t sample_pos = 0;
+    int64_t out_pos = 0;
+    for (int64_t f = 0; f < n_tta_frames; f++) {
+        const int64_t n = frame_sizes[f];
+        const int32_t* res = residuals + sample_pos * channels;
+        LEWriter w(out, out_pos);
+        Rice rice[8];
+        for (int64_t i = 0; i < n; i++) {
+            for (int c = 0; c < channels; c++) {
+                const int32_t residual = res[i * channels + c];
+                Rice& rc = rice[c];
+                const uint32_t unsigned_v = (residual > 0)
+                    ? (uint32_t)(residual * 2 - 1)
+                    : (uint32_t)(-residual) * 2;
+                if (unsigned_v < (1u << rc.k0)) {
+                    w.put(0, 1);
+                    w.put(unsigned_v, rc.k0);
+                } else {
+                    const uint32_t shifted = unsigned_v -
+                        (1u << rc.k0);
+                    const uint32_t msb = 1 + (shifted >> rc.k1);
+                    const uint32_t lsb = shifted -
+                        ((msb - 1) << rc.k1);
+                    w.put_unary1(msb);
+                    w.put(lsb, rc.k1);
+                    rc.sum1 += shifted - (rc.sum1 >> 4);
+                    if (rc.sum1 < (1LL << (rc.k1 + 4))) {
+                        if (rc.k1 > 0) rc.k1 -= 1;
+                    } else if (rc.sum1 > (1LL << (rc.k1 + 5))) {
+                        rc.k1 += 1;
+                    }
+                }
+                rc.sum0 += unsigned_v - (rc.sum0 >> 4);
+                if (rc.sum0 < (1LL << (rc.k0 + 4))) {
+                    if (rc.k0 > 0) rc.k0 -= 1;
+                } else if (rc.sum0 > (1LL << (rc.k0 + 5))) {
+                    rc.k0 += 1;
+                }
+            }
+        }
+        w.byte_align();
+        const uint32_t crc = crc32_buf(out + out_pos, w.pos - out_pos);
+        out[w.pos] = (uint8_t)crc;
+        out[w.pos + 1] = (uint8_t)(crc >> 8);
+        out[w.pos + 2] = (uint8_t)(crc >> 16);
+        out[w.pos + 3] = (uint8_t)(crc >> 24);
+        out_pos = w.pos + 4;
+        out_ends[f] = out_pos;
+        sample_pos += n;
+    }
+    return out_pos;
+}
+
+// Decodes one TTA frame of n PCM frames; returns bytes consumed or a
+// negative error code.
+int64_t atpu_tta_decode_frame(const uint8_t* data,
+                              int64_t len,
+                              int64_t n,
+                              int32_t channels,
+                              int32_t bps,
+                              int32_t* out,
+                              int32_t verify_crc) {
+    using namespace tta;
+    if (channels > 8) return -50;
+    const int shift = shift_for(bps);
+    const int fshift = fshift_for(bps);
+    const int32_t round_v = 1 << (fshift - 1);
+
+    LEReader r(data, len);
+    Filter filt[8];
+    Rice rice[8];
+    int32_t prev_out[8] = {0};
+
+    for (int64_t i = 0; i < n; i++) {
+        for (int c = 0; c < channels; c++) {
+            Rice& rc = rice[c];
+            const uint32_t msb = r.unary1();
+            uint32_t unsigned_v;
+            if (msb == 0) {
+                unsigned_v = (uint32_t)r.get(rc.k0);
+            } else {
+                const uint32_t lsb = (uint32_t)r.get(rc.k1);
+                const uint32_t shifted = ((msb - 1) << rc.k1) | lsb;
+                unsigned_v = shifted + (1u << rc.k0);
+                rc.sum1 += shifted - (rc.sum1 >> 4);
+                if (rc.sum1 < (1LL << (rc.k1 + 4))) {
+                    if (rc.k1 > 0) rc.k1 -= 1;
+                } else if (rc.sum1 > (1LL << (rc.k1 + 5))) {
+                    rc.k1 += 1;
+                }
+            }
+            const int32_t residual = (unsigned_v & 1)
+                ? (int32_t)((unsigned_v + 1) >> 1)
+                : -(int32_t)(unsigned_v >> 1);
+            rc.sum0 += unsigned_v - (rc.sum0 >> 4);
+            if (rc.sum0 < (1LL << (rc.k0 + 4))) {
+                if (rc.k0 > 0) rc.k0 -= 1;
+            } else if (rc.sum0 > (1LL << (rc.k0 + 5))) {
+                rc.k0 += 1;
+            }
+            if (r.error) return -51;
+
+            // inverse hybrid filter
+            Filter& ft = filt[c];
+            int32_t predicted;
+            if (i == 0) {
+                predicted = residual - (round_v >> fshift);
+            } else {
+                ft.adapt();
+                predicted = residual + (ft.dot(round_v) >> fshift);
+            }
+            ft.prev_res = residual;
+            ft.shift_state(predicted);
+
+            // inverse fixed predictor
+            int32_t x;
+            if (i == 0) {
+                x = predicted;
+            } else {
+                const int32_t prev = prev_out[c];
+                x = predicted +
+                    (int32_t)((((int64_t)prev << shift) - prev) >>
+                              shift);
+            }
+            prev_out[c] = x;
+            out[i * channels + c] = x;
+        }
+    }
+    r.byte_align();
+    const int64_t payload = r.byte_pos();
+    if (payload + 4 > len) return -52;
+    if (verify_crc) {
+        const uint32_t expected = crc32_buf(data, payload);
+        const uint32_t stored = (uint32_t)data[payload] |
+            ((uint32_t)data[payload + 1] << 8) |
+            ((uint32_t)data[payload + 2] << 16) |
+            ((uint32_t)data[payload + 3] << 24);
+        if (expected != stored) return -53;
+    }
+
+    // inverse channel decorrelation
+    if (channels > 1) {
+        for (int64_t i = 0; i < n; i++) {
+            int32_t* row = out + i * channels;
+            const int32_t prev = row[channels - 2];
+            const int32_t half = (prev >= 0) ? (prev / 2)
+                                             : -((-prev) / 2);
+            row[channels - 1] += half;
+            for (int c = channels - 2; c >= 0; c--)
+                row[c] = row[c + 1] - row[c];
+        }
+    }
+    return payload + 4;
+}
+
+// Residual-only entropy unpack of concatenated TTA frames for the
+// DEVICE decode path (ATPU_TTA_DEC_BACKEND=jax): runs the two-level
+// adaptive Rice decoder (whose k0/k1 adaptation depends only on the
+// unsigned values, never on the filter) and the per-frame CRC-32,
+// WITHOUT the hybrid filter / fixed predictor / decorrelation — the
+// device inverts those as one fused scan (ops/tta_synth.py).
+// Reference per-sample loop: src/decoders/tta.c:849.
+//
+// data: concatenated frame bytes; frame_lens: bytes per frame;
+// frame_sizes: PCM frames per frame; out: int32 [total, channels].
+int64_t atpu_tta_scan_residuals(const uint8_t* data,
+                                int64_t len,
+                                const int64_t* frame_lens,
+                                const int32_t* frame_sizes,
+                                int64_t n_tta_frames,
+                                int32_t channels,
+                                int32_t* out,
+                                int32_t verify_crc) {
+    using namespace tta;
+    if (channels > 8) return -50;
+    int64_t byte_pos = 0;
+    int64_t sample_pos = 0;
+    for (int64_t f = 0; f < n_tta_frames; f++) {
+        const int64_t n = frame_sizes[f];
+        const int64_t flen = frame_lens[f];
+        if (byte_pos + flen > len) return -52;
+        LEReader r(data + byte_pos, flen);
+        Rice rice[8];
+        int32_t* res_out = out + sample_pos * channels;
+        for (int64_t i = 0; i < n; i++) {
+            for (int c = 0; c < channels; c++) {
+                Rice& rc = rice[c];
+                const uint32_t msb = r.unary1();
+                uint32_t unsigned_v;
+                if (msb == 0) {
+                    unsigned_v = (uint32_t)r.get(rc.k0);
+                } else {
+                    const uint32_t lsb = (uint32_t)r.get(rc.k1);
+                    const uint32_t shifted =
+                        ((msb - 1) << rc.k1) | lsb;
+                    unsigned_v = shifted + (1u << rc.k0);
+                    rc.sum1 += shifted - (rc.sum1 >> 4);
+                    if (rc.sum1 < (1LL << (rc.k1 + 4))) {
+                        if (rc.k1 > 0) rc.k1 -= 1;
+                    } else if (rc.sum1 > (1LL << (rc.k1 + 5))) {
+                        rc.k1 += 1;
+                    }
+                }
+                res_out[i * channels + c] = (unsigned_v & 1)
+                    ? (int32_t)((unsigned_v + 1) >> 1)
+                    : -(int32_t)(unsigned_v >> 1);
+                rc.sum0 += unsigned_v - (rc.sum0 >> 4);
+                if (rc.sum0 < (1LL << (rc.k0 + 4))) {
+                    if (rc.k0 > 0) rc.k0 -= 1;
+                } else if (rc.sum0 > (1LL << (rc.k0 + 5))) {
+                    rc.k0 += 1;
+                }
+                if (r.error) return -51;
+            }
+        }
+        r.byte_align();
+        const int64_t payload = r.byte_pos();
+        if (payload + 4 > flen) return -52;
+        if (verify_crc) {
+            const uint32_t expected = crc32_buf(data + byte_pos,
+                                                payload);
+            const uint32_t stored =
+                (uint32_t)data[byte_pos + payload] |
+                ((uint32_t)data[byte_pos + payload + 1] << 8) |
+                ((uint32_t)data[byte_pos + payload + 2] << 16) |
+                ((uint32_t)data[byte_pos + payload + 3] << 24);
+            if (expected != stored) return -53;
+        }
+        byte_pos += flen;
+        sample_pos += n;
+    }
+    return sample_pos;
+}
+
+}  // extern "C"
+

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import _native, pcm
-from .._device import resolve_device
+from .._device import StageMarks, fetch_async, resolve_device
 from ..ops import flac_synth, rice_decode
 
 # frames per device batch
@@ -134,22 +134,28 @@ class HostBatch:
                        for (k, v) in arrays.items()}
 
 
-def upload_batch(batch, dev):
-    """the batch's arrays on ``dev`` as a dict of int32 tensors: one
-    copy of one buffer, from pinned memory on a card (asynchronous)"""
-    sizes = [a.size for a in batch.arrays.values()]
+def upload_arrays(arrays, dev):
+    """a dict of int32 numpy arrays on ``dev`` as a dict of int32
+    tensors: one copy of one buffer, from pinned memory on a card
+    (asynchronous)"""
+    sizes = [a.size for a in arrays.values()]
     flat = torch.empty(sum(sizes), dtype=torch.int32,
                        pin_memory=dev.type == "cuda")
-    np.concatenate([a.reshape(-1) for a in batch.arrays.values()],
+    np.concatenate([a.reshape(-1) for a in arrays.values()],
                    out=flat.numpy())
     if dev.type == "cuda":
         flat = flat.to(dev, non_blocking=True)
     out = {}
     start = 0
-    for ((name, a), size) in zip(batch.arrays.items(), sizes):
+    for ((name, a), size) in zip(arrays.items(), sizes):
         out[name] = flat[start:start + size].view(a.shape)
         start += size
     return out
+
+
+def upload_batch(batch, dev):
+    """the batch's arrays on ``dev`` (``upload_arrays``)"""
+    return upload_arrays(batch.arrays, dev)
 
 
 def decode_residuals(batch, tensors):
@@ -203,8 +209,7 @@ def reconstruct_batch(batch, tensors, samples):
 
 class _Inflight:
     """one enqueued batch: its PCM on its way to host memory, and the
-    marks between its device stages (CUDA events on a card, host
-    clock readings on the CPU)"""
+    StageMarks between its device stages"""
 
     def __init__(self, batch, host, marks):
         self.batch = batch
@@ -458,47 +463,28 @@ class TorchFlacDecoder:
     def _enqueue(self, batch):
         """enqueues one batch's device stages and the fetch of its PCM;
         on a card returns without waiting for the device"""
-        on_cuda = self.device.type == "cuda"
-        marks = []
-
-        def mark():
-            if on_cuda:
-                marks.append(torch.cuda.Event(enable_timing=True))
-                marks[-1].record()
-            else:
-                marks.append(time.perf_counter())
-
-        mark()
+        marks = StageMarks(self.device)
+        marks.mark()
         tensors = upload_batch(batch, self.device)
-        mark()
+        marks.mark()
         vals = decode_residuals(batch, tensors)
-        mark()
+        marks.mark()
         planes = assemble_residuals(batch, tensors, vals)
-        mark()
+        marks.mark()
         (shift, order) = tensors["sub"][:2]
         samples = flac_synth.synthesize(planes, tensors["warmup"],
                                         tensors["qlp"], shift, order)
-        mark()
+        marks.mark()
         host = reconstruct_batch(batch, tensors, samples)
-        mark()
-        if on_cuda:
-            pinned = torch.empty(host.shape, dtype=host.dtype,
-                                 pin_memory=True)
-            host = pinned.copy_(host, non_blocking=True)
-        mark()
+        marks.mark()
+        host = fetch_async(host)
+        marks.mark()
         return _Inflight(batch, host, marks)
 
     def _fetch(self, inflight):
         """waits for a batch's PCM in host memory; returns it trimmed
         per frame as int32 [frames, channels]"""
-        marks = inflight.marks
-        if self.device.type == "cuda":
-            marks[-1].synchronize()
-            times = [a.elapsed_time(b) / 1e3
-                     for (a, b) in zip(marks, marks[1:])]
-        else:
-            times = np.diff(marks).tolist()
-        for (stage, t) in zip(STAGES[2:], times):
+        for (stage, t) in zip(STAGES[2:], inflight.marks.seconds()):
             self.timings[stage] += t
         batch = inflight.batch
         out = inflight.host.numpy().astype(np.int32)

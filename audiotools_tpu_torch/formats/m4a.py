@@ -1,0 +1,277 @@
+"""The ALAC M4A container writer.
+
+Port of the write path of the reference's ``ALACAudio.from_pcm``
+(``audiotools_tpu/formats/m4a.py``) with its atom builders and the
+leaf, tree and meta atom classes of ``meta/m4a_atoms.py`` that they
+use: ftyp, then moov (mvhd, trak with tkhd and mdia: mdhd, hdlr and
+minf with smhd, dinf/dref and stbl: stsd(alac), stts, stsc, stsz,
+stco; udta/meta with an ilst naming the encoder), then the mdat that
+``codecs.alac_fast.encode_mdat_fast`` writes.  Metadata editing is not
+ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import struct
+import time
+
+from ..codecs.alac_fast import encode_mdat_fast
+
+# the reference package's version, which the meta atom names
+VERSION = "0.1.0"
+
+BLOCK_SIZE = 4096
+INITIAL_HISTORY = 10
+HISTORY_MULTIPLIER = 40
+MAXIMUM_K = 14
+
+# channel masks ALAC can carry (0 = undefined)
+SUPPORTED_CHANNEL_MASKS = (0x0001, 0x0004, 0x0003, 0x0007, 0x0107,
+                           0x0037, 0x003F, 0x013F, 0x00FF, 0x0000)
+
+# seconds from the QuickTime epoch (1904) to the Unix epoch (1970)
+QUICKTIME_EPOCH_OFFSET = 2082844800
+
+
+class LeafAtom:
+    def __init__(self, name, data):
+        self.name = name
+        self.data = data
+
+    def size(self):
+        return len(self.data)
+
+    def build(self):
+        return struct.pack(">I", self.size() + 8) + self.name + self.data
+
+
+class TreeAtom:
+    def __init__(self, name, leaf_atoms):
+        self.name = name
+        self.leaf_atoms = list(leaf_atoms)
+
+    def size(self):
+        return sum(8 + leaf.size() for leaf in self.leaf_atoms)
+
+    def build(self):
+        payload = b"".join(leaf.build() for leaf in self.leaf_atoms)
+        return struct.pack(">I", len(payload) + 8) + self.name + payload
+
+
+class MetaAtom(TreeAtom):
+    """the meta atom: a version and flags word (0) before its children"""
+
+    def __init__(self, leaf_atoms):
+        TreeAtom.__init__(self, b"meta", leaf_atoms)
+
+    def size(self):
+        return 4 + TreeAtom.size(self)
+
+    def build(self):
+        payload = b"".join(leaf.build() for leaf in self.leaf_atoms)
+        return (struct.pack(">I", len(payload) + 12) + b"meta" +
+                b"\x00" * 4 + payload)
+
+
+def ilst_string_atom(name, text):
+    """an ilst text entry"""
+    payload = struct.pack(">I", 1) + b"\x00" * 4 + text.encode("utf-8")
+    return TreeAtom(name, [LeafAtom(b"data", payload)])
+
+
+def write_m4a(file_or_path, pcmreader, block_size=BLOCK_SIZE,
+              create_date=None, device="cuda", timings=None):
+    """encodes an ALAC M4A file from a PCMReader on a torch device
+
+    file_or_path: a path or a writable binary file.  create_date: the
+    QuickTime creation time written into mvhd, tkhd and mdhd (default:
+    now, as the reference).  device, timings: passed to
+    encode_mdat_fast.  The reader is closed at the end, as the
+    reference's from_pcm closes it.  Raises ValueError for bits per
+    sample other than 16 or 24 or a channel mask ALAC cannot carry.
+
+    returns (frame_byte_sizes, total_pcm_frames)"""
+    try:
+        if pcmreader.bits_per_sample not in (16, 24):
+            raise ValueError("unsupported bits per sample %d"
+                             % (pcmreader.bits_per_sample,))
+        if int(pcmreader.channel_mask) not in SUPPORTED_CHANNEL_MASKS:
+            raise ValueError("unsupported channel mask 0x%X"
+                             % (int(pcmreader.channel_mask),))
+        if create_date is None:
+            create_date = int(time.time()) + QUICKTIME_EPOCH_OFFSET
+        mdat = io.BytesIO()
+        (frame_byte_sizes, total_pcm_frames) = encode_mdat_fast(
+            mdat, pcmreader, block_size=block_size,
+            initial_history=INITIAL_HISTORY,
+            history_multiplier=HISTORY_MULTIPLIER, maximum_k=MAXIMUM_K,
+            device=device, timings=timings)
+        mdat_size = 8 + sum(frame_byte_sizes)
+        ftyp = ftyp_atom()
+        # the chunk offsets depend on the moov's own size
+        moov = moov_atom(pcmreader, create_date, 0, mdat_size, block_size,
+                         total_pcm_frames, frame_byte_sizes)
+        pre_mdat_size = len(ftyp) + 8 + moov.size()
+        moov = moov_atom(pcmreader, create_date, pre_mdat_size, mdat_size,
+                         block_size, total_pcm_frames, frame_byte_sizes)
+        if isinstance(file_or_path, str):
+            opened = open(file_or_path, "wb")
+        else:
+            opened = contextlib.nullcontext(file_or_path)
+        with opened as f:
+            f.write(ftyp)
+            f.write(moov.build())
+            f.write(mdat.getbuffer())
+        return (frame_byte_sizes, total_pcm_frames)
+    finally:
+        pcmreader.close()
+
+
+def ftyp_atom():
+    payload = b"M4A \x00\x00\x00\x00" + b"M4A mp42isom" + b"\x00" * 4
+    return struct.pack(">I", len(payload) + 8) + b"ftyp" + payload
+
+
+def moov_atom(pcmreader, create_date, mdat_offset, mdat_size, block_size,
+              total_pcm_frames, frame_byte_sizes):
+    return TreeAtom(b"moov", [
+        mvhd_atom(pcmreader, create_date, total_pcm_frames),
+        TreeAtom(b"trak", [
+            tkhd_atom(create_date, total_pcm_frames),
+            TreeAtom(b"mdia", [
+                mdhd_atom(pcmreader, create_date, total_pcm_frames),
+                hdlr_atom(),
+                TreeAtom(b"minf", [
+                    smhd_atom(),
+                    TreeAtom(b"dinf", [dref_atom()]),
+                    TreeAtom(b"stbl", [
+                        stsd_atom(pcmreader, mdat_size, block_size,
+                                  total_pcm_frames, frame_byte_sizes),
+                        stts_atom(total_pcm_frames, block_size),
+                        stsc_atom(total_pcm_frames, block_size),
+                        stsz_atom(frame_byte_sizes),
+                        stco_atom(mdat_offset, frame_byte_sizes),
+                    ])])])]),
+        TreeAtom(b"udta", [meta_atom()])])
+
+
+def mvhd_atom(pcmreader, create_date, total_pcm_frames):
+    data = struct.pack(">BxxxIIIIIH", 0, create_date, create_date,
+                       pcmreader.sample_rate, total_pcm_frames, 0x10000,
+                       0x100)
+    data += b"\x00" * 10
+    data += struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                        0x40000000)
+    data += struct.pack(">6I", 0, 0, 0, 0, 0, 0)
+    data += struct.pack(">I", 2)
+    return LeafAtom(b"mvhd", data)
+
+
+def tkhd_atom(create_date, total_pcm_frames):
+    data = struct.pack(">B3BIIIxxxxI", 0, 0, 0, 7, create_date,
+                       create_date, 1, total_pcm_frames)
+    data += b"\x00" * 8
+    data += struct.pack(">HHHxx", 0, 0, 0x100)
+    data += struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                        0x40000000)
+    data += struct.pack(">II", 0, 0)
+    return LeafAtom(b"tkhd", data)
+
+
+def mdhd_atom(pcmreader, create_date, total_pcm_frames):
+    language = 0
+    for c in "und":
+        language = (language << 5) | (ord(c) - 0x60)
+    data = struct.pack(">BxxxIIIIHH", 0, create_date, create_date,
+                       pcmreader.sample_rate, total_pcm_frames, language, 0)
+    return LeafAtom(b"mdhd", data)
+
+
+def hdlr_atom():
+    return LeafAtom(b"hdlr", b"\x00" * 8 + b"soun" + b"\x00" * 13)
+
+
+def smhd_atom():
+    return LeafAtom(b"smhd", b"\x00" * 8)
+
+
+def dref_atom():
+    url = struct.pack(">I", 12) + b"url " + b"\x00\x00\x00\x01"
+    return LeafAtom(b"dref", struct.pack(">BxxxI", 0, 1) + url)
+
+
+def stsd_atom(pcmreader, mdat_size, block_size, total_pcm_frames,
+              frame_byte_sizes):
+    sub_alac = struct.pack(
+        ">IxBBBBBHIII", block_size, pcmreader.bits_per_sample,
+        HISTORY_MULTIPLIER, INITIAL_HISTORY, MAXIMUM_K, pcmreader.channels,
+        0x00FF, max(frame_byte_sizes) if frame_byte_sizes else 0,
+        ((mdat_size * 8 * pcmreader.sample_rate) // total_pcm_frames)
+        if total_pcm_frames else 0,
+        pcmreader.sample_rate)
+    sub_alac_atom = (struct.pack(">I", len(sub_alac) + 12) + b"alac" +
+                     b"\x00" * 4 + sub_alac)
+    alac = (b"\x00" * 6 +                               # reserved
+            struct.pack(">H", 1) +                      # data ref index
+            struct.pack(">HH", 0, 0) +                  # version/revision
+            b"\x00" * 4 +                               # vendor
+            struct.pack(">HH", pcmreader.channels,
+                        pcmreader.bits_per_sample) +
+            struct.pack(">HH", 0, 0) +                  # compression/packet
+            struct.pack(">I", 0xAC440000) +             # fixed sample rate
+            sub_alac_atom)
+    alac_atom = struct.pack(">I", len(alac) + 8) + b"alac" + alac
+    return LeafAtom(b"stsd", struct.pack(">BxxxI", 0, 1) + alac_atom)
+
+
+def stts_atom(total_pcm_frames, block_size):
+    times = [(total_pcm_frames // block_size, block_size),
+             (1, total_pcm_frames % block_size)]
+    times = [t for t in times if t[0] > 0 and t[1] > 0]
+    data = struct.pack(">BxxxI", 0, len(times))
+    for (count, duration) in times:
+        data += struct.pack(">II", count, duration)
+    return LeafAtom(b"stts", data)
+
+
+def stsc_atom(total_pcm_frames, block_size):
+    alac_frames = -(-total_pcm_frames // block_size)
+    per_chunk = 5
+    if alac_frames < per_chunk:
+        blocks = [(1, alac_frames, 1)]
+    else:
+        blocks = [(1, per_chunk, 1)]
+        if alac_frames % per_chunk:
+            blocks.append((1 + alac_frames // per_chunk,
+                           alac_frames % per_chunk, 1))
+    data = struct.pack(">BxxxI", 0, len(blocks))
+    for (first, count, desc) in blocks:
+        data += struct.pack(">III", first, count, desc)
+    return LeafAtom(b"stsc", data)
+
+
+def stsz_atom(frame_byte_sizes):
+    return LeafAtom(b"stsz", struct.pack(
+        ">BxxxII%dI" % (len(frame_byte_sizes),), 0, 0,
+        len(frame_byte_sizes), *frame_byte_sizes))
+
+
+def stco_atom(mdat_offset, frame_byte_sizes):
+    per_chunk = 5
+    offsets = []
+    offset = mdat_offset + 8
+    for start in range(0, len(frame_byte_sizes), per_chunk):
+        offsets.append(offset)
+        offset += sum(frame_byte_sizes[start:start + per_chunk])
+    return LeafAtom(b"stco", struct.pack(
+        ">BxxxI%dI" % (len(offsets),), 0, len(offsets), *offsets))
+
+
+def meta_atom():
+    return MetaAtom([
+        LeafAtom(b"hdlr", b"\x00" * 8 + b"mdir" + b"appl" + b"\x00" * 9),
+        TreeAtom(b"ilst", [ilst_string_atom(
+            b"\xa9too", "tpu-audio-tools %s" % (VERSION,))]),
+        LeafAtom(b"free", b"\x00" * 1024)])

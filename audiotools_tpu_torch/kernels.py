@@ -124,6 +124,14 @@ def load():
             [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p])
         lib.atpu_flac_synth.restype = ctypes.c_int
+        lib.atpu_alac_synth.argtypes = (
+            [ctypes.c_void_p] * 5 +
+            [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
+        lib.atpu_alac_synth.restype = ctypes.c_int
+        lib.atpu_tta_synth.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 4 +
+            [ctypes.c_void_p, ctypes.c_void_p])
+        lib.atpu_tta_synth.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -193,4 +201,44 @@ def flac_synth(residuals, warmup, qlp, shift, order, out):
             _stream_ptr(residuals.device))
     if rc != 0:
         raise RuntimeError("flac_synth kernel launch failed: CUDA "
+                           "error %d" % (rc,))
+
+
+def alac_synth(residuals, qlp, order, shift, sample_size, max_order, kmax,
+               out):
+    """launches csrc/alac_synth.cu: inverts the sign-adaptive
+    predictors of the rows of ``residuals`` [S, n] into ``out`` [S, n]
+
+    All contiguous int32 CUDA tensors on one device; the caller
+    (ops/alac_synth.synthesize) validates the arguments and picks
+    kmax."""
+    import torch
+    lib = load()
+    (S, n) = residuals.shape
+    with torch.cuda.device(residuals.device):
+        rc = lib.atpu_alac_synth(
+            _ptr(residuals), _ptr(qlp), _ptr(order), _ptr(shift),
+            _ptr(sample_size), S, n, qlp.shape[1], max_order, kmax,
+            _ptr(out), _stream_ptr(residuals.device))
+    if rc != 0:
+        raise RuntimeError("alac_synth kernel launch failed: CUDA "
+                           "error %d" % (rc,))
+
+
+def tta_synth(residuals, fshift, shift, out):
+    """launches csrc/tta_synth.cu: inverts the hybrid filter and the
+    fixed predictor of the lanes of ``residuals`` [L, n] into ``out``
+    [L, n]
+
+    Contiguous int32 CUDA tensors on one device; the caller
+    (ops/tta_synth.inverse_filter_predict) validates the arguments."""
+    import torch
+    lib = load()
+    (L, n) = residuals.shape
+    with torch.cuda.device(residuals.device):
+        rc = lib.atpu_tta_synth(
+            _ptr(residuals), L, n, fshift, shift, _ptr(out),
+            _stream_ptr(residuals.device))
+    if rc != 0:
+        raise RuntimeError("tta_synth kernel launch failed: CUDA "
                            "error %d" % (rc,))

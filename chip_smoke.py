@@ -3,8 +3,10 @@
 
 Drives the port's main paths on one CUDA card: bit-exact FLAC -8
 encode of 44.1 kHz stereo with device analysis and device residual
-packing, and FLAC decode with device Rice decoding and synthesis.  Its
-phases each print one line:
+packing, FLAC decode with device Rice decoding and synthesis, ALAC
+encode with device analysis and ALAC decode with device synthesis,
+and TTA decode with device filter inversion.  Its phases each print
+one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them;
@@ -30,7 +32,31 @@ phases each print one line:
    input and the port's plain decode on the CPU, its MD5 checked;
 8. decode throughput: phase 5's stream decoded on the card, repeated,
    each run bit-exact with its MD5 checked, no chunk on the host path,
-   the launch counters reset just before each run and read just after.
+   the launch counters reset just before each run and read just after;
+9. ALAC kernel vs plain: alac_synth on the card against its plain
+   version on the card, on the rows of the port's scan of a
+   1024-frameset stereo ALAC stream of bench.py's signal (2048 x
+   4096); must be equal; timed with CUDA events (the plain version
+   once);
+10. ALAC identity: phase 4's signal encoded on the card gives the mdat
+    bytes, frame sizes and whole M4A file (creation time pinned) that
+    the port's plain versions give on the CPU (which the tests hold
+    byte for byte against the reference), and decodes on the card to
+    its input and to the CPU decode, through the kernel, with no batch
+    on the host route;
+11. ALAC throughput: bench.py's signal in 1024-frameset batches (4
+    batches, 6.3 minutes of audio) encoded and decoded on the card,
+    repeated, every run bit-exact, with stage timings and launch
+    counts, no batch on the host route;
+12. TTA kernel vs plain: tta_synth on the card against its plain
+    version on the card, on the first decode group (256 frames, 512
+    lanes x 46080) of phase 11's signal as a TTA stream; must be
+    equal; timed (the plain version once);
+13. TTA identity and throughput: the host encoder writes the same
+    file whether the length is known up front or not, and it decodes
+    back on the host; that short stream decodes on the card to its
+    input and to the CPU decode; then phase 12's stream is decoded on
+    the card, repeated, every run bit-exact, through the kernel.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -57,6 +83,10 @@ OPTS = dict(block_size=4096, max_lpc_order=12, mid_side=True,
             exhaustive_model_search=True, max_residual_partition_order=6,
             batch_frames=1024)
 THROUGHPUT_BATCHES = 16
+# ALAC and TTA run length: 4 batches of 1024 framesets (6.3 minutes)
+ALAC_BATCHES = 4
+# a fixed M4A creation time (QuickTime seconds), for byte comparisons
+CREATE_DATE = 3786825600
 THROUGHPUT_RUNS = 3
 TIMING_RUNS = 15
 PLAIN_SYNTH_RUNS = 3
@@ -127,13 +157,17 @@ def main():
                  "script needs one CUDA card")
     sys.path.insert(0, ROOT)
     from audiotools_tpu_torch import _native, kernels
-    from audiotools_tpu_torch.codecs import flac_dec
+    from audiotools_tpu_torch.codecs import alac_dec, alac_fast, flac_dec, tta
     from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.formats import m4a
+    from audiotools_tpu_torch.formats import tta as tta_format
     from audiotools_tpu_torch.pcm import (decode_flac, reader_from_array,
                                           streaminfo)
+    from audiotools_tpu_torch.ops import alac_synth, tta_synth
     from audiotools_tpu_torch.ops import bitpack, flac_frames, flac_synth
     from audiotools_tpu_torch.ops import lpc as lpc_ops
     from audiotools_tpu_torch.ops import rice_decode
+    from audiotools_tpu_torch.ref.alac import read_m4a_header
 
     dev = torch.device("cuda", 0)
 
@@ -435,6 +469,249 @@ def main():
          realtime=dec_rate * 1e6 / 2 / SAMPLE_RATE, bit_exact=True,
          md5_checked=True, runs=dec_runs)
 
+    # ---- 9. ALAC kernel vs plain at the main path's shapes -------------
+    alac_sig = program_signal(n * frames * ALAC_BATCHES)
+    one_alac = io.BytesIO()
+    m4a.write_m4a(one_alac, reader_from_array(alac_sig[:n * frames], 16),
+                  device="cuda")
+    one_alac = one_alac.getvalue()
+    header = read_m4a_header(io.BytesIO(one_alac))
+    scan = _native.alac_scan(
+        one_alac[header["mdat_offset"]:], 16, 2, n,
+        header["initial_history"], header["history_multiplier"],
+        header["maximum_k"], n * frames, frames * 2 + 2)
+    if scan["fs_count"].shape[0] != frames:
+        raise AssertionError("ALAC scan found %d of %d framesets"
+                             % (scan["fs_count"].shape[0], frames))
+    sub_meta = scan["sub_meta"]
+    tensors = flac_dec.upload_arrays(alac_dec.prepare_batch(scan, 2), dev)
+    a_args = (tensors["residuals"], tensors["qlp"]) + tuple(
+        tensors["sub"][:3])
+    got = alac_synth.synthesize(*a_args)
+    walk = {}
+    (start, stop) = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+    start.record()
+    want = alac_synth.synthesize_plain(*a_args, stats=walk)
+    stop.record()
+    stop.synchronize()
+    a_plain_ms = start.elapsed_time(stop)
+    a_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("alac_synth kernel != plain version (max abs "
+                             "err %d)" % (a_err,))
+    (S_a, n_a) = got.shape
+    orders = sub_meta[:, 2].astype(np.int64)
+    raw = sub_meta[:, 6] != 0
+    ord_eff = np.where(orders >= 31, n_a, orders)
+    chain = np.where(raw, 0, np.minimum(ord_eff, n_a - 1))
+    main = np.where(raw | (orders >= 31), 0,
+                    np.maximum(n_a - 1 - ord_eff, 0))
+    # a difference-chain sample: an add and the truncation (4
+    # operations); a predicted sample: a subtract, a multiply and an
+    # add per coefficient and 8 for the rounding, shift, adds and
+    # truncation; a step of the adaptation walk: 8
+    a_ops = int(4 * chain.sum() + ((3 * orders + 8) * main).sum()
+                + 8 * walk["walk_steps"])
+    # residuals read and samples written once, qlp and the three
+    # per-row parameters read once
+    (a_bound, a_bound_by) = bound(
+        2 * S_a * n_a * 4 + S_a * (tensors["qlp"].shape[1] + 3) * 4, a_ops)
+    alac_row = dict(
+        max_abs_err=a_err,
+        ms=median_ms(lambda: alac_synth.synthesize(*a_args)),
+        plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_bound_by,
+        library_ms=None)
+    line("kernel_vs_plain", kernel="alac_synth", shape=[S_a, n_a],
+         walk_steps=walk["walk_steps"],
+         operations=a_ops, equal=True, **alac_row)
+    del scan, tensors, a_args, got, want
+
+    # ---- 10. ALAC identity ---------------------------------------------
+    mdats = []
+    for device in ("cpu", "cuda"):
+        out = io.BytesIO()
+        sizes = alac_fast.encode_mdat_fast(out, reader_from_array(arr, 16),
+                                           device=device, batch_frames=8)
+        mdats.append((out.getvalue(), sizes))
+    if mdats[0] != mdats[1]:
+        raise AssertionError("card ALAC mdat differs from the plain "
+                             "versions' on the CPU")
+    files = []
+    for device in ("cpu", "cuda"):
+        out = io.BytesIO()
+        m4a.write_m4a(out, reader_from_array(arr, 16), device=device,
+                      create_date=CREATE_DATE)
+        files.append(out.getvalue())
+    if files[0] != files[1]:
+        raise AssertionError("card M4A file differs from the plain "
+                             "versions' on the CPU")
+    host0 = alac_dec.host_chunks
+    alac_synth.synthesize.launches = 0
+    on_card = alac_dec.decode_alac(files[1], device="cuda")
+    a_id_launches = alac_synth.synthesize.launches
+    if a_id_launches <= 0:
+        raise AssertionError("card ALAC decode never launched alac_synth")
+    if alac_dec.host_chunks != host0:
+        raise AssertionError("card ALAC decode took the host route")
+    if not np.array_equal(on_card, arr):
+        raise AssertionError("card ALAC decode differs from the input")
+    if not np.array_equal(on_card, alac_dec.decode_alac(files[1],
+                                                        device="cpu")):
+        raise AssertionError("card ALAC decode differs from the plain "
+                             "versions' on the CPU")
+    line("alac_identity", frames=int(arr.shape[0]),
+         mdat_bytes=len(mdats[0][0]), file_bytes=len(files[0]),
+         identical=True, bit_exact=True, alac_synth_launches=a_id_launches,
+         host_chunks=0)
+
+    # ---- 11. ALAC throughput on the main path --------------------------
+    a_frames = alac_sig.shape[0]
+    alac_enc_runs = []
+    alac_dec_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        timings = {}
+        out = io.BytesIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        m4a.write_m4a(out, reader_from_array(alac_sig, 16), device="cuda",
+                      timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        data = out.getvalue()
+        alac_enc_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            ratio=len(data) / (alac_sig.size * 2), stage_s=timings,
+            peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9))
+        host0 = alac_dec.host_chunks
+        alac_synth.synthesize.launches = 0
+        t0 = time.perf_counter()
+        dec = alac_dec.TorchALACDecoder(io.BytesIO(data), device="cuda")
+        pieces = []
+        while True:
+            framelist = dec.read(frames * n)
+            if framelist.frames == 0:
+                break
+            pieces.append(framelist.samples)
+        wall = time.perf_counter() - t0
+        a_launches = alac_synth.synthesize.launches
+        if a_launches <= 0:
+            raise AssertionError("main ALAC decode never launched "
+                                 "alac_synth")
+        if alac_dec.host_chunks != host0:
+            raise AssertionError("main ALAC decode sent %d batches to the "
+                                 "host decoder"
+                                 % (alac_dec.host_chunks - host0))
+        if not np.array_equal(np.concatenate(pieces), alac_sig):
+            raise AssertionError("ALAC encode/decode is not bit-exact")
+        alac_dec_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            stage_s=dict(dec.timings), host_chunks=0,
+            alac_synth_launches=a_launches))
+        del dec, pieces
+    enc_rates = [r["Msamples_per_s"] for r in alac_enc_runs]
+    dec_rates = [r["Msamples_per_s"] for r in alac_dec_runs]
+    line("alac_throughput", audio_seconds=a_frames / SAMPLE_RATE,
+         batches=ALAC_BATCHES, batch_framesets=alac_fast.BATCH_FRAMES,
+         encode_Msamples_per_s=float(np.median(enc_rates)),
+         encode_Msamples_per_s_runs=enc_rates,
+         decode_Msamples_per_s=float(np.median(dec_rates)),
+         decode_Msamples_per_s_runs=dec_rates, bit_exact=True,
+         encode_runs=alac_enc_runs, decode_runs=alac_dec_runs)
+
+    # ---- 12. TTA kernel vs plain on one decode group -------------------
+    t0 = time.perf_counter()
+    tta_file = io.BytesIO()
+    tta_format.write_tta(tta_file, reader_from_array(alac_sig, 16))
+    tta_encode_s = time.perf_counter() - t0
+    tta_bytes = tta_file.getvalue()
+    dec = tta.TorchTTADecoder(io.BytesIO(tta_bytes), device="cuda")
+    (planes, _total) = dec.scan_group(0)
+    dec.close()
+    (F_t, n_t, ch_t) = planes.shape
+    lanes = torch.as_tensor(planes, device=dev).permute(0, 2, 1).reshape(
+        F_t * ch_t, n_t).contiguous()
+    got = tta_synth.inverse_filter_predict(lanes, 16)
+    start.record()
+    want = tta_synth.inverse_filter_predict_plain(lanes, 16)
+    stop.record()
+    stop.synchronize()
+    t_plain_ms = start.elapsed_time(stop)
+    t_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("tta_synth kernel != plain version (max abs "
+                             "err %d)" % (t_err,))
+    (L_t, _) = lanes.shape
+    # residuals read and samples written once; a sample takes 46
+    # integer operations (qm update and dot product 32, the prediction
+    # 3, the state rotation 7, the fixed predictor 4)
+    (t_bound, t_bound_by) = bound(2 * L_t * n_t * 4, 46 * L_t * n_t)
+    tta_row = dict(
+        max_abs_err=t_err,
+        ms=median_ms(lambda: tta_synth.inverse_filter_predict(lanes, 16)),
+        plain_ms=t_plain_ms, bound_ms=t_bound, bound_by=t_bound_by,
+        library_ms=None)
+    line("kernel_vs_plain", kernel="tta_synth", shape=[L_t, n_t],
+         frames=F_t, equal=True, **tta_row)
+    del planes, lanes, got, want
+
+    # ---- 13. TTA identity and throughput -------------------------------
+    short = program_signal(2 * n_t + 5000, seed=11)
+    encoded = []
+    for known in (None, short.shape[0]):
+        out = io.BytesIO()
+        tta_format.write_tta(out, reader_from_array(short, 16),
+                             total_pcm_frames=known)
+        encoded.append(out.getvalue())
+    if encoded[0] != encoded[1]:
+        raise AssertionError("TTA files differ with and without the length "
+                             "known up front")
+    host = tta.FastTTADecoder(io.BytesIO(encoded[0]))
+    host_pcm = np.concatenate([host.read(n_t).samples for _ in range(3)])
+    host.close()
+    if not np.array_equal(host_pcm, short):
+        raise AssertionError("TTA host decode differs from the input")
+    tta_synth.inverse_filter_predict.launches = 0
+    on_card = tta.decode_tta(encoded[0], device="cuda")
+    t_id_launches = tta_synth.inverse_filter_predict.launches
+    if t_id_launches <= 0:
+        raise AssertionError("card TTA decode never launched tta_synth")
+    if not np.array_equal(on_card, short):
+        raise AssertionError("card TTA decode differs from the input")
+    if not np.array_equal(on_card, tta.decode_tta(encoded[0], device="cpu")):
+        raise AssertionError("card TTA decode differs from the plain "
+                             "versions' on the CPU")
+    tta_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        tta_synth.inverse_filter_predict.launches = 0
+        t0 = time.perf_counter()
+        dec = tta.TorchTTADecoder(io.BytesIO(tta_bytes), device="cuda")
+        pieces = []
+        while True:
+            framelist = dec.read(tta.DEC_GROUP_FRAMES * n_t)
+            if framelist.frames == 0:
+                break
+            pieces.append(framelist.samples)
+        wall = time.perf_counter() - t0
+        t_launches = tta_synth.inverse_filter_predict.launches
+        if t_launches <= 0:
+            raise AssertionError("main TTA decode never launched tta_synth")
+        if not np.array_equal(np.concatenate(pieces), alac_sig):
+            raise AssertionError("TTA decode is not bit-exact")
+        tta_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            stage_s=dict(dec.timings), tta_synth_launches=t_launches))
+        del dec, pieces
+    t_rates = [r["Msamples_per_s"] for r in tta_runs]
+    line("tta_identity_throughput", identity_frames=int(short.shape[0]),
+         identical=True, bit_exact=True,
+         identity_tta_synth_launches=t_id_launches,
+         audio_seconds=a_frames / SAMPLE_RATE,
+         group_frames=tta.DEC_GROUP_FRAMES, encode_s=tta_encode_s,
+         ratio=len(tta_bytes) / (alac_sig.size * 2),
+         decode_Msamples_per_s=float(np.median(t_rates)),
+         decode_Msamples_per_s_runs=t_rates, runs=tta_runs)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -446,7 +723,11 @@ def main():
             ("rice_decode", "rice_decode.cu", "rice_decode.py:309",
              dec_runs[0]["rice_decode_launches"], rice_row),
             ("flac_synth", "flac_synth.cu", "flac_synth.py:96",
-             dec_runs[0]["flac_synth_launches"], synth_row)):
+             dec_runs[0]["flac_synth_launches"], synth_row),
+            ("alac_synth", "alac_synth.cu", "alac_synth.py:233",
+             alac_dec_runs[0]["alac_synth_launches"], alac_row),
+            ("tta_synth", "tta_synth.cu", "tta_synth.py:107",
+             tta_runs[0]["tta_synth_launches"], tta_row)):
         kernels_line.append(dict(
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,
