@@ -104,6 +104,8 @@ class HostBatch:
         arrays["warmup"] = np.ascontiguousarray(scan["warmup"][:, :Kw])
         arrays["qlp"] = np.ascontiguousarray(
             flac_synth.fill_fixed_qlp(sub_meta, scan["qlp"])[:, :Kw])
+        # the columns the synthesis kernel multiplies (12 at -8)
+        self.taps = flac_synth.nonzero_columns(arrays["qlp"])
         # shift, order, wasted, constant value, is-constant
         arrays["sub"] = np.stack([sub_meta[:, 4], sub_meta[:, 2],
                                   sub_meta[:, 3], sub_meta[:, 6],
@@ -473,7 +475,8 @@ class TorchFlacDecoder:
         marks.mark()
         (shift, order) = tensors["sub"][:2]
         samples = flac_synth.synthesize(planes, tensors["warmup"],
-                                        tensors["qlp"], shift, order)
+                                        tensors["qlp"], shift, order,
+                                        taps=batch.taps)
         marks.mark()
         host = reconstruct_batch(batch, tensors, samples)
         marks.mark()

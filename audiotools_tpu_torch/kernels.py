@@ -53,10 +53,14 @@ def _sources():
     return sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cuh")))
+
+
 def library_path():
     """where the library for the current sources and flags lives"""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources() + _headers():
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -120,9 +124,8 @@ def load():
              ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_rice_decode.restype = ctypes.c_int
         lib.atpu_flac_synth.argtypes = (
-            [ctypes.c_void_p] * 5 +
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 +
+            [ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_flac_synth.restype = ctypes.c_int
         lib.atpu_alac_synth.argtypes = (
             [ctypes.c_void_p] * 5 +
@@ -185,9 +188,10 @@ def rice_decode(words, word_base, base_bits, k, raw_bits, count, W, out):
                            "error %d" % (rc,))
 
 
-def flac_synth(residuals, warmup, qlp, shift, order, out):
+def flac_synth(residuals, warmup, qlp, shift, order, taps, out):
     """launches csrc/flac_synth.cu: inverts the predictors of the rows
-    of ``residuals`` [S, n] into ``out`` [S, n]
+    of ``residuals`` [S, n] into ``out`` [S, n], multiplying the first
+    ``taps`` coefficient columns (the rest must be 0)
 
     All contiguous int32 CUDA tensors on one device; the caller
     (ops/flac_synth.synthesize) validates the arguments."""
@@ -197,7 +201,7 @@ def flac_synth(residuals, warmup, qlp, shift, order, out):
     with torch.cuda.device(residuals.device):
         rc = lib.atpu_flac_synth(
             _ptr(residuals), _ptr(warmup), _ptr(qlp), _ptr(shift),
-            _ptr(order), S, n, qlp.shape[1], _ptr(out),
+            _ptr(order), S, n, qlp.shape[1], taps, _ptr(out),
             _stream_ptr(residuals.device))
     if rc != 0:
         raise RuntimeError("flac_synth kernel launch failed: CUDA "

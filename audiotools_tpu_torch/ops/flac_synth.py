@@ -16,7 +16,8 @@ float64 floor form by construction, and no guard or fallback is
 needed; ``wrap32`` is numpy's ``astype(int64).astype(int32)``.
 
 On a CUDA tensor ``synthesize`` launches the hand-written kernel in
-``csrc/flac_synth.cu`` (one thread per row); on a CPU tensor it runs
+``csrc/flac_synth.cu`` (rows staged through shared memory, two threads
+a row, the history in registers); on a CPU tensor it runs
 ``synthesize_plain``.  ``reconstruct_frames`` (wasted bits, stereo
 decorrelation, interleave) is plain torch on every device.
 """
@@ -96,14 +97,27 @@ def synthesize_plain(residuals, warmup, qlp, shift, order):
     return out
 
 
-def synthesize(residuals, warmup, qlp, shift, order):
+def nonzero_columns(qlp):
+    """host-side (numpy): the coefficient columns up to the last one
+    that holds a nonzero value in any row (what ``taps`` may be)"""
+    cols = np.flatnonzero(np.asarray(qlp).any(axis=0))
+    return int(cols[-1]) + 1 if len(cols) else 0
+
+
+def synthesize(residuals, warmup, qlp, shift, order, taps=None):
     """inverts the predictors for a batch of subframes
 
     Same contract as synthesize_plain.  A CPU tensor runs the plain
     version; a CUDA tensor launches the hand-written kernel
     (csrc/flac_synth.cu) on the current stream, without synchronising,
     and counts the launch in ``synthesize.launches``.  Any other device
-    raises."""
+    raises.  ``taps``, known on the host (``nonzero_columns``), tells
+    the kernel that columns ``taps`` and up of qlp are 0, so it
+    multiplies only the first ones; None takes all Kw."""
+    Kw = qlp.shape[-1]
+    taps = Kw if taps is None else int(taps)
+    if not 0 <= taps <= Kw:
+        raise ValueError("taps %d outside 0..%d" % (taps, Kw))
     if residuals.device.type == "cpu":
         return synthesize_plain(residuals, warmup, qlp, shift, order)
     if residuals.device.type != "cuda":
@@ -115,7 +129,7 @@ def synthesize(residuals, warmup, qlp, shift, order):
     out = torch.empty(residuals.shape, dtype=torch.int32,
                       device=residuals.device)
     if out.numel():
-        kernels.flac_synth(*args, out)
+        kernels.flac_synth(*args, taps, out)
         synthesize.launches += 1
     return out
 

@@ -12,7 +12,8 @@ the recurrence, step for step).  The port is held to the reference's
 numpy form (``inverse_filter_predict(np, ...)``).
 
 On a CUDA tensor ``inverse_filter_predict`` launches the hand-written
-kernel (one thread per lane); on a CPU tensor it runs
+kernel (one thread per lane, lanes staged through shared memory, the
+state in registers renamed step by step); on a CPU tensor it runs
 ``inverse_filter_predict_plain``, a loop over sample positions with
 every lane advancing together, in int64 with explicit wraps to int32.
 ``decorrelate_inverse`` and ``synthesize`` are plain torch around it.

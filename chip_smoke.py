@@ -9,8 +9,11 @@ and TTA decode with device filter inversion.  Its phases each print
 one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
-   and power limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernels from csrc/ (timed);
+   and power limit as nvidia-smi reports them, and its SM clock and
+   largest SM clock (MHz), so that a kernel's time a serial step can be
+   read in cycles;
+2. build: compiles the CUDA kernels from csrc/ (timed), with each
+   kernel's registers and spill stores as ptxas reports them;
 3. kernel vs plain: scatter_words on the card against
    scatter_words_plain on the card, on contributions made by the
    port's own analysis and tokenizer from bench-shaped input; must be
@@ -27,7 +30,7 @@ one line:
    against their plain versions on the card, on the records (one row
    per non-empty bucket) and subframe arrays of the port's scan of a
    1024-frame bench-shaped stream; must be equal; timed with CUDA
-   events;
+   events; flac_synth with its time a serial step;
 7. decode identity: phase 4's stream decoded on the card equals its
    input and the port's plain decode on the CPU, its MD5 checked;
 8. decode throughput: phase 5's stream decoded on the card, repeated,
@@ -51,7 +54,7 @@ one line:
 12. TTA kernel vs plain: tta_synth on the card against its plain
     version on the card, on the first decode group (256 frames, 512
     lanes x 46080) of phase 11's signal as a TTA stream; must be
-    equal; timed (the plain version once);
+    equal; timed (the plain version once), with its time a serial step;
 13. TTA identity and throughput: the host encoder writes the same
     file whether the length is known up front or not, and it decodes
     back on the host; that short stream decodes on the card to its
@@ -69,6 +72,7 @@ jax or of the reference package, and checks so at the end.  Usage:
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +131,22 @@ def bound(n_bytes, n_ops):
             else (by_ops, "operations"))
 
 
+def ptxas_summary(build_log):
+    """each kernel's registers and spill stores from nvcc's -Xptxas -v
+    output, its template arguments (flac_synth's taps) in brackets"""
+    out = []
+    for m in re.finditer(r"Compiling entry function '([^']+)'.*?(\d+) bytes "
+                         r"spill stores.*?Used (\d+) registers", build_log,
+                         re.S):
+        name = re.search(r"\d+((?:[a-z]+_)+kernel)(I(?:Li\d+E)+E)?",
+                         m.group(1))
+        args = re.findall(r"Li(\d+)E", name.group(2) or "")
+        out.append(dict(kernel=name.group(1) + (
+            "<%s>" % ",".join(args) if args else ""),
+            registers=int(m.group(3)), spill_stores=int(m.group(2))))
+    return out
+
+
 def loaded_forbidden_modules():
     """modules of jax or of the reference package in this process
     (audiotools_tpu_torch is the port, not the reference)"""
@@ -177,18 +197,24 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    (sm_mhz, max_sm_mhz) = (int(v) for v in
+                            clocks.splitlines()[0].split(","))
     name = torch.cuda.get_device_name(0)
     line("device", name=name, nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda,
+         clocks={"sm": sm_mhz, "max.sm": max_sm_mhz})
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load()
     line("build", seconds=time.perf_counter() - t0,
          library=os.path.relpath(kernels.library_path(), ROOT),
-         ptxas=[l for l in kernels.build_log.splitlines()
-                if "registers" in l or "spill" in l])
+         ptxas=ptxas_summary(kernels.build_log))
 
     # ---- 3. kernel vs plain at the main path's shapes ------------------
     opts = OPTS
@@ -387,7 +413,11 @@ def main():
     planes = flac_dec.assemble_residuals(batch, tensors, vals)
     synth_args = [planes.contiguous(), tensors["warmup"], tensors["qlp"],
                   tensors["sub"][0], tensors["sub"][1]]
-    got = flac_synth.synthesize(*synth_args)
+
+    def synth():
+        return flac_synth.synthesize(*synth_args, taps=batch.taps)
+
+    got = synth()
     want = flac_synth.synthesize_plain(*synth_args)
     torch.cuda.synchronize()
     s_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -397,17 +427,21 @@ def main():
     (S, nn) = planes.shape
     Kw = int(tensors["qlp"].shape[1])
     # residuals read and samples written once, warmup/qlp/shift/order
-    # read once; a multiply and an add per coefficient column a sample
+    # read once; a multiply and an add per nonzero coefficient column
+    # (taps) a sample
     (s_bound, s_bound_by) = bound(
-        2 * S * nn * 4 + 2 * S * Kw * 4 + 2 * S * 4, 2 * S * nn * Kw)
+        2 * S * nn * 4 + 2 * S * Kw * 4 + 2 * S * 4,
+        2 * S * nn * batch.taps)
+    s_ms = median_ms(synth)
     synth_row = dict(
-        max_abs_err=s_err,
-        ms=median_ms(lambda: flac_synth.synthesize(*synth_args)),
+        max_abs_err=s_err, ms=s_ms,
         plain_ms=median_ms(lambda: flac_synth.synthesize_plain(*synth_args),
                            PLAIN_SYNTH_RUNS),
         bound_ms=s_bound, bound_by=s_bound_by, library_ms=None)
     line("kernel_vs_plain", kernel="flac_synth", shape=[S, nn, Kw],
-         equal=True, **synth_row)
+         taps=batch.taps, equal=True, ns_per_step=s_ms * 1e6 / nn,
+         cycles_per_step_at_max_sm=s_ms * 1e3 * max_sm_mhz / nn,
+         **synth_row)
     del batch, tensors, vals, planes, synth_args, got, want
 
     # ---- 7. decode identity --------------------------------------------
@@ -652,7 +686,9 @@ def main():
         plain_ms=t_plain_ms, bound_ms=t_bound, bound_by=t_bound_by,
         library_ms=None)
     line("kernel_vs_plain", kernel="tta_synth", shape=[L_t, n_t],
-         frames=F_t, equal=True, **tta_row)
+         frames=F_t, equal=True, ns_per_step=tta_row["ms"] * 1e6 / n_t,
+         cycles_per_step_at_max_sm=tta_row["ms"] * 1e3 * max_sm_mhz / n_t,
+         **tta_row)
     del planes, lanes, got, want
 
     # ---- 13. TTA identity and throughput -------------------------------

@@ -3,7 +3,10 @@ version must give exactly the reference's float64 numpy form
 (``flac_synth.synthesize(np, ...)``) for every order, shift and FIXED
 predictor, including 24-bit rows the reference's int32 path refuses;
 ``reconstruct_frames`` must equal the reference's for every channel
-assignment.  On a card the kernel must equal the plain version."""
+assignment.  A numpy model of the card kernel's arithmetic (tiles,
+warm-up tiles, register ring, older taps first, the two-thread tap
+split) must give the reference's samples too.  On a card the kernel
+must equal the plain version."""
 
 import numpy as np
 import pytest
@@ -121,14 +124,140 @@ def test_dispatch():
         port.synthesize(args[0].to(torch.int64), *args[1:])
 
 
+# the kernel's samples a tile (csrc/row_tiles.cuh kTile)
+TILE = 32
+EDGE_NS = [1, TILE - 1, TILE, TILE + 1, 192, 4608]
+
+
+def kernel_taps(taps):
+    """the coefficient registers csrc/flac_synth.cu multiplies"""
+    return next(k for k in (4, 8, 12, 16, 32) if taps <= k)
+
+
+def kernel_model(residuals, warmup, qlp, shift, order, taps):
+    """numpy int64 model of csrc/flac_synth.cu, step for step: K taps
+    from ``taps``, the last samples in a ring of R slots (slot i % R),
+    tiles of TILE samples, the warm-up select only in tiles that start
+    below the warp's largest order (16 rows a warp; the stored samples
+    patched into the residual tile), the older taps summed before the
+    newest; taps 2.. split by parity between a row's two threads, the
+    odd half summed a step early and carried (``lag``)"""
+    (S, n) = residuals.shape
+    Kw = qlp.shape[1]
+    K = kernel_taps(taps)
+    R = next(r for r in (4, 8, 16, 32) if K <= r)
+    q = np.zeros((S, K), dtype=np.int64)
+    q[:, :min(K, Kw)] = qlp[:, :min(K, Kw)]
+    sh = np.clip(shift, 0, 63).astype(np.int64)
+    rows_per_warp = 16
+    warp_max = np.zeros(S, dtype=np.int64)
+    for w0 in range(0, S, rows_per_warp):
+        warp_max[w0:w0 + rows_per_warp] = order[w0:w0 + rows_per_warp].max()
+    hist = np.zeros((R, S), dtype=np.int64)
+    lag = np.zeros(S, dtype=np.int64)
+    out = np.zeros((S, n), dtype=np.int32)
+    M = (K - 2) // 2
+    for c0 in range(0, n, TILE):
+        tile = np.zeros((S, TILE), dtype=np.int64)
+        width = min(TILE, n - c0)
+        tile[:, :width] = residuals[:, c0:c0 + width]
+        warm_tile = c0 < warp_max
+        for i in range(TILE):
+            g = c0 + i
+            if g < Kw:
+                patch = warm_tile & (g < order)
+                tile[patch, i] = warmup[patch, g]
+            else:
+                tile[warm_tile & (g < order), i] = 0
+            even = sum(q[:, 2 + 2 * m] * hist[(g - 3 - 2 * m) % R]
+                       for m in range(M - 1, -1, -1))
+            odd = sum(q[:, 3 + 2 * m] * hist[(g - 3 - 2 * m) % R]
+                      for m in range(M - 1, -1, -1))
+            acc = even + lag + q[:, 1] * hist[(g - 2) % R]
+            lag = odd
+            acc = acc + q[:, 0] * hist[(g - 1) % R]
+            v = (tile[:, i] + (acc >> sh)).astype(np.int32)
+            v = np.where(warm_tile & (g < order), tile[:, i], v)
+            hist[g % R] = v
+            if g < n:
+                out[:, g] = v
+    return out
+
+
+def edge_rows(seed, S, n, Kw, orders):
+    """S stable rows, at least one of them past the last coefficient
+    column, so that a later tile carries warm-up (samples Kw.. are 0)"""
+    return rows(seed, S, n, Kw, orders, np.arange(S) % 16)
+
+
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_kernel_model_orders_0_to_32(n):
+    """every order 0-32 and one of 40 (warm-up into the second tile),
+    Kw 32, 45 rows: three warps of 16 rows, the last one part full"""
+    orders = [o % 33 for o in range(44)] + [40]
+    args = edge_rows(n, 45, n, 32, orders)
+    want = ref.synthesize(np, *args, n)
+    got = kernel_model(*args, 32)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_kernel_model_fewer_taps(n):
+    """the -8 decode's shape: Kw 16, columns 12.. zero, so the kernel
+    multiplies 12 taps; FIXED rows (orders 0-4) beside LPC ones"""
+    sub_meta = np.zeros((40, 8), dtype=np.int32)
+    sub_meta[:, 1] = np.where(np.arange(40) % 3 == 0, 2, 3)
+    sub_meta[:, 2] = np.where(sub_meta[:, 1] == 2, np.arange(40) % 5,
+                              1 + np.arange(40) % 12)
+    (residuals, warmup, qlp, shift, order) = edge_rows(
+        n + 7, 40, n, 16, sub_meta[:, 2])
+    qlp[:, 12:] = 0
+    qlp = port.fill_fixed_qlp(sub_meta, qlp)
+    taps = port.nonzero_columns(qlp)
+    assert taps == 12
+    want = ref.synthesize(np, residuals, warmup, qlp, shift, order, n)
+    got = kernel_model(residuals, warmup, qlp, shift, order, taps)
+    assert np.array_equal(got, want)
+
+
+def test_nonzero_columns():
+    qlp = np.zeros((3, 16), dtype=np.int32)
+    assert port.nonzero_columns(qlp) == 0
+    qlp[1, 4] = -1
+    assert port.nonzero_columns(qlp) == 5
+    qlp[2, 15] = 7
+    assert port.nonzero_columns(qlp) == 16
+    assert port.nonzero_columns(np.zeros((0, 8), dtype=np.int32)) == 0
+
+
+def test_taps_argument_checks():
+    """taps outside 0..Kw raise on every device; on the CPU a valid one
+    changes nothing"""
+    args = [t(a) for a in rows(1, 4, 32, 8, [1, 2, 3, 4], [0, 1, 2, 3])]
+    for bad in (-1, 9):
+        with pytest.raises(ValueError, match="taps"):
+            port.synthesize(*args, taps=bad)
+    assert torch.equal(port.synthesize(*args, taps=8),
+                       port.synthesize_plain(*args))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_NS + [512])
 @pytest.mark.parametrize("Kw", [8, 16, 32])
-def test_cuda_kernel_matches_plain(Kw):
+def test_cuda_kernel_matches_plain(Kw, n):
+    """45 rows (not a multiple of the kernel's 16 rows a warp) at
+    the tile edges, every order up to Kw and one past it, with all Kw
+    taps and with the columns past Kw // 2 + 1 zero"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    orders = [Kw, Kw // 2, 1, 0] * 8
-    args = [t(a).cuda() for a in rows(Kw, 32, 512, Kw, orders,
-                                      np.arange(32) % 16)]
-    got = port.synthesize(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, port.synthesize_plain(*args))
+    orders = [o % (Kw + 1) for o in range(44)] + [Kw + 8]
+    (residuals, warmup, qlp, shift, order) = edge_rows(Kw, 45, n, Kw,
+                                                       orders)
+    for cols in (Kw, Kw // 2 + 1):
+        qlp[:, cols:] = 0
+        args = [t(a).cuda() for a in (residuals, warmup, qlp, shift, order)]
+        before = port.synthesize.launches
+        got = port.synthesize(*args, taps=port.nonzero_columns(qlp))
+        torch.cuda.synchronize()
+        assert port.synthesize.launches == before + 1
+        assert torch.equal(got, port.synthesize_plain(*args))

@@ -1,0 +1,165 @@
+#!/usr/bin/env python
+"""Cycles that one warp spends on the integer instructions the serial
+synthesis kernels (audiotools_tpu_torch/csrc/flac_synth.cu,
+tta_synth.cu) are built from, timed with clock64() on a CUDA card.
+
+Each case runs one warp in one block, so it reads what a warp alone on
+its scheduler pays, as the synthesis kernels' warps are:
+
+- throughput cases: eight independent chains, an operand changed
+  every iteration (an add) so that the compiler cannot hoist the
+  product: cycles per instruction pair;
+- latency cases: one dependent chain: cycles per link.
+
+Prints one JSON line per case and the card's name and power limit.
+Needs nvcc (it builds into audiotools_tpu_torch/build/).  Usage:
+
+    python3 tools_dev/int_op_cycles.py
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ int64_t madw(int32_t a, int32_t b, int64_t c) {
+  int64_t d;
+  asm volatile("mad.wide.s32 %0, %1, %2, %3;"
+               : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t mad32(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm volatile("mad.lo.u32 %0, %1, %2, %3;"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t add32(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm volatile("add.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+template <int KIND>
+__global__ void cycles_kernel(int iters, int32_t a, int32_t b,
+                              long long* cycles, long long* sink) {
+  int64_t acc[8];
+  uint32_t u[8];
+  uint32_t x[8];
+  for (int k = 0; k < 8; ++k) {
+    acc[k] = threadIdx.x + k;
+    u[k] = threadIdx.x * 5 + k;
+    x[k] = threadIdx.x * 3 + k;
+  }
+  int32_t v = threadIdx.x;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if constexpr (KIND == 0) {         // IMAD.WIDE + IADD, 8 chains
+        acc[k] = madw(static_cast<int32_t>(x[k]), a, acc[k]);
+        x[k] = add32(x[k], a);
+      } else if constexpr (KIND == 1) {  // IMAD + IADD, 8 chains
+        u[k] = mad32(x[k], a, u[k]);
+        x[k] = add32(x[k], a);
+      } else if constexpr (KIND == 2) {  // IADD, 8 chains
+        x[k] = add32(x[k], a);
+      } else if constexpr (KIND == 3) {  // SHFL + IADD, one chain
+        u[0] = add32(__shfl_xor_sync(0xffffffffu, u[0], 1), 1u);
+      } else if constexpr (KIND == 4) {  // flac_synth's step chain
+        const int64_t t = madw(a, v, acc[k]);
+        v = static_cast<int32_t>(static_cast<uint32_t>(b) +
+                                 static_cast<uint32_t>(t >> (a & 15)));
+      } else {                           // tta_synth's step chain
+        const uint32_t t = mad32(static_cast<uint32_t>(v), x[k], u[k]);
+        v = static_cast<int32_t>(
+            add32(static_cast<uint32_t>(b),
+                  static_cast<uint32_t>(static_cast<int32_t>(t) >> (a & 15))));
+      }
+    }
+  }
+  const long long t1 = clock64();
+  long long s = v;
+  for (int k = 0; k < 8; ++k) {
+    s += acc[k] + u[k] + x[k];
+  }
+  sink[threadIdx.x] = s;
+  if (threadIdx.x == 0) {
+    cycles[0] = t1 - t0;
+  }
+}
+
+extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
+                        long long* sink) {
+  switch (kind) {
+    case 0: cycles_kernel<0><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 1: cycles_kernel<1><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 2: cycles_kernel<2><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 3: cycles_kernel<3><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 4: cycles_kernel<4><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<5><<<1, 32>>>(iters, a, b, cycles, sink); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+CASES = (
+    ("IMAD.WIDE + IADD, per pair (throughput)", "throughput"),
+    ("IMAD + IADD, per pair (throughput)", "throughput"),
+    ("IADD (throughput)", "throughput"),
+    ("SHFL + IADD, per link (latency)", "latency"),
+    ("IMAD.WIDE -> SHF.R.S64 -> IADD, per link (latency)", "latency"),
+    ("IMAD -> SHF.R.S32 -> IADD, per link (latency)", "latency"),
+)
+ITERS = 20000
+
+
+def main():
+    import torch
+    from audiotools_tpu_torch import kernels
+    if not torch.cuda.is_available():
+        sys.exit("int_op_cycles: needs a CUDA card")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    src = os.path.join(kernels.BUILD_DIR, "int_op_cycles.cu")
+    lib_path = os.path.join(kernels.BUILD_DIR, "libint_op_cycles.so")
+    with open(src, "w") as f:
+        f.write(SOURCE)
+    # the kernels' own flags, so the cycles are those of how they build
+    build = subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
+                           ["-shared", "-o", lib_path, src],
+                           capture_output=True, text=True)
+    if build.returncode != 0:
+        sys.exit("int_op_cycles: nvcc failed:\n" + build.stdout +
+                 build.stderr)
+    lib = ctypes.CDLL(lib_path)
+    lib.run_case.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(32, dtype=torch.int64, device=dev)
+    for (kind, (name, what)) in enumerate(CASES):
+        for _ in range(2):   # the first run warms the card up
+            rc = lib.run_case(kind, ITERS, 7, 5, cycles.data_ptr(),
+                              sink.data_ptr())
+            if rc != 0:
+                raise RuntimeError("launch failed: CUDA error %d" % rc)
+            torch.cuda.synchronize()
+        print(json.dumps({"case": name, "measures": what,
+                          "cycles": int(cycles.item()) / (ITERS * 8)}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
