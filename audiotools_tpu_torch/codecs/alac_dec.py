@@ -57,8 +57,10 @@ host_chunks = 0
 def prepare_batch(scan, channels):
     """the device arrays of one scanned batch, int32 numpy, in upload
     order: residuals [S, spf], qlp [S, MAX_ORDER], sub (order, shift,
-    sample size, is-raw) [4, S], pairs (row of channel 0, row of
-    channel 1, leftweight, interlacing shift, low bits) [5, G], wave
+    sample size, is-raw) [4, S], rows (the synthesis kernel's row
+    grouping by order, alac_synth.group_rows), pairs (row of channel
+    0, row of channel 1, leftweight, interlacing shift, low bits) [5,
+    G], wave
     (the [F * channels] rows of the decoded pairs, left rows then
     right rows, that make each frameset's wave-order channels) and,
     when a pair carries low bytes, lsbs [G, spf, 2]"""
@@ -73,6 +75,7 @@ def prepare_batch(scan, channels):
         "qlp": scan["qlp"][:, :MAX_ORDER],
         "sub": np.stack([sub_meta[:, 2], np.maximum(sub_meta[:, 3], 1),
                          np.maximum(sub_meta[:, 4], 1), sub_meta[:, 6]]),
+        "rows": alac_synth.group_rows(sub_meta[:, 2]),
         "pairs": np.stack([row0, row0 + (width == 2),
                            pair_meta[:, 4], np.maximum(pair_meta[:, 3], 1),
                            pair_meta[:, 2] * 8]),
@@ -100,7 +103,7 @@ def synthesize_batch(tensors):
     residuals = tensors["residuals"]
     (order, shift, sample_size, is_raw) = tensors["sub"]
     synth = alac_synth.synthesize(residuals, tensors["qlp"], order, shift,
-                                  sample_size, MAX_ORDER)
+                                  sample_size, MAX_ORDER, tensors["rows"])
     return torch.where(is_raw[:, None] != 0, residuals, synth)
 
 

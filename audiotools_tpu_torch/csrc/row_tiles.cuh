@@ -1,5 +1,5 @@
 // Row tiles staged through shared memory, for the serial-recurrence
-// kernels (flac_synth.cu, tta_synth.cu).
+// kernels (flac_synth.cu, tta_synth.cu, alac_synth.cu).
 //
 // Those kernels give each row of a row-major int32 [rows, n] array to
 // one thread (or two) and walk it sample by sample.  Read straight
@@ -17,6 +17,10 @@
 // consecutive rows, the same chunk) then hit eight different bank
 // groups, and so do the copies, whose eight threads take eight chunks
 // of one row.
+//
+// With GATHER (alac_synth.cu) a warp's rows need not be consecutive:
+// each thread names the row it works on, and the copies go to and from
+// those rows.
 
 #pragma once
 
@@ -81,15 +85,22 @@ __device__ __forceinline__ void cp_async_wait_oldest() {
 //     ... compute from `in` into out_tile ...
 //     io.finish(out_tile, t * kTile);              // out_tile -> dst
 //   }
-template <int ROWS>
+//
+// With GATHER (tile row r belongs to lanes r * kLanes .. r * kLanes +
+// kLanes - 1, kLanes = 32 / ROWS) the constructor's `r0` is instead the
+// row of the calling lane's tile row, -1 for none; each lane then keeps
+// the kPasses element offsets of its chunks.
+template <int ROWS, bool GATHER = false>
 struct RowTiles {
   static constexpr int kPasses = ROWS / kRowStep;
+  static constexpr int kLanes = 32 / ROWS;
   const int32_t* src;
   int32_t* dst;
   int rows, n, r0, lane;
   bool vec;
   int64_t offset;    // element of the lane's chunk in its first row
   int64_t stride;    // elements between its chunks: kRowStep rows
+  int64_t goff[GATHER ? kPasses : 1];   // GATHER: element of chunk m
   int col;           // its chunk's first sample within a tile
   unsigned rows_in;  // bit m: its m-th row exists
   int word[2];       // shared-memory word of its chunk, m even and odd
@@ -105,11 +116,34 @@ struct RowTiles {
     rows_in = 0;
 #pragma unroll
     for (int m = 0; m < kPasses; ++m) {
-      rows_in |= (r0 + r + kRowStep * m < rows ? 1u : 0u) << m;
+      if constexpr (GATHER) {
+        const int row = gathered_row(r + kRowStep * m);
+        goff[m] = static_cast<int64_t>(row) * n + col;
+        rows_in |= (row >= 0 ? 1u : 0u) << m;
+      } else {
+        rows_in |= (r0 + r + kRowStep * m < rows ? 1u : 0u) << m;
+      }
     }
     // rows r and r + kRowStep * m swizzle alike for even m (r < 4)
     word[0] = tile_word(r, col);
     word[1] = tile_word(r + kRowStep, col) - kRowStep * kTile;
+  }
+
+  // the lane's chunk m at sample c0, `g` being where it lies when the
+  // rows are consecutive
+  template <class T>
+  __device__ __forceinline__ T* chunk(T* base, T* g, int m, int c0) const {
+    if constexpr (GATHER) {
+      return base + goff[m] + c0;
+    } else {
+      return g;
+    }
+  }
+
+  // the row that tile row r holds, or -1 (GATHER tiles; all 32 lanes
+  // call it)
+  __device__ __forceinline__ int gathered_row(int r) const {
+    return __shfl_sync(0xffffffffu, r0, r * kLanes);
   }
 
   // copies samples [c0, c0 + kTile) of the rows into `tile`; what lies
@@ -121,17 +155,18 @@ struct RowTiles {
 #pragma unroll
       for (int m = 0; m < kPasses; ++m) {
         const bool in = col_in && ((rows_in >> m) & 1u);
-        cp_async16(tile + word[m & 1] + kRowStep * m * kTile, in ? g : src,
-                   in ? 16 : 0);
+        cp_async16(tile + word[m & 1] + kRowStep * m * kTile,
+                   in ? chunk(src, g, m, c0) : src, in ? 16 : 0);
         g += stride;
       }
     } else {
       for (int k = lane; k < ROWS * kTile; k += 32) {
         const int r = k / kTile;
         const int i = k % kTile;
-        const bool in = r0 + r < rows && c0 + i < n;
+        const int row = GATHER ? gathered_row(r) : r0 + r;
+        const bool in = (GATHER ? row >= 0 : row < rows) && c0 + i < n;
         const int32_t* g =
-            in ? src + static_cast<int64_t>(r0 + r) * n + c0 + i : src;
+            in ? src + static_cast<int64_t>(row) * n + c0 + i : src;
         cp_async4(tile + tile_word(r, i), g, in ? 4 : 0);
       }
     }
@@ -148,8 +183,9 @@ struct RowTiles {
 #pragma unroll
       for (int m = 0; m < kPasses; ++m) {
         if ((rows_in >> m) & 1u) {
-          *reinterpret_cast<int4*>(g) = *reinterpret_cast<const int4*>(
-              tile + word[m & 1] + kRowStep * m * kTile);
+          *reinterpret_cast<int4*>(chunk(dst, g, m, c0)) =
+              *reinterpret_cast<const int4*>(
+                  tile + word[m & 1] + kRowStep * m * kTile);
         }
         g += stride;
       }
@@ -157,8 +193,9 @@ struct RowTiles {
       for (int k = lane; k < ROWS * kTile; k += 32) {
         const int r = k / kTile;
         const int i = k % kTile;
-        if (r0 + r < rows && c0 + i < n) {
-          dst[static_cast<int64_t>(r0 + r) * n + c0 + i] =
+        const int row = GATHER ? gathered_row(r) : r0 + r;
+        if ((GATHER ? row >= 0 : row < rows) && c0 + i < n) {
+          dst[static_cast<int64_t>(row) * n + c0 + i] =
               tile[tile_word(r, i)];
         }
       }

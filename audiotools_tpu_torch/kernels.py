@@ -128,7 +128,7 @@ def load():
             [ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_flac_synth.restype = ctypes.c_int
         lib.atpu_alac_synth.argtypes = (
-            [ctypes.c_void_p] * 5 +
+            [ctypes.c_void_p] * 6 +
             [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_alac_synth.restype = ctypes.c_int
         lib.atpu_tta_synth.argtypes = (
@@ -208,22 +208,22 @@ def flac_synth(residuals, warmup, qlp, shift, order, taps, out):
                            "error %d" % (rc,))
 
 
-def alac_synth(residuals, qlp, order, shift, sample_size, max_order, kmax,
+def alac_synth(residuals, qlp, order, shift, sample_size, rows, max_order,
                out):
     """launches csrc/alac_synth.cu: inverts the sign-adaptive
-    predictors of the rows of ``residuals`` [S, n] into ``out`` [S, n]
+    predictors of the rows of ``residuals`` [S, n] into ``out`` [S, n],
+    a warp for each 16 entries of ``rows`` (the grouping)
 
     All contiguous int32 CUDA tensors on one device; the caller
-    (ops/alac_synth.synthesize) validates the arguments and picks
-    kmax."""
+    (ops/alac_synth.synthesize) validates the arguments."""
     import torch
     lib = load()
     (S, n) = residuals.shape
     with torch.cuda.device(residuals.device):
         rc = lib.atpu_alac_synth(
             _ptr(residuals), _ptr(qlp), _ptr(order), _ptr(shift),
-            _ptr(sample_size), S, n, qlp.shape[1], max_order, kmax,
-            _ptr(out), _stream_ptr(residuals.device))
+            _ptr(sample_size), _ptr(rows), S, n, qlp.shape[1], max_order,
+            rows.shape[0], _ptr(out), _stream_ptr(residuals.device))
     if rc != 0:
         raise RuntimeError("alac_synth kernel launch failed: CUDA "
                            "error %d" % (rc,))

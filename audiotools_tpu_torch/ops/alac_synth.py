@@ -11,18 +11,58 @@ exact there in float64 and here in int64, so the port needs none of
 the reference's guard (``pallas_synthesis_safe``) and none of its
 fallback to the float64 scan.
 
-On a CUDA tensor ``synthesize`` launches the hand-written kernel (one
-thread per row); on a CPU tensor it runs ``synthesize_plain``, a loop
-over sample positions with every row advancing together.
-``decorrelate`` and ``merge_lsbs`` are plain torch on every device.
+On a CUDA tensor ``synthesize`` launches the hand-written kernel (two
+threads a row, 16 rows of one order a warp, as ``group_rows`` lists
+them); on a CPU tensor it runs ``synthesize_plain``, a loop over
+sample positions with every row advancing together.  ``decorrelate``
+and ``merge_lsbs`` are plain torch on every device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 K = 32   # coefficient columns an ALAC subframe can need (order < 32)
 MAX_ORDER = 8   # walk steps of the reference's decoder path
+WARP_ROWS = 16  # rows a warp of the kernel synthesizes
+CHAIN = 31      # orders from here up: the pure difference chain
+
+
+def group_rows(order):
+    """the kernel's row grouping, on the host: the rows of each order
+    (every order >= CHAIN counting as one) in WARP_ROWS-row groups, each
+    padded with -1, the orders ascending; int32 numpy [WARP_ROWS * warps].
+
+    order: int numpy [S]."""
+    key = np.minimum(np.asarray(order, dtype=np.int64), CHAIN)
+    idx = np.argsort(key, kind="stable")
+    (_keys, counts) = np.unique(key[idx], return_counts=True)
+    padded = -(-counts // WARP_ROWS) * WARP_ROWS
+    out = np.full(int(padded.sum()), -1, dtype=np.int32)
+    starts = np.cumsum(padded) - padded
+    firsts = np.cumsum(counts) - counts
+    for (start, first, count) in zip(starts, firsts, counts):
+        out[start:start + count] = idx[first:first + count]
+    return out
+
+
+def _check_rows(rows, residuals, values):
+    """the row grouping's form, and with ``values`` (a CPU tensor) its
+    values: a card's caller builds it on the host with group_rows"""
+    if rows.dim() != 1 or rows.dtype != torch.int32:
+        raise ValueError("rows must be a 1-D int32 tensor")
+    if rows.device != residuals.device:
+        raise ValueError("rows lies on another device than residuals")
+    if rows.shape[0] % WARP_ROWS:
+        raise ValueError("rows must hold whole groups of %d" % WARP_ROWS)
+    if values:
+        S = residuals.shape[0]
+        listed = rows[rows >= 0]
+        if (bool((rows < -1).any()) or listed.numel() != S or
+                not torch.equal(torch.sort(listed).values,
+                                torch.arange(S, dtype=torch.int32))):
+            raise ValueError("rows must list every row once, -1 padding")
 
 
 def _check_args(residuals, qlp, order, shift, sample_size, max_order):
@@ -138,34 +178,48 @@ def synthesize_plain(residuals, qlp, order, shift, sample_size,
 
 
 def synthesize(residuals, qlp, order, shift, sample_size,
-               max_order=MAX_ORDER):
+               max_order=MAX_ORDER, rows=None):
     """inverts the sign-adaptive predictors for a batch of subframes
 
-    Same contract as synthesize_plain.  A CPU tensor runs the plain
+    Same contract as synthesize_plain.  rows: the kernel's row grouping
+    (``group_rows`` of the orders, as an int32 tensor on the device of
+    the other arguments), which the caller builds on the host; None
+    builds it from a host copy of ``order``, which waits for the card
+    (tests only: the decoder passes it).  A CPU tensor runs the plain
     version; a CUDA tensor launches the hand-written kernel
     (csrc/alac_synth.cu) on the current stream and counts the launch
-    in ``synthesize.launches``.  The largest order below 31, read from
-    ``order`` (which waits for the card), picks the kernel's register
-    width.  The card's caller checks the value ranges on the host
-    (``_check_values``); out of them the kernel's output is undefined,
-    its memory accesses stay in bounds.  Any other device raises."""
+    in ``synthesize.launches``.  The card's caller checks the value
+    ranges on the host (``_check_values``); out of them the kernel's
+    output is undefined, its memory accesses stay in bounds.  Any
+    other device raises."""
     if residuals.device.type == "cpu":
+        if rows is not None:
+            _check_rows(rows, residuals, values=True)
         return synthesize_plain(residuals, qlp, order, shift, sample_size,
                                 max_order)
     if residuals.device.type != "cuda":
         raise ValueError("synthesize: unsupported device %s"
                          % (residuals.device,))
+    if rows is None:
+        rows = torch.as_tensor(group_rows(order.cpu().numpy()),
+                               device=residuals.device)
+    return _launch(residuals, qlp, order, shift, sample_size, max_order,
+                   rows)
+
+
+def _launch(residuals, qlp, order, shift, sample_size, max_order, rows):
+    """the card's branch of synthesize, after its row grouping is
+    known: checks the arguments' forms, reads nothing back from the
+    device, and launches the kernel"""
     _check_args(residuals, qlp, order, shift, sample_size, max_order)
+    _check_rows(rows, residuals, values=False)
     from .. import kernels
     args = [t.contiguous() for t in (residuals, qlp, order, shift,
-                                     sample_size)]
-    lpc_orders = torch.where(order < 31, order, 0)
-    max_lpc_order = int(lpc_orders.max()) if order.numel() else 0
-    kmax = 8 if max_lpc_order <= 8 else K
+                                     sample_size, rows)]
     out = torch.empty(residuals.shape, dtype=torch.int32,
                       device=residuals.device)
     if out.numel():
-        kernels.alac_synth(*args, max_order, kmax, out)
+        kernels.alac_synth(*args, max_order, out)
         synthesize.launches += 1
     return out
 

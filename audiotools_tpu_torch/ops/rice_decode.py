@@ -9,10 +9,12 @@ record is a Rice run (parameter ``k >= 0``) or a raw run (``raw_bits >=
 
 On a CUDA tensor ``decode_partitions`` launches the hand-written
 kernel in ``csrc/rice_decode.cu`` (one thread per record, serving any
-bucket); on a CPU tensor it runs ``decode_partitions_plain``, the
-reference's lock-step scan form (``decode_partitions_scan``): every
-record advances one code per step, the unary quotient found by a CLZ
-of the current word or, past it, of the next nonzero word.  Both
+bucket: the decoder's buckets up to W = 64 from words staged in shared
+memory, the catch-all straight from device memory); on a CPU tensor it
+runs ``decode_partitions_plain``, the reference's lock-step scan form
+(``decode_partitions_scan``): every record advances one code per step,
+the unary quotient found by a CLZ of the current word or, past it, of
+the next nonzero word.  Both
 follow the reference's clamps exactly: bit positions clamp to
 ``32 * W - 1``, window words to the buffer's last word.
 

@@ -13,7 +13,8 @@ one line:
    largest SM clock (MHz), so that a kernel's time a serial step can be
    read in cycles;
 2. build: compiles the CUDA kernels from csrc/ (timed), with each
-   kernel's registers and spill stores as ptxas reports them;
+   kernel's registers, stack frame and spill stores as ptxas reports
+   them;
 3. kernel vs plain: scatter_words on the card against
    scatter_words_plain on the card, on contributions made by the
    port's own analysis and tokenizer from bench-shaped input; must be
@@ -30,7 +31,9 @@ one line:
    against their plain versions on the card, on the records (one row
    per non-empty bucket) and subframe arrays of the port's scan of a
    1024-frame bench-shaped stream; must be equal; timed with CUDA
-   events; flac_synth with its time a serial step;
+   events, and with the card's time alone (device_ms: the call enqueued
+   behind a spin kernel); rice_decode with its time a code, flac_synth
+   with its time a serial step;
 7. decode identity: phase 4's stream decoded on the card equals its
    input and the port's plain decode on the CPU, its MD5 checked;
 8. decode throughput: phase 5's stream decoded on the card, repeated,
@@ -39,8 +42,9 @@ one line:
 9. ALAC kernel vs plain: alac_synth on the card against its plain
    version on the card, on the rows of the port's scan of a
    1024-frameset stereo ALAC stream of bench.py's signal (2048 x
-   4096); must be equal; timed with CUDA events (the plain version
-   once);
+   4096), with the row grouping its decoder builds on the host; must
+   be equal; timed as phase 6 (the plain version once), with its time a
+   serial step;
 10. ALAC identity: phase 4's signal encoded on the card gives the mdat
     bytes, frame sizes and whole M4A file (creation time pinned) that
     the port's plain versions give on the CPU (which the tests hold
@@ -94,6 +98,9 @@ CREATE_DATE = 3786825600
 THROUGHPUT_RUNS = 3
 TIMING_RUNS = 15
 PLAIN_SYNTH_RUNS = 3
+# a spin kernel of ~1 ms at 1.98 GHz, longer than the host takes to
+# enqueue one kernel call, so that device_ms times the card alone
+SPIN_CYCLES = 2_000_000
 # H100 SXM peaks (NVIDIA data sheet): device memory bandwidth, and the
 # float32 rate outside the tensor cores, the nearest listed rate for
 # the kernels' scalar integer arithmetic
@@ -121,6 +128,25 @@ def median_ms(fn, runs=TIMING_RUNS):
     return float(np.median(times))
 
 
+def device_ms(fn, runs=TIMING_RUNS):
+    """median CUDA-event time of fn() over `runs` calls, after one
+    warm-up call, each call enqueued behind a spin kernel: the card's
+    time for fn's work alone, where median_ms also holds the host's
+    time to enqueue it"""
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the least time the card could take, the
     larger of the bytes over its memory rate and the operations over
@@ -132,18 +158,20 @@ def bound(n_bytes, n_ops):
 
 
 def ptxas_summary(build_log):
-    """each kernel's registers and spill stores from nvcc's -Xptxas -v
-    output, its template arguments (flac_synth's taps) in brackets"""
+    """each kernel's registers, stack frame and spill stores from nvcc's
+    -Xptxas -v output, its template arguments (flac_synth's taps) in
+    brackets"""
     out = []
     for m in re.finditer(r"Compiling entry function '([^']+)'.*?(\d+) bytes "
-                         r"spill stores.*?Used (\d+) registers", build_log,
-                         re.S):
+                         r"stack frame, (\d+) bytes spill stores.*?Used "
+                         r"(\d+) registers", build_log, re.S):
         name = re.search(r"\d+((?:[a-z]+_)+kernel)(I(?:Li\d+E)+E)?",
                          m.group(1))
         args = re.findall(r"Li(\d+)E", name.group(2) or "")
         out.append(dict(kernel=name.group(1) + (
             "<%s>" % ",".join(args) if args else ""),
-            registers=int(m.group(3)), spill_stores=int(m.group(2))))
+            registers=int(m.group(4)), stack_frame=int(m.group(2)),
+            spill_stores=int(m.group(3))))
     return out
 
 
@@ -391,16 +419,20 @@ def main():
         # operations a code
         (b_bound, b_bound_by) = bound(
             span_words[b] * 4 + P * 5 * 4 + P * C * 4, 30 * codes)
+        b_ms = median_ms(lambda: rice_decode.decode_partitions(*args))
+        b_dev = device_ms(lambda: rice_decode.decode_partitions(*args))
         rice_rows.append(dict(
             bucket=[W, C], records=P, codes=codes, max_abs_err=b_err,
-            ms=median_ms(lambda: rice_decode.decode_partitions(*args)),
+            ms=b_ms, device_ms=b_dev,
+            ns_per_code=b_ms * 1e6 / max(codes, 1),
             plain_ms=median_ms(
                 lambda: rice_decode.decode_partitions_plain(*args), 3),
             bound_ms=b_bound, bound_by=b_bound_by))
         vals.append(got)
         del want
     line("kernel_vs_plain", kernel="rice_decode", frames=frames,
-         buckets=rice_rows, equal=True)
+         buckets=rice_rows, equal=True,
+         device_ms=sum(r["device_ms"] for r in rice_rows))
     rice_row = dict(
         max_abs_err=max(r["max_abs_err"] for r in rice_rows),
         ms=sum(r["ms"] for r in rice_rows),
@@ -439,7 +471,8 @@ def main():
                            PLAIN_SYNTH_RUNS),
         bound_ms=s_bound, bound_by=s_bound_by, library_ms=None)
     line("kernel_vs_plain", kernel="flac_synth", shape=[S, nn, Kw],
-         taps=batch.taps, equal=True, ns_per_step=s_ms * 1e6 / nn,
+         taps=batch.taps, equal=True, device_ms=device_ms(synth),
+         ns_per_step=s_ms * 1e6 / nn,
          cycles_per_step_at_max_sm=s_ms * 1e3 * max_sm_mhz / nn,
          **synth_row)
     del batch, tensors, vals, planes, synth_args, got, want
@@ -521,7 +554,8 @@ def main():
     tensors = flac_dec.upload_arrays(alac_dec.prepare_batch(scan, 2), dev)
     a_args = (tensors["residuals"], tensors["qlp"]) + tuple(
         tensors["sub"][:3])
-    got = alac_synth.synthesize(*a_args)
+    a_rows = tensors["rows"]
+    got = alac_synth.synthesize(*a_args, rows=a_rows)
     walk = {}
     (start, stop) = (torch.cuda.Event(enable_timing=True),
                      torch.cuda.Event(enable_timing=True))
@@ -551,15 +585,18 @@ def main():
     # per-row parameters read once
     (a_bound, a_bound_by) = bound(
         2 * S_a * n_a * 4 + S_a * (tensors["qlp"].shape[1] + 3) * 4, a_ops)
+    a_ms = median_ms(lambda: alac_synth.synthesize(*a_args, rows=a_rows))
+    a_dev = device_ms(lambda: alac_synth.synthesize(*a_args, rows=a_rows))
     alac_row = dict(
-        max_abs_err=a_err,
-        ms=median_ms(lambda: alac_synth.synthesize(*a_args)),
-        plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_bound_by,
-        library_ms=None)
+        max_abs_err=a_err, ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound,
+        bound_by=a_bound_by, library_ms=None)
     line("kernel_vs_plain", kernel="alac_synth", shape=[S_a, n_a],
-         walk_steps=walk["walk_steps"],
-         operations=a_ops, equal=True, **alac_row)
-    del scan, tensors, a_args, got, want
+         orders=sorted(set(orders.tolist())), walk_steps=walk["walk_steps"],
+         operations=a_ops, equal=True, device_ms=a_dev,
+         ns_per_step=a_ms * 1e6 / n_a,
+         cycles_per_step_at_max_sm=a_ms * 1e3 * max_sm_mhz / n_a,
+         **alac_row)
+    del scan, tensors, a_args, a_rows, got, want
 
     # ---- 10. ALAC identity ---------------------------------------------
     mdats = []

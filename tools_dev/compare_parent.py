@@ -1,0 +1,169 @@
+#!/usr/bin/env python
+"""Times this tree's rice_decode and alac_synth kernels against those of
+another checkout of the port (an earlier commit, unpacked with
+`git archive` into a directory, or another arrangement of these
+kernels), in one process on one CUDA card, on
+the inputs of chip_smoke.py's phases 6 and 9: the records of the
+largest bucket of a 1024-frame FLAC -8 batch of bench.py's signal, and
+the subframe rows of a 1024-frameset ALAC batch (2048 x 4096).
+
+Each kernel is called through its binding in kernels.py (no wrapper
+checks; alac_synth with the row grouping of each tree's own
+ops/alac_synth.group_rows, or with the width of the row-per-thread
+kernel that came before it), both trees on the same tensors, in the
+order other, this,
+this, other; each time is the median of chip_smoke's median_ms (the
+host's enqueue included) and device_ms (the card alone).  Both outputs
+must be equal.  Prints the card's name and power limit, then one JSON
+line per kernel.  Usage:
+
+    python3 tools_dev/compare_parent.py OTHER_DIR
+"""
+
+import importlib.util
+import inspect
+import io
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def load_module(tree, rel, name):
+    """the module at `rel` in `tree`'s port package as module `name`"""
+    path = os.path.join(tree, "audiotools_tpu_torch", *rel.split("/"))
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_kernels(tree, name):
+    """the kernels.py of `tree` as module `name`, building into its own
+    build directory"""
+    module = load_module(tree, "kernels.py", name)
+    module.load()
+    return module
+
+
+def alac_call(tree, kernels, args, order, max_ord, dev):
+    """fn(out) launching `tree`'s alac_synth on `args`"""
+    if "rows" in inspect.signature(kernels.alac_synth).parameters:
+        ops = load_module(tree, "ops/alac_synth.py",
+                          kernels.__name__ + "_alac_ops")
+        rows = torch.as_tensor(ops.group_rows(order), device=dev)
+        return lambda out: kernels.alac_synth(*args, rows, 8, out)
+    kmax = 8 if max_ord <= 8 else 32
+    return lambda out: kernels.alac_synth(*args, 8, kmax, out)
+
+
+def flac_bucket(dev):
+    """the records of the largest bucket of one bench-shaped batch"""
+    from audiotools_tpu_torch import _native
+    from audiotools_tpu_torch.codecs import flac_dec
+    from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.pcm import reader_from_array, streaminfo
+    from chip_smoke import OPTS, program_signal
+    (n, frames) = (OPTS["block_size"], OPTS["batch_frames"])
+    out = io.BytesIO()
+    port_enc.encode_flac_fast(out, reader_from_array(
+        program_signal(n * frames), 16), device="cuda", **OPTS)
+    data = out.getvalue()
+    frame_bytes = data[streaminfo(data)[4]:]
+    scan = _native.flac_scan(
+        frame_bytes, 16, 2, max_samples=frames * n, max_frames=frames,
+        max_parts=flac_dec.MAX_PARTS, chunk_codes=flac_dec.CHUNK_CODES)
+    batch = flac_dec.HostBatch(scan, frame_bytes, 2, 16)
+    tensors = flac_dec.upload_batch(batch, dev)
+    b = int(np.argmax([batch.arrays["bucket%d" % i].shape[1]
+                       for i in range(len(batch.buckets))]))
+    (W, C) = batch.buckets[b]
+    records = [t.contiguous() for t in tensors["bucket%d" % b][:5]]
+    return ([tensors["words"]] + records, W, C)
+
+
+def alac_rows(dev):
+    """the subframe rows of one 1024-frameset ALAC batch"""
+    from audiotools_tpu_torch import _native
+    from audiotools_tpu_torch.codecs import alac_dec
+    from audiotools_tpu_torch.codecs.flac_dec import upload_arrays
+    from audiotools_tpu_torch.formats import m4a
+    from audiotools_tpu_torch.pcm import reader_from_array
+    from audiotools_tpu_torch.ref.alac import read_m4a_header
+    from chip_smoke import program_signal
+    (n, frames) = (4096, 1024)
+    out = io.BytesIO()
+    m4a.write_m4a(out, reader_from_array(program_signal(n * frames), 16),
+                  device="cuda")
+    data = out.getvalue()
+    header = read_m4a_header(io.BytesIO(data))
+    scan = _native.alac_scan(
+        data[header["mdat_offset"]:], 16, 2, n, header["initial_history"],
+        header["history_multiplier"], header["maximum_k"], n * frames,
+        frames * 2 + 2)
+    tensors = upload_arrays(alac_dec.prepare_batch(scan, 2), dev)
+    args = [tensors["residuals"], tensors["qlp"]] + [
+        t.contiguous() for t in tensors["sub"][:3]]
+    return (args, scan["sub_meta"][:, 2])
+
+
+def main():
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        sys.exit("usage: compare_parent.py OTHER_DIR (needs a CUDA card)")
+    from audiotools_tpu_torch import kernels as mine
+    from chip_smoke import device_ms, median_ms
+    other = load_kernels(os.path.abspath(sys.argv[1]), "other_kernels")
+    mine.load()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+
+    (rice_args, W, C) = flac_bucket(dev)
+    P = rice_args[1].shape[0]
+    (a_args, order) = alac_rows(dev)
+    max_ord = int(order[order < 31].max(initial=0))
+    calls = {
+        "rice_decode": (
+            (P, C),
+            lambda out: other.rice_decode(*rice_args, W, out),
+            lambda out: mine.rice_decode(*rice_args, W, out)),
+        "alac_synth": (
+            tuple(a_args[0].shape),
+            alac_call(os.path.abspath(sys.argv[1]), other, a_args, order,
+                      max_ord, dev),
+            alac_call(ROOT, mine, a_args, order, max_ord, dev)),
+    }
+    for (name, (shape, run_other, run_mine)) in calls.items():
+        outs = [torch.empty(shape, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        run_other(outs[0])
+        run_mine(outs[1])
+        torch.cuda.synchronize()
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            (fn, out) = ((run_other, outs[0]) if who == "other"
+                         else (run_mine, outs[1]))
+            times[who].append((median_ms(lambda: fn(out)),
+                               device_ms(lambda: fn(out))))
+        print(json.dumps({
+            "kernel": name, "shape": list(shape),
+            "equal": bool(torch.equal(outs[0], outs[1])),
+            "other_ms": float(np.median([t[0] for t in times["other"]])),
+            "other_device_ms": float(np.median(
+                [t[1] for t in times["other"]])),
+            "this_ms": float(np.median([t[0] for t in times["this"]])),
+            "this_device_ms": float(np.median(
+                [t[1] for t in times["this"]])),
+            "runs": times}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Cycles that one warp spends on the integer instructions the serial
-synthesis kernels (audiotools_tpu_torch/csrc/flac_synth.cu,
-tta_synth.cu) are built from, timed with clock64() on a CUDA card.
+kernels (audiotools_tpu_torch/csrc/flac_synth.cu, tta_synth.cu,
+alac_synth.cu, rice_decode.cu) are built from, timed with clock64() on
+a CUDA card.
 
 Each case runs one warp in one block, so it reads what a warp alone on
 its scheduler pays, as the synthesis kernels' warps are:
@@ -9,7 +10,8 @@ its scheduler pays, as the synthesis kernels' warps are:
 - throughput cases: eight independent chains, an operand changed
   every iteration (an add) so that the compiler cannot hoist the
   product: cycles per instruction pair;
-- latency cases: one dependent chain: cycles per link.
+- latency cases: one dependent chain: cycles per link (a link is one
+  serial step of a kernel: a sample, or a Rice code).
 
 Prints one JSON line per case and the card's name and power limit.
 Needs nvcc (it builds into audiotools_tpu_torch/build/).  Usage:
@@ -51,6 +53,7 @@ __device__ __forceinline__ uint32_t add32(uint32_t a, uint32_t b) {
 template <int KIND>
 __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
                               long long* cycles, long long* sink) {
+  __shared__ uint32_t words[1024];
   int64_t acc[8];
   uint32_t u[8];
   uint32_t x[8];
@@ -59,6 +62,11 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
     u[k] = threadIdx.x * 5 + k;
     x[k] = threadIdx.x * 3 + k;
   }
+  for (int k = threadIdx.x; k < 1024; k += 32) {
+    words[k] = 0x00400000u >> (k % 9);   // a set bit every word
+  }
+  __syncwarp();
+  const uint64_t buf = 0x0010000000200000ull;
   int32_t v = threadIdx.x;
   const long long t0 = clock64();
   for (int i = 0; i < iters; ++i) {
@@ -78,11 +86,30 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
         const int64_t t = madw(a, v, acc[k]);
         v = static_cast<int32_t>(static_cast<uint32_t>(b) +
                                  static_cast<uint32_t>(t >> (a & 15)));
-      } else {                           // tta_synth's step chain
+      } else if constexpr (KIND == 5) {  // tta_synth's step chain
         const uint32_t t = mad32(static_cast<uint32_t>(v), x[k], u[k]);
         v = static_cast<int32_t>(
             add32(static_cast<uint32_t>(b),
                   static_cast<uint32_t>(static_cast<int32_t>(t) >> (a & 15))));
+      } else if constexpr (KIND == 6) {  // alac_synth's step, narrow sum
+        const uint32_t t = mad32(static_cast<uint32_t>(v), x[k], u[k]);
+        const uint32_t y = add32(t >> (a & 15), static_cast<uint32_t>(b));
+        v = static_cast<int32_t>(add32((y & 0xffffu) ^ 0x8000u, 0xffff8000u));
+      } else if constexpr (KIND == 7) {  // alac_synth's step, wide sum
+        const int64_t t = madw(static_cast<int32_t>(add32(v, x[k])), a,
+                               acc[k]);
+        const uint32_t y = add32(static_cast<uint32_t>(t >> (a & 15)),
+                                 static_cast<uint32_t>(b));
+        v = static_cast<int32_t>(add32((y & 0xffffu) ^ 0x8000u, 0xffff8000u));
+      } else if constexpr (KIND == 8) {  // rice_decode's code, in registers
+        const int q = __clzll(static_cast<long long>(buf << (v & 31)));
+        v = min(v + q + 1 + (a & 7), 1 << 30);
+      } else {                           // the same, a shared load a code
+        const uint32_t w = static_cast<uint32_t>(v) >> 5;
+        const uint64_t win = (static_cast<uint64_t>(words[w & 1023]) << 32) |
+                             words[(w + 1) & 1023];
+        const int q = __clzll(static_cast<long long>(win << (v & 31)));
+        v = min(v + q + 1 + (a & 7), 1 << 30);
       }
     }
   }
@@ -105,7 +132,11 @@ extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
     case 2: cycles_kernel<2><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 3: cycles_kernel<3><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 4: cycles_kernel<4><<<1, 32>>>(iters, a, b, cycles, sink); break;
-    default: cycles_kernel<5><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 5: cycles_kernel<5><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 6: cycles_kernel<6><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 7: cycles_kernel<7><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 8: cycles_kernel<8><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<9><<<1, 32>>>(iters, a, b, cycles, sink); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -118,6 +149,14 @@ CASES = (
     ("SHFL + IADD, per link (latency)", "latency"),
     ("IMAD.WIDE -> SHF.R.S64 -> IADD, per link (latency)", "latency"),
     ("IMAD -> SHF.R.S32 -> IADD, per link (latency)", "latency"),
+    ("alac_synth narrow: IMAD -> SHF.R.U32 -> IADD -> LOP3 -> IADD, per "
+     "link (latency)", "latency"),
+    ("alac_synth wide: IADD -> IMAD.WIDE -> SHF.R.S64 -> IADD -> LOP3 -> "
+     "IADD, per link (latency)", "latency"),
+    ("rice_decode code: SHF.L.U64 -> FLO -> IADD3 -> IMNMX, per link "
+     "(latency)", "latency"),
+    ("rice_decode code with a dependent LDS a code, per link (latency)",
+     "latency"),
 )
 ITERS = 20000
 
