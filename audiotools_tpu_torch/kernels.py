@@ -114,10 +114,10 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        lib.atpu_scatter_words.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.atpu_scatter_words.restype = ctypes.c_int
+        lib.atpu_pack_rows.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
+            [ctypes.c_void_p] * 4)
+        lib.atpu_pack_rows.restype = ctypes.c_int
         lib.atpu_rice_decode.argtypes = (
             [ctypes.c_void_p] * 6 +
             [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -144,28 +144,31 @@ def _stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def scatter_words(idx, val, out):
-    """launches csrc/scatter_words.cu: ORs val[s, m] into
-    out[s, idx[s, m]] for idx in [0, n_words)
-
-    idx, val: contiguous int32 CUDA tensors [S, M]; out: zeroed
-    contiguous int32 CUDA tensor [S, n_words] on the same device.  The
-    caller (ops/bitpack.scatter_words) validates the arguments."""
-    import torch
-    lib = load()
-    (S, M) = idx.shape
-    with torch.cuda.device(idx.device):
-        rc = lib.atpu_scatter_words(
-            ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(val.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), S, M, out.shape[1],
-            _stream_ptr(idx.device))
-    if rc != 0:
-        raise RuntimeError("scatter_words kernel launch failed: CUDA "
-                           "error %d" % (rc,))
-
-
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def pack_rows(res, orders, porders, choice, params, max_bps, words, bits,
+              ok):
+    """launches csrc/pack_rows.cu: packs the residual partition blocks
+    of the rows of ``res`` [S, n] into ``words`` [S, n_words], their bit
+    counts into ``bits`` [S] and their ok flags into ``ok`` [S]
+
+    int32 inputs and outputs but ``ok`` (bool), all contiguous CUDA
+    tensors on one device.  The caller (ops/bitpack.pack_rows) validates
+    the arguments."""
+    import torch
+    lib = load()
+    (S, n) = res.shape
+    with torch.cuda.device(res.device):
+        rc = lib.atpu_pack_rows(
+            _ptr(res), _ptr(orders), _ptr(porders), _ptr(choice),
+            _ptr(params), S, n, params.shape[1], words.shape[1], max_bps,
+            _ptr(words), _ptr(bits), _ptr(ok),
+            _stream_ptr(res.device))
+    if rc != 0:
+        raise RuntimeError("pack_rows kernel launch failed: CUDA error %d"
+                           % (rc,))
 
 
 def rice_decode(words, word_base, base_bits, k, raw_bits, count, W, out):

@@ -1,7 +1,8 @@
 """Device-side parallel FLAC residual bit-packing, in torch + CUDA.
 
 Port of ``audiotools_tpu/ops/pallas_bitpack.py``.  The serial Rice
-bit writer becomes a parallel program:
+bit writer becomes a parallel program.  Its plain version is the
+reference's:
 
 1. ``tokenize``: every bit-field of a residual partition block (the
    method/porder header, the per-partition Rice parameters, one Rice
@@ -10,15 +11,19 @@ bit writer becomes a parallel program:
    places each token at an absolute bit offset;
 2. ``split_contributions``: each payload lands in one or two 32-bit
    words of the MSB-first stream, as (word index, value) pairs;
-3. ``scatter_words``: the pairs are summed into the word rows.
-   Payload bit ranges are disjoint, so add equals or.  On a CUDA
-   tensor this launches the hand-written kernel in
-   ``csrc/scatter_words.cu``; on a CPU tensor it runs
-   ``scatter_words_plain``.
+3. ``scatter_words_plain``: the pairs are summed into the word rows.
+   Payload bit ranges are disjoint, so add equals or.
+
+``pack_rows`` is the whole of it for a batch of subframe rows, with
+the capacity and clip sideband of ``pack_chosen_residuals``: on a CUDA
+tensor it launches the hand-written kernel in ``csrc/pack_rows.cu``,
+one block a row that tokenizes, scans and writes whole words, so that
+no token or contribution reaches device memory; on a CPU tensor it
+runs ``pack_rows_plain``, steps 1-3 above.
 
 u32 values are carried as int64 in [0, 2^32) (torch has no uint32
-arithmetic on the CPU) and become int32 bit patterns only at the
-kernel boundary: ``scatter_words`` takes and returns int32.
+arithmetic on the CPU) and become int32 bit patterns only at a kernel
+boundary: the word rows are int32.
 """
 
 from __future__ import annotations
@@ -163,55 +168,120 @@ def scatter_words_plain(idx, val, n_words):
     return u32_to_i32(out[:S * n_words].reshape(S, n_words) & U32_MASK)
 
 
-def scatter_words(idx, val, n_words):
-    """sums u32 word contributions into MSB-first word rows
+def contributions(res, orders, porders, params, choice, n_words):
+    """the plain scatter's inputs for a batch of subframe rows
 
-    Same contract as scatter_words_plain.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the hand-written kernel
-    (csrc/scatter_words.cu) on the current stream, without
-    synchronising, and counts the launch in ``scatter_words.launches``.
-    Any other device raises."""
-    if idx.device.type == "cpu":
-        return scatter_words_plain(idx, val, n_words)
-    if idx.device.type != "cuda":
-        raise ValueError("scatter_words: unsupported device %s"
-                         % (idx.device,))
-    _check_scatter_args(idx, val, n_words)
-    from .. import kernels
-    (S, M) = idx.shape
-    out = torch.zeros((S, n_words), dtype=torch.int32, device=idx.device)
-    if S and M and n_words:
-        kernels.scatter_words(idx, val, out)
-        scatter_words.launches += 1
-    return out
-
-
-scatter_words.launches = 0
-
-
-def chosen_contributions(chosen, n, max_parts):
-    """the scatter's inputs for the CHOSEN subframes of a batch
-
-    chosen: the dict from flac_frames.analyze_frames_packed(...,
-    return_chosen=True).  Returns (idx int32 [S, 2T], val int32
-    [S, 2T] u32 bit patterns, total_bits int64 [S], coded bool [S])
-    with S = B * max_subframes rows in frame-major order (the emit
-    splice's row layout).  CONSTANT/VERBATIM rows may carry arbitrary
-    analysis residuals: their contributions are zeroed, so nothing of
-    theirs scatters."""
-    res3 = chosen["residual"]                    # [B, max_sub, n]
-    S = res3.shape[0] * res3.shape[1]
-    choice = chosen["choice"].reshape(S)
+    res: int32 [S, n]; orders, porders, choice: int32 [S]; params:
+    int32 [S, max_parts].  Returns (idx int32 [S, 2T], val int32 [S, 2T]
+    u32 bit patterns, total_bits int64 [S], coded bool [S]).  Indices
+    past the words are clamped to n_words, where the scatter drops them.
+    CONSTANT/VERBATIM rows may carry arbitrary analysis residuals: their
+    contributions are zeroed, so nothing of theirs scatters."""
+    (S, n) = res.shape
     coded = (choice == ff.CHOICE_FIXED) | (choice == ff.CHOICE_LPC)
     (ends, payload, widths, total) = tokenize(
-        res3.reshape(S, n), chosen["order"].reshape(S),
-        chosen["porder"].reshape(S),
-        chosen["rice_params"].reshape(S, max_parts), n, max_parts)
+        res, orders, porders, params, n, params.shape[1])
     (idx, val) = split_contributions(ends, payload, widths)
     del ends, payload, widths
-    idx = torch.where(coded[:, None], idx, 0).to(torch.int32)
+    idx = torch.where(coded[:, None], torch.clamp(idx, max=n_words), 0)
     val = u32_to_i32(torch.where(coded[:, None], val, 0))
-    return (idx, val, total, coded)
+    return (idx.to(torch.int32), val, total, coded)
+
+
+def _check_pack_args(res, orders, porders, params, choice, n_words,
+                     max_bps):
+    S = res.shape[0] if res.dim() == 2 else -1
+    if not (res.dim() == 2 and res.shape[1] >= 1 and params.dim() == 2
+            and params.shape[0] == S and params.shape[1] >= 1
+            and orders.shape == porders.shape == choice.shape == (S,)):
+        raise ValueError(
+            "want res [S, n >= 1], orders, porders and choice [S], params "
+            "[S, max_parts >= 1]; got %s" % ([tuple(t.shape) for t in (
+                res, orders, porders, params, choice)],))
+    for x in (res, orders, porders, params, choice):
+        if x.dtype != torch.int32:
+            raise TypeError("the pack's inputs must be int32, got %s"
+                            % (x.dtype,))
+        if x.device != res.device:
+            raise ValueError("the pack's inputs lie on different devices")
+        if not x.is_contiguous():
+            raise ValueError("the pack's inputs must be contiguous")
+    if n_words < 0 or n_words >= (1 << 31):
+        raise ValueError("n_words out of range: %d" % (n_words,))
+    if max_bps < 0 or max_bps > 26:
+        raise ValueError("max_bps out of range: %d" % (max_bps,))
+
+
+def pack_rows_plain(res, orders, porders, params, choice, n_words,
+                    max_bps):
+    """plain torch version of the pack, on any device
+
+    res: int32 [S, n] residuals at absolute positions; orders, porders,
+    choice: int32 [S]; params: int32 [S, max_parts] Rice parameters.
+    Returns (words int32 [S, n_words] u32 bit patterns, bits int32 [S],
+    row_ok bool [S]).  CONSTANT/VERBATIM rows get zero words, 0 bits and
+    ok.  Bits past 32 * n_words are dropped; a coded row whose block
+    needs more is not ok, nor an LPC row with a residual of magnitude
+    2^(max_bps + 4) or more (the analysis clip bound: such a residual is
+    not the exact one).  The bit count is the int64 total narrowed to
+    int32."""
+    _check_pack_args(res, orders, porders, params, choice, n_words,
+                     max_bps)
+    (idx, val, total, coded) = contributions(res, orders, porders,
+                                             params, choice, n_words)
+    words = scatter_words_plain(idx, val, n_words)
+    clip = 1 << (max_bps + 4)
+    clipped = (choice == ff.CHOICE_LPC) & torch.any(torch.abs(res) >= clip,
+                                                    dim=1)
+    row_ok = (~coded) | ((total <= 32 * n_words) & ~clipped)
+    return (words, torch.where(coded, total, 0).to(torch.int32), row_ok)
+
+
+def pack_rows(res, orders, porders, params, choice, n_words, max_bps):
+    """packs the residual partition blocks of a batch of subframe rows
+
+    Same contract as pack_rows_plain.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the hand-written kernel
+    (csrc/pack_rows.cu) on the current stream, without synchronising,
+    and counts the launch in ``pack_rows.launches``.  Any other device
+    raises."""
+    if res.device.type == "cpu":
+        return pack_rows_plain(res, orders, porders, params, choice,
+                               n_words, max_bps)
+    if res.device.type != "cuda":
+        raise ValueError("pack_rows: unsupported device %s" % (res.device,))
+    _check_pack_args(res, orders, porders, params, choice, n_words,
+                     max_bps)
+    from .. import kernels
+    S = res.shape[0]
+    words = torch.empty((S, n_words), dtype=torch.int32, device=res.device)
+    bits = torch.empty(S, dtype=torch.int32, device=res.device)
+    ok = torch.empty(S, dtype=torch.bool, device=res.device)
+    if S:
+        kernels.pack_rows(res, orders, porders, choice, params, max_bps,
+                          words, bits, ok)
+        pack_rows.launches += 1
+    return (words, bits, ok)
+
+
+pack_rows.launches = 0
+
+
+def chosen_rows(chosen, n, max_parts):
+    """the pack's row inputs from the CHOSEN subframes of a batch
+
+    chosen: the dict from flac_frames.analyze_frames_packed(...,
+    return_chosen=True).  Returns (res [S, n], orders, porders, params
+    [S, max_parts], choice), contiguous int32, with S = B *
+    max_subframes rows in frame-major order (the emit splice's row
+    layout)."""
+    res3 = chosen["residual"]                    # [B, max_sub, n]
+    S = res3.shape[0] * res3.shape[1]
+    return tuple(t.reshape(shape).to(torch.int32).contiguous()
+                 for (t, shape) in ((res3, (S, n)), (chosen["order"], (S,)),
+                                    (chosen["porder"], (S,)),
+                                    (chosen["rice_params"], (S, max_parts)),
+                                    (chosen["choice"], (S,))))
 
 
 def pack_chosen_residuals(chosen, n, bps, stereo_trial, max_parts,
@@ -225,15 +295,7 @@ def pack_chosen_residuals(chosen, n, bps, stereo_trial, max_parts,
     report 0 bits.  ``ok`` is False when a coded row overflows the
     capacity or its LPC residuals touched the analysis clip bound; the
     caller then emits the batch without the packed bits."""
-    (idx, val, total, coded) = chosen_contributions(chosen, n, max_parts)
-    words = scatter_words(idx, val, n_words)
-
-    S = coded.shape[0]
-    choice = chosen["choice"].reshape(S)
     max_bps = bps + 1 if stereo_trial else bps
-    clip = 1 << (max_bps + 4)
-    clipped = (choice == ff.CHOICE_LPC) & torch.any(
-        torch.abs(chosen["residual"].reshape(S, n)) >= clip, dim=1)
-    row_ok = (~coded) | ((total <= 32 * n_words) & ~clipped)
-    total = torch.where(coded, total, 0)
-    return (words, total.to(torch.int32), torch.all(row_ok))
+    (words, bits, row_ok) = pack_rows(*chosen_rows(chosen, n, max_parts),
+                                      n_words, max_bps)
+    return (words, bits, torch.all(row_ok))

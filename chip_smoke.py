@@ -15,10 +15,13 @@ one line:
 2. build: compiles the CUDA kernels from csrc/ (timed), with each
    kernel's registers, stack frame and spill stores as ptxas reports
    them;
-3. kernel vs plain: scatter_words on the card against
-   scatter_words_plain on the card, on contributions made by the
-   port's own analysis and tokenizer from bench-shaped input; must be
-   equal; both timed with CUDA events (median of several runs);
+3. kernel vs plain: pack_rows on the card against pack_rows_plain on
+   the card (the eager tokenize, split and scatter chain), on the
+   chosen subframes of the port's own analysis of bench-shaped input;
+   words, bits and ok flags must be equal; both timed with CUDA events
+   (median of several runs), the kernel also with the card's time alone
+   (device_ms, as in phase 6), beside scatter_add_ on the same rows'
+   word contributions;
 4. slice identity: a short encode at the main path's options on the
    card, with the device pack and without it, must give the bytes the
    port's plain versions give on the CPU (which the tests hold byte
@@ -26,7 +29,8 @@ one line:
 5. throughput: bench.py's encode (its signal and options, 16 batches
    of 1024 frames, 12.7 minutes of audio), repeated, each run
    decode-verified bit-exactly, with the launch counter reset just
-   before each run and read just after;
+   before each run and read just after, and each run's pack stage
+   seconds;
 6. decode kernels vs plain: rice_decode and flac_synth on the card
    against their plain versions on the card, on the records (one row
    per non-empty bucket) and subframe arrays of the port's scan of a
@@ -259,47 +263,54 @@ def main():
         blocks, True, 16, n, K, 12, porders, 14,
         opts["exhaustive_model_search"], opts["mid_side"], window,
         return_chosen=True)
-    (idx, val, _total, _coded) = bitpack.chosen_contributions(chosen, n, P)
+    rows = bitpack.chosen_rows(chosen, n, P)
     n_words = bitpack.residual_words_capacity(n, 17, P)
     del chosen, _packed
-    got = bitpack.scatter_words(idx, val, n_words)
-    want = bitpack.scatter_words_plain(idx, val, n_words)
+    got = bitpack.pack_rows(*rows, n_words, 17)
+    want = bitpack.pack_rows_plain(*rows, n_words, 17)
     torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError("scatter_words kernel != plain version "
-                             "(max abs err %d)" % (err,))
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for (g, w) in zip(got, want))
+    if not all(torch.equal(g, w) for (g, w) in zip(got, want)):
+        raise AssertionError("pack_rows kernel != plain version (max abs "
+                             "err %d)" % (err,))
     # interleaved plain, kernel, kernel, plain
-    plain_ms = [median_ms(lambda: bitpack.scatter_words_plain(
-        idx, val, n_words))]
-    kernel_ms = [median_ms(lambda: bitpack.scatter_words(idx, val, n_words))
+    plain_ms = [median_ms(lambda: bitpack.pack_rows_plain(
+        *rows, n_words, 17))]
+    kernel_ms = [median_ms(lambda: bitpack.pack_rows(*rows, n_words, 17))
                  for _ in range(2)]
-    plain_ms.append(median_ms(lambda: bitpack.scatter_words_plain(
-        idx, val, n_words)))
+    plain_ms.append(median_ms(lambda: bitpack.pack_rows_plain(
+        *rows, n_words, 17)))
     ms = float(np.median(kernel_ms))
     pms = float(np.median(plain_ms))
-    # one library call for the same function: the payload bits are
-    # disjoint, so adding the contributions equals or-ing them (the
-    # kernel's dropped indices are masked beforehand)
-    inside = (idx >= 0) & (idx < n_words)
+    pack_dev = device_ms(lambda: bitpack.pack_rows(*rows, n_words, 17))
+    # one library call for the reference kernel's own part, the scatter:
+    # the payload bits are disjoint, so adding the rows' word
+    # contributions equals or-ing them (those past the words masked)
+    (idx, val, _total, _coded) = bitpack.contributions(*rows, n_words)
+    inside = idx < n_words
     idx64 = torch.where(inside, idx, 0).to(torch.int64)
     val_in = torch.where(inside, val, 0)
-    scatter_add = (lambda: torch.zeros_like(want).scatter_add_(
+    scatter_add = (lambda: torch.zeros_like(want[0]).scatter_add_(
         1, idx64, val_in))
-    if not torch.equal(scatter_add(), want):
-        raise AssertionError("scatter_add_ != plain scatter_words")
+    if not torch.equal(scatter_add(), want[0]):
+        raise AssertionError("scatter_add_ != the plain pack's words")
     lib_ms = median_ms(scatter_add)
-    (sw_bound, sw_bound_by) = bound(
-        2 * idx.numel() * 4 + want.numel() * 4, 0)
-    line("kernel_vs_plain", kernel="scatter_words",
-         shape=[int(idx.shape[0]), int(idx.shape[1]), n_words],
-         equal=True, max_abs_err=err, ms=ms, plain_ms=pms,
-         ms_runs=kernel_ms, plain_ms_runs=plain_ms, library_ms=lib_ms,
-         bound_ms=sw_bound)
-    scatter_words_row = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                             bound_ms=sw_bound, bound_by=sw_bound_by,
-                             library_ms=lib_ms)
-    del idx, idx64, val, val_in, inside, got, want, blocks
+    S = int(rows[0].shape[0])
+    # residuals, parameters and the three per-row fields read once; words,
+    # bits and ok flags written once; ~20 integer operations a code
+    (pk_bound, pk_bound_by) = bound(
+        S * n * 4 + S * P * 4 + 3 * S * 4 + S * n_words * 4 + S * 4 + S,
+        20 * S * n)
+    line("kernel_vs_plain", kernel="pack_rows", shape=[S, n, P, n_words],
+         equal=True, max_abs_err=err, ms=ms, device_ms=pack_dev,
+         plain_ms=pms, ms_runs=kernel_ms, plain_ms_runs=plain_ms,
+         library_ms=lib_ms, contributions=int(idx.shape[1]),
+         bound_ms=pk_bound)
+    pack_row = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                    bound_ms=pk_bound, bound_by=pk_bound_by,
+                    library_ms=lib_ms)
+    del rows, idx, idx64, val, val_in, inside, got, want, blocks
 
     # ---- 4. slice identity against the plain versions ------------------
     rng = np.random.default_rng(9)
@@ -316,7 +327,7 @@ def main():
     port_enc.encode_flac_fast(plain, reader_from_array(arr, 16),
                               device="cpu", **small)
     plain = plain.getvalue()
-    bitpack.scatter_words.launches = 0
+    bitpack.pack_rows.launches = 0
     for pack in (True, False):
         buf = io.BytesIO()
         port_enc.encode_flac_fast(buf, reader_from_array(arr, 16),
@@ -324,13 +335,13 @@ def main():
         if buf.getvalue() != plain:
             raise AssertionError("card encode (pack=%s) bytes differ from "
                                  "the plain versions' on the CPU" % (pack,))
-    slice_launches = bitpack.scatter_words.launches
+    slice_launches = bitpack.pack_rows.launches
     if slice_launches <= 0:
-        raise AssertionError("slice encode never launched scatter_words")
+        raise AssertionError("slice encode never launched pack_rows")
     if not np.array_equal(decode_flac(plain), arr):
         raise AssertionError("slice encode does not decode bit-exactly")
     line("slice_identity", frames=m, bytes=len(plain), identical=True,
-         bit_exact=True, scatter_words_launches=slice_launches)
+         bit_exact=True, pack_rows_launches=slice_launches)
 
     # ---- 5. bench-shaped throughput on the main path -------------------
     one_batch = io.BytesIO()
@@ -347,16 +358,16 @@ def main():
         timings = {}
         out = io.BytesIO()
         torch.cuda.reset_peak_memory_stats(dev)
-        bitpack.scatter_words.launches = 0
+        bitpack.pack_rows.launches = 0
         t0 = time.perf_counter()
         port_enc.encode_flac_fast(out, reader, device="cuda",
                                   timings=timings, **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = bitpack.scatter_words.launches
+        launches = bitpack.pack_rows.launches
         data = out.getvalue()
         if launches <= 0:
-            raise AssertionError("main path never launched scatter_words")
+            raise AssertionError("main path never launched pack_rows")
         if not np.array_equal(decode_flac(data), sig):
             raise AssertionError("bench-shaped encode does not decode "
                                  "bit-exactly")
@@ -364,13 +375,14 @@ def main():
         runs.append(dict(
             wall_s=wall, Msamples_per_s=n_frames * 2 / wall / 1e6,
             ratio=len(data) / (sig.size * 2), stage_s=timings,
+            pack_s=timings["pack"],
             fallback_batches=port_enc.fallback_batches - fallback0,
             peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9,
-            scatter_words_launches=launches))
+            pack_rows_launches=launches))
         del out
     rates = [r["Msamples_per_s"] for r in runs]
     rate = float(np.median(rates))
-    launches = runs[0]["scatter_words_launches"]
+    launches = runs[0]["pack_rows_launches"]
     line("throughput", audio_seconds=n_frames / SAMPLE_RATE,
          batches=THROUGHPUT_BATCHES, batch_frames=frames,
          Msamples_per_s=rate, Msamples_per_s_runs=rates,
@@ -791,8 +803,8 @@ def main():
                              % (forbidden,))
     kernels_line = []
     for (kname, source, replaces, kl, row) in (
-            ("scatter_words", "scatter_words.cu", "pallas_bitpack.py:195",
-             launches, scatter_words_row),
+            ("pack_rows", "pack_rows.cu", "pallas_bitpack.py:195",
+             launches, pack_row),
             ("rice_decode", "rice_decode.cu", "rice_decode.py:309",
              dec_runs[0]["rice_decode_launches"], rice_row),
             ("flac_synth", "flac_synth.cu", "flac_synth.py:96",

@@ -1,21 +1,24 @@
 #!/usr/bin/env python
-"""Times this tree's rice_decode and alac_synth kernels against those of
-another checkout of the port (an earlier commit, unpacked with
-`git archive` into a directory, or another arrangement of these
-kernels), in one process on one CUDA card, on
-the inputs of chip_smoke.py's phases 6 and 9: the records of the
-largest bucket of a 1024-frame FLAC -8 batch of bench.py's signal, and
-the subframe rows of a 1024-frameset ALAC batch (2048 x 4096).
+"""Times this tree's FLAC encode pack and its rice_decode and alac_synth
+kernels against those of another checkout of the port (an earlier
+commit, unpacked with `git archive` into a directory, or another
+arrangement of these kernels), in one process on one CUDA card, on the
+inputs of chip_smoke.py's phases 3, 6 and 9: the chosen subframes of a
+1024-frame FLAC -8 batch of bench.py's signal (2048 rows of 4096), the
+records of the largest bucket of that batch's stream, and the subframe
+rows of a 1024-frameset ALAC batch (2048 x 4096).
 
-Each kernel is called through its binding in kernels.py (no wrapper
+The pack is each tree's whole ops/bitpack.pack_chosen_residuals, the
+encoder's pack stage (the other tree's package loaded under another
+name, building its kernels into its own build directory).  Each
+kernel is called through its binding in kernels.py (no wrapper
 checks; alac_synth with the row grouping of each tree's own
 ops/alac_synth.group_rows, or with the width of the row-per-thread
-kernel that came before it), both trees on the same tensors, in the
-order other, this,
-this, other; each time is the median of chip_smoke's median_ms (the
-host's enqueue included) and device_ms (the card alone).  Both outputs
-must be equal.  Prints the card's name and power limit, then one JSON
-line per kernel.  Usage:
+kernel that came before it).  Both trees run on the same tensors, in
+the order other, this, this, other; each time is the median of
+chip_smoke's median_ms (the host's enqueue included) and device_ms
+(the card alone).  Both outputs must be equal.  Prints the card's name
+and power limit, then one JSON line per comparison.  Usage:
 
     python3 tools_dev/compare_parent.py OTHER_DIR
 """
@@ -44,6 +47,18 @@ def load_module(tree, rel, name):
     return module
 
 
+def load_package(tree, name):
+    """`tree`'s port package as package `name`, so that its modules'
+    relative imports stay inside it"""
+    init = os.path.join(tree, "audiotools_tpu_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[os.path.dirname(init)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_kernels(tree, name):
     """the kernels.py of `tree` as module `name`, building into its own
     build directory"""
@@ -61,6 +76,27 @@ def alac_call(tree, kernels, args, order, max_ord, dev):
         return lambda out: kernels.alac_synth(*args, rows, 8, out)
     kmax = 8 if max_ord <= 8 else 32
     return lambda out: kernels.alac_synth(*args, 8, kmax, out)
+
+
+def flac_chosen(dev):
+    """the chosen subframes of one bench-shaped FLAC batch, and the
+    pack's arguments after them (n, bps, stereo_trial, max_parts,
+    n_words)"""
+    from audiotools_tpu_torch.ops import bitpack, flac_frames, lpc
+    from chip_smoke import OPTS, program_signal
+    (n, K, frames) = (OPTS["block_size"], OPTS["max_lpc_order"],
+                      OPTS["batch_frames"])
+    porders = flac_frames.valid_partition_orders(
+        n, OPTS["max_residual_partition_order"], max(K, 4))
+    P = 1 << porders[-1]
+    blocks = torch.as_tensor(program_signal(n * frames).reshape(
+        frames, n, 2).astype(np.int16), device=dev)
+    (_packed, chosen) = flac_frames.analyze_frames_packed(
+        blocks, True, 16, n, K, 12, porders, 14,
+        OPTS["exhaustive_model_search"], OPTS["mid_side"],
+        lpc.tukey_window(n, dev), return_chosen=True)
+    return (chosen, (n, 16, True, P,
+                     bitpack.residual_words_capacity(n, 17, P)))
 
 
 def flac_bucket(dev):
@@ -126,10 +162,37 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
 
+    from audiotools_tpu_torch.ops import bitpack as my_bitpack
+    other_bitpack = importlib.import_module(
+        load_package(os.path.abspath(sys.argv[1]), "other_port").__name__
+        + ".ops.bitpack")
+    (chosen, pack_args) = flac_chosen(dev)
     (rice_args, W, C) = flac_bucket(dev)
     P = rice_args[1].shape[0]
     (a_args, order) = alac_rows(dev)
     max_ord = int(order[order < 31].max(initial=0))
+
+    runs = {}
+    pack_outs = {}
+    for (who, module) in (("other", other_bitpack), ("this", my_bitpack),
+                          ("this", my_bitpack), ("other", other_bitpack)):
+        fn = (lambda m=module: m.pack_chosen_residuals(chosen, *pack_args))
+        pack_outs[who] = fn()
+        runs.setdefault(who, []).append((median_ms(fn), device_ms(fn)))
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "kernel": "pack (pack_chosen_residuals)",
+        "shape": [int(pack_outs["this"][0].shape[0]),
+                  pack_args[0], pack_args[4]],
+        "equal": all(bool(torch.equal(a, b)) for (a, b) in
+                     zip(pack_outs["other"], pack_outs["this"])),
+        "other_ms": float(np.median([t[0] for t in runs["other"]])),
+        "other_device_ms": float(np.median([t[1] for t in runs["other"]])),
+        "this_ms": float(np.median([t[0] for t in runs["this"]])),
+        "this_device_ms": float(np.median([t[1] for t in runs["this"]])),
+        "runs": runs}), flush=True)
+    del chosen, pack_outs
+
     calls = {
         "rice_decode": (
             (P, C),

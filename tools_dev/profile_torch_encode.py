@@ -20,6 +20,7 @@ Usage:  python tools_dev/profile_torch_encode.py [batches] [repeats]
         (defaults 4 and 3; needs one CUDA card)
 """
 
+import functools
 import io
 import json
 import os
@@ -43,7 +44,7 @@ SPANS = {lpc: ("windowed_autocorr_df", "levinson_df",
                "quantize_all_orders", "lpc_residuals"),
          flac_frames: ("build_variants", "analyze_subframes",
                        "compact_decisions"),
-         bitpack: ("chosen_contributions", "pack_chosen_residuals")}
+         bitpack: ("pack_rows", "pack_chosen_residuals")}
 
 
 def emit(tag, **fields):
@@ -59,6 +60,7 @@ def span_functions(spans):
             fn = getattr(module, name)
             saved.append((module, name, fn))
 
+            @functools.wraps(fn)    # keeps attributes: pack_rows.launches
             def timed(*args, _fn=fn, _name=name, **kwargs):
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
