@@ -1,9 +1,11 @@
-"""The port's host C++ library: FLAC, ALAC and TTA host kernels, and MD5.
+"""The port's host C++ library: FLAC, ALAC, TTA and Shorten host kernels,
+and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
-CRC and MD5 parts of the reference package's host library; the
-wrappers here are the reference's (``audiotools_tpu/_native``), for
-the entry points the port calls.  The library compiles with g++ on
+Shorten, CRC and MD5 parts of the reference package's host library;
+the wrappers here are the reference's (``audiotools_tpu/_native``), for
+the entry points the port calls, with two of the port's own:
+``shn_header`` and ``shn_warm_chain``.  The library compiles with g++ on
 first use into the package's ``build/`` directory; its name carries a
 hash of the source, and it is written to a temporary file first and
 renamed into place, so that several processes may build it at once.
@@ -208,6 +210,7 @@ def get_lib():
         ctypes.c_int32,                   # channels
         ctypes.c_int32,                   # bps
         ctypes.POINTER(ctypes.c_uint8),   # out
+        ctypes.c_int64,                   # out_cap
         ctypes.POINTER(ctypes.c_int64),   # out_ends
     ]
 
@@ -218,6 +221,7 @@ def get_lib():
         ctypes.c_int64,                   # n_tta_frames
         ctypes.c_int32,                   # channels
         ctypes.POINTER(ctypes.c_uint8),   # out
+        ctypes.c_int64,                   # out_cap
         ctypes.POINTER(ctypes.c_int64),   # out_ends
     ]
 
@@ -242,6 +246,48 @@ def get_lib():
         ctypes.c_int32,                   # channels
         ctypes.POINTER(ctypes.c_int32),   # out [total, ch]
         ctypes.c_int32,                   # verify_crc
+    ]
+
+    lib.atpu_shn_encode2.restype = ctypes.c_int64
+    lib.atpu_shn_encode2.argtypes = [
+        _I32,               # samples [n, ch]
+        ctypes.c_int64,     # n
+        ctypes.c_int32,     # channels
+        ctypes.c_int32,     # bps
+        ctypes.c_int32,     # signed_samples
+        ctypes.c_int32,     # is_big_endian
+        _U8, ctypes.c_int64,    # header_data, header_len
+        _U8, ctypes.c_int64,    # footer_data, footer_len
+        ctypes.c_int32,     # block_size
+        _I32,               # decisions [nblocks, ch, 4] (nullable)
+        _U8,                # out
+    ]
+    lib.atpu_shn_decode.restype = ctypes.c_int64
+    lib.atpu_shn_decode.argtypes = [_U8, ctypes.c_int64, ctypes.c_int64,
+                                    _I32, _I64]
+    lib.atpu_shn_header.restype = ctypes.c_int64
+    lib.atpu_shn_header.argtypes = [_U8, ctypes.c_int64, _I64, _U8,
+                                    ctypes.c_int64]
+    lib.atpu_shn_scan.restype = ctypes.c_int64
+    lib.atpu_shn_scan.argtypes = [
+        _U8, ctypes.c_int64,    # data, len
+        ctypes.c_int64,     # max_rows
+        ctypes.c_int64,     # max_block
+        _I32,               # residuals [max_rows, max_block]
+        _I32,               # row_meta [max_rows, 4]
+        _I64,               # info [5]
+    ]
+    lib.atpu_shn_split.restype = ctypes.c_int64
+    lib.atpu_shn_split.argtypes = [_U8, ctypes.c_int64, _U8, ctypes.c_int64,
+                                   _U8, ctypes.c_int64, _I64]
+    lib.atpu_shn_warm_chain.restype = ctypes.c_int64
+    lib.atpu_shn_warm_chain.argtypes = [
+        _I32,               # residuals [rows, width]
+        _I32,               # row_meta [rows, 4]
+        ctypes.c_int64,     # rows
+        ctypes.c_int64,     # width
+        ctypes.c_int32,     # channels
+        _I64,               # warm [rows, 3]
     ]
 
     lib.atpu_md5_init.restype = None
@@ -553,52 +599,51 @@ def tta_scan_residuals(data, frame_lens, frame_sizes, channels,
     return out
 
 
-def tta_encode_frames(samples, frame_sizes, channels, bps):
-    """encodes TTA frames from int32 [total, ch] PCM
-
-    returns (bytes, per-frame byte sizes int64 array)"""
-    lib = get_lib()
-    samples = np.ascontiguousarray(samples, dtype=np.int32)
+def _tta_frames_call(fn, values, frame_sizes, first_cap):
+    """runs a TTA frame writer, doubling the output buffer while it
+    reports -54 (too small); returns (bytes, per-frame byte sizes)"""
+    values = np.ascontiguousarray(values, dtype=np.int32)
     frame_sizes = np.ascontiguousarray(frame_sizes, dtype=np.int32)
     F = len(frame_sizes)
-    worst = samples.size * ((bps // 8) + 2) + 64 * F + 1024
-    out = np.empty(worst, dtype=np.uint8)
+    cap = first_cap + 64 * F + 1024
     out_ends = np.empty(F, dtype=np.int64)
-    total = lib.atpu_tta_encode_frames(
-        _as_ptr(samples, ctypes.c_int32),
-        _as_ptr(frame_sizes, ctypes.c_int32),
-        F, channels, bps,
-        _as_ptr(out, ctypes.c_uint8),
-        _as_ptr(out_ends, ctypes.c_int64))
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        total = fn(_as_ptr(values, ctypes.c_int32),
+                   _as_ptr(frame_sizes, ctypes.c_int32), F,
+                   _as_ptr(out, ctypes.c_uint8), cap,
+                   _as_ptr(out_ends, ctypes.c_int64))
+        if total != -54:
+            break
+        cap *= 2
     if total < 0:
         raise ValueError("TTA encode error (code %d)" % (total,))
     lens = np.diff(np.concatenate([[0], out_ends]))
     return (out[:total].tobytes(), lens)
 
 
+def tta_encode_frames(samples, frame_sizes, channels, bps):
+    """encodes TTA frames from int32 [total, ch] PCM
+
+    returns (bytes, per-frame byte sizes int64 array)"""
+    lib = get_lib()
+    return _tta_frames_call(
+        lambda v, s, F, out, cap, ends: lib.atpu_tta_encode_frames(
+            v, s, F, channels, bps, out, cap, ends),
+        samples, frame_sizes, np.size(samples) * ((bps // 8) + 2))
+
+
 def tta_pack_frames(residuals, frame_sizes, channels):
-    """packs precomputed TTA filter residuals (the back half of a
-    device encode analysis, which the port does not have yet) with the
-    adaptive Rice coder + per-frame CRC-32
+    """packs precomputed TTA filter residuals (the back half of the
+    device encode, ops/tta_scan.analyze_frames) with the adaptive Rice
+    coder + per-frame CRC-32
 
     residuals: int32 [total, ch]; returns (bytes, per-frame sizes)"""
     lib = get_lib()
-    residuals = np.ascontiguousarray(residuals, dtype=np.int32)
-    frame_sizes = np.ascontiguousarray(frame_sizes, dtype=np.int32)
-    F = len(frame_sizes)
-    worst = residuals.size * 6 + 64 * F + 1024
-    out = np.empty(worst, dtype=np.uint8)
-    out_ends = np.empty(F, dtype=np.int64)
-    total = lib.atpu_tta_pack_frames(
-        _as_ptr(residuals, ctypes.c_int32),
-        _as_ptr(frame_sizes, ctypes.c_int32),
-        F, channels,
-        _as_ptr(out, ctypes.c_uint8),
-        _as_ptr(out_ends, ctypes.c_int64))
-    if total < 0:
-        raise ValueError("TTA pack error (code %d)" % (total,))
-    lens = np.diff(np.concatenate([[0], out_ends]))
-    return (out[:total].tobytes(), lens)
+    return _tta_frames_call(
+        lambda v, s, F, out, cap, ends: lib.atpu_tta_pack_frames(
+            v, s, F, channels, out, cap, ends),
+        residuals, frame_sizes, np.size(residuals) * 6)
 
 
 def tta_decode_frame(data, n, channels, bps, verify_crc=True):
@@ -615,6 +660,187 @@ def tta_decode_frame(data, n, channels, bps, verify_crc=True):
         raise ValueError("truncated or corrupt TTA stream "
                          "(native code %d)" % (consumed,))
     return (out.reshape(n, channels), consumed)
+
+
+def shn_encode(samples, bps, signed_samples, is_big_endian,
+               header_data, footer_data=b"", block_size=256,
+               decisions=None):
+    """encodes a complete Shorten stream from int32 [n, ch] PCM
+
+    decisions: optional int32 [nblocks, ch, 4] analysis steering
+    (ops/shn_scan.py layout); None computes decisions in C++"""
+    lib = get_lib()
+    samples = np.ascontiguousarray(samples, dtype=np.int32)
+    (n, ch) = samples.shape
+    header = np.frombuffer(bytes(header_data), dtype=np.uint8)
+    footer = np.frombuffer(bytes(footer_data), dtype=np.uint8)
+    worst = (samples.size * ((bps // 8) + 2) +
+             8 * (len(header) + len(footer)) + 4096)
+    out = np.empty(worst, dtype=np.uint8)
+    if decisions is not None:
+        decisions = np.ascontiguousarray(decisions, dtype=np.int32)
+        nblocks = -(-n // block_size) if block_size else 0
+        if decisions.shape != (nblocks, ch, 4):
+            raise ValueError("decision array shape mismatch")
+        dec_ptr = _as_ptr(decisions, ctypes.c_int32)
+    else:
+        dec_ptr = ctypes.POINTER(ctypes.c_int32)()
+    total = lib.atpu_shn_encode2(
+        _as_ptr(samples, ctypes.c_int32), n, ch, bps,
+        1 if signed_samples else 0,
+        1 if is_big_endian else 0,
+        _as_ptr(header, ctypes.c_uint8), len(header),
+        _as_ptr(footer, ctypes.c_uint8), len(footer),
+        block_size,
+        dec_ptr,
+        _as_ptr(out, ctypes.c_uint8))
+    if total < 0:
+        raise ValueError("Shorten encode error (code %d)" % (total,))
+    return out[:total].tobytes()
+
+
+def shn_decode(data, max_frames, channels):
+    """decodes a complete Shorten stream
+
+    returns (samples int32 [frames, channels], file_type, bps)"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    info = np.zeros(4, dtype=np.int64)
+    out = np.empty(max_frames * channels, dtype=np.int32)
+    frames = lib.atpu_shn_decode(
+        _as_ptr(buf, ctypes.c_uint8), len(buf), max_frames,
+        _as_ptr(out, ctypes.c_int32),
+        _as_ptr(info, ctypes.c_int64))
+    if frames < 0:
+        raise ValueError("truncated or corrupt Shorten stream "
+                         "(native code %d)" % (frames,))
+    channels = int(info[0])
+    return (out[:frames * channels].reshape(-1, channels),
+            int(info[1]), int(info[3]))
+
+
+class ShnDeviceUnsupported(ValueError):
+    """the Shorten stream uses features (QLPC, DIFF0-with-means,
+    energy > 30) the device decode path does not cover; callers
+    decode on the host path instead"""
+
+
+def shn_header(data):
+    """a Shorten stream's header fields and leading container bytes:
+    dict of file_type, channels, block_size, max_lpc, n_means and head,
+    the bytes of the stream's first command when that is a VERBATIM
+    chunk (else b""); ValueError when the bytes are not a Shorten v2
+    stream or end inside that much"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    info = np.zeros(6, dtype=np.int64)
+    head = np.empty(1 << 16, dtype=np.uint8)
+    while True:
+        rc = lib.atpu_shn_header(_as_ptr(buf, ctypes.c_uint8), len(buf),
+                                 _as_ptr(info, ctypes.c_int64),
+                                 _as_ptr(head, ctypes.c_uint8), len(head))
+        if rc < 0:
+            raise ValueError("invalid Shorten header (native code %d)"
+                             % (rc,))
+        if info[5] <= len(head):
+            break
+        head = np.empty(int(info[5]), dtype=np.uint8)
+    out = dict(zip(("file_type", "channels", "block_size", "max_lpc",
+                    "n_means"), (int(v) for v in info[:5])))
+    out["head"] = head[:max(int(info[5]), 0)].tobytes()
+    return out
+
+
+def shn_scan(data, max_rows=None, max_block=None):
+    """residual-only entropy scan for the SHN device decode path
+
+    returns (residuals int32 [rows, max_block],
+             row_meta int32 [rows, 4] {cmd, block_len, shift, chan},
+             info dict) or raises ShnDeviceUnsupported"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    if max_block is None or max_rows is None:
+        # size the row planes from the header's block_size (a
+        # mid-stream FN_BLOCKSIZE beyond it returns -81 -> host path)
+        hdr_block = max(shn_header(data)["block_size"], 1)
+        if max_block is None:
+            max_block = hdr_block
+        if max_rows is None:
+            # every residual costs >= 1 bit, so the stream length
+            # bounds rows at 8*len/block (+ slack for short blocks);
+            # FN_ZERO blocks cost only ~3 bits though, so -81
+            # capacity overflows retry below with 8x more rows (up
+            # to a ~512 MB residual-plane cap) before giving up
+            max_rows = (len(buf) * 8) // hdr_block + 256
+    row_cap = max((1 << 27) // max(max_block, 1), 1024)
+    while True:
+        residuals = np.empty((max_rows, max_block), dtype=np.int32)
+        row_meta = np.empty((max_rows, 4), dtype=np.int32)
+        info = np.zeros(5, dtype=np.int64)
+        rows = lib.atpu_shn_scan(
+            _as_ptr(buf, ctypes.c_uint8), len(buf),
+            max_rows, max_block,
+            _as_ptr(residuals, ctypes.c_int32),
+            _as_ptr(row_meta, ctypes.c_int32),
+            _as_ptr(info, ctypes.c_int64))
+        if rows == -81 and max_rows < row_cap:
+            max_rows = min(max_rows * 8, row_cap)
+            continue
+        break
+    if rows == -80 or rows == -81:
+        raise ShnDeviceUnsupported(
+            "stream outside device decode coverage (code %d)"
+            % (rows,))
+    if rows < 0:
+        raise ValueError("truncated or corrupt Shorten stream "
+                         "(native code %d)" % (rows,))
+    return (residuals[:rows], row_meta[:rows], {
+        "channels": int(info[0]),
+        "file_type": int(info[1]),
+        "bps": int(info[2]),
+        "sign_adjustment": int(info[3]),
+        "total_frames": int(info[4]),
+    })
+
+
+def shn_warm_chain(res, row_meta, channels):
+    """the device decode's warm-up chain: int64 [rows, 3], for each row
+    of ``shn_scan``'s output the previous same-channel block's last
+    three pre-shift samples, newest first (see atpu_shn_warm_chain)"""
+    lib = get_lib()
+    res = np.ascontiguousarray(res, dtype=np.int32)
+    row_meta = np.ascontiguousarray(row_meta, dtype=np.int32)
+    (rows, width) = res.shape
+    if row_meta.shape != (rows, 4):
+        raise ValueError("row_meta must be [rows, 4]")
+    warm = np.empty((rows, 3), dtype=np.int64)
+    rc = lib.atpu_shn_warm_chain(
+        _as_ptr(res, ctypes.c_int32), _as_ptr(row_meta, ctypes.c_int32),
+        rows, width, channels, _as_ptr(warm, ctypes.c_int64))
+    if rc < 0:
+        raise ValueError("row_meta names a channel or a block length out "
+                         "of range")
+    return warm
+
+
+def shn_split(data):
+    """returns the (head, tail) VERBATIM container bytes of a
+    Shorten stream without decoding samples"""
+    lib = get_lib()
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    cap = max(len(buf), 1 << 16)
+    head = np.empty(cap, dtype=np.uint8)
+    tail = np.empty(cap, dtype=np.uint8)
+    sizes = np.zeros(2, dtype=np.int64)
+    rc = lib.atpu_shn_split(
+        _as_ptr(buf, ctypes.c_uint8), len(buf),
+        _as_ptr(head, ctypes.c_uint8), cap,
+        _as_ptr(tail, ctypes.c_uint8), cap,
+        _as_ptr(sizes, ctypes.c_int64))
+    if rc < 0:
+        raise ValueError("truncated or corrupt Shorten stream "
+                         "(native code %d)" % (rc,))
+    return (head[:sizes[0]].tobytes(), tail[:sizes[1]].tobytes())
 
 
 class MD5:

@@ -1,9 +1,10 @@
-// Host-side FLAC, ALAC and TTA kernels of the PyTorch/CUDA port.
+// Host-side FLAC, ALAC, TTA and Shorten kernels of the PyTorch/CUDA port.
 //
-// A copy of the FLAC, ALAC, TTA, CRC and MD5 parts of the reference
+// A copy of the FLAC, ALAC, TTA, Shorten, CRC and MD5 parts of the reference
 // package's host library (audiotools_tpu/_native/hostkernels.cpp), so
 // that the port loads nothing of the reference.  Entry points, layouts and
-// error codes are the reference's, unchanged:
+// error codes are the reference's, unchanged, but for the TTA encoder's
+// and packer's output capacity (atpu_tta_encode_frames):
 //   * atpu_flac_emit_frames2 / atpu_flac_emit_frames2rb: FLAC frame
 //     emit from packed decision rows (the batched encoder's emitter),
 //     optionally splicing device-packed residual bits;
@@ -18,9 +19,17 @@
 //   * atpu_tta_encode_frames / atpu_tta_pack_frames /
 //     atpu_tta_decode_frame / atpu_tta_scan_residuals: the TTA host
 //     encoder, residual packer, frame decoder and the entropy scan of
-//     the device decode path.
-// The reference's Shorten, WavPack, MLP, MPEG, quantized-upload and
-// filter kernels are not copied.
+//     the device decode path;
+//   * atpu_shn_encode2 / atpu_shn_encode / atpu_shn_decode /
+//     atpu_shn_scan / atpu_shn_split: the Shorten emitter (steered by
+//     the device analysis's decisions, or deciding itself), host
+//     decoder, the entropy scan of the device decode path and the
+//     VERBATIM container split.
+// The port's own additions: atpu_shn_header (the stream header's
+// fields and leading VERBATIM bytes) and atpu_shn_warm_chain (the device decode's warm-up chain,
+// a Python loop over rows in the reference).
+// The reference's WavPack, MLP, MPEG, quantized-upload and filter
+// kernels are not copied.
 //
 // Build: g++ -O3 -shared -fPIC (see __init__.py); loaded via ctypes.
 
@@ -3602,20 +3611,53 @@ int64_t atpu_alac_decode(const uint8_t* data,
 
 namespace tta {
 
+static const uint32_t* crc32_table() {
+    static uint32_t table[256];
+    static bool done = false;
+    if (!done) {
+        for (uint32_t b = 0; b < 256; b++) {
+            uint32_t c = b;
+            for (int i = 0; i < 8; i++)
+                c = (c & 1) ? (0xEDB88320u ^ (c >> 1)) : (c >> 1);
+            table[b] = c;
+        }
+        done = true;
+    }
+    return table;
+}
+
+static uint32_t crc32_buf(const uint8_t* p, int64_t n) {
+    const uint32_t* table = crc32_table();
+    uint32_t crc = 0xFFFFFFFFu;
+    for (int64_t i = 0; i < n; i++)
+        crc = table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    return crc ^ 0xFFFFFFFFu;
+}
+
+// Bytes at or past `limit` are counted, not written, and set
+// `overflow`: a frame's size has no useful bound (a loud sample at the
+// start of a frame, before the Rice parameters adapt, takes up to
+// 2^32 >> 10 unary bits), so the callers take the buffer's capacity
+// and report -54 when it is too small, where the reference writes past
+// its buffer.
 struct LEWriter {
     uint8_t* out;
     int64_t pos;
+    int64_t limit;
     uint64_t acc = 0;
     int bits = 0;
-    explicit LEWriter(uint8_t* buffer, int64_t start)
-        : out(buffer), pos(start) {}
+    bool overflow = false;
+    LEWriter(uint8_t* buffer, int64_t start, int64_t capacity)
+        : out(buffer), pos(start), limit(capacity) {}
     inline void put(uint64_t value, int nbits) {
         acc |= (value & ((nbits >= 64) ? ~0ULL
                                        : ((1ULL << nbits) - 1)))
                << bits;
         bits += nbits;
         while (bits >= 8) {
-            out[pos++] = (uint8_t)acc;
+            if (__builtin_expect(pos < limit, 1)) out[pos] = (uint8_t)acc;
+            else overflow = true;
+            pos++;
             acc >>= 8;
             bits -= 8;
         }
@@ -3630,10 +3672,22 @@ struct LEWriter {
     }
     inline void byte_align() {
         if (bits) {
-            out[pos++] = (uint8_t)acc;
+            if (pos < limit) out[pos] = (uint8_t)acc;
+            else overflow = true;
+            pos++;
             acc = 0;
             bits = 0;
         }
+    }
+
+    // byte-aligns and appends the CRC-32 of [start, pos); false when
+    // the frame did not fit the buffer
+    inline bool finish_frame(int64_t start) {
+        byte_align();
+        if (overflow || pos + 4 > limit) return false;
+        const uint32_t crc = crc32_buf(out + start, pos - start);
+        for (int k = 0; k < 4; k++) out[pos++] = (uint8_t)(crc >> (8 * k));
+        return true;
     }
 };
 
@@ -3721,29 +3775,6 @@ struct LEReader {
     inline int64_t byte_pos() const { return pos - bits / 8; }
 };
 
-static const uint32_t* crc32_table() {
-    static uint32_t table[256];
-    static bool done = false;
-    if (!done) {
-        for (uint32_t b = 0; b < 256; b++) {
-            uint32_t c = b;
-            for (int i = 0; i < 8; i++)
-                c = (c & 1) ? (0xEDB88320u ^ (c >> 1)) : (c >> 1);
-            table[b] = c;
-        }
-        done = true;
-    }
-    return table;
-}
-
-static uint32_t crc32_buf(const uint8_t* p, int64_t n) {
-    const uint32_t* table = crc32_table();
-    uint32_t crc = 0xFFFFFFFFu;
-    for (int64_t i = 0; i < n; i++)
-        crc = table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
-    return crc ^ 0xFFFFFFFFu;
-}
-
 static inline int shift_for(int bps) { return (bps == 8) ? 4 : 5; }
 static inline int fshift_for(int bps) { return (bps == 16) ? 9 : 10; }
 
@@ -3794,15 +3825,21 @@ extern "C" {
 //
 // samples: int32 [total_frames, channels]; frame_sizes: PCM frames
 // per TTA frame.  Writes each frame's payload + little-endian CRC-32
-// to out; out_ends holds cumulative byte offsets.
+// to out (out_cap bytes); out_ends holds cumulative byte offsets.
+// Returns the bytes written, -50 for more than 8 channels, or -54 when
+// out_cap is too small (the port's repair: the reference takes no
+// capacity and writes past a buffer sized at bps / 8 + 2 bytes a
+// sample, which a short loud 24-bit frame exceeds).
 int64_t atpu_tta_encode_frames(const int32_t* samples,
                                const int32_t* frame_sizes,
                                int64_t n_tta_frames,
                                int32_t channels,
                                int32_t bps,
                                uint8_t* out,
+                               int64_t out_cap,
                                int64_t* out_ends) {
     using namespace tta;
+    if (channels > 8) return -50;
     const int shift = shift_for(bps);
     const int fshift = fshift_for(bps);
     const int32_t round_v = 1 << (fshift - 1);
@@ -3837,7 +3874,7 @@ int64_t atpu_tta_encode_frames(const int32_t* samples,
             }
         }
 
-        LEWriter w(out, out_pos);
+        LEWriter w(out, out_pos, out_cap);
         Filter filt[8];
         Rice rice[8];
         int32_t prev_cor[8] = {0};   // for the fixed predictor
@@ -3900,13 +3937,8 @@ int64_t atpu_tta_encode_frames(const int32_t* samples,
                 }
             }
         }
-        w.byte_align();
-        const uint32_t crc = crc32_buf(out + out_pos, w.pos - out_pos);
-        out[w.pos] = (uint8_t)crc;
-        out[w.pos + 1] = (uint8_t)(crc >> 8);
-        out[w.pos + 2] = (uint8_t)(crc >> 16);
-        out[w.pos + 3] = (uint8_t)(crc >> 24);
-        out_pos = w.pos + 4;
+        if (!w.finish_frame(out_pos)) return -54;
+        out_pos = w.pos;
         out_ends[f] = out_pos;
         sample_pos += n;
     }
@@ -3921,20 +3953,23 @@ int64_t atpu_tta_encode_frames(const int32_t* samples,
 //
 // residuals: int32 [total_frames, channels] filter output in frame
 // order; frame_sizes: PCM frames per TTA frame.  Byte-identical to
-// the fused encoder for identical residuals.
+// the fused encoder for identical residuals.  out_cap and the return
+// codes as atpu_tta_encode_frames's.
 int64_t atpu_tta_pack_frames(const int32_t* residuals,
                              const int32_t* frame_sizes,
                              int64_t n_tta_frames,
                              int32_t channels,
                              uint8_t* out,
+                             int64_t out_cap,
                              int64_t* out_ends) {
     using namespace tta;
+    if (channels > 8) return -50;
     int64_t sample_pos = 0;
     int64_t out_pos = 0;
     for (int64_t f = 0; f < n_tta_frames; f++) {
         const int64_t n = frame_sizes[f];
         const int32_t* res = residuals + sample_pos * channels;
-        LEWriter w(out, out_pos);
+        LEWriter w(out, out_pos, out_cap);
         Rice rice[8];
         for (int64_t i = 0; i < n; i++) {
             for (int c = 0; c < channels; c++) {
@@ -3969,13 +4004,8 @@ int64_t atpu_tta_pack_frames(const int32_t* residuals,
                 }
             }
         }
-        w.byte_align();
-        const uint32_t crc = crc32_buf(out + out_pos, w.pos - out_pos);
-        out[w.pos] = (uint8_t)crc;
-        out[w.pos + 1] = (uint8_t)(crc >> 8);
-        out[w.pos + 2] = (uint8_t)(crc >> 16);
-        out[w.pos + 3] = (uint8_t)(crc >> 24);
-        out_pos = w.pos + 4;
+        if (!w.finish_frame(out_pos)) return -54;
+        out_pos = w.pos;
         out_ends[f] = out_pos;
         sample_pos += n;
     }
@@ -4165,3 +4195,783 @@ int64_t atpu_tta_scan_residuals(const uint8_t* data,
 
 }  // extern "C"
 
+
+// ======================================================================
+// Shorten (SHN v2) — host codec kernels.
+//
+// Role of reference src/encoders/shn.c / src/decoders/shn.c (spec:
+// audiotools/py_encoders/shn.py, py_decoders/shn.py, mirrored by
+// audiotools_tpu/ref/shn.py): diff1-3 predictors chosen by absolute
+// delta sums, unary/Rice "energy" coding, VERBATIM container chunks,
+// ZERO blocks, BITSHIFT commands, MSB-first bitstream.
+
+namespace shn {
+
+enum {
+    FN_DIFF0 = 0, FN_DIFF1, FN_DIFF2, FN_DIFF3, FN_QUIT,
+    FN_BLOCKSIZE, FN_BITSHIFT, FN_QLPC, FN_ZERO, FN_VERBATIM
+};
+
+static inline void put_unsigned(BitWriter& w, int size,
+                                uint64_t value) {
+    const uint64_t msb = value >> size;
+    const uint64_t lsb = value - (msb << size);
+    // msb zero bits, a one bit, then size LSBs
+    w.put((1ULL << size) | lsb, (int64_t)msb + 1 + size);
+}
+
+static inline void put_signed(BitWriter& w, int size, int64_t value) {
+    if (value >= 0)
+        put_unsigned(w, size + 1, (uint64_t)(value * 2));
+    else
+        put_unsigned(w, size + 1, (uint64_t)((-value - 1) * 2 + 1));
+}
+
+static inline void put_long(BitWriter& w, uint64_t value) {
+    if (value == 0) {
+        put_unsigned(w, 2, 0);
+        put_unsigned(w, 0, 0);
+    } else {
+        int bits = 64 - __builtin_clzll(value);
+        put_unsigned(w, 2, bits);
+        put_unsigned(w, bits, value);
+    }
+}
+
+static inline uint64_t get_unsigned(BitReader& r, int size) {
+    uint64_t msb = 0;
+    while (!r.error && r.get(1) == 0) msb++;
+    return (msb << size) | r.get(size);
+}
+
+static inline int64_t get_signed(BitReader& r, int size) {
+    const uint64_t u = get_unsigned(r, size + 1);
+    return (u & 1) ? -((int64_t)(u >> 1)) - 1 : (int64_t)(u >> 1);
+}
+
+static inline uint64_t get_long(BitReader& r) {
+    const int bits = (int)get_unsigned(r, 2);
+    return get_unsigned(r, bits);
+}
+
+}  // namespace shn
+
+extern "C" {
+
+// Encodes a complete Shorten stream from interleaved PCM.
+// samples: int32 [n, ch]; returns total bytes or negative error.
+// decisions: optional per-(block, channel) analysis steering array
+// ([nblocks * channels * 4] int32 rows [zero, wasted, diff, energy]
+// in block-major walk order, from ops/shn_scan.py device analysis);
+// nullptr computes decisions inline (the all-host path).  Residuals
+// are always re-derived exactly from the samples either way.
+int64_t atpu_shn_encode2(const int32_t* samples,
+                         int64_t n,
+                         int32_t channels,
+                         int32_t bps,
+                         int32_t signed_samples,
+                         int32_t is_big_endian,
+                         const uint8_t* header_data,
+                         int64_t header_len,
+                         const uint8_t* footer_data,
+                         int64_t footer_len,
+                         int32_t block_size,
+                         const int32_t* decisions,
+                         uint8_t* out) {
+    using namespace shn;
+    if (channels > 64) return -60;
+
+    BitWriter w(out, 0);
+    w.put(0x616A6B67, 32);       // "ajkg"
+    w.put(2, 8);
+    const int64_t magic_bytes = 5;
+
+    int file_type;
+    int32_t sign_adjustment = 0;
+    if (bps == 8) {
+        file_type = signed_samples ? 1 : 2;
+        if (!signed_samples) sign_adjustment = 1 << 7;
+    } else if (bps == 16) {
+        if (signed_samples) file_type = is_big_endian ? 3 : 5;
+        else file_type = is_big_endian ? 4 : 6;
+        if (!signed_samples) sign_adjustment = 1 << 15;
+    } else {
+        return -61;
+    }
+    put_long(w, file_type);
+    put_long(w, channels);
+    put_long(w, block_size);
+    put_long(w, 0);              // max LPC
+    put_long(w, 0);              // mean count
+    put_long(w, 0);              // bytes to skip
+
+    put_unsigned(w, 2, FN_VERBATIM);
+    put_unsigned(w, 5, (uint64_t)header_len);
+    for (int64_t i = 0; i < header_len; i++)
+        put_unsigned(w, 8, header_data[i]);
+
+    // per-channel warm-up history (last 3 shifted samples)
+    static thread_local int64_t* hist = nullptr;
+    static thread_local int64_t hist_cap = 0;
+    if (channels * 3 > hist_cap) {
+        delete[] hist;
+        hist = new int64_t[channels * 3 * 2];
+        hist_cap = channels * 3;
+    }
+    for (int i = 0; i < channels * 3; i++) hist[i] = 0;
+    bool has_hist = false;
+
+    int left_shift = 0;
+    int64_t pos = 0;
+    int64_t block_index = 0;
+    int64_t current_block = block_size;
+    while (pos < n) {
+        const int64_t m = (n - pos < current_block) ? (n - pos)
+                                                    : current_block;
+        if (m != current_block) {
+            current_block = m;
+            put_unsigned(w, 2, FN_BLOCKSIZE);
+            put_long(w, (uint64_t)m);
+        }
+        for (int c = 0; c < channels; c++) {
+            const int32_t* dec = decisions
+                ? decisions + (block_index * channels + c) * 4
+                : nullptr;
+            // gather channel block (sign-adjusted)
+            bool all_zero;
+            int32_t or_all = 0;
+            if (dec) {
+                all_zero = dec[0] != 0;
+            } else {
+                all_zero = true;
+                for (int64_t i = 0; i < m; i++) {
+                    const int32_t v =
+                        samples[(pos + i) * channels + c] +
+                        sign_adjustment;
+                    if (v != 0) all_zero = false;
+                    or_all |= v;
+                }
+            }
+            int64_t* h = hist + c * 3;
+            if (all_zero) {
+                put_unsigned(w, 2, FN_ZERO);
+                h[0] = h[1] = h[2] = 0;
+                continue;
+            }
+            // wasted bits
+            int wasted = 0;
+            if (dec) {
+                wasted = dec[1];
+            } else if (or_all != 0) {
+                wasted = __builtin_ctz((uint32_t)or_all);
+            }
+            if (wasted != left_shift) {
+                put_unsigned(w, 2, FN_BITSHIFT);
+                put_unsigned(w, 2, (uint64_t)wasted);
+                left_shift = wasted;
+            }
+
+            // best diff order by absolute delta sums (full includes
+            // the previous 3 shifted samples, or zeros at start)
+            int64_t prev3[3] = {h[0], h[1], h[2]};
+            if (!has_hist && pos == 0) {
+                prev3[0] = prev3[1] = prev3[2] = 0;
+            }
+            int diff;
+            int energy;
+            if (dec) {
+                diff = dec[2];
+                energy = dec[3];
+                if (diff < 1 || diff > 3 || energy < 0 || energy > 31)
+                    return -62;
+            } else {
+            // sums over the block-length suffix of each delta level
+            int64_t s1 = 0, s2 = 0, s3 = 0;
+            {
+                int64_t p0 = prev3[0], p1 = prev3[1], p2 = prev3[2];
+                // carry deltas across the boundary
+                int64_t d1a = p1 - p0, d1b = p2 - p1;
+                int64_t d2a = d1b - d1a;
+                int64_t prev = p2, prevd1 = d1b, prevd2 = d2a;
+                for (int64_t i = 0; i < m; i++) {
+                    const int64_t x =
+                        (int64_t)(samples[(pos + i) * channels + c] +
+                                  sign_adjustment) >> left_shift;
+                    const int64_t d1 = x - prev;
+                    const int64_t d2 = d1 - prevd1;
+                    const int64_t d3 = d2 - prevd2;
+                    s1 += (d1 < 0) ? -d1 : d1;
+                    s2 += (d2 < 0) ? -d2 : d2;
+                    s3 += (d3 < 0) ? -d3 : d3;
+                    prev = x;
+                    prevd1 = d1;
+                    prevd2 = d2;
+                }
+            }
+            if (s1 < s2 && s1 < s3) diff = 1;
+            else if (s2 < s3) diff = 2;
+            else diff = 3;
+
+            // energy: smallest e with (m << e) >= sum(|residuals|)
+            const int64_t abs_sum = (diff == 1) ? s1 :
+                                    (diff == 2) ? s2 : s3;
+            energy = 0;
+            while ((m << energy) < abs_sum) energy++;
+            }
+
+            put_unsigned(w, 2, (uint64_t)(FN_DIFF0 + diff));
+            put_unsigned(w, 3, (uint64_t)energy);
+
+            // emit residuals of the chosen order
+            {
+                int64_t p0 = prev3[0], p1 = prev3[1], p2 = prev3[2];
+                int64_t d1a = p1 - p0, d1b = p2 - p1;
+                int64_t d2a = d1b - d1a;
+                int64_t prev = p2, prevd1 = d1b, prevd2 = d2a;
+                for (int64_t i = 0; i < m; i++) {
+                    const int64_t x =
+                        (int64_t)(samples[(pos + i) * channels + c] +
+                                  sign_adjustment) >> left_shift;
+                    const int64_t d1 = x - prev;
+                    const int64_t d2 = d1 - prevd1;
+                    const int64_t d3 = d2 - prevd2;
+                    put_signed(w, energy,
+                               (diff == 1) ? d1 :
+                               (diff == 2) ? d2 : d3);
+                    prev = x;
+                    prevd1 = d1;
+                    prevd2 = d2;
+                }
+            }
+            // update history: last 3 shifted samples of THIS
+            // block, front-padded with zeros when the block is short
+            // (the oracle re-derives history from the current block
+            // only)
+            for (int j = 0; j < 3; j++) {
+                const int64_t idx = m - 3 + j;
+                h[j] = (idx >= 0)
+                    ? ((int64_t)(samples[(pos + idx) * channels + c] +
+                                 sign_adjustment) >> left_shift)
+                    : 0;
+            }
+        }
+        has_hist = true;
+        pos += m;
+        block_index++;
+    }
+
+    if (footer_len > 0) {
+        put_unsigned(w, 2, FN_VERBATIM);
+        put_unsigned(w, 5, (uint64_t)footer_len);
+        for (int64_t i = 0; i < footer_len; i++)
+            put_unsigned(w, 8, footer_data[i]);
+    }
+    put_unsigned(w, 2, FN_QUIT);
+    w.byte_align();
+    // pad the post-magic section to a 4-byte multiple
+    int64_t payload = w.pos - magic_bytes;
+    while (payload % 4) {
+        out[w.pos++] = 0;
+        payload++;
+    }
+    return w.pos;
+}
+
+int64_t atpu_shn_encode(const int32_t* samples,
+                        int64_t n,
+                        int32_t channels,
+                        int32_t bps,
+                        int32_t signed_samples,
+                        int32_t is_big_endian,
+                        const uint8_t* header_data,
+                        int64_t header_len,
+                        const uint8_t* footer_data,
+                        int64_t footer_len,
+                        int32_t block_size,
+                        uint8_t* out) {
+    return atpu_shn_encode2(samples, n, channels, bps, signed_samples,
+                            is_big_endian, header_data, header_len,
+                            footer_data, footer_len, block_size,
+                            nullptr, out);
+}
+
+// Decodes a complete Shorten stream into interleaved int32 samples.
+// Fills info[0..3] = (channels, file_type, block_size, left-over) and
+// returns PCM frames decoded or a negative error code.
+int64_t atpu_shn_decode(const uint8_t* data,
+                        int64_t len,
+                        int64_t max_frames,
+                        int32_t* out,
+                        int64_t* info) {
+    using namespace shn;
+    BitReader r(data, len);
+    if (r.get(32) != 0x616A6B67 || r.get(8) != 2) return -62;
+    const int file_type = (int)get_long(r);
+    const int channels = (int)get_long(r);
+    int64_t block_size = (int64_t)get_long(r);
+    const int max_lpc = (int)get_long(r);
+    const int n_means = (int)get_long(r);
+    const int64_t skip = (int64_t)get_long(r);
+    if (channels < 1 || channels > 64) return -63;
+    if (r.error) return -64;
+    for (int64_t i = 0; i < skip; i++) get_unsigned(r, 8);
+
+    int bps;
+    int32_t sign_adjustment = 0;
+    switch (file_type) {
+    case 1: bps = 8; break;
+    case 2: bps = 8; sign_adjustment = 1 << 7; break;
+    case 3: case 5: bps = 16; break;
+    case 4: case 6: bps = 16; sign_adjustment = 1 << 15; break;
+    default: return -65;
+    }
+
+    const int wrap = (max_lpc > 3) ? max_lpc : 3;
+    static thread_local int64_t* state = nullptr;
+    static thread_local int64_t state_cap = 0;
+    const int64_t need = (int64_t)channels * (wrap + 32);
+    if (need > state_cap) {
+        delete[] state;
+        state = new int64_t[need * 2];
+        state_cap = need;
+    }
+    for (int64_t i = 0; i < need; i++) state[i] = 0;
+    // per channel: wrap history ring [wrap] + means [n_means]
+    static thread_local int64_t* blockbuf = nullptr;
+    static thread_local int64_t block_cap = 0;
+
+    int left_shift = 0;
+    int64_t frames = 0;
+    int chan = 0;
+
+    while (!r.error) {
+        const int command = (int)get_unsigned(r, 2);
+        if (r.error) return -66;
+        if (command == FN_QUIT) break;
+        switch (command) {
+        case FN_BLOCKSIZE:
+            block_size = (int64_t)get_long(r);
+            if (block_size < 0) return -67;
+            break;
+        case FN_BITSHIFT:
+            left_shift = (int)get_unsigned(r, 2);
+            break;
+        case FN_VERBATIM: {
+            const int64_t count = (int64_t)get_unsigned(r, 5);
+            for (int64_t i = 0; i < count; i++) get_unsigned(r, 8);
+            break;
+        }
+        case FN_DIFF0: case FN_DIFF1: case FN_DIFF2: case FN_DIFF3:
+        case FN_QLPC: case FN_ZERO: {
+            if (frames + block_size > max_frames) return -68;
+            if (block_size + wrap > block_cap) {
+                delete[] blockbuf;
+                blockbuf = new int64_t[(block_size + wrap) * 2];
+                block_cap = block_size + wrap;
+            }
+            int64_t* hist = state + (int64_t)chan * (wrap + 32);
+            int64_t* means = hist + wrap;
+            int64_t* buf = blockbuf;
+            for (int j = 0; j < wrap; j++) buf[j] = hist[j];
+            int64_t* s = buf + wrap;
+
+            // shnmean: floor((len/2 + sum) / len)
+            auto floor_div = [](int64_t a, int64_t b) {
+                return (a >= 0) ? a / b : -((-a + b - 1) / b);
+            };
+            if (command == FN_ZERO) {
+                for (int64_t i = 0; i < block_size; i++) s[i] = 0;
+            } else if (command == FN_DIFF0) {
+                int64_t offset = 0;
+                if (n_means > 0) {
+                    int64_t sum = n_means / 2;
+                    for (int j = 0; j < n_means; j++)
+                        sum += means[j];
+                    offset = floor_div(sum, n_means);
+                }
+                const int energy = (int)get_unsigned(r, 3);
+                for (int64_t i = 0; i < block_size; i++)
+                    s[i] = get_signed(r, energy) + offset;
+            } else if (command == FN_QLPC) {
+                // means offset (floor)
+                int64_t offset = 0;
+                if (n_means > 0) {
+                    int64_t sum = n_means / 2;
+                    for (int j = 0; j < n_means; j++)
+                        sum += means[j];
+                    offset = floor_div(sum, n_means);
+                }
+                const int energy = (int)get_unsigned(r, 3);
+                const int lpc_count = (int)get_unsigned(r, 2);
+                int64_t coeff[32];
+                for (int j = 0; j < lpc_count && j < 32; j++)
+                    coeff[j] = get_signed(r, 5);
+                for (int64_t i = 0; i < block_size; i++) {
+                    const int64_t residual = get_signed(r, energy);
+                    int64_t lpc_sum = 1 << 5;
+                    for (int j = 0; j < lpc_count; j++) {
+                        if (i - j - 1 < 0)
+                            lpc_sum += coeff[j] *
+                                (buf[wrap + (i - j - 1)] - offset);
+                        else
+                            lpc_sum += coeff[j] * (s[i - j - 1] -
+                                                   offset);
+                    }
+                    s[i] = (lpc_sum >> 5) + residual + offset;
+                }
+                // QLPC: unoffset values feed the recurrence; the
+                // stored samples are offset-added (handled above by
+                // keeping s[] offset-added and subtracting in loop)
+            } else {
+                const int order = command;   // DIFF1/2/3
+                const int energy = (int)get_unsigned(r, 3);
+                for (int64_t i = 0; i < block_size; i++) {
+                    const int64_t res = get_signed(r, energy);
+                    int64_t pred;
+                    const int64_t* p = s + i;
+                    if (order == 1) pred = p[-1];
+                    else if (order == 2) pred = 2 * p[-1] - p[-2];
+                    else pred = 3 * (p[-1] - p[-2]) + p[-3];
+                    s[i] = pred + res;
+                }
+            }
+            if (r.error) return -69;
+
+            // update means (shnmean uses floor semantics via the
+            // (len/2 + sum) / len formula)
+            if (n_means > 0) {
+                int64_t sum = block_size / 2;
+                for (int64_t i = 0; i < block_size; i++) sum += s[i];
+                const int64_t mean = floor_div(sum, block_size);
+                for (int j = 0; j < n_means - 1; j++)
+                    means[j] = means[j + 1];
+                means[n_means - 1] = mean;
+            }
+            // wrap history
+            for (int j = 0; j < wrap; j++) {
+                const int64_t idx = block_size - wrap + j;
+                hist[j] = (idx >= 0) ? s[idx] : buf[wrap + idx];
+            }
+            // emit
+            for (int64_t i = 0; i < block_size; i++) {
+                int64_t v = s[i];
+                if (left_shift > 0) v <<= left_shift;
+                v -= sign_adjustment;
+                out[(frames + i) * channels + chan] = (int32_t)v;
+            }
+            chan += 1;
+            if (chan == channels) {
+                chan = 0;
+                frames += block_size;
+            }
+            break;
+        }
+        default:
+            return -70;
+        }
+    }
+    if (info != nullptr) {
+        info[0] = channels;
+        info[1] = file_type;
+        info[2] = block_size;
+        info[3] = bps;
+    }
+    return frames;
+}
+
+/* Residual-only entropy scan of a Shorten stream for the DEVICE
+ * decode path (codecs/shn.TorchSHNDecoder): walks the command stream
+ * and entropy-decodes each (block, channel) row's residuals WITHOUT
+ * applying predictors — the device inverts DIFF1-3 as k-fold cumsums
+ * plus affine warm-up terms (ops/shn_synth.py), the TPU-native
+ * re-expression of reference src/decoders/shn.c's per-sample loops.
+ *
+ * row_meta per row: {cmd, block_len, left_shift, chan}
+ * residuals: [max_rows, max_block] int32, zero-padded per row
+ * info: {channels, file_type, bps, sign_adjustment, total_frames}
+ * Returns row count, or <0: -80 = the stream uses features the
+ * device path does not cover (QLPC, DIFF0-with-means, energy > 30)
+ * and the caller must decode on host; -81 = capacity. */
+int64_t atpu_shn_scan(const uint8_t* data,
+                      int64_t len,
+                      int64_t max_rows,
+                      int64_t max_block,
+                      int32_t* residuals,
+                      int32_t* row_meta,
+                      int64_t* info) {
+    using namespace shn;
+    BitReader r(data, len);
+    if (r.get(32) != 0x616A6B67 || r.get(8) != 2) return -62;
+    const int file_type = (int)get_long(r);
+    const int channels = (int)get_long(r);
+    int64_t block_size = (int64_t)get_long(r);
+    (void)get_long(r);                        /* max LPC */
+    const int n_means = (int)get_long(r);
+    const int64_t skip = (int64_t)get_long(r);
+    if (channels < 1 || channels > 64) return -63;
+    if (r.error) return -64;
+    for (int64_t i = 0; i < skip; i++) get_unsigned(r, 8);
+
+    int bps;
+    int32_t sign_adjustment = 0;
+    switch (file_type) {
+    case 1: bps = 8; break;
+    case 2: bps = 8; sign_adjustment = 1 << 7; break;
+    case 3: case 5: bps = 16; break;
+    case 4: case 6: bps = 16; sign_adjustment = 1 << 15; break;
+    default: return -65;
+    }
+
+    int left_shift = 0;
+    int64_t rows = 0, frames = 0;
+    int chan = 0;
+
+    while (!r.error) {
+        const int command = (int)get_unsigned(r, 2);
+        if (r.error) return -66;
+        if (command == FN_QUIT) break;
+        switch (command) {
+        case FN_BLOCKSIZE:
+            block_size = (int64_t)get_long(r);
+            if (block_size < 0) return -67;
+            break;
+        case FN_BITSHIFT:
+            left_shift = (int)get_unsigned(r, 2);
+            break;
+        case FN_VERBATIM: {
+            const int64_t count = (int64_t)get_unsigned(r, 5);
+            for (int64_t i = 0; i < count; i++) get_unsigned(r, 8);
+            break;
+        }
+        case FN_QLPC:
+            return -80;
+        case FN_DIFF0: case FN_DIFF1: case FN_DIFF2: case FN_DIFF3:
+        case FN_ZERO: {
+            if (command == FN_DIFF0 && n_means > 0)
+                return -80;   /* offset needs decoded means: host */
+            if (rows >= max_rows || block_size > max_block)
+                return -81;
+            int32_t* res = residuals + rows * max_block;
+            for (int64_t i = 0; i < max_block; i++) res[i] = 0;
+            if (command != FN_ZERO) {
+                const int energy = (int)get_unsigned(r, 3);
+                if (energy > 30) return -80;
+                for (int64_t i = 0; i < block_size; i++)
+                    res[i] = (int32_t)get_signed(r, energy);
+            }
+            if (r.error) return -69;
+            int32_t* rm = row_meta + rows * 4;
+            rm[0] = command;
+            rm[1] = (int32_t)block_size;
+            rm[2] = left_shift;
+            rm[3] = chan;
+            rows++;
+            chan += 1;
+            if (chan == channels) {
+                chan = 0;
+                frames += block_size;
+            }
+            break;
+        }
+        default:
+            return -70;
+        }
+    }
+    if (info != nullptr) {
+        info[0] = channels;
+        info[1] = file_type;
+        info[2] = bps;
+        info[3] = sign_adjustment;
+        info[4] = frames;
+    }
+    return rows;
+}
+
+/* parse-only walk of a Shorten stream collecting the VERBATIM
+ * container bytes before (head) and after (tail) the PCM data —
+ * the role of the reference SHNDecoder read_header/read_tail
+ * (shn.py:287-331) without decoding any samples.
+ * sizes[0]=head bytes, sizes[1]=tail bytes; returns 0 or <0. */
+int64_t atpu_shn_split(const uint8_t* data,
+                       int64_t len,
+                       uint8_t* head_out, int64_t head_cap,
+                       uint8_t* tail_out, int64_t tail_cap,
+                       int64_t* sizes) {
+    using namespace shn;
+    BitReader r(data, len);
+    if (r.get(32) != 0x616A6B67 || r.get(8) != 2) return -62;
+    (void)get_long(r);                        /* file type */
+    (void)get_long(r);                        /* channels */
+    int64_t block_size = (int64_t)get_long(r);
+    (void)get_long(r);                        /* max LPC */
+    (void)get_long(r);                        /* means */
+    const int64_t skip = (int64_t)get_long(r);
+    if (r.error) return -64;
+    for (int64_t i = 0; i < skip; i++) get_unsigned(r, 8);
+
+    uint8_t* sink = head_out;
+    int64_t sink_cap = head_cap;
+    int64_t* sink_n = &sizes[0];
+    sizes[0] = sizes[1] = 0;
+
+    while (!r.error) {
+        const int command = (int)get_unsigned(r, 2);
+        if (r.error) return -66;
+        if (command == FN_QUIT) break;
+        switch (command) {
+        case FN_BLOCKSIZE:
+            block_size = (int64_t)get_long(r);
+            if (block_size < 0) return -67;
+            break;
+        case FN_BITSHIFT:
+            get_unsigned(r, 2);
+            break;
+        case FN_VERBATIM: {
+            const int64_t count = (int64_t)get_unsigned(r, 5);
+            for (int64_t i = 0; i < count; i++) {
+                const uint8_t byte =
+                    (uint8_t)(get_unsigned(r, 8) & 0xFF);
+                if (*sink_n >= sink_cap) return -69;
+                sink[(*sink_n)++] = byte;
+            }
+            break;
+        }
+        case FN_DIFF0: case FN_DIFF1: case FN_DIFF2: case FN_DIFF3: {
+            sink = tail_out;
+            sink_cap = tail_cap;
+            sink_n = &sizes[1];
+            const int energy = (int)get_unsigned(r, 3);
+            for (int64_t i = 0; i < block_size; i++)
+                get_signed(r, energy);
+            break;
+        }
+        case FN_QLPC: {
+            sink = tail_out;
+            sink_cap = tail_cap;
+            sink_n = &sizes[1];
+            const int energy = (int)get_unsigned(r, 3);
+            const int lpc_count = (int)get_unsigned(r, 2);
+            for (int j = 0; j < lpc_count; j++) get_signed(r, 5);
+            for (int64_t i = 0; i < block_size; i++)
+                get_signed(r, energy);
+            break;
+        }
+        case FN_ZERO:
+            sink = tail_out;
+            sink_cap = tail_cap;
+            sink_n = &sizes[1];
+            break;
+        default:
+            return -70;
+        }
+    }
+    return 0;
+}
+
+/* Reads a Shorten stream's header and its first command, as the
+ * reference's scalar decoder does (ref/shn.py read_header and
+ * read_metadata): info = {file_type, channels, block_size, max_lpc,
+ * n_means, verbatim}, where verbatim is the byte count of a leading
+ * FN_VERBATIM chunk (its first head_cap bytes go to head_out), or -1
+ * when the first command is another.  The header's skip bytes are
+ * plain bytes, as the reference reads them.  Returns 0, or -62 for a
+ * stream that is not Shorten v2, -64 for one that ends inside its
+ * header or that chunk. */
+int64_t atpu_shn_header(const uint8_t* data, int64_t len, int64_t* info,
+                        uint8_t* head_out, int64_t head_cap) {
+    using namespace shn;
+    BitReader r(data, len);
+    if (r.get(32) != 0x616A6B67 || r.get(8) != 2) return -62;
+    for (int i = 0; i < 5; i++) info[i] = (int64_t)get_long(r);
+    const int64_t skip = (int64_t)get_long(r);
+    for (int64_t i = 0; i < skip && !r.error; i++) r.get(8);
+    info[5] = -1;
+    if (get_unsigned(r, 2) == FN_VERBATIM) {
+        info[5] = (int64_t)get_unsigned(r, 5);
+        for (int64_t i = 0; i < info[5] && !r.error; i++) {
+            const uint8_t byte = (uint8_t)(get_unsigned(r, 8) & 0xFF);
+            if (i < head_cap) head_out[i] = byte;
+        }
+    }
+    if (r.error) return -64;
+    return 0;
+}
+
+/* The warm-up chain of the device decode (the port's ops/shn_synth.py):
+ * for each row of atpu_shn_scan's output, in stream order, the last
+ * three PRE-SHIFT samples of the previous row of the same channel,
+ * newest first (zeros at the stream's start), into warm [rows, 3].
+ * A row's last three samples come from the closed forms of
+ * ops/shn_synth.py over its running 1-, 2- and 3-fold residual sums
+ * C1, C2, C3, without decoding the row:
+ *   DIFF1: x[t] = w1 + C1[t]
+ *   DIFF2: x[t] = w1 + (t+1) a1 + C2[t]
+ *   DIFF3: x[t] = w1 + (t+1) a1 + T(t) a2 + C3[t],  T(t) = (t+1)(t+2)/2
+ *   ZERO:  x[t] = 0;  DIFF0 (no means): x[t] = r[t]
+ * with (w1, w2, w3) the row's warm values, a1 = w1 - w2 and
+ * a2 = w1 - 2 w2 + w3.  A block shorter than 3 samples pushes its
+ * samples and keeps the older history behind them (the reference
+ * decoder's rule); an empty block leaves the history alone.  The sums
+ * wrap as two's-complement int64.  One pass over the rows.  Returns 0,
+ * or -1 for a row whose channel or length is out of range. */
+int64_t atpu_shn_warm_chain(const int32_t* residuals,
+                            const int32_t* row_meta,
+                            int64_t rows,
+                            int64_t width,
+                            int32_t channels,
+                            int64_t* warm) {
+    using namespace shn;
+    if (channels < 1) return -1;
+    std::vector<uint64_t> hist((size_t)channels * 3, 0);
+    for (int64_t row = 0; row < rows; row++) {
+        const int32_t* rm = row_meta + row * 4;
+        const int cmd = rm[0];
+        const int64_t n = rm[1];
+        const int chan = rm[3];
+        if (chan < 0 || chan >= channels || n > width) return -1;
+        uint64_t* h = hist.data() + (size_t)chan * 3;
+        for (int j = 0; j < 3; j++) warm[row * 3 + j] = (int64_t)h[j];
+        if (n <= 0) continue;
+        const int32_t* r = residuals + row * width;
+        const uint64_t w1 = h[0], w2 = h[1], w3 = h[2];
+        const uint64_t a1 = w1 - w2;
+        const uint64_t a2 = w1 - 2 * w2 + w3;
+        const int64_t first = (n > 3) ? n - 3 : 0;
+        uint64_t tails[3];
+        int nt = 0;
+        uint64_t c1 = 0, c2 = 0, c3 = 0;
+        const bool sums = (cmd == FN_DIFF1 || cmd == FN_DIFF2 ||
+                           cmd == FN_DIFF3);
+        for (int64_t t = sums ? 0 : first; t < n; t++) {
+            if (sums) {
+                c1 += (uint64_t)(int64_t)r[t];
+                c2 += c1;
+                c3 += c2;
+            }
+            if (t < first) continue;
+            const uint64_t i1 = (uint64_t)(t + 1);
+            uint64_t x;
+            if (cmd == FN_DIFF1) {
+                x = w1 + c1;
+            } else if (cmd == FN_DIFF2) {
+                x = w1 + i1 * a1 + c2;
+            } else if (cmd == FN_DIFF3) {
+                x = w1 + i1 * a1 + (i1 * (i1 + 1) / 2) * a2 + c3;
+            } else if (cmd == FN_ZERO) {
+                x = 0;
+            } else {
+                x = (uint64_t)(int64_t)r[t];
+            }
+            tails[nt++] = x;
+        }
+        /* newest first: the row's tail reversed, then the old history */
+        uint64_t next[6];
+        int k = 0;
+        for (int j = nt - 1; j >= 0; j--) next[k++] = tails[j];
+        for (int j = 0; j < 3; j++) next[k++] = h[j];
+        for (int j = 0; j < 3; j++) h[j] = next[j];
+    }
+    return 0;
+}
+
+}  // extern "C"

@@ -1,13 +1,16 @@
-"""TTA encode on the host, and TTA decode on the host or on a torch
-device.
+"""TTA encode and decode with the per-sample filters on a torch device.
 
 Port of the reference's ``audiotools_tpu/codecs/tta.py``:
 
-* ``encode_tta``: the reference's default backend, the C++ frame
-  encoder (``_native.tta_encode_frames``: decorrelation, fixed
-  predictor, hybrid filter, adaptive Rice and CRC-32 per frame).  The
-  reference's device analysis (``ATPU_TTA_BACKEND=jax``) is not
-  ported yet;
+* ``encode_tta`` (the reference's ``ATPU_TTA_BACKEND=jax`` branch): per
+  batch of ENC_BATCH_FRAMES TTA frames, the PCM goes up, the device
+  runs the channel decorrelation, the fixed predictor and the hybrid
+  filter (``ops/tta_scan.analyze_frames``, the filter a hand-written
+  kernel, one lane per frame and channel), and the residuals come back
+  for the host's adaptive Rice coder and CRC-32
+  (``_native.tta_pack_frames``).  The port's all-host C++ encoder
+  (``_native.tta_encode_frames``) is kept as the tests' independent
+  check; no entry point falls back to it;
 * ``FastTTADecoder``: the C++ frame decoder, one TTA frame per read,
   with seeking through the seektable;
 * ``TorchTTADecoder`` (the reference's ``JaxTTADecoder``): per group
@@ -29,7 +32,7 @@ import torch
 
 from .. import _native, pcm
 from .._device import StageMarks, fetch_async, resolve_device
-from ..ops import tta_synth
+from ..ops import tta_scan, tta_synth
 from ..ref import tta as oracle
 from .flac_dec import upload_arrays
 
@@ -42,19 +45,27 @@ from .flac_dec import upload_arrays
 # kernel 64 threads.
 DEC_GROUP_FRAMES = 256
 
-# TTA frames per call of the host encoder
-ENC_BATCH_FRAMES = 16
+# TTA frames per device encode batch, for the same reason: 512 lanes
+# for the filter kernel; the output does not depend on it
+ENC_BATCH_FRAMES = DEC_GROUP_FRAMES
 
 # per-stage seconds accumulated in TorchTTADecoder.timings: the host
 # Rice unpack, then the device stages (CUDA-event spans on a card)
 STAGES = ("scan", "upload", "synth", "finish", "fetch")
 
+# per-stage seconds accumulated by encode_tta(timings=...): the device
+# stages, then the host Rice coder
+ENCODE_STAGES = ("upload", "analysis", "fetch", "pack")
 
-def encode_tta(file, pcmreader):
-    """writes TTA frames from a PCMReader to a binary file with the
-    host C++ encoder
 
-    returns the frame lengths in bytes"""
+def encode_tta(file, pcmreader, device="cuda", timings=None):
+    """writes TTA frames from a PCMReader to a binary file, with the
+    filters on a torch device
+
+    device: "cuda" (raises when no card is usable) or "cpu" (the plain
+    versions, for tests).  timings: optional dict that receives seconds
+    per ENCODE_STAGES.  Returns the frame lengths in bytes."""
+    dev = resolve_device(device)
     block_size = oracle.block_size_for(pcmreader.sample_rate)
     bps = pcmreader.bits_per_sample
     channels = pcmreader.channels
@@ -62,13 +73,36 @@ def encode_tta(file, pcmreader):
     frame_sizes = []
     while True:
         samples = reader.read(block_size * ENC_BATCH_FRAMES).samples
-        if samples.shape[0] == 0:
+        total = samples.shape[0]
+        if total == 0:
             break
-        sizes = np.full(-(-samples.shape[0] // block_size), block_size,
-                        dtype=np.int32)
-        sizes[-1] = samples.shape[0] - block_size * (len(sizes) - 1)
-        (data, lens) = _native.tta_encode_frames(samples, sizes, channels,
-                                                 bps)
+        F = -(-total // block_size)
+        sizes = np.full(F, block_size, dtype=np.int32)
+        sizes[-1] = total - block_size * (F - 1)
+        if total != F * block_size:
+            # the final frame zero-padded: the filter is causal, so its
+            # residuals are a prefix of the padded lane's
+            padded = np.zeros((F * block_size, channels), dtype=np.int32)
+            padded[:total] = samples
+            samples = padded
+        marks = StageMarks(dev)
+        marks.mark()
+        batch = upload_arrays(
+            {"samples": samples.reshape(F, block_size, channels)},
+            dev)["samples"]
+        marks.mark()
+        res = tta_scan.analyze_frames(batch, bps).contiguous()
+        marks.mark()
+        res = fetch_async(res)
+        marks.mark()
+        t = marks.seconds()
+        t0 = time.perf_counter()
+        (data, lens) = _native.tta_pack_frames(
+            res.numpy().reshape(-1, channels)[:total], sizes, channels)
+        t.append(time.perf_counter() - t0)
+        if timings is not None:
+            for (stage, seconds) in zip(ENCODE_STAGES, t):
+                timings[stage] = timings.get(stage, 0.0) + seconds
         file.write(data)
         frame_sizes.extend(int(v) for v in lens)
     return frame_sizes

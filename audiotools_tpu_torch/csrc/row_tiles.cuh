@@ -1,5 +1,5 @@
 // Row tiles staged through shared memory, for the serial-recurrence
-// kernels (flac_synth.cu, tta_synth.cu, alac_synth.cu).
+// kernels (flac_synth.cu, tta_synth.cu, alac_synth.cu, tta_filter.cu).
 //
 // Those kernels give each row of a row-major int32 [rows, n] array to
 // one thread (or two) and walk it sample by sample.  Read straight

@@ -3,7 +3,8 @@
 Port of the write path of the reference's ``TrueAudio.from_pcm``
 (``audiotools_tpu/formats/tta.py``): the TTA1 header with its CRC, the
 seektable of frame lengths with its CRC, then the frames that
-``codecs.tta.encode_tta`` writes.  ID3 tags are not ported.
+``codecs.tta.encode_tta`` writes, with the filters on a torch device.
+ID3 tags are not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import io
 import struct
 
 from ..codecs.tta import encode_tta
+from ..pcm import CounterPCMReader
 from ..ref.tta import crc32, div_ceil
 
 
@@ -29,37 +31,19 @@ def build_seektable(frame_sizes):
     return data + crc32(data).to_bytes(4, "little")
 
 
-class _Counter:
-    """a PCMReader counting the frames it passes on"""
-
-    def __init__(self, pcmreader):
-        self.pcmreader = pcmreader
-        self.sample_rate = pcmreader.sample_rate
-        self.channels = pcmreader.channels
-        self.channel_mask = pcmreader.channel_mask
-        self.bits_per_sample = pcmreader.bits_per_sample
-        self.frames_written = 0
-
-    def read(self, pcm_frames):
-        framelist = self.pcmreader.read(pcm_frames)
-        self.frames_written += framelist.frames
-        return framelist
-
-    def close(self):
-        self.pcmreader.close()
-
-
-def write_tta(file_or_path, pcmreader, total_pcm_frames=None):
+def write_tta(file_or_path, pcmreader, total_pcm_frames=None, device="cuda",
+              timings=None):
     """encodes a TTA file from a PCMReader
 
     file_or_path: a path or a writable, seekable binary file.  With
     total_pcm_frames the header and a zeroed seektable are written
     first and the seektable is filled in at the end, as the reference
     does (ValueError when the reader gives another count); without it
-    the frames are encoded first.  The reader is closed at the end.
+    the frames are encoded first.  device and timings as in
+    ``codecs.tta.encode_tta``.  The reader is closed at the end.
 
     returns the frame lengths in bytes"""
-    counter = _Counter(pcmreader)
+    counter = CounterPCMReader(pcmreader)
     if isinstance(file_or_path, str):
         opened = open(file_or_path, "wb")
     else:
@@ -75,7 +59,8 @@ def write_tta(file_or_path, pcmreader, total_pcm_frames=None):
                                      total_pcm_frames))
                 seektable_offset = f.tell()
                 f.write(build_seektable([0] * total_tta_frames))
-                frame_sizes = encode_tta(f, counter)
+                frame_sizes = encode_tta(f, counter, device=device,
+                                         timings=timings)
                 if counter.frames_written != total_pcm_frames:
                     raise ValueError("total PCM frames mismatch")
                 end = f.tell()
@@ -84,7 +69,8 @@ def write_tta(file_or_path, pcmreader, total_pcm_frames=None):
                 f.seek(end, 0)
             else:
                 frames = io.BytesIO()
-                frame_sizes = encode_tta(frames, counter)
+                frame_sizes = encode_tta(frames, counter, device=device,
+                                         timings=timings)
                 f.write(build_header(pcmreader.channels,
                                      pcmreader.bits_per_sample,
                                      pcmreader.sample_rate,

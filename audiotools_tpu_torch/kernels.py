@@ -135,6 +135,10 @@ def load():
             [ctypes.c_void_p] + [ctypes.c_int] * 4 +
             [ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_tta_synth.restype = ctypes.c_int
+        lib.atpu_tta_filter.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 3 +
+            [ctypes.c_void_p, ctypes.c_void_p])
+        lib.atpu_tta_filter.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -249,3 +253,20 @@ def tta_synth(residuals, fshift, shift, out):
     if rc != 0:
         raise RuntimeError("tta_synth kernel launch failed: CUDA "
                            "error %d" % (rc,))
+
+
+def tta_filter(predicted, fshift, out):
+    """launches csrc/tta_filter.cu: the TTA encoder's hybrid filter of
+    the lanes of ``predicted`` [L, n] into ``out`` [L, n]
+
+    Contiguous int32 CUDA tensors on one device; the caller
+    (ops/tta_scan.hybrid_filter) validates the arguments."""
+    import torch
+    lib = load()
+    (L, n) = predicted.shape
+    with torch.cuda.device(predicted.device):
+        rc = lib.atpu_tta_filter(_ptr(predicted), L, n, fshift, _ptr(out),
+                                 _stream_ptr(predicted.device))
+    if rc != 0:
+        raise RuntimeError("tta_filter kernel launch failed: CUDA error %d"
+                           % (rc,))

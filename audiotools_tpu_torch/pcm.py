@@ -131,6 +131,40 @@ class BufferedPCMReader:
         self.pcmreader.close()
 
 
+class CounterPCMReader:
+    """a PCMReader counting the frames it passes on (the reference's
+    ``pcmstream.CounterPCMReader``)"""
+
+    def __init__(self, pcmreader):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = pcmreader.channels
+        self.channel_mask = pcmreader.channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        self.frames_written = 0
+
+    def read(self, pcm_frames):
+        framelist = self.pcmreader.read(pcm_frames)
+        self.frames_written += framelist.frames
+        return framelist
+
+    def close(self):
+        self.pcmreader.close()
+
+
+def read_all(pcmreader):
+    """every frame a PCMReader has left, as int32 [frames, channels]"""
+    pieces = []
+    while True:
+        framelist = pcmreader.read(FRAMELIST_SIZE)
+        if framelist.frames == 0:
+            break
+        pieces.append(np.asarray(framelist.samples, dtype=np.int32))
+    if not pieces:
+        return np.zeros((0, pcmreader.channels), dtype=np.int32)
+    return np.concatenate(pieces, axis=0)
+
+
 def read_flac_metadata(file):
     """reads a FLAC stream's marker and metadata blocks from a binary
     file object, leaving it at the first frame

@@ -5,8 +5,9 @@ Drives the port's main paths on one CUDA card: bit-exact FLAC -8
 encode of 44.1 kHz stereo with device analysis and device residual
 packing, FLAC decode with device Rice decoding and synthesis, ALAC
 encode with device analysis and ALAC decode with device synthesis,
-and TTA decode with device filter inversion.  Its phases each print
-one line:
+TTA encode with the device filter and decode with device filter
+inversion, and Shorten encode with device analysis and decode with
+device synthesis.  Its phases each print one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -61,13 +62,32 @@ one line:
     counts, no batch on the host route;
 12. TTA kernel vs plain: tta_synth on the card against its plain
     version on the card, on the first decode group (256 frames, 512
-    lanes x 46080) of phase 11's signal as a TTA stream; must be
-    equal; timed (the plain version once), with its time a serial step;
-13. TTA identity and throughput: the host encoder writes the same
+    lanes x 46080) of phase 11's signal encoded on the card as a TTA
+    stream; must be equal; timed (the plain version once), with its
+    time a serial step;
+13. TTA identity and throughput: the card's encoder writes the same
     file whether the length is known up front or not, and it decodes
     back on the host; that short stream decodes on the card to its
     input and to the CPU decode; then phase 12's stream is decoded on
-    the card, repeated, every run bit-exact, through the kernel.
+    the card, repeated, every run bit-exact, through the kernel;
+14. TTA encode kernel vs plain: tta_filter (the encoder's hybrid
+    filter) on the card against its plain version on the card, on the
+    first encode batch of phase 11's signal (256 frames, 512 lanes x
+    46080 of the fixed predictor's output); must be equal; timed as
+    phase 12, and with the card's time alone (device_ms);
+15. TTA encode identity and throughput: phase 11's signal written on
+    the card, repeated, each run's file equal to the one the port's
+    all-host C++ encoder gives (timed once beside it), with stage
+    seconds and tta_filter's launches counted from 0 in each run; a
+    short stream gives the same file on the card, on the CPU (the plain
+    versions) and on the host;
+16. Shorten identity and throughput: phase 11's signal written on the
+    card (the device analysis steering the emitter) equals the
+    emitter's own decisions' file byte for byte, and decodes on the
+    card (host scan and warm-up chain, device synthesis) to the signal
+    bit for bit without the host route, each repeated, the all-host
+    encode and decode timed once beside them; a short stream gives the
+    same file and PCM on the card and on the CPU.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -211,11 +231,13 @@ def main():
     from audiotools_tpu_torch import _native, kernels
     from audiotools_tpu_torch.codecs import alac_dec, alac_fast, flac_dec, tta
     from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.codecs import shn
     from audiotools_tpu_torch.formats import m4a
+    from audiotools_tpu_torch.formats import shn as shn_format
     from audiotools_tpu_torch.formats import tta as tta_format
     from audiotools_tpu_torch.pcm import (decode_flac, reader_from_array,
                                           streaminfo)
-    from audiotools_tpu_torch.ops import alac_synth, tta_synth
+    from audiotools_tpu_torch.ops import alac_synth, tta_scan, tta_synth
     from audiotools_tpu_torch.ops import bitpack, flac_frames, flac_synth
     from audiotools_tpu_torch.ops import lpc as lpc_ops
     from audiotools_tpu_torch.ops import rice_decode
@@ -705,7 +727,8 @@ def main():
     # ---- 12. TTA kernel vs plain on one decode group -------------------
     t0 = time.perf_counter()
     tta_file = io.BytesIO()
-    tta_format.write_tta(tta_file, reader_from_array(alac_sig, 16))
+    tta_format.write_tta(tta_file, reader_from_array(alac_sig, 16),
+                         device="cuda")
     tta_encode_s = time.perf_counter() - t0
     tta_bytes = tta_file.getvalue()
     dec = tta.TorchTTADecoder(io.BytesIO(tta_bytes), device="cuda")
@@ -746,7 +769,7 @@ def main():
     for known in (None, short.shape[0]):
         out = io.BytesIO()
         tta_format.write_tta(out, reader_from_array(short, 16),
-                             total_pcm_frames=known)
+                             total_pcm_frames=known, device="cuda")
         encoded.append(out.getvalue())
     if encoded[0] != encoded[1]:
         raise AssertionError("TTA files differ with and without the length "
@@ -797,6 +820,170 @@ def main():
          decode_Msamples_per_s=float(np.median(t_rates)),
          decode_Msamples_per_s_runs=t_rates, runs=tta_runs)
 
+    # ---- 14. TTA encode kernel vs plain on one encode batch ------------
+    F_e = tta.ENC_BATCH_FRAMES
+    first = torch.as_tensor(alac_sig[:F_e * n_t].reshape(F_e, n_t, 2),
+                            device=dev)
+    predicted = tta_scan.fixed_predict(tta_scan.correlate(first), 16)
+    lanes = predicted.permute(0, 2, 1).reshape(F_e * 2, n_t).contiguous()
+    del first, predicted
+    got = tta_scan.hybrid_filter(lanes, 16)
+    start.record()
+    want = tta_scan.hybrid_filter_plain(lanes, 16)
+    stop.record()
+    stop.synchronize()
+    f_plain_ms = start.elapsed_time(stop)
+    f_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("tta_filter kernel != plain version (max abs "
+                             "err %d)" % (f_err,))
+    (L_f, _) = lanes.shape
+    # inputs read and residuals written once; a sample takes 42 integer
+    # operations (qm update 16, dot product 16, sign, shift and subtract
+    # 3, the state rotation 7)
+    (f_bound, f_bound_by) = bound(2 * L_f * n_t * 4, 42 * L_f * n_t)
+    filter_row = dict(
+        max_abs_err=f_err,
+        ms=median_ms(lambda: tta_scan.hybrid_filter(lanes, 16)),
+        plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_bound_by,
+        library_ms=None)
+    line("kernel_vs_plain", kernel="tta_filter", shape=[L_f, n_t],
+         frames=F_e, equal=True,
+         device_ms=device_ms(lambda: tta_scan.hybrid_filter(lanes, 16)),
+         ns_per_step=filter_row["ms"] * 1e6 / n_t,
+         cycles_per_step_at_max_sm=filter_row["ms"] * 1e3 * max_sm_mhz / n_t,
+         **filter_row)
+    del lanes, got, want
+
+    # ---- 15. TTA encode identity and throughput ------------------------
+    def host_tta_file(samples):
+        """the file the port's all-host C++ encoder gives"""
+        count = -(-samples.shape[0] // n_t)
+        sizes = np.full(count, n_t, dtype=np.int32)
+        sizes[-1] = samples.shape[0] - n_t * (count - 1)
+        (data, lens) = _native.tta_encode_frames(samples, sizes, 2, 16)
+        return (tta_format.build_header(2, 16, SAMPLE_RATE,
+                                        samples.shape[0]) +
+                tta_format.build_seektable([int(v) for v in lens]) + data)
+
+    short_t = program_signal(5000, seed=13)
+    short_files = []
+    for device in ("cpu", "cuda"):
+        out = io.BytesIO()
+        tta_format.write_tta(out, reader_from_array(short_t, 16),
+                             device=device)
+        short_files.append(out.getvalue())
+    if short_files != [host_tta_file(short_t)] * 2:
+        raise AssertionError("short TTA files differ between the card, the "
+                             "CPU and the host encoder")
+    t0 = time.perf_counter()
+    host_file = host_tta_file(alac_sig)
+    host_tta_s = time.perf_counter() - t0
+    if tta_bytes != host_file:
+        raise AssertionError("card TTA encode differs from the host encoder")
+    tta_enc_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        timings = {}
+        out = io.BytesIO()
+        tta_scan.hybrid_filter.launches = 0
+        t0 = time.perf_counter()
+        tta_format.write_tta(out, reader_from_array(alac_sig, 16),
+                             device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f_launches = tta_scan.hybrid_filter.launches
+        if f_launches <= 0:
+            raise AssertionError("main TTA encode never launched tta_filter")
+        if out.getvalue() != host_file:
+            raise AssertionError("card TTA encode differs from the host "
+                                 "encoder")
+        tta_enc_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            stage_s=timings, tta_filter_launches=f_launches))
+        del out
+    te_rates = [r["Msamples_per_s"] for r in tta_enc_runs]
+    line("tta_encode_identity_throughput",
+         identity_frames=int(short_t.shape[0]), identical=True,
+         audio_seconds=a_frames / SAMPLE_RATE,
+         batch_frames=tta.ENC_BATCH_FRAMES,
+         encode_Msamples_per_s=float(np.median(te_rates)),
+         encode_Msamples_per_s_runs=te_rates,
+         host_encode_Msamples_per_s=a_frames * 2 / host_tta_s / 1e6,
+         runs=tta_enc_runs)
+
+    # ---- 16. Shorten identity and throughput ---------------------------
+    short_s = program_signal(3001, seed=17)
+    short_shn = []
+    for device in ("cpu", "cuda"):
+        out = io.BytesIO()
+        shn_format.write_shn(out, reader_from_array(short_s, 16),
+                             device=device)
+        short_shn.append(out.getvalue())
+        if not np.array_equal(shn.decode_shn(short_shn[-1], device=device),
+                              short_s):
+            raise AssertionError("short Shorten stream does not decode on "
+                                 "%s" % (device,))
+    if short_shn[0] != short_shn[1]:
+        raise AssertionError("short Shorten files differ between the card "
+                             "and the CPU")
+    header = shn_format.wave_header(2, SAMPLE_RATE, 16, 0x3,
+                                    alac_sig.size * 2)
+    t0 = time.perf_counter()
+    host_shn = _native.shn_encode(alac_sig, 16, True, False, header)
+    host_shn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_dec = shn.FastSHNDecoder(io.BytesIO(host_shn))
+    if not np.array_equal(host_dec.read(a_frames).samples, alac_sig):
+        raise AssertionError("host Shorten decode is not bit-exact")
+    host_shn_dec_s = time.perf_counter() - t0
+    del host_dec
+    shn_enc_runs = []
+    shn_dec_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        timings = {}
+        out = io.BytesIO()
+        t0 = time.perf_counter()
+        shn_format.write_shn(out, reader_from_array(alac_sig, 16),
+                             device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if out.getvalue() != host_shn:
+            raise AssertionError("card Shorten encode differs from the "
+                                 "emitter's own decisions")
+        shn_enc_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            ratio=len(host_shn) / (alac_sig.size * 2), stage_s=timings))
+        del out
+        t0 = time.perf_counter()
+        dec = shn.TorchSHNDecoder(io.BytesIO(host_shn), device="cuda")
+        pieces = []
+        while True:
+            framelist = dec.read(1 << 20)
+            if framelist.frames == 0:
+                break
+            pieces.append(framelist.samples)
+        wall = time.perf_counter() - t0
+        if dec.host_fallback:
+            raise AssertionError("card Shorten decode took the host route")
+        if not np.array_equal(np.concatenate(pieces), alac_sig):
+            raise AssertionError("card Shorten decode is not bit-exact")
+        shn_dec_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            stage_s=dict(dec.timings), host_fallback=False))
+        del dec, pieces
+    se_rates = [r["Msamples_per_s"] for r in shn_enc_runs]
+    sd_rates = [r["Msamples_per_s"] for r in shn_dec_runs]
+    line("shn_identity_throughput", identity_frames=int(short_s.shape[0]),
+         identical=True, bit_exact=True, host_fallback=False,
+         audio_seconds=a_frames / SAMPLE_RATE, block_size=256,
+         encode_Msamples_per_s=float(np.median(se_rates)),
+         encode_Msamples_per_s_runs=se_rates,
+         decode_Msamples_per_s=float(np.median(sd_rates)),
+         decode_Msamples_per_s_runs=sd_rates,
+         host_encode_Msamples_per_s=a_frames * 2 / host_shn_s / 1e6,
+         host_decode_Msamples_per_s=a_frames * 2 / host_shn_dec_s / 1e6,
+         encode_runs=shn_enc_runs, decode_runs=shn_dec_runs)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -812,7 +999,9 @@ def main():
             ("alac_synth", "alac_synth.cu", "alac_synth.py:233",
              alac_dec_runs[0]["alac_synth_launches"], alac_row),
             ("tta_synth", "tta_synth.cu", "tta_synth.py:107",
-             tta_runs[0]["tta_synth_launches"], tta_row)):
+             tta_runs[0]["tta_synth_launches"], tta_row),
+            ("tta_filter", "tta_filter.cu", "tta_scan.py:70",
+             tta_enc_runs[0]["tta_filter_launches"], filter_row)):
         kernels_line.append(dict(
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,

@@ -55,8 +55,8 @@ def test_no_source_imports_the_reference():
 
 def test_port_loads_nothing_of_the_reference():
     """a fresh interpreter imports every port module and chip_smoke,
-    encodes and decodes through the port on the CPU, and holds no
-    module of jax or of the reference"""
+    encodes and decodes FLAC, Shorten and TTA through the port on the
+    CPU, and holds no module of jax or of the reference"""
     code = (
         "import importlib, io, sys\n"
         "import numpy as np\n"
@@ -74,6 +74,19 @@ def test_port_loads_nothing_of_the_reference():
         "pack=pack)\n"
         "    assert np.array_equal(flac_dec.decode_flac(out.getvalue(), "
         "device='cpu'), arr)\n"
+        "from audiotools_tpu_torch.codecs import shn, tta\n"
+        "from audiotools_tpu_torch.formats import shn as shn_format\n"
+        "from audiotools_tpu_torch.formats import tta as tta_format\n"
+        "out = io.BytesIO()\n"
+        "shn_format.write_shn(out, pcm.reader_from_array(arr, 16), "
+        "device='cpu')\n"
+        "assert np.array_equal(shn.decode_shn(out.getvalue(), "
+        "device='cpu'), arr)\n"
+        "out = io.BytesIO()\n"
+        "tta_format.write_tta(out, pcm.reader_from_array(arr[:300], 16), "
+        "device='cpu')\n"
+        "assert np.array_equal(tta.decode_tta(out.getvalue(), "
+        "device='cpu'), arr[:300])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'audiotools_tpu' or "
         "m.startswith('audiotools_tpu.'))\n"

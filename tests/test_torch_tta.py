@@ -1,7 +1,8 @@
 """The port's TTA codec on the CPU: the files of ``formats.tta.write_tta``
-(host C++ encode) equal the reference's ``TrueAudio.from_pcm`` byte
-for byte; ``TorchTTADecoder`` equals the reference's host decoder
-(``FastTTADecoder``) and device decoder (``JaxTTADecoder``) over
+(device="cpu": the plain versions of the device encode) equal the
+reference's ``TrueAudio.from_pcm`` byte for byte; ``TorchTTADecoder``
+equals the reference's host decoder (``FastTTADecoder``) and device
+decoder (``JaxTTADecoder``) over
 channel counts and depths, with a partial final frame, and seeks as
 the host decoder does.  The streams are 8 kHz (8,359-sample frames),
 which keeps the plain version's per-sample loop short.  On a card the
@@ -87,7 +88,8 @@ def test_file_matches_reference(tmp_path, channels, bps, known_length):
     out = io.BytesIO()
     sizes = tta_format.write_tta(
         out, pcm.reader_from_array(arr, bps, RATE),
-        total_pcm_frames=arr.shape[0] if known_length else None)
+        total_pcm_frames=arr.shape[0] if known_length else None,
+        device="cpu")
     assert out.getvalue() == want
     assert len(sizes) == 3
 
@@ -97,7 +99,8 @@ def test_encode_at_44100_matches_reference(tmp_path):
     with open(reference_file(tmp_path, arr, 16, 44100), "rb") as f:
         want = f.read()
     out = io.BytesIO()
-    tta_format.write_tta(out, pcm.reader_from_array(arr, 16, 44100))
+    tta_format.write_tta(out, pcm.reader_from_array(arr, 16, 44100),
+                         device="cpu")
     assert out.getvalue() == want
 
 
@@ -106,7 +109,7 @@ def test_wrong_length_raises():
     with pytest.raises(ValueError, match="mismatch"):
         tta_format.write_tta(io.BytesIO(), pcm.reader_from_array(arr, 16,
                                                                  RATE),
-                             total_pcm_frames=999)
+                             total_pcm_frames=999, device="cpu")
 
 
 @pytest.mark.parametrize("channels,bps", CASES)
@@ -151,7 +154,8 @@ def test_seek(tmp_path):
 def test_header_checks(tmp_path):
     arr = signal(1, 16, 1000, seed=6)
     out = io.BytesIO()
-    tta_format.write_tta(out, pcm.reader_from_array(arr, 16, RATE))
+    tta_format.write_tta(out, pcm.reader_from_array(arr, 16, RATE),
+                         device="cpu")
     data = out.getvalue()
     header = oracle.read_tta_header(io.BytesIO(data))
     assert (header["channels"], header["bits_per_sample"],
@@ -193,7 +197,8 @@ def test_native_scan_matches_the_reference():
     from audiotools_tpu_torch import _native
     arr = signal(2, 24, 8359 + 100, seed=8)
     out = io.BytesIO()
-    tta_format.write_tta(out, pcm.reader_from_array(arr, 24, RATE))
+    tta_format.write_tta(out, pcm.reader_from_array(arr, 24, RATE),
+                         device="cpu")
     f = io.BytesIO(out.getvalue())
     header = oracle.read_tta_header(f)
     data = f.read()
@@ -221,7 +226,9 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
 def test_cuda_decode_matches_host_decoder(tmp_path, channels, bps):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    arr = signal(channels, bps, 5 * 8359 + 99, seed=20 + channels)
+    # a last frame of 1234 samples: the reference's host encoder writes
+    # past its buffer on a 99-sample 24-bit one
+    arr = signal(channels, bps, 5 * 8359 + 1234, seed=20 + channels)
     path = reference_file(tmp_path, arr, bps)
     before = tta.tta_synth.inverse_filter_predict.launches
     got = drain(tta.TorchTTADecoder(path, device="cuda"))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Cycles that one warp spends on the integer instructions the serial
 kernels (audiotools_tpu_torch/csrc/flac_synth.cu, tta_synth.cu,
-alac_synth.cu, rice_decode.cu) are built from, timed with clock64() on
+alac_synth.cu, rice_decode.cu, tta_filter.cu) are built from, timed with clock64() on
 a CUDA card.
 
 Each case runs one warp in one block, so it reads what a warp alone on
@@ -47,6 +47,11 @@ __device__ __forceinline__ uint32_t mad32(uint32_t a, uint32_t b, uint32_t c) {
 __device__ __forceinline__ uint32_t add32(uint32_t a, uint32_t b) {
   uint32_t d;
   asm volatile("add.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t sub32(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm volatile("sub.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
   return d;
 }
 
@@ -104,12 +109,19 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
       } else if constexpr (KIND == 8) {  // rice_decode's code, in registers
         const int q = __clzll(static_cast<long long>(buf << (v & 31)));
         v = min(v + q + 1 + (a & 7), 1 << 30);
-      } else {                           // the same, a shared load a code
+      } else if constexpr (KIND == 9) {  // the same, a shared load a code
         const uint32_t w = static_cast<uint32_t>(v) >> 5;
         const uint64_t win = (static_cast<uint64_t>(words[w & 1023]) << 32) |
                              words[(w + 1) & 1023];
         const int q = __clzll(static_cast<long long>(win << (v & 31)));
         v = min(v + q + 1 + (a & 7), 1 << 30);
+      } else {                           // tta_filter's step chain
+        const uint32_t sgn = static_cast<uint32_t>(v >> 31) |
+                             (sub32(0u, static_cast<uint32_t>(v)) >> 31);
+        const uint32_t t = mad32(sgn, x[k], u[k]);
+        v = static_cast<int32_t>(sub32(
+            static_cast<uint32_t>(b),
+            static_cast<uint32_t>(static_cast<int32_t>(t) >> (a & 15))));
       }
     }
   }
@@ -136,7 +148,8 @@ extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
     case 6: cycles_kernel<6><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 7: cycles_kernel<7><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 8: cycles_kernel<8><<<1, 32>>>(iters, a, b, cycles, sink); break;
-    default: cycles_kernel<9><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 9: cycles_kernel<9><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<10><<<1, 32>>>(iters, a, b, cycles, sink); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -157,6 +170,8 @@ CASES = (
      "(latency)", "latency"),
     ("rice_decode code with a dependent LDS a code, per link (latency)",
      "latency"),
+    ("tta_filter: sign (SHF, IADD, LOP3) -> IMAD -> SHF.R.S32 -> IADD, "
+     "per link (latency)", "latency"),
 )
 ITERS = 20000
 
