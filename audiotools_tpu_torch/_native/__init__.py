@@ -1,11 +1,12 @@
-"""The port's host C++ library: FLAC, ALAC, TTA and Shorten host kernels,
-and MD5.
+"""The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
+kernels, and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
-Shorten, CRC and MD5 parts of the reference package's host library;
-the wrappers here are the reference's (``audiotools_tpu/_native``), for
-the entry points the port calls, with two of the port's own:
-``shn_header`` and ``shn_warm_chain``.  The library compiles with g++ on
+Shorten, WavPack, CRC and MD5 parts of the reference package's host
+library; the wrappers here are the reference's (``audiotools_tpu/_native``),
+for the entry points the port calls, with the port's own ``shn_header``
+and ``shn_warm_chain``.  The ``wv_*`` wrappers hold the ctypes calls that
+the reference makes inline in its ``ref/wavpack.py``.  The library compiles with g++ on
 first use into the package's ``build/`` directory; its name carries a
 hash of the source, and it is written to a temporary file first and
 renamed into place, so that several processes may build it at once.
@@ -289,6 +290,26 @@ def get_lib():
         ctypes.c_int32,     # channels
         _I64,               # warm [rows, 3]
     ]
+
+    lib.atpu_wv_crc.restype = ctypes.c_uint32
+    lib.atpu_wv_crc.argtypes = [_I32, ctypes.c_int64]
+    wv_pass_args = (
+        [_I64] * 2 +        # ch0, ch1 (in/out)
+        [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int32] +  # n, channel_count, term, delta
+        [_I64] * 3)         # weights, per-channel samples
+    lib.atpu_wv_correlate.restype = ctypes.c_int32
+    lib.atpu_wv_correlate.argtypes = wv_pass_args
+    lib.atpu_wv_decorrelate.restype = ctypes.c_int32
+    lib.atpu_wv_decorrelate.argtypes = wv_pass_args
+    lib.atpu_wv_write_bitstream.restype = ctypes.c_int64
+    lib.atpu_wv_write_bitstream.argtypes = [
+        _I64, _I64, ctypes.c_int64, ctypes.c_int32, _I64, _U8,
+        ctypes.c_int64]
+    lib.atpu_wv_read_bitstream.restype = ctypes.c_int64
+    lib.atpu_wv_read_bitstream.argtypes = [
+        _U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, _I64, _I64,
+        _I64]
 
     lib.atpu_md5_init.restype = None
     lib.atpu_md5_init.argtypes = [_U8]
@@ -841,6 +862,98 @@ def shn_split(data):
         raise ValueError("truncated or corrupt Shorten stream "
                          "(native code %d)" % (rc,))
     return (head[:sizes[0]].tobytes(), tail[:sizes[1]].tobytes())
+
+
+def wv_crc(channels):
+    """the WavPack block CRC of 1 or 2 channels of samples"""
+    flat = np.ascontiguousarray(
+        np.stack([np.asarray(c, dtype=np.int64) for c in channels],
+                 axis=1).reshape(-1).astype(np.int32))
+    return int(get_lib().atpu_wv_crc(_as_ptr(flat, ctypes.c_int32),
+                                     flat.size))
+
+
+def _wv_pass(fn, channels, term, delta, weights, samples):
+    """runs one WavPack decorrelation pass (encode or decode direction)
+    over copies of 1 or 2 channels; returns (channels, weights,
+    samples), the last two as the C++ leaves them"""
+    cc = len(channels)
+    c0 = np.array(channels[0], dtype=np.int64)
+    c1 = (np.array(channels[1], dtype=np.int64) if cc == 2
+          else np.zeros(1, dtype=np.int64))
+    w = np.asarray(list(weights) + [0] * (2 - len(weights)),
+                   dtype=np.int64)
+    h0 = np.array(samples[0], dtype=np.int64)
+    h1 = (np.array(samples[1], dtype=np.int64)
+          if (cc == 2 and len(samples) > 1)
+          else np.zeros(max(len(h0), 1), dtype=np.int64))
+    rc = fn(_as_ptr(c0, ctypes.c_int64), _as_ptr(c1, ctypes.c_int64),
+            len(c0), cc, term, delta, _as_ptr(w, ctypes.c_int64),
+            _as_ptr(h0, ctypes.c_int64), _as_ptr(h1, ctypes.c_int64))
+    if rc != 0:
+        raise ValueError("decorrelation error (code %d)" % (rc,))
+    return ([c0, c1][:cc], [int(v) for v in w[:cc]], [h0, h1][:cc])
+
+
+def wv_correlate(channels, term, delta, weights, samples):
+    """one WavPack encode decorrelation pass (atpu_wv_correlate) over
+    1 or 2 int64 channels with their weights and stored samples (terms
+    17/18: [2], newest first; 1-8: [term], oldest first; negative
+    terms, two channels only: [1]); returns (correlated channels, final
+    weights, new stored samples), the inputs left as they were"""
+    return _wv_pass(get_lib().atpu_wv_correlate, channels, term, delta,
+                    weights, samples)
+
+
+def wv_decorrelate(channels, term, delta, weights, samples):
+    """one WavPack decode decorrelation pass (atpu_wv_decorrelate),
+    with the layouts of wv_correlate; returns the decorrelated
+    channels"""
+    return _wv_pass(get_lib().atpu_wv_decorrelate, channels, term, delta,
+                    weights, samples)[0]
+
+
+def wv_write_bitstream(channels, entropies):
+    """the WavPack adaptive-medians residual coder over 1 or 2 int64
+    channels; entropies, [[3], [3]], are updated in place; returns the
+    coded bytes"""
+    cc = len(channels)
+    c0 = np.ascontiguousarray(channels[0], dtype=np.int64)
+    c1 = (np.ascontiguousarray(channels[1], dtype=np.int64) if cc == 2
+          else np.zeros(1, dtype=np.int64))
+    ent = np.asarray(list(entropies[0]) + list(entropies[1]),
+                     dtype=np.int64)
+    cap = len(c0) * 64 * cc + 1024
+    out = np.empty(cap, dtype=np.uint8)
+    total = get_lib().atpu_wv_write_bitstream(
+        _as_ptr(c0, ctypes.c_int64), _as_ptr(c1, ctypes.c_int64), len(c0),
+        cc, _as_ptr(ent, ctypes.c_int64), _as_ptr(out, ctypes.c_uint8),
+        cap)
+    if total < 0:
+        raise ValueError("bitstream error (code %d)" % (total,))
+    entropies[0][0:3] = [int(v) for v in ent[0:3]]
+    entropies[1][0:3] = [int(v) for v in ent[3:6]]
+    return out[:total].tobytes()
+
+
+def wv_read_bitstream(data, n, channel_count, entropies):
+    """reads n residuals a channel of a WavPack bitstream sub-block;
+    entropies, [[3], [3]], are updated in place; returns a list of
+    channel_count int64 arrays"""
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    ent = np.asarray(list(entropies[0]) + list(entropies[1]),
+                     dtype=np.int64)
+    out0 = np.zeros(n, dtype=np.int64)
+    out1 = np.zeros(n if channel_count == 2 else 1, dtype=np.int64)
+    consumed = get_lib().atpu_wv_read_bitstream(
+        _as_ptr(buf, ctypes.c_uint8), len(buf), n, channel_count,
+        _as_ptr(ent, ctypes.c_int64), _as_ptr(out0, ctypes.c_int64),
+        _as_ptr(out1, ctypes.c_int64))
+    if consumed < 0:
+        raise ValueError("bitstream error (code %d)" % (consumed,))
+    entropies[0][0:3] = [int(v) for v in ent[0:3]]
+    entropies[1][0:3] = [int(v) for v in ent[3:6]]
+    return [out0, out1][:channel_count]
 
 
 class MD5:

@@ -136,12 +136,12 @@ class HostBatch:
                        for (k, v) in arrays.items()}
 
 
-def upload_arrays(arrays, dev):
-    """a dict of int32 numpy arrays on ``dev`` as a dict of int32
-    tensors: one copy of one buffer, from pinned memory on a card
-    (asynchronous)"""
+def upload_arrays(arrays, dev, dtype=torch.int32):
+    """a dict of numpy arrays on ``dev`` as a dict of ``dtype`` (int32
+    by default) tensors: one copy of one buffer, from pinned memory on a
+    card (asynchronous)"""
     sizes = [a.size for a in arrays.values()]
-    flat = torch.empty(sum(sizes), dtype=torch.int32,
+    flat = torch.empty(sum(sizes), dtype=dtype,
                        pin_memory=dev.type == "cuda")
     np.concatenate([a.reshape(-1) for a in arrays.values()],
                    out=flat.numpy())

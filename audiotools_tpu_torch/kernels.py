@@ -139,6 +139,12 @@ def load():
             [ctypes.c_void_p] + [ctypes.c_int] * 3 +
             [ctypes.c_void_p, ctypes.c_void_p])
         lib.atpu_tta_filter.restype = ctypes.c_int
+        lib.atpu_wv_corr.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+        lib.atpu_wv_corr.restype = ctypes.c_int
+        lib.atpu_wv_decorr.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        lib.atpu_wv_decorr.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -269,4 +275,43 @@ def tta_filter(predicted, fshift, out):
                                  _stream_ptr(predicted.device))
     if rc != 0:
         raise RuntimeError("tta_filter kernel launch failed: CUDA error %d"
+                           % (rc,))
+
+
+def wv_corr(x, meta, chain, weights, samples, out, w_out, s_out):
+    """launches csrc/wv_chain.cu's encoder: the WavPack encode pass
+    chains of the batch's blocks (one thread a block) into ``out``, with
+    each pass's final weights in ``w_out`` and new stored samples in
+    ``s_out``
+
+    Contiguous int64 CUDA tensors on one device, laid out as
+    ops/wv_scan.pack_blocks gives them; the caller
+    (ops/wv_scan.run_pass_chain) validates the arguments."""
+    import torch
+    lib = load()
+    with torch.cuda.device(x.device):
+        rc = lib.atpu_wv_corr(
+            _ptr(x), _ptr(meta), _ptr(chain), _ptr(weights), _ptr(samples),
+            meta.shape[0], _ptr(out), _ptr(w_out), _ptr(s_out),
+            _stream_ptr(x.device))
+    if rc != 0:
+        raise RuntimeError("wv_corr kernel launch failed: CUDA error %d"
+                           % (rc,))
+
+
+def wv_decorr(x, meta, chain, weights, samples, out):
+    """launches csrc/wv_chain.cu's decoder: the WavPack decode pass
+    chains of the batch's blocks (one thread a block) into ``out``
+
+    Contiguous int64 CUDA tensors on one device, laid out as
+    ops/wv_scan.pack_blocks gives them; the caller
+    (ops/wv_scan.run_dec_chain) validates the arguments."""
+    import torch
+    lib = load()
+    with torch.cuda.device(x.device):
+        rc = lib.atpu_wv_decorr(
+            _ptr(x), _ptr(meta), _ptr(chain), _ptr(weights), _ptr(samples),
+            meta.shape[0], _ptr(out), _stream_ptr(x.device))
+    if rc != 0:
+        raise RuntimeError("wv_decorr kernel launch failed: CUDA error %d"
                            % (rc,))

@@ -6,8 +6,9 @@ encode of 44.1 kHz stereo with device analysis and device residual
 packing, FLAC decode with device Rice decoding and synthesis, ALAC
 encode with device analysis and ALAC decode with device synthesis,
 TTA encode with the device filter and decode with device filter
-inversion, and Shorten encode with device analysis and decode with
-device synthesis.  Its phases each print one line:
+inversion, Shorten encode with device analysis and decode with device
+synthesis, and WavPack encode and decode with the decorrelation passes
+on the card.  Its phases each print one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -87,6 +88,27 @@ device synthesis.  Its phases each print one line:
     card (host scan and warm-up chain, device synthesis) to the signal
     bit for bit without the host route, each repeated, the all-host
     encode and decode timed once beside them; a short stream gives the
+    same file and PCM on the card and on the CPU;
+17. WavPack kernels vs plain: wv_decorr (the decode pass chains) on
+    the main path's first batch, the first 32 blocks of 44,100 stereo
+    samples of phase 18's standard stream (5 passes, terms 17 and 18
+    among them), and on a batch of 8 such blocks of a 16-pass
+    (veryhigh) stream of phase 11's signal, with terms -1 and -2; and
+    wv_corr (the encode chains) on the third block of a standard, a
+    veryhigh and a mono standard encode, each with the state the
+    encode reached there; each equal to its plain version on the CPU
+    and to the port's host C++ passes, pass by pass (outputs, final
+    weights, stored samples); each input timed as phase 14, its plain
+    version on the same input once, with its time a serial step (the
+    kernels line's rows are the standard batch and block);
+18. WavPack identity and throughput: phase 11's signal written on the
+    card at standard (one wv_corr launch a 44,100-sample block) equals
+    the port's all-host C++ encode byte for byte, and decodes on the
+    card (wv_decorr, 32-block batches) bit for bit with its MD5
+    checked, each repeated with the launch counters reset before each
+    run, no decode block on the host route, the all-host encode (run
+    before phase 17) and decode timed once beside them; a short
+    veryhigh stream and a short 6-channel (mask 0x3F) one give the
     same file and PCM on the card and on the CPU.
 
 Then it prints one JSON line describing each kernel and, last, the
@@ -130,6 +152,10 @@ SPIN_CYCLES = 2_000_000
 # the kernels' scalar integer arithmetic
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# WavPack: the writer's block, and phase 17's batch of veryhigh blocks
+WV_BLOCK = 44100
+WV_DEC_BLOCKS = 8
+WV_KEYS = ("x", "meta", "chain", "weights", "samples")
 
 
 def line(phase, **fields):
@@ -221,6 +247,264 @@ def program_signal(n_frames, seed=7):
     noise = rng.normal(0, 600, (n_frames, 2))
     out = np.stack([left, right], axis=1) + noise
     return np.clip(out, -32768, 32767).astype(np.int32)
+
+
+def wavpack_phases(dev, alac_sig, max_sm_mhz):
+    """phases 17 and 18 on ``alac_sig``, phase 11's signal; returns the
+    kernels line's rows of wv_corr and wv_decorr and phase 18's encode
+    and decode runs"""
+    from audiotools_tpu_torch import _native
+    from audiotools_tpu_torch.codecs import wavpack
+    from audiotools_tpu_torch.formats import wavpack as wv_format
+    from audiotools_tpu_torch.ops import wv_scan
+    from audiotools_tpu_torch.pcm import read_all, reader_from_array
+    from audiotools_tpu_torch.ref import wavpack as wv_oracle
+    a_frames = alac_sig.shape[0]
+
+    # ---- 17. WavPack kernels vs plain at full width -------------------
+    def wv_tensors(blocks, device):
+        batch = wv_scan.pack_blocks(blocks)
+        return (batch, [torch.as_tensor(batch[k], device=device)
+                        for k in WV_KEYS])
+
+    def wv_jobs(signal, passes, frame):
+        """the blocks (ops/wv_scan.pack_blocks) that the given frame of
+        an all-host encode of the signal correlates, with their passes'
+        state at the frame's start"""
+        seen = []
+
+        def capture(jobs):
+            seen.append([(np.stack(u[:cc]), [(p.term, p.delta) for p in ps],
+                          [list(p.weights) for p in ps],
+                          [[list(c) for c in p.samples] for p in ps])
+                         for (u, ps, cc) in jobs])
+            return wv_oracle.correlate_host(jobs)
+
+        wv_oracle.encode_wavpack(
+            io.BytesIO(), reader_from_array(signal[:(frame + 1) * WV_BLOCK],
+                                            16),
+            WV_BLOCK, correlation_passes=passes, correlate=capture)
+        return seen[frame]
+
+    # the all-host encode of phase 18's stream, timed once: phase 17
+    # checks wv_decorr on the first decode batch of this file
+    t0 = time.perf_counter()
+    host_wv = io.BytesIO()
+    wv_oracle.encode_wavpack(host_wv, reader_from_array(alac_sig, 16),
+                             WV_BLOCK, correlation_passes=5)
+    host_wv = host_wv.getvalue()
+    host_wv_s = time.perf_counter() - t0
+
+    def dec_check(data, count, tag):
+        """the first ``count`` blocks of a stereo stream, as the decoder
+        parses them, decorrelated on the card and held to the plain
+        version on the CPU and to the host C++ passes; returns the
+        batch, its card tensors, the max abs error and the plain ms"""
+        dec = wv_oracle.WavPackDecoder(io.BytesIO(data))
+        blocks = []
+        host = []
+        while len(blocks) < count:
+            ((header, sub_blocks),) = dec.read_group()[0]
+            parsed = wv_oracle.parse_block(header, sub_blocks)
+            blocks.append(wavpack.device_inputs(parsed))
+            host.append(np.stack(wv_oracle.decorrelate_host(parsed)))
+        dec.close()
+        (batch, card) = wv_tensors(blocks, dev)
+        (_, cpu) = wv_tensors(blocks, "cpu")
+        got = wv_scan.run_dec_chain(*card).cpu()
+        t0 = time.perf_counter()
+        want = wv_scan.run_dec_chain_plain(*cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError("wv_decorr kernel != plain version (%s, "
+                                 "max abs err %d)" % (tag, err))
+        if not all(np.array_equal(a, b) for (a, b) in zip(
+                wv_scan.unpack(got.numpy(), batch["meta"]), host)):
+            raise AssertionError("wv_decorr kernel != the host C++ passes "
+                                 "(%s)" % (tag,))
+        return (batch, card, err, plain_ms)
+
+    def dec_timing(batch, card, err, plain_ms):
+        """wv_decorr's times on a batch checked by dec_check, its serial
+        step, and its bound"""
+        passes = int(batch["meta"][:, 3].max())
+        steps = WV_BLOCK * passes
+        total = int(batch["x"].size)
+        # residuals read and samples written once, 8 bytes each (the
+        # per-block chains, weights and stored samples: 1.4 KB a
+        # block); a channel's step: a 64-bit multiply (3 IMADs), 2
+        # adds, a shift, 2 compares, a select and an add
+        (b_ms, b_by) = bound(2 * total * 8 + len(batch["meta"]) * 1440,
+                             10 * int((batch["meta"][:, 1] *
+                                       batch["meta"][:, 2] *
+                                       batch["meta"][:, 3]).sum()))
+        ms = median_ms(lambda: wv_scan.run_dec_chain(*card), 5)
+        return dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by,
+            device_ms=device_ms(lambda: wv_scan.run_dec_chain(*card), 5),
+            ns_per_step=ms * 1e6 / steps,
+            cycles_per_step_at_max_sm=ms * 1e3 * max_sm_mhz / steps)
+
+    # the main path's batch: the first 32 blocks of the standard stream
+    (d_batch, d_card, d_err, d_plain) = dec_check(
+        host_wv, wavpack.DEC_BATCH_BLOCKS, "standard")
+    std_dec = dec_timing(d_batch, d_card, d_err, d_plain)
+    del d_card
+    # veryhigh blocks: 16 passes, with the negative terms -1 and -2
+    vh_file = io.BytesIO()
+    wv_oracle.encode_wavpack(vh_file, reader_from_array(
+        alac_sig[:WV_DEC_BLOCKS * WV_BLOCK], 16), WV_BLOCK,
+        correlation_passes=16)
+    (v_batch, v_card, v_err, v_plain) = dec_check(
+        vh_file.getvalue(), WV_DEC_BLOCKS, "veryhigh")
+    if any(not {-1, -2} <= set(v_batch["chain"][b, :p, 0].tolist())
+           for (b, p) in enumerate(v_batch["meta"][:, 3].tolist())):
+        raise AssertionError("veryhigh blocks without terms -1 and -2")
+    vh_dec = dec_timing(v_batch, v_card, v_err, v_plain)
+    del v_card
+    line("kernel_vs_plain", kernel="wv_decorr", equal=True,
+         equal_host_cpp=True, plain_on="cpu",
+         blocks={"standard": dict(shape=[wavpack.DEC_BATCH_BLOCKS, 2,
+                                         WV_BLOCK, 5], **std_dec),
+                 "veryhigh": dict(shape=[WV_DEC_BLOCKS, 2, WV_BLOCK, 16],
+                                  **vh_dec)})
+    decorr_row = dict(max_abs_err=max(d_err, v_err), ms=std_dec["ms"],
+                      plain_ms=std_dec["plain_ms"],
+                      bound_ms=std_dec["bound_ms"],
+                      bound_by=std_dec["bound_by"], library_ms=None)
+
+    # a mono block beside the stereo ones: one chain a step instead of two
+    corr_jobs = {name: wv_jobs(signal, passes, 2)[0]
+                 for (name, signal, passes) in (
+                     ("standard", alac_sig, 5), ("veryhigh", alac_sig, 16),
+                     ("standard_mono", alac_sig[:, :1], 5))}
+    corr_rows = {}
+    for (name, block) in corr_jobs.items():
+        # each block's plain run alone: the same input as its card time
+        (c_batch, c_cpu) = wv_tensors([block], "cpu")
+        t0 = time.perf_counter()
+        want = wv_scan.run_pass_chain_plain(*c_cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        (_, c_card) = wv_tensors([block], dev)
+        got = [t.cpu() for t in wv_scan.run_pass_chain(*c_card)]
+        err = int((got[0] - want[0]).abs().max())
+        if not all(torch.equal(g, w) for (g, w) in zip(got, want)):
+            raise AssertionError("wv_corr kernel != plain version (%s, max "
+                                 "abs err %d)" % (name, err))
+        (x, chain, w, s) = block
+        cc = x.shape[0]
+        cur = list(x)
+        for (p, (t, d)) in enumerate(chain):
+            (cur, ws, ss) = _native.wv_correlate(cur, t, d, w[p], s[p])
+            if ws != got[1][0, p, :cc].tolist() or (
+                    t > 0 and not np.array_equal(
+                        np.stack(ss), got[2][0, p, :cc, :wv_scan.span(t)])):
+                raise AssertionError("wv_corr state != the host C++ pass "
+                                     "(%s, pass %d)" % (name, p))
+        if not np.array_equal(np.stack(cur),
+                              wv_scan.unpack(got[0], c_batch["meta"])[0]):
+            raise AssertionError("wv_corr kernel != the host C++ passes "
+                                 "(%s)" % (name,))
+        steps = WV_BLOCK * len(chain)
+        (c_bound, c_bound_by) = bound(2 * x.size * 8 + 1440,
+                                      10 * x.size * len(chain))
+        c_ms = median_ms(lambda: wv_scan.run_pass_chain(*c_card), 5)
+        corr_rows[name] = dict(
+            passes=len(chain), max_abs_err=err, ms=c_ms,
+            device_ms=device_ms(lambda: wv_scan.run_pass_chain(*c_card), 5),
+            plain_ms=plain_ms, ns_per_step=c_ms * 1e6 / steps,
+            cycles_per_step_at_max_sm=c_ms * 1e3 * max_sm_mhz / steps,
+            bound_ms=c_bound, bound_by=c_bound_by)
+        del c_card, got
+    line("kernel_vs_plain", kernel="wv_corr", shape=[1, 2, WV_BLOCK],
+         equal=True, equal_host_cpp=True, plain_on="cpu", blocks=corr_rows)
+    std = corr_rows["standard"]
+    corr_row = dict(max_abs_err=max(r["max_abs_err"]
+                                    for r in corr_rows.values()),
+                    ms=std["ms"], plain_ms=std["plain_ms"],
+                    bound_ms=std["bound_ms"], bound_by=std["bound_by"],
+                    library_ms=None)
+
+    # ---- 18. WavPack identity and throughput ---------------------------
+    for (tag, short_w, channels, compression) in (
+            ("veryhigh", program_signal(5000, seed=19), 2, "veryhigh"),
+            ("6ch", np.concatenate([program_signal(3000, seed=23)] * 3,
+                                   axis=1), 6, "standard")):
+        files = []
+        for device in ("cpu", dev):
+            out = io.BytesIO()
+            wv_format.write_wavpack(out, reader_from_array(short_w, 16),
+                                    compression, device=device)
+            files.append(out.getvalue())
+            if not np.array_equal(wavpack.decode_wavpack(files[-1],
+                                                         device=device),
+                                  short_w):
+                raise AssertionError("short WavPack stream (%s) does not "
+                                     "decode on %s" % (tag, device))
+        if files[0] != files[1]:
+            raise AssertionError("short WavPack files (%s) differ between "
+                                 "the card and the CPU" % (tag,))
+    t0 = time.perf_counter()
+    if not np.array_equal(read_all(wv_oracle.WavPackDecoder(
+            io.BytesIO(host_wv))), alac_sig):
+        raise AssertionError("host WavPack decode is not bit-exact")
+    host_wv_dec_s = time.perf_counter() - t0
+    wv_enc_runs = []
+    wv_dec_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        timings = {}
+        out = io.BytesIO()
+        wv_scan.run_pass_chain.launches = 0
+        t0 = time.perf_counter()
+        wv_format.write_wavpack(out, reader_from_array(alac_sig, 16),
+                                "standard", device=dev, timings=timings)
+        wall = time.perf_counter() - t0
+        c_launches = wv_scan.run_pass_chain.launches
+        if c_launches != -(-a_frames // WV_BLOCK):
+            raise AssertionError("main WavPack encode: %d launches of "
+                                 "wv_corr, not one a block" % (c_launches,))
+        if out.getvalue() != host_wv:
+            raise AssertionError("card WavPack encode differs from the "
+                                 "all-host encode")
+        wv_enc_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            ratio=len(host_wv) / (alac_sig.size * 2), stage_s=timings,
+            wv_corr_launches=c_launches))
+        del out
+        wv_scan.run_dec_chain.launches = 0
+        t0 = time.perf_counter()
+        dec = wavpack.TorchWavPackDecoder(io.BytesIO(host_wv), device=dev)
+        samples = read_all(dec)
+        wall = time.perf_counter() - t0
+        d_launches = wv_scan.run_dec_chain.launches
+        if d_launches <= 0 or dec.host_blocks or not dec.md5_checked:
+            raise AssertionError("main WavPack decode: %d launches of "
+                                 "wv_decorr, %d host blocks, MD5 checked: %s"
+                                 % (d_launches, dec.host_blocks,
+                                    dec.md5_checked))
+        if not np.array_equal(samples, alac_sig):
+            raise AssertionError("card WavPack decode is not bit-exact")
+        wv_dec_runs.append(dict(
+            wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
+            stage_s=dict(dec.timings), wv_decorr_launches=d_launches,
+            host_blocks=0, md5_checked=True))
+        del dec, samples
+    we_rates = [r["Msamples_per_s"] for r in wv_enc_runs]
+    wd_rates = [r["Msamples_per_s"] for r in wv_dec_runs]
+    line("wavpack_identity_throughput", identical=True, bit_exact=True,
+         md5_checked=True, decode_host_blocks=0,
+         audio_seconds=a_frames / SAMPLE_RATE, compression="standard",
+         encode_Msamples_per_s=float(np.median(we_rates)),
+         encode_Msamples_per_s_runs=we_rates,
+         decode_Msamples_per_s=float(np.median(wd_rates)),
+         decode_Msamples_per_s_runs=wd_rates,
+         host_encode_Msamples_per_s=a_frames * 2 / host_wv_s / 1e6,
+         host_decode_Msamples_per_s=a_frames * 2 / host_wv_dec_s / 1e6,
+         encode_runs=wv_enc_runs, decode_runs=wv_dec_runs)
+
+    return (corr_row, decorr_row, wv_enc_runs, wv_dec_runs)
 
 
 def main():
@@ -984,6 +1268,9 @@ def main():
          host_decode_Msamples_per_s=a_frames * 2 / host_shn_dec_s / 1e6,
          encode_runs=shn_enc_runs, decode_runs=shn_dec_runs)
 
+    (corr_row, decorr_row, wv_enc_runs, wv_dec_runs) = wavpack_phases(
+        dev, alac_sig, max_sm_mhz)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -1001,7 +1288,11 @@ def main():
             ("tta_synth", "tta_synth.cu", "tta_synth.py:107",
              tta_runs[0]["tta_synth_launches"], tta_row),
             ("tta_filter", "tta_filter.cu", "tta_scan.py:70",
-             tta_enc_runs[0]["tta_filter_launches"], filter_row)):
+             tta_enc_runs[0]["tta_filter_launches"], filter_row),
+            ("wv_corr", "wv_chain.cu", "wv_scan.py:268",
+             wv_enc_runs[0]["wv_corr_launches"], corr_row),
+            ("wv_decorr", "wv_chain.cu", "wv_scan.py:249",
+             wv_dec_runs[0]["wv_decorr_launches"], decorr_row)):
         kernels_line.append(dict(
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Cycles that one warp spends on the integer instructions the serial
 kernels (audiotools_tpu_torch/csrc/flac_synth.cu, tta_synth.cu,
-alac_synth.cu, rice_decode.cu, tta_filter.cu) are built from, timed with clock64() on
-a CUDA card.
+alac_synth.cu, rice_decode.cu, tta_filter.cu, wv_chain.cu) are built
+from, timed with clock64() on a CUDA card.
 
 Each case runs one warp in one block, so it reads what a warp alone on
 its scheduler pays, as the synthesis kernels' warps are:
@@ -73,6 +73,9 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
   __syncwarp();
   const uint64_t buf = 0x0010000000200000ull;
   int32_t v = threadIdx.x;
+  int64_t wv = 100 + threadIdx.x;
+  int64_t y1 = 3 * threadIdx.x + 1;
+  int64_t y2 = threadIdx.x;
   const long long t0 = clock64();
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
@@ -115,6 +118,19 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
                              words[(w + 1) & 1023];
         const int q = __clzll(static_cast<long long>(win << (v & 31)));
         v = min(v + q + 1 + (a & 7), 1 << 30);
+      } else if constexpr (KIND == 11) {  // wv_chain's encode step
+        const int64_t src = static_cast<int32_t>(x[k]);
+        x[k] = add32(x[k], a);
+        const int64_t r = static_cast<int64_t>(b) - ((wv * src + 512) >> 10);
+        wv += (src == 0 || r == 0) ? 0 : (((src ^ r) >= 0) ? 2 : -2);
+      } else if constexpr (KIND == 12) {  // wv_chain's decode step, 18
+        const int64_t src = (3 * y1 - y2) >> 1;
+        const int64_t in = static_cast<int32_t>(x[k]);
+        x[k] = add32(x[k], a);
+        const int64_t y = ((wv * src + 512) >> 10) + in;
+        wv += (src == 0 || in == 0) ? 0 : (((src ^ in) >= 0) ? 2 : -2);
+        y2 = y1;
+        y1 = y;
       } else {                           // tta_filter's step chain
         const uint32_t sgn = static_cast<uint32_t>(v >> 31) |
                              (sub32(0u, static_cast<uint32_t>(v)) >> 31);
@@ -126,7 +142,7 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
     }
   }
   const long long t1 = clock64();
-  long long s = v;
+  long long s = v + wv + y1 + y2;
   for (int k = 0; k < 8; ++k) {
     s += acc[k] + u[k] + x[k];
   }
@@ -149,7 +165,9 @@ extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
     case 7: cycles_kernel<7><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 8: cycles_kernel<8><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 9: cycles_kernel<9><<<1, 32>>>(iters, a, b, cycles, sink); break;
-    default: cycles_kernel<10><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 10: cycles_kernel<10><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 11: cycles_kernel<11><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<12><<<1, 32>>>(iters, a, b, cycles, sink); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,6 +190,12 @@ CASES = (
      "latency"),
     ("tta_filter: sign (SHF, IADD, LOP3) -> IMAD -> SHF.R.S32 -> IADD, "
      "per link (latency)", "latency"),
+    ("wv_chain encode: int64 multiply (IMAD.WIDE.U32, IMAD) -> add -> "
+     "SHF.R.S64 -> subtract -> compares -> select -> add, per link "
+     "(latency)", "latency"),
+    ("wv_chain decode, term 18: the encode's link with the output feeding "
+     "the next source ((3 * y1 - y2) >> 1), per link (latency)",
+     "latency"),
 )
 ITERS = 20000
 
