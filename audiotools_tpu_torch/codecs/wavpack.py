@@ -36,7 +36,7 @@ from ..ref import wavpack as oracle
 from .flac_dec import upload_arrays
 
 # blocks a device decode batch holds at most (whole block groups): the
-# blocks are independent, one thread each, so the batch sets the
+# blocks are independent, a CUDA block each, so the batch sets the
 # kernel's parallelism and the memory a batch holds; the output does
 # not depend on it.  The reference's default (ATPU_WV_DEC_BATCH).
 DEC_BATCH_BLOCKS = 32

@@ -21,8 +21,8 @@
 // channel 1 under -1 and channel 0 under -2, which read the other
 // channel's sample of the same step (so under -2 channel 1 goes first).
 // Stored samples: terms 1-8 [t] oldest first, 17/18 [s0, s1] newer
-// first, negative terms [1], a channel's chain starting from the other
-// channel's stored sample.  The encoder returns each pass's final
+// first, negative terms [1], channel c's chain starting from the
+// sample stored for channel c.  The encoder returns each pass's final
 // weights and its new stored samples: the last t (1-8) or the last two,
 // newer first (17/18), of the stored samples followed by the pass's
 // outputs; negative terms keep theirs.  All of it in int64, exactly,
@@ -31,35 +31,114 @@
 //
 // What bounds it.  Bytes: each block's samples read and its outputs
 // written once (8 bytes each; a 44,100-sample stereo block is 1.4 MB,
-// 0.42 us at 3.35 TB/s).  But every pass is a serial recurrence over
-// the block's samples, and the passes of a block run one after another:
-// a block is passes * n dependent steps, the weight's update after one
-// step feeding the next step's product (and, decoding, each output
-// feeding the next step's source).  The step's chain is a 64-bit
-// multiply (w * s), the add and shift, the add or subtract of x, the
-// compares and select of the update, and its add, each of them two or
-// more instructions on 64-bit values, so that one thread also issues
-// several dozen instructions a step.
+// 0.42 us at 3.35 TB/s).  The recurrences: within a pass the weight's
+// update after one step feeds the next step's product (and, decoding,
+// each output feeds the next step's source), so a pass is n dependent
+// steps.  But pass p + 1 at step i needs only pass p's outputs up to
+// step i, and when encoding every source is the pass's own input, so
+// the only chain is the weight's.  So a block's critical path is n
+// steps of its slowest pass plus the pipeline's fill, (P - 1) * K steps
+// for P passes and chunks of K samples, not P * n.  Decoding under -1
+// and -2 the two channels' steps of a sample depend on each other: two
+// steps a sample for those passes.  On the card a warp's step is a few
+// dozen integer instructions issued for the whole warp though two
+// lanes work, so a scheduler that holds two or more pass warps (five
+// passes and the loader on four schedulers, sixteen on four) is bound
+// by its issue rate before the chain.
 //
-// Design (the simple form; speed is later work): one thread a block
-// and one block a CUDA block (each thread alone on its SM), both
-// channels in one loop, every pass instantiated for its term and the
-// block's channel count.  The passes run in place in the output; each
-// weight, and each term's history (a ring of up to 8 samples a channel
-// for terms 1-8), lives in registers.  The loops step through chunks of
-// up to 8 samples, unrolled (for terms 1-8 a multiple of t, so that
-// every ring index is static), and load the next chunk into registers
-// before they compute the current one.  A batch of blocks (the
-// decoder's 32-block groups, the encoder's channel groups of one frame)
-// is one launch, blocks of different lengths and chains side by side.
+// Design: one CUDA block a WavPack block, one warp a pass, with lane c
+// computing channel c (every lane of a warp runs the same term, so
+// nothing diverges, and the two channels cost one instruction stream).
+// Warp 0 loads the block's input a chunk of K samples at a time into a
+// ring of kStages chunks in shared memory; warp p + 1 runs pass p,
+// reading pass p's input ring and writing the next pass's ring, which
+// is pass p + 1's input.  The last pass writes the output to global
+// memory, so the series between passes never leave shared memory.  A
+// ring stage is handed on by two mbarriers, "full" (the producer
+// arrives when it has written the chunk) and "empty" (the consumer
+// arrives when it has read it).  Each pass's state lives in its lanes'
+// registers for the whole block: the weight, the last t samples of
+// terms 1-8 (newest first; the chunk's steps are unrolled, so the
+// shifts are register renames), the two latest samples of 17/18.
+// A chunk runs in the narrow form (a 32-bit weight, one 32 x 32 -> 64
+// multiply-add for w * s + 512) when the weight has room for the
+// chunk's updates, and checks on the way that every source fits int32;
+// if one does not, the lanes run the chunk again from its saved state
+// in the int64 form, so the result is exact for any int64 input.
+// Encoding, a negative term's source is the other channel's input,
+// which the ring holds, so each lane reads it there.  Decoding, a
+// negative term's source is the other channel's output, so lane 0
+// computes both channels of those passes (a lane a channel with a warp
+// shuffle of each step's outputs timed no faster).  The
+// encoder's warps write their pass's final weights and new stored
+// samples at its end, reading the last outputs back from the ring (or
+// from the output, for the last pass).  A batch of blocks (the
+// decoder's 32-block groups, the encoder's channel groups of one
+// frame) is one launch, blocks of different lengths and chains side by
+// side.  WV_CHUNK, WV_STAGES and WV_NARROW (0: the int64 form only) are
+// the build's choices, which tools_dev/wv_chain_variants.py times.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef WV_CHUNK
+#define WV_CHUNK 16
+#endif
+#ifndef WV_STAGES
+#define WV_STAGES 4
+#endif
+#ifndef WV_NARROW
+#define WV_NARROW 1
+#endif
+
 
 namespace {
 
 constexpr int kMaxPasses = 16;
 constexpr int kMaxSamples = 8;
+constexpr int kChunk = WV_CHUNK;
+constexpr int kStages = WV_STAGES;
+// a channel's row of a ring stage, padded so that the two lanes' 8-byte
+// accesses fall in different banks
+constexpr int kPitch = kChunk + 1;
+constexpr int kStage = 2 * kPitch;
+constexpr int kThreads = 32 * (1 + kMaxPasses);
+constexpr size_t kBarrierBytes = 2 * kMaxPasses * kStages * sizeof(uint64_t);
+constexpr size_t kSmemBytes =
+    kBarrierBytes + sizeof(int64_t) * kMaxPasses * kStages * kStage;
+static_assert(kChunk >= kMaxSamples,
+              "a pass's last 8 outputs must lie in its ring's last two "
+              "chunks");
+static_assert(kStages >= 2, "the ring needs two stages");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// arrives on the barrier, releasing the thread's earlier writes to
+// whoever waits on the phase
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// waits until the barrier's phase of the given parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
+                 : "memory");
+  } while (!done);
+}
 
 __device__ __forceinline__ int64_t apply_weight(int64_t w, int64_t s) {
   return (w * s + 512) >> 10;
@@ -74,257 +153,433 @@ __device__ __forceinline__ int64_t clamp1024(int64_t w) {
   return w > 1024 ? 1024 : (w < -1024 ? -1024 : w);
 }
 
-// one step of a pass: input x, source s -> the pass's output; updates w
-template <bool kEncode>
+// one step of a pass: input x, source s -> the pass's output; updates
+// the weight.  The wide form keeps w in int64 and multiplies 64 x 64
+// bits; the narrow form keeps it in int32 (wn) and multiplies 32 x 32
+// -> 64 bits (mad.wide.s32), which is exact while |wn| < 2^31 and s
+// fits int32: it ORs into `bad` a nonzero value for a source that does
+// not, and the caller then runs the chunk again in the wide form.
+template <bool kEncode, bool kNarrow>
 __device__ __forceinline__ int64_t wv_step(int64_t x, int64_t s, int64_t& w,
-                                           int64_t delta) {
-  if (kEncode) {
-    const int64_t v = x - apply_weight(w, s);
-    w += update_weight(s, v, delta);
+                                           int32_t& wn, int64_t delta,
+                                           uint32_t& bad) {
+  if constexpr (kNarrow) {
+    const int32_t s32 = static_cast<int32_t>(s);
+    bad |= static_cast<uint32_t>(static_cast<int32_t>(s >> 32) ^
+                                 (s32 >> 31));
+    const int64_t a = (static_cast<int64_t>(wn) * s32 + 512) >> 10;
+    const int64_t v = kEncode ? x - a : a + x;
+    const int64_t u = kEncode ? v : x;
+    const int32_t d = static_cast<int32_t>(delta);
+    if (s32 != 0 && u != 0) {
+      wn += (s32 ^ static_cast<int32_t>(u >> 32)) >= 0 ? d : -d;
+    }
+    return v;
+  } else {
+    if (kEncode) {
+      const int64_t v = x - apply_weight(w, s);
+      w += update_weight(s, v, delta);
+      return v;
+    }
+    const int64_t v = apply_weight(w, s) + x;
+    w += update_weight(s, x, delta);
     return v;
   }
-  const int64_t v = apply_weight(w, s) + x;
-  w += update_weight(s, x, delta);
-  return v;
 }
 
-// C consecutive samples of each of a block's CC channels (channel c at
-// in + c * n), in registers; past the block's end (kAll false) zeros
-template <int CC, int C>
-struct Chunk {
-  int64_t v[CC][C];
-};
-
-template <int CC, int C, bool kAll>
-__device__ __forceinline__ void load_chunk(const int64_t* in, int64_t n,
-                                           int64_t i, Chunk<CC, C>& ch) {
-#pragma unroll
-  for (int c = 0; c < CC; ++c) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      ch.v[c][j] = (kAll || i + j < n) ? in[c * n + i + j] : 0;
-    }
-  }
-}
-
-// runs a pass over a block, C samples a channel at a time: the chunk's
-// steps are unrolled (so a pass's state, indexed by the position in the
-// chunk, stays in registers) and the next chunk is loaded before the
-// current one is computed.  A load may not move above an earlier store
-// it may alias (the passes run in place), so without that every step
-// would wait for its own load.  Full chunks run without a bound check;
-// the last n % C samples after them.
-template <int CC, int C, typename Pass>
-__device__ __forceinline__ void drive(Pass& pass, const int64_t* in,
-                                      int64_t* out, int64_t n) {
-  const int64_t full = n - n % C;
-  Chunk<CC, C> cur;
-  Chunk<CC, C> next;
-  if (full > 0) {
-    load_chunk<CC, C, true>(in, n, 0, cur);
+template <bool kNarrow>
+__device__ __forceinline__ void clamp_weight(int64_t& w, int32_t& wn) {
+  if constexpr (kNarrow) {
+    wn = wn > 1024 ? 1024 : (wn < -1024 ? -1024 : wn);
   } else {
-    load_chunk<CC, C, false>(in, n, 0, cur);
+    w = clamp1024(w);
   }
-  for (int64_t i = 0; i < full; i += C) {
-    if (i + C < full) {
-      load_chunk<CC, C, true>(in, n, i + C, next);
-    } else {
-      load_chunk<CC, C, false>(in, n, i + C, next);
-    }
+}
+
+// whether a chunk of steps keeps the weight in int32: a delta within
+// 2^20 either way (the format's field is 3 bits) and a weight with room
+// for a chunk of updates
+__device__ __forceinline__ bool narrow_weight(int64_t w, int64_t delta) {
+  constexpr int64_t kDelta = 1 << 20;
+  constexpr int64_t kMax = (int64_t{1} << 31) - 1 - kDelta * kChunk;
+  return delta >= -kDelta && delta <= kDelta && w >= -kMax && w <= kMax;
+}
+
+// a pass's place in the pipeline: its input ring and barriers, its
+// output ring and barriers (ring_out null for the block's last pass,
+// which writes the block's output gout, channel c at gout + c * n)
+struct Link {
+  const int64_t* in;
+  uint64_t* in_full;
+  uint64_t* in_empty;
+  int64_t* ring_out;
+  uint64_t* out_full;
+  uint64_t* out_empty;
+  int64_t* gout;
+  int64_t n;
+  unsigned mask;  // the warp's working lanes: one a channel
+};
+
+// a chunk's steps, unrolled, in the narrow or the wide form: all kChunk
+// of them (kFull) or the first rem; returns the narrow form's `bad`
+template <bool kNarrow, bool kFull, typename Pass>
+__device__ __forceinline__ uint32_t steps(Pass& pass, const int64_t* mine,
+                                          const int64_t* other,
+                                          int64_t* o_mine, int64_t* o_other,
+                                          int rem) {
+  uint32_t bad = 0;
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
-      pass.step(j, cur.v[0][j], cur.v[CC - 1][j], out + i + j, n);
+  for (int k = 0; k < kChunk; ++k) {
+    if (kFull || k < rem) {
+      pass.template step<kNarrow>(mine, other, k, o_mine[k],
+                                  o_other[Pass::kBoth ? k : 0], bad);
     }
-    cur = next;
   }
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (full + j < n) {
-      pass.step(j, cur.v[0][j], cur.v[CC - 1][j], out + full + j, n);
+  return bad;
+}
+
+// runs a pass over its block, a chunk of kChunk samples at a time: waits
+// for the input chunk (and, unless it is the last pass, for its output
+// stage to be free), runs the chunk's steps unrolled (full chunks
+// without a bound check), and hands both stages on.  step(mine, other,
+// k, v_mine, v_other) reads sample k of lane c's channel and of the
+// other channel and gives the output of lane c's channel (and, for a
+// pass one lane runs for both channels, kBoth, the other channel's).
+template <typename Pass>
+__device__ __forceinline__ void drive(Pass& pass, int c, const Link& io) {
+  const bool last = io.ring_out == nullptr;
+  const int64_t n = io.n;
+  int64_t j = 0;
+  for (int64_t i0 = 0; i0 < n; i0 += kChunk, ++j) {
+    const int s = static_cast<int>(j % kStages);
+    const uint32_t phase = static_cast<uint32_t>(j / kStages) & 1u;
+    bar_wait(io.in_full + s, phase);
+    if (!last) {
+      bar_wait(io.out_empty + s, phase ^ 1u);
+    }
+    const int64_t* in = io.in + s * kStage;
+    int64_t* o0 = last ? io.gout + i0 : io.ring_out + s * kStage;
+    const int64_t ostride = last ? n : kPitch;
+    const int64_t* mine = in + c * kPitch;
+    const int64_t* other = in + (c ^ 1) * kPitch;
+    int64_t* o_mine = o0 + c * ostride;
+    int64_t* o_other = o0 + (c ^ 1) * ostride;
+    if (pass.computes) {
+      if (i0 + kChunk <= n) {
+        bool wide = true;
+#if WV_NARROW
+        // the lanes that compute vote together: one form for the warp
+        const unsigned vote = Pass::kBoth ? 0x1u : io.mask;
+        if (__all_sync(vote, pass.narrow_ok())) {
+          const Pass saved = pass;
+          pass.to_narrow();
+          const uint32_t bad = steps<true, true>(pass, mine, other, o_mine,
+                                                 o_other, kChunk);
+          pass.from_narrow();
+          wide = __any_sync(vote, bad != 0);
+          if (wide) {
+            pass = saved;
+          }
+        }
+#endif
+        if (wide) {
+          steps<false, true>(pass, mine, other, o_mine, o_other, kChunk);
+        }
+      } else {
+        steps<false, false>(pass, mine, other, o_mine, o_other,
+                            static_cast<int>(n - i0));
+      }
+    }
+    __syncwarp(io.mask);
+    bar_arrive(io.in_empty + s);
+    if (!last) {
+      bar_arrive(io.out_full + s);
     }
   }
 }
 
-// terms 1-8: a ring of the last T samples of the series a channel,
-// seeded with the stored samples, oldest first; chunks of a multiple of
-// T samples keep every ring index static
-template <bool kEncode, int CC, int T>
-struct RingPass {
-  static constexpr int C = T * (8 / T);
-  int64_t ring[CC][T];
-  int64_t w[CC];
-  int64_t delta;
+// Each pass below keeps its weight(s) as w (wide) and wn (narrow, within
+// a narrow chunk), with narrow_ok (whether the next chunk may run
+// narrow), to_narrow and from_narrow; step<kNarrow>(mine, other, k,
+// v_mine, v_other, bad) runs sample k.
 
-  __device__ __forceinline__ void step(int j, int64_t x0, int64_t x1,
-                                       int64_t* o, int64_t n) {
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      const int64_t x = c == 0 ? x0 : x1;
-      const int64_t v = wv_step<kEncode>(x, ring[c][j % T], w[c], delta);
-      ring[c][j % T] = kEncode ? x : v;
-      o[c * n] = v;
-    }
-  }
-};
-
-// terms 17 and 18: the two latest samples of the series, seeded with
-// the stored [s0, s1] as (older, newer) = (s1, s0)
-template <bool kEncode, int CC, int T>
-struct Pass1718 {
-  static constexpr int C = 8;
-  int64_t older[CC];
-  int64_t newer[CC];
-  int64_t w[CC];
-  int64_t delta;
-
-  __device__ __forceinline__ void step(int, int64_t x0, int64_t x1,
-                                       int64_t* o, int64_t n) {
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      const int64_t x = c == 0 ? x0 : x1;
-      const int64_t src = T == 18 ? (3 * newer[c] - older[c]) >> 1
-                                  : 2 * newer[c] - older[c];
-      const int64_t v = wv_step<kEncode>(x, src, w[c], delta);
-      older[c] = newer[c];
-      newer[c] = kEncode ? x : v;
-      o[c * n] = v;
-    }
-  }
-};
-
-// terms -1, -2 and -3 (two channels): each channel's source is the
-// other channel's series, channel 0's chain starting from channel 1's
-// stored sample and channel 1's from channel 0's
+// terms 1-8, a channel a lane: the last T samples of the series, newest
+// first (h[T - 1] is the source)
 template <bool kEncode, int T>
-struct PassNeg {
-  static constexpr int C = 8;
+struct RingLane {
+  static constexpr bool kBoth = false;
+  bool computes = true;
+  int64_t h[T];
+  int64_t w;
+  int32_t wn;
+  int64_t delta;
+
+  __device__ __forceinline__ bool narrow_ok() const {
+    return narrow_weight(w, delta);
+  }
+  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
+  __device__ __forceinline__ void from_narrow() { w = wn; }
+
+  template <bool kNarrow>
+  __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
+                                       int k, int64_t& o, int64_t&,
+                                       uint32_t& bad) {
+    const int64_t x = mine[k];
+    const int64_t v =
+        wv_step<kEncode, kNarrow>(x, h[T - 1], w, wn, delta, bad);
+#pragma unroll
+    for (int m = T - 1; m > 0; --m) {
+      h[m] = h[m - 1];
+    }
+    h[0] = kEncode ? x : v;
+    o = v;
+  }
+};
+
+// terms 17 and 18, a channel a lane: the two latest samples
+template <bool kEncode, int T>
+struct Lane1718 {
+  static constexpr bool kBoth = false;
+  bool computes = true;
+  int64_t older;
+  int64_t newer;
+  int64_t w;
+  int32_t wn;
+  int64_t delta;
+
+  __device__ __forceinline__ bool narrow_ok() const {
+    return narrow_weight(w, delta);
+  }
+  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
+  __device__ __forceinline__ void from_narrow() { w = wn; }
+
+  template <bool kNarrow>
+  __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
+                                       int k, int64_t& o, int64_t&,
+                                       uint32_t& bad) {
+    const int64_t x = mine[k];
+    const int64_t src = T == 18 ? (3 * newer - older) >> 1
+                                : 2 * newer - older;
+    const int64_t v = wv_step<kEncode, kNarrow>(x, src, w, wn, delta, bad);
+    older = newer;
+    newer = kEncode ? x : v;
+    o = v;
+  }
+};
+
+// encoding under -1, -2 and -3, a channel a lane: the source is the
+// other channel's input, of this step (`same`) or of the step before
+// (`prev`, seeded with the lane's stored sample)
+struct NegEncLane {
+  static constexpr bool kBoth = false;
+  bool computes = true;
+  bool same;
+  int64_t prev;
+  int64_t w;
+  int32_t wn;
+  int64_t delta;
+
+  __device__ __forceinline__ bool narrow_ok() const {
+    return narrow_weight(w, delta);
+  }
+  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
+  __device__ __forceinline__ void from_narrow() { w = wn; }
+
+  template <bool kNarrow>
+  __device__ __forceinline__ void step(const int64_t* mine,
+                                       const int64_t* other, int k,
+                                       int64_t& o, int64_t&, uint32_t& bad) {
+    const int64_t x = mine[k];
+    const int64_t xo = other[k];
+    const int64_t v =
+        wv_step<true, kNarrow>(x, same ? xo : prev, w, wn, delta, bad);
+    clamp_weight<kNarrow>(w, wn);
+    prev = xo;
+    o = v;
+  }
+};
+
+// decoding under -1, -2 and -3, lane 0 computing both channels (lane 1
+// only hands the stages on): prev0 and prev1 the channels' outputs of
+// the step before, seeded with the samples stored for channel 1 and 0
+template <int T>
+struct NegDecPair {
+  static constexpr bool kBoth = true;
+  bool computes;
   int64_t prev0;
   int64_t prev1;
-  int64_t w[2];
+  int64_t w0;
+  int64_t w1;
+  int32_t wn0;
+  int32_t wn1;
   int64_t delta;
 
-  __device__ __forceinline__ void step(int, int64_t x0, int64_t x1,
-                                       int64_t* o, int64_t n) {
+  __device__ __forceinline__ bool narrow_ok() const {
+    return narrow_weight(w0, delta) && narrow_weight(w1, delta);
+  }
+  __device__ __forceinline__ void to_narrow() {
+    wn0 = static_cast<int32_t>(w0);
+    wn1 = static_cast<int32_t>(w1);
+  }
+  __device__ __forceinline__ void from_narrow() {
+    w0 = wn0;
+    w1 = wn1;
+  }
+
+  template <bool kNarrow>
+  __device__ __forceinline__ void step(const int64_t* in0,
+                                       const int64_t* in1, int k,
+                                       int64_t& o0, int64_t& o1,
+                                       uint32_t& bad) {
+    const int64_t x0 = in0[k];
+    const int64_t x1 = in1[k];
     int64_t v0;
     int64_t v1;
     if (T == -2) {
-      v1 = wv_step<kEncode>(x1, prev0, w[1], delta);
-      v0 = wv_step<kEncode>(x0, kEncode ? x1 : v1, w[0], delta);
+      v1 = wv_step<false, kNarrow>(x1, prev0, w1, wn1, delta, bad);
+      v0 = wv_step<false, kNarrow>(x0, v1, w0, wn0, delta, bad);
     } else {
-      v0 = wv_step<kEncode>(x0, prev1, w[0], delta);
-      v1 = wv_step<kEncode>(x1, T == -1 ? (kEncode ? x0 : v0) : prev0, w[1],
-                            delta);
+      v0 = wv_step<false, kNarrow>(x0, prev1, w0, wn0, delta, bad);
+      v1 = wv_step<false, kNarrow>(x1, T == -1 ? v0 : prev0, w1, wn1,
+                                   delta, bad);
     }
-    w[0] = clamp1024(w[0]);
-    w[1] = clamp1024(w[1]);
-    prev0 = kEncode ? x0 : v0;
-    prev1 = kEncode ? x1 : v1;
-    o[0] = v0;
-    o[n] = v1;
+    clamp_weight<kNarrow>(w0, wn0);
+    clamp_weight<kNarrow>(w1, wn1);
+    prev0 = v0;
+    prev1 = v1;
+    o0 = v0;
+    o1 = v1;
   }
 };
 
-template <bool kEncode, int CC, int T>
-__device__ __forceinline__ void ring_pass(const int64_t* in, int64_t* out,
-                                          int64_t n, int64_t delta,
-                                          int64_t* w, const int64_t* s) {
-  RingPass<kEncode, CC, T> pass;
-#pragma unroll
-  for (int c = 0; c < CC; ++c) {
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      pass.ring[c][j] = s[c * kMaxSamples + j];
-    }
-    pass.w[c] = w[c];
-  }
-  pass.delta = delta;
-  drive<CC, RingPass<kEncode, CC, T>::C>(pass, in, out, n);
-#pragma unroll
-  for (int c = 0; c < CC; ++c) {
-    w[c] = pass.w[c];
-  }
-}
+// a term the kernel does not take (the wrapper's packing refuses
+// these): the output is the input, the weight kept
+struct CopyLane {
+  static constexpr bool kBoth = false;
+  bool computes = true;
+  int64_t w;
 
-template <bool kEncode, int CC, int T>
-__device__ __forceinline__ void pass_1718(const int64_t* in, int64_t* out,
-                                          int64_t n, int64_t delta,
-                                          int64_t* w, const int64_t* s) {
-  Pass1718<kEncode, CC, T> pass;
-#pragma unroll
-  for (int c = 0; c < CC; ++c) {
-    pass.older[c] = s[c * kMaxSamples + 1];
-    pass.newer[c] = s[c * kMaxSamples];
-    pass.w[c] = w[c];
+  __device__ __forceinline__ bool narrow_ok() const { return false; }
+  __device__ __forceinline__ void to_narrow() {}
+  __device__ __forceinline__ void from_narrow() {}
+
+  template <bool kNarrow>
+  __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
+                                       int k, int64_t& o, int64_t&,
+                                       uint32_t&) {
+    o = mine[k];
   }
+};
+
+template <bool kEncode, int T>
+__device__ __forceinline__ int64_t ring_lane(int c, const Link& io,
+                                          int64_t delta, const int64_t* wp,
+                                          const int64_t* sp) {
+  RingLane<kEncode, T> pass;
+#pragma unroll
+  for (int m = 0; m < T; ++m) {
+    pass.h[m] = sp[c * kMaxSamples + T - 1 - m];
+  }
+  pass.w = wp[c];
   pass.delta = delta;
-  drive<CC, Pass1718<kEncode, CC, T>::C>(pass, in, out, n);
-#pragma unroll
-  for (int c = 0; c < CC; ++c) {
-    w[c] = pass.w[c];
-  }
+  drive(pass, c, io);
+  return pass.w;
 }
 
 template <bool kEncode, int T>
-__device__ __forceinline__ void pass_neg(const int64_t* in, int64_t* out,
-                                         int64_t n, int64_t delta,
-                                         int64_t* w, const int64_t* s) {
-  PassNeg<kEncode, T> pass;
-  pass.prev0 = s[kMaxSamples];
-  pass.prev1 = s[0];
-  pass.w[0] = w[0];
-  pass.w[1] = w[1];
+__device__ __forceinline__ int64_t lane_1718(int c, const Link& io,
+                                          int64_t delta, const int64_t* wp,
+                                          const int64_t* sp) {
+  Lane1718<kEncode, T> pass;
+  pass.newer = sp[c * kMaxSamples];
+  pass.older = sp[c * kMaxSamples + 1];
+  pass.w = wp[c];
   pass.delta = delta;
-  drive<2, PassNeg<kEncode, T>::C>(pass, in, out, n);
-  w[0] = pass.w[0];
-  w[1] = pass.w[1];
+  drive(pass, c, io);
+  return pass.w;
 }
 
-// one pass over a block of CC channels, from `in` (x for the first pass,
-// else `out`: the passes run in place) to `out`; w the weights, s the
-// stored samples [2][8]
-template <bool kEncode, int CC>
-__device__ __forceinline__ void run_pass(int term, const int64_t* in,
-                                         int64_t* out, int64_t n,
-                                         int64_t delta, int64_t* w,
-                                         const int64_t* s) {
+__device__ __forceinline__ int64_t neg_enc_lane(int term, int c,
+                                             const Link& io, int64_t delta,
+                                             const int64_t* wp,
+                                             const int64_t* sp) {
+  NegEncLane pass;
+  pass.same = (term == -1 && c == 1) || (term == -2 && c == 0);
+  pass.prev = sp[c * kMaxSamples];
+  pass.w = wp[c];
+  pass.delta = delta;
+  drive(pass, c, io);
+  return pass.w;
+}
+
+template <int T>
+__device__ __forceinline__ void neg_dec(int c, const Link& io, int64_t delta,
+                                       const int64_t* wp, const int64_t* sp) {
+  NegDecPair<T> pass;
+  pass.computes = c == 0;
+  pass.prev0 = sp[kMaxSamples];
+  pass.prev1 = sp[0];
+  pass.w0 = wp[0];
+  pass.w1 = wp[1];
+  pass.delta = delta;
+  drive(pass, c, io);
+}
+
+__device__ __forceinline__ int64_t copy_lane(int c, const Link& io,
+                                          const int64_t* wp) {
+  CopyLane pass;
+  pass.w = wp[c];
+  drive(pass, c, io);
+  return pass.w;
+}
+
+// one pass of a block, lane c's channel; returns the lane's final
+// weight (decoding, the starting one: the decoder returns no weights)
+template <bool kEncode>
+__device__ int64_t run_pass(int term, int c, int cc, const Link& io,
+                            int64_t delta, const int64_t* wp,
+                            const int64_t* sp) {
   switch (term) {
-    case 1: ring_pass<kEncode, CC, 1>(in, out, n, delta, w, s); return;
-    case 2: ring_pass<kEncode, CC, 2>(in, out, n, delta, w, s); return;
-    case 3: ring_pass<kEncode, CC, 3>(in, out, n, delta, w, s); return;
-    case 4: ring_pass<kEncode, CC, 4>(in, out, n, delta, w, s); return;
-    case 5: ring_pass<kEncode, CC, 5>(in, out, n, delta, w, s); return;
-    case 6: ring_pass<kEncode, CC, 6>(in, out, n, delta, w, s); return;
-    case 7: ring_pass<kEncode, CC, 7>(in, out, n, delta, w, s); return;
-    case 8: ring_pass<kEncode, CC, 8>(in, out, n, delta, w, s); return;
-    case 17: pass_1718<kEncode, CC, 17>(in, out, n, delta, w, s); return;
-    case 18: pass_1718<kEncode, CC, 18>(in, out, n, delta, w, s); return;
+    case 1: return ring_lane<kEncode, 1>(c, io, delta, wp, sp);
+    case 2: return ring_lane<kEncode, 2>(c, io, delta, wp, sp);
+    case 3: return ring_lane<kEncode, 3>(c, io, delta, wp, sp);
+    case 4: return ring_lane<kEncode, 4>(c, io, delta, wp, sp);
+    case 5: return ring_lane<kEncode, 5>(c, io, delta, wp, sp);
+    case 6: return ring_lane<kEncode, 6>(c, io, delta, wp, sp);
+    case 7: return ring_lane<kEncode, 7>(c, io, delta, wp, sp);
+    case 8: return ring_lane<kEncode, 8>(c, io, delta, wp, sp);
+    case 17: return lane_1718<kEncode, 17>(c, io, delta, wp, sp);
+    case 18: return lane_1718<kEncode, 18>(c, io, delta, wp, sp);
     default: break;
   }
-  if constexpr (CC == 2) {
-    switch (term) {
-      case -1: pass_neg<kEncode, -1>(in, out, n, delta, w, s); return;
-      case -2: pass_neg<kEncode, -2>(in, out, n, delta, w, s); return;
-      case -3: pass_neg<kEncode, -3>(in, out, n, delta, w, s); return;
-      default: break;
+  if (cc == 2 && term >= -3 && term <= -1) {
+    if constexpr (kEncode) {
+      return neg_enc_lane(term, c, io, delta, wp, sp);
+    } else {
+      switch (term) {
+        case -1: neg_dec<-1>(c, io, delta, wp, sp); break;
+        case -2: neg_dec<-2>(c, io, delta, wp, sp); break;
+        default: neg_dec<-3>(c, io, delta, wp, sp); break;
+      }
+      return wp[c];
     }
   }
-  // not a term of CC channels (the wrapper's packing refuses these)
-  for (int64_t i = 0; i < CC * n; ++i) {
-    out[i] = in[i];
-  }
+  return copy_lane(c, io, wp);
 }
 
-// the new stored samples of an encode pass (see the file's comment), for
-// one channel: s the stored samples it started from, out its outputs
-__device__ void new_samples(int term, int64_t n, const int64_t* out,
-                            const int64_t* s, int64_t* s_new) {
-  if (term < 0) {
+// an encode pass's new stored samples for channel c (see the file's
+// comment), reading its last outputs back from where it wrote them
+__device__ void store_samples(int term, int c, const Link& io,
+                              const int64_t* sp, int64_t* so) {
+  const int64_t* own = sp + c * kMaxSamples;
+  const bool t1718 = term == 17 || term == 18;
+  if (!(t1718 || (term >= 1 && term <= 8))) {
     for (int j = 0; j < kMaxSamples; ++j) {
-      s_new[j] = s[j];
+      so[j] = own[j];
     }
     return;
   }
-  const bool t1718 = term == 17 || term == 18;
+  const int64_t n = io.n;
   const int span = t1718 ? 2 : term;
   for (int j = 0; j < kMaxSamples; ++j) {
     int64_t v = 0;
@@ -332,67 +587,128 @@ __device__ void new_samples(int term, int64_t n, const int64_t* out,
       // the position among the outputs of the j-th new sample; before
       // them, the stored samples
       const int64_t pos = t1718 ? n - 1 - j : n - span + j;
-      v = pos >= 0 ? out[pos] : (t1718 ? s[0] : s[n + j]);
+      if (pos < 0) {
+        v = t1718 ? own[0] : own[n + j];
+      } else if (io.ring_out == nullptr) {
+        v = io.gout[c * n + pos];
+      } else {
+        v = io.ring_out[((pos / kChunk) % kStages) * kStage + c * kPitch +
+                        pos % kChunk];
+      }
     }
-    s_new[j] = v;
+    so[j] = v;
   }
 }
 
-template <bool kEncode, int CC>
-__device__ __forceinline__ void run_block(
-    int blk, const int64_t* x, int64_t* out, int64_t n, int passes,
-    const int64_t* __restrict__ chain, const int64_t* __restrict__ weights,
-    const int64_t* __restrict__ samples, int64_t* __restrict__ w_out,
-    int64_t* __restrict__ s_out) {
-  if (passes == 0) {
-    for (int64_t i = 0; i < CC * n; ++i) {
-      out[i] = x[i];
+// warp 0: the block's input, a chunk at a time, into pass 0's ring
+// (zeros past the block's end)
+__device__ void load_input(const int64_t* __restrict__ xb, int64_t n, int cc,
+                           int64_t* ring, uint64_t* full, uint64_t* empty,
+                           int lane) {
+  int64_t j = 0;
+  for (int64_t i0 = 0; i0 < n; i0 += kChunk, ++j) {
+    const int s = static_cast<int>(j % kStages);
+    const uint32_t phase = static_cast<uint32_t>(j / kStages) & 1u;
+    bar_wait(empty + s, phase ^ 1u);
+    int64_t* stage = ring + s * kStage;
+#pragma unroll 4
+    for (int v = lane; v < cc * kChunk; v += 32) {
+      const int ch = v / kChunk;
+      const int k = v % kChunk;
+      const int64_t i = i0 + k;
+      stage[ch * kPitch + k] = i < n ? xb[ch * n + i] : 0;
     }
+    bar_arrive(full + s);
   }
-  const int64_t* in = x;
-  for (int p = 0; p < kMaxPasses; ++p) {
-    const int64_t at = static_cast<int64_t>(blk) * kMaxPasses + p;
-    const int64_t* sp = samples + at * 2 * kMaxSamples;
-    int64_t w[2] = {weights[at * 2], weights[at * 2 + 1]};
-    const int term = static_cast<int>(chain[at * 2]);
-    if (p < passes) {
-      run_pass<kEncode, CC>(term, in, out, n, chain[at * 2 + 1], w, sp);
-      in = out;
-    }
+}
+
+// one pass of a block (lane c's channel), or, for a pass past the
+// block's count and channel 1 of a one-channel block, the state kept
+template <bool kEncode>
+__device__ void run_warp(int blk, int p, int c, int64_t n, int cc, int passes,
+                         const int64_t* __restrict__ chain,
+                         const int64_t* __restrict__ weights,
+                         const int64_t* __restrict__ samples, int64_t* ob,
+                         int64_t* rings, uint64_t* full, uint64_t* empty,
+                         int64_t* __restrict__ w_out,
+                         int64_t* __restrict__ s_out) {
+  const int64_t at = static_cast<int64_t>(blk) * kMaxPasses + p;
+  const int64_t* wp = weights + at * 2;
+  const int64_t* sp = samples + at * 2 * kMaxSamples;
+  if (p >= passes || c >= cc) {
     if (kEncode) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        w_out[at * 2 + c] = w[c];
-        int64_t* so = s_out + (at * 2 + c) * kMaxSamples;
-        if (p < passes && c < CC) {
-          new_samples(term, n, out + c * n, sp + c * kMaxSamples, so);
-        } else {
-          for (int j = 0; j < kMaxSamples; ++j) {
-            so[j] = sp[c * kMaxSamples + j];
-          }
-        }
+      w_out[at * 2 + c] = wp[c];
+      for (int j = 0; j < kMaxSamples; ++j) {
+        s_out[(at * 2 + c) * kMaxSamples + j] = sp[c * kMaxSamples + j];
       }
     }
+    return;
+  }
+  const bool last = p == passes - 1;
+  Link io;
+  io.in = rings + p * kStages * kStage;
+  io.in_full = full + p * kStages;
+  io.in_empty = empty + p * kStages;
+  io.ring_out = last ? nullptr : rings + (p + 1) * kStages * kStage;
+  io.out_full = last ? nullptr : full + (p + 1) * kStages;
+  io.out_empty = last ? nullptr : empty + (p + 1) * kStages;
+  io.gout = ob;
+  io.n = n;
+  io.mask = cc == 2 ? 0x3u : 0x1u;
+  const int term = static_cast<int>(chain[at * 2]);
+  const int64_t w = run_pass<kEncode>(term, c, cc, io, chain[at * 2 + 1],
+                                      wp, sp);
+  if (kEncode) {
+    w_out[at * 2 + c] = w;
+    store_samples(term, c, io, sp, s_out + (at * 2 + c) * kMaxSamples);
   }
 }
 
 template <bool kEncode>
-__global__ void __launch_bounds__(1)
-wv_chain_kernel(const int64_t* x, const int64_t* __restrict__ meta,
+__global__ void __launch_bounds__(kThreads, 1)
+wv_chain_kernel(const int64_t* __restrict__ x,
+                const int64_t* __restrict__ meta,
                 const int64_t* __restrict__ chain,
                 const int64_t* __restrict__ weights,
                 const int64_t* __restrict__ samples, int64_t* out,
                 int64_t* __restrict__ w_out, int64_t* __restrict__ s_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // full[b][s] and empty[b][s] of ring b (pass b's input), then the
+  // rings [b][s][2][kPitch]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxPasses * kStages;
+  int64_t* rings = reinterpret_cast<int64_t*>(smem + kBarrierBytes);
   const int blk = blockIdx.x;
   const int64_t offset = meta[blk * 4];
   const int64_t n = meta[blk * 4 + 1];
-  const int passes = static_cast<int>(meta[blk * 4 + 3]);
-  if (meta[blk * 4 + 2] == 2) {
-    run_block<kEncode, 2>(blk, x + offset, out + offset, n, passes, chain,
-                          weights, samples, w_out, s_out);
-  } else {
-    run_block<kEncode, 1>(blk, x + offset, out + offset, n, passes, chain,
-                          weights, samples, w_out, s_out);
+  const int cc = meta[blk * 4 + 2] == 2 ? 2 : 1;
+  const int64_t passes_in = meta[blk * 4 + 3];
+  const int passes = static_cast<int>(
+      passes_in < 0 ? 0 : (passes_in > kMaxPasses ? kMaxPasses : passes_in));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kMaxPasses; ++b) {
+      for (int s = 0; s < kStages; ++s) {
+        bar_init(full + b * kStages + s, b == 0 ? 32 : cc);
+        bar_init(empty + b * kStages + s, cc);
+      }
+    }
+  }
+  __syncthreads();
+  const int64_t* xb = x + offset;
+  int64_t* ob = out + offset;
+  if (warp == 0) {
+    if (passes == 0) {
+      for (int64_t i = lane; i < cc * n; i += 32) {
+        ob[i] = xb[i];
+      }
+    } else {
+      load_input(xb, n, cc, rings, full, empty, lane);
+    }
+  } else if (lane < 2) {
+    run_warp<kEncode>(blk, warp - 1, lane, n, cc, passes, chain, weights,
+                      samples, ob, rings, full, empty, w_out, s_out);
   }
 }
 
@@ -403,11 +719,21 @@ int launch(const void* x, const void* meta, const void* chain,
   if (blocks <= 0) {
     return 0;
   }
-  wv_chain_kernel<kEncode><<<blocks, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<const int64_t*>(meta),
-      static_cast<const int64_t*>(chain), static_cast<const int64_t*>(weights),
-      static_cast<const int64_t*>(samples), static_cast<int64_t*>(out),
-      static_cast<int64_t*>(w_out), static_cast<int64_t*>(s_out));
+  // the rings may pass the 48 KB a block gets without asking (set on
+  // every launch: the attribute belongs to the current device)
+  const cudaError_t rc = cudaFuncSetAttribute(
+      wv_chain_kernel<kEncode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (rc != cudaSuccess) {
+    return static_cast<int>(rc);
+  }
+  wv_chain_kernel<kEncode><<<blocks, kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int64_t*>(x), static_cast<const int64_t*>(meta),
+          static_cast<const int64_t*>(chain),
+          static_cast<const int64_t*>(weights),
+          static_cast<const int64_t*>(samples), static_cast<int64_t*>(out),
+          static_cast<int64_t*>(w_out), static_cast<int64_t*>(s_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,4 +762,12 @@ extern "C" int atpu_wv_decorr(const void* x, const void* meta,
                               void* stream) {
   return launch<false>(x, meta, chain, weights, samples, blocks, out, nullptr,
                        nullptr, stream);
+}
+
+// the build's pipeline: chunk samples, ring stages, and whether chunks
+// may run in the narrow form
+extern "C" void atpu_wv_chain_config(int* chunk, int* stages, int* narrow) {
+  *chunk = kChunk;
+  *stages = kStages;
+  *narrow = WV_NARROW;
 }

@@ -145,6 +145,8 @@ def load():
         lib.atpu_wv_decorr.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
         lib.atpu_wv_decorr.restype = ctypes.c_int
+        lib.atpu_wv_chain_config.argtypes = [ctypes.c_void_p] * 3
+        lib.atpu_wv_chain_config.restype = None
         _lib = lib
     return _lib
 
@@ -280,7 +282,8 @@ def tta_filter(predicted, fshift, out):
 
 def wv_corr(x, meta, chain, weights, samples, out, w_out, s_out):
     """launches csrc/wv_chain.cu's encoder: the WavPack encode pass
-    chains of the batch's blocks (one thread a block) into ``out``, with
+    chains of the batch's blocks (a CUDA block each, a warp a pass) into
+    ``out``, with
     each pass's final weights in ``w_out`` and new stored samples in
     ``s_out``
 
@@ -301,7 +304,8 @@ def wv_corr(x, meta, chain, weights, samples, out, w_out, s_out):
 
 def wv_decorr(x, meta, chain, weights, samples, out):
     """launches csrc/wv_chain.cu's decoder: the WavPack decode pass
-    chains of the batch's blocks (one thread a block) into ``out``
+    chains of the batch's blocks (a CUDA block each, a warp a pass) into
+    ``out``
 
     Contiguous int64 CUDA tensors on one device, laid out as
     ops/wv_scan.pack_blocks gives them; the caller
@@ -315,3 +319,13 @@ def wv_decorr(x, meta, chain, weights, samples, out):
     if rc != 0:
         raise RuntimeError("wv_decorr kernel launch failed: CUDA error %d"
                            % (rc,))
+
+
+def wv_chain_config():
+    """csrc/wv_chain.cu's pipeline as built: (chunk samples, ring
+    stages, 1 when chunks may run in the narrow form and 0 when every
+    step is int64)"""
+    lib = load()
+    vals = [ctypes.c_int() for _ in range(3)]
+    lib.atpu_wv_chain_config(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)

@@ -38,8 +38,11 @@ zero-padded.  Blocks of different lengths, channel counts and chains
 share one batch.
 
 ``run_pass_chain`` and ``run_dec_chain`` launch the hand-written CUDA
-kernels ``csrc/wv_chain.cu`` on a CUDA tensor and count the launches;
-on a CPU tensor they run ``run_pass_chain_plain`` and
+kernels ``csrc/wv_chain.cu`` on a CUDA tensor and count the launches:
+a CUDA block a block, a warp a pass with a lane a channel, the passes
+pipelined through rings of chunks in shared memory, so that a block's
+passes run side by side and its series between passes stay on the
+chip.  On a CPU tensor they run ``run_pass_chain_plain`` and
 ``run_dec_chain_plain``, loops over sample positions in which every
 lane (a channel of a block) advances together, on any device.
 """
@@ -346,7 +349,7 @@ def run_pass_chain(x, meta, chain, weights, samples):
 
     Same contract as run_pass_chain_plain.  A CPU tensor runs the plain
     version; a CUDA tensor launches the hand-written kernel
-    (csrc/wv_chain.cu, one thread a block) on the current stream,
+    (csrc/wv_chain.cu, a warp a pass) on the current stream,
     without synchronising, and counts the launch in
     ``run_pass_chain.launches``.  Any other device raises."""
     if x.device.type == "cpu":
@@ -369,7 +372,7 @@ def run_dec_chain(x, meta, chain, weights, samples):
 
     Same contract as run_dec_chain_plain.  A CPU tensor runs the plain
     version; a CUDA tensor launches the hand-written kernel
-    (csrc/wv_chain.cu, one thread a block) on the current stream,
+    (csrc/wv_chain.cu, a warp a pass) on the current stream,
     without synchronising, and counts the launch in
     ``run_dec_chain.launches``.  Any other device raises."""
     if x.device.type == "cpu":

@@ -99,8 +99,12 @@ on the card.  Its phases each print one line:
     encode reached there; each equal to its plain version on the CPU
     and to the port's host C++ passes, pass by pass (outputs, final
     weights, stored samples); each input timed as phase 14, its plain
-    version on the same input once, with its time a serial step (the
-    kernels line's rows are the standard batch and block);
+    version on the same input once, with its time a serial step and a
+    step of the critical path (a sample), beside its bounds: the bytes,
+    the pipelined form's critical path (n steps of the slowest pass's
+    chain plus the fill of one chunk a pass) and the older floor of
+    one pass after another (the kernels line's rows are the standard
+    batch and block);
 18. WavPack identity and throughput: phase 11's signal written on the
     card at standard (one wv_corr launch a 44,100-sample block) equals
     the port's all-host C++ encode byte for byte, and decodes on the
@@ -156,6 +160,13 @@ PEAK_OPS_PER_S = 67e12
 WV_BLOCK = 44100
 WV_DEC_BLOCKS = 8
 WV_KEYS = ("x", "meta", "chain", "weights", "samples")
+# the dependent chain of one WavPack step, cycles, (encode, the decode
+# step of term 18, the slowest decode term): in wv_chain.cu's narrow
+# form, and in the int64 form, which sets the floor of the passes run
+# one after another (tools_dev/int_op_cycles.py on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+WV_CHAIN_CYCLES = (56.63, 45.38)
+WV_INT64_CHAIN_CYCLES = (60.63, 55.50)
 
 
 def line(phase, **fields):
@@ -249,43 +260,149 @@ def program_signal(n_frames, seed=7):
     return np.clip(out, -32768, 32767).astype(np.int32)
 
 
+def wv_serial_bounds(meta, chain, encode, chunk, max_sm_mhz):
+    """(critical path ms, the one-pass-after-another floor ms) of a
+    batch of WavPack blocks at the largest SM clock: the longest block's
+    n samples of the slowest pass's chain plus the pipeline's fill of
+    (P - 1) chunks of ``chunk`` samples, against P * n int64 chains when
+    the passes run one after another.  A decode pass of -1 or -2 chains
+    the two channels' steps: two steps a sample"""
+    (step, old_step) = (c[0] if encode else c[1]
+                        for c in (WV_CHAIN_CYCLES, WV_INT64_CHAIN_CYCLES))
+    (path, floor) = (0.0, 0.0)
+    for (b, (_o, n, _cc, passes)) in enumerate(meta.tolist()):
+        links = [2 if not encode and t in (-1, -2) else 1
+                 for t in chain[b, :passes, 0].tolist()]
+        if links:
+            path = max(path, n * max(links) * step +
+                       (passes - 1) * chunk * step)
+            floor = max(floor, n * sum(links) * old_step)
+    return (path / (max_sm_mhz * 1e3), floor / (max_sm_mhz * 1e3))
+
+
+SERIAL_KEYS = ("critical_path_ms", "bytes_ms", "serial_bound_ms",
+               "old_serial_floor_ms")
+
+
+def serial_fields(n_bytes, path_ms, old_ms):
+    """a WavPack kernel's bounds by its recurrence: the critical path
+    and the bytes (each at its peak), the larger of the two, and the
+    one-pass-after-another floor of the old structure"""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(critical_path_ms=path_ms, bytes_ms=bytes_ms,
+                serial_bound_ms=max(path_ms, bytes_ms),
+                old_serial_floor_ms=old_ms)
+
+
+def wv_tensors(blocks, device):
+    """blocks of ops/wv_scan.pack_blocks as its batch (numpy) and the
+    batch's tensors on ``device``, in WV_KEYS order"""
+    from audiotools_tpu_torch.ops import wv_scan
+    batch = wv_scan.pack_blocks(blocks)
+    return (batch, [torch.as_tensor(batch[k], device=device)
+                    for k in WV_KEYS])
+
+
+def wv_encode_blocks(signal, passes, frame):
+    """the blocks (ops/wv_scan.pack_blocks) that the given frame of an
+    all-host WavPack encode of ``signal`` correlates, with their passes'
+    state at the frame's start"""
+    from audiotools_tpu_torch.pcm import reader_from_array
+    from audiotools_tpu_torch.ref import wavpack as wv_oracle
+    seen = []
+
+    def capture(jobs):
+        seen.append([(np.stack(u[:cc]), [(p.term, p.delta) for p in ps],
+                      [list(p.weights) for p in ps],
+                      [[list(c) for c in p.samples] for p in ps])
+                     for (u, ps, cc) in jobs])
+        return wv_oracle.correlate_host(jobs)
+
+    wv_oracle.encode_wavpack(
+        io.BytesIO(), reader_from_array(signal[:(frame + 1) * WV_BLOCK], 16),
+        WV_BLOCK, correlation_passes=passes, correlate=capture)
+    return seen[frame]
+
+
+def wv_decode_blocks(data, count):
+    """the first ``count`` blocks of a stereo WavPack stream as the
+    decoder parses them (ops/wv_scan.pack_blocks blocks), and the host
+    C++ passes' output of each"""
+    from audiotools_tpu_torch.codecs import wavpack
+    from audiotools_tpu_torch.ref import wavpack as wv_oracle
+    dec = wv_oracle.WavPackDecoder(io.BytesIO(data))
+    blocks = []
+    host = []
+    while len(blocks) < count:
+        ((header, sub_blocks),) = dec.read_group()[0]
+        parsed = wv_oracle.parse_block(header, sub_blocks)
+        blocks.append(wavpack.device_inputs(parsed))
+        host.append(np.stack(wv_oracle.decorrelate_host(parsed)))
+    dec.close()
+    return (blocks, host)
+
+
+def wv_veryhigh_file(signal):
+    """a 16-pass (veryhigh) all-host WavPack encode of the first
+    WV_DEC_BLOCKS blocks of ``signal``: phase 17's veryhigh decode
+    batch, with the terms -1 and -2"""
+    from audiotools_tpu_torch.pcm import reader_from_array
+    from audiotools_tpu_torch.ref import wavpack as wv_oracle
+    out = io.BytesIO()
+    wv_oracle.encode_wavpack(out, reader_from_array(
+        signal[:WV_DEC_BLOCKS * WV_BLOCK], 16), WV_BLOCK,
+        correlation_passes=16)
+    return out.getvalue()
+
+
+# phase 17's wv_corr blocks: the third block of each encode (signal
+# columns, passes)
+WV_CORR_CASES = (("standard", slice(None), 5), ("veryhigh", slice(None), 16),
+                 ("standard_mono", slice(0, 1), 5))
+
+
+def wv_corr_blocks(signal):
+    """phase 17's wv_corr inputs: {name: block} of WV_CORR_CASES"""
+    return {name: wv_encode_blocks(signal[:, cols], passes, 2)[0]
+            for (name, cols, passes) in WV_CORR_CASES}
+
+
+def wv_kernel_inputs():
+    """phase 17's inputs of wv_corr and wv_decorr, from phase 11's
+    signal: {name: (encode, blocks)}, the wv_corr blocks of
+    WV_CORR_CASES, the first 32 blocks of the standard stream and the
+    veryhigh batch (a standard encode of the first 32 blocks gives the
+    decoder the same blocks as the whole stream's)"""
+    from audiotools_tpu_torch.pcm import reader_from_array
+    from audiotools_tpu_torch.ref import wavpack as wv_oracle
+    signal = program_signal(4096 * 1024 * ALAC_BATCHES)
+    standard = io.BytesIO()
+    wv_oracle.encode_wavpack(
+        standard, reader_from_array(signal[:32 * WV_BLOCK], 16), WV_BLOCK,
+        correlation_passes=5)
+    inputs = {"corr_" + name: (True, [block]) for (name, block) in
+              wv_corr_blocks(signal).items()}
+    inputs["decorr_standard_32"] = (
+        False, wv_decode_blocks(standard.getvalue(), 32)[0])
+    inputs["decorr_veryhigh_%d" % WV_DEC_BLOCKS] = (
+        False, wv_decode_blocks(wv_veryhigh_file(signal), WV_DEC_BLOCKS)[0])
+    return inputs
+
+
 def wavpack_phases(dev, alac_sig, max_sm_mhz):
     """phases 17 and 18 on ``alac_sig``, phase 11's signal; returns the
     kernels line's rows of wv_corr and wv_decorr and phase 18's encode
     and decode runs"""
-    from audiotools_tpu_torch import _native
+    from audiotools_tpu_torch import _native, kernels
     from audiotools_tpu_torch.codecs import wavpack
     from audiotools_tpu_torch.formats import wavpack as wv_format
     from audiotools_tpu_torch.ops import wv_scan
     from audiotools_tpu_torch.pcm import read_all, reader_from_array
     from audiotools_tpu_torch.ref import wavpack as wv_oracle
     a_frames = alac_sig.shape[0]
+    chunk = kernels.wv_chain_config()[0]
 
     # ---- 17. WavPack kernels vs plain at full width -------------------
-    def wv_tensors(blocks, device):
-        batch = wv_scan.pack_blocks(blocks)
-        return (batch, [torch.as_tensor(batch[k], device=device)
-                        for k in WV_KEYS])
-
-    def wv_jobs(signal, passes, frame):
-        """the blocks (ops/wv_scan.pack_blocks) that the given frame of
-        an all-host encode of the signal correlates, with their passes'
-        state at the frame's start"""
-        seen = []
-
-        def capture(jobs):
-            seen.append([(np.stack(u[:cc]), [(p.term, p.delta) for p in ps],
-                          [list(p.weights) for p in ps],
-                          [[list(c) for c in p.samples] for p in ps])
-                         for (u, ps, cc) in jobs])
-            return wv_oracle.correlate_host(jobs)
-
-        wv_oracle.encode_wavpack(
-            io.BytesIO(), reader_from_array(signal[:(frame + 1) * WV_BLOCK],
-                                            16),
-            WV_BLOCK, correlation_passes=passes, correlate=capture)
-        return seen[frame]
-
     # the all-host encode of phase 18's stream, timed once: phase 17
     # checks wv_decorr on the first decode batch of this file
     t0 = time.perf_counter()
@@ -300,15 +417,7 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
         parses them, decorrelated on the card and held to the plain
         version on the CPU and to the host C++ passes; returns the
         batch, its card tensors, the max abs error and the plain ms"""
-        dec = wv_oracle.WavPackDecoder(io.BytesIO(data))
-        blocks = []
-        host = []
-        while len(blocks) < count:
-            ((header, sub_blocks),) = dec.read_group()[0]
-            parsed = wv_oracle.parse_block(header, sub_blocks)
-            blocks.append(wavpack.device_inputs(parsed))
-            host.append(np.stack(wv_oracle.decorrelate_host(parsed)))
-        dec.close()
+        (blocks, host) = wv_decode_blocks(data, count)
         (batch, card) = wv_tensors(blocks, dev)
         (_, cpu) = wv_tensors(blocks, "cpu")
         got = wv_scan.run_dec_chain(*card).cpu()
@@ -335,17 +444,22 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
         # per-block chains, weights and stored samples: 1.4 KB a
         # block); a channel's step: a 64-bit multiply (3 IMADs), 2
         # adds, a shift, 2 compares, a select and an add
-        (b_ms, b_by) = bound(2 * total * 8 + len(batch["meta"]) * 1440,
-                             10 * int((batch["meta"][:, 1] *
-                                       batch["meta"][:, 2] *
-                                       batch["meta"][:, 3]).sum()))
+        n_bytes = 2 * total * 8 + len(batch["meta"]) * 1440
+        (b_ms, b_by) = bound(n_bytes, 10 * int((batch["meta"][:, 1] *
+                                                batch["meta"][:, 2] *
+                                                batch["meta"][:, 3]).sum()))
+        (path_ms, old_ms) = wv_serial_bounds(batch["meta"], batch["chain"],
+                                             False, chunk, max_sm_mhz)
         ms = median_ms(lambda: wv_scan.run_dec_chain(*card), 5)
         return dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by,
             device_ms=device_ms(lambda: wv_scan.run_dec_chain(*card), 5),
             ns_per_step=ms * 1e6 / steps,
-            cycles_per_step_at_max_sm=ms * 1e3 * max_sm_mhz / steps)
+            cycles_per_step_at_max_sm=ms * 1e3 * max_sm_mhz / steps,
+            cycles_per_critical_step_at_max_sm=ms * 1e3 * max_sm_mhz /
+            WV_BLOCK,
+            **serial_fields(n_bytes, path_ms, old_ms))
 
     # the main path's batch: the first 32 blocks of the standard stream
     (d_batch, d_card, d_err, d_plain) = dec_check(
@@ -353,12 +467,8 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
     std_dec = dec_timing(d_batch, d_card, d_err, d_plain)
     del d_card
     # veryhigh blocks: 16 passes, with the negative terms -1 and -2
-    vh_file = io.BytesIO()
-    wv_oracle.encode_wavpack(vh_file, reader_from_array(
-        alac_sig[:WV_DEC_BLOCKS * WV_BLOCK], 16), WV_BLOCK,
-        correlation_passes=16)
     (v_batch, v_card, v_err, v_plain) = dec_check(
-        vh_file.getvalue(), WV_DEC_BLOCKS, "veryhigh")
+        wv_veryhigh_file(alac_sig), WV_DEC_BLOCKS, "veryhigh")
     if any(not {-1, -2} <= set(v_batch["chain"][b, :p, 0].tolist())
            for (b, p) in enumerate(v_batch["meta"][:, 3].tolist())):
         raise AssertionError("veryhigh blocks without terms -1 and -2")
@@ -373,13 +483,11 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
     decorr_row = dict(max_abs_err=max(d_err, v_err), ms=std_dec["ms"],
                       plain_ms=std_dec["plain_ms"],
                       bound_ms=std_dec["bound_ms"],
-                      bound_by=std_dec["bound_by"], library_ms=None)
+                      bound_by=std_dec["bound_by"], library_ms=None,
+                      **{k: std_dec[k] for k in SERIAL_KEYS})
 
     # a mono block beside the stereo ones: one chain a step instead of two
-    corr_jobs = {name: wv_jobs(signal, passes, 2)[0]
-                 for (name, signal, passes) in (
-                     ("standard", alac_sig, 5), ("veryhigh", alac_sig, 16),
-                     ("standard_mono", alac_sig[:, :1], 5))}
+    corr_jobs = wv_corr_blocks(alac_sig)
     corr_rows = {}
     for (name, block) in corr_jobs.items():
         # each block's plain run alone: the same input as its card time
@@ -408,15 +516,20 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
             raise AssertionError("wv_corr kernel != the host C++ passes "
                                  "(%s)" % (name,))
         steps = WV_BLOCK * len(chain)
-        (c_bound, c_bound_by) = bound(2 * x.size * 8 + 1440,
-                                      10 * x.size * len(chain))
+        n_bytes = 2 * x.size * 8 + 1440
+        (c_bound, c_bound_by) = bound(n_bytes, 10 * x.size * len(chain))
+        (path_ms, old_ms) = wv_serial_bounds(
+            c_batch["meta"], c_batch["chain"], True, chunk, max_sm_mhz)
         c_ms = median_ms(lambda: wv_scan.run_pass_chain(*c_card), 5)
         corr_rows[name] = dict(
             passes=len(chain), max_abs_err=err, ms=c_ms,
             device_ms=device_ms(lambda: wv_scan.run_pass_chain(*c_card), 5),
             plain_ms=plain_ms, ns_per_step=c_ms * 1e6 / steps,
             cycles_per_step_at_max_sm=c_ms * 1e3 * max_sm_mhz / steps,
-            bound_ms=c_bound, bound_by=c_bound_by)
+            cycles_per_critical_step_at_max_sm=c_ms * 1e3 * max_sm_mhz /
+            WV_BLOCK,
+            bound_ms=c_bound, bound_by=c_bound_by,
+            **serial_fields(n_bytes, path_ms, old_ms))
         del c_card, got
     line("kernel_vs_plain", kernel="wv_corr", shape=[1, 2, WV_BLOCK],
          equal=True, equal_host_cpp=True, plain_on="cpu", blocks=corr_rows)
@@ -425,7 +538,7 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
                                     for r in corr_rows.values()),
                     ms=std["ms"], plain_ms=std["plain_ms"],
                     bound_ms=std["bound_ms"], bound_by=std["bound_by"],
-                    library_ms=None)
+                    library_ms=None, **{k: std[k] for k in SERIAL_KEYS})
 
     # ---- 18. WavPack identity and throughput ---------------------------
     for (tag, short_w, channels, compression) in (

@@ -231,6 +231,120 @@ def test_chains_match_jitted_reference(chain):
                           .reshape(2, -1), want)
 
 
+# the card's kernels hand chunks of 8 to 64 samples from pass to pass
+# (csrc/wv_chain.cu, WV_CHUNK): lengths at 1-3 chunks and one either side
+CHUNK_EDGES = sorted({m * k + d for k in (8, 16, 32, 64) for m in (1, 2, 3)
+                      for d in (-1, 0, 1)})
+EDGE_KINDS = ("short", "chunk_edges", "negative_places", "ragged_mix",
+              "wide_sources", "weight_ends")
+# int32's ends and just past them
+WIDE = (2**31 - 1, -(2**31 - 1), -2**31, 2**31, -2**31 - 1, 2**31 + 1)
+
+
+def random_chain(rng, passes, cc):
+    terms = [t for t in wv_scan.TERMS if cc == 2 or t > 0]
+    return [(int(rng.choice(terms)), int(rng.integers(0, 8)))
+            for _ in range(passes)]
+
+
+def edge_blocks(kind, seed):
+    """blocks at the edges of the card kernels' pipeline, each kind a
+    batch"""
+    rng = np.random.default_rng(seed)
+    if kind == "short":
+        # shorter than a chunk, and than the fill of 16 passes
+        return [random_block(rng, random_chain(rng, P, cc), cc, n, 16)
+                for n in (1, 2, 5, 8, 9, 31) for (P, cc) in
+                ((1, 1), (5, 2), (16, 2), (16, 1))]
+    if kind == "chunk_edges":
+        return [random_block(rng, random_chain(rng, 1 + k % 16, 1 + k % 2),
+                             1 + k % 2, n, 20)
+                for (k, n) in enumerate(CHUNK_EDGES)]
+    if kind == "negative_places":
+        # 16 passes with the negative terms first, last, adjacent, only
+        pos = [(t, 1 + t % 7) for t in (1, 2, 3, 4, 5, 6, 7, 8, 17, 18)]
+        neg = [(-1, 3), (-2, 5), (-3, 2)]
+        chains = [neg + pos + pos[:3], pos + pos[:3] + neg,
+                  pos[:6] + neg + neg[::-1] + pos[6:7], (neg * 6)[:16]]
+        return [random_block(rng, chain, 2, n, 18)
+                for chain in chains for n in (1, 40, 130)]
+    if kind == "ragged_mix":
+        return [random_block(rng, random_chain(rng, P, cc), cc,
+                             int(rng.integers(1, 300)), 8 + 2 * k)
+                for (k, (P, cc)) in enumerate(
+                    [(1, 1), (16, 2), (16, 1), (1, 2)] * 3)]
+    if kind == "wide_sources":
+        blocks = []
+        for (k, cc) in enumerate((2, 1, 2, 1)):
+            n = 70 + 13 * k
+            x = rng.integers(-2**31, 2**31, (cc, n))
+            x.flat[rng.choice(cc * n, 24, replace=False)] = np.repeat(WIDE,
+                                                                        4)
+            (_x, chain, w, s) = random_block(
+                rng, random_chain(rng, 1 + k, cc), cc, n, 16)
+            s = [np.where(rng.random(v.shape) < 0.5, v,
+                          rng.choice(WIDE, v.shape)) for v in s]
+            blocks.append((x, chain, w, s))
+        return blocks
+    assert kind == "weight_ends"
+    blocks = []
+    for (k, term) in enumerate(wv_scan.TERMS):
+        cc = 2 if term < 0 else 1 + k % 2
+        (x, chain, w, s) = random_block(rng, [(term, 7 - k % 3)], cc, 100,
+                                        8)
+        ends = (2**31 - 1, -(2**31 - 1), -2**31, 1024, -1024, 0)
+        w = np.array([[ends[k % 6], ends[(k + 1) % 6]][:cc]])
+        blocks.append((x, chain, w, s))
+    return blocks
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_edge_blocks_encode(kind):
+    """the plain encode on the pipeline's edge blocks against the
+    reference's numpy form and the host C++ passes"""
+    blocks = edge_blocks(kind, seed=len(kind))
+    (batch, args) = tensors(blocks)
+    (out, w_out, s_out) = wv_scan.run_pass_chain_plain(*args)
+    outs = wv_scan.unpack(out.numpy(), batch["meta"])
+    for (b, block) in enumerate(blocks):
+        (x, chain, w, s) = block
+        (cc, n) = x.shape
+        (ref_out, ref_w, ref_s) = ref_chain(ref_scan.run_pass_chain, block)
+        assert np.array_equal(outs[b], ref_out)
+        assert np.array_equal(w_out[b, :len(chain), :cc].numpy(), ref_w)
+        cur = list(x)
+        for (p, (t, d)) in enumerate(chain):
+            span = wv_scan.span(t)
+            got_s = s_out[b, p, :cc, :span].numpy()
+            if n >= span:
+                assert np.array_equal(got_s, np.asarray(ref_s[p]))
+            (cur, ws, ss) = _native.wv_correlate(cur, t, d, list(w[p]),
+                                                 list(s[p]))
+            assert ws == w_out[b, p, :cc].tolist()
+            assert np.array_equal(got_s, np.stack(ss) if t > 0 else s[p])
+        assert np.array_equal(np.stack(cur), outs[b])
+        # passes past the block's count keep their state
+        assert np.array_equal(w_out[b, len(chain):].numpy(),
+                              batch["weights"][b, len(chain):])
+        assert np.array_equal(s_out[b, len(chain):].numpy(),
+                              batch["samples"][b, len(chain):])
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_edge_blocks_decode(kind):
+    """the plain decode of the edge blocks' residuals against the
+    reference's numpy form, and back to the encode's input"""
+    sources = edge_blocks(kind, seed=len(kind) + 100)
+    blocks = encoded(sources)
+    (batch, args) = tensors(blocks)
+    outs = wv_scan.unpack(wv_scan.run_dec_chain_plain(*args).numpy(),
+                          batch["meta"])
+    for (b, block) in enumerate(blocks):
+        assert np.array_equal(outs[b], sources[b][0])
+        assert np.array_equal(outs[b], ref_chain(ref_scan.run_dec_chain,
+                                                 block))
+
+
 def test_cpu_tensors_launch_nothing():
     (_batch, args) = tensors(ragged_blocks(3)[:4])
     before = (wv_scan.run_pass_chain.launches, wv_scan.run_dec_chain.launches)
@@ -270,13 +384,14 @@ def test_argument_checks():
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_cuda_kernels_match_plain(seed):
-    """every term at the warm-up edges and a ragged batch, each kernel
-    once a call"""
+    """every term at the warm-up edges, a ragged batch and the pipeline's
+    edge blocks, each kernel once a call"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     blocks = ragged_blocks(seed) + [
         block for term in wv_scan.TERMS
-        for block in term_blocks(term, seed)[::7]]
+        for block in term_blocks(term, seed)[::7]] + [
+        block for kind in EDGE_KINDS for block in edge_blocks(kind, seed)]
     (_batch, args) = tensors(blocks)
     (_dbatch, dargs) = tensors(encoded(blocks))
     before = (wv_scan.run_pass_chain.launches, wv_scan.run_dec_chain.launches)

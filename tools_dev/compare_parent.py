@@ -1,12 +1,15 @@
 #!/usr/bin/env python
-"""Times this tree's FLAC encode pack and its rice_decode and alac_synth
-kernels against those of another checkout of the port (an earlier
-commit, unpacked with `git archive` into a directory, or another
-arrangement of these kernels), in one process on one CUDA card, on the
-inputs of chip_smoke.py's phases 3, 6 and 9: the chosen subframes of a
-1024-frame FLAC -8 batch of bench.py's signal (2048 rows of 4096), the
-records of the largest bucket of that batch's stream, and the subframe
-rows of a 1024-frameset ALAC batch (2048 x 4096).
+"""Times this tree's FLAC encode pack and its rice_decode, alac_synth,
+wv_corr and wv_decorr kernels against those of another checkout of the
+port (an earlier commit, unpacked with `git archive` into a directory,
+or another arrangement of these kernels), in one process on one CUDA
+card, on the inputs of chip_smoke.py's phases 3, 6, 9 and 17: the
+chosen subframes of a 1024-frame FLAC -8 batch of bench.py's signal
+(2048 rows of 4096), the records of the largest bucket of that batch's
+stream, the subframe rows of a 1024-frameset ALAC batch (2048 x 4096),
+and the WavPack blocks of chip_smoke.wv_kernel_inputs (wv_corr: a
+standard, a veryhigh and a mono block; wv_decorr: 32 standard blocks
+and 8 veryhigh ones).
 
 The pack is each tree's whole ops/bitpack.pack_chosen_residuals, the
 encoder's pack stage (the other tree's package loaded under another
@@ -18,9 +21,10 @@ kernel that came before it).  Both trees run on the same tensors, in
 the order other, this, this, other; each time is the median of
 chip_smoke's median_ms (the host's enqueue included) and device_ms
 (the card alone).  Both outputs must be equal.  Prints the card's name
-and power limit, then one JSON line per comparison.  Usage:
+and power limit, then one JSON line per comparison.  With --wavpack
+only the WavPack kernels are compared.  Usage:
 
-    python3 tools_dev/compare_parent.py OTHER_DIR
+    python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack]
 """
 
 import importlib.util
@@ -149,22 +153,72 @@ def alac_rows(dev):
     return (args, scan["sub_meta"][:, 2])
 
 
+def in_turns(run_other, run_mine):
+    """{"other": [...], "this": [...]} of (median_ms, device_ms), timed
+    in the order other, this, this, other"""
+    from chip_smoke import device_ms, median_ms
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        fn = run_other if who == "other" else run_mine
+        times[who].append((median_ms(fn), device_ms(fn)))
+    return times
+
+
+def summary(name, shape, equal, times):
+    return json.dumps({
+        "kernel": name, "shape": list(shape), "equal": equal,
+        "other_ms": float(np.median([t[0] for t in times["other"]])),
+        "other_device_ms": float(np.median([t[1] for t in times["other"]])),
+        "this_ms": float(np.median([t[0] for t in times["this"]])),
+        "this_device_ms": float(np.median([t[1] for t in times["this"]])),
+        "runs": times})
+
+
+def compare_wavpack(other, mine, dev):
+    """wv_corr and wv_decorr of both trees on phase 17's blocks"""
+    from chip_smoke import wv_kernel_inputs, wv_tensors
+    for (name, (encode, blocks)) in wv_kernel_inputs().items():
+        (batch, args) = wv_tensors(blocks, dev)
+        n_outs = 3 if encode else 1
+        outs = [[torch.empty_like(args[k]) for k in (0, 3, 4)[:n_outs]]
+                for _ in range(2)]
+        kname = "wv_corr" if encode else "wv_decorr"
+        (run_other, run_mine) = (
+            (lambda m=m, o=o: getattr(m, kname)(*args, *o))
+            for (m, o) in zip((other, mine), outs))
+        run_other()
+        run_mine()
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(a, b))
+                    for (a, b) in zip(outs[0], outs[1]))
+        shape = [len(blocks), int(batch["meta"][:, 1].max()),
+                 int(batch["meta"][:, 3].max())]
+        print(summary("%s (%s)" % (kname, name), shape, equal,
+                      in_turns(run_other, run_mine)), flush=True)
+
+
 def main():
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
-        sys.exit("usage: compare_parent.py OTHER_DIR (needs a CUDA card)")
+    args = [a for a in sys.argv[1:] if a != "--wavpack"]
+    if len(args) != 1 or not torch.cuda.is_available():
+        sys.exit("usage: compare_parent.py OTHER_DIR [--wavpack] (needs a "
+                 "CUDA card)")
     from audiotools_tpu_torch import kernels as mine
     from chip_smoke import device_ms, median_ms
-    other = load_kernels(os.path.abspath(sys.argv[1]), "other_kernels")
+    other_dir = os.path.abspath(args[0])
+    other = load_kernels(other_dir, "other_kernels")
     mine.load()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
+    if "--wavpack" in sys.argv[1:]:
+        compare_wavpack(other, mine, dev)
+        return
 
     from audiotools_tpu_torch.ops import bitpack as my_bitpack
     other_bitpack = importlib.import_module(
-        load_package(os.path.abspath(sys.argv[1]), "other_port").__name__
+        load_package(other_dir, "other_port").__name__
         + ".ops.bitpack")
     (chosen, pack_args) = flac_chosen(dev)
     (rice_args, W, C) = flac_bucket(dev)
@@ -200,8 +254,7 @@ def main():
             lambda out: mine.rice_decode(*rice_args, W, out)),
         "alac_synth": (
             tuple(a_args[0].shape),
-            alac_call(os.path.abspath(sys.argv[1]), other, a_args, order,
-                      max_ord, dev),
+            alac_call(other_dir, other, a_args, order, max_ord, dev),
             alac_call(ROOT, mine, a_args, order, max_ord, dev)),
     }
     for (name, (shape, run_other, run_mine)) in calls.items():
@@ -210,22 +263,10 @@ def main():
         run_other(outs[0])
         run_mine(outs[1])
         torch.cuda.synchronize()
-        times = {"other": [], "this": []}
-        for who in ("other", "this", "this", "other"):
-            (fn, out) = ((run_other, outs[0]) if who == "other"
-                         else (run_mine, outs[1]))
-            times[who].append((median_ms(lambda: fn(out)),
-                               device_ms(lambda: fn(out))))
-        print(json.dumps({
-            "kernel": name, "shape": list(shape),
-            "equal": bool(torch.equal(outs[0], outs[1])),
-            "other_ms": float(np.median([t[0] for t in times["other"]])),
-            "other_device_ms": float(np.median(
-                [t[1] for t in times["other"]])),
-            "this_ms": float(np.median([t[0] for t in times["this"]])),
-            "this_device_ms": float(np.median(
-                [t[1] for t in times["this"]])),
-            "runs": times}), flush=True)
+        times = in_turns(lambda: run_other(outs[0]), lambda: run_mine(outs[1]))
+        print(summary(name, shape, bool(torch.equal(outs[0], outs[1])),
+                      times), flush=True)
+    compare_wavpack(other, mine, dev)
 
 
 if __name__ == "__main__":

@@ -76,6 +76,9 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
   int64_t wv = 100 + threadIdx.x;
   int64_t y1 = 3 * threadIdx.x + 1;
   int64_t y2 = threadIdx.x;
+  int32_t w32 = 100 + threadIdx.x;
+  int32_t y1n = 3 * threadIdx.x + 1;
+  int32_t y2n = threadIdx.x;
   const long long t0 = clock64();
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
@@ -131,6 +134,21 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
         wv += (src == 0 || in == 0) ? 0 : (((src ^ in) >= 0) ? 2 : -2);
         y2 = y1;
         y1 = y;
+      } else if constexpr (KIND == 13) {  // wv_chain's encode step, narrow
+        const int32_t src = static_cast<int32_t>(x[k]);
+        x[k] = add32(x[k], a);
+        const int64_t r =
+            static_cast<int64_t>(b) - (madw(w32, src, 512) >> 10);
+        w32 += (src == 0 || r == 0) ? 0 : (((src ^ r) >= 0) ? 2 : -2);
+      } else if constexpr (KIND == 14) {  // the decode step of 18, narrow
+        const int32_t src = static_cast<int32_t>(
+            (3 * static_cast<int64_t>(y1n) - y2n) >> 1);
+        const int32_t in = static_cast<int32_t>(x[k]);
+        x[k] = add32(x[k], a);
+        const int64_t y = (madw(w32, src, 512) >> 10) + in;
+        w32 += (src == 0 || in == 0) ? 0 : (((src ^ in) >= 0) ? 2 : -2);
+        y2n = y1n;
+        y1n = static_cast<int32_t>(y);
       } else {                           // tta_filter's step chain
         const uint32_t sgn = static_cast<uint32_t>(v >> 31) |
                              (sub32(0u, static_cast<uint32_t>(v)) >> 31);
@@ -142,7 +160,7 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
     }
   }
   const long long t1 = clock64();
-  long long s = v + wv + y1 + y2;
+  long long s = v + wv + y1 + y2 + w32 + y1n + y2n;
   for (int k = 0; k < 8; ++k) {
     s += acc[k] + u[k] + x[k];
   }
@@ -167,7 +185,9 @@ extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
     case 9: cycles_kernel<9><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 10: cycles_kernel<10><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 11: cycles_kernel<11><<<1, 32>>>(iters, a, b, cycles, sink); break;
-    default: cycles_kernel<12><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 12: cycles_kernel<12><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 13: cycles_kernel<13><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<14><<<1, 32>>>(iters, a, b, cycles, sink); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -196,6 +216,11 @@ CASES = (
     ("wv_chain decode, term 18: the encode's link with the output feeding "
      "the next source ((3 * y1 - y2) >> 1), per link (latency)",
      "latency"),
+    ("wv_chain encode, narrow: a 32-bit weight, mad.wide.s32 (w * s + "
+     "512) -> SHF.R.S64 -> subtract -> compares -> select -> 32-bit add, "
+     "per link (latency)", "latency"),
+    ("wv_chain decode, term 18, narrow: the narrow link with the output "
+     "feeding the next source, per link (latency)", "latency"),
 )
 ITERS = 20000
 
