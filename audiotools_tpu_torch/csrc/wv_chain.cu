@@ -60,23 +60,22 @@
 // registers for the whole block: the weight, the last t samples of
 // terms 1-8 (newest first; the chunk's steps are unrolled, so the
 // shifts are register renames), the two latest samples of 17/18.
-// A chunk runs in the narrow form (a 32-bit weight, one 32 x 32 -> 64
-// multiply-add for w * s + 512) when the weight has room for the
-// chunk's updates, and checks on the way that every source fits int32;
-// if one does not, the lanes run the chunk again from its saved state
-// in the int64 form, so the result is exact for any int64 input.
-// Encoding, a negative term's source is the other channel's input,
-// which the ring holds, so each lane reads it there.  Decoding, a
-// negative term's source is the other channel's output, so lane 0
-// computes both channels of those passes (a lane a channel with a warp
-// shuffle of each step's outputs timed no faster).  The
-// encoder's warps write their pass's final weights and new stored
-// samples at its end, reading the last outputs back from the ring (or
-// from the output, for the last pass).  A batch of blocks (the
-// decoder's 32-block groups, the encoder's channel groups of one
-// frame) is one launch, blocks of different lengths and chains side by
-// side.  WV_CHUNK, WV_STAGES and WV_NARROW (0: the int64 form only) are
-// the build's choices, which tools_dev/wv_chain_variants.py times.
+// Every step is int64: a 32-bit weight and a 32 x 32 -> 64-bit product
+// would shorten the chain only where a chunk's weight and sources fit,
+// and the check and the int64 rerun it needs cost the standard block
+// more than the shorter chain gains it (PERF.md).  Encoding, a negative
+// term's source is the other channel's input, which the ring holds, so
+// each lane reads it there.  Decoding, a negative term's source is the
+// other channel's output: lane 0 computes both channels of those passes
+// (WV_DEC_SHFL 0), or each lane its own, the outputs of every step
+// passed across by a warp shuffle (WV_DEC_SHFL 1).  The encoder's warps
+// write their pass's final weights and new stored samples at its end,
+// reading the last outputs back from the ring (or from the output, for
+// the last pass).  A batch of blocks (the decoder's 32-block groups,
+// the encoder's channel groups of one frame) is one launch, blocks of
+// different lengths and chains side by side.  WV_CHUNK, WV_STAGES and
+// WV_DEC_SHFL are the build's choices, which
+// tools_dev/wv_chain_variants.py times.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -87,8 +86,8 @@
 #ifndef WV_STAGES
 #define WV_STAGES 4
 #endif
-#ifndef WV_NARROW
-#define WV_NARROW 1
+#ifndef WV_DEC_SHFL
+#define WV_DEC_SHFL 0
 #endif
 
 
@@ -154,55 +153,18 @@ __device__ __forceinline__ int64_t clamp1024(int64_t w) {
 }
 
 // one step of a pass: input x, source s -> the pass's output; updates
-// the weight.  The wide form keeps w in int64 and multiplies 64 x 64
-// bits; the narrow form keeps it in int32 (wn) and multiplies 32 x 32
-// -> 64 bits (mad.wide.s32), which is exact while |wn| < 2^31 and s
-// fits int32: it ORs into `bad` a nonzero value for a source that does
-// not, and the caller then runs the chunk again in the wide form.
-template <bool kEncode, bool kNarrow>
+// the weight
+template <bool kEncode>
 __device__ __forceinline__ int64_t wv_step(int64_t x, int64_t s, int64_t& w,
-                                           int32_t& wn, int64_t delta,
-                                           uint32_t& bad) {
-  if constexpr (kNarrow) {
-    const int32_t s32 = static_cast<int32_t>(s);
-    bad |= static_cast<uint32_t>(static_cast<int32_t>(s >> 32) ^
-                                 (s32 >> 31));
-    const int64_t a = (static_cast<int64_t>(wn) * s32 + 512) >> 10;
-    const int64_t v = kEncode ? x - a : a + x;
-    const int64_t u = kEncode ? v : x;
-    const int32_t d = static_cast<int32_t>(delta);
-    if (s32 != 0 && u != 0) {
-      wn += (s32 ^ static_cast<int32_t>(u >> 32)) >= 0 ? d : -d;
-    }
-    return v;
-  } else {
-    if (kEncode) {
-      const int64_t v = x - apply_weight(w, s);
-      w += update_weight(s, v, delta);
-      return v;
-    }
-    const int64_t v = apply_weight(w, s) + x;
-    w += update_weight(s, x, delta);
+                                           int64_t delta) {
+  if (kEncode) {
+    const int64_t v = x - apply_weight(w, s);
+    w += update_weight(s, v, delta);
     return v;
   }
-}
-
-template <bool kNarrow>
-__device__ __forceinline__ void clamp_weight(int64_t& w, int32_t& wn) {
-  if constexpr (kNarrow) {
-    wn = wn > 1024 ? 1024 : (wn < -1024 ? -1024 : wn);
-  } else {
-    w = clamp1024(w);
-  }
-}
-
-// whether a chunk of steps keeps the weight in int32: a delta within
-// 2^20 either way (the format's field is 3 bits) and a weight with room
-// for a chunk of updates
-__device__ __forceinline__ bool narrow_weight(int64_t w, int64_t delta) {
-  constexpr int64_t kDelta = 1 << 20;
-  constexpr int64_t kMax = (int64_t{1} << 31) - 1 - kDelta * kChunk;
-  return delta >= -kDelta && delta <= kDelta && w >= -kMax && w <= kMax;
+  const int64_t v = apply_weight(w, s) + x;
+  w += update_weight(s, x, delta);
+  return v;
 }
 
 // a pass's place in the pipeline: its input ring and barriers, its
@@ -220,22 +182,18 @@ struct Link {
   unsigned mask;  // the warp's working lanes: one a channel
 };
 
-// a chunk's steps, unrolled, in the narrow or the wide form: all kChunk
-// of them (kFull) or the first rem; returns the narrow form's `bad`
-template <bool kNarrow, bool kFull, typename Pass>
-__device__ __forceinline__ uint32_t steps(Pass& pass, const int64_t* mine,
-                                          const int64_t* other,
-                                          int64_t* o_mine, int64_t* o_other,
-                                          int rem) {
-  uint32_t bad = 0;
+// a chunk's steps, unrolled: all kChunk of them (kFull) or the first
+// rem
+template <bool kFull, typename Pass>
+__device__ __forceinline__ void steps(Pass& pass, const int64_t* mine,
+                                      const int64_t* other, int64_t* o_mine,
+                                      int64_t* o_other, int rem) {
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) {
     if (kFull || k < rem) {
-      pass.template step<kNarrow>(mine, other, k, o_mine[k],
-                                  o_other[Pass::kBoth ? k : 0], bad);
+      pass.step(mine, other, k, o_mine[k], o_other[Pass::kBoth ? k : 0]);
     }
   }
-  return bad;
 }
 
 // runs a pass over its block, a chunk of kChunk samples at a time: waits
@@ -266,28 +224,10 @@ __device__ __forceinline__ void drive(Pass& pass, int c, const Link& io) {
     int64_t* o_other = o0 + (c ^ 1) * ostride;
     if (pass.computes) {
       if (i0 + kChunk <= n) {
-        bool wide = true;
-#if WV_NARROW
-        // the lanes that compute vote together: one form for the warp
-        const unsigned vote = Pass::kBoth ? 0x1u : io.mask;
-        if (__all_sync(vote, pass.narrow_ok())) {
-          const Pass saved = pass;
-          pass.to_narrow();
-          const uint32_t bad = steps<true, true>(pass, mine, other, o_mine,
-                                                 o_other, kChunk);
-          pass.from_narrow();
-          wide = __any_sync(vote, bad != 0);
-          if (wide) {
-            pass = saved;
-          }
-        }
-#endif
-        if (wide) {
-          steps<false, true>(pass, mine, other, o_mine, o_other, kChunk);
-        }
+        steps<true>(pass, mine, other, o_mine, o_other, kChunk);
       } else {
-        steps<false, false>(pass, mine, other, o_mine, o_other,
-                            static_cast<int>(n - i0));
+        steps<false>(pass, mine, other, o_mine, o_other,
+                     static_cast<int>(n - i0));
       }
     }
     __syncwarp(io.mask);
@@ -298,10 +238,8 @@ __device__ __forceinline__ void drive(Pass& pass, int c, const Link& io) {
   }
 }
 
-// Each pass below keeps its weight(s) as w (wide) and wn (narrow, within
-// a narrow chunk), with narrow_ok (whether the next chunk may run
-// narrow), to_narrow and from_narrow; step<kNarrow>(mine, other, k,
-// v_mine, v_other, bad) runs sample k.
+// Each pass below keeps its weight(s) w; step(mine, other, k, v_mine,
+// v_other) runs sample k.
 
 // terms 1-8, a channel a lane: the last T samples of the series, newest
 // first (h[T - 1] is the source)
@@ -311,22 +249,12 @@ struct RingLane {
   bool computes = true;
   int64_t h[T];
   int64_t w;
-  int32_t wn;
   int64_t delta;
 
-  __device__ __forceinline__ bool narrow_ok() const {
-    return narrow_weight(w, delta);
-  }
-  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
-  __device__ __forceinline__ void from_narrow() { w = wn; }
-
-  template <bool kNarrow>
   __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
-                                       int k, int64_t& o, int64_t&,
-                                       uint32_t& bad) {
+                                       int k, int64_t& o, int64_t&) {
     const int64_t x = mine[k];
-    const int64_t v =
-        wv_step<kEncode, kNarrow>(x, h[T - 1], w, wn, delta, bad);
+    const int64_t v = wv_step<kEncode>(x, h[T - 1], w, delta);
 #pragma unroll
     for (int m = T - 1; m > 0; --m) {
       h[m] = h[m - 1];
@@ -344,23 +272,14 @@ struct Lane1718 {
   int64_t older;
   int64_t newer;
   int64_t w;
-  int32_t wn;
   int64_t delta;
 
-  __device__ __forceinline__ bool narrow_ok() const {
-    return narrow_weight(w, delta);
-  }
-  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
-  __device__ __forceinline__ void from_narrow() { w = wn; }
-
-  template <bool kNarrow>
   __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
-                                       int k, int64_t& o, int64_t&,
-                                       uint32_t& bad) {
+                                       int k, int64_t& o, int64_t&) {
     const int64_t x = mine[k];
     const int64_t src = T == 18 ? (3 * newer - older) >> 1
                                 : 2 * newer - older;
-    const int64_t v = wv_step<kEncode, kNarrow>(x, src, w, wn, delta, bad);
+    const int64_t v = wv_step<kEncode>(x, src, w, delta);
     older = newer;
     newer = kEncode ? x : v;
     o = v;
@@ -376,24 +295,15 @@ struct NegEncLane {
   bool same;
   int64_t prev;
   int64_t w;
-  int32_t wn;
   int64_t delta;
 
-  __device__ __forceinline__ bool narrow_ok() const {
-    return narrow_weight(w, delta);
-  }
-  __device__ __forceinline__ void to_narrow() { wn = static_cast<int32_t>(w); }
-  __device__ __forceinline__ void from_narrow() { w = wn; }
-
-  template <bool kNarrow>
   __device__ __forceinline__ void step(const int64_t* mine,
                                        const int64_t* other, int k,
-                                       int64_t& o, int64_t&, uint32_t& bad) {
+                                       int64_t& o, int64_t&) {
     const int64_t x = mine[k];
     const int64_t xo = other[k];
-    const int64_t v =
-        wv_step<true, kNarrow>(x, same ? xo : prev, w, wn, delta, bad);
-    clamp_weight<kNarrow>(w, wn);
+    const int64_t v = wv_step<true>(x, same ? xo : prev, w, delta);
+    w = clamp1024(w);
     prev = xo;
     o = v;
   }
@@ -410,45 +320,63 @@ struct NegDecPair {
   int64_t prev1;
   int64_t w0;
   int64_t w1;
-  int32_t wn0;
-  int32_t wn1;
   int64_t delta;
 
-  __device__ __forceinline__ bool narrow_ok() const {
-    return narrow_weight(w0, delta) && narrow_weight(w1, delta);
-  }
-  __device__ __forceinline__ void to_narrow() {
-    wn0 = static_cast<int32_t>(w0);
-    wn1 = static_cast<int32_t>(w1);
-  }
-  __device__ __forceinline__ void from_narrow() {
-    w0 = wn0;
-    w1 = wn1;
-  }
-
-  template <bool kNarrow>
   __device__ __forceinline__ void step(const int64_t* in0,
                                        const int64_t* in1, int k,
-                                       int64_t& o0, int64_t& o1,
-                                       uint32_t& bad) {
+                                       int64_t& o0, int64_t& o1) {
     const int64_t x0 = in0[k];
     const int64_t x1 = in1[k];
     int64_t v0;
     int64_t v1;
     if (T == -2) {
-      v1 = wv_step<false, kNarrow>(x1, prev0, w1, wn1, delta, bad);
-      v0 = wv_step<false, kNarrow>(x0, v1, w0, wn0, delta, bad);
+      v1 = wv_step<false>(x1, prev0, w1, delta);
+      v0 = wv_step<false>(x0, v1, w0, delta);
     } else {
-      v0 = wv_step<false, kNarrow>(x0, prev1, w0, wn0, delta, bad);
-      v1 = wv_step<false, kNarrow>(x1, T == -1 ? v0 : prev0, w1, wn1,
-                                   delta, bad);
+      v0 = wv_step<false>(x0, prev1, w0, delta);
+      v1 = wv_step<false>(x1, T == -1 ? v0 : prev0, w1, delta);
     }
-    clamp_weight<kNarrow>(w0, wn0);
-    clamp_weight<kNarrow>(w1, wn1);
+    w0 = clamp1024(w0);
+    w1 = clamp1024(w1);
     prev0 = v0;
     prev1 = v1;
     o0 = v0;
     o1 = v1;
+  }
+};
+
+// decoding under -1, -2 and -3, a channel a lane: `prev` is the other
+// channel's output of the step before (seeded with the lane's stored
+// sample).  Under -1 (-2) lane 0 (1) steps first and passes its output
+// across for the other lane's source; under -3 both step at once.
+// Every step ends with a shuffle of the two outputs.
+template <int T>
+struct NegDecLane {
+  static constexpr bool kBoth = false;
+  bool computes = true;
+  bool first;  // the lane that steps first under -1 and -2
+  int64_t prev;
+  int64_t w;
+  int64_t delta;
+
+  __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
+                                       int k, int64_t& o, int64_t&) {
+    const int64_t x = mine[k];
+    int64_t v = 0;
+    if (T == -3) {
+      v = wv_step<false>(x, prev, w, delta);
+    } else {
+      if (first) {
+        v = wv_step<false>(x, prev, w, delta);
+      }
+      const int64_t vf = __shfl_sync(0x3u, v, T == -2 ? 1 : 0);
+      if (!first) {
+        v = wv_step<false>(x, vf, w, delta);
+      }
+    }
+    w = clamp1024(w);
+    prev = __shfl_xor_sync(0x3u, v, 1);
+    o = v;
   }
 };
 
@@ -459,14 +387,8 @@ struct CopyLane {
   bool computes = true;
   int64_t w;
 
-  __device__ __forceinline__ bool narrow_ok() const { return false; }
-  __device__ __forceinline__ void to_narrow() {}
-  __device__ __forceinline__ void from_narrow() {}
-
-  template <bool kNarrow>
   __device__ __forceinline__ void step(const int64_t* mine, const int64_t*,
-                                       int k, int64_t& o, int64_t&,
-                                       uint32_t&) {
+                                       int k, int64_t& o, int64_t&) {
     o = mine[k];
   }
 };
@@ -515,12 +437,19 @@ __device__ __forceinline__ int64_t neg_enc_lane(int term, int c,
 template <int T>
 __device__ __forceinline__ void neg_dec(int c, const Link& io, int64_t delta,
                                        const int64_t* wp, const int64_t* sp) {
+#if WV_DEC_SHFL
+  NegDecLane<T> pass;
+  pass.first = c == (T == -2 ? 1 : 0);
+  pass.prev = sp[c * kMaxSamples];
+  pass.w = wp[c];
+#else
   NegDecPair<T> pass;
   pass.computes = c == 0;
   pass.prev0 = sp[kMaxSamples];
   pass.prev1 = sp[0];
   pass.w0 = wp[0];
   pass.w1 = wp[1];
+#endif
   pass.delta = delta;
   drive(pass, c, io);
 }
@@ -719,13 +648,17 @@ int launch(const void* x, const void* meta, const void* chain,
   if (blocks <= 0) {
     return 0;
   }
-  // the rings may pass the 48 KB a block gets without asking (set on
-  // every launch: the attribute belongs to the current device)
-  const cudaError_t rc = cudaFuncSetAttribute(
-      wv_chain_kernel<kEncode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (rc != cudaSuccess) {
-    return static_cast<int>(rc);
+  // rings past the 48 KB a block gets without asking (a build with
+  // larger chunks or more stages) need the opt-in, which belongs to the
+  // current device
+  if constexpr (kSmemBytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        wv_chain_kernel<kEncode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (rc != cudaSuccess) {
+      return static_cast<int>(rc);
+    }
   }
   wv_chain_kernel<kEncode><<<blocks, kThreads, kSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
@@ -764,10 +697,12 @@ extern "C" int atpu_wv_decorr(const void* x, const void* meta,
                        nullptr, stream);
 }
 
-// the build's pipeline: chunk samples, ring stages, and whether chunks
-// may run in the narrow form
-extern "C" void atpu_wv_chain_config(int* chunk, int* stages, int* narrow) {
+// the build's pipeline: chunk samples, ring stages, and whether the
+// decoder's negative terms run a lane a channel with shuffles (1) or
+// both channels on one lane (0)
+extern "C" void atpu_wv_chain_config(int* chunk, int* stages,
+                                     int* dec_shfl) {
   *chunk = kChunk;
   *stages = kStages;
-  *narrow = WV_NARROW;
+  *dec_shfl = WV_DEC_SHFL;
 }

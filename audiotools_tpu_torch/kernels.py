@@ -323,8 +323,8 @@ def wv_decorr(x, meta, chain, weights, samples, out):
 
 def wv_chain_config():
     """csrc/wv_chain.cu's pipeline as built: (chunk samples, ring
-    stages, 1 when chunks may run in the narrow form and 0 when every
-    step is int64)"""
+    stages, 1 when the decoder's negative terms run a lane a channel
+    with shuffles and 0 when one lane runs both channels)"""
     lib = load()
     vals = [ctypes.c_int() for _ in range(3)]
     lib.atpu_wv_chain_config(*(ctypes.byref(v) for v in vals))

@@ -16,7 +16,8 @@ on the card.  Its phases each print one line:
    read in cycles;
 2. build: compiles the CUDA kernels from csrc/ (timed), with each
    kernel's registers, stack frame and spill stores as ptxas reports
-   them;
+   them, and beside them tools_dev/int_op_cycles.py's instruction
+   timings;
 3. kernel vs plain: pack_rows on the card against pack_rows_plain on
    the card (the eager tokenize, split and scatter chain), on the
    chosen subframes of the port's own analysis of bench-shaped input;
@@ -103,14 +104,17 @@ on the card.  Its phases each print one line:
     step of the critical path (a sample), beside its bounds: the bytes,
     the pipelined form's critical path (n steps of the slowest pass's
     chain plus the fill of one chunk a pass) and the older floor of
-    one pass after another (the kernels line's rows are the standard
-    batch and block);
+    one pass after another, both from the step's dependent chain
+    measured in this run on one warp (tools_dev/int_op_cycles.py's
+    int64 encode and term-18 decode links; the kernels line's rows are
+    the standard batch and block);
 18. WavPack identity and throughput: phase 11's signal written on the
     card at standard (one wv_corr launch a 44,100-sample block) equals
     the port's all-host C++ encode byte for byte, and decodes on the
     card (wv_decorr, 32-block batches) bit for bit with its MD5
-    checked, each repeated with the launch counters reset before each
-    run, no decode block on the host route, the all-host encode (run
+    checked (one wv_decorr launch a 32-block batch), each repeated
+    with the launch counters reset before each run, no decode block on
+    the host route, the all-host encode (run
     before phase 17) and decode timed once beside them; a short
     veryhigh stream and a short 6-channel (mask 0x3F) one give the
     same file and PCM on the card and on the CPU.
@@ -160,13 +164,6 @@ PEAK_OPS_PER_S = 67e12
 WV_BLOCK = 44100
 WV_DEC_BLOCKS = 8
 WV_KEYS = ("x", "meta", "chain", "weights", "samples")
-# the dependent chain of one WavPack step, cycles, (encode, the decode
-# step of term 18, the slowest decode term): in wv_chain.cu's narrow
-# form, and in the int64 form, which sets the floor of the passes run
-# one after another (tools_dev/int_op_cycles.py on an NVIDIA H100 80GB
-# HBM3 at 700 W)
-WV_CHAIN_CYCLES = (56.63, 45.38)
-WV_INT64_CHAIN_CYCLES = (60.63, 55.50)
 
 
 def line(phase, **fields):
@@ -260,15 +257,14 @@ def program_signal(n_frames, seed=7):
     return np.clip(out, -32768, 32767).astype(np.int32)
 
 
-def wv_serial_bounds(meta, chain, encode, chunk, max_sm_mhz):
+def wv_serial_bounds(meta, chain, encode, chunk, step, max_sm_mhz):
     """(critical path ms, the one-pass-after-another floor ms) of a
-    batch of WavPack blocks at the largest SM clock: the longest block's
-    n samples of the slowest pass's chain plus the pipeline's fill of
-    (P - 1) chunks of ``chunk`` samples, against P * n int64 chains when
-    the passes run one after another.  A decode pass of -1 or -2 chains
-    the two channels' steps: two steps a sample"""
-    (step, old_step) = (c[0] if encode else c[1]
-                        for c in (WV_CHAIN_CYCLES, WV_INT64_CHAIN_CYCLES))
+    batch of WavPack blocks at the largest SM clock, for a step's
+    dependent chain of ``step`` cycles: the longest block's n samples of
+    the slowest pass's chain plus the pipeline's fill of (P - 1) chunks
+    of ``chunk`` samples, against P * n chains when the passes run one
+    after another.  A decode pass of -1 or -2 chains the two channels'
+    steps: two steps a sample"""
     (path, floor) = (0.0, 0.0)
     for (b, (_o, n, _cc, passes)) in enumerate(meta.tolist()):
         links = [2 if not encode and t in (-1, -2) else 1
@@ -276,20 +272,22 @@ def wv_serial_bounds(meta, chain, encode, chunk, max_sm_mhz):
         if links:
             path = max(path, n * max(links) * step +
                        (passes - 1) * chunk * step)
-            floor = max(floor, n * sum(links) * old_step)
+            floor = max(floor, n * sum(links) * step)
     return (path / (max_sm_mhz * 1e3), floor / (max_sm_mhz * 1e3))
 
 
-SERIAL_KEYS = ("critical_path_ms", "bytes_ms", "serial_bound_ms",
-               "old_serial_floor_ms")
+SERIAL_KEYS = ("step_chain_cycles", "critical_path_ms", "bytes_ms",
+               "serial_bound_ms", "old_serial_floor_ms")
 
 
-def serial_fields(n_bytes, path_ms, old_ms):
-    """a WavPack kernel's bounds by its recurrence: the critical path
+def serial_fields(n_bytes, step, path_ms, old_ms):
+    """a WavPack kernel's bounds by its recurrence, from its step's
+    dependent chain (cycles, measured in this run): the critical path
     and the bytes (each at its peak), the larger of the two, and the
     one-pass-after-another floor of the old structure"""
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    return dict(critical_path_ms=path_ms, bytes_ms=bytes_ms,
+    return dict(step_chain_cycles=step, critical_path_ms=path_ms,
+                bytes_ms=bytes_ms,
                 serial_bound_ms=max(path_ms, bytes_ms),
                 old_serial_floor_ms=old_ms)
 
@@ -389,10 +387,12 @@ def wv_kernel_inputs():
     return inputs
 
 
-def wavpack_phases(dev, alac_sig, max_sm_mhz):
-    """phases 17 and 18 on ``alac_sig``, phase 11's signal; returns the
+def wavpack_phases(dev, alac_sig, max_sm_mhz, cycles_lib):
+    """phases 17 and 18 on ``alac_sig``, phase 11's signal, with
+    ``cycles_lib`` tools_dev/int_op_cycles.py's build; returns the
     kernels line's rows of wv_corr and wv_decorr and phase 18's encode
     and decode runs"""
+    from tools_dev import int_op_cycles
     from audiotools_tpu_torch import _native, kernels
     from audiotools_tpu_torch.codecs import wavpack
     from audiotools_tpu_torch.formats import wavpack as wv_format
@@ -403,6 +403,13 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
     chunk = kernels.wv_chain_config()[0]
 
     # ---- 17. WavPack kernels vs plain at full width -------------------
+    # the dependent chain of one int64 step, encoding and decoding term
+    # 18 (the slowest decode term), on one warp of this card: the
+    # critical paths below are read from these
+    (enc_step, dec_step) = (
+        int_op_cycles.cycles(cycles_lib, kind)
+        for kind in (int_op_cycles.WV_ENCODE_CASE,
+                     int_op_cycles.WV_DECODE_CASE))
     # the all-host encode of phase 18's stream, timed once: phase 17
     # checks wv_decorr on the first decode batch of this file
     t0 = time.perf_counter()
@@ -449,7 +456,8 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
                                                 batch["meta"][:, 2] *
                                                 batch["meta"][:, 3]).sum()))
         (path_ms, old_ms) = wv_serial_bounds(batch["meta"], batch["chain"],
-                                             False, chunk, max_sm_mhz)
+                                             False, chunk, dec_step,
+                                             max_sm_mhz)
         ms = median_ms(lambda: wv_scan.run_dec_chain(*card), 5)
         return dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -459,7 +467,7 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
             cycles_per_step_at_max_sm=ms * 1e3 * max_sm_mhz / steps,
             cycles_per_critical_step_at_max_sm=ms * 1e3 * max_sm_mhz /
             WV_BLOCK,
-            **serial_fields(n_bytes, path_ms, old_ms))
+            **serial_fields(n_bytes, dec_step, path_ms, old_ms))
 
     # the main path's batch: the first 32 blocks of the standard stream
     (d_batch, d_card, d_err, d_plain) = dec_check(
@@ -519,7 +527,8 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
         n_bytes = 2 * x.size * 8 + 1440
         (c_bound, c_bound_by) = bound(n_bytes, 10 * x.size * len(chain))
         (path_ms, old_ms) = wv_serial_bounds(
-            c_batch["meta"], c_batch["chain"], True, chunk, max_sm_mhz)
+            c_batch["meta"], c_batch["chain"], True, chunk, enc_step,
+            max_sm_mhz)
         c_ms = median_ms(lambda: wv_scan.run_pass_chain(*c_card), 5)
         corr_rows[name] = dict(
             passes=len(chain), max_abs_err=err, ms=c_ms,
@@ -529,7 +538,7 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
             cycles_per_critical_step_at_max_sm=c_ms * 1e3 * max_sm_mhz /
             WV_BLOCK,
             bound_ms=c_bound, bound_by=c_bound_by,
-            **serial_fields(n_bytes, path_ms, old_ms))
+            **serial_fields(n_bytes, enc_step, path_ms, old_ms))
         del c_card, got
     line("kernel_vs_plain", kernel="wv_corr", shape=[1, 2, WV_BLOCK],
          equal=True, equal_host_cpp=True, plain_on="cpu", blocks=corr_rows)
@@ -566,6 +575,9 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
     host_wv_dec_s = time.perf_counter() - t0
     wv_enc_runs = []
     wv_dec_runs = []
+    # the stream's blocks: a wv_corr launch each, a wv_decorr launch a
+    # batch of DEC_BATCH_BLOCKS
+    wv_blocks = -(-a_frames // WV_BLOCK)
     for _ in range(THROUGHPUT_RUNS):
         timings = {}
         out = io.BytesIO()
@@ -575,7 +587,7 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
                                 "standard", device=dev, timings=timings)
         wall = time.perf_counter() - t0
         c_launches = wv_scan.run_pass_chain.launches
-        if c_launches != -(-a_frames // WV_BLOCK):
+        if c_launches != wv_blocks:
             raise AssertionError("main WavPack encode: %d launches of "
                                  "wv_corr, not one a block" % (c_launches,))
         if out.getvalue() != host_wv:
@@ -592,10 +604,13 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz):
         samples = read_all(dec)
         wall = time.perf_counter() - t0
         d_launches = wv_scan.run_dec_chain.launches
-        if d_launches <= 0 or dec.host_blocks or not dec.md5_checked:
+        if (d_launches != -(-wv_blocks // wavpack.DEC_BATCH_BLOCKS) or
+                dec.host_blocks or not dec.md5_checked):
             raise AssertionError("main WavPack decode: %d launches of "
-                                 "wv_decorr, %d host blocks, MD5 checked: %s"
-                                 % (d_launches, dec.host_blocks,
+                                 "wv_decorr, not one a %d-block batch, %d "
+                                 "host blocks, MD5 checked: %s"
+                                 % (d_launches, wavpack.DEC_BATCH_BLOCKS,
+                                    dec.host_blocks,
                                     dec.md5_checked))
         if not np.array_equal(samples, alac_sig):
             raise AssertionError("card WavPack decode is not bit-exact")
@@ -662,7 +677,12 @@ def main():
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
+    # tools_dev/int_op_cycles.py's instruction timings, compiled beside
+    # the kernels: phase 17 reads the WavPack step chains from them
+    from tools_dev import int_op_cycles
+    cycles_build = int_op_cycles.start_build(kernels)
     kernels.load()
+    cycles_lib = int_op_cycles.finish_build(cycles_build)
     line("build", seconds=time.perf_counter() - t0,
          library=os.path.relpath(kernels.library_path(), ROOT),
          ptxas=ptxas_summary(kernels.build_log))
@@ -1382,7 +1402,7 @@ def main():
          encode_runs=shn_enc_runs, decode_runs=shn_dec_runs)
 
     (corr_row, decorr_row, wv_enc_runs, wv_dec_runs) = wavpack_phases(
-        dev, alac_sig, max_sm_mhz)
+        dev, alac_sig, max_sm_mhz, cycles_lib)
 
     forbidden = loaded_forbidden_modules()
     if forbidden:

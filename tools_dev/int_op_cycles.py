@@ -223,6 +223,53 @@ CASES = (
      "feeding the next source, per link (latency)", "latency"),
 )
 ITERS = 20000
+# the cases of wv_chain.cu's int64 step chains: chip_smoke.py measures
+# them in its own run for the WavPack kernels' critical paths
+WV_ENCODE_CASE = 11
+WV_DECODE_CASE = 12
+
+
+def start_build(kernels):
+    """starts nvcc on SOURCE into kernels.BUILD_DIR, with the kernels'
+    own flags so that the cycles are those of how they build; returns
+    what finish_build takes"""
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    src = os.path.join(kernels.BUILD_DIR, "int_op_cycles.cu")
+    lib_path = os.path.join(kernels.BUILD_DIR, "libint_op_cycles.so")
+    with open(src, "w") as f:
+        f.write(SOURCE)
+    proc = subprocess.Popen([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
+                            ["-shared", "-o", lib_path, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return (proc, lib_path)
+
+
+def finish_build(started):
+    """waits for start_build's compile; returns the loaded library"""
+    (proc, lib_path) = started
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError("int_op_cycles: nvcc failed:\n" + log)
+    lib = ctypes.CDLL(lib_path)
+    lib.run_case.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    return lib
+
+
+def cycles(lib, kind):
+    """case ``kind``'s cycles a link (latency) or a pair (throughput) on
+    one warp of card 0, from the second of two runs (the first warms
+    the card up)"""
+    import torch
+    dev = torch.device("cuda", 0)
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(32, dtype=torch.int64, device=dev)
+    for _ in range(2):
+        rc = lib.run_case(kind, ITERS, 7, 5, out.data_ptr(), sink.data_ptr())
+        if rc != 0:
+            raise RuntimeError("launch failed: CUDA error %d" % rc)
+        torch.cuda.synchronize()
+    return int(out.item()) / (ITERS * 8)
 
 
 def main():
@@ -230,38 +277,18 @@ def main():
     from audiotools_tpu_torch import kernels
     if not torch.cuda.is_available():
         sys.exit("int_op_cycles: needs a CUDA card")
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    src = os.path.join(kernels.BUILD_DIR, "int_op_cycles.cu")
-    lib_path = os.path.join(kernels.BUILD_DIR, "libint_op_cycles.so")
-    with open(src, "w") as f:
-        f.write(SOURCE)
-    # the kernels' own flags, so the cycles are those of how they build
-    build = subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
-                           ["-shared", "-o", lib_path, src],
-                           capture_output=True, text=True)
-    if build.returncode != 0:
-        sys.exit("int_op_cycles: nvcc failed:\n" + build.stdout +
-                 build.stderr)
-    lib = ctypes.CDLL(lib_path)
-    lib.run_case.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    try:
+        lib = finish_build(start_build(kernels))
+    except RuntimeError as e:
+        sys.exit(str(e))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    dev = torch.device("cuda", 0)
-    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
-    sink = torch.zeros(32, dtype=torch.int64, device=dev)
     for (kind, (name, what)) in enumerate(CASES):
-        for _ in range(2):   # the first run warms the card up
-            rc = lib.run_case(kind, ITERS, 7, 5, cycles.data_ptr(),
-                              sink.data_ptr())
-            if rc != 0:
-                raise RuntimeError("launch failed: CUDA error %d" % rc)
-            torch.cuda.synchronize()
         print(json.dumps({"case": name, "measures": what,
-                          "cycles": int(cycles.item()) / (ITERS * 8)}),
-              flush=True)
+                          "cycles": cycles(lib, kind)}), flush=True)
 
 
 if __name__ == "__main__":

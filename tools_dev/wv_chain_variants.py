@@ -2,8 +2,9 @@
 """Times builds of audiotools_tpu_torch/csrc/wv_chain.cu that differ in
 their -D choices, on one CUDA card: WV_CHUNK, the samples a chunk hands
 from one pass to the next; WV_STAGES, the depth of the rings of chunks;
-WV_NARROW, the step in int64 only (0) or, where a chunk allows it, with
-a 32-bit weight and a 32 x 32 -> 64-bit product (1).
+WV_DEC_SHFL, the decoder's negative terms (-1, -2, -3) with both
+channels on one lane (0) or a lane a channel, each step's outputs
+passed across by a warp shuffle (1).
 
 The inputs are chip_smoke.py's phase 17's: the third block of a
 standard, a veryhigh and a standard mono encode of phase 11's signal
@@ -35,14 +36,13 @@ sys.path.insert(0, ROOT)
 
 # the package's build first
 VARIANTS = (
-    dict(WV_CHUNK=16, WV_STAGES=4, WV_NARROW=1),
-    dict(WV_CHUNK=16, WV_STAGES=4, WV_NARROW=0),
-    dict(WV_CHUNK=32, WV_STAGES=4, WV_NARROW=1),
-    dict(WV_CHUNK=32, WV_STAGES=4, WV_NARROW=0),
-    dict(WV_CHUNK=8, WV_STAGES=4, WV_NARROW=1),
-    dict(WV_CHUNK=16, WV_STAGES=2, WV_NARROW=1),
-    dict(WV_CHUNK=16, WV_STAGES=3, WV_NARROW=1),
-    dict(WV_CHUNK=16, WV_STAGES=8, WV_NARROW=1),
+    dict(WV_CHUNK=16, WV_STAGES=4, WV_DEC_SHFL=0),
+    dict(WV_CHUNK=16, WV_STAGES=4, WV_DEC_SHFL=1),
+    dict(WV_CHUNK=32, WV_STAGES=4, WV_DEC_SHFL=0),
+    dict(WV_CHUNK=8, WV_STAGES=4, WV_DEC_SHFL=0),
+    dict(WV_CHUNK=16, WV_STAGES=2, WV_DEC_SHFL=0),
+    dict(WV_CHUNK=16, WV_STAGES=3, WV_DEC_SHFL=0),
+    dict(WV_CHUNK=16, WV_STAGES=8, WV_DEC_SHFL=0),
 )
 TURN_RUNS = 5
 
@@ -109,7 +109,10 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(),
         flush=True)
-    kernels.load()
+    if kernels.wv_chain_config() != tuple(
+            VARIANTS[0][k] for k in ("WV_CHUNK", "WV_STAGES", "WV_DEC_SHFL")):
+        sys.exit("wv_chain_variants: VARIANTS[0] is not the package's "
+                 "build %s" % (kernels.wv_chain_config(),))
     built = build_all(kernels)
     dev = torch.device("cuda", 0)
 
