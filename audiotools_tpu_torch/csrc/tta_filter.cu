@@ -19,115 +19,330 @@
 //
 // What bounds it.  Bytes: L * n inputs read and L * n residuals written
 // (L = 512, n = 46080 for 256 frames of 44.1 kHz stereo: 189 MB, 0.056
-// ms at 3.35 TB/s).  But each lane is a serial recurrence of n steps.
-// dx and dl depend on the inputs only; the one serial link is
-// sign(res[i-1]) -> the dot product -> res[i].  Written as
-//   acc = (round + sum_j dl[j] * qm[j]) + sign * (sum_j dl[j] * dx[j])
-// (equal mod 2^32), both sums need only values known before res[i-1],
-// so the chain is the sign (shifts and an or), one multiply-add, the
-// shift and the subtract.
+// ms at 3.35 TB/s).  But each lane is a serial recurrence of n steps,
+// and 512 lanes are 16 warps: a lane takes at least n times the step's
+// dependent chain, and a warp alone on its scheduler pays for every
+// instruction it issues.
 //
-// Design (the simple form; speed is later work): one thread a lane, its
-// qm, dx and dl in registers (the 8-wide loops fully unrolled, so every
-// index is static); a warp owns 32 lanes and stages their inputs three
-// tiles of 32 samples ahead through shared memory with 16-byte
-// cp.async copies, and writes its residuals back through an output tile
-// the same way (row_tiles.cuh), where a lane-per-thread walk of device
-// memory touches 32 lines n * 4 bytes apart every step.
+// The look-ahead.  Write DL(i), DX(i) and QM(i) for dl, dx before step
+// i's rotation and qm after step i's update, and sgn(i) = sign(res[i-1]).
+// In the encoder p is an input, so DL and DX depend on the inputs
+// alone, and so do
+//   b(i) = DL(i) . DX(i)   and   c(i) = DL(i) . DX(i-1).
+// Since QM(i) = QM(i-2) + sgn(i-1) DX(i-1) + sgn(i) DX(i), mod 2^32
+//   acc(i) = a'(i) + sgn(i-1) c(i) + sgn(i) b(i),
+//   a'(i)  = round + DL(i) . QM(i-2).
+// a'(i) and the qm update QM(i-1) = QM(i-2) + sgn(i-1) DX(i-1) need
+// signs one step old, so the 8-term dot product has a whole step of
+// slack, and the loop from one step to the next is the sign (shifts and
+// logic), one multiply-add, the shift and the subtract
+// (tools_dev/int_op_cycles.py TTA_FILTER_CASE).
+//
+// Design, point by point:
+// - Two roles.  A CTA owns 32 lanes and runs two warps.  The input
+//   warp stages the lanes' p through shared memory kStages tiles of 32
+//   samples ahead with 16-byte cp.async copies (row_tiles.cuh), and
+//   from p alone computes each step's dl tail (d5, d6, d7), the dx
+//   signs, b and c.  The chain warp keeps qm in registers and runs the
+//   recurrence above: the qm update, a' as a tree sum, e = a' + sgn(i-1)
+//   c(i), then acc = e + sgn(i) b(i), the shift, the subtract and the
+//   sign.  It writes its residuals back through an output tile the same
+//   way.
+// - Hand-off.  The input warp writes p, b, c (and, with
+//   TTA_FILTER_CROSS_STATE, the dl tail and the dx signs) of a whole
+//   tile into one of kStages buffers in shared memory and arrives on
+//   that buffer's named barrier; the chain warp waits there, reads the
+//   tile, and arrives on the buffer's other barrier, on which the input
+//   warp waits before it writes the buffer again.  One barrier a tile
+//   for each warp, and the input warp runs up to kStages tiles ahead.
+// - What crosses.  TTA_FILTER_CROSS_STATE 1 (the default): d5, d6, d7
+//   and the four dx signs cross too, and the chain warp only loads
+//   them.  0: only p, b and c cross, and the chain warp recomputes the
+//   rest from p with the input warp's own code, about 11 shifts, logic
+//   ops and subtracts a step against 1.75 16-byte loads.
+// - No moves.  dl and dx are windows on rings of 8 registers indexed
+//   by the step (d5, d6, d7, p and the signs of d5, d6, d7, p), and each
+//   8 steps (one turn of the rings) are unrolled, so every index is
+//   static and the rotation renames registers instead of moving them
+//   (as in tta_synth.cu).
+// - Off the multiply-add pipe.  The signs and sign(res) come from
+//   shifts and logic, not compares and selects.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "row_tiles.cuh"
 
+#ifndef TTA_FILTER_CROSS_STATE
+#define TTA_FILTER_CROSS_STATE 1
+#endif
+
 namespace {
 
+using atpu::kStages;
 using atpu::kTile;
+
+constexpr int kRows = 32;
+constexpr int kTileWords = kRows * kTile;
+constexpr bool kCrossState = TTA_FILTER_CROSS_STATE != 0;
+// the tiles of a hand-off buffer: p, b, c, then with kCrossState d5,
+// d6, d7 and the signs g4, g5, g6, g7
+enum { kP, kB, kC, kD5, kD6, kD7, kG4, kG5, kG6, kG7 };
+constexpr int kCross = kCrossState ? 10 : 3;
+// dynamic shared memory: the input staging, the output tile, the
+// hand-off buffers
+constexpr int kSmemBytes =
+    (kStages + 1 + kStages * kCross) * kTileWords * 4;
+// named barriers (0 is __syncthreads'): buffer s full, buffer s free
+constexpr int kFullBar = 1;
+constexpr int kFreeBar = 1 + kStages;
 
 __device__ __forceinline__ int32_t s(uint32_t v) {
   return static_cast<int32_t>(v);
 }
 
-struct Lane {
-  uint32_t qm[8], dx[8], dl[8];
-  uint32_t prev_res;
-};
-
-// one step of the lane: input p -> residual
-__device__ __forceinline__ uint32_t step(Lane& st, uint32_t p,
-                                         uint32_t round_v, int fshift) {
-  // sign(res[i-1]) as -1, 0 or 1: its sign bit, or'ed with that of its
-  // negation
-  const uint32_t sgn = static_cast<uint32_t>(s(st.prev_res) >> 31) |
-                       ((0u - st.prev_res) >> 31);
-  uint32_t a = round_v;
-  uint32_t b = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a += st.dl[j] * st.qm[j];
-    b += st.dl[j] * st.dx[j];
-    st.qm[j] += sgn * st.dx[j];
-  }
-  const uint32_t acc = a + sgn * b;
-  const uint32_t res = p - static_cast<uint32_t>(s(acc) >> fshift);
-  // the rotation, the signs from the old dl
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    st.dx[j] = st.dx[j + 1];
-  }
-  st.dx[4] = s(st.dl[4]) >= 0 ? 1u : 0u - 1u;
-  st.dx[5] = s(st.dl[5]) >= 0 ? 2u : 0u - 2u;
-  st.dx[6] = s(st.dl[6]) >= 0 ? 2u : 0u - 2u;
-  st.dx[7] = s(st.dl[7]) >= 0 ? 4u : 0u - 4u;
-  const uint32_t d7 = p - st.dl[7];
-  const uint32_t d6 = d7 - st.dl[6];
-  const uint32_t d5 = d6 - st.dl[5];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    st.dl[j] = st.dl[j + 1];
-  }
-  st.dl[4] = d5;
-  st.dl[5] = d6;
-  st.dl[6] = d7;
-  st.dl[7] = p;
-  st.prev_res = res;
-  return res;
+// sign(v) as -1, 0 or 1: its sign bit, or'ed with that of its negation
+__device__ __forceinline__ uint32_t sign_of(uint32_t v) {
+  return static_cast<uint32_t>(s(v) >> 31) | ((0u - v) >> 31);
 }
 
-__global__ void __launch_bounds__(32)
-tta_filter_kernel(const int32_t* __restrict__ predicted, int lanes, int n,
-                  int fshift, bool vec, int32_t* __restrict__ out) {
-  constexpr int ROWS = 32;
-  __shared__ __align__(16) int32_t in_tiles[atpu::kStages][ROWS * kTile];
-  __shared__ __align__(16) int32_t out_tile[ROWS * kTile];
-  const int lane = threadIdx.x;
-  const uint32_t round_v = 1u << (fshift - 1);
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
 
-  Lane st;
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// the input-only history of a lane: the values of step k at slot k % 8
+struct Rings {
+  uint32_t d5[8], d6[8], d7[8], pv[8];
+  uint32_t g4[8], g5[8], g6[8], g7[8];  // their signs as dx takes them
+
+  // the all-zero state: the signs dx takes at step 1 read the zero dl
+  // of step -1 (+1, +2, +2, +4), those of earlier steps are dx's zeros
+  __device__ __forceinline__ void init() {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    st.qm[j] = st.dx[j] = st.dl[j] = 0;
+    for (int j = 0; j < 8; ++j) {
+      d5[j] = d6[j] = d7[j] = pv[j] = 0;
+      g4[j] = g5[j] = g6[j] = g7[j] = 0;
+    }
+    g4[7] = 1;
+    g5[7] = 2;
+    g6[7] = 2;
+    g7[7] = 4;
   }
-  st.prev_res = 0;
 
-  const int tiles = (n + kTile - 1) / kTile;
-  const atpu::RowTiles<ROWS> io(predicted, out, lanes, n,
-                                blockIdx.x * ROWS, vec, lane);
+  // step i's dl tail and signs from its input p, into slot i % 8
+  __device__ __forceinline__ void advance(int i, uint32_t p) {
+    const uint32_t d7v = p - pv[(i - 1) & 7];
+    const uint32_t d6v = d7v - d7[(i - 1) & 7];
+    const uint32_t d5v = d6v - d6[(i - 1) & 7];
+    pv[i & 7] = p;
+    d7[i & 7] = d7v;
+    d6[i & 7] = d6v;
+    d5[i & 7] = d5v;
+    // v >= 0 ? m : -m from v's sign mask (m = 1, 2, 2, 4)
+    g4[i & 7] = static_cast<uint32_t>(s(d5v) >> 31) | 1u;
+    g5[i & 7] = (static_cast<uint32_t>(s(d6v) >> 31) & 0xfffffffcu) + 2u;
+    g6[i & 7] = (static_cast<uint32_t>(s(d7v) >> 31) & 0xfffffffcu) + 2u;
+    g7[i & 7] = (static_cast<uint32_t>(s(p) >> 31) & 0xfffffff8u) + 4u;
+  }
+
+  // DL(i): d5 of steps i-5 .. i-1, then d6, d7, p of step i-1
+  __device__ __forceinline__ void dl(int i, uint32_t (&v)[8]) const {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      v[j] = d5[(i - 5 + j) & 7];
+    }
+    v[5] = d6[(i - 1) & 7];
+    v[6] = d7[(i - 1) & 7];
+    v[7] = pv[(i - 1) & 7];
+  }
+
+  // DX(k): the d5 signs of steps k-6 .. k-2, then those of d6, d7, p of
+  // step k-2
+  __device__ __forceinline__ void dx(int k, uint32_t (&v)[8]) const {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      v[j] = g4[(k - 6 + j) & 7];
+    }
+    v[5] = g5[(k - 2) & 7];
+    v[6] = g6[(k - 2) & 7];
+    v[7] = g7[(k - 2) & 7];
+  }
+};
+
+// init + a . b, summed as a tree of four two-term multiply-adds
+__device__ __forceinline__ uint32_t dot8(const uint32_t (&a)[8],
+                                         const uint32_t (&b)[8],
+                                         uint32_t init) {
+  const uint32_t t0 = init + a[0] * b[0] + a[1] * b[1];
+  const uint32_t t1 = a[2] * b[2] + a[3] * b[3];
+  const uint32_t t2 = a[4] * b[4] + a[5] * b[5];
+  const uint32_t t3 = a[6] * b[6] + a[7] * b[7];
+  return (t0 + t1) + (t2 + t3);
+}
+
+__device__ __forceinline__ void store4(int32_t* tile, int w, uint32_t a,
+                                       uint32_t b, uint32_t c, uint32_t d) {
+  *reinterpret_cast<int4*>(tile + w) = make_int4(s(a), s(b), s(c), s(d));
+}
+
+__device__ __forceinline__ void load4(const int32_t* tile, int w,
+                                      uint32_t (&v)[4]) {
+  const int4 q = *reinterpret_cast<const int4*>(tile + w);
+  v[0] = static_cast<uint32_t>(q.x);
+  v[1] = static_cast<uint32_t>(q.y);
+  v[2] = static_cast<uint32_t>(q.z);
+  v[3] = static_cast<uint32_t>(q.w);
+}
+
+// The input warp: p tile by tile from device memory, and from it each
+// step's p, b, c (and the rings' new values) into the hand-off buffers.
+__device__ __forceinline__ void input_warp(
+    const atpu::RowTiles<kRows>& io, int32_t (*in_tiles)[kTileWords],
+    int32_t* hand, int tiles, int lane) {
+  Rings r;
+  r.init();
   io.prefetch(in_tiles, tiles);
   for (int t = 0; t < tiles; ++t) {
     const int32_t* in = io.next(in_tiles, t, tiles);
+    const int st = t % kStages;
+    if (t >= kStages) {
+      bar_sync(kFreeBar + st);  // the chain warp is done with tile t - S
+    }
+    int32_t* h = hand + st * kCross * kTileWords;
 #pragma unroll 1
-    for (int c = 0; c < kTile; c += 4) {
-      const int4 pv =
-          *reinterpret_cast<const int4*>(in + atpu::tile_word(lane, c));
-      int4 rv;
-      rv.x = s(step(st, static_cast<uint32_t>(pv.x), round_v, fshift));
-      rv.y = s(step(st, static_cast<uint32_t>(pv.y), round_v, fshift));
-      rv.z = s(step(st, static_cast<uint32_t>(pv.z), round_v, fshift));
-      rv.w = s(step(st, static_cast<uint32_t>(pv.w), round_v, fshift));
-      *reinterpret_cast<int4*>(out_tile + atpu::tile_word(lane, c)) = rv;
+    for (int c8 = 0; c8 < kTile; c8 += 8) {
+#pragma unroll
+      for (int c = 0; c < 8; c += 4) {
+        const int w = atpu::tile_word(lane, c8 + c);
+        uint32_t p4[4], b4[4], c4[4];
+        load4(in, w, p4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = c + u;
+          r.advance(i, p4[u]);
+          uint32_t dl[8], dx[8], dxp[8];
+          r.dl(i, dl);
+          r.dx(i, dx);
+          r.dx(i - 1, dxp);
+          b4[u] = dot8(dl, dx, 0u);
+          c4[u] = dot8(dl, dxp, 0u);
+        }
+        store4(h + kP * kTileWords, w, p4[0], p4[1], p4[2], p4[3]);
+        store4(h + kB * kTileWords, w, b4[0], b4[1], b4[2], b4[3]);
+        store4(h + kC * kTileWords, w, c4[0], c4[1], c4[2], c4[3]);
+        if constexpr (kCrossState) {
+#define RING4(ring) r.ring[c], r.ring[c + 1], r.ring[c + 2], r.ring[c + 3]
+          store4(h + kD5 * kTileWords, w, RING4(d5));
+          store4(h + kD6 * kTileWords, w, RING4(d6));
+          store4(h + kD7 * kTileWords, w, RING4(d7));
+          store4(h + kG4 * kTileWords, w, RING4(g4));
+          store4(h + kG5 * kTileWords, w, RING4(g5));
+          store4(h + kG6 * kTileWords, w, RING4(g6));
+          store4(h + kG7 * kTileWords, w, RING4(g7));
+#undef RING4
+        }
+      }
+    }
+    bar_arrive(kFullBar + st);
+  }
+}
+
+// The chain warp: qm and the residuals, from the hand-off buffers.
+__device__ __forceinline__ void chain_warp(const atpu::RowTiles<kRows>& io,
+                                           int32_t* out_tile,
+                                           const int32_t* hand, int tiles,
+                                           int lane, int fshift) {
+  const uint32_t round_v = 1u << (fshift - 1);
+  Rings r;
+  r.init();
+  uint32_t qm[8];  // QM(i-2) at the start of step i
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    qm[j] = 0;
+  }
+  uint32_t sg_prev = 0;  // sgn(i-1)
+  uint32_t sg = 0;       // sgn(i)
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % kStages;
+    bar_sync(kFullBar + st);
+    const int32_t* h = hand + st * kCross * kTileWords;
+#pragma unroll 1
+    for (int c8 = 0; c8 < kTile; c8 += 8) {
+#pragma unroll
+      for (int c = 0; c < 8; c += 4) {
+        const int w = atpu::tile_word(lane, c8 + c);
+        uint32_t p4[4], b4[4], c4[4], res4[4];
+        load4(h + kP * kTileWords, w, p4);
+        load4(h + kB * kTileWords, w, b4);
+        load4(h + kC * kTileWords, w, c4);
+        uint32_t x[7][4];
+        if constexpr (kCrossState) {
+#pragma unroll
+          for (int q = 0; q < 7; ++q) {
+            load4(h + (kD5 + q) * kTileWords, w, x[q]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = c + u;
+          // step i's own values enter slot i % 8, which step i does not
+          // read (it reads steps i-7 .. i-1)
+          if constexpr (kCrossState) {
+            r.pv[i] = p4[u];
+            r.d5[i] = x[0][u];
+            r.d6[i] = x[1][u];
+            r.d7[i] = x[2][u];
+            r.g4[i] = x[3][u];
+            r.g5[i] = x[4][u];
+            r.g6[i] = x[5][u];
+            r.g7[i] = x[6][u];
+          } else {
+            r.advance(i, p4[u]);
+          }
+          uint32_t dl[8], dxp[8];
+          r.dl(i, dl);
+          r.dx(i - 1, dxp);
+          // a'(i) and e(i) need sgn(i-1) and QM(i-2): a step old
+          const uint32_t e = dot8(dl, qm, round_v) + sg_prev * c4[u];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            qm[j] += sg_prev * dxp[j];  // QM(i-1)
+          }
+          // the chain: sgn(i) -> one multiply-add -> shift -> subtract
+          const uint32_t acc = e + sg * b4[u];
+          res4[u] = p4[u] - static_cast<uint32_t>(s(acc) >> fshift);
+          sg_prev = sg;
+          sg = sign_of(res4[u]);
+        }
+        store4(out_tile, w, res4[0], res4[1], res4[2], res4[3]);
+      }
+    }
+    if (t + kStages < tiles) {
+      bar_arrive(kFreeBar + st);  // the input warp may refill buffer st
     }
     io.finish(out_tile, t * kTile);
+  }
+}
+
+__global__ void __launch_bounds__(64)
+tta_filter_kernel(const int32_t* __restrict__ predicted, int lanes, int n,
+                  int fshift, bool vec, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) int32_t smem[];
+  auto in_tiles = reinterpret_cast<int32_t (*)[kTileWords]>(smem);
+  int32_t* out_tile = smem + kStages * kTileWords;
+  int32_t* hand = out_tile + kTileWords;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (n + kTile - 1) / kTile;
+  const atpu::RowTiles<kRows> io(predicted, out, lanes, n,
+                                 blockIdx.x * kRows, vec, lane);
+  if (threadIdx.x < 32) {
+    input_warp(io, in_tiles, hand, tiles, lane);
+  } else {
+    chain_warp(io, out_tile, hand, tiles, lane, fshift);
   }
 }
 
@@ -145,7 +360,13 @@ extern "C" int atpu_tta_filter(const void* predicted, int lanes, int n,
   if (fshift < 1 || fshift > 30) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  tta_filter_kernel<<<(lanes + 31) / 32, 32, 0,
+  const cudaError_t attr = cudaFuncSetAttribute(
+      tta_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (attr != cudaSuccess) {
+    return static_cast<int>(attr);
+  }
+  tta_filter_kernel<<<(lanes + kRows - 1) / kRows, 64, kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(predicted), lanes, n, fshift,
       atpu::rows_vectorizable(predicted, out, n),

@@ -76,7 +76,11 @@ on the card.  Its phases each print one line:
     filter) on the card against its plain version on the card, on the
     first encode batch of phase 11's signal (256 frames, 512 lanes x
     46080 of the fixed predictor's output); must be equal; timed as
-    phase 12, and with the card's time alone (device_ms);
+    phase 12, and with the card's time alone (device_ms), beside its
+    serial floor: n steps of its step-to-step chain, and of the loop
+    of the kernel before it, both measured in this run on one warp
+    (tools_dev/int_op_cycles.py's TTA_FILTER_CASE and
+    TTA_FILTER_OLD_CASE);
 15. TTA encode identity and throughput: phase 11's signal written on
     the card, repeated, each run's file equal to the one the port's
     all-host C++ encoder gives (timed once beside it), with stage
@@ -678,7 +682,8 @@ def main():
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     # tools_dev/int_op_cycles.py's instruction timings, compiled beside
-    # the kernels: phase 17 reads the WavPack step chains from them
+    # the kernels: phases 14 and 17 read the TTA and WavPack step chains
+    # from them
     from tools_dev import int_op_cycles
     cycles_build = int_op_cycles.start_build(kernels)
     kernels.load()
@@ -1259,16 +1264,28 @@ def main():
     # operations (qm update 16, dot product 16, sign, shift and subtract
     # 3, the state rotation 7)
     (f_bound, f_bound_by) = bound(2 * L_f * n_t * 4, 42 * L_f * n_t)
+    # the serial floor: n steps of the loop from one step to the next,
+    # measured in this run on one warp at the largest SM clock (the
+    # kernel's chain, and the qm -> dot product -> acc loop of the
+    # kernel before it)
+    (f_step, f_old_step) = (
+        int_op_cycles.cycles(cycles_lib, kind)
+        for kind in (int_op_cycles.TTA_FILTER_CASE,
+                     int_op_cycles.TTA_FILTER_OLD_CASE))
+    f_card_ms = device_ms(lambda: tta_scan.hybrid_filter(lanes, 16))
     filter_row = dict(
         max_abs_err=f_err,
         ms=median_ms(lambda: tta_scan.hybrid_filter(lanes, 16)),
         plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_bound_by,
-        library_ms=None)
+        library_ms=None, device_ms=f_card_ms, step_chain_cycles=f_step,
+        serial_floor_ms=n_t * f_step / (max_sm_mhz * 1e3),
+        old_loop_cycles=f_old_step,
+        old_loop_ms=n_t * f_old_step / (max_sm_mhz * 1e3))
     line("kernel_vs_plain", kernel="tta_filter", shape=[L_f, n_t],
          frames=F_e, equal=True,
-         device_ms=device_ms(lambda: tta_scan.hybrid_filter(lanes, 16)),
          ns_per_step=filter_row["ms"] * 1e6 / n_t,
          cycles_per_step_at_max_sm=filter_row["ms"] * 1e3 * max_sm_mhz / n_t,
+         device_cycles_per_step_at_max_sm=f_card_ms * 1e3 * max_sm_mhz / n_t,
          **filter_row)
     del lanes, got, want
 

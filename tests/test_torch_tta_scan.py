@@ -198,31 +198,110 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
         tta.encode_tta(io.BytesIO(), pcm.reader_from_array(arr, 16, RATE))
 
 
+def wrap32(v):
+    """int64 values read as int32 (mod 2^32)"""
+    return ((v + (1 << 31)) & 0xffffffff) - (1 << 31)
+
+
+def later(a, k, at_minus_1=0):
+    """[L, n] values of the steps moved k steps later: column i holds
+    step i - k; step -1 reads ``at_minus_1``, earlier steps 0"""
+    out = np.zeros_like(a)
+    if k <= a.shape[1]:
+        out[:, k:] = a[:, :a.shape[1] - k]
+        out[:, k - 1] = at_minus_1
+    return out
+
+
+def lookahead_filter(x, bps):
+    """csrc/tta_filter.cu's split of the hybrid filter, in numpy int64
+    masked to 32 bits.  DL(i), DX(i) (dl, dx before step i's rotation),
+    b(i) = DL(i) . DX(i) and c(i) = DL(i) . DX(i-1) come from the inputs
+    alone, for every step at once; the loop carries only qm and the
+    residuals' signs:
+      acc(i) = a'(i) + sgn(i-1) c(i) + sgn(i) b(i),
+      a'(i) = round + DL(i) . QM(i-2),
+    with sgn(i) the sign of res[i-1] and QM(i) qm after step i's
+    update."""
+    fshift = ref_scan.filter_shift_for(bps)
+    round_v = 1 << (fshift - 1)
+    p = x.astype(np.int64)
+    (L, n) = p.shape
+    d7 = wrap32(p - later(p, 1))
+    d6 = wrap32(d7 - later(d7, 1))
+    d5 = wrap32(d6 - later(d6, 1))
+    (g4, g5, g6, g7) = (np.where(v >= 0, m, -m) for (v, m) in
+                        ((d5, 1), (d6, 2), (d7, 2), (p, 4)))
+    dl = np.stack([later(d5, 5), later(d5, 4), later(d5, 3), later(d5, 2),
+                   later(d5, 1), later(d6, 1), later(d7, 1), later(p, 1)],
+                  axis=-1)
+    # dx's signs come from dl two steps back; those dx takes at step 1
+    # read the zero dl of step -1 (+m), those of earlier steps are 0
+    dx = np.stack([later(g4, 6, 1), later(g4, 5, 1), later(g4, 4, 1),
+                   later(g4, 3, 1), later(g4, 2, 1), later(g5, 2, 2),
+                   later(g6, 2, 2), later(g7, 2, 4)], axis=-1)
+    dx_prev = np.zeros_like(dx)
+    dx_prev[:, 1:] = dx[:, :-1]
+    b = wrap32(wrap32(dl * dx).sum(axis=-1))
+    c = wrap32(wrap32(dl * dx_prev).sum(axis=-1))
+    qm = np.zeros((L, 8), dtype=np.int64)       # QM(i-2)
+    (sg_prev, sg) = (np.zeros(L, dtype=np.int64),) * 2
+    out = np.empty((L, n), dtype=np.int32)
+    for i in range(n):
+        e = wrap32(round_v + wrap32(dl[:, i] * qm).sum(axis=-1) +
+                   sg_prev * c[:, i])
+        qm = wrap32(qm + sg_prev[:, None] * dx_prev[:, i])
+        res = wrap32(p[:, i] - (wrap32(e + sg * b[:, i]) >> fshift))
+        (sg_prev, sg) = (sg, np.sign(res))
+        out[:, i] = res
+    return out
+
+
+@pytest.mark.parametrize("bps", [8, 16, 24])
+def test_lookahead_split_matches_reference(bps):
+    """the kernel's look-ahead algebra equals the reference's numpy
+    filter on full-range lanes (every product and sum wraps), lanes of
+    the stream's own width and signal-shaped lanes, from 1 to 300
+    steps"""
+    rng = np.random.default_rng(100 + bps)
+    arr = batch(2, bps, seed=bps)
+    signal_lanes = np.ascontiguousarray(
+        np.swapaxes(arr, 1, 2).reshape(4, -1))
+    for x in [signal_lanes] + [
+            rng.integers(-2 ** 31, 2 ** 31, (6, n)).astype(np.int32)
+            for n in (1, 2, 7, 9, 300)]:
+        x[3:5] >>= 32 - bps
+        assert np.array_equal(lookahead_filter(x, bps),
+                              ref_scan.hybrid_filter(np, x, bps))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bps", [8, 16, 24])
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 1000])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 95, 97,
+                               1000])
 def test_cuda_kernel_matches_plain(bps, n):
-    """45 lanes (a partial second warp) of full-range values, n at the
-    tile edges; an offset view (rows not 16-byte aligned) takes the
-    4-byte copies"""
+    """1, 31, 33 and 45 lanes (partial warps) of full-range values
+    (lanes 20 on), n at the edges of the 8-step unroll and of the tiles
+    and hand-off stages; an offset view (rows not 16-byte aligned) takes
+    the 4-byte copies"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(n + bps)
     x = rng.integers(-2 ** 31, 2 ** 31, (45, n + 1)).astype(np.int32)
     x[:20] >>= 32 - bps
     dev = torch.device("cuda")
-    for lanes in (torch.as_tensor(x[:, :n].copy(), device=dev),
-                  torch.as_tensor(x, device=dev)[:, 1:].contiguous()):
-        before = tta_scan.hybrid_filter.launches
-        got = tta_scan.hybrid_filter(lanes, bps)
-        torch.cuda.synchronize()
-        assert tta_scan.hybrid_filter.launches == before + 1
-        assert torch.equal(got.cpu(), tta_scan.hybrid_filter_plain(
-            lanes.cpu(), bps))
-    offset = torch.as_tensor(x, device=dev).reshape(-1)[1:1 + 45 * n]
-    got = tta_scan.hybrid_filter(offset.view(45, n), bps)
-    assert torch.equal(got.cpu(), tta_scan.hybrid_filter_plain(
-        offset.view(45, n).cpu(), bps))
+    for count in (1, 31, 33, 45):
+        offset = torch.as_tensor(x[:count], device=dev).reshape(-1)[
+            1:1 + count * n].view(count, n)
+        for lanes in (torch.as_tensor(x[:count, :n].copy(), device=dev),
+                      torch.as_tensor(x[:count], device=dev)[:, 1:]
+                      .contiguous(), offset):
+            before = tta_scan.hybrid_filter.launches
+            got = tta_scan.hybrid_filter(lanes, bps)
+            torch.cuda.synchronize()
+            assert tta_scan.hybrid_filter.launches == before + 1
+            assert torch.equal(got.cpu(), tta_scan.hybrid_filter_plain(
+                lanes.cpu(), bps))
 
 
 @pytest.mark.cuda

@@ -22,9 +22,21 @@ the order other, this, this, other; each time is the median of
 chip_smoke's median_ms (the host's enqueue included) and device_ms
 (the card alone).  Both outputs must be equal.  Prints the card's name
 and power limit, then one JSON line per comparison.  With --wavpack
-only the WavPack kernels are compared.  Usage:
+only the WavPack kernels are compared.
 
-    python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack]
+With --tta only tta_filter is compared, on chip_smoke.py's phase 14
+input (the fixed predictor's output of the first 256-frame encode
+batch of bench.py's signal, 512 lanes x 46080), in the order other,
+this, the variant, then in reverse: the variant is this tree's
+csrc/tta_filter.cu built alone with TTA_FILTER_CROSS_STATE at the value
+its source does not default to.  All three outputs must be equal.  Then
+one JSON line per build gives the innermost loops of its
+tta_filter_kernel's SASS (cuobjdump -sass), largest first, with their
+instructions and opcodes counted; --sass DIR also writes each build's
+kernel SASS into DIR.  Usage:
+
+    python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack | --tta
+        [--sass DIR]]
 """
 
 import importlib.util
@@ -153,13 +165,14 @@ def alac_rows(dev):
     return (args, scan["sub_meta"][:, 2])
 
 
-def in_turns(run_other, run_mine):
-    """{"other": [...], "this": [...]} of (median_ms, device_ms), timed
-    in the order other, this, this, other"""
+def in_turns(run_other, run_mine, **more):
+    """{"other": [...], "this": [...], ...} of (median_ms, device_ms),
+    timed in the order other, this, the calls of ``more``, then the same
+    in reverse"""
     from chip_smoke import device_ms, median_ms
-    times = {"other": [], "this": []}
-    for who in ("other", "this", "this", "other"):
-        fn = run_other if who == "other" else run_mine
+    runs = [("other", run_other), ("this", run_mine)] + list(more.items())
+    times = {who: [] for (who, _) in runs}
+    for (who, fn) in runs + runs[::-1]:
         times[who].append((median_ms(fn), device_ms(fn)))
     return times
 
@@ -197,11 +210,169 @@ def compare_wavpack(other, mine, dev):
                       in_turns(run_other, run_mine)), flush=True)
 
 
+TTA_OPTION = "TTA_FILTER_CROSS_STATE"
+
+
+def tta_lanes(dev):
+    """phase 14's input: the fixed predictor's output of the first
+    256-frame encode batch of bench.py's signal (seed 7), [512, 46080]"""
+    from audiotools_tpu_torch.codecs import tta
+    from audiotools_tpu_torch.ops import tta_scan
+    from chip_smoke import SAMPLE_RATE, program_signal
+    (F, n) = (tta.ENC_BATCH_FRAMES, tta.oracle.block_size_for(SAMPLE_RATE))
+    first = torch.as_tensor(program_signal(F * n).reshape(F, n, 2),
+                            device=dev)
+    predicted = tta_scan.fixed_predict(tta_scan.correlate(first), 16)
+    return predicted.permute(0, 2, 1).reshape(F * 2, n).contiguous()
+
+
+def build_tta_variant(kernels):
+    """csrc/tta_filter.cu built alone with its -D option at the value its
+    source does not default to; returns (value, ctypes library, build
+    log)"""
+    import ctypes
+    import re
+    src = os.path.join(kernels.SOURCE_DIR, "tta_filter.cu")
+    with open(src) as f:
+        default = int(re.search(r"#define %s (\d)" % TTA_OPTION,
+                                f.read()).group(1))
+    value = 1 - default
+    out_dir = os.path.join(kernels.BUILD_DIR, "tta_variant")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libtta_filter_%s%d.so"
+                            % (TTA_OPTION, value))
+    cmd = ([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
+           ["-D%s=%d" % (TTA_OPTION, value), "-shared", "-o", lib_path, src])
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit("nvcc failed (%d): %s\n%s" % (
+            proc.returncode, " ".join(cmd), proc.stdout + proc.stderr))
+    lib = ctypes.CDLL(lib_path)
+    lib.atpu_tta_filter.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    lib.atpu_tta_filter.restype = ctypes.c_int
+    return (value, lib, proc.stdout + proc.stderr)
+
+
+def sass_loops(kernels, lib_path, name, dump_path=None):
+    """the innermost loops of kernel `name`'s SASS in the library at
+    `lib_path` (cuobjdump -sass), largest first: each loop's first and
+    last address, its instructions, and their opcodes counted (the
+    IMAD family together under "IMAD*"); with `dump_path` the kernel's
+    SASS is written there"""
+    import re
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()),
+                             "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    sections = re.split(r"\n\s*Function : ", dump)
+    body = next(sec for sec in sections[1:]
+                if name in sec.split("\n", 1)[0])
+    if dump_path:
+        with open(dump_path, "w") as f:
+            f.write("Function : " + body)
+    (insns, labels) = ([], {})
+    pending = []
+    for text in body.split("\n"):
+        label = re.match(r"\s*(\.L_x_\d+):", text)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", text)
+        if m:
+            addr = int(m.group(1), 16)
+            for lb in pending:
+                labels[lb] = addr
+            pending = []
+            insns.append((addr, m.group(2)))
+    loops = []
+    for (addr, text) in insns:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", text)
+        if m:
+            target = (int(m.group(1), 16) if m.group(1).startswith("0x")
+                      else labels[m.group(1)])
+            if target < addr:
+                loops.append((target, addr))
+    inner = [(a, b) for (a, b) in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for (c, d) in loops)]
+    out = []
+    for (a, b) in inner:
+        ops = {}
+        body_insns = [t for (addr, t) in insns if a <= addr <= b]
+        for t in body_insns:
+            op = re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+            op = "IMAD*" if op.startswith("IMAD") else op.split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        out.append(dict(first=hex(a), last=hex(b),
+                        instructions=len(body_insns), imad=ops.get("IMAD*", 0),
+                        ops=dict(sorted(ops.items(), key=lambda kv: -kv[1]))))
+    return sorted(out, key=lambda d: -d["instructions"])
+
+
+def compare_tta(other, mine, dev, sass_dir):
+    """tta_filter of both trees, and of this tree's source built with its
+    -D option at the other value, on phase 14's lanes; the innermost
+    loops of each build's SASS"""
+    from audiotools_tpu_torch.ops.tta_synth import filter_shift_for
+    lanes = tta_lanes(dev)
+    fshift = filter_shift_for(16)
+    (value, variant, _log) = build_tta_variant(mine)
+    outs = [torch.empty_like(lanes) for _ in range(3)]
+
+    def run_variant(out=outs[2]):
+        rc = variant.atpu_tta_filter(
+            lanes.data_ptr(), lanes.shape[0], lanes.shape[1], fshift,
+            out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("variant launch failed: CUDA error %d" % rc)
+
+    (run_other, run_mine) = (
+        (lambda m=m, o=o: m.tta_filter(lanes, fshift, o))
+        for (m, o) in zip((other, mine), outs))
+    for fn in (run_other, run_mine, run_variant):
+        fn()
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(outs[0], o)) for o in outs[1:])
+    vname = "%s=%d" % (TTA_OPTION, value)
+    times = in_turns(run_other, run_mine, **{vname: run_variant})
+    med = {who: [float(np.median([t[k] for t in ts])) for k in (0, 1)]
+           for (who, ts) in times.items()}
+    print(json.dumps({
+        "kernel": "tta_filter", "shape": list(lanes.shape), "equal": equal,
+        "other_ms": med["other"][0], "other_device_ms": med["other"][1],
+        "this_ms": med["this"][0], "this_device_ms": med["this"][1],
+        "variant": vname, "variant_ms": med[vname][0],
+        "variant_device_ms": med[vname][1], "runs": times}), flush=True)
+    variant_path = os.path.join(mine.BUILD_DIR, "tta_variant",
+                                "libtta_filter_%s%d.so" % (TTA_OPTION,
+                                                           value))
+    for (who, path) in (("other", other.library_path()),
+                        ("this", mine.library_path()),
+                        (vname, variant_path)):
+        dump = (os.path.join(sass_dir, "tta_filter_%s.sass"
+                             % who.replace("=", ""))
+                if sass_dir else None)
+        print(json.dumps({"sass": who, "kernel": "tta_filter_kernel",
+                          "innermost_loops": sass_loops(
+                              mine, path, "tta_filter_kernel", dump)}),
+              flush=True)
+    if not equal:
+        sys.exit("tta_filter outputs differ")
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != "--wavpack"]
+    argv = sys.argv[1:]
+    sass_dir = None
+    if "--sass" in argv:
+        k = argv.index("--sass")
+        sass_dir = argv[k + 1]
+        argv = argv[:k] + argv[k + 2:]
+    args = [a for a in argv if a not in ("--wavpack", "--tta")]
     if len(args) != 1 or not torch.cuda.is_available():
-        sys.exit("usage: compare_parent.py OTHER_DIR [--wavpack] (needs a "
-                 "CUDA card)")
+        sys.exit("usage: compare_parent.py OTHER_DIR [--wavpack | --tta "
+                 "[--sass DIR]] (needs a CUDA card)")
     from audiotools_tpu_torch import kernels as mine
     from chip_smoke import device_ms, median_ms
     other_dir = os.path.abspath(args[0])
@@ -212,8 +383,13 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    if "--wavpack" in sys.argv[1:]:
+    if "--wavpack" in argv:
         compare_wavpack(other, mine, dev)
+        return
+    if "--tta" in argv:
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+        compare_tta(other, mine, dev, sass_dir)
         return
 
     from audiotools_tpu_torch.ops import bitpack as my_bitpack

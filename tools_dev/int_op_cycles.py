@@ -149,6 +149,21 @@ __global__ void cycles_kernel(int iters, int32_t a, int32_t b,
         w32 += (src == 0 || in == 0) ? 0 : (((src ^ in) >= 0) ? 2 : -2);
         y2n = y1n;
         y1n = static_cast<int32_t>(y);
+      } else if constexpr (KIND == 15) {  // tta_filter's old loop
+        // sgn -> the qm update -> the 8-term dot product, a chain of
+        // IMADs as the old kernel wrote it -> acc -> shift -> subtract
+        const uint32_t sgn = static_cast<uint32_t>(v >> 31) |
+                             (sub32(0u, static_cast<uint32_t>(v)) >> 31);
+        uint32_t dot = static_cast<uint32_t>(a);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          u[j] = mad32(sgn, x[(j + 1) & 7], u[j]);
+          dot = mad32(x[j], u[j], dot);
+        }
+        const uint32_t t = mad32(sgn, x[k], dot);
+        v = static_cast<int32_t>(sub32(
+            static_cast<uint32_t>(b),
+            static_cast<uint32_t>(static_cast<int32_t>(t) >> (a & 15))));
       } else {                           // tta_filter's step chain
         const uint32_t sgn = static_cast<uint32_t>(v >> 31) |
                              (sub32(0u, static_cast<uint32_t>(v)) >> 31);
@@ -187,7 +202,8 @@ extern "C" int run_case(int kind, int iters, int a, int b, long long* cycles,
     case 11: cycles_kernel<11><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 12: cycles_kernel<12><<<1, 32>>>(iters, a, b, cycles, sink); break;
     case 13: cycles_kernel<13><<<1, 32>>>(iters, a, b, cycles, sink); break;
-    default: cycles_kernel<14><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    case 14: cycles_kernel<14><<<1, 32>>>(iters, a, b, cycles, sink); break;
+    default: cycles_kernel<15><<<1, 32>>>(iters, a, b, cycles, sink); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -221,12 +237,20 @@ CASES = (
      "per link (latency)", "latency"),
     ("wv_chain decode, term 18, narrow: the narrow link with the output "
      "feeding the next source, per link (latency)", "latency"),
+    ("tta_filter's old loop: sign -> 8 qm IMADs -> the 8-term dot product "
+     "as a chain of IMADs -> IMAD -> SHF.R.S32 -> IADD, per link "
+     "(latency)", "latency"),
 )
 ITERS = 20000
 # the cases of wv_chain.cu's int64 step chains: chip_smoke.py measures
 # them in its own run for the WavPack kernels' critical paths
 WV_ENCODE_CASE = 11
 WV_DECODE_CASE = 12
+# tta_filter.cu's loop from one step to the next (the chain warp's: the
+# sign -> IMAD -> SHF -> IADD of case 10) and that of the kernel before
+# it (qm -> dot product -> acc): chip_smoke.py reads both in its own run
+TTA_FILTER_CASE = 10
+TTA_FILTER_OLD_CASE = 15
 
 
 def start_build(kernels):
