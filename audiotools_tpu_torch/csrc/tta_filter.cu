@@ -44,22 +44,30 @@
 //   samples ahead with 16-byte cp.async copies (row_tiles.cuh), and
 //   from p alone computes each step's dl tail (d5, d6, d7), the dx
 //   signs, b and c.  The chain warp keeps qm in registers and runs the
-//   recurrence above: the qm update, a' as a tree sum, e = a' + sgn(i-1)
-//   c(i), then acc = e + sgn(i) b(i), the shift, the subtract and the
-//   sign.  It writes its residuals back through an output tile the same
-//   way.
-// - Hand-off.  The input warp writes p, b, c (and, with
-//   TTA_FILTER_CROSS_STATE, the dl tail and the dx signs) of a whole
-//   tile into one of kStages buffers in shared memory and arrives on
-//   that buffer's named barrier; the chain warp waits there, reads the
-//   tile, and arrives on the buffer's other barrier, on which the input
-//   warp waits before it writes the buffer again.  One barrier a tile
-//   for each warp, and the input warp runs up to kStages tiles ahead.
-// - What crosses.  TTA_FILTER_CROSS_STATE 1 (the default): d5, d6, d7
-//   and the four dx signs cross too, and the chain warp only loads
-//   them.  0: only p, b and c cross, and the chain warp recomputes the
-//   rest from p with the input warp's own code, about 11 shifts, logic
-//   ops and subtracts a step against 1.75 16-byte loads.
+//   recurrence above: a' and e = a' + sgn(i-1) c(i), the qm update,
+//   then acc = e + sgn(i) b(i), the shift, the subtract and the sign.
+//   It writes its residuals back through an output tile the same way.
+// - Hand-off.  The input warp writes p, b, c, d5, d6, d7 and the four
+//   dx signs of a whole tile into one of kStages buffers in shared
+//   memory and arrives on that buffer's named barrier; the chain warp
+//   waits there, reads the tile, and arrives on the buffer's other
+//   barrier, on which the input warp waits before it writes the buffer
+//   again.  One barrier a tile for each warp, and the input warp runs
+//   up to kStages tiles ahead.  (Recomputing d5 .. the signs in the
+//   chain warp from p instead, 11 more shifts, logic ops and subtracts
+//   a step against 1.75 more 16-byte loads, was slower.)
+// - The multiply-add pipe.  One warp alone on its scheduler issues an
+//   IMAD every ~3.3 cycles (tools_dev/int_op_cycles.py case 1), and the
+//   step's time follows the chain warp's IMAD count, so the products
+//   with a sign go to shifts and logic where they can.  The input warp
+//   sums the five d5 terms of b and c as sliding windows: b's j-th
+//   term is P(i-5+j) with P(k) = sign(d5[k-1]) d5[k], and c's is Q with
+//   Q(k) = sign(d5[k-2]) d5[k], so a step adds one new product and
+//   drops the oldest, and 8 IMADs a step compute b and c instead of 16.
+//   In the chain warp the update of qm[j] for j < TTA_FILTER_QM_LOGIC
+//   is ((dx[j] & z) ^ m) - m, with z and m the nonzero and negative
+//   masks of res[i-2] (a LOP3 and an IADD3 on the integer pipe); the
+//   other components keep the IMAD, which balances the two pipes.
 // - No moves.  dl and dx are windows on rings of 8 registers indexed
 //   by the step (d5, d6, d7, p and the signs of d5, d6, d7, p), and each
 //   8 steps (one turn of the rings) are unrolled, so every index is
@@ -73,8 +81,8 @@
 
 #include "row_tiles.cuh"
 
-#ifndef TTA_FILTER_CROSS_STATE
-#define TTA_FILTER_CROSS_STATE 1
+#ifndef TTA_FILTER_QM_LOGIC
+#define TTA_FILTER_QM_LOGIC 6
 #endif
 
 namespace {
@@ -84,11 +92,11 @@ using atpu::kTile;
 
 constexpr int kRows = 32;
 constexpr int kTileWords = kRows * kTile;
-constexpr bool kCrossState = TTA_FILTER_CROSS_STATE != 0;
-// the tiles of a hand-off buffer: p, b, c, then with kCrossState d5,
-// d6, d7 and the signs g4, g5, g6, g7
-enum { kP, kB, kC, kD5, kD6, kD7, kG4, kG5, kG6, kG7 };
-constexpr int kCross = kCrossState ? 10 : 3;
+// the qm components updated with logic instead of an IMAD
+constexpr int kQmLogic = TTA_FILTER_QM_LOGIC;
+static_assert(kQmLogic >= 0 && kQmLogic <= 8, "TTA_FILTER_QM_LOGIC: 0 .. 8");
+// the tiles of a hand-off buffer
+enum { kP, kB, kC, kD5, kD6, kD7, kG4, kG5, kG6, kG7, kCross };
 // dynamic shared memory: the input staging, the output tile, the
 // hand-off buffers
 constexpr int kSmemBytes =
@@ -101,9 +109,8 @@ __device__ __forceinline__ int32_t s(uint32_t v) {
   return static_cast<int32_t>(v);
 }
 
-// sign(v) as -1, 0 or 1: its sign bit, or'ed with that of its negation
-__device__ __forceinline__ uint32_t sign_of(uint32_t v) {
-  return static_cast<uint32_t>(s(v) >> 31) | ((0u - v) >> 31);
+__device__ __forceinline__ uint32_t sign_mask(uint32_t v) {
+  return static_cast<uint32_t>(s(v) >> 31);
 }
 
 __device__ __forceinline__ void bar_sync(int id) {
@@ -143,10 +150,10 @@ struct Rings {
     d6[i & 7] = d6v;
     d5[i & 7] = d5v;
     // v >= 0 ? m : -m from v's sign mask (m = 1, 2, 2, 4)
-    g4[i & 7] = static_cast<uint32_t>(s(d5v) >> 31) | 1u;
-    g5[i & 7] = (static_cast<uint32_t>(s(d6v) >> 31) & 0xfffffffcu) + 2u;
-    g6[i & 7] = (static_cast<uint32_t>(s(d7v) >> 31) & 0xfffffffcu) + 2u;
-    g7[i & 7] = (static_cast<uint32_t>(s(p) >> 31) & 0xfffffff8u) + 4u;
+    g4[i & 7] = sign_mask(d5v) | 1u;
+    g5[i & 7] = (sign_mask(d6v) & 0xfffffffcu) + 2u;
+    g6[i & 7] = (sign_mask(d7v) & 0xfffffffcu) + 2u;
+    g7[i & 7] = (sign_mask(p) & 0xfffffff8u) + 4u;
   }
 
   // DL(i): d5 of steps i-5 .. i-1, then d6, d7, p of step i-1
@@ -171,9 +178,18 @@ struct Rings {
     v[6] = g6[(k - 2) & 7];
     v[7] = g7[(k - 2) & 7];
   }
+
+  // init + the dot product of DL(i)'s last three terms (d6, d7, p of
+  // step i-1) with those of DX(k)
+  __device__ __forceinline__ uint32_t tail(int i, int k,
+                                           uint32_t init) const {
+    return init + d6[(i - 1) & 7] * g5[(k - 2) & 7] +
+           d7[(i - 1) & 7] * g6[(k - 2) & 7] +
+           pv[(i - 1) & 7] * g7[(k - 2) & 7];
+  }
 };
 
-// init + a . b, summed as a tree of four two-term multiply-adds
+// init + a . b, written as a tree of four two-term multiply-adds
 __device__ __forceinline__ uint32_t dot8(const uint32_t (&a)[8],
                                          const uint32_t (&b)[8],
                                          uint32_t init) {
@@ -199,12 +215,21 @@ __device__ __forceinline__ void load4(const int32_t* tile, int w,
 }
 
 // The input warp: p tile by tile from device memory, and from it each
-// step's p, b, c (and the rings' new values) into the hand-off buffers.
+// step's p, b, c and the rings' new values into the hand-off buffers.
 __device__ __forceinline__ void input_warp(
     const atpu::RowTiles<kRows>& io, int32_t (*in_tiles)[kTileWords],
     int32_t* hand, int tiles, int lane) {
   Rings r;
   r.init();
+  // P(k) and Q(k) at slot k % 8 (0 before step 0), and the windows
+  // wp = P(i-5) + .. + P(i-1), wq likewise: b's and c's d5 terms
+  uint32_t pk[8], qk[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pk[j] = qk[j] = 0;
+  }
+  uint32_t wp = 0;
+  uint32_t wq = 0;
   io.prefetch(in_tiles, tiles);
   for (int t = 0; t < tiles; ++t) {
     const int32_t* in = io.next(in_tiles, t, tiles);
@@ -224,27 +249,25 @@ __device__ __forceinline__ void input_warp(
         for (int u = 0; u < 4; ++u) {
           const int i = c + u;
           r.advance(i, p4[u]);
-          uint32_t dl[8], dx[8], dxp[8];
-          r.dl(i, dl);
-          r.dx(i, dx);
-          r.dx(i - 1, dxp);
-          b4[u] = dot8(dl, dx, 0u);
-          c4[u] = dot8(dl, dxp, 0u);
+          b4[u] = r.tail(i, i, wp);
+          c4[u] = r.tail(i, i - 1, wq);
+          pk[i] = r.g4[(i - 1) & 7] * r.d5[i];
+          qk[i] = r.g4[(i - 2) & 7] * r.d5[i];
+          wp += pk[i] - pk[(i - 5) & 7];
+          wq += qk[i] - qk[(i - 5) & 7];
         }
-        store4(h + kP * kTileWords, w, p4[0], p4[1], p4[2], p4[3]);
+#define RING4(ring) r.ring[c], r.ring[c + 1], r.ring[c + 2], r.ring[c + 3]
+        store4(h + kP * kTileWords, w, RING4(pv));
         store4(h + kB * kTileWords, w, b4[0], b4[1], b4[2], b4[3]);
         store4(h + kC * kTileWords, w, c4[0], c4[1], c4[2], c4[3]);
-        if constexpr (kCrossState) {
-#define RING4(ring) r.ring[c], r.ring[c + 1], r.ring[c + 2], r.ring[c + 3]
-          store4(h + kD5 * kTileWords, w, RING4(d5));
-          store4(h + kD6 * kTileWords, w, RING4(d6));
-          store4(h + kD7 * kTileWords, w, RING4(d7));
-          store4(h + kG4 * kTileWords, w, RING4(g4));
-          store4(h + kG5 * kTileWords, w, RING4(g5));
-          store4(h + kG6 * kTileWords, w, RING4(g6));
-          store4(h + kG7 * kTileWords, w, RING4(g7));
+        store4(h + kD5 * kTileWords, w, RING4(d5));
+        store4(h + kD6 * kTileWords, w, RING4(d6));
+        store4(h + kD7 * kTileWords, w, RING4(d7));
+        store4(h + kG4 * kTileWords, w, RING4(g4));
+        store4(h + kG5 * kTileWords, w, RING4(g5));
+        store4(h + kG6 * kTileWords, w, RING4(g6));
+        store4(h + kG7 * kTileWords, w, RING4(g7));
 #undef RING4
-        }
       }
     }
     bar_arrive(kFullBar + st);
@@ -264,8 +287,10 @@ __device__ __forceinline__ void chain_warp(const atpu::RowTiles<kRows>& io,
   for (int j = 0; j < 8; ++j) {
     qm[j] = 0;
   }
-  uint32_t sg_prev = 0;  // sgn(i-1)
-  uint32_t sg = 0;       // sgn(i)
+  // sgn(i-1) with the nonzero and negative masks of res[i-2], and sgn(i)
+  // with those of res[i-1]
+  uint32_t sg_prev = 0, z_prev = 0, m_prev = 0;
+  uint32_t sg = 0, z = 0, m = 0;
   for (int t = 0; t < tiles; ++t) {
     const int st = t % kStages;
     bar_sync(kFullBar + st);
@@ -275,48 +300,46 @@ __device__ __forceinline__ void chain_warp(const atpu::RowTiles<kRows>& io,
 #pragma unroll
       for (int c = 0; c < 8; c += 4) {
         const int w = atpu::tile_word(lane, c8 + c);
-        uint32_t p4[4], b4[4], c4[4], res4[4];
-        load4(h + kP * kTileWords, w, p4);
-        load4(h + kB * kTileWords, w, b4);
-        load4(h + kC * kTileWords, w, c4);
-        uint32_t x[7][4];
-        if constexpr (kCrossState) {
+        uint32_t x[kCross][4], res4[4];
 #pragma unroll
-          for (int q = 0; q < 7; ++q) {
-            load4(h + (kD5 + q) * kTileWords, w, x[q]);
-          }
+        for (int q = 0; q < kCross; ++q) {
+          load4(h + q * kTileWords, w, x[q]);
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int i = c + u;
           // step i's own values enter slot i % 8, which step i does not
           // read (it reads steps i-7 .. i-1)
-          if constexpr (kCrossState) {
-            r.pv[i] = p4[u];
-            r.d5[i] = x[0][u];
-            r.d6[i] = x[1][u];
-            r.d7[i] = x[2][u];
-            r.g4[i] = x[3][u];
-            r.g5[i] = x[4][u];
-            r.g6[i] = x[5][u];
-            r.g7[i] = x[6][u];
-          } else {
-            r.advance(i, p4[u]);
-          }
+          r.pv[i] = x[kP][u];
+          r.d5[i] = x[kD5][u];
+          r.d6[i] = x[kD6][u];
+          r.d7[i] = x[kD7][u];
+          r.g4[i] = x[kG4][u];
+          r.g5[i] = x[kG5][u];
+          r.g6[i] = x[kG6][u];
+          r.g7[i] = x[kG7][u];
           uint32_t dl[8], dxp[8];
           r.dl(i, dl);
           r.dx(i - 1, dxp);
           // a'(i) and e(i) need sgn(i-1) and QM(i-2): a step old
-          const uint32_t e = dot8(dl, qm, round_v) + sg_prev * c4[u];
+          const uint32_t e = dot8(dl, qm, round_v) + sg_prev * x[kC][u];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            qm[j] += sg_prev * dxp[j];  // QM(i-1)
+          for (int j = 0; j < 8; ++j) {  // QM(i-1)
+            qm[j] += j < kQmLogic ? ((dxp[j] & z_prev) ^ m_prev) - m_prev
+                                  : sg_prev * dxp[j];
           }
           // the chain: sgn(i) -> one multiply-add -> shift -> subtract
-          const uint32_t acc = e + sg * b4[u];
-          res4[u] = p4[u] - static_cast<uint32_t>(s(acc) >> fshift);
+          const uint32_t acc = e + sg * x[kB][u];
+          res4[u] = x[kP][u] - static_cast<uint32_t>(s(acc) >> fshift);
           sg_prev = sg;
-          sg = sign_of(res4[u]);
+          z_prev = z;
+          m_prev = m;
+          // sign(res) as -1, 0 or 1: its sign bit, or'ed with that of
+          // its negation
+          const uint32_t neg = 0u - res4[u];
+          m = sign_mask(res4[u]);
+          sg = m | (neg >> 31);
+          z = m | sign_mask(neg);
         }
         store4(out_tile, w, res4[0], res4[1], res4[2], res4[3]);
       }

@@ -27,10 +27,10 @@ only the WavPack kernels are compared.
 With --tta only tta_filter is compared, on chip_smoke.py's phase 14
 input (the fixed predictor's output of the first 256-frame encode
 batch of bench.py's signal, 512 lanes x 46080), in the order other,
-this, the variant, then in reverse: the variant is this tree's
-csrc/tta_filter.cu built alone with TTA_FILTER_CROSS_STATE at the value
-its source does not default to.  All three outputs must be equal.  Then
-one JSON line per build gives the innermost loops of its
+this, the variants, then in reverse: the variants are this tree's
+csrc/tta_filter.cu built alone with TTA_FILTER_QM_LOGIC at each value
+of TTA_VALUES but its source's default.  All outputs must be equal.
+Then one JSON line per build gives the innermost loops of its
 tta_filter_kernel's SASS (cuobjdump -sass), largest first, with their
 instructions and opcodes counted; --sass DIR also writes each build's
 kernel SASS into DIR.  Usage:
@@ -210,7 +210,10 @@ def compare_wavpack(other, mine, dev):
                       in_turns(run_other, run_mine)), flush=True)
 
 
-TTA_OPTION = "TTA_FILTER_CROSS_STATE"
+# tta_filter.cu's -D option (the qm components updated with logic) and
+# the values --tta builds beside the source's default
+TTA_OPTION = "TTA_FILTER_QM_LOGIC"
+TTA_VALUES = (0, 4, 5, 6, 7, 8)
 
 
 def tta_lanes(dev):
@@ -226,32 +229,42 @@ def tta_lanes(dev):
     return predicted.permute(0, 2, 1).reshape(F * 2, n).contiguous()
 
 
-def build_tta_variant(kernels):
-    """csrc/tta_filter.cu built alone with its -D option at the value its
-    source does not default to; returns (value, ctypes library, build
-    log)"""
+def build_tta_variants(kernels):
+    """csrc/tta_filter.cu built alone with its -D option at each value of
+    TTA_VALUES but its source's default, the compiles started together;
+    returns [(name, library path, ctypes library)]"""
     import ctypes
     import re
     src = os.path.join(kernels.SOURCE_DIR, "tta_filter.cu")
     with open(src) as f:
-        default = int(re.search(r"#define %s (\d)" % TTA_OPTION,
+        default = int(re.search(r"#define %s (\d+)" % TTA_OPTION,
                                 f.read()).group(1))
-    value = 1 - default
-    out_dir = os.path.join(kernels.BUILD_DIR, "tta_variant")
+    out_dir = os.path.join(kernels.BUILD_DIR, "tta_variants")
     os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, "libtta_filter_%s%d.so"
+    procs = []
+    for value in TTA_VALUES:
+        if value == default:
+            continue
+        name = "%s=%d" % (TTA_OPTION, value)
+        path = os.path.join(out_dir, "libtta_filter_%s%d.so"
                             % (TTA_OPTION, value))
-    cmd = ([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
-           ["-D%s=%d" % (TTA_OPTION, value), "-shared", "-o", lib_path, src])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        sys.exit("nvcc failed (%d): %s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stdout + proc.stderr))
-    lib = ctypes.CDLL(lib_path)
-    lib.atpu_tta_filter.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    lib.atpu_tta_filter.restype = ctypes.c_int
-    return (value, lib, proc.stdout + proc.stderr)
+        cmd = ([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
+               ["-D" + name, "-shared", "-o", path, src])
+        procs.append((name, path, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    built = []
+    for (name, path, cmd, proc) in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            sys.exit("nvcc failed (%d): %s\n%s" % (proc.returncode,
+                                                  " ".join(cmd), log))
+        lib = ctypes.CDLL(path)
+        lib.atpu_tta_filter.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        lib.atpu_tta_filter.restype = ctypes.c_int
+        built.append((name, path, lib))
+    return built
 
 
 def sass_loops(kernels, lib_path, name, dump_path=None):
@@ -312,45 +325,44 @@ def sass_loops(kernels, lib_path, name, dump_path=None):
 
 def compare_tta(other, mine, dev, sass_dir):
     """tta_filter of both trees, and of this tree's source built with its
-    -D option at the other value, on phase 14's lanes; the innermost
+    -D option at the other values, on phase 14's lanes; the innermost
     loops of each build's SASS"""
     from audiotools_tpu_torch.ops.tta_synth import filter_shift_for
     lanes = tta_lanes(dev)
     fshift = filter_shift_for(16)
-    (value, variant, _log) = build_tta_variant(mine)
-    outs = [torch.empty_like(lanes) for _ in range(3)]
+    variants = build_tta_variants(mine)
+    outs = [torch.empty_like(lanes) for _ in range(2 + len(variants))]
 
-    def run_variant(out=outs[2]):
-        rc = variant.atpu_tta_filter(
-            lanes.data_ptr(), lanes.shape[0], lanes.shape[1], fshift,
-            out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError("variant launch failed: CUDA error %d" % rc)
+    def launcher(lib, out):
+        def run():
+            rc = lib.atpu_tta_filter(
+                lanes.data_ptr(), lanes.shape[0], lanes.shape[1], fshift,
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError("variant launch failed: CUDA error %d"
+                                   % rc)
+        return run
 
     (run_other, run_mine) = (
         (lambda m=m, o=o: m.tta_filter(lanes, fshift, o))
         for (m, o) in zip((other, mine), outs))
-    for fn in (run_other, run_mine, run_variant):
+    more = {name: launcher(lib, out)
+            for ((name, _, lib), out) in zip(variants, outs[2:])}
+    for fn in [run_other, run_mine] + list(more.values()):
         fn()
     torch.cuda.synchronize()
     equal = all(bool(torch.equal(outs[0], o)) for o in outs[1:])
-    vname = "%s=%d" % (TTA_OPTION, value)
-    times = in_turns(run_other, run_mine, **{vname: run_variant})
-    med = {who: [float(np.median([t[k] for t in ts])) for k in (0, 1)]
-           for (who, ts) in times.items()}
+    times = in_turns(run_other, run_mine, **more)
     print(json.dumps({
         "kernel": "tta_filter", "shape": list(lanes.shape), "equal": equal,
-        "other_ms": med["other"][0], "other_device_ms": med["other"][1],
-        "this_ms": med["this"][0], "this_device_ms": med["this"][1],
-        "variant": vname, "variant_ms": med[vname][0],
-        "variant_device_ms": med[vname][1], "runs": times}), flush=True)
-    variant_path = os.path.join(mine.BUILD_DIR, "tta_variant",
-                                "libtta_filter_%s%d.so" % (TTA_OPTION,
-                                                           value))
-    for (who, path) in (("other", other.library_path()),
-                        ("this", mine.library_path()),
-                        (vname, variant_path)):
+        "median_ms": {who: float(np.median([t[0] for t in ts]))
+                      for (who, ts) in times.items()},
+        "device_ms": {who: float(np.median([t[1] for t in ts]))
+                      for (who, ts) in times.items()},
+        "runs": times}), flush=True)
+    for (who, path) in ([("other", other.library_path()),
+                         ("this", mine.library_path())] +
+                        [(name, path) for (name, path, _) in variants]):
         dump = (os.path.join(sass_dir, "tta_filter_%s.sass"
                              % who.replace("=", ""))
                 if sass_dir else None)
