@@ -53,21 +53,15 @@
 //   waits there, reads the tile, and arrives on the buffer's other
 //   barrier, on which the input warp waits before it writes the buffer
 //   again.  One barrier a tile for each warp, and the input warp runs
-//   up to kStages tiles ahead.  (Recomputing d5 .. the signs in the
-//   chain warp from p instead, 11 more shifts, logic ops and subtracts
-//   a step against 1.75 more 16-byte loads, was slower.)
-// - The multiply-add pipe.  One warp alone on its scheduler issues an
-//   IMAD every ~3.3 cycles (tools_dev/int_op_cycles.py case 1), and the
-//   step's time follows the chain warp's IMAD count, so the products
-//   with a sign go to shifts and logic where they can.  The input warp
-//   sums the five d5 terms of b and c as sliding windows: b's j-th
-//   term is P(i-5+j) with P(k) = sign(d5[k-1]) d5[k], and c's is Q with
-//   Q(k) = sign(d5[k-2]) d5[k], so a step adds one new product and
-//   drops the oldest, and 8 IMADs a step compute b and c instead of 16.
-//   In the chain warp the update of qm[j] for j < TTA_FILTER_QM_LOGIC
-//   is ((dx[j] & z) ^ m) - m, with z and m the nonzero and negative
-//   masks of res[i-2] (a LOP3 and an IADD3 on the integer pipe); the
-//   other components keep the IMAD, which balances the two pipes.
+//   up to kStages tiles ahead.  Recomputing d5 .. the signs in the
+//   chain warp from p instead (11 more shifts, logic ops and subtracts
+//   a step against 1.75 more 16-byte loads) was slower.
+// - What is left.  The chain warp issues about 29 instructions a step,
+//   20 of them IMADs (the qm update, the dot product, e and acc), and
+//   alone on its scheduler takes about 68 cycles a step on an H100,
+//   against the 29-cycle chain.  Updating qm with a LOP3 and an IADD3
+//   instead of an IMAD, or lightening the input warp (b's and c's d5
+//   terms as sliding windows), was no faster.
 // - No moves.  dl and dx are windows on rings of 8 registers indexed
 //   by the step (d5, d6, d7, p and the signs of d5, d6, d7, p), and each
 //   8 steps (one turn of the rings) are unrolled, so every index is
@@ -81,10 +75,6 @@
 
 #include "row_tiles.cuh"
 
-#ifndef TTA_FILTER_QM_LOGIC
-#define TTA_FILTER_QM_LOGIC 6
-#endif
-
 namespace {
 
 using atpu::kStages;
@@ -92,9 +82,6 @@ using atpu::kTile;
 
 constexpr int kRows = 32;
 constexpr int kTileWords = kRows * kTile;
-// the qm components updated with logic instead of an IMAD
-constexpr int kQmLogic = TTA_FILTER_QM_LOGIC;
-static_assert(kQmLogic >= 0 && kQmLogic <= 8, "TTA_FILTER_QM_LOGIC: 0 .. 8");
 // the tiles of a hand-off buffer
 enum { kP, kB, kC, kD5, kD6, kD7, kG4, kG5, kG6, kG7, kCross };
 // dynamic shared memory: the input staging, the output tile, the
@@ -111,6 +98,11 @@ __device__ __forceinline__ int32_t s(uint32_t v) {
 
 __device__ __forceinline__ uint32_t sign_mask(uint32_t v) {
   return static_cast<uint32_t>(s(v) >> 31);
+}
+
+// sign(v) as -1, 0 or 1: its sign bit, or'ed with that of its negation
+__device__ __forceinline__ uint32_t sign_of(uint32_t v) {
+  return sign_mask(v) | ((0u - v) >> 31);
 }
 
 __device__ __forceinline__ void bar_sync(int id) {
@@ -178,18 +170,10 @@ struct Rings {
     v[6] = g6[(k - 2) & 7];
     v[7] = g7[(k - 2) & 7];
   }
-
-  // init + the dot product of DL(i)'s last three terms (d6, d7, p of
-  // step i-1) with those of DX(k)
-  __device__ __forceinline__ uint32_t tail(int i, int k,
-                                           uint32_t init) const {
-    return init + d6[(i - 1) & 7] * g5[(k - 2) & 7] +
-           d7[(i - 1) & 7] * g6[(k - 2) & 7] +
-           pv[(i - 1) & 7] * g7[(k - 2) & 7];
-  }
 };
 
-// init + a . b, written as a tree of four two-term multiply-adds
+// init + a . b (written as a tree; the compiler sums it as one chain of
+// IMADs, which the step of slack covers)
 __device__ __forceinline__ uint32_t dot8(const uint32_t (&a)[8],
                                          const uint32_t (&b)[8],
                                          uint32_t init) {
@@ -221,15 +205,6 @@ __device__ __forceinline__ void input_warp(
     int32_t* hand, int tiles, int lane) {
   Rings r;
   r.init();
-  // P(k) and Q(k) at slot k % 8 (0 before step 0), and the windows
-  // wp = P(i-5) + .. + P(i-1), wq likewise: b's and c's d5 terms
-  uint32_t pk[8], qk[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    pk[j] = qk[j] = 0;
-  }
-  uint32_t wp = 0;
-  uint32_t wq = 0;
   io.prefetch(in_tiles, tiles);
   for (int t = 0; t < tiles; ++t) {
     const int32_t* in = io.next(in_tiles, t, tiles);
@@ -249,12 +224,12 @@ __device__ __forceinline__ void input_warp(
         for (int u = 0; u < 4; ++u) {
           const int i = c + u;
           r.advance(i, p4[u]);
-          b4[u] = r.tail(i, i, wp);
-          c4[u] = r.tail(i, i - 1, wq);
-          pk[i] = r.g4[(i - 1) & 7] * r.d5[i];
-          qk[i] = r.g4[(i - 2) & 7] * r.d5[i];
-          wp += pk[i] - pk[(i - 5) & 7];
-          wq += qk[i] - qk[(i - 5) & 7];
+          uint32_t dl[8], dx[8], dxp[8];
+          r.dl(i, dl);
+          r.dx(i, dx);
+          r.dx(i - 1, dxp);
+          b4[u] = dot8(dl, dx, 0u);
+          c4[u] = dot8(dl, dxp, 0u);
         }
 #define RING4(ring) r.ring[c], r.ring[c + 1], r.ring[c + 2], r.ring[c + 3]
         store4(h + kP * kTileWords, w, RING4(pv));
@@ -287,10 +262,8 @@ __device__ __forceinline__ void chain_warp(const atpu::RowTiles<kRows>& io,
   for (int j = 0; j < 8; ++j) {
     qm[j] = 0;
   }
-  // sgn(i-1) with the nonzero and negative masks of res[i-2], and sgn(i)
-  // with those of res[i-1]
-  uint32_t sg_prev = 0, z_prev = 0, m_prev = 0;
-  uint32_t sg = 0, z = 0, m = 0;
+  uint32_t sg_prev = 0;  // sgn(i-1)
+  uint32_t sg = 0;       // sgn(i)
   for (int t = 0; t < tiles; ++t) {
     const int st = t % kStages;
     bar_sync(kFullBar + st);
@@ -325,21 +298,13 @@ __device__ __forceinline__ void chain_warp(const atpu::RowTiles<kRows>& io,
           const uint32_t e = dot8(dl, qm, round_v) + sg_prev * x[kC][u];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {  // QM(i-1)
-            qm[j] += j < kQmLogic ? ((dxp[j] & z_prev) ^ m_prev) - m_prev
-                                  : sg_prev * dxp[j];
+            qm[j] += sg_prev * dxp[j];
           }
           // the chain: sgn(i) -> one multiply-add -> shift -> subtract
           const uint32_t acc = e + sg * x[kB][u];
           res4[u] = x[kP][u] - static_cast<uint32_t>(s(acc) >> fshift);
           sg_prev = sg;
-          z_prev = z;
-          m_prev = m;
-          // sign(res) as -1, 0 or 1: its sign bit, or'ed with that of
-          // its negation
-          const uint32_t neg = 0u - res4[u];
-          m = sign_mask(res4[u]);
-          sg = m | (neg >> 31);
-          z = m | sign_mask(neg);
+          sg = sign_of(res4[u]);
         }
         store4(out_tile, w, res4[0], res4[1], res4[2], res4[3]);
       }

@@ -275,63 +275,10 @@ def test_lookahead_split_matches_reference(bps):
                               ref_scan.hybrid_filter(np, x, bps))
 
 
-@pytest.mark.parametrize("bps", [8, 16, 24])
-def test_input_warp_windows_equal_dot_products(bps):
-    """the kernel's input warp sums b's and c's five d5 terms as sliding
-    windows: b's j-th term is P(i-5+j), P(k) = sign(d5[k-1]) d5[k], and
-    c's is Q(i-5+j), Q(k) = sign(d5[k-2]) d5[k] (the signs dx takes, 0
-    before step -1); a step adds its new product and drops the one five
-    steps back"""
-    rng = np.random.default_rng(200 + bps)
-    x = rng.integers(-2 ** 31, 2 ** 31, (6, 300)).astype(np.int32)
-    x[:3] >>= 32 - bps
-    x[1, 50:80] = 0
-    p = x.astype(np.int64)
-    d7 = wrap32(p - later(p, 1))
-    d6 = wrap32(d7 - later(d7, 1))
-    d5 = wrap32(d6 - later(d6, 1))
-    (g4, g5, g6, g7) = (np.where(v >= 0, m, -m) for (v, m) in
-                        ((d5, 1), (d6, 2), (d7, 2), (p, 4)))
-    dl = np.stack([later(d5, 5), later(d5, 4), later(d5, 3), later(d5, 2),
-                   later(d5, 1), later(d6, 1), later(d7, 1), later(p, 1)],
-                  axis=-1)
-    dx = np.stack([later(g4, 6, 1), later(g4, 5, 1), later(g4, 4, 1),
-                   later(g4, 3, 1), later(g4, 2, 1), later(g5, 2, 2),
-                   later(g6, 2, 2), later(g7, 2, 4)], axis=-1)
-    dx_prev = np.zeros_like(dx)
-    dx_prev[:, 1:] = dx[:, :-1]
-    (P, Q) = (wrap32(later(g4, k, 1) * d5) for k in (1, 2))
-    for (prod, dxs) in ((P, dx), (Q, dx_prev)):
-        (window, got) = (np.zeros(len(p), dtype=np.int64), [])
-        for i in range(p.shape[1]):
-            got.append(wrap32(window + (dl[:, i, 5:] * dxs[:, i, 5:]).sum(
-                axis=-1)))
-            window = wrap32(window + prod[:, i] -
-                            (prod[:, i - 5] if i >= 5 else 0))
-        assert np.array_equal(np.stack(got, axis=1),
-                              wrap32(wrap32(dl * dxs).sum(axis=-1)))
-
-
-@pytest.mark.parametrize("m", [1, 2, 4])
-def test_qm_update_from_masks(m):
-    """the kernel's chain warp adds sign(res) * g, g = +-m, to a qm
-    component as ((g & z) ^ n) - n, z and n res's nonzero and negative
-    masks, mod 2^32: for res of either sign, 0 and the int32 extremes"""
-    rng = np.random.default_rng(m)
-    res = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 200),
-                          [0, 1, -1, 2 ** 31 - 1, -2 ** 31]]).astype(np.int64)
-    n = np.where(res < 0, 0xffffffff, 0)
-    z = np.where(res != 0, 0xffffffff, 0)
-    for g in (m, -m):
-        gu = g & 0xffffffff
-        assert np.array_equal(wrap32(((gu & z) ^ n) - n),
-                              np.sign(res) * g)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("bps", [8, 16, 24])
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 95, 97,
-                               1000])
+                               100, 1000])
 def test_cuda_kernel_matches_plain(bps, n):
     """1, 31, 33 and 45 lanes (partial warps) of full-range values
     (lanes 20 on), n at the edges of the 8-step unroll and of the tiles

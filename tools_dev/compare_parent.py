@@ -26,14 +26,11 @@ only the WavPack kernels are compared.
 
 With --tta only tta_filter is compared, on chip_smoke.py's phase 14
 input (the fixed predictor's output of the first 256-frame encode
-batch of bench.py's signal, 512 lanes x 46080), in the order other,
-this, the variants, then in reverse: the variants are this tree's
-csrc/tta_filter.cu built alone with TTA_FILTER_QM_LOGIC at each value
-of TTA_VALUES but its source's default.  All outputs must be equal.
-Then one JSON line per build gives the innermost loops of its
-tta_filter_kernel's SASS (cuobjdump -sass), largest first, with their
-instructions and opcodes counted; --sass DIR also writes each build's
-kernel SASS into DIR.  Usage:
+batch of bench.py's signal, 512 lanes x 46080); then one JSON line per
+tree gives the innermost loops of its tta_filter_kernel's SASS
+(cuobjdump -sass), largest first, with their instructions and opcodes
+counted, and --sass DIR also writes each tree's kernel SASS into DIR.
+Usage:
 
     python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack | --tta
         [--sass DIR]]
@@ -165,14 +162,13 @@ def alac_rows(dev):
     return (args, scan["sub_meta"][:, 2])
 
 
-def in_turns(run_other, run_mine, **more):
-    """{"other": [...], "this": [...], ...} of (median_ms, device_ms),
-    timed in the order other, this, the calls of ``more``, then the same
-    in reverse"""
+def in_turns(run_other, run_mine):
+    """{"other": [...], "this": [...]} of (median_ms, device_ms), timed
+    in the order other, this, this, other"""
     from chip_smoke import device_ms, median_ms
-    runs = [("other", run_other), ("this", run_mine)] + list(more.items())
-    times = {who: [] for (who, _) in runs}
-    for (who, fn) in runs + runs[::-1]:
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        fn = run_other if who == "other" else run_mine
         times[who].append((median_ms(fn), device_ms(fn)))
     return times
 
@@ -210,12 +206,6 @@ def compare_wavpack(other, mine, dev):
                       in_turns(run_other, run_mine)), flush=True)
 
 
-# tta_filter.cu's -D option (the qm components updated with logic) and
-# the values --tta builds beside the source's default
-TTA_OPTION = "TTA_FILTER_QM_LOGIC"
-TTA_VALUES = (0, 4, 5, 6, 7, 8)
-
-
 def tta_lanes(dev):
     """phase 14's input: the fixed predictor's output of the first
     256-frame encode batch of bench.py's signal (seed 7), [512, 46080]"""
@@ -227,44 +217,6 @@ def tta_lanes(dev):
                             device=dev)
     predicted = tta_scan.fixed_predict(tta_scan.correlate(first), 16)
     return predicted.permute(0, 2, 1).reshape(F * 2, n).contiguous()
-
-
-def build_tta_variants(kernels):
-    """csrc/tta_filter.cu built alone with its -D option at each value of
-    TTA_VALUES but its source's default, the compiles started together;
-    returns [(name, library path, ctypes library)]"""
-    import ctypes
-    import re
-    src = os.path.join(kernels.SOURCE_DIR, "tta_filter.cu")
-    with open(src) as f:
-        default = int(re.search(r"#define %s (\d+)" % TTA_OPTION,
-                                f.read()).group(1))
-    out_dir = os.path.join(kernels.BUILD_DIR, "tta_variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for value in TTA_VALUES:
-        if value == default:
-            continue
-        name = "%s=%d" % (TTA_OPTION, value)
-        path = os.path.join(out_dir, "libtta_filter_%s%d.so"
-                            % (TTA_OPTION, value))
-        cmd = ([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
-               ["-D" + name, "-shared", "-o", path, src])
-        procs.append((name, path, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    built = []
-    for (name, path, cmd, proc) in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            sys.exit("nvcc failed (%d): %s\n%s" % (proc.returncode,
-                                                  " ".join(cmd), log))
-        lib = ctypes.CDLL(path)
-        lib.atpu_tta_filter.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-        lib.atpu_tta_filter.restype = ctypes.c_int
-        built.append((name, path, lib))
-    return built
 
 
 def sass_loops(kernels, lib_path, name, dump_path=None):
@@ -324,52 +276,28 @@ def sass_loops(kernels, lib_path, name, dump_path=None):
 
 
 def compare_tta(other, mine, dev, sass_dir):
-    """tta_filter of both trees, and of this tree's source built with its
-    -D option at the other values, on phase 14's lanes; the innermost
+    """tta_filter of both trees on phase 14's lanes, and the innermost
     loops of each build's SASS"""
     from audiotools_tpu_torch.ops.tta_synth import filter_shift_for
     lanes = tta_lanes(dev)
     fshift = filter_shift_for(16)
-    variants = build_tta_variants(mine)
-    outs = [torch.empty_like(lanes) for _ in range(2 + len(variants))]
-
-    def launcher(lib, out):
-        def run():
-            rc = lib.atpu_tta_filter(
-                lanes.data_ptr(), lanes.shape[0], lanes.shape[1], fshift,
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-            if rc != 0:
-                raise RuntimeError("variant launch failed: CUDA error %d"
-                                   % rc)
-        return run
-
+    outs = [torch.empty_like(lanes) for _ in range(2)]
     (run_other, run_mine) = (
         (lambda m=m, o=o: m.tta_filter(lanes, fshift, o))
         for (m, o) in zip((other, mine), outs))
-    more = {name: launcher(lib, out)
-            for ((name, _, lib), out) in zip(variants, outs[2:])}
-    for fn in [run_other, run_mine] + list(more.values()):
-        fn()
+    run_other()
+    run_mine()
     torch.cuda.synchronize()
-    equal = all(bool(torch.equal(outs[0], o)) for o in outs[1:])
-    times = in_turns(run_other, run_mine, **more)
-    print(json.dumps({
-        "kernel": "tta_filter", "shape": list(lanes.shape), "equal": equal,
-        "median_ms": {who: float(np.median([t[0] for t in ts]))
-                      for (who, ts) in times.items()},
-        "device_ms": {who: float(np.median([t[1] for t in ts]))
-                      for (who, ts) in times.items()},
-        "runs": times}), flush=True)
-    for (who, path) in ([("other", other.library_path()),
-                         ("this", mine.library_path())] +
-                        [(name, path) for (name, path, _) in variants]):
-        dump = (os.path.join(sass_dir, "tta_filter_%s.sass"
-                             % who.replace("=", ""))
+    equal = bool(torch.equal(outs[0], outs[1]))
+    print(summary("tta_filter", lanes.shape, equal,
+                  in_turns(run_other, run_mine)), flush=True)
+    for (who, module) in (("other", other), ("this", mine)):
+        dump = (os.path.join(sass_dir, "tta_filter_%s.sass" % who)
                 if sass_dir else None)
         print(json.dumps({"sass": who, "kernel": "tta_filter_kernel",
                           "innermost_loops": sass_loops(
-                              mine, path, "tta_filter_kernel", dump)}),
-              flush=True)
+                              mine, module.library_path(),
+                              "tta_filter_kernel", dump)}), flush=True)
     if not equal:
         sys.exit("tta_filter outputs differ")
 
