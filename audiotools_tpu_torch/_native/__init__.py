@@ -1,9 +1,9 @@
 """The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
-kernels, and MD5.
+kernels, the converters' host twins, and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
-Shorten, WavPack, CRC and MD5 parts of the reference package's host
-library; the wrappers here are the reference's (``audiotools_tpu/_native``),
+Shorten, WavPack, converter, CRC and MD5 parts of the reference
+package's host library; the wrappers here are the reference's (``audiotools_tpu/_native``),
 for the entry points the port calls, with the port's own ``shn_header``
 and ``shn_warm_chain``.  The ``wv_*`` wrappers hold the ctypes calls that
 the reference makes inline in its ``ref/wavpack.py``.  The library compiles with g++ on
@@ -33,6 +33,7 @@ _I32 = ctypes.POINTER(ctypes.c_int32)
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
 _U32 = ctypes.POINTER(ctypes.c_uint32)
+_F64 = ctypes.POINTER(ctypes.c_double)
 
 
 class CapacityError(ValueError):
@@ -310,6 +311,18 @@ def get_lib():
     lib.atpu_wv_read_bitstream.argtypes = [
         _U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, _I64, _I64,
         _I64]
+
+    lib.atpu_resample_fir.restype = None
+    lib.atpu_resample_fir.argtypes = [
+        _F64, ctypes.c_int64, ctypes.c_int32, _I64, _I32, _F64,
+        ctypes.c_int32, ctypes.c_int64, _F64]
+    lib.atpu_accuraterip_update.restype = None
+    lib.atpu_accuraterip_update.argtypes = [
+        _I32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, _U32, _U32]
+    lib.atpu_iir.restype = None
+    lib.atpu_iir.argtypes = [_F64, _F64, ctypes.c_int32, _F64, _F64,
+                             ctypes.c_int64, _F64]
 
     lib.atpu_md5_init.restype = None
     lib.atpu_md5_init.argtypes = [_U8]
@@ -954,6 +967,72 @@ def wv_read_bitstream(data, n, channel_count, entropies):
     entropies[0][0:3] = [int(v) for v in ent[0:3]]
     entropies[1][0:3] = [int(v) for v in ent[3:6]]
     return [out0, out1][:channel_count]
+
+
+def resample_fir(hist, starts, q, bank):
+    """polyphase FIR: out[m] = bank[q[m]] . hist[starts[m]:+taps]
+
+    hist: float64 [n, ch]; starts: int64 [M]; q: int32 [M];
+    bank: float64 [n_phases, taps].  Returns float64 [M, ch].  Raises
+    ValueError when a window or a phase lies outside its array."""
+    hist = np.ascontiguousarray(hist, dtype=np.float64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    q = np.ascontiguousarray(q, dtype=np.int32)
+    bank = np.ascontiguousarray(bank, dtype=np.float64)
+    (n, ch) = hist.shape
+    (n_phases, taps) = bank.shape
+    m_count = starts.shape[0]
+    if q.shape != (m_count,):
+        raise ValueError("starts and q differ in length")
+    if m_count and (starts.min() < 0 or starts.max() + taps > n or
+                    q.min() < 0 or q.max() >= n_phases):
+        raise ValueError("a window or a phase lies outside its array")
+    out = np.empty((m_count, ch), dtype=np.float64)
+    get_lib().atpu_resample_fir(
+        _as_ptr(hist, ctypes.c_double), n, ch,
+        _as_ptr(starts, ctypes.c_int64), _as_ptr(q, ctypes.c_int32),
+        _as_ptr(bank, ctypes.c_double), taps, m_count,
+        _as_ptr(out, ctypes.c_double))
+    return out
+
+
+def accuraterip_update(samples, first_index, start_offset, end_offset,
+                       v1, v2):
+    """folds int32 [n, 2] samples into AccurateRip V1/V2 accumulators;
+    samples[0] is the track's frame ``first_index`` (from 1), and frames
+    in [start_offset, end_offset] count
+
+    returns the updated (v1, v2) 32-bit values"""
+    samples = np.ascontiguousarray(samples, dtype=np.int32)
+    if samples.ndim != 2 or samples.shape[1] != 2:
+        raise ValueError("samples must be int32 [n, 2]")
+    c1 = ctypes.c_uint32(v1)
+    c2 = ctypes.c_uint32(v2)
+    get_lib().atpu_accuraterip_update(
+        _as_ptr(samples, ctypes.c_int32), samples.shape[0], first_index,
+        start_offset, end_offset, ctypes.byref(c1), ctypes.byref(c2))
+    return (c1.value, c2.value)
+
+
+def iir(b, a, x, zi):
+    """the IIR filter (b, a) over x from state zi, direct form II
+    transposed: returns (y, zf), float64
+
+    b and a hold the same number n >= 2 of coefficients, a[0] == 1;
+    zi holds n - 1 values"""
+    b = np.ascontiguousarray(b, dtype=np.float64)
+    a = np.ascontiguousarray(a, dtype=np.float64)
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    z = np.array(zi, dtype=np.float64)
+    if len(b) < 2 or a.shape != b.shape or z.shape != (len(b) - 1,):
+        raise ValueError("b and a need n >= 2 coefficients, zi n - 1")
+    y = np.empty_like(x)
+    get_lib().atpu_iir(_as_ptr(b, ctypes.c_double),
+                       _as_ptr(a, ctypes.c_double), len(b),
+                       _as_ptr(x, ctypes.c_double),
+                       _as_ptr(y, ctypes.c_double), len(x),
+                       _as_ptr(z, ctypes.c_double))
+    return (y, z)
 
 
 class MD5:

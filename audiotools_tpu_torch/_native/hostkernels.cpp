@@ -31,12 +31,15 @@
 //   * atpu_wv_crc / atpu_wv_correlate / atpu_wv_write_bitstream /
 //     atpu_wv_read_bitstream / atpu_wv_decorrelate: the WavPack block
 //     CRC, one encode decorrelation pass, the adaptive-medians residual
-//     coder and reader, and one decode decorrelation pass.
+//     coder and reader, and one decode decorrelation pass;
+//   * atpu_resample_fir / atpu_accuraterip_update / atpu_iir: the
+//     converters' host twins (the resampler's polyphase FIR, the
+//     AccurateRip V1/V2 sums and the ReplayGain filters' IIR).
 // The port's own additions: atpu_shn_header (the stream header's
 // fields and leading VERBATIM bytes) and atpu_shn_warm_chain (the device decode's warm-up chain,
 // a Python loop over rows in the reference).
-// The reference's MLP, MPEG, quantized-upload and filter kernels are
-// not copied.
+// The reference's MLP, MPEG and quantized-upload kernels are not
+// copied.
 //
 // Build: g++ -O3 -shared -fPIC (see __init__.py); loaded via ctypes.
 
@@ -5707,6 +5710,201 @@ int32_t atpu_wv_decorrelate(int64_t* ch0,
         return 0;
     }
     return -87;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------- converters --
+// The converter suite's host kernels, copied from the reference's
+// library: the resampler's polyphase FIR (both of its summation
+// orders), the AccurateRip V1/V2 multiply-accumulate and the direct-form
+// II transposed IIR of the ReplayGain filters.  They are the host twins
+// of the device converters in ops/converters.py: the device routes
+// never call them.
+
+// Windowed-sinc resampler hot loop (reference counterpart:
+// src/samplerate/src_sinc.c:1207 calc_output).  For each output m,
+// out[m,:] = sum_t bank[q[m], t] * hist[starts[m] + t, :].
+// hist is interleaved float64 [n, ch]; bank rows are per-phase
+// coefficient vectors.  Channel-templated so the tap loop carries
+// fixed accumulator registers and vectorizes.
+namespace {
+
+template <int CH>
+static void resample_fir_t(const double* hist,
+                           const int64_t* starts,
+                           const int32_t* q,
+                           const double* bank,
+                           int taps,
+                           int64_t m_count,
+                           double* out) {
+    for (int64_t m = 0; m < m_count; m++) {
+        const double* h = hist + starts[m] * CH;
+        const double* b = bank + (int64_t)q[m] * taps;
+        // four independent accumulator chains per channel: the FMA
+        // latency chain otherwise serializes the tap loop (f64 adds
+        // cannot be reassociated by the compiler without fast-math,
+        // and this fixed grouping keeps output deterministic)
+        double a0[CH] = {}, a1[CH] = {}, a2[CH] = {}, a3[CH] = {};
+        double a4[CH] = {}, a5[CH] = {}, a6[CH] = {}, a7[CH] = {};
+        int t = 0;
+        for (; t + 8 <= taps; t += 8) {
+            for (int c = 0; c < CH; c++) {
+                a0[c] += b[t] * h[t * CH + c];
+                a1[c] += b[t + 1] * h[(t + 1) * CH + c];
+                a2[c] += b[t + 2] * h[(t + 2) * CH + c];
+                a3[c] += b[t + 3] * h[(t + 3) * CH + c];
+                a4[c] += b[t + 4] * h[(t + 4) * CH + c];
+                a5[c] += b[t + 5] * h[(t + 5) * CH + c];
+                a6[c] += b[t + 6] * h[(t + 6) * CH + c];
+                a7[c] += b[t + 7] * h[(t + 7) * CH + c];
+            }
+        }
+        for (; t < taps; t++)
+            for (int c = 0; c < CH; c++)
+                a0[c] += b[t] * h[t * CH + c];
+        for (int c = 0; c < CH; c++)
+            out[m * CH + c] = ((a0[c] + a1[c]) + (a2[c] + a3[c])) +
+                              ((a4[c] + a5[c]) + (a6[c] + a7[c]));
+    }
+}
+
+#ifdef ATPU_AVX512
+// stereo FIR: interleaved [L,R]x4 lanes with pairwise-duplicated
+// coefficients (one permute + FMA covers 4 taps x 2 channels).
+// Summation order differs from the scalar path's 8-chain grouping —
+// like the NumPy fallback, which already sums tap-at-a-time; the
+// resampler's contract is filter quality (SNR/band tests), not
+// bit-reproducible f64 rounding across backends.
+static void resample_fir_stereo_avx(const double* hist,
+                                    const int64_t* starts,
+                                    const int32_t* q,
+                                    const double* bank,
+                                    int taps,
+                                    int64_t m_count,
+                                    double* out) {
+    alignas(64) static const int64_t DUP[8] = {0, 0, 1, 1, 2, 2, 3, 3};
+    const __m512i dup = _mm512_load_si512((const __m512i*)DUP);
+    for (int64_t m = 0; m < m_count; m++) {
+        const double* h = hist + starts[m] * 2;
+        const double* b = bank + (int64_t)q[m] * taps;
+        __m512d acc0 = _mm512_setzero_pd();
+        __m512d acc1 = _mm512_setzero_pd();
+        int t = 0;
+        for (; t + 8 <= taps; t += 8) {
+            const __m512d b0 = _mm512_permutexvar_pd(
+                dup, _mm512_castpd256_pd512(
+                    _mm256_loadu_pd(b + t)));
+            const __m512d b1 = _mm512_permutexvar_pd(
+                dup, _mm512_castpd256_pd512(
+                    _mm256_loadu_pd(b + t + 4)));
+            acc0 = _mm512_fmadd_pd(
+                b0, _mm512_loadu_pd(h + t * 2), acc0);
+            acc1 = _mm512_fmadd_pd(
+                b1, _mm512_loadu_pd(h + t * 2 + 8), acc1);
+        }
+        const __m512d acc = _mm512_add_pd(acc0, acc1);
+        alignas(64) double lanes[8];
+        _mm512_store_pd(lanes, acc);
+        double L = ((lanes[0] + lanes[2]) + (lanes[4] + lanes[6]));
+        double R = ((lanes[1] + lanes[3]) + (lanes[5] + lanes[7]));
+        for (; t < taps; t++) {
+            L += b[t] * h[t * 2];
+            R += b[t] * h[t * 2 + 1];
+        }
+        out[m * 2] = L;
+        out[m * 2 + 1] = R;
+    }
+}
+#endif  // ATPU_AVX512
+
+}  // namespace
+
+extern "C" void atpu_resample_fir(const double* hist,
+                                  int64_t hist_len,
+                                  int32_t channels,
+                                  const int64_t* starts,
+                                  const int32_t* q,
+                                  const double* bank,
+                                  int32_t taps,
+                                  int64_t m_count,
+                                  double* out) {
+    (void)hist_len;
+#ifdef ATPU_AVX512
+    if (channels == 2 && taps >= 8) {
+        resample_fir_stereo_avx(hist, starts, q, bank, taps, m_count,
+                                out);
+        return;
+    }
+#endif
+    switch (channels) {
+    case 1: resample_fir_t<1>(hist, starts, q, bank, taps, m_count,
+                              out); return;
+    case 2: resample_fir_t<2>(hist, starts, q, bank, taps, m_count,
+                              out); return;
+    default:
+        for (int64_t m = 0; m < m_count; m++) {
+            const double* h = hist + starts[m] * channels;
+            const double* b = bank + (int64_t)q[m] * taps;
+            for (int c = 0; c < channels; c++) {
+                double acc = 0.0;
+                for (int t = 0; t < taps; t++)
+                    acc += b[t] * h[t * channels + c];
+                out[m * channels + c] = acc;
+            }
+        }
+    }
+}
+
+extern "C" {
+
+// ------------------------------------------------- AccurateRip CRCs --
+// Offset-windowed multiply-accumulate CRCs over CD PCM (reference
+// src/accuraterip.c:44-326).  samples: int32 interleaved [n, 2],
+// 16-bit range.  first_index is the 1-based index of samples[0]
+// within the track; [start_offset, end_offset] is the inclusive
+// window (first-track skip / last-track stop).  Accumulates into
+// v1/v2 so chunked callers can fold this into a decode pass.
+void atpu_accuraterip_update(const int32_t* samples,
+                             int64_t n,
+                             int64_t first_index,
+                             int64_t start_offset,
+                             int64_t end_offset,
+                             uint32_t* v1,
+                             uint32_t* v2) {
+    uint32_t a1 = *v1, a2 = *v2;
+    // hoist the offset-window test to the loop bounds: the inner
+    // multiply-accumulate is then branchless and auto-vectorizes
+    // (sums are mod-2^32 commutative, so lane order is free)
+    int64_t i0 = start_offset - first_index;
+    if (i0 < 0) i0 = 0;
+    int64_t i1 = end_offset - first_index + 1;
+    if (i1 > n) i1 = n;
+    for (int64_t i = i0; i < i1; i++) {
+        const int64_t idx = first_index + i;
+        const uint32_t lo = (uint16_t)samples[2 * i];
+        const uint32_t hi = (uint16_t)samples[2 * i + 1];
+        const uint64_t p = (uint64_t)((hi << 16) | lo) * (uint64_t)idx;
+        a1 += (uint32_t)p;
+        a2 += (uint32_t)p + (uint32_t)(p >> 32);
+    }
+    *v1 = a1;
+    *v2 = a2;
+}
+
+
+/* y[i] = b0*x[i] + z0; z[j] = b[j+1]*x[i] + z[j+1] - a[j+1]*y[i]
+ * b, a: double[n]; z: double[n-1] in/out; x, y: double[len] */
+void atpu_iir(const double* b, const double* a, int32_t n,
+              const double* x, double* y, int64_t len, double* z) {
+    for (int64_t i = 0; i < len; i++) {
+        const double xi = x[i];
+        const double yi = b[0] * xi + z[0];
+        for (int32_t j = 0; j < n - 2; j++)
+            z[j] = b[j + 1] * xi + z[j + 1] - a[j + 1] * yi;
+        z[n - 2] = b[n - 1] * xi - a[n - 1] * yi;
+        y[i] = yi;
+    }
 }
 
 }  // extern "C"

@@ -56,6 +56,36 @@ class FrameList:
             np.uint8).tobytes()
 
 
+class FloatFrameList:
+    """float64 PCM samples [frames, channels] in [-1, 1) (the
+    reference's ``pcm.FloatFrameList``, the parts the converters use)"""
+
+    __slots__ = ("samples",)
+
+    @classmethod
+    def _wrap(cls, samples):
+        fl = cls.__new__(cls)
+        fl.samples = samples
+        return fl
+
+    @property
+    def frames(self):
+        return self.samples.shape[0]
+
+    @property
+    def channels(self):
+        return self.samples.shape[1]
+
+    def to_int(self, bits_per_sample):
+        """a FrameList at the given bits per sample: truncated toward
+        zero, then clamped to the sample range (the reference's
+        ``pcm.py:322``)"""
+        adjustment = 1 << (bits_per_sample - 1)
+        scaled = np.trunc(self.samples * adjustment)
+        clipped = np.clip(scaled, -adjustment, adjustment - 1)
+        return FrameList(clipped.astype(np.int32), bits_per_sample)
+
+
 def empty_framelist(channels, bits_per_sample):
     return FrameList(np.zeros((0, channels), dtype=np.int32),
                      bits_per_sample)
@@ -243,3 +273,154 @@ def decode_flac(data):
     if md5.digest() != meta["md5sum"]:
         raise ValueError("decoded samples do not match the stream's MD5")
     return samples
+
+
+# the speaker bits a channel mask can hold (the reference's
+# ChannelMask.SPEAKER_TO_MASK), in stream order from the lowest
+SPEAKER_BITS = 0x3FFFF
+
+
+def mask_speakers(channel_mask):
+    """the speaker bits set in a channel mask, in stream order"""
+    return [1 << b for b in range(18) if (channel_mask >> b) & 1]
+
+
+def mask_channel_count(channel_mask):
+    """the number of speakers a channel mask names (the reference's
+    ``len(ChannelMask(mask))``)"""
+    return bin(channel_mask & SPEAKER_BITS).count("1")
+
+
+class PCMReaderProgress:
+    """a PCMReader calling progress(current, total) after each read
+    (the reference's ``pcmstream.PCMReaderProgress``)"""
+
+    def __init__(self, pcmreader, total_frames, progress, current_frames=0):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = pcmreader.channels
+        self.channel_mask = pcmreader.channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        self.current_frames = current_frames
+        self.total_frames = total_frames
+        self.progress = progress
+
+    def read(self, pcm_frames):
+        frame = self.pcmreader.read(pcm_frames)
+        self.current_frames += frame.frames
+        self.progress(self.current_frames, self.total_frames)
+        return frame
+
+    def close(self):
+        self.pcmreader.close()
+
+
+class ReorderedPCMReader:
+    """a PCMReader whose channels are the wrapped reader's, taken in
+    ``channel_order`` (the reference's ``pcmstream.ReorderedPCMReader``)"""
+
+    def __init__(self, pcmreader, channel_order, channel_mask=None):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = len(channel_order)
+        self.channel_mask = (pcmreader.channel_mask if channel_mask is None
+                             else channel_mask)
+        if (self.channel_mask != 0 and
+                mask_channel_count(self.channel_mask) != self.channels):
+            raise ValueError("channel count and mask mismatch")
+        self.bits_per_sample = pcmreader.bits_per_sample
+        self.channel_order = list(channel_order)
+
+    def read(self, pcm_frames):
+        frame = self.pcmreader.read(pcm_frames)
+        return FrameList(frame.samples[:, self.channel_order],
+                         frame.bits_per_sample)
+
+    def close(self):
+        self.pcmreader.close()
+
+
+class RemaskedPCMReader:
+    """a PCMReader with another channel count and mask: each speaker of
+    the new mask takes the wrapped reader's channel for that speaker,
+    or silence (the reference's ``pcmstream.RemaskedPCMReader``)"""
+
+    def __init__(self, pcmreader, channel_count, channel_mask):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = channel_count
+        self.channel_mask = channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        if pcmreader.channel_mask != 0 and channel_mask != 0:
+            if mask_channel_count(channel_mask) != channel_count:
+                raise ValueError("channel count and mask mismatch")
+            have = mask_speakers(pcmreader.channel_mask)
+            self.sources = [have.index(s) if s in have else None
+                            for s in mask_speakers(channel_mask)]
+        elif channel_count <= pcmreader.channels:
+            self.sources = list(range(channel_count))
+        else:
+            self.sources = (list(range(pcmreader.channels)) +
+                            [None] * (channel_count - pcmreader.channels))
+
+    def read(self, pcm_frames):
+        frame = self.pcmreader.read(pcm_frames)
+        out = np.zeros((frame.frames, self.channels), dtype=np.int32)
+        for (i, c) in enumerate(self.sources):
+            if c is not None:
+                out[:, i] = frame.samples[:, c]
+        return FrameList(out, frame.bits_per_sample)
+
+    def close(self):
+        self.pcmreader.close()
+
+
+def PCMConverter(pcmreader, sample_rate, channels, channel_mask,
+                 bits_per_sample, device="cuda"):
+    """a PCMReader converting ``pcmreader`` to the given rate, channels,
+    mask and bits per sample (the reference's ``pcmstream.PCMConverter``):
+    channels by averaging, downmixing, remasking or reordering, the rate
+    by ``pcmconverter.Resampler`` on ``device``, the bits per sample by
+    ``pcmconverter.BPSConverter``
+
+    ``device`` is resolved even where no resampling is needed, so a
+    request for an absent card always raises"""
+    from . import pcmconverter
+    from ._device import resolve_device
+    device = resolve_device(device)
+    if sample_rate <= 0:
+        raise ValueError("invalid sample rate")
+    elif channels <= 0:
+        raise ValueError("invalid channel count")
+    elif bits_per_sample not in (8, 16, 24):
+        raise ValueError("invalid bits per sample")
+    if channel_mask != 0 and mask_channel_count(channel_mask) != channels:
+        raise ValueError("channel count and mask mismatch")
+
+    if pcmreader.channels > channels:
+        if channels == 1 and channel_mask in (0, 0x4):
+            if pcmreader.channels > 2:
+                pcmreader = pcmconverter.Downmixer(pcmreader)
+            pcmreader = pcmconverter.Averager(pcmreader)
+        elif channels == 2 and channel_mask in (0, 0x3):
+            pcmreader = pcmconverter.Downmixer(pcmreader)
+        else:
+            pcmreader = RemaskedPCMReader(pcmreader, channels, channel_mask)
+    elif pcmreader.channels < channels:
+        pcmreader = ReorderedPCMReader(
+            pcmreader, list(range(pcmreader.channels)) +
+            [0] * (channels - pcmreader.channels), channel_mask)
+
+    if pcmreader.sample_rate != sample_rate:
+        pcmreader = pcmconverter.Resampler(pcmreader, sample_rate, device)
+    if pcmreader.bits_per_sample != bits_per_sample:
+        pcmreader = pcmconverter.BPSConverter(pcmreader, bits_per_sample)
+    return pcmreader
+
+
+def resampled_frame_count(initial_frame_count, initial_sample_rate,
+                          new_sample_rate):
+    """the PCM frame count after resampling, rounded down"""
+    if initial_sample_rate == new_sample_rate:
+        return initial_frame_count
+    return initial_frame_count * new_sample_rate // initial_sample_rate

@@ -7,8 +7,9 @@ packing, FLAC decode with device Rice decoding and synthesis, ALAC
 encode with device analysis and ALAC decode with device synthesis,
 TTA encode with the device filter and decode with device filter
 inversion, Shorten encode with device analysis and decode with device
-synthesis, and WavPack encode and decode with the decorrelation passes
-on the card.  Its phases each print one line:
+synthesis, WavPack encode and decode with the decorrelation passes
+on the card, and the converters (ReplayGain, AccurateRip, the
+resampler).  Its phases each print one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -65,8 +66,8 @@ on the card.  Its phases each print one line:
 12. TTA kernel vs plain: tta_synth on the card against its plain
     version on the card, on the first decode group (256 frames, 512
     lanes x 46080) of phase 11's signal encoded on the card as a TTA
-    stream; must be equal; timed (the plain version once), with its
-    time a serial step;
+    stream; must be equal; timed (the plain version once), and with the
+    card's time alone (device_ms), with its time a serial step;
 13. TTA identity and throughput: the card's encoder writes the same
     file whether the length is known up front or not, and it decodes
     back on the host; that short stream decodes on the card to its
@@ -121,7 +122,26 @@ on the card.  Its phases each print one line:
     the host route, the all-host encode (run
     before phase 17) and decode timed once beside them; a short
     veryhigh stream and a short 6-channel (mask 0x3F) one give the
-    same file and PCM on the card and on the CPU.
+    same file and PCM on the card and on the CPU;
+19. converters, on phase 11's signal: ReplayGain on the card over the
+    signal cut into an album of four 95.1 s titles (title and album
+    gains, peaks) against the port's host C++ IIR analysis of the same
+    titles (peaks equal, at most one window moved between bins a
+    title, gains within 0.011 dB); AccurateRip of the same four cuts
+    as a CD's tracks (the first track's skip, the last track's stop),
+    fed in 65,536-frame chunks, equal to the port's C++ sums; the
+    resampler, 44.1 -> 48 kHz through PCMConverter at reads of 4096
+    and of 1 << 20 frames, and 96 -> 44.1 kHz on 60 s of 24-bit,
+    against the port's C++ FIR over every output's window (at most 1
+    LSB apart, on under 1e-4 of the samples), with the card's peak
+    memory at 1 << 20-frame reads; each converter three times (the 96
+    kHz stream once), with its median rate in Msamples/s of input PCM
+    and its stages, the host twin timed once beside it, and the forms
+    not taken timed on the same inputs (the ReplayGain FIR as float64
+    conv1d, a title's reads streamed to the card, the resampler's
+    gather for a bank with a row a phase); and short cases (an 8-bit
+    mono title, a 24-bit title, a 2-frame final AccurateRip chunk)
+    that agree between the card and the CPU.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -637,6 +657,304 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz, cycles_lib):
          encode_runs=wv_enc_runs, decode_runs=wv_dec_runs)
 
     return (corr_row, decorr_row, wv_enc_runs, wv_dec_runs)
+
+
+# phase 19: ReplayGain's titles and AccurateRip's tracks (an album of
+# four cut from phase 11's signal), and the resampler's read sizes
+RG_TITLES = 4
+RESAMPLE_READS = (4096, 1 << 20)
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stage_runs(runs, in_samples):
+    """the median run's wall and stage seconds (host: the wall less the
+    stages), with every run's rate in Msamples/s of input PCM"""
+    rates = [in_samples / r["wall_s"] / 1e6 for r in runs]
+    median = runs[int(np.argsort(rates)[len(rates) // 2])]
+    stages = dict(median["stage_s"])
+    stages["host"] = median["wall_s"] - sum(stages.values())
+    return dict(Msamples_per_s=float(np.median(rates)),
+                Msamples_per_s_runs=rates, wall_s=median["wall_s"],
+                stage_s=stages)
+
+
+def rg_window_sums_conv1d(left, right, h, window_samples, segment=1 << 16):
+    """ops.converters.rg_window_sums with the FIR as float64 F.conv1d in
+    segments of ``segment`` samples (each with L - 1 samples of the one
+    before), phase 19's timed alternative to the overlap-save FFT"""
+    import torch.nn.functional as F
+    n = left.shape[0] // window_samples * window_samples
+    L = h.shape[0]
+    x = F.pad(torch.stack([left[:n], right[:n]])[:, None, :], (L - 1, 0))
+    kernel = h.flip(0)[None, None, :]
+    sq = torch.empty(n, dtype=torch.float64, device=left.device)
+    for s0 in range(0, n, segment):
+        y = F.conv1d(x[:, :, s0:s0 + segment + L - 1], kernel)[:, 0, :]
+        sq[s0:s0 + y.shape[1]] = y[0] * y[0] + y[1] * y[1]
+    return sq.view(-1, window_samples).sum(dim=1)
+
+
+def converter_phase(dev, alac_sig):
+    """phase 19 on ``alac_sig``, phase 11's signal: the converters on
+    ``dev`` against the port's host C++ twins, timed; returns its line's
+    fields"""
+    from audiotools_tpu_torch import _native, pcmconverter, replaygain
+    from audiotools_tpu_torch import accuraterip_checksum as ar
+    from audiotools_tpu_torch.codecs.flac_dec import upload_arrays
+    from audiotools_tpu_torch.ops import converters
+    from audiotools_tpu_torch.pcm import (PCMConverter, read_all,
+                                          reader_from_array)
+    a_frames = alac_sig.shape[0]
+    in_samples = alac_sig.size
+    per = a_frames // RG_TITLES
+    titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    out = {}
+
+    # ---- ReplayGain: the album on the card, the host IIR beside it -----
+    win = int(np.ceil(SAMPLE_RATE * replaygain.RMS_WINDOW_TIME))
+    t0 = time.perf_counter()
+    host_hists = []
+    for title in titles:
+        x = title.astype(np.float64)
+        sums = converters.rg_window_sums_host(x[:, 0], x[:, 1],
+                                              SAMPLE_RATE, win)
+        hist = np.zeros(12000, dtype=np.int64)
+        values = 1000.0 * np.log10(sums / win * 0.5 + 1e-37)
+        np.add.at(hist, np.clip(values.astype(np.int64), 0, 11999), 1)
+        host_hists.append(hist)
+    host_rg_s = time.perf_counter() - t0
+    host_gains = [replaygain._analyze_histogram(h) for h in host_hists]
+    host_peaks = [float(np.abs(t).max()) / 32768 for t in titles]
+    rg_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        rg = replaygain.ReplayGain(SAMPLE_RATE, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        results = [rg.title_gain(reader_from_array(t, 16)) for t in titles]
+        album = rg.album_gain()
+        wall = time.perf_counter() - t0
+        rg_runs.append(dict(wall_s=wall, stage_s=dict(rg.timings)))
+    # each title's histogram: the album's growth over the title (last run)
+    moved = []
+    for (k, title) in enumerate(titles):
+        rg_k = replaygain.ReplayGain(SAMPLE_RATE, device=dev)
+        rg_k.title_gain(reader_from_array(title, 16))
+        moved.append(int(np.abs(rg_k.album_histogram -
+                                host_hists[k]).sum()))
+    gains = [g for (g, _p) in results]
+    if [p for (_g, p) in results] != host_peaks or album[1] != max(host_peaks):
+        raise AssertionError("ReplayGain peaks differ from the host's")
+    album_host = replaygain._analyze_histogram(sum(host_hists))
+    gain_err = max(abs(g - h) for (g, h) in zip(gains + [album[0]],
+                                               host_gains + [album_host]))
+    if max(moved) > 2 or gain_err > 0.011:
+        raise AssertionError("ReplayGain differs from the host IIR: windows "
+                             "moved %s, gain error %r dB" % (moved, gain_err))
+    # the alternatives: the FIR as float64 conv1d, and the title's reads
+    # streamed into a card buffer in place of one upload at its end
+    title = titles[0]
+    x = torch.as_tensor(title, device=dev).to(torch.float64)
+    h = torch.tensor(converters.rg_combined_fir(SAMPLE_RATE), device=dev)
+    fft_ms = median_ms(lambda: converters.rg_window_sums(
+        x[:, 0], x[:, 1], h, win), 3)
+    conv_ms = median_ms(lambda: rg_window_sums_conv1d(
+        x[:, 0], x[:, 1], h, win), 3)
+    conv_sums = rg_window_sums_conv1d(x[:, 0], x[:, 1], h, win).cpu().numpy()
+    values = 1000.0 * np.log10(conv_sums / win * 0.5 + 1e-37)
+    conv_hist = np.zeros(12000, dtype=np.int64)
+    np.add.at(conv_hist, np.clip(values.astype(np.int64), 0, 11999), 1)
+    pieces = [title[a:a + 4096].astype(np.int16)
+              for a in range(0, per, 4096)]
+    sync(dev)
+    t0 = time.perf_counter()
+    upload_arrays({"x": np.concatenate(pieces)}, torch.device(dev),
+                  dtype=torch.int16)
+    sync(dev)
+    flush_upload_s = time.perf_counter() - t0
+    buf = torch.empty((per, 2), dtype=torch.int16, device=dev)
+    t0 = time.perf_counter()
+    for (k, piece) in enumerate(pieces):
+        buf[k * 4096:k * 4096 + len(piece)] = upload_arrays(
+            {"x": piece}, torch.device(dev), dtype=torch.int16)["x"]
+    sync(dev)
+    streamed_upload_s = time.perf_counter() - t0
+    del x, buf
+    out["replaygain"] = dict(
+        titles=RG_TITLES, title_seconds=per / SAMPLE_RATE, gains=gains,
+        album_gain=album[0], host_gains=host_gains, album_host=album_host,
+        peaks_equal=True, windows_moved=moved, max_gain_error_db=gain_err,
+        fir_taps=int(h.shape[0]), host_iir_s=host_rg_s,
+        host_Msamples_per_s=in_samples / host_rg_s / 1e6,
+        fft_title_ms=fft_ms, conv1d_title_ms=conv_ms,
+        conv1d_windows_moved=int(np.abs(conv_hist - host_hists[0]).sum()),
+        flush_upload_s=flush_upload_s, streamed_upload_s=streamed_upload_s,
+        **stage_runs(rg_runs, in_samples))
+
+    # ---- AccurateRip: a four-track CD, 65,536-frame chunks -------------
+    tracks = [(titles[k], k == 0, k == RG_TITLES - 1)
+              for k in range(RG_TITLES)]
+    t0 = time.perf_counter()
+    host_sums = []
+    for (track, first, last) in tracks:
+        base = ar._ChecksumBase(first, last, SAMPLE_RATE, len(track))
+        host_sums.append(_native.accuraterip_update(
+            track, 1, base.start_offset, base.end_offset, 0, 0))
+    host_ar_s = time.perf_counter() - t0
+    ar_runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        sync(dev)
+        t0 = time.perf_counter()
+        sums = [ar.accuraterip_checksums(reader_from_array(track, 16),
+                                         len(track), first, last,
+                                         device=dev)
+                for (track, first, last) in tracks]
+        wall = time.perf_counter() - t0
+        if sums != host_sums:
+            raise AssertionError("AccurateRip differs from the host's: %s, "
+                                 "%s" % (sums, host_sums))
+        ar_runs.append(dict(wall_s=wall, stage_s={}))
+    # the stages of one more run, by AccurateRipCRC's own timings
+    stage_s = {"upload": 0.0, "sums": 0.0}
+    for (track, first, last) in tracks:
+        crc = ar.AccurateRipCRC(first, last, SAMPLE_RATE, len(track),
+                                device=dev)
+        for a in range(0, len(track), 1 << 16):
+            crc.update_array(track[a:a + (1 << 16)])
+        crc.checksums()
+        for key in stage_s:
+            stage_s[key] += crc.timings[key]
+    ar_summary = stage_runs(ar_runs, in_samples)
+    ar_summary["stage_s"] = dict(stage_s, host=ar_summary["wall_s"] -
+                                 sum(stage_s.values()))
+    out["accuraterip"] = dict(
+        tracks=RG_TITLES, chunk_frames=1 << 16, checksums=sums, equal=True,
+        host_s=host_ar_s, host_Msamples_per_s=in_samples / host_ar_s / 1e6,
+        **ar_summary)
+
+    # ---- Resampler: 44.1 -> 48 kHz (track2track -r 48000) --------------
+    def host_resample(sig, bps, src, dst):
+        """the port's C++ FIR over every output's window, one shot;
+        (int outputs, seconds of the FIR)"""
+        r = pcmconverter.Resampler(reader_from_array(sig[:1], bps, src),
+                                   dst, device="cpu")
+        (num, den, half) = (r.step_num, r.step_den, r.half)
+        total = sig.shape[0] * dst // src
+        m = np.arange(total, dtype=np.int64)
+        hist = np.zeros((sig.shape[0] + 2 * r.TAPS, sig.shape[1]))
+        hist[half:half + sig.shape[0]] = sig / float(1 << (bps - 1))
+        starts = m * num // den + 1
+        q = (m * num % den).astype(np.int32)
+        t0 = time.perf_counter()
+        fir = _native.resample_fir(hist, starts, q, r.__bank__)
+        seconds = time.perf_counter() - t0
+        return (np.clip(np.trunc(fir * (1 << (bps - 1))), -(1 << (bps - 1)),
+                        (1 << (bps - 1)) - 1).astype(np.int32), seconds)
+
+    def card_resample(sig, bps, src, dst, size):
+        reader = PCMConverter(reader_from_array(sig, bps, src), dst, 2, 0x3,
+                              bps, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        got = read_all_of(reader, size)
+        wall = time.perf_counter() - t0
+        return (got, dict(wall_s=wall, stage_s=dict(reader.timings)))
+
+    def read_all_of(reader, size):
+        pieces = []
+        while True:
+            frame = reader.read(size)
+            if frame.frames == 0:
+                return np.concatenate(pieces)
+            pieces.append(frame.samples)
+
+    def lsb_check(got, want, what):
+        if got.shape != want.shape:
+            raise AssertionError("%s: %s outputs, host %s"
+                                 % (what, got.shape, want.shape))
+        diff = np.abs(got.astype(np.int64) - want)
+        share = float((diff != 0).mean())
+        if diff.max() > 1 or share >= 1e-4:
+            raise AssertionError("%s: max diff %d LSB, share %r"
+                                 % (what, diff.max(), share))
+        return (int(diff.max()), share)
+
+    (want, host_fir_s) = host_resample(alac_sig, 16, SAMPLE_RATE, 48000)
+    resample = dict(pair=[SAMPLE_RATE, 48000], outputs=int(want.shape[0]),
+                    host_fir_s=host_fir_s,
+                    host_Msamples_per_s=in_samples / host_fir_s / 1e6)
+    outputs = {}
+    for size in RESAMPLE_READS:
+        runs = []
+        for _ in range(THROUGHPUT_RUNS):
+            if torch.device(dev).type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            (got, run) = card_resample(alac_sig, 16, SAMPLE_RATE, 48000,
+                                       size)
+            runs.append(run)
+        if torch.device(dev).type == "cuda":
+            resample["peak_mem_GB_%d" % size] = (
+                torch.cuda.max_memory_allocated() / 1e9)
+        (resample["max_diff_lsb_%d" % size],
+         resample["share_differing_%d" % size]) = lsb_check(
+            got, want, "44.1 -> 48 kHz, reads of %d" % size)
+        outputs[size] = got
+        resample["reads_%d" % size] = stage_runs(runs, in_samples)
+    resample["read_sizes_differing"] = int(
+        (outputs[RESAMPLE_READS[0]] != outputs[RESAMPLE_READS[1]]).sum())
+    del outputs, want
+    # the alternative form of the exact bank: the gather, on the windows
+    # of one read of 1 << 20 outputs
+    r = pcmconverter.Resampler(reader_from_array(alac_sig, 16), 48000,
+                               device=dev)
+    r._append(alac_sig[:(4096 + (1 << 20)) * 147 // 160 + 1024])
+    banded_ms = median_ms(lambda: r._fir(4096, 4096 + (1 << 20)), 5)
+    (band, r.band) = (r.band, None)
+    r.bank = torch.as_tensor(r.__bank__, device=dev)
+    gather_ms = median_ms(lambda: r._fir(4096, 4096 + (1 << 20)), 5)
+    resample.update(banded_read_ms=banded_ms, gather_read_ms=gather_ms,
+                    band_shape=list(band.shape))
+    del r, band
+    # 96 -> 44.1 kHz on a 60 s 24-bit stream of the same seed
+    hi = program_signal(96000 * 60) << 8
+    (want, hi_fir_s) = host_resample(hi, 24, 96000, SAMPLE_RATE)
+    for size in RESAMPLE_READS:
+        (got, run) = card_resample(hi, 24, 96000, SAMPLE_RATE, size)
+        resample["96k_max_diff_lsb_%d" % size], resample[
+            "96k_share_differing_%d" % size] = lsb_check(
+            got, want, "96 -> 44.1 kHz, reads of %d" % size)
+        resample["96k_reads_%d" % size] = stage_runs([run], hi.size)
+    resample["96k_host_fir_s"] = hi_fir_s
+    out["resampler"] = resample
+
+    # ---- short cases on the card and the CPU ---------------------------
+    short = program_signal(SAMPLE_RATE * 3, seed=3)
+    cases = {}
+    for device in (dev, "cpu"):
+        rg = replaygain.ReplayGain(SAMPLE_RATE, device=device)
+        cases[str(device)] = dict(
+            title8=rg.title_gain(reader_from_array(short[:, :1] >> 8, 8)),
+            title24=rg.title_gain(reader_from_array(short << 8, 24)),
+            hist=rg.album_histogram,
+            ar=ar.accuraterip_checksums(
+                reader_from_array(short[:2 * 65536 + 2], 16),
+                2 * 65536 + 2, False, True, device=device))
+    (c, h) = (cases[str(dev)], cases["cpu"])
+    for key in ("title8", "title24"):
+        if c[key][1] != h[key][1] or abs(c[key][0] - h[key][0]) > 0.011:
+            raise AssertionError("short %s differs between %s and the CPU"
+                                 % (key, dev))
+    if c["ar"] != h["ar"] or np.abs(c["hist"] - h["hist"]).sum() > 4:
+        raise AssertionError("short cases differ between %s and the CPU"
+                             % (dev,))
+    out["short_cases_equal"] = dict(
+        gains_equal=all(c[k] == h[k] for k in ("title8", "title24")),
+        windows_moved=int(np.abs(c["hist"] - h["hist"]).sum()),
+        ar_final_chunk_frames=2, ar_equal=True)
+    return out
 
 
 def main():
@@ -1179,8 +1497,10 @@ def main():
         ms=median_ms(lambda: tta_synth.inverse_filter_predict(lanes, 16)),
         plain_ms=t_plain_ms, bound_ms=t_bound, bound_by=t_bound_by,
         library_ms=None)
+    t_dev = device_ms(lambda: tta_synth.inverse_filter_predict(lanes, 16))
     line("kernel_vs_plain", kernel="tta_synth", shape=[L_t, n_t],
-         frames=F_t, equal=True, ns_per_step=tta_row["ms"] * 1e6 / n_t,
+         frames=F_t, equal=True, device_ms=t_dev,
+         ns_per_step=tta_row["ms"] * 1e6 / n_t,
          cycles_per_step_at_max_sm=tta_row["ms"] * 1e3 * max_sm_mhz / n_t,
          **tta_row)
     del planes, lanes, got, want
@@ -1420,6 +1740,11 @@ def main():
 
     (corr_row, decorr_row, wv_enc_runs, wv_dec_runs) = wavpack_phases(
         dev, alac_sig, max_sm_mhz, cycles_lib)
+
+    # ---- 19. the converters --------------------------------------------
+    t0 = time.perf_counter()
+    fields = converter_phase(dev, alac_sig)
+    line("converters", seconds=time.perf_counter() - t0, **fields)
 
     forbidden = loaded_forbidden_modules()
     if forbidden:

@@ -55,7 +55,8 @@ def test_no_source_imports_the_reference():
 
 def test_port_loads_nothing_of_the_reference():
     """a fresh interpreter imports every port module and chip_smoke,
-    encodes and decodes FLAC, Shorten and TTA through the port on the
+    encodes and decodes FLAC, Shorten and TTA, and runs ReplayGain,
+    AccurateRip and a resampling PCMConverter through the port on the
     CPU, and holds no module of jax or of the reference"""
     code = (
         "import importlib, io, sys\n"
@@ -87,6 +88,15 @@ def test_port_loads_nothing_of_the_reference():
         "device='cpu')\n"
         "assert np.array_equal(tta.decode_tta(out.getvalue(), "
         "device='cpu'), arr[:300])\n"
+        "from audiotools_tpu_torch import accuraterip_checksum, replaygain\n"
+        "(gain, peak) = replaygain.ReplayGain(44100, device='cpu')"
+        ".title_gain(pcm.reader_from_array(arr, 16))\n"
+        "assert 0 < peak < 1\n"
+        "assert accuraterip_checksum.accuraterip_checksums("
+        "pcm.reader_from_array(arr, 16), len(arr), device='cpu')[0] > 0\n"
+        "resampled = pcm.read_all(pcm.PCMConverter(pcm.reader_from_array("
+        "arr, 16), 48000, 1, 0x4, 16, device='cpu'))\n"
+        "assert resampled.shape == (len(arr) * 48000 // 44100, 1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'audiotools_tpu' or "
         "m.startswith('audiotools_tpu.'))\n"
