@@ -56,36 +56,6 @@ class FrameList:
             np.uint8).tobytes()
 
 
-class FloatFrameList:
-    """float64 PCM samples [frames, channels] in [-1, 1) (the
-    reference's ``pcm.FloatFrameList``, the parts the converters use)"""
-
-    __slots__ = ("samples",)
-
-    @classmethod
-    def _wrap(cls, samples):
-        fl = cls.__new__(cls)
-        fl.samples = samples
-        return fl
-
-    @property
-    def frames(self):
-        return self.samples.shape[0]
-
-    @property
-    def channels(self):
-        return self.samples.shape[1]
-
-    def to_int(self, bits_per_sample):
-        """a FrameList at the given bits per sample: truncated toward
-        zero, then clamped to the sample range (the reference's
-        ``pcm.py:322``)"""
-        adjustment = 1 << (bits_per_sample - 1)
-        scaled = np.trunc(self.samples * adjustment)
-        clipped = np.clip(scaled, -adjustment, adjustment - 1)
-        return FrameList(clipped.astype(np.int32), bits_per_sample)
-
-
 def empty_framelist(channels, bits_per_sample):
     return FrameList(np.zeros((0, channels), dtype=np.int32),
                      bits_per_sample)

@@ -5,8 +5,9 @@ The port's copy of the reference's ``pcmconverter.py``.  ``Averager``,
 numpy.  ``Resampler`` keeps the reference's rational index arithmetic,
 history trimming, end-of-stream count and Kaiser-sinc bank (512 taps,
 beta 16; a dense 8192-phase bank where the step's denominator exceeds
-8192), and runs its FIR on ``device``: the history and the bank live
-there, and each read fetches its output once.
+8192), and runs its FIR and the conversion to integers on ``device``:
+the history and the bank live there, and each read fetches its int32
+output once.
 """
 
 from __future__ import annotations
@@ -237,7 +238,8 @@ class Resampler:
         if max_out <= self.next_out:
             return pcm.empty_framelist(self.channels, self.bits_per_sample)
 
-        out = fetch_async(self._fir(self.next_out, max_out))
+        out = fetch_async(converters.to_int(
+            self._fir(self.next_out, max_out), self.bits_per_sample))
         marks.mark()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
@@ -253,8 +255,7 @@ class Resampler:
             self.history = self.history[keep_from:]
             self.consumed += keep_from
         self.next_out = max_out
-        return pcm.FloatFrameList._wrap(out.numpy()).to_int(
-            self.bits_per_sample)
+        return pcm.FrameList(out.numpy(), self.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()

@@ -131,15 +131,17 @@ resampler).  Its phases each print one line:
     as a CD's tracks (the first track's skip, the last track's stop),
     fed in 65,536-frame chunks, equal to the port's C++ sums; the
     resampler, 44.1 -> 48 kHz through PCMConverter at reads of 4096
-    and of 1 << 20 frames, and 96 -> 44.1 kHz on 60 s of 24-bit,
-    against the port's C++ FIR over every output's window (at most 1
+    and of 1 << 20 frames, 44.1 -> 44.099 kHz on 60 s (the quantised
+    8192-phase bank) and 96 -> 44.1 kHz on 60 s of 24-bit, against the
+    port's C++ FIR over every output's window (at most 1
     LSB apart, on under 1e-4 of the samples), with the card's peak
-    memory at 1 << 20-frame reads; each converter three times (the 96
-    kHz stream once), with its median rate in Msamples/s of input PCM
+    memory at 1 << 20-frame reads; each converter three times (the 60
+    s streams once), with its median rate in Msamples/s of input PCM
     and its stages, the host twin timed once beside it, and the forms
     not taken timed on the same inputs (the ReplayGain FIR as float64
     conv1d, a title's reads streamed to the card, the resampler's
-    gather for a bank with a row a phase); and short cases (an 8-bit
+    gather for a bank with a row a phase, the quantised bank's windows
+    gathered by advanced indexing); and short cases (an 8-bit
     mono title, a 24-bit title, a 2-frame final AccurateRip chunk)
     that agree between the card and the CPU.
 
@@ -698,6 +700,24 @@ def rg_window_sums_conv1d(left, right, h, window_samples, segment=1 << 16):
     return sq.view(-1, window_samples).sum(dim=1)
 
 
+def resample_fir_indexed(hist, starts, q, bank):
+    """ops.converters.resample_fir with each slab's windows gathered by
+    advanced indexing of the [L, ch] history and summed as one batched
+    matmul (1 x taps by taps x channels an output), phase 19's timed
+    alternative to its selection of whole windows"""
+    from audiotools_tpu_torch.ops import converters
+    (ch, taps) = (hist.shape[1], bank.shape[1])
+    out = torch.empty((starts.shape[0], ch), dtype=torch.float64,
+                      device=hist.device)
+    t = torch.arange(taps, device=hist.device)
+    slab = max(1, converters.SLAB_BYTES // (taps * ch * 8))
+    for s0 in range(0, starts.shape[0], slab):
+        win = hist[starts[s0:s0 + slab, None] + t]
+        coef = bank[q[s0:s0 + slab]]
+        out[s0:s0 + slab] = torch.bmm(coef[:, None, :], win)[:, 0, :]
+    return out
+
+
 def converter_phase(dev, alac_sig):
     """phase 19 on ``alac_sig``, phase 11's signal: the converters on
     ``dev`` against the port's host C++ twins, timed; returns its line's
@@ -706,8 +726,8 @@ def converter_phase(dev, alac_sig):
     from audiotools_tpu_torch import accuraterip_checksum as ar
     from audiotools_tpu_torch.codecs.flac_dec import upload_arrays
     from audiotools_tpu_torch.ops import converters
-    from audiotools_tpu_torch.pcm import (PCMConverter, read_all,
-                                          reader_from_array)
+    from audiotools_tpu_torch.pcm import PCMConverter, reader_from_array
+    _native.get_lib()
     a_frames = alac_sig.shape[0]
     in_samples = alac_sig.size
     per = a_frames // RG_TITLES
@@ -847,7 +867,9 @@ def converter_phase(dev, alac_sig):
         hist = np.zeros((sig.shape[0] + 2 * r.TAPS, sig.shape[1]))
         hist[half:half + sig.shape[0]] = sig / float(1 << (bps - 1))
         starts = m * num // den + 1
-        q = (m * num % den).astype(np.int32)
+        q = m * num % den
+        if r.bank_den != den:
+            q = (q * r.bank_den + den // 2) // den % r.bank_den
         t0 = time.perf_counter()
         fir = _native.resample_fir(hist, starts, q, r.__bank__)
         seconds = time.perf_counter() - t0
@@ -918,6 +940,29 @@ def converter_phase(dev, alac_sig):
     resample.update(banded_read_ms=banded_ms, gather_read_ms=gather_ms,
                     band_shape=list(band.shape))
     del r, band
+    # the quantised bank (44.1 -> 44.099 kHz, den 44,099 > 8192) on 60 s,
+    # and its gather by advanced indexing on one read's windows
+    sixty = alac_sig[:SAMPLE_RATE * 60]
+    (want, q_fir_s) = host_resample(sixty, 16, SAMPLE_RATE, 44099)
+    (got, run) = card_resample(sixty, 16, SAMPLE_RATE, 44099, 1 << 20)
+    (resample["quantised_max_diff_lsb"],
+     resample["quantised_share_differing"]) = lsb_check(
+        got, want, "44.1 -> 44.099 kHz, reads of %d" % (1 << 20))
+    r = pcmconverter.Resampler(reader_from_array(sixty, 16), 44099,
+                               device=dev)
+    r._append(sixty[:(1 << 20) + 1024])
+    quantised_ms = median_ms(lambda: r._fir(0, 1 << 20), 5)
+    fir_impl = converters.resample_fir
+    converters.resample_fir = resample_fir_indexed
+    try:
+        indexed_ms = median_ms(lambda: r._fir(0, 1 << 20), 3)
+    finally:
+        converters.resample_fir = fir_impl
+    resample.update(quantised=stage_runs([run], sixty.size),
+                    quantised_host_fir_s=q_fir_s,
+                    quantised_gather_read_ms=quantised_ms,
+                    quantised_indexed_read_ms=indexed_ms)
+    del r, got, want
     # 96 -> 44.1 kHz on a 60 s 24-bit stream of the same seed
     hi = program_signal(96000 * 60) << 8
     (want, hi_fir_s) = host_resample(hi, 24, 96000, SAMPLE_RATE)

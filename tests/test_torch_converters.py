@@ -137,7 +137,12 @@ def test_rg_combined_fir_matches_the_reference(rate):
                           ref_conv.rg_combined_fir(rate))
 
 
-PAIRS = [(96000, 44100), (44100, 48000), (22050, 44100), (44100, 44099)]
+# decimation, interpolation by 160/147 and by 2, the quantised 8192-phase
+# bank (den 44,099), and an exact bank whose banded form would pass
+# BAND_BYTES (44,056 Hz: den 6000, num 5507), so gathers
+PAIRS = [(96000, 44100), (44100, 48000), (22050, 44100), (44100, 44099),
+         (44056, 48000)]
+GATHERED = [(44100, 44099), (44056, 48000)]
 
 
 @pytest.mark.parametrize("pair", PAIRS)
@@ -148,8 +153,7 @@ def test_resampler_bank_matches_the_reference(pair):
                                   device="cpu")
     ref = ref_pc.Resampler(ref_reader(arr, src), dst)
     assert np.array_equal(port.__bank__, ref.__bank__)
-    # den <= 8192 takes the banded product, the dense bank the gather
-    assert (port.band is None) == (pair == (44100, 44099))
+    assert (port.band is None) == (pair in GATHERED)
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +191,12 @@ def test_resample_fir_matches_jax(ch):
     got = converters.resample_fir(torch.from_numpy(hist),
                                   torch.from_numpy(starts),
                                   torch.from_numpy(q),
-                                  torch.from_numpy(bank)).numpy()
+                                  torch.from_numpy(bank))
     want = ref_conv.resample_fir_device(hist, starts, q.astype(np.int32),
                                         bank)
+    # the same float64 products summed in another order: 1 LSB
     for bps in (16, 24):
-        assert_within_one_lsb(pcm.FloatFrameList._wrap(got).to_int(bps)
-                              .samples,
+        assert_within_one_lsb(converters.to_int(got, bps).numpy(),
                               ref_pcm.FloatFrameList._wrap(want).to_int(bps)
                               .samples)
 
@@ -213,10 +217,9 @@ def test_banded_product_matches_the_gather(num, den):
     m = np.arange(blocks * rows)
     want = converters.resample_fir(hist, torch.from_numpy(m * num // den),
                                    torch.from_numpy(m * num % den), bank)
-    assert_within_one_lsb(pcm.FloatFrameList._wrap(got.numpy()).to_int(24)
-                          .samples,
-                          pcm.FloatFrameList._wrap(want.numpy()).to_int(24)
-                          .samples)
+    # a matmul's order against the gather's sum: 1 LSB at 24 bits
+    assert_within_one_lsb(converters.to_int(got, 24).numpy(),
+                          converters.to_int(want, 24).numpy())
 
 
 @pytest.mark.parametrize("rate", [44100, 8000])
@@ -234,6 +237,9 @@ def test_rg_window_sums_match_jax_and_host(rate):
         jax_sums = ref_conv.rg_window_sums(arr[:, 0], arr[:, 1], rate, win)
         assert got.shape == host.shape == jax_sums.shape == (
             len(arr) // win,)
+        # one window may cross a bin boundary against the host IIR (the
+        # FIR is truncated and sums in another order); two against the
+        # float32 JAX route, the reference's own device bound
         assert np.abs(bins(got, win) - bins(host, win)).sum() <= 2
         assert np.abs(bins(got, win) - bins(jax_sums, win)).sum() <= 4
 
@@ -329,6 +335,9 @@ def compare_replaygain(rate, bps, titles, monkeypatch):
     port = replaygain.ReplayGain(rate, device="cpu")
     got = [port.title_gain(pcm.reader_from_array(t, bps, rate))
            for t in titles]
+    # windows moved a title: one against the host IIR, two against the
+    # float32 JAX route (the reference's own bound); gains within one
+    # 0.01 dB bin; peaks are host arithmetic on every route, so equal
     for (backend, max_moved) in (("", 2), ("jax", 4)):
         monkeypatch.setenv("ATPU_RG_BACKEND", backend)
         ref = ref_rg.ReplayGain(rate)
@@ -413,6 +422,7 @@ def test_calculate_replay_gain_values_matches_the_reference():
         assert g[0].arr is w[0].arr
         (gain, peak, album_gain, album_peak) = g[1:]
         (ref_gain, ref_peak, ref_album_gain, ref_album_peak) = w[1:]
+        # as compare_replaygain: peaks equal, gains within one bin
         assert peak == ref_peak and album_peak == ref_album_peak
         assert abs(gain - ref_gain) <= 0.011
         assert abs(album_gain - ref_album_gain) <= 0.011
@@ -435,6 +445,7 @@ def test_resampler_matches_every_reference_route(pair, ch, bps,
         for size in (4096, 65536)}
     # the output does not depend on how the stream was read
     assert np.array_equal(got[4096], got[65536])
+    # float64 sums in another order than each reference route's: 1 LSB
     for backend in ("", "jax"):
         monkeypatch.setenv("ATPU_RESAMPLE_BACKEND", backend)
         want = drain(ref_pc.Resampler(ref_reader(arr, src, bps), dst), 4096)
@@ -490,6 +501,7 @@ def test_pcm_converter_chains_match_the_reference(chain, monkeypatch):
     if rate == target[0]:
         assert np.array_equal(got, want)
     else:
+        # the resampler's float64 sums in another order: 1 LSB
         assert_within_one_lsb(got, want)
 
 
@@ -551,6 +563,7 @@ def test_cuda_converters_match_the_cpu(pair):
                 pcm.reader_from_array(arr, 24, src), dst, device=device),
                 size)
     assert np.array_equal(out["cuda", 4096], out["cuda", 1 << 20])
+    # cuBLAS and the CPU's BLAS sum in their own orders: 1 LSB
     assert_within_one_lsb(out["cuda", 4096], out["cpu", 4096])
 
     if src in (44100, 48000, 96000, 22050):
@@ -561,6 +574,7 @@ def test_cuda_converters_match_the_cpu(pair):
             rgs[device].gains = [rgs[device].title_gain(
                 pcm.reader_from_array(t, b, src))
                 for (t, b) in zip(titles, (16, 24, 8))]
+        # cuFFT against the CPU's FFT: one window a title, one bin
         for ((gain, peak), (cpu_gain, cpu_peak)) in zip(rgs["cuda"].gains,
                                                         rgs["cpu"].gains):
             assert peak == cpu_peak and abs(gain - cpu_gain) <= 0.011
