@@ -17,11 +17,18 @@ from .codecs.flac_dec import upload_arrays
 from .ops import converters
 
 
-class _ChecksumBase:
-    """the checksum window: the first track skips its first 5 CD
-    frames' worth of samples; the last track stops 5 CD frames early"""
+class AccurateRipCRC:
+    """V1 and V2 in one pass, on ``device``
 
-    def __init__(self, is_first, is_last, sample_rate, total_pcm_frames):
+    the checksum window (the reference's ``_ChecksumBase``): the first
+    track skips its first 5 CD frames' worth of samples, the last track
+    stops 5 CD frames early.  Feed int32 [n, 2] sample arrays (16-bit
+    range) to ``update_array`` in stream order; ``timings`` accumulates
+    the seconds of the chunks' uploads and sums (CUDA-event spans on a
+    card), read by ``checksums()``."""
+
+    def __init__(self, is_first, is_last, sample_rate, total_pcm_frames,
+                 device="cuda"):
         if sample_rate <= 0:
             raise ValueError("sample rate must be > 0")
         if total_pcm_frames <= 0:
@@ -30,19 +37,6 @@ class _ChecksumBase:
         self.start_offset = (sample_rate // 75) * 5 if is_first else 0
         self.end_offset = (total_pcm_frames - (sample_rate // 75) * 5
                            if is_last else total_pcm_frames)
-
-
-class AccurateRipCRC(_ChecksumBase):
-    """V1 and V2 in one pass, on ``device``
-
-    feed int32 [n, 2] sample arrays (16-bit range) to ``update_array``
-    in stream order; ``timings`` accumulates the seconds of the chunks'
-    uploads and sums (CUDA-event spans on a card), read by
-    ``checksums()``."""
-
-    def __init__(self, is_first, is_last, sample_rate, total_pcm_frames,
-                 device="cuda"):
-        super().__init__(is_first, is_last, sample_rate, total_pcm_frames)
         self.device = resolve_device(device)
         self.v1 = torch.zeros((), dtype=torch.int64, device=self.device)
         self.v2 = torch.zeros((), dtype=torch.int64, device=self.device)

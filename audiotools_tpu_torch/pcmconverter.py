@@ -238,12 +238,12 @@ class Resampler:
         if max_out <= self.next_out:
             return pcm.empty_framelist(self.channels, self.bits_per_sample)
 
-        out = fetch_async(converters.to_int(
-            self._fir(self.next_out, max_out), self.bits_per_sample))
+        out = converters.to_int(self._fir(self.next_out, max_out),
+                                self.bits_per_sample)
         marks.mark()
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        out = fetch_async(out)
         marks.mark()
+        # seconds() waits for the last mark, so for the fetch
         for (name, seconds) in zip(("upload", "fir", "fetch"),
                                    marks.seconds()):
             self.timings[name] += seconds

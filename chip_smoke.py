@@ -820,9 +820,10 @@ def converter_phase(dev, alac_sig):
     t0 = time.perf_counter()
     host_sums = []
     for (track, first, last) in tracks:
-        base = ar._ChecksumBase(first, last, SAMPLE_RATE, len(track))
+        window = ar.AccurateRipCRC(first, last, SAMPLE_RATE, len(track),
+                                   device="cpu")
         host_sums.append(_native.accuraterip_update(
-            track, 1, base.start_offset, base.end_offset, 0, 0))
+            track, 1, window.start_offset, window.end_offset, 0, 0))
     host_ar_s = time.perf_counter() - t0
     ar_runs = []
     for _ in range(THROUGHPUT_RUNS):
