@@ -8,9 +8,15 @@ names it (the unit tests do, to run the kernels' plain versions).
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
+
+# guards the process-wide counters (each kernel wrapper's launches, the
+# FLAC encoder's fallback batches, the decoders' host chunks): a bare
+# += from several threads can lose an update
+COUNT_LOCK = threading.Lock()
 
 
 def resolve_device(device):
@@ -33,6 +39,26 @@ def resolve_device(device):
     if device.type == "cpu":
         return device
     raise ValueError("unsupported device type %r" % (device.type,))
+
+
+def resolve_devices(devices):
+    """a list of devices (str or torch.device) -> a list of
+    torch.device, ``[torch.device("cuda")]`` when None
+
+    each is resolved by ``resolve_device``; a CUDA index past
+    torch.cuda.device_count() raises ValueError (a device may appear
+    more than once)"""
+    if devices is None:
+        devices = [torch.device("cuda")]
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("no devices given")
+    for d in out:
+        if d.type == "cuda" and d.index >= torch.cuda.device_count():
+            raise ValueError("device %s requested but only %d CUDA "
+                             "devices exist"
+                             % (d, torch.cuda.device_count()))
+    return out
 
 
 class StageMarks:

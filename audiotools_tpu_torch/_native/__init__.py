@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -28,6 +29,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC",
              "-std=c++17", "-fno-exceptions"]
 
 _lib = None
+# one thread builds and binds the library; the others wait for it
+_load_lock = threading.Lock()
 
 _I32 = ctypes.POINTER(ctypes.c_int32)
 _I64 = ctypes.POINTER(ctypes.c_int64)
@@ -55,7 +58,10 @@ def _build():
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp_path = "%s.%d.tmp" % (so_path, os.getpid())
+    # named for this process and thread: another process may be
+    # building the same library at once
+    tmp_path = "%s.%d.%d.tmp" % (so_path, os.getpid(),
+                                 threading.get_ident())
     flags = GXX_FLAGS
     proc = subprocess.run(["g++"] + flags + ["-o", tmp_path, _SRC],
                           capture_output=True, text=True)
@@ -72,11 +78,20 @@ def _build():
 
 
 def get_lib():
-    """the loaded host library, built on first use"""
+    """the loaded host library, built on first use; safe to call from
+    several threads at once (one builds, the rest wait)"""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(_build())
+    with _load_lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(_build()))
+    return _lib
+
+
+def _bind(lib):
+    """declares the argument and result types of the library's entry
+    points; returns it"""
 
     lib.atpu_flac_decode.restype = ctypes.c_int64
     lib.atpu_flac_decode.argtypes = [
@@ -334,7 +349,6 @@ def get_lib():
     lib.atpu_md5_final.restype = None
     lib.atpu_md5_final.argtypes = [_U8, _U8]
 
-    _lib = lib
     return lib
 
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import _native, pcm
-from .._device import StageMarks, fetch_async, resolve_device
+from .._device import COUNT_LOCK, StageMarks, fetch_async, resolve_device
 from ..ops import alac_synth
 from ..ref.alac import WAVE_ORDER
 from .alac_fast import FastALACDecoder
@@ -50,7 +50,7 @@ MAX_ORDER = 8
 STAGES = ("scan", "prep", "upload", "synth", "finish", "fetch")
 
 # batches decoded by the host C++ decoder instead of the device
-# (process-wide count, for reports)
+# (process-wide count, for reports; added to under _device.COUNT_LOCK)
 host_chunks = 0
 
 
@@ -184,7 +184,8 @@ class TorchALACDecoder(FastALACDecoder):
                 (compressed & (sub_meta[:, 3] < 1)).any()):
             # nothing scanned (a truncated tail), an order above
             # MAX_ORDER or a shift below 1: the host decoder's
-            host_chunks += 1
+            with COUNT_LOCK:
+                host_chunks += 1
             return FastALACDecoder.read(self, pcm_frames)
         t1 = time.perf_counter()
         narrow = self.bits_per_sample <= 16

@@ -22,6 +22,8 @@ MAX_BATCH_FRAMES frames:
 3. host: the PCM comes back to pinned memory, is trimmed per frame
    and folded into the stream MD5 in stream order.
 
+The device stages run on the CUDA stream that was current when the
+decoder was made (a farm worker's own stream), whichever thread reads.
 Batch i+1 is scanned and enqueued before batch i is fetched, so the
 card works on batch i+1 while the host trims and hashes batch i.  A
 chunk whose first frame exceeds the scan's capacity, or a record no
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _native, pcm
-from .._device import StageMarks, fetch_async, resolve_device
+from .._device import COUNT_LOCK, StageMarks, fetch_async, resolve_device
 from ..ops import flac_synth, rice_decode
 
 # frames per device batch
@@ -67,7 +69,7 @@ STAGES = ("scan", "prep", "upload", "rice", "assemble", "synth",
           "reconstruct", "fetch", "md5")
 
 # chunks decoded by the host C++ decoder instead of the device
-# (process-wide count, for reports)
+# (process-wide count, for reports; added to under _device.COUNT_LOCK)
 host_chunks = 0
 
 
@@ -230,6 +232,9 @@ class TorchFlacDecoder:
 
     def __init__(self, file_or_path, channel_mask=None, device="cuda"):
         self.device = resolve_device(device)
+        # the stream every device stage of this decoder is enqueued on
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         if isinstance(file_or_path, str):
             self.file = open(file_or_path, "rb")
         else:
@@ -444,7 +449,8 @@ class TorchFlacDecoder:
         if host:
             if not allow_terminal:
                 return None
-            host_chunks += 1
+            with COUNT_LOCK:
+                host_chunks += 1
             return self._host_read(pcm_frames)
         if batch is None:
             if not allow_terminal:
@@ -460,7 +466,10 @@ class TorchFlacDecoder:
         self.buf_off += scan["consumed_bytes"]
         self.timings["scan"] += t1 - t0
         self.timings["prep"] += time.perf_counter() - t1
-        return self._enqueue(batch)
+        if self.stream is None:
+            return self._enqueue(batch)
+        with torch.cuda.stream(self.stream):
+            return self._enqueue(batch)
 
     def _enqueue(self, batch):
         """enqueues one batch's device stages and the fetch of its PCM;

@@ -8,7 +8,7 @@ per batch of full blocks,
 
 1. the stream MD5 folds in the exact samples (host, C++);
 2. the blocks go up as int16 (bps <= 16) or int32 through a pinned
-   host buffer, on a side CUDA stream;
+   host buffer, on a side CUDA stream of the call's own;
 3. ``flac_frames.analyze_frames_packed``, ``compact_decisions`` and
    ``bitpack.pack_chosen_residuals`` run on the device;
 4. ``(compact decisions, words, bits, ok)`` come back to pinned host
@@ -16,9 +16,12 @@ per batch of full blocks,
 5. ``_native.flac_emit_frames2`` emits the frames, splicing the
    device-packed residual bits into FIXED/LPC subframes.
 
-Batch i+1 is submitted to the device before batch i is emitted, so the
-card runs whatever of batch i+1 is still queued while the host emits
-batch i.  One host thread both enqueues the analysis's kernels and
+The device stages run on the caller's current CUDA stream (the compute
+stream): every event, fetch and wait is recorded against it, so
+threads that each set a stream of their own (``parallel.farm``) never
+meet on one.  Batch i+1 is submitted to the device before batch i is
+emitted, so the card runs whatever of batch i+1 is still queued while
+the host emits batch i.  One host thread both enqueues the analysis's kernels and
 emits, so when enqueueing is what limits the card (it is, at bench
 shape) the two host stages add rather than overlap.  The short tail
 block goes through the scalar oracle encoder (the port's copy in
@@ -40,13 +43,14 @@ import numpy as np
 import torch
 
 from .. import _native
-from .._device import resolve_device
+from .._device import COUNT_LOCK, resolve_device
 from ..ops import bitpack, flac_frames, lpc as lpc_ops
 from ..pcm import BufferedPCMReader
 from ..ref import flac_enc as oracle
 
 # batches whose device pack reported ok=False and were emitted without
-# the packed bits (process-wide count, for reports)
+# the packed bits (process-wide count, for reports; added to under
+# _device.COUNT_LOCK)
 fallback_batches = 0
 
 # per-stage seconds reported through encode_flac_fast(timings=...)
@@ -147,6 +151,9 @@ def _encode(output_file, pcmreader, dev, block_size, max_lpc_order,
     window = lpc_ops.tukey_window(block_size, dev)
     (np_upload, upload_dtype) = ((np.int16, torch.int16) if bps <= 16
                                  else (np.int32, torch.int32))
+    # the caller's current stream runs the device stages; the uploads
+    # run on a side stream of this call's own
+    compute = torch.cuda.current_stream(dev) if on_cuda else None
     copy_stream = torch.cuda.Stream(dev) if on_cuda else None
     stage_seconds = dict.fromkeys(STAGES, 0.0)
 
@@ -161,13 +168,12 @@ def _encode(output_file, pcmreader, dev, block_size, max_lpc_order,
             np.copyto(host.numpy(), blocks, casting="unsafe")
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             with torch.cuda.stream(copy_stream):
-                ev[0].record()
+                ev[0].record(copy_stream)
                 dev_blocks = host.to(dev, non_blocking=True)
-                ev[1].record()
-            compute = torch.cuda.current_stream(dev)
+                ev[1].record(copy_stream)
             compute.wait_stream(copy_stream)
             dev_blocks.record_stream(compute)
-            ev[2].record()      # analysis starts once the upload landed
+            ev[2].record(compute)   # analysis starts once the upload landed
         else:
             dev_blocks = torch.from_numpy(blocks.astype(np_upload))
         t1 = time.perf_counter()
@@ -180,7 +186,7 @@ def _encode(output_file, pcmreader, dev, block_size, max_lpc_order,
         outs = [flac_frames.compact_decisions(packed, max_subframes,
                                               max_lpc_order, P)]
         if on_cuda:
-            ev[3].record()
+            ev[3].record(compute)
         t2 = time.perf_counter()
         if pack:
             outs.extend(bitpack.pack_chosen_residuals(
@@ -188,13 +194,13 @@ def _encode(output_file, pcmreader, dev, block_size, max_lpc_order,
         del chosen
         t3 = time.perf_counter()
         if on_cuda:
-            ev[4].record()
+            ev[4].record(compute)
             batch.host = [torch.empty(o.shape, dtype=o.dtype,
                                       pin_memory=True) for o in outs]
             for (dst, src) in zip(batch.host, outs):
                 dst.copy_(src, non_blocking=True)
             batch.ready = torch.cuda.Event(enable_timing=True)
-            batch.ready.record()
+            batch.ready.record(compute)
             batch.events = ev
         else:
             batch.host = outs
@@ -258,7 +264,8 @@ def _encode(output_file, pcmreader, dev, block_size, max_lpc_order,
                 splice = {"rb_words": words.numpy().view(np.uint32),
                           "rb_bits": bits.numpy()}
             else:
-                fallback_batches += 1
+                with COUNT_LOCK:
+                    fallback_batches += 1
         (frame_bytes, lens) = _native.flac_emit_frames2(
             blocks,
             np.arange(batch.first_frame, batch.first_frame + B,

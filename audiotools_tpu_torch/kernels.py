@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_HERE, "csrc")
@@ -29,6 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 build_log = ""
+# one thread builds and binds the library; the others wait for it
+_load_lock = threading.Lock()
 
 
 def nvcc_path():
@@ -78,7 +81,9 @@ def build():
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    stem = "%s.%d" % (so_path, os.getpid())
+    # temporaries named for this process and thread: another process
+    # may be building the same library at once
+    stem = "%s.%d.%d" % (so_path, os.getpid(), threading.get_ident())
     objects = ["%s.%s.o" % (stem, os.path.basename(src))
                for src in _sources()]
     compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -110,45 +115,54 @@ def build():
 
 
 def load():
-    """builds on first use and returns the bound ctypes library"""
+    """builds on first use and returns the bound ctypes library; safe to
+    call from several threads at once (one builds, the rest wait)"""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.atpu_pack_rows.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
-            [ctypes.c_void_p] * 4)
-        lib.atpu_pack_rows.restype = ctypes.c_int
-        lib.atpu_rice_decode.argtypes = (
-            [ctypes.c_void_p] * 6 +
-            [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p])
-        lib.atpu_rice_decode.restype = ctypes.c_int
-        lib.atpu_flac_synth.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 +
-            [ctypes.c_void_p, ctypes.c_void_p])
-        lib.atpu_flac_synth.restype = ctypes.c_int
-        lib.atpu_alac_synth.argtypes = (
-            [ctypes.c_void_p] * 6 +
-            [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
-        lib.atpu_alac_synth.restype = ctypes.c_int
-        lib.atpu_tta_synth.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 4 +
-            [ctypes.c_void_p, ctypes.c_void_p])
-        lib.atpu_tta_synth.restype = ctypes.c_int
-        lib.atpu_tta_filter.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 3 +
-            [ctypes.c_void_p, ctypes.c_void_p])
-        lib.atpu_tta_filter.restype = ctypes.c_int
-        lib.atpu_wv_corr.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
-        lib.atpu_wv_corr.restype = ctypes.c_int
-        lib.atpu_wv_decorr.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-        lib.atpu_wv_decorr.restype = ctypes.c_int
-        lib.atpu_wv_chain_config.argtypes = [ctypes.c_void_p] * 3
-        lib.atpu_wv_chain_config.restype = None
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(build()))
     return _lib
+
+
+def _bind(lib):
+    """declares the argument and result types of the library's entry
+    points; returns it"""
+    lib.atpu_pack_rows.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
+        [ctypes.c_void_p] * 4)
+    lib.atpu_pack_rows.restype = ctypes.c_int
+    lib.atpu_rice_decode.argtypes = (
+        [ctypes.c_void_p] * 6 +
+        [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p])
+    lib.atpu_rice_decode.restype = ctypes.c_int
+    lib.atpu_flac_synth.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 +
+        [ctypes.c_void_p, ctypes.c_void_p])
+    lib.atpu_flac_synth.restype = ctypes.c_int
+    lib.atpu_alac_synth.argtypes = (
+        [ctypes.c_void_p] * 6 +
+        [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
+    lib.atpu_alac_synth.restype = ctypes.c_int
+    lib.atpu_tta_synth.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 +
+        [ctypes.c_void_p, ctypes.c_void_p])
+    lib.atpu_tta_synth.restype = ctypes.c_int
+    lib.atpu_tta_filter.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 +
+        [ctypes.c_void_p, ctypes.c_void_p])
+    lib.atpu_tta_filter.restype = ctypes.c_int
+    lib.atpu_wv_corr.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.atpu_wv_corr.restype = ctypes.c_int
+    lib.atpu_wv_decorr.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    lib.atpu_wv_decorr.restype = ctypes.c_int
+    lib.atpu_wv_chain_config.argtypes = [ctypes.c_void_p] * 3
+    lib.atpu_wv_chain_config.restype = None
+    return lib
 
 
 def _stream_ptr(device):

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import COUNT_LOCK
+
 K = 32   # coefficient columns an ALAC subframe can need (order < 32)
 MAX_ORDER = 8   # walk steps of the reference's decoder path
 WARP_ROWS = 16  # rows a warp of the kernel synthesizes
@@ -220,7 +222,8 @@ def _launch(residuals, qlp, order, shift, sample_size, max_order, rows):
                       device=residuals.device)
     if out.numel():
         kernels.alac_synth(*args, max_order, out)
-        synthesize.launches += 1
+        with COUNT_LOCK:
+            synthesize.launches += 1
     return out
 
 

@@ -32,6 +32,7 @@ import torch
 
 from . import flac_frames as ff
 from .bits import U32_MASK, i32_to_u32, u32_to_i32
+from .._device import COUNT_LOCK
 
 
 def residual_words_capacity(n, bps, max_parts):
@@ -260,7 +261,8 @@ def pack_rows(res, orders, porders, params, choice, n_words, max_bps):
     if S:
         kernels.pack_rows(res, orders, porders, choice, params, max_bps,
                           words, bits, ok)
-        pack_rows.launches += 1
+        with COUNT_LOCK:
+            pack_rows.launches += 1
     return (words, bits, ok)
 
 

@@ -131,6 +131,8 @@ def resample_banded(span, blocks, band, stride):
 # the combined response falls below this keeps the windowed-RMS
 # relative error orders of magnitude under the 0.01 dB histogram bin
 _H_TOL = 1e-13
+# sample rate -> its read-only response; threads that miss at once each
+# build the same one and one store wins, so it needs no lock
 _fir_cache = {}
 
 

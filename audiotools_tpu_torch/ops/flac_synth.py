@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import COUNT_LOCK
+
 K = 32   # coefficient columns a FLAC subframe can need (order <= 32)
 
 FIXED_COEFFS = {
@@ -130,7 +132,8 @@ def synthesize(residuals, warmup, qlp, shift, order, taps=None):
                       device=residuals.device)
     if out.numel():
         kernels.flac_synth(*args, taps, out)
-        synthesize.launches += 1
+        with COUNT_LOCK:
+            synthesize.launches += 1
     return out
 
 

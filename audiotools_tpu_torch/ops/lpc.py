@@ -24,6 +24,8 @@ from ..ref.scalar_lpc import tukey_window as tukey_window_f64
 from . import df as dfm
 from .bits import exact_exp2
 
+# (n, alpha) -> the (hi, lo) window pair; threads that miss at once each
+# compute the same read-only pair and one store wins, so it needs no lock
 _window_df_cache = {}
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .bits import U32_MASK, u32_to_i32
+from .._device import COUNT_LOCK
 
 
 def bytes_to_words(data):
@@ -165,7 +166,8 @@ def decode_partitions(words, word_base, base_bits, k, raw_bits, count,
                       device=words.device)
     if word_base.shape[0]:
         kernels.rice_decode(*args, W, out)
-        decode_partitions.launches += 1
+        with COUNT_LOCK:
+            decode_partitions.launches += 1
     return out
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .tta_synth import _shift_state, filter_shift_for, shift_for, wrap32
+from .._device import COUNT_LOCK
 
 
 def correlate(samples):
@@ -111,7 +112,8 @@ def hybrid_filter(predicted, bps):
                       device=predicted.device)
     if out.numel():
         kernels.tta_filter(predicted, filter_shift_for(bps), out)
-        hybrid_filter.launches += 1
+        with COUNT_LOCK:
+            hybrid_filter.launches += 1
     return out
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import COUNT_LOCK
+
 
 def shift_for(bps):
     """the fixed predictor's shift"""
@@ -118,7 +120,8 @@ def inverse_filter_predict(residuals, bps):
     if out.numel():
         kernels.tta_synth(residuals, filter_shift_for(bps), shift_for(bps),
                           out)
-        inverse_filter_predict.launches += 1
+        with COUNT_LOCK:
+            inverse_filter_predict.launches += 1
     return out
 
 

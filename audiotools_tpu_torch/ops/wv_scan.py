@@ -52,6 +52,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import COUNT_LOCK
+
 MAX_PASSES = 16
 MAX_SAMPLES = 8
 TERMS = (1, 2, 3, 4, 5, 6, 7, 8, 17, 18, -1, -2, -3)
@@ -360,7 +362,8 @@ def run_pass_chain(x, meta, chain, weights, samples):
     s_out = torch.empty_like(samples)
     if _launch("run_pass_chain", kernels.wv_corr, x, meta, chain, weights,
                samples, out, w_out, s_out):
-        run_pass_chain.launches += 1
+        with COUNT_LOCK:
+            run_pass_chain.launches += 1
     return (out, w_out, s_out)
 
 
@@ -381,7 +384,8 @@ def run_dec_chain(x, meta, chain, weights, samples):
     out = torch.empty_like(x)
     if _launch("run_dec_chain", kernels.wv_decorr, x, meta, chain, weights,
                samples, out):
-        run_dec_chain.launches += 1
+        with COUNT_LOCK:
+            run_dec_chain.launches += 1
     return out
 
 

@@ -8,8 +8,9 @@ encode with device analysis and ALAC decode with device synthesis,
 TTA encode with the device filter and decode with device filter
 inversion, Shorten encode with device analysis and decode with device
 synthesis, WavPack encode and decode with the decorrelation passes
-on the card, and the converters (ReplayGain, AccurateRip, the
-resampler).  Its phases each print one line:
+on the card, the converters (ReplayGain, AccurateRip, the
+resampler), and a collection of tracks through the transcode farm.
+Its phases each print one line:
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -143,7 +144,26 @@ resampler).  Its phases each print one line:
     gather for a bank with a row a phase, the quantised bank's windows
     gathered by advanced indexing); and short cases (an 8-bit
     mono title, a 24-bit title, a 2-frame final AccurateRip chunk)
-    that agree between the card and the CPU.
+    that agree between the card and the CPU;
+20. the transcode farm, on phase 5's signal cut into an album of 8
+    WAVE tracks (every cut off a 4096-frame boundary): the port's
+    ``parallel.farm.transcode`` to FLAC -8 on the card at 1, 2, 4 and 6
+    workers (each a CUDA stream of its own), every job checked by
+    ``farm.verify_flac`` (decoded once, MD5 checked, samples equal to
+    the source, AccurateRip equal to the port's C++ sums), no decode
+    chunk on the host route, every run's files equal to the first
+    1-worker run's; three runs at 1 worker and at the best count, one
+    at the others, each with its wall, Msamples/s of input PCM,
+    speedup over 1 worker, peak card memory (allocated and reserved),
+    the caching allocator's retries and its launches of
+    pack_rows, rice_decode and flac_synth (counted from 0 each run),
+    beside phase 5's encode and phase 8's decode rates; a run at 4
+    workers with the interpreter's switch interval at 0.2 ms; the same
+    files from the farm over ``[cuda:0, cuda:0]`` (the per-device code
+    on one card, not a measurement of several cards); a short album
+    farmed on the card and on the CPU to the same files; and
+    ``parallel.dryrun.dryrun_multichip`` over ``[cuda:0, cuda:0]`` (and
+    over every card where there are several).
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -1003,6 +1023,237 @@ def converter_phase(dev, alac_sig):
     return out
 
 
+# phase 20: the album cut from phase 5's signal, the worker counts
+# farmed, and the short album's tracks (seconds)
+FARM_TRACKS = 8
+FARM_WORKERS = (1, 2, 4, 6)
+SHORT_SECONDS = (3.1, 4.7)
+# the interpreter switch interval of phase 20's probe (default 5 ms)
+SHORT_SWITCH_S = 0.0002
+
+
+def album_cuts(n_frames, tracks):
+    """track boundaries of ``n_frames`` cut into ``tracks``: none but the
+    ends on a 4096-frame boundary, so that every track but the last
+    ends in a short block"""
+    cuts = [0] + [k * (n_frames // tracks) + 777 * k + 131
+                  for k in range(1, tracks)] + [n_frames]
+    assert all(c % 4096 for c in cuts[1:-1])
+    return cuts
+
+
+def farm_phase(dev, sig, enc_rate=None, dec_rate=None):
+    """phase 20 on ``sig``, phase 5's signal: an album of FARM_TRACKS
+    WAVE tracks transcoded to FLAC -8 on ``dev`` by the port's farm at
+    each of FARM_WORKERS, each job decode-verified with its AccurateRip
+    sums (``farm.verify_flac``); returns its line's fields.  On a CPU
+    ``dev`` (a rehearsal with a short signal) the card's counters and
+    memory are not read."""
+    import functools
+    import tempfile
+    from audiotools_tpu_torch import _native
+    from audiotools_tpu_torch import accuraterip_checksum as ar
+    from audiotools_tpu_torch.codecs import flac_dec
+    from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.formats.flac import FlacAudio
+    from audiotools_tpu_torch.formats.wav import WaveAudio
+    from audiotools_tpu_torch.ops import bitpack, flac_synth, rice_decode
+    from audiotools_tpu_torch.parallel import dryrun, farm, mesh
+    from audiotools_tpu_torch.pcm import reader_from_array
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    if on_cuda:
+        torch.cuda.init()       # the memory statistics need a context
+    counters = (bitpack.pack_rows, rice_decode.decode_partitions,
+                flac_synth.synthesize)
+    cuts = album_cuts(sig.shape[0], FARM_TRACKS)
+    tracks = [sig[a:b] for (a, b) in zip(cuts, cuts[1:])]
+    in_samples = sig.size
+    out = dict(tracks=FARM_TRACKS, track_frames=[len(t) for t in tracks],
+               audio_seconds=sig.shape[0] / SAMPLE_RATE)
+    with tempfile.TemporaryDirectory(prefix="farm-") as work:
+        t0 = time.perf_counter()
+        sources = []
+        for (i, track) in enumerate(tracks):
+            path = os.path.join(work, "track%02d.wav" % i)
+            WaveAudio.from_pcm(path, reader_from_array(track, 16))
+            sources.append(path)
+        out["wav_write_s"] = time.perf_counter() - t0
+        sums = []
+        for (i, track) in enumerate(tracks):
+            window = ar.AccurateRipCRC(i == 0, i == len(tracks) - 1,
+                                       SAMPLE_RATE, len(track),
+                                       device="cpu")
+            sums.append(_native.accuraterip_update(
+                track, 1, window.start_offset, window.end_offset, 0, 0))
+
+        def farm_run(workers, devices, tag, sources=sources, tracks=tracks,
+                     sums=sums):
+            """one transcode of the album; checks every job and returns
+            (files, the run's fields)"""
+            last = len(sources) - 1
+            jobs = [farm.FarmJob(src, os.path.join(work, "%s%02d.flac"
+                                                   % (tag, i)),
+                                 FlacAudio, compression="8",
+                                 post=functools.partial(
+                                     farm.verify_flac,
+                                     accuraterip=(i == 0, i == last)))
+                    for (i, src) in enumerate(sources)]
+            (host0, fallback0) = (flac_dec.host_chunks,
+                                  port_enc.fallback_batches)
+            for fn in counters:
+                fn.launches = 0
+            retries0 = (torch.cuda.memory_stats(dev).get(
+                "num_alloc_retries", 0) if on_cuda else 0)
+            t0 = time.perf_counter()
+            results = farm.transcode(jobs, workers=workers, devices=devices)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = [fn.launches for fn in counters]
+            # the caching allocator's retries: an allocation that found
+            # no free cached block, so that the cache was emptied (a
+            # synchronising cudaFree) before cudaMalloc was tried again
+            retries = (torch.cuda.memory_stats(dev).get(
+                "num_alloc_retries", 0) - retries0 if on_cuda else None)
+            for r in results:
+                if not r.ok:
+                    raise AssertionError("farm job %s failed: %r"
+                                         % (r.job.dest_path, r.error))
+            for (r, track, want) in zip(results, tracks, sums):
+                (samples, got) = r.post
+                if not np.array_equal(samples, track):
+                    raise AssertionError("%s does not decode to its source"
+                                         % (r.job.dest_path,))
+                if tuple(got) != tuple(want):
+                    raise AssertionError("%s: AccurateRip %s != the host's "
+                                         "%s" % (r.job.dest_path, got, want))
+            if flac_dec.host_chunks != host0:
+                raise AssertionError("farm decodes sent %d chunks to the "
+                                     "host route"
+                                     % (flac_dec.host_chunks - host0))
+            if (any(torch.device(d).type == "cuda" for d in devices) and
+                    min(launches) <= 0):
+                raise AssertionError("farm run never launched a kernel of "
+                                     "its path: %s" % (launches,))
+            files = []
+            for r in results:
+                with open(r.job.dest_path, "rb") as f:
+                    files.append(f.read())
+                os.unlink(r.job.dest_path)
+            return (files, dict(
+                wall_s=wall, Msamples_per_s=in_samples / wall / 1e6,
+                pack_rows_launches=launches[0],
+                rice_decode_launches=launches[1],
+                flac_synth_launches=launches[2],
+                fallback_batches=port_enc.fallback_batches - fallback0,
+                alloc_retries=retries))
+
+        runs = {w: [] for w in FARM_WORKERS}
+        peak = {}
+        first = None
+
+        def counted(workers):
+            nonlocal first
+            if on_cuda and not runs[workers]:
+                torch.cuda.reset_peak_memory_stats(dev)
+            (files, fields) = farm_run(workers, [dev], "w%d_" % workers)
+            if first is None:
+                first = files
+            elif files != first:
+                raise AssertionError("the %d-worker farm's files differ "
+                                     "from the first 1-worker run's"
+                                     % (workers,))
+            runs[workers].append(fields)
+            if on_cuda:
+                (allocated, reserved) = peak.get(workers, (0.0, 0.0))
+                peak[workers] = (
+                    max(allocated,
+                        torch.cuda.max_memory_allocated(dev) / 1e9),
+                    max(reserved, torch.cuda.max_memory_reserved(dev) / 1e9))
+
+        for workers in FARM_WORKERS:
+            counted(workers)
+        best = max(FARM_WORKERS[1:],
+                   key=lambda w: runs[w][0]["Msamples_per_s"])
+        for _ in range(THROUGHPUT_RUNS - 1):
+            counted(1)
+            counted(best)
+        base = float(np.median([r["Msamples_per_s"] for r in runs[1]]))
+        out["workers"] = []
+        for w in FARM_WORKERS:
+            rates = [r["Msamples_per_s"] for r in runs[w]]
+            out["workers"].append(dict(
+                workers=w, Msamples_per_s=float(np.median(rates)),
+                Msamples_per_s_runs=rates,
+                wall_s_runs=[r["wall_s"] for r in runs[w]],
+                speedup=float(np.median(rates)) / base,
+                peak_mem_GB=peak.get(w, (None, None))[0],
+                peak_reserved_GB=peak.get(w, (None, None))[1],
+                runs=runs[w]))
+        out["best_workers"] = best
+        out["identical_files"] = True
+
+        # the interpreter's switch interval cut from 5 ms to 0.2 ms, at 4
+        # workers: does a worker that gives up the lock around each
+        # launch wait out another's interval to get it back?
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(SHORT_SWITCH_S)
+        try:
+            (files, fields) = farm_run(4, [dev], "si")
+        finally:
+            sys.setswitchinterval(old)
+        if files != first:
+            raise AssertionError("the switch-interval probe wrote other "
+                                 "files")
+        out["switch_interval_probe"] = dict(
+            workers=4, switch_interval_s=SHORT_SWITCH_S, default_s=old,
+            **fields)
+
+        # the per-device code, with the one card listed twice
+        (files, fields) = farm_run(4, [dev, dev], "pd")
+        if files != first:
+            raise AssertionError("the farm over [dev, dev] wrote other "
+                                 "files")
+        out["per_device_code"] = dict(
+            devices=[str(dev)] * 2, workers=4, identical_files=True,
+            note="the per-device code on one card listed twice; not a "
+                 "measurement of several cards", **fields)
+
+        # a short album on the card and on the CPU (the plain versions)
+        short = [program_signal(int(s * SAMPLE_RATE), seed=20 + k)
+                 for (k, s) in enumerate(SHORT_SECONDS)]
+        short_sources = []
+        for (i, track) in enumerate(short):
+            path = os.path.join(work, "short%d.wav" % i)
+            WaveAudio.from_pcm(path, reader_from_array(track, 16))
+            short_sources.append(path)
+        short_sums = [ar.accuraterip_checksums(
+            reader_from_array(t, 16), len(t), i == 0, i == len(short) - 1,
+            device="cpu") for (i, t) in enumerate(short)]
+        (on_dev, _f) = farm_run(2, [dev], "sd", short_sources, short,
+                                short_sums)
+        (on_cpu, _f) = farm_run(2, ["cpu"], "sc", short_sources, short,
+                                short_sums)
+        if on_dev != on_cpu:
+            raise AssertionError("the short album's files differ between "
+                                 "the card and the CPU")
+        out["short_album"] = dict(seconds=list(SHORT_SECONDS),
+                                  identical_to_cpu=True)
+
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip([dev, dev])
+    out["dryrun"] = dict(devices=[str(dev)] * 2, ok=True)
+    if on_cuda and torch.cuda.device_count() > 1:
+        every = mesh.cuda_devices()
+        dryrun.dryrun_multichip(every)
+        out["dryrun_every_card"] = dict(devices=[str(d) for d in every],
+                                        ok=True)
+    out["dryrun"]["seconds"] = time.perf_counter() - t0
+    out["phase5_encode_Msamples_per_s"] = enc_rate
+    out["phase8_decode_Msamples_per_s"] = dec_rate
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1791,6 +2042,11 @@ def main():
     t0 = time.perf_counter()
     fields = converter_phase(dev, alac_sig)
     line("converters", seconds=time.perf_counter() - t0, **fields)
+
+    # ---- 20. the transcode farm ------------------------------------------
+    t0 = time.perf_counter()
+    fields = farm_phase(dev, sig, rate, dec_rate)
+    line("farm", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
 
     forbidden = loaded_forbidden_modules()
     if forbidden:
