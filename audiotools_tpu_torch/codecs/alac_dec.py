@@ -173,17 +173,21 @@ class TorchALACDecoder(FastALACDecoder):
         framesets = min(MAX_BATCH_FRAMESETS, -(-self._remaining // spf))
         t0 = time.perf_counter()
         self._fill(max(self.CHUNK_BYTES, framesets * self._frameset_bytes))
-        scan = _native.alac_scan(
-            self._buffer, self.bits_per_sample, self.channels, spf,
-            self.initial_history, self.history_multiplier, self.maximum_k,
-            framesets * spf, framesets * self.channels + self.channels)
-        sub_meta = scan["sub_meta"]
-        compressed = sub_meta[:, 6] == 0
-        if (scan["total_frames"] <= 0 or
+        try:
+            scan = _native.alac_scan(
+                self._buffer, self.bits_per_sample, self.channels, spf,
+                self.initial_history, self.history_multiplier,
+                self.maximum_k, framesets * spf,
+                framesets * self.channels + self.channels)
+            sub_meta = scan["sub_meta"]
+        except ValueError:
+            scan = None     # a corrupt frameset: the host decoder's error
+        if (scan is None or scan["total_frames"] <= 0 or
                 (sub_meta[:, 2] > MAX_ORDER).any() or
-                (compressed & (sub_meta[:, 3] < 1)).any()):
-            # nothing scanned (a truncated tail), an order above
-            # MAX_ORDER or a shift below 1: the host decoder's
+                ((sub_meta[:, 6] == 0) & (sub_meta[:, 3] < 1)).any()):
+            # nothing scanned (a truncated tail), a corrupt frameset, an
+            # order above MAX_ORDER or a shift below 1: the host
+            # decoder's
             with COUNT_LOCK:
                 host_chunks += 1
             return FastALACDecoder.read(self, pcm_frames)

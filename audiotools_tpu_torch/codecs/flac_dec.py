@@ -386,10 +386,15 @@ class TorchFlacDecoder:
     def _check_leftover(self):
         """bytes that hold no complete frame must not pass for the end
         of the stream: for a stream whose STREAMINFO MD5 is zero the
-        MD5 check would never catch the truncation"""
+        MD5 check would never catch the truncation.  The host decoder
+        runs over them first, so that a frame cut short raises its
+        error, as the reference's decoder does"""
         if (len(self.buffer) - self.buf_off > 0 and
                 (not self.total_frames or
                  self.decoded_frames < self.total_frames)):
+            _native.flac_decode(
+                bytes(self.buffer[self.buf_off:]), self.bits_per_sample,
+                self.channels, self.maximum_block_size or 65536)
             raise ValueError("corrupt FLAC stream: undecodable bytes at "
                              "frame %d" % (self.decoded_frames,))
 

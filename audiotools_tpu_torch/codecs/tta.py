@@ -143,7 +143,10 @@ class FastTTADecoder:
         if self.remaining <= 0:
             return pcm.empty_framelist(self.channels, self.bits_per_sample)
         n = min(self.block_size, self.remaining)
-        data = self.file.read(self.frame_lengths[self._frame_index()])
+        length = self.frame_lengths[self._frame_index()]
+        data = self.file.read(length)
+        if len(data) < length:
+            raise IOError("I/O error reading stream")
         (samples, _consumed) = _native.tta_decode_frame(
             data, n, self.channels, self.bits_per_sample)
         self.remaining -= n
@@ -226,6 +229,8 @@ class TorchTTADecoder(FastTTADecoder):
         g1 = min(g0 + DEC_GROUP_FRAMES, self.total_tta_frames)
         self.file.seek(self.frames_offset + int(lens[:g0].sum()))
         data = self.file.read(int(lens[g0:g1].sum()))
+        if len(data) < int(lens[g0:g1].sum()):
+            raise IOError("I/O error reading stream")
         (n, ch) = (self.block_size, self.channels)
         sizes = np.full(g1 - g0, n, dtype=np.int32)
         if g1 == self.total_tta_frames:

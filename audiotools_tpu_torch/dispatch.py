@@ -1,22 +1,38 @@
-"""Opening audio files by their content, for the formats the port has
-classes for: WAVE (``formats.wav.WaveAudio``) and FLAC
-(``formats.flac.FlacAudio``).
+"""Opening audio files by their content.
 
-A subset of the reference's ``audiotools_tpu/dispatch.py``: ``file_type``
-sniffs the magic bytes as the reference does, and ``open`` returns the
-class's instance.  Any other content raises ``UnknownAudioType``.
+A subset of the reference's ``audiotools_tpu/dispatch.py`` for the six
+classes the port has: WAVE (``formats.wav.WaveAudio``), FLAC
+(``formats.flac.FlacAudio``), ALAC (``formats.m4a.ALACAudio``), TTA
+(``formats.tta.TrueAudio``), Shorten (``formats.shn.ShortenAudio``) and
+WavPack (``formats.wavpack.WavPackAudio``).  ``file_type`` sniffs the
+magic bytes as the reference does; ``open`` and ``open_files`` return
+the class's instance, decoding on the device given.  Content of any
+other type raises ``UnknownAudioType``.  ``TYPE_MAP``, ``open_files``
+and ``sorted_tracks`` are the reference's as far as ``track2track``
+uses them; the reference's ``Filename`` only normalises the paths
+``open_files`` is given, which ``os.path.normpath`` does here.
 """
 
 from __future__ import annotations
 
 import builtins
+import os
 
 from ._device import resolve_device
+from .audiofile import InvalidFile, UnsupportedFile
 from .formats.flac import FlacAudio
+from .formats.m4a import ALACAudio
+from .formats.shn import ShortenAudio
+from .formats.tta import TrueAudio
 from .formats.wav import WaveAudio
+from .formats.wavpack import WavPackAudio
+from .ref.alac import _find, _top_level
+
+TYPE_MAP = {cls.NAME: cls for cls in (WaveAudio, FlacAudio, ALACAudio,
+                                      TrueAudio, ShortenAudio, WavPackAudio)}
 
 
-class UnknownAudioType(Exception):
+class UnknownAudioType(UnsupportedFile):
     """a file whose content is no audio type the port opens"""
 
     def __init__(self, filename):
@@ -27,31 +43,99 @@ class UnknownAudioType(Exception):
         return "unsupported audio type: %s" % (self.filename,)
 
 
+def _m4a_type(file):
+    """ALACAudio when the stsd atom of an M4A file describes ALAC, else
+    None (AAC among them)"""
+    (moov, _mdat) = _top_level(file)
+    try:
+        stsd = _find(moov or b"", b"trak", b"mdia", b"minf", b"stbl",
+                     b"stsd")
+    except KeyError:
+        return None
+    return ALACAudio if stsd[12:16] == b"alac" else None
+
+
 def file_type(file):
     """the class of a seekable binary stream's audio content (read from
     its current position, which is kept), or None if unknown"""
     start = file.tell()
-    header = file.read(12)
+    header = file.read(37)
     file.seek(start, 0)
-    if header[0:4] == b"fLaC":
-        return FlacAudio
-    if header[0:4] == b"RIFF" and header[8:12] == b"WAVE":
-        return WaveAudio
-    return None
+    try:
+        if header[4:8] == b"ftyp" and header[8:12] in (b"mp41", b"mp42",
+                                                        b"M4A ", b"M4B "):
+            return _m4a_type(file)
+        if header[0:4] == b"fLaC":
+            return FlacAudio
+        if header[0:5] == b"ajkg\x02":
+            return ShortenAudio
+        if header[0:4] == b"wvpk":
+            return WavPackAudio
+        if header[0:4] == b"RIFF" and header[8:12] == b"WAVE":
+            return WaveAudio
+        if len(header) >= 10 and header[0:3] == b"ID3" and \
+                header[3] in (2, 3, 4):
+            # an ID3v2 tag: look past it; only FLAC and TTA (of the
+            # port's classes) may be wrapped so
+            size = 0
+            for b in header[6:10]:
+                size = (size << 7) | (b & 0x7F)
+            file.seek(start + 10 + size, 0)
+            wrapped = file_type(file)
+            return wrapped if wrapped in (FlacAudio, TrueAudio) else None
+        if header[0:4] == b"TTA1":
+            return TrueAudio
+        return None
+    finally:
+        file.seek(start, 0)
+
+
+def _open_class(audio_class, filename, device):
+    if audio_class is WaveAudio:
+        return audio_class(filename)
+    return audio_class(filename, device=device)
 
 
 def open(filename, device="cuda"):
-    """the audio file at ``filename``: a FlacAudio that decodes on
-    ``device``, or a WaveAudio
+    """the audio file at ``filename``, decoding on ``device``
 
     ``device`` is resolved first, so a request for an absent card
     raises whatever the file.  Raises UnknownAudioType for other
-    content, OSError if the file cannot be read."""
+    content, InvalidFile (a subclass of it) for a file its class
+    cannot read, OSError if the file cannot be read."""
     device = resolve_device(device)
     with builtins.open(filename, "rb") as f:
         audio_class = file_type(f)
     if audio_class is None:
         raise UnknownAudioType(filename)
-    if audio_class is FlacAudio:
-        return audio_class(filename, device=device)
-    return audio_class(filename)
+    return _open_class(audio_class, filename, device)
+
+
+def sorted_tracks(audiofiles):
+    """the files in the reference's order for files without track or
+    album numbers (the port reads none): those without a tag container
+    first, then those with one, each group by basename"""
+    return sorted(audiofiles, key=lambda f: (
+        f.tag_names() is not None, os.path.basename(f.filename)))
+
+
+def open_files(filename_list, sorted=True, messenger=None, device="cuda"):
+    """the audio files named, in sorted_tracks order when ``sorted``,
+    decoding on ``device``; files of unknown type are skipped, and
+    unreadable or invalid ones are reported to ``messenger`` (a
+    warning or an error, as the reference does) and skipped"""
+    device = resolve_device(device)
+    opened = []
+    for filename in map(os.path.normpath, filename_list):
+        try:
+            with builtins.open(filename, "rb") as f:
+                audio_class = file_type(f)
+            if audio_class is not None:
+                opened.append(_open_class(audio_class, filename, device))
+        except InvalidFile as err:
+            if messenger is not None:
+                messenger.error(str(err))
+        except IOError:
+            if messenger is not None:
+                messenger.warning("unable to open \"%s\"" % (filename,))
+    return sorted_tracks(opened) if sorted else opened

@@ -7,7 +7,9 @@ and VORBIS_COMMENT blocks, the ``FlacMetaData`` container,
 compression levels "0"-"8", ``from_pcm`` (padding sized for the
 seektable, a seekpoint every 10 s from the encoder's frame offsets,
 the WAVEFORMATEXTENSIBLE_CHANNEL_MASK comment for more than two
-channels or more than 16 bits), ``update_metadata`` and ``to_pcm``.
+channels or more than 16 bits), ``update_metadata``, ``set_metadata``
+of another FLAC file's blocks, ``to_pcm``, ``verify`` and the
+REPLAYGAIN_* comments (``add_replay_gain``, ``replay_gain``).
 The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
@@ -20,26 +22,29 @@ emit-stage Rice re-search (``ATPU_FLAC_QPACK=0``,
 wire and emit-stage re-search may choose other Rice parameters, so its
 default bytes can differ; the decoded PCM cannot.
 
-Not ported: ``set_metadata`` and MetaData conversion, CUESHEET,
+Not ported: MetaData conversion to and from other formats, CUESHEET,
 PICTURE and APPLICATION blocks (an unknown block is skipped when
-parsed), ID3-wrapped files, Ogg FLAC, and the rest of the reference's
+parsed; a PICTURE block counts among the tags a conversion refuses to
+drop), ID3-wrapped files, Ogg FLAC, and the rest of the reference's
 class.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import struct
 import tempfile
 
 from .._device import resolve_device
+from ..audiofile import AudioFile, InvalidFile
 from ..pcm import CHANNEL_MASKS, BufferedPCMReader
 
 VERSION = "0.1.0"
 VENDOR_STRING = "tpu-audio-tools %s" % (VERSION,)
 
 
-class InvalidFLAC(ValueError):
+class InvalidFLAC(InvalidFile, ValueError):
     """a file that is not a FLAC file this module reads"""
 
 
@@ -240,6 +245,15 @@ class FlacMetaData:
                 return block
         raise IndexError(block_id)
 
+    def get_blocks(self, block_id):
+        """every block of the given ID, in order"""
+        return [b for b in self.block_list if b.BLOCK_ID == block_id]
+
+    def copy(self):
+        """a FlacMetaData of copies of the blocks"""
+        return FlacMetaData([type(b).parse(b.build())
+                             for b in self.block_list])
+
     def replace_blocks(self, block_id, blocks):
         """replaces every block of the given ID with ``blocks``, at the
         first one's place (added in ID order if there was none)"""
@@ -259,10 +273,11 @@ class FlacMetaData:
         self.block_list = new_blocks
 
     @classmethod
-    def parse(cls, file):
+    def parse(cls, file, skipped=None):
         """the blocks of a binary file positioned past the 'fLaC' marker
         (left at the first frame); blocks of types not ported are
-        skipped"""
+        skipped, and their IDs appended to the list ``skipped`` when
+        one is given"""
         blocks = []
         last = 0
         while not last:
@@ -278,6 +293,8 @@ class FlacMetaData:
                 raise InvalidFLAC("truncated FLAC metadata")
             if block_type in BLOCK_CLASSES:
                 blocks.append(BLOCK_CLASSES[block_type].parse(body))
+            elif skipped is not None:
+                skipped.append(block_type)
         return cls(blocks)
 
     def _sized_blocks(self):
@@ -314,13 +331,23 @@ def seektable_from_offsets(offsets, seekpoint_interval):
     return Flac_SEEKTABLE(seekpoints)
 
 
-class FlacAudio:
+# the block that a conversion carries as tags besides VORBIS_COMMENT
+PICTURE_BLOCK_ID = 6
+
+# the five REPLAYGAIN_* comments' values (dB, linear peak)
+ReplayGainValues = collections.namedtuple(
+    "ReplayGainValues", "track_gain track_peak album_gain album_peak")
+
+
+class FlacAudio(AudioFile):
     """a Free Lossless Audio Codec file, encoded and decoded on a torch
     device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the
     kernels' plain versions, for tests); ``to_pcm`` decodes there."""
 
+    SUFFIX = "flac"
+    NAME = SUFFIX
     COMPRESSION_MODES = tuple(map(str, range(0, 9)))
     DEFAULT_COMPRESSION = "8"
 
@@ -362,7 +389,7 @@ class FlacAudio:
               "max_residual_partition_order": 6}}
 
     def __init__(self, filename, device="cuda"):
-        self.filename = filename
+        AudioFile.__init__(self, filename)
         self.device = resolve_device(device)
         try:
             with open(filename, "rb") as f:
@@ -399,12 +426,106 @@ class FlacAudio:
         channels = self.channels()
         return CHANNEL_MASKS[channels] if channels <= 6 else 0
 
-    def get_metadata(self):
-        """the file's FlacMetaData"""
+    def get_metadata(self, skipped=None):
+        """the file's FlacMetaData; the IDs of the blocks not ported are
+        appended to the list ``skipped`` when one is given"""
         with open(self.filename, "rb") as f:
             if f.read(4) != b"fLaC":
                 raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
-            return FlacMetaData.parse(f)
+            return FlacMetaData.parse(f, skipped)
+
+    def tag_names(self):
+        """the keys of the VORBIS_COMMENT comments but the channel mask,
+        and "PICTURE" for each picture block"""
+        skipped = []
+        metadata = self.get_metadata(skipped)
+        names = []
+        for vorbis in metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID):
+            for (key, _value) in vorbis._pairs():
+                if key.upper() != "WAVEFORMATEXTENSIBLE_CHANNEL_MASK":
+                    names.append(key)
+        names.extend("PICTURE" for block_id in skipped
+                     if block_id == PICTURE_BLOCK_ID)
+        return names
+
+    def carry_tags_to(self, dest):
+        """FLAC to FLAC carries the VORBIS_COMMENT comments; otherwise as
+        ``AudioFile.carry_tags_to``"""
+        skipped = []
+        metadata = self.get_metadata(skipped)
+        if (isinstance(dest, FlacAudio) and
+                PICTURE_BLOCK_ID not in skipped):
+            dest.set_metadata(metadata)
+        else:
+            AudioFile.carry_tags_to(self, dest)
+
+    def write_blank_tags(self):
+        """an empty VORBIS_COMMENT block, as the reference's
+        ``FlacMetaData.converted`` of a MetaData with no fields gives"""
+        self.set_metadata(FlacMetaData([
+            Flac_VORBISCOMMENT([], VENDOR_STRING), Flac_PADDING(4096)]))
+
+    def set_metadata(self, metadata):
+        """writes a copy of ``metadata``'s blocks (another file's
+        FlacMetaData) into this file, as the reference's set_metadata
+        does: this file keeps its STREAMINFO and SEEKTABLE blocks, its
+        vendor string and its channel mask comment, and a PADDING block
+        is added where there is none"""
+        new_metadata = metadata.copy()
+        old_metadata = self.get_metadata()
+        for block_id in (Flac_STREAMINFO.BLOCK_ID, Flac_SEEKTABLE.BLOCK_ID):
+            new_metadata.replace_blocks(block_id,
+                                        old_metadata.get_blocks(block_id))
+        old_vorbis = old_metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID)
+        new_vorbis = new_metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID)
+        if new_vorbis and old_vorbis:
+            new_vorbis[0].vendor_string = old_vorbis[0].vendor_string
+            if "WAVEFORMATEXTENSIBLE_CHANNEL_MASK" in old_vorbis[0]:
+                new_vorbis[0]["WAVEFORMATEXTENSIBLE_CHANNEL_MASK"] = \
+                    old_vorbis[0]["WAVEFORMATEXTENSIBLE_CHANNEL_MASK"]
+        if not new_metadata.has_block(Flac_PADDING.BLOCK_ID):
+            new_metadata.add_block(Flac_PADDING(4096))
+        self.update_metadata(new_metadata)
+
+    @classmethod
+    def supports_replay_gain(cls):
+        return True
+
+    @classmethod
+    def add_replay_gain(cls, filenames, progress=None, device="cuda"):
+        """writes the REPLAYGAIN_* comments of the FLAC files named,
+        analysed as one album on ``device``"""
+        from ..dispatch import open_files
+        from ..replaygain import calculate_replay_gain_values
+        tracks = [t for t in open_files(filenames, device=device)
+                  if isinstance(t, cls)]
+        for (track, gain, peak, album_gain, album_peak) in \
+                calculate_replay_gain_values(tracks, progress, device):
+            metadata = track.get_metadata()
+            try:
+                vorbis = metadata.get_block(Flac_VORBISCOMMENT.BLOCK_ID)
+            except IndexError:
+                vorbis = Flac_VORBISCOMMENT([], VENDOR_STRING)
+                metadata.add_block(vorbis)
+            vorbis["REPLAYGAIN_TRACK_GAIN"] = ["%1.2f dB" % (gain,)]
+            vorbis["REPLAYGAIN_TRACK_PEAK"] = ["%1.8f" % (peak,)]
+            vorbis["REPLAYGAIN_ALBUM_GAIN"] = ["%1.2f dB" % (album_gain,)]
+            vorbis["REPLAYGAIN_ALBUM_PEAK"] = ["%1.8f" % (album_peak,)]
+            vorbis["REPLAYGAIN_REFERENCE_LOUDNESS"] = ["89.0 dB"]
+            track.update_metadata(metadata)
+
+    def replay_gain(self):
+        """the REPLAYGAIN_* comments' ReplayGainValues, or None"""
+        try:
+            vorbis = self.get_metadata().get_block(
+                Flac_VORBISCOMMENT.BLOCK_ID)
+            return ReplayGainValues(
+                float(vorbis["REPLAYGAIN_TRACK_GAIN"][0].split(" ")[0]),
+                float(vorbis["REPLAYGAIN_TRACK_PEAK"][0]),
+                float(vorbis["REPLAYGAIN_ALBUM_GAIN"][0].split(" ")[0]),
+                float(vorbis["REPLAYGAIN_ALBUM_PEAK"][0]))
+        except (IndexError, KeyError, ValueError, IOError):
+            return None
 
     def update_metadata(self, metadata):
         """writes ``metadata``'s blocks back to the file: in place when

@@ -1,23 +1,28 @@
-"""The ALAC M4A container writer.
+"""ALAC M4A files: the container writer and ``ALACAudio``.
 
-Port of the write path of the reference's ``ALACAudio.from_pcm``
-(``audiotools_tpu/formats/m4a.py``) with its atom builders and the
-leaf, tree and meta atom classes of ``meta/m4a_atoms.py`` that they
-use: ftyp, then moov (mvhd, trak with tkhd and mdia: mdhd, hdlr and
-minf with smhd, dinf/dref and stbl: stsd(alac), stts, stsc, stsz,
-stco; udta/meta with an ilst naming the encoder), then the mdat that
-``codecs.alac_fast.encode_mdat_fast`` writes.  Metadata editing is not
-ported.
+Port of the reference's ``ALACAudio`` (``audiotools_tpu/formats/m4a.py``)
+with its atom builders and the leaf, tree and meta atom classes of
+``meta/m4a_atoms.py`` that they use: ftyp, then moov (mvhd, trak with
+tkhd and mdia: mdhd, hdlr and minf with smhd, dinf/dref and stbl:
+stsd(alac), stts, stsc, stsz, stco; udta/meta with an ilst naming the
+encoder), then the mdat that ``codecs.alac_fast.encode_mdat_fast``
+writes.  ``ALACAudio`` reads the header from the alac atom and decodes
+with ``codecs.alac_dec.TorchALACDecoder`` on its device.  Metadata
+editing is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import os
 import struct
 import time
 
+from .._device import resolve_device
+from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.alac_fast import encode_mdat_fast
+from ..ref.alac import _find, _top_level, read_m4a_header
 
 # the reference package's version, which the meta atom names
 VERSION = "0.1.0"
@@ -275,3 +280,104 @@ def meta_atom():
         TreeAtom(b"ilst", [ilst_string_atom(
             b"\xa9too", "tpu-audio-tools %s" % (VERSION,))]),
         LeafAtom(b"free", b"\x00" * 1024)])
+
+
+class InvalidALAC(InvalidFile, ValueError):
+    """a file that is not an ALAC M4A file this module reads"""
+
+
+class ALACAudio(AudioFile):
+    """an Apple Lossless file, encoded and decoded on a torch device
+
+    device: "cuda" (raises when no card is usable) or "cpu" (the
+    kernels' plain versions, for tests); ``to_pcm`` decodes there."""
+
+    SUFFIX = "m4a"
+    NAME = "alac"
+    DEFAULT_COMPRESSION = ""
+    COMPRESSION_MODES = ("",)
+
+    def __init__(self, filename, device="cuda"):
+        AudioFile.__init__(self, filename)
+        self.device = resolve_device(device)
+        try:
+            with open(filename, "rb") as f:
+                self.__header = read_m4a_header(f)
+        except (IOError, ValueError, KeyError) as err:
+            raise InvalidALAC(str(err))
+
+    def bits_per_sample(self):
+        return self.__header["bits_per_sample"]
+
+    def channels(self):
+        return self.__header["channels"]
+
+    def channel_mask(self):
+        return self.__header["channel_mask"]
+
+    def sample_rate(self):
+        return self.__header["sample_rate"]
+
+    def total_frames(self):
+        return self.__header["total_pcm_frames"]
+
+    def tag_names(self):
+        """None without a udta/meta atom, else the names of its ilst
+        entries but the encoder's (\xa9too)"""
+        with open(self.filename, "rb") as f:
+            (moov, _mdat) = _top_level(f)
+        try:
+            meta = _find(moov or b"", b"udta", b"meta")
+        except KeyError:
+            return None
+        try:
+            ilst = _find(meta[4:], b"ilst")
+        except KeyError:
+            return []
+        (names, pos) = ([], 0)
+        while pos + 8 <= len(ilst):
+            (size, name) = struct.unpack(">I4s", ilst[pos:pos + 8])
+            if name != b"\xa9too":
+                names.append(name.decode("latin-1"))
+            pos += max(size, 8)
+        return names
+
+    def to_pcm(self):
+        """a TorchALACDecoder of the file on the file's device"""
+        from ..codecs.alac_dec import TorchALACDecoder
+        return TorchALACDecoder(self.filename, device=self.device)
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None, device="cuda",
+                 block_size=BLOCK_SIZE):
+        """encodes a new file from a PCMReader on ``device`` and returns
+        it; ``compression`` is ignored (ALAC has one mode).  A written
+        frame count other than ``total_pcm_frames`` (when given) raises
+        EncodingError, as any failure does, and no file is left."""
+        device = resolve_device(device)
+        if pcmreader.bits_per_sample not in (16, 24):
+            pcmreader.close()
+            raise EncodingError("unsupported bits per sample: %d"
+                                % (pcmreader.bits_per_sample,))
+        if int(pcmreader.channel_mask) not in SUPPORTED_CHANNEL_MASKS:
+            pcmreader.close()
+            raise EncodingError("unsupported channel mask: %d"
+                                % (int(pcmreader.channel_mask),))
+        try:
+            (_sizes, frames) = write_m4a(filename, pcmreader,
+                                         block_size=block_size,
+                                         device=device)
+            if total_pcm_frames is not None and frames != total_pcm_frames:
+                raise EncodingError("total PCM frames mismatch")
+            return cls(filename, device)
+        except (IOError, ValueError) as err:
+            _unlink(filename)
+            raise EncodingError(str(err))
+
+
+def _unlink(filename):
+    try:
+        os.unlink(filename)
+    except OSError:
+        pass

@@ -1,19 +1,26 @@
-"""The Shorten file writer.
+"""Shorten files: the writer and ``ShortenAudio``.
 
-Port of the write path of the reference's ``ShortenAudio.from_pcm``
-(``audiotools_tpu/formats/shn.py``): a minimal RIFF/WAVE header in the
-leading VERBATIM chunk, then the stream that ``codecs.shn.encode_shn``
-writes (``encode_samples``, its form for samples in hand).  8- and
-16-bit PCM only, 8-bit stored unsigned as WAVE has it.  Metadata and
-the AIFF writer are not ported.
+Port of the reference's ``ShortenAudio`` (``audiotools_tpu/formats/shn.py``):
+``write_shn`` puts a minimal RIFF/WAVE header in the leading VERBATIM
+chunk, then the stream that ``codecs.shn.encode_shn`` writes
+(``encode_samples``, its form for samples in hand), 8- and 16-bit PCM
+only, 8-bit stored unsigned as WAVE has it.  ``ShortenAudio`` reads a
+stream whose VERBATIM head is a WAVE header and decodes with
+``codecs.shn.TorchSHNDecoder`` on its device.  Streams with an AIFF
+head, the AIFF writer and ``from_wave`` (foreign chunks) are not
+ported.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
-from ..codecs.shn import encode_samples
-from ..pcm import read_all
+from .. import _native
+from .._device import resolve_device
+from ..audiofile import EncodingError, InvalidFile, WaveContainer
+from ..codecs.shn import encode_samples, stream_params
+from ..pcm import read_all, to_pcm_progress
 from .wav import build_fmt
 
 
@@ -53,3 +60,119 @@ def write_shn(file_or_path, pcmreader, total_pcm_frames=None, block_size=256,
                        block_size=block_size, device=device, timings=timings)
     finally:
         pcmreader.close()
+
+
+class InvalidShorten(InvalidFile, ValueError):
+    """a file that is not a Shorten file this module reads"""
+
+
+def _wave_chunks(head):
+    """(chunk_id, chunk_size) of the RIFF chunks in a WAVE head"""
+    pos = 12
+    while pos + 8 <= len(head):
+        (chunk_id, size) = struct.unpack("<4sI", head[pos:pos + 8])
+        pos += 8
+        yield (chunk_id, size)
+        if chunk_id == b"data":
+            return
+        pos += size + (size % 2)
+
+
+class ShortenAudio(WaveContainer):
+    """a Shorten file, encoded and decoded on a torch device
+
+    device: "cuda" (raises when no card is usable) or "cpu" (the plain
+    torch ops, for tests); ``to_pcm`` decodes there."""
+
+    SUFFIX = "shn"
+    NAME = SUFFIX
+    DEFAULT_COMPRESSION = ""
+    COMPRESSION_MODES = ("",)
+
+    def __init__(self, filename, device="cuda"):
+        WaveContainer.__init__(self, filename)
+        self.device = resolve_device(device)
+        try:
+            with open(filename, "rb") as f:
+                data = f.read()
+            header = _native.shn_header(data)
+        except (IOError, ValueError) as err:
+            raise InvalidShorten(str(err))
+        head = header["head"]
+        if not (head[0:4] == b"RIFF" and head[8:12] == b"WAVE"):
+            raise InvalidShorten("Shorten streams without a WAVE header "
+                                 "are not ported")
+        self.__head = head
+        self.__channels = header["channels"]
+        self.__bits_per_sample = 8 if header["file_type"] in (1, 2) else 16
+        (self.__sample_rate, self.__channel_mask) = stream_params(
+            head, self.__channels)
+        bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
+        self.__total_frames = 0
+        for (chunk_id, size) in _wave_chunks(head):
+            if chunk_id == b"data":
+                self.__total_frames = size // bytes_per_frame
+
+    def bits_per_sample(self):
+        return self.__bits_per_sample
+
+    def channels(self):
+        return self.__channels
+
+    def channel_mask(self):
+        return self.__channel_mask
+
+    def sample_rate(self):
+        return self.__sample_rate
+
+    def total_frames(self):
+        return self.__total_frames
+
+    def has_foreign_wave_chunks(self):
+        """chunks besides fmt and data in the head, or a tail of
+        trailing chunks (which takes a scan of the whole stream)"""
+        if any(chunk_id not in (b"fmt ", b"data")
+               for (chunk_id, _size) in _wave_chunks(self.__head)):
+            return True
+        with open(self.filename, "rb") as f:
+            (_head, tail) = _native.shn_split(f.read())
+        return len(tail) >= 8
+
+    def convert(self, target_path, target_class, compression=None,
+                progress=None, device=None):
+        """as ``WaveContainer.convert``; the frame count passed ahead is
+        None when the header gives none, as the reference's"""
+        if self.has_foreign_wave_chunks():
+            return WaveContainer.convert(self, target_path, target_class,
+                                         compression, progress, device)
+        return target_class.from_pcm(
+            target_path, to_pcm_progress(self, progress), compression,
+            total_pcm_frames=self.total_frames() or None,
+            device=self.device if device is None else device)
+
+    def to_pcm(self):
+        """a TorchSHNDecoder of the file on the file's device"""
+        from ..codecs.shn import TorchSHNDecoder
+        return TorchSHNDecoder(self.filename, device=self.device)
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None, device="cuda", block_size=256):
+        """encodes a new file from a PCMReader on ``device`` (through
+        ``write_shn``) and returns it; ``compression`` is ignored.  Any
+        failure raises EncodingError and leaves no file."""
+        device = resolve_device(device)
+        if pcmreader.bits_per_sample not in (8, 16):
+            pcmreader.close()
+            raise EncodingError("unsupported bits per sample: %d"
+                                % (pcmreader.bits_per_sample,))
+        try:
+            write_shn(filename, pcmreader, total_pcm_frames=total_pcm_frames,
+                      block_size=block_size, device=device)
+            return cls(filename, device)
+        except (IOError, ValueError) as err:
+            try:
+                os.unlink(filename)
+            except OSError:
+                pass
+            raise EncodingError(str(err))

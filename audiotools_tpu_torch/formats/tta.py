@@ -1,21 +1,27 @@
-"""The TTA container writer.
+"""TTA files: the container writer and ``TrueAudio``.
 
-Port of the write path of the reference's ``TrueAudio.from_pcm``
-(``audiotools_tpu/formats/tta.py``): the TTA1 header with its CRC, the
-seektable of frame lengths with its CRC, then the frames that
-``codecs.tta.encode_tta`` writes, with the filters on a torch device.
-ID3 tags are not ported.
+Port of the reference's ``TrueAudio`` (``audiotools_tpu/formats/tta.py``):
+the TTA1 header with its CRC, the seektable of frame lengths with its
+CRC, then the frames that ``codecs.tta.encode_tta`` writes, with the
+filters on a torch device; ``TrueAudio`` reads the header (past any
+ID3v2 tags) and decodes with ``codecs.tta.TorchTTADecoder`` on its
+device.  ID3 and APE tags are not ported: a file holding any counts
+its tags in ``tag_names``, so that a conversion refuses to drop them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import os
 import struct
 
+from .._device import resolve_device
+from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.tta import encode_tta
 from ..pcm import CounterPCMReader
-from ..ref.tta import crc32, div_ceil
+from ..ref.tta import crc32, div_ceil, read_tta_header
+from . import apetag
 
 
 def build_header(channels, bits_per_sample, sample_rate, total_pcm_frames):
@@ -80,3 +86,99 @@ def write_tta(file_or_path, pcmreader, total_pcm_frames=None, device="cuda",
         return frame_sizes
     finally:
         pcmreader.close()
+
+
+class InvalidTTA(InvalidFile, ValueError):
+    """a file that is not a TTA file this module reads"""
+
+
+def skip_id3v2(f):
+    """seeks past the ID3v2 tags at the open file's position; returns
+    the bytes skipped"""
+    start = f.tell()
+    header = f.read(10)
+    if len(header) == 10 and header[0:3] == b"ID3" and header[3] in (2, 3, 4):
+        size = 0
+        for b in header[6:10]:
+            size = (size << 7) | (b & 0x7F)
+        f.seek(start + 10 + size, 0)
+        return 10 + size + skip_id3v2(f)
+    f.seek(start, 0)
+    return 0
+
+
+class TrueAudio(AudioFile):
+    """a True Audio file, encoded and decoded on a torch device
+
+    device: "cuda" (raises when no card is usable) or "cpu" (the
+    kernels' plain versions, for tests); ``to_pcm`` decodes there."""
+
+    SUFFIX = "tta"
+    NAME = SUFFIX
+    DEFAULT_COMPRESSION = ""
+    COMPRESSION_MODES = ("",)
+
+    def __init__(self, filename, device="cuda"):
+        AudioFile.__init__(self, filename)
+        self.device = resolve_device(device)
+        try:
+            with open(filename, "rb") as f:
+                self.__stream_offset = skip_id3v2(f)
+                self.__header = read_tta_header(f)
+        except (IOError, ValueError) as err:
+            raise InvalidTTA(str(err))
+
+    def bits_per_sample(self):
+        return self.__header["bits_per_sample"]
+
+    def channels(self):
+        return self.__header["channels"]
+
+    def channel_mask(self):
+        return self.__header["channel_mask"]
+
+    def sample_rate(self):
+        return self.__header["sample_rate"]
+
+    def total_frames(self):
+        return self.__header["total_pcm_frames"]
+
+    def tag_names(self):
+        """the APEv2 items' keys, and "ID3v2" for leading ID3v2 tags;
+        None with neither"""
+        keys = apetag.item_keys(self.filename)
+        if self.__stream_offset:
+            return ["ID3v2"] + (keys or [])
+        return keys
+
+    def write_blank_tags(self):
+        apetag.append_empty_tag(self.filename)
+
+    def to_pcm(self):
+        """a TorchTTADecoder of the stream on the file's device"""
+        from ..codecs.tta import TorchTTADecoder
+        f = open(self.filename, "rb")
+        try:
+            f.seek(self.__stream_offset, 0)
+            return TorchTTADecoder(f, device=self.device)
+        except BaseException:
+            f.close()
+            raise
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None, device="cuda"):
+        """encodes a new file from a PCMReader on ``device`` (through
+        ``write_tta``) and returns it; ``compression`` is ignored.  Any
+        failure raises EncodingError and leaves no file."""
+        device = resolve_device(device)
+        try:
+            write_tta(filename, pcmreader, total_pcm_frames=total_pcm_frames,
+                      device=device)
+            return cls(filename, device)
+        except (IOError, ValueError) as err:
+            try:
+                os.unlink(filename)
+            except OSError:
+                pass
+            raise EncodingError(str(err))

@@ -1,12 +1,13 @@
 """RIFF WAVE files: the fmt chunk, a data-chunk reader and ``WaveAudio``.
 
 A copy of the parts of the reference's ``audiotools_tpu/formats/wav.py``
-that the farm and the Shorten writer reach: ``build_fmt`` and
-``parse_fmt`` with their constants, ``WaveReader`` and ``WaveAudio``
-(``from_pcm``, ``to_pcm`` and the stream accessors) for plain RIFF/WAVE
-files of 8, 16 or 24 bits and 1-8 channels, WAVE_FORMAT_EXTENSIBLE's
-channel mask included.  Channel masks are plain ints here.  Foreign
-chunks and AIFF are not ported.
+that the farm, the command line and the Shorten writer reach:
+``build_fmt`` and ``parse_fmt`` with their constants, ``WaveReader``
+and ``WaveAudio`` (``from_pcm``, ``to_pcm``, ``verify``, the stream
+accessors and ``has_foreign_wave_chunks``) for plain RIFF/WAVE files
+of 8, 16 or 24 bits and 1-8 channels, WAVE_FORMAT_EXTENSIBLE's channel
+mask included.  Channel masks are plain ints here.  Writing foreign
+chunks (``from_wave``) and AIFF are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import struct
 
 import numpy as np
 
+from ..audiofile import InvalidFile, WaveContainer
 from ..pcm import CHANNEL_MASKS, FRAMELIST_SIZE, CounterPCMReader, FrameList
 
 WAVE_FORMAT_PCM = 0x0001
@@ -24,7 +26,7 @@ EXTENSIBLE_GUID = (b"\x00\x00\x00\x00\x10\x00\x80\x00"
                    b"\x00\xaa\x00\x38\x9b\x71")
 
 
-class InvalidWave(ValueError):
+class InvalidWave(InvalidFile, ValueError):
     """a file that is not a RIFF WAVE file this module reads"""
 
 
@@ -127,17 +129,20 @@ class WaveReader:
         self.file.close()
 
 
-class WaveAudio:
-    """a waveform audio file (RIFF WAVE)"""
+class WaveAudio(WaveContainer):
+    """a waveform audio file (RIFF WAVE), read and written on the host"""
+
+    SUFFIX = "wav"
+    NAME = SUFFIX
 
     def __init__(self, filename):
-        self.filename = filename
+        WaveContainer.__init__(self, filename)
         self.__channels = 0
         self.__sample_rate = 0
         self.__bits_per_sample = 0
         self.__channel_mask = 0
         self.__data_size = 0
-        chunk_ids = []
+        self.__chunk_ids = chunk_ids = []
         try:
             with open(filename, "rb") as f:
                 for (chunk_id, chunk_size, offset) in _chunks(f):
@@ -176,6 +181,23 @@ class WaveAudio:
         bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
         return self.__data_size // bytes_per_frame if bytes_per_frame else 0
 
+    def has_foreign_wave_chunks(self):
+        return set(self.__chunk_ids) != {b"fmt ", b"data"}
+
+    def verify(self, progress=None, sink=None):
+        """checks that every chunk is whole (the reference's check),
+        raising InvalidWave if not; then, when ``sink`` is given, reads
+        the PCM into it"""
+        with open(self.filename, "rb") as f:
+            for (chunk_id, chunk_size, offset) in _chunks(f):
+                f.seek(offset, 0)
+                if len(f.read(chunk_size)) != chunk_size:
+                    raise InvalidWave("truncated %s chunk" % (
+                        chunk_id.decode("ascii", "replace"),))
+        if sink is not None:
+            WaveContainer.verify(self, progress, sink)
+        return True
+
     def to_pcm(self):
         """a WaveReader of this file's data chunk"""
         f = open(self.filename, "rb")
@@ -194,10 +216,12 @@ class WaveAudio:
 
     @classmethod
     def from_pcm(cls, filename, pcmreader, compression=None,
-                 total_pcm_frames=None):
+                 total_pcm_frames=None, device=None):
         """writes a new WAVE file from a PCMReader of 8, 16 or 24 bits
         and returns it; a written frame count other than
-        ``total_pcm_frames`` (when given) raises, and no file is left"""
+        ``total_pcm_frames`` (when given) raises, and no file is left.
+        ``device`` is accepted for the signature the other classes
+        share: WAVE is written on the host."""
         bps = pcmreader.bits_per_sample
         try:
             if bps not in (8, 16, 24):

@@ -1,11 +1,13 @@
 """Threaded transcode farm: many tracks through one process's cards.
 
 The port of the reference's ``audiotools_tpu/parallel/farm.py``.  A
-small pool of threads takes jobs from one queue; each job encodes a
-source track into a destination file and may run a ``post`` hook in
-its worker thread, typically ``verify_flac``: the new file decoded
-once, its STREAMINFO MD5 checked (``trackverify``'s lossless check),
-its AccurateRip sums taken in the same pass.  The host stages (WAVE
+small pool of threads (``run_jobs``, which the command line's tools
+run too) takes jobs from one queue; each ``transcode`` job encodes a
+source track into a destination file of any of the port's device
+classes and may run a ``post`` hook in its worker thread, typically
+``verify_track``: the new file decoded once, its checksums checked
+(``trackverify``'s lossless check), its AccurateRip sums taken in the
+same pass.  The host stages (WAVE
 reads, FLAC emit, the decode scan and MD5) are C++ calls that release
 the interpreter lock, so they can run while another worker's thread
 enqueues its kernels.
@@ -43,7 +45,8 @@ class FarmJob:
                   opened with ``dispatch.open`` on the worker's device
     dest_path   : output filename
     dest_class  : the class to encode as; its ``from_pcm`` takes
-                  ``device=`` (``formats.flac.FlacAudio``)
+                  ``device=`` (FlacAudio, ALACAudio, TrueAudio,
+                  ShortenAudio or WavPackAudio)
     compression : compression level string, or None for the default
     post        : optional callable(dest) run in the worker thread after
                   a successful encode; its return value lands in
@@ -93,49 +96,56 @@ def _run_job(job, device):
     return FarmResult(job, dest=dest, post=post)
 
 
-def transcode(jobs, workers=None, progress=None, devices=None):
-    """runs FarmJobs through a pool of worker threads; returns their
-    FarmResults in job order
+def run_jobs(jobs, run, workers=None, devices=None, done=None,
+             stop_on_error=False):
+    """runs ``run(job, device)`` for each job in a pool of worker
+    threads; returns a (result, error) pair for each job, in job order
 
-    A failed job carries its exception in ``.error`` and its partial
-    output is removed; the other jobs still run.  ``progress(done,
-    total)`` is called under a lock after each job, from the worker
-    threads.  workers: DEFAULT_WORKERS when None, at most one a job.
-    devices: the devices to spread the workers over,
-    ``[torch.device("cuda")]`` when None; a card that is absent, or an
-    index past the cards there are, raises before any job runs."""
+    Worker ``w`` runs on ``devices[w % len(devices)]`` (resolved before
+    any job runs: ``[torch.device("cuda")]`` when None; a card that is
+    absent, or an index past the cards there are, raises), inside a CUDA
+    stream of its own on a card.  A job that raises has its exception
+    as its error, and its partial output, ``job.dest_path`` when it has
+    one, is removed.  ``done(index, result, error)`` is called under a
+    lock as each job ends, from the worker threads.  With
+    ``stop_on_error`` no job starts after one has failed; those never
+    run have (None, None).  workers: DEFAULT_WORKERS when None, at most
+    one a job."""
     devices = resolve_devices(devices)
     jobs = list(jobs)
     if workers is None:
         workers = DEFAULT_WORKERS
     workers = max(min(workers, len(jobs)), 1)
 
-    results = [None] * len(jobs)
+    outcomes = [(None, None)] * len(jobs)
     work = queue_mod.Queue()
     for item in enumerate(jobs):
         work.put(item)
-    done = [0]
     lock = threading.Lock()
+    failed = threading.Event()
     failures = []
 
     def run_queue(device):
-        while True:
+        while not (stop_on_error and failed.is_set()):
             try:
                 (idx, job) = work.get_nowait()
             except queue_mod.Empty:
                 return
             try:
-                results[idx] = _run_job(job, device)
+                outcome = (run(job, device), None)
             except Exception as err:  # noqa: BLE001 - reported per job
-                try:
-                    os.unlink(job.dest_path)   # no partial outputs
-                except OSError:
-                    pass
-                results[idx] = FarmResult(job, error=err)
-            if progress is not None:
+                dest_path = getattr(job, "dest_path", None)
+                if dest_path is not None:
+                    try:
+                        os.unlink(dest_path)   # no partial outputs
+                    except OSError:
+                        pass
+                outcome = (None, err)
+                failed.set()
+            outcomes[idx] = outcome
+            if done is not None:
                 with lock:
-                    done[0] += 1
-                    progress(done[0], len(jobs))
+                    done(idx, *outcome)
 
     def worker(w):
         device = devices[w % len(devices)]
@@ -148,7 +158,7 @@ def transcode(jobs, workers=None, progress=None, devices=None):
                 with torch.cuda.stream(stream):
                     run_queue(device)
                 stream.synchronize()
-        except BaseException as err:  # noqa: B902 - re-raised by transcode
+        except BaseException as err:  # noqa: B902 - re-raised by run_jobs
             failures.append(err)
 
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
@@ -159,17 +169,41 @@ def transcode(jobs, workers=None, progress=None, devices=None):
         t.join()
     if failures:
         raise failures[0]
-    return results
+    return outcomes
 
 
-def verify_flac(dest, chunk=65536, accuraterip=None):
-    """decodes a freshly written FlacAudio once, on its device
+def transcode(jobs, workers=None, progress=None, devices=None):
+    """runs FarmJobs through ``run_jobs``' pool of worker threads;
+    returns their FarmResults in job order
+
+    A failed job carries its exception in ``.error`` and its partial
+    output is removed; the other jobs still run.  ``progress(done,
+    total)`` is called under a lock after each job, from the worker
+    threads.  workers and devices as in ``run_jobs``.  The encode gets
+    no frame count ahead, as the reference farm's does."""
+    jobs = list(jobs)
+    count = [0]
+
+    def done(_index, _result, _error):
+        if progress is not None:
+            count[0] += 1
+            progress(count[0], len(jobs))
+
+    outcomes = run_jobs(jobs, _run_job, workers, devices, done)
+    return [result if error is None else FarmResult(job, error=error)
+            for (job, (result, error)) in zip(jobs, outcomes)]
+
+
+def verify_track(dest, chunk=65536, accuraterip=None):
+    """decodes a freshly written file of any of the port's device
+    classes once, on its device
 
     returns the samples as int32 [frames, channels]; raises on any
-    stream error or STREAMINFO MD5 mismatch.  accuraterip: optional
-    (is_first, is_last) pair; the AccurateRip V1 and V2 sums of the
-    decoded samples are then taken in the same pass, on the same
-    device, and the return value is (samples, (v1, v2))."""
+    stream error or checksum mismatch, and ValueError when the frame
+    count is not the header's.  accuraterip: optional (is_first,
+    is_last) pair; the AccurateRip V1 and V2 sums of the decoded
+    samples are then taken in the same pass, on the same device, and
+    the return value is (samples, (v1, v2))."""
     crc = None
     if accuraterip is not None:
         from ..accuraterip_checksum import AccurateRipCRC
@@ -192,6 +226,12 @@ def verify_flac(dest, chunk=65536, accuraterip=None):
         samples = np.concatenate(out)
     else:
         samples = np.zeros((0, dest.channels()), dtype=np.int32)
+    if samples.shape[0] != dest.total_frames():
+        raise ValueError("incorrect PCM frame count")
     if crc is not None:
         return (samples, crc.checksums())
     return samples
+
+
+# the FLAC name of verify_track, from when the farm wrote FLAC alone
+verify_flac = verify_track

@@ -394,3 +394,48 @@ def resampled_frame_count(initial_frame_count, initial_sample_rate,
     if initial_sample_rate == new_sample_rate:
         return initial_frame_count
     return initial_frame_count * new_sample_rate // initial_sample_rate
+
+
+def to_pcm_progress(audiofile, progress):
+    """``audiofile.to_pcm()``, wrapped in a PCMReaderProgress when a
+    ``progress(current, total)`` callback is given (the reference's
+    ``pcmstream.to_pcm_progress``)"""
+    if progress is None:
+        return audiofile.to_pcm()
+    return PCMReaderProgress(audiofile.to_pcm(), audiofile.total_frames(),
+                             progress)
+
+
+def pcm_frame_cmp(pcmreader1, pcmreader2):
+    """the PCM frame number of the first mismatch between two readers,
+    or None when they hold the same frames (the reference's
+    ``pcmstream.pcm_frame_cmp``): 0 when their rates, channel counts,
+    bits per sample or defined channel masks differ; the length of the
+    shorter one when one ends first"""
+    if ((pcmreader1.sample_rate != pcmreader2.sample_rate) or
+            (pcmreader1.channels != pcmreader2.channels) or
+            (pcmreader1.bits_per_sample != pcmreader2.bits_per_sample)):
+        return 0
+    if ((pcmreader1.channel_mask != 0) and
+            (pcmreader2.channel_mask != 0) and
+            (pcmreader1.channel_mask != pcmreader2.channel_mask)):
+        return 0
+
+    frame_number = 0
+    reader1 = BufferedPCMReader(pcmreader1)
+    reader2 = BufferedPCMReader(pcmreader2)
+    a = reader1.read(FRAMELIST_SIZE).samples
+    b = reader2.read(FRAMELIST_SIZE).samples
+    while a.shape[0] > 0 and b.shape[0] > 0:
+        if a.shape != b.shape or not np.array_equal(a, b):
+            n = min(a.shape[0], b.shape[0])
+            mismatch = np.nonzero((a[:n] != b[:n]).any(axis=1))[0]
+            if len(mismatch):
+                return frame_number + int(mismatch[0])
+            return frame_number + n - 1
+        frame_number += a.shape[0]
+        a = reader1.read(FRAMELIST_SIZE).samples
+        b = reader2.read(FRAMELIST_SIZE).samples
+    if a.shape[0] > 0 or b.shape[0] > 0:
+        return frame_number
+    return None

@@ -163,7 +163,23 @@ Its phases each print one line:
     on one card, not a measurement of several cards); a short album
     farmed on the card and on the CPU to the same files; and
     ``parallel.dryrun.dryrun_multichip`` over ``[cuda:0, cuda:0]`` (and
-    over every card where there are several).
+    over every card where there are several);
+21. the command line, on phase 19's album (four 95.1 s WAVE tracks):
+    for each of FLAC -8, ALAC, TTA, Shorten and WavPack (standard),
+    ``track2track -j 2`` in-process on the card, then ``trackverify
+    --accuraterip`` over its outputs (every file OK, its sums equal to
+    the port's C++ sums of its source) and ``trackcmp`` of each output
+    against its input (every pair OK); each output equal to the file
+    the same class's ``from_pcm`` writes on the card with the same
+    frame count (the ALAC creation time pinned); a line a type with
+    the wall time and Msamples/s of input PCM of each tool, the
+    launches of each of the eight kernels (counted from 0 before the
+    type's track2track run, read after its trackcmp run) and the
+    card's peak memory; then ``track2track -t flac --replay-gain`` on
+    the album (peaks equal to the tracks', gains finite) and
+    ``--sample-rate 48000`` on one track (the card's file decoded
+    within 1 LSB of the CPU's PCMConverter on under 1e-4 of the
+    samples).  Every kernel must have launched during the phase.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -173,6 +189,8 @@ jax or of the reference package, and checks so at the end.  Usage:
     python3 chip_smoke.py
 """
 
+import contextlib
+import importlib
 import io
 import json
 import os
@@ -1254,6 +1272,195 @@ def farm_phase(dev, sig, enc_rate=None, dec_rate=None):
     return out
 
 
+# phase 21: track2track's types and qualities, in the order run
+CLI_TYPES = (("flac", "8"), ("alac", None), ("tta", None), ("shn", None),
+             ("wavpack", "standard"))
+# the clock ALAC's creation time is read from during phase 21 (seconds
+# since 1970), so that the command line's files and from_pcm's compare
+CLI_CLOCK = 1.7e9
+CLI_FORMAT = ["--format", "%(basename)s.%(suffix)s"]
+
+
+def kernel_counters():
+    """the eight kernel wrappers, whose ``launches`` count their launches,
+    by the kernels line's names"""
+    from audiotools_tpu_torch.ops import (alac_synth, bitpack, flac_synth,
+                                          rice_decode, tta_scan, tta_synth,
+                                          wv_scan)
+    return {"pack_rows": bitpack.pack_rows,
+            "rice_decode": rice_decode.decode_partitions,
+            "flac_synth": flac_synth.synthesize,
+            "alac_synth": alac_synth.synthesize,
+            "tta_synth": tta_synth.inverse_filter_predict,
+            "tta_filter": tta_scan.hybrid_filter,
+            "wv_corr": wv_scan.run_pass_chain,
+            "wv_decorr": wv_scan.run_dec_chain}
+
+
+def run_cli(tool, args):
+    """a port tool's main(args) run in-process: (exit code, the lines it
+    printed)"""
+    module = importlib.import_module("audiotools_tpu_torch.cli." + tool)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = module.main(list(args))
+    return (code, out.getvalue().splitlines())
+
+
+def cli_phase(dev, alac_sig):
+    """phase 21 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it: the command line on ``dev``; returns its line's fields and each
+    kernel's launches over the phase.  On a CPU ``dev`` (a rehearsal
+    with a short signal) the card's memory is not read and no launch is
+    required."""
+    import tempfile
+    from audiotools_tpu_torch import _native, dispatch
+    from audiotools_tpu_torch.formats.flac import FlacAudio
+    from audiotools_tpu_torch.formats.wav import WaveAudio
+    from audiotools_tpu_torch.pcm import (PCMConverter, read_all,
+                                          reader_from_array)
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    per = alac_sig.shape[0] // RG_TITLES
+    tracks = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    in_samples = sum(t.size for t in tracks)
+    on_card = ["--devices", str(dev)]
+    total = dict.fromkeys(counters, 0)
+    out = dict(tracks=len(tracks), track_seconds=per / SAMPLE_RATE,
+               workers=2, types=[])
+    wall_clock = time.time
+    with tempfile.TemporaryDirectory(prefix="cli-") as work:
+        wavs = []
+        for (i, track) in enumerate(tracks):
+            wavs.append(os.path.join(work, "track%d.wav" % i))
+            WaveAudio.from_pcm(wavs[-1], reader_from_array(track, 16))
+        sums = [_native.accuraterip_update(t, 1, 0, len(t), 0, 0)
+                for t in tracks]
+        time.time = lambda: CLI_CLOCK
+        try:
+            for (type_name, quality) in CLI_TYPES:
+                cls = dispatch.TYPE_MAP[type_name]
+                dest = os.path.join(work, type_name)
+                outputs = [os.path.join(dest, "track%d.%s" % (i, cls.SUFFIX))
+                           for i in range(len(wavs))]
+                for fn in counters.values():
+                    fn.launches = 0
+                if on_cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                walls = {}
+                t0 = time.perf_counter()
+                (code, lines) = run_cli("track2track", [
+                    "-t", type_name] + (["-q", quality] if quality else []) +
+                    ["-d", dest, "-j", "2"] + CLI_FORMAT + on_card + wavs)
+                sync(dev)
+                walls["encode"] = time.perf_counter() - t0
+                if code != 0 or sorted(lines) != sorted(
+                        "%s -> %s" % pair for pair in zip(wavs, outputs)):
+                    raise AssertionError("track2track -t %s exited %r: %s"
+                                         % (type_name, code, lines))
+                t0 = time.perf_counter()
+                (code, lines) = run_cli("trackverify", [
+                    "--accuraterip", "-j", "2"] + on_card + outputs)
+                walls["verify"] = time.perf_counter() - t0
+                want = ["%s : OK (AccurateRip v1=%08X v2=%08X)" % (
+                    path, v1, v2) for (path, (v1, v2)) in zip(outputs, sums)]
+                if code != 0 or sorted(lines[:len(want)]) != sorted(want):
+                    raise AssertionError("trackverify of the %s files "
+                                         "exited %r: %s"
+                                         % (type_name, code, lines))
+                t0 = time.perf_counter()
+                (code, lines) = run_cli("trackcmp", ["-j", "2"] + on_card + [
+                    path for pair in zip(wavs, outputs) for path in pair])
+                walls["compare"] = time.perf_counter() - t0
+                if code != 0 or sorted(lines[:len(wavs)]) != sorted(
+                        "%s <> %s : OK" % pair
+                        for pair in zip(wavs, outputs)):
+                    raise AssertionError("trackcmp of the %s files exited "
+                                         "%r: %s" % (type_name, code, lines))
+                launches = {k: fn.launches for (k, fn) in counters.items()}
+                peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_cuda else None)
+                for (k, n) in launches.items():
+                    total[k] += n
+                # each file is the one from_pcm writes with the frame count
+                again = os.path.join(work, "again." + cls.SUFFIX)
+                for (wav, output, track) in zip(wavs, outputs, tracks):
+                    cls.from_pcm(again, WaveAudio(wav).to_pcm(), quality,
+                                 total_pcm_frames=len(track), device=dev)
+                    with open(again, "rb") as a, open(output, "rb") as b:
+                        if a.read() != b.read():
+                            raise AssertionError(
+                                "%s differs from %s.from_pcm's file"
+                                % (output, cls.__name__))
+                    os.unlink(again)
+                fields = dict(type=type_name, quality=quality,
+                              identical_to_from_pcm=True, launches=launches,
+                              peak_mem_GB=peak)
+                for (tool, wall) in walls.items():
+                    fields["%s_s" % tool] = wall
+                    fields["%s_Msamples_per_s" % tool] = (in_samples / wall
+                                                          / 1e6)
+                line("cli_" + type_name, **fields)
+                out["types"].append(fields)
+        finally:
+            time.time = wall_clock
+
+        # the album's ReplayGain, FLAC
+        dest = os.path.join(work, "replay_gain")
+        t0 = time.perf_counter()
+        (code, lines) = run_cli("track2track", [
+            "-t", "flac", "--replay-gain", "-d", dest, "-j", "2"] +
+            CLI_FORMAT + on_card + wavs)
+        rg_s = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError("track2track --replay-gain exited %r"
+                                 % (code,))
+        gains = []
+        peaks = [float("%1.8f" % (np.abs(t).max() / 32768)) for t in tracks]
+        for (i, peak) in enumerate(peaks):
+            rg = FlacAudio(os.path.join(dest, "track%d.flac" % i),
+                           device=dev).replay_gain()
+            if (rg is None or rg.track_peak != peak or
+                    rg.album_peak != max(peaks) or
+                    not np.isfinite([rg.track_gain, rg.album_gain]).all()):
+                raise AssertionError("track%d's ReplayGain is %r, its peak "
+                                     "%r" % (i, rg, peak))
+            gains.append(rg.track_gain)
+        out["replay_gain"] = dict(seconds=rg_s, track_gains_dB=gains,
+                                  album_gain_dB=rg.album_gain, peaks=peaks)
+
+        # one track resampled to 48 kHz
+        dest = os.path.join(work, "resampled")
+        t0 = time.perf_counter()
+        (code, lines) = run_cli("track2track", [
+            "-t", "flac", "--sample-rate", "48000", "-d", dest, "-j", "1"] +
+            CLI_FORMAT + on_card + wavs[:1])
+        sr_s = time.perf_counter() - t0
+        got = FlacAudio(os.path.join(dest, "track0.flac"), device=dev)
+        if code != 0 or got.sample_rate() != 48000:
+            raise AssertionError("track2track --sample-rate 48000 exited "
+                                 "%r" % (code,))
+        got = read_all(got.to_pcm())
+        want = read_all(PCMConverter(reader_from_array(tracks[0], 16), 48000,
+                                     2, 0x3, 16, device="cpu"))
+        if got.shape != want.shape:
+            raise AssertionError("resampled track: %s frames, the CPU's %s"
+                                 % (got.shape, want.shape))
+        diff = np.abs(got.astype(np.int64) - want)
+        if diff.max() > 1 or np.count_nonzero(diff) >= 1e-4 * diff.size:
+            raise AssertionError("resampled track: %d samples off, by up "
+                                 "to %d" % (np.count_nonzero(diff),
+                                            diff.max()))
+        out["sample_rate"] = dict(seconds=sr_s, frames=int(got.shape[0]),
+                                  samples_off_by_1=int(np.count_nonzero(diff)))
+    idle = [k for (k, n) in total.items() if n <= 0]
+    if on_cuda and idle:
+        raise AssertionError("the command line never launched %s" % (idle,))
+    out["launches"] = total
+    return (out, total)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2048,6 +2255,11 @@ def main():
     fields = farm_phase(dev, sig, rate, dec_rate)
     line("farm", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
 
+    # ---- 21. the command line --------------------------------------------
+    t0 = time.perf_counter()
+    (fields, cli_launches) = cli_phase(dev, alac_sig)
+    line("cli", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -2074,7 +2286,7 @@ def main():
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,
             replaces="audiotools_tpu/ops/" + replaces, launches=kl,
-            **row))
+            cli_launches=cli_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
