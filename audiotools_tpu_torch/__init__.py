@@ -16,4 +16,7 @@ kernels (built by ``kernels.py`` on first use).
 
 from ._device import resolve_device
 
-__all__ = ["resolve_device"]
+# the reference package's version, which the tags the port writes name
+VERSION = "0.1.0"
+
+__all__ = ["VERSION", "resolve_device"]

@@ -1,16 +1,15 @@
-"""The AudioFile layer: the base of the port's file classes.
+"""The AudioFile layer: MetaData, Image, ReplayGain and the base of the
+port's file classes.
 
 The port of the parts of the reference's ``audiotools_tpu/audiofile.py``
-that the command line reaches: ``AudioFile`` (lengths, ``verify``,
-``convert``, ``track_name`` and the ReplayGain hooks),
-``WaveContainer``, and the exceptions the reference keeps in its
-package root.
-
-The reference's ``meta/`` (MetaData and the tag formats) is not
-ported.  ``track_name`` fills the template as the reference does for a
-file without metadata.  ``tag_names`` reports what a file holds in
-its tag container, so that a conversion can refuse the tags it cannot
-write instead of dropping them.
+that the command line reaches: ``MetaData`` (the 18 fields, their
+display, ``converted`` and the image list), ``Image``, the
+``ReplayGain`` value object, ``AudioFile`` (lengths, ``verify``,
+``convert``, ``track_name``, the metadata and ReplayGain hooks with the
+reference's base behaviour), ``WaveContainer`` (foreign RIFF chunks
+carried through the target's ``from_wave``), and the exceptions the
+reference keeps in its package root.  The tag formats are in ``meta/``
+and the format classes.
 """
 
 from __future__ import annotations
@@ -22,13 +21,6 @@ from .pcm import FRAMELIST_SIZE, to_pcm_progress
 
 # the reference's built-in default for the Filenames/format setting
 FILENAME_FORMAT = "%(track_number)2.2d - %(track_name)s.%(suffix)s"
-
-# the reference MetaData's text fields, the template keys track_name
-# fills with ""
-TEXT_FIELDS = ("track_name", "album_name", "artist_name", "performer_name",
-               "composer_name", "conductor_name", "media", "ISRC",
-               "catalog", "copyright", "publisher", "year", "date",
-               "comment")
 
 
 class InvalidFile(Exception):
@@ -65,13 +57,203 @@ class InvalidFilenameFormat(Exception):
         return "invalid filename format string"
 
 
-def tags_not_ported(filename, tags):
-    """the EncodingError of a conversion whose source holds ``tags``
-    that the port cannot write"""
-    return EncodingError(
-        "%s: tags %s would be lost: the reference's meta/ (tag "
-        "conversion between formats) is not ported"
-        % (filename, ", ".join(tags)))
+class MetaData:
+    """the textual metadata of an AudioFile
+
+    A field is None where the underlying format does not hold it.  The
+    tag formats subclass it, mapping the fields onto their own items."""
+
+    FIELDS = ("track_name", "track_number", "track_total", "album_name",
+              "artist_name", "performer_name", "composer_name",
+              "conductor_name", "media", "ISRC", "catalog", "copyright",
+              "publisher", "year", "date", "album_number", "album_total",
+              "comment")
+
+    INTEGER_FIELDS = ("track_number", "track_total", "album_number",
+                      "album_total")
+
+    # the order __str__ shows them in
+    FIELD_ORDER = ("track_name", "artist_name", "album_name",
+                   "track_number", "track_total", "album_number",
+                   "album_total", "performer_name", "composer_name",
+                   "conductor_name", "catalog", "ISRC", "publisher",
+                   "media", "year", "date", "copyright", "comment")
+
+    FIELD_NAMES = {"track_name": "Track Name",
+                   "track_number": "Track Number",
+                   "track_total": "Track Total",
+                   "album_name": "Album Name",
+                   "artist_name": "Artist Name",
+                   "performer_name": "Performer Name",
+                   "composer_name": "Composer Name",
+                   "conductor_name": "Conductor Name",
+                   "media": "Media",
+                   "ISRC": "ISRC",
+                   "catalog": "Catalog Number",
+                   "copyright": "Copyright",
+                   "publisher": "Publisher",
+                   "year": "Release Year",
+                   "date": "Recording Date",
+                   "album_number": "Album Number",
+                   "album_total": "Album Total",
+                   "comment": "Comment"}
+
+    def __init__(self, track_name=None, track_number=None, track_total=None,
+                 album_name=None, artist_name=None, performer_name=None,
+                 composer_name=None, conductor_name=None, media=None,
+                 ISRC=None, catalog=None, copyright=None, publisher=None,
+                 year=None, date=None, album_number=None, album_total=None,
+                 comment=None, images=None):
+        # past __setattr__, which subclasses redefine
+        d = self.__dict__
+        d["track_name"] = track_name
+        d["track_number"] = track_number
+        d["track_total"] = track_total
+        d["album_name"] = album_name
+        d["artist_name"] = artist_name
+        d["performer_name"] = performer_name
+        d["composer_name"] = composer_name
+        d["conductor_name"] = conductor_name
+        d["media"] = media
+        d["ISRC"] = ISRC
+        d["catalog"] = catalog
+        d["copyright"] = copyright
+        d["publisher"] = publisher
+        d["year"] = year
+        d["date"] = date
+        d["album_number"] = album_number
+        d["album_total"] = album_total
+        d["comment"] = comment
+        d["__images__"] = list(images) if images is not None else []
+
+    def __repr__(self):
+        return "MetaData(%s)" % ",".join(
+            "%s=%s" % (field, repr(getattr(self, field)))
+            for field in MetaData.FIELDS)
+
+    def __str__(self):
+        lines = []
+        for attr in self.FIELD_ORDER:
+            if attr in ("track_total", "album_total"):
+                continue
+            elif attr in ("track_number", "album_number"):
+                number = getattr(self, attr)
+                total = getattr(self, attr.replace("number", "total"))
+                if number is None and total is None:
+                    continue
+                elif total is None:
+                    value = str(number)
+                elif number is None:
+                    value = "?/%d" % (total,)
+                else:
+                    value = "%d/%d" % (number, total)
+                lines.append("%s : %s" % (self.FIELD_NAMES[attr], value))
+            elif getattr(self, attr) is not None:
+                lines.append("%s : %s" % (self.FIELD_NAMES[attr],
+                                          getattr(self, attr)))
+        for image in self.images():
+            lines.append("Picture : %s" % (image,))
+        return os.linesep.join(lines)
+
+    def raw_info(self):
+        """a string of the format's own items"""
+        raise NotImplementedError()
+
+    def __eq__(self, metadata):
+        for attr in MetaData.FIELDS:
+            if (not hasattr(metadata, attr) or
+                    getattr(self, attr) != getattr(metadata, attr)):
+                return False
+        return True
+
+    def __ne__(self, metadata):
+        return not self.__eq__(metadata)
+
+    @classmethod
+    def converted(cls, metadata):
+        """a plain MetaData of another's fields and images, or None"""
+        if metadata is None:
+            return None
+        fields = {field: getattr(metadata, field) for field in cls.FIELDS}
+        fields["images"] = metadata.images()
+        return MetaData(**fields)
+
+    def images(self):
+        """the embedded Image objects"""
+        return self.__images__[:]
+
+
+(FRONT_COVER, BACK_COVER, LEAFLET_PAGE, MEDIA, OTHER) = range(5)
+
+
+class Image:
+    """an embedded image: its bytes and what they describe"""
+
+    def __init__(self, data, mime_type, width, height, color_depth,
+                 color_count, description, type):
+        self.data = data
+        self.mime_type = mime_type
+        self.width = width
+        self.height = height
+        self.color_depth = color_depth
+        self.color_count = color_count
+        self.description = description
+        self.type = type
+
+    def type_string(self):
+        """the image's type as a display string"""
+        return {FRONT_COVER: "Front Cover", BACK_COVER: "Back Cover",
+                LEAFLET_PAGE: "Leaflet Page", MEDIA: "Media",
+                OTHER: "Other"}.get(self.type, "Other")
+
+    def __repr__(self):
+        return ("Image(mime_type=%s,width=%s,height=%s,type=%s,...)" %
+                (repr(self.mime_type), repr(self.width), repr(self.height),
+                 repr(self.type)))
+
+    def __str__(self):
+        return "%s (%d×%d,'%s')" % (self.type_string(), self.width,
+                                         self.height, self.mime_type)
+
+    @classmethod
+    def new(cls, image_data, description, type):
+        """an Image of raw bytes, its metrics parsed from them (raises
+        meta.image.InvalidImage for bytes of no known type)"""
+        from .meta.image import image_metrics
+        img = image_metrics(image_data)
+        return Image(data=image_data, mime_type=img.mime_type,
+                     width=img.width, height=img.height,
+                     color_depth=img.bits_per_pixel,
+                     color_count=img.color_count, description=description,
+                     type=type)
+
+    def __eq__(self, image):
+        if image is None:
+            return False
+        for attr in ("data", "mime_type", "width", "height", "color_depth",
+                     "color_count", "description", "type"):
+            if (not hasattr(image, attr) or
+                    getattr(self, attr) != getattr(image, attr)):
+                return False
+        return True
+
+    def __ne__(self, image):
+        return not self.__eq__(image)
+
+
+class ReplayGain:
+    """a track's and its album's ReplayGain gains (dB) and peaks"""
+
+    def __init__(self, track_gain, track_peak, album_gain, album_peak):
+        self.track_gain = float(track_gain)
+        self.track_peak = float(track_peak)
+        self.album_gain = float(album_gain)
+        self.album_peak = float(album_peak)
+
+    def __repr__(self):
+        return "ReplayGain(%s, %s, %s, %s)" % (
+            self.track_gain, self.track_peak, self.album_gain,
+            self.album_peak)
 
 
 class AudioFile:
@@ -102,27 +284,21 @@ class AudioFile:
         except decimal.DivisionByZero:
             return decimal.Decimal(0)
 
-    def tag_names(self):
-        """None when the file has no tag container (where the
-        reference's get_metadata() is None), else the names of the tags
-        in it that the port cannot carry (empty when there are none)"""
+    def get_metadata(self):
+        """the file's MetaData, or None for a class that holds none"""
         return None
 
-    def write_blank_tags(self):
-        """gives this newly written file what the reference's
-        ``set_metadata`` writes for a MetaData with no fields set"""
+    def set_metadata(self, metadata):
+        """converts ``metadata`` to the file's own format and writes it"""
 
-    def carry_tags_to(self, dest):
-        """what the reference's ``dest.set_metadata(self.get_metadata())``
-        does after a conversion, where the port can write it: nothing
-        without a tag container, the blank tags of ``dest``'s class for
-        an empty one; tags the port cannot write raise EncodingError"""
-        tags = self.tag_names()
-        if tags is None:
-            return
-        if tags:
-            raise tags_not_ported(self.filename, tags)
-        dest.write_blank_tags()
+    def update_metadata(self, metadata):
+        """writes back a MetaData from this file's get_metadata()"""
+        if metadata is None:
+            raise ValueError("metadata not from audio file")
+        raise NotImplementedError()
+
+    def delete_metadata(self):
+        """removes the file's MetaData"""
 
     def convert(self, target_path, target_class, compression=None,
                 progress=None, device=None):
@@ -138,21 +314,39 @@ class AudioFile:
             device=device)
 
     @classmethod
-    def track_name(cls, file_path, format=None, suffix=None):
+    def track_name(cls, file_path, track_metadata=None, format=None,
+                   suffix=None):
         """a filename from the ``format`` template (FILENAME_FORMAT when
-        None): the numbers 0 and the text fields empty, as for a track
-        without metadata, plus ``suffix`` and the source's basename"""
+        None) filled from ``track_metadata`` (the numbers 0 and the text
+        fields empty where it has none), ``suffix`` (the class's when
+        None) and the source's basename; "/" and NUL in a field become
+        "-" and " " """
         if format is None:
             format = FILENAME_FORMAT
         if suffix is None:
             suffix = cls.SUFFIX
-        format_dict = {"track_number": 0, "album_number": 0,
-                       "track_total": 0, "album_total": 0,
-                       "album_track_number": "00", "suffix": suffix}
-        format_dict.update(dict.fromkeys(TEXT_FIELDS, ""))
-        format_dict["basename"] = os.path.splitext(
-            os.path.basename(file_path))[0]
         try:
+            numbers = {field: (getattr(track_metadata, field) or 0
+                               if track_metadata is not None else 0)
+                       for field in MetaData.INTEGER_FIELDS}
+            format_dict = dict(numbers, suffix=suffix)
+            if numbers["album_number"] == 0:
+                format_dict["album_track_number"] = "%2.2d" % (
+                    numbers["track_number"],)
+            else:
+                album_digits = len(str(numbers["album_total"]))
+                format_dict["album_track_number"] = (
+                    "%%%(d)d.%(d)dd%%2.2d" % {"d": album_digits}) % (
+                        numbers["album_number"], numbers["track_number"])
+            for field in MetaData.FIELDS:
+                if field in MetaData.INTEGER_FIELDS:
+                    continue
+                value = (getattr(track_metadata, field)
+                         if track_metadata is not None else None)
+                format_dict[field] = ("" if value is None else str(
+                    value).replace("/", "-").replace(chr(0), " "))
+            format_dict["basename"] = os.path.splitext(
+                os.path.basename(file_path))[0]
             return format % format_dict
         except KeyError as error:
             raise UnsupportedTracknameField(str(error.args[0]))
@@ -164,8 +358,20 @@ class AudioFile:
         return False
 
     @classmethod
+    def lossless_replay_gain(cls):
+        return False
+
+    @classmethod
+    def can_add_replay_gain(cls, audiofiles):
+        return False
+
+    @classmethod
     def add_replay_gain(cls, filenames, progress=None, device="cuda"):
         """adds ReplayGain values to the files named"""
+
+    def replay_gain(self):
+        """the file's ReplayGain values, or None"""
+        return None
 
     def verify(self, progress=None, sink=None):
         """decodes the whole file: raises InvalidFile on a stream error
@@ -199,19 +405,29 @@ class AudioFile:
 class WaveContainer(AudioFile):
     """an AudioFile which may hold foreign RIFF chunks
 
-    The reference converts such a file through the target's
-    ``from_wave``, which the port does not have; it refuses the
-    conversion rather than drop the chunks."""
+    ``convert`` carries them through the target class's ``from_wave``
+    where it has one; a target without one (ALAC, TTA) gets the PCM
+    alone, as the reference's does."""
 
     def has_foreign_wave_chunks(self):
         """True when the file holds RIFF chunks besides fmt and data"""
         raise NotImplementedError()
 
+    def wave_header_footer(self):
+        """the RIFF bytes before and after the PCM, a (header, footer)
+        pair; raises ValueError when the file holds none"""
+        raise NotImplementedError()
+
     def convert(self, target_path, target_class, compression=None,
                 progress=None, device=None):
-        if self.has_foreign_wave_chunks():
-            raise EncodingError(
-                "%s: foreign RIFF chunks would be lost: the reference's "
-                "from_wave is not ported" % (self.filename,))
+        if (self.has_foreign_wave_chunks() and
+                callable(getattr(target_class, "from_wave", None))):
+            try:
+                (header, footer) = self.wave_header_footer()
+            except (ValueError, IOError) as err:
+                raise EncodingError(str(err))
+            return target_class.from_wave(
+                target_path, header, to_pcm_progress(self, progress), footer,
+                compression, device=self.device if device is None else device)
         return AudioFile.convert(self, target_path, target_class,
                                  compression, progress, device)

@@ -1,4 +1,5 @@
-"""The port's command line: track2track, trackverify and trackcmp.
+"""The port's command line: track2track, trackverify, trackcmp,
+trackinfo and tracklength.
 
 Each tool is a module with a ``main(argv)`` entry point, run as
 ``python -m audiotools_tpu_torch.cli.<tool>``, with the reference's
@@ -16,7 +17,7 @@ from __future__ import annotations
 import os
 import sys
 
-from ..formats.flac import VERSION
+from .. import VERSION
 from . import text
 
 # restore default SIGPIPE handling so tools piped into head/grep

@@ -1,6 +1,6 @@
-"""The strings the port's track2track, trackverify and trackcmp print,
-copied from the reference's ``audiotools_tpu/text.py`` so that their
-lines compare equal."""
+"""The strings the port's track2track, trackverify, trackcmp, trackinfo
+and tracklength print, copied from the reference's
+``audiotools_tpu/text.py`` so that their lines compare equal."""
 
 ERR_1_FILE_REQUIRED = "you must specify at least 1 supported audio file"
 ERR_UNSUPPORTED_AUDIO_TYPE = "unsupported audio type \"%(type)s\""
@@ -50,3 +50,21 @@ LAB_TRACKVERIFY_RESULTS = "Results:"
 RG_ADDING_REPLAYGAIN_WAIT = ("Adding ReplayGain metadata; this may take "
                              "some time")
 RG_REPLAYGAIN_ADDED = "ReplayGain added"
+
+ERR_FILE_MESSAGE = "%(filename)s: %(message)s"
+DESC_TRACKINFO = "display audio file metadata and attributes"
+HELP_INFO_NO_METADATA = "do not display metadata"
+HELP_INFO_LOW_LEVEL = "display low-level format metadata"
+HELP_INFO_BITRATE = "display the file's bitrate"
+HELP_INFO_PERCENTAGE = "display the wasted-space percentage"
+HELP_INFO_CHANNEL_ASSIGNMENT = "display the file's channel assignment"
+LAB_INFO_ATTRIBS = ("%(filename)s: %(minutes)d:%(seconds)2.2d, "
+                    "%(channels)dch, %(sample_rate)dHz, "
+                    "%(bits_per_sample)d-bit, %(name)s")
+LAB_INFO_CHANNELS = "Assigned Channels:"
+LAB_INFO_CHANNEL = "channel %(channel)d -> %(name)s"
+LAB_INFO_CHANNEL_UNDEFINED = "channel %(channel)d -> undefined"
+LAB_BITRATE_LINE = "%(bitrate)4.4s kbps: %(filename)s"
+LAB_PERCENTAGE_LINE = "%(percent)3.3s%%: %(filename)s"
+DESC_TRACKLENGTH = "display the total length of audio files"
+LAB_TRACKLENGTH_TOTAL = "%(hours)d:%(minutes)2.2d:%(seconds)2.2d"

@@ -2,12 +2,14 @@
 
 The port of the reference's ``audiotools_tpu/cli/track2track.py``:
 -t/-q output type and quality, -o one output or -d a directory with
---format templates, -j farm workers over --devices, the sample rate,
-channel and bits-per-sample conversions, and the album ReplayGain pass
-for FLAC.  Each job converts as the reference's ``convert`` does, the
-source's frame count passed ahead, on its worker's device.  -I
-(interactive editing) and -M (metadata lookup over the network) are
-not ported.
+--format templates filled from each track's tags, -j farm workers over
+--devices, the sample rate, channel and bits-per-sample conversions,
+and the album ReplayGain pass for the classes that add it.  Each job
+converts as the reference's ``convert`` does, the source's frame count
+passed ahead and its foreign RIFF chunks carried where the target
+takes them, on its worker's device, then writes the source's tags into
+the new file.  -I (interactive editing) and -M (metadata lookup over
+the network) are not ported.
 
     python -m audiotools_tpu_torch.cli.track2track -t flac -q 8 -d out in.wav
 """
@@ -23,15 +25,16 @@ from . import (Messenger, add_common_arguments, add_job_arguments,
                audiofile_type, default_type, job_devices, text)
 
 # one track's conversion: the source's filename, the output and its
-# class and compression, and the conversions asked for (None: keep)
+# class and compression, the source's MetaData (or None), and the
+# conversions asked for (None: keep)
 Conversion = collections.namedtuple(
-    "Conversion", "source dest_path dest_class compression sample_rate "
-    "channels bits_per_sample")
+    "Conversion", "source dest_path dest_class compression metadata "
+    "sample_rate channels bits_per_sample")
 
 
 def convert(job, device):
-    """converts one track on ``device`` (the reference's ``convert``)
-    and returns the new file"""
+    """converts one track on ``device`` (the reference's ``convert``),
+    writes the source's tags into it and returns the new file"""
     from .. import dispatch
     from ..pcm import PCMConverter
     source = dispatch.open(job.source, device=device)
@@ -49,7 +52,8 @@ def convert(job, device):
             device=device)
         dest = job.dest_class.from_pcm(job.dest_path, pcmreader,
                                        job.compression, device=device)
-    source.carry_tags_to(dest)
+    if job.metadata is not None:
+        dest.set_metadata(job.metadata)
     return dest
 
 
@@ -126,17 +130,19 @@ def main(argv=None):
         msg.error(text.ERR_1_FILE_REQUIRED)
         return 1
 
-    def job(track, destination):
+    def job(track, destination, metadata):
         return Conversion(track.filename, destination, destination_class,
-                          compression, options.sample_rate,
+                          compression, metadata, options.sample_rate,
                           options.channels, options.bits_per_sample)
 
     if options.output is not None:
         if len(audiofiles) != 1:
             msg.error(text.ERR_ONE_OUTPUT_FILE)
             return 1
-        [(_dest, error)] = run_jobs([job(audiofiles[0], options.output)],
-                                    convert, devices=devices[:1])
+        [(_dest, error)] = run_jobs(
+            [job(audiofiles[0], options.output,
+                 audiofiles[0].get_metadata())],
+            convert, devices=devices[:1])
         if error is not None:
             msg.error(str(error))
             return 1
@@ -144,9 +150,10 @@ def main(argv=None):
 
     jobs = []
     for track in audiofiles:
+        metadata = track.get_metadata()
         try:
             filename = AudioFile.track_name(
-                track.filename, options.format or FILENAME_FORMAT,
+                track.filename, metadata, options.format or FILENAME_FORMAT,
                 suffix=destination_class.SUFFIX)
         except (UnsupportedTracknameField, InvalidFilenameFormat) as err:
             msg.error(str(err))
@@ -164,7 +171,7 @@ def main(argv=None):
             msg.error(text.ERR_MAKEDIRS % {"filename": destination,
                                            "error": err.strerror or err})
             return 1
-        jobs.append(job(track, destination))
+        jobs.append(job(track, destination, metadata))
 
     def done(index, _dest, error):
         if error is None:

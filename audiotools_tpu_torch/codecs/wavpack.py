@@ -103,13 +103,16 @@ class DeviceCorrelate:
 
 
 def encode_wavpack(file_or_path, pcmreader, block_size, correlation_passes=0,
-                   total_pcm_frames=0, device="cuda", timings=None):
+                   total_pcm_frames=0, device="cuda", timings=None,
+                   wave_header=None, wave_footer=None):
     """encodes a WavPack stream from a PCMReader, with the correlation
     passes on a torch device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the plain
     versions, for tests).  timings: optional dict that receives seconds
-    per ENCODE_STAGES.  The bytes are the reference encoder's."""
+    per ENCODE_STAGES.  wave_header, wave_footer: the RIFF bytes to
+    store in place of the built header (as ``ref/wavpack.encode_wavpack``
+    takes them).  The bytes are the reference encoder's."""
     dev = resolve_device(device)
     stages = {}
     correlate = DeviceCorrelate(dev, stages)
@@ -117,7 +120,8 @@ def encode_wavpack(file_or_path, pcmreader, block_size, correlation_passes=0,
     oracle.encode_wavpack(file_or_path, pcmreader, block_size,
                           total_pcm_frames=total_pcm_frames,
                           correlation_passes=correlation_passes,
-                          correlate=correlate)
+                          correlate=correlate, wave_header=wave_header,
+                          wave_footer=wave_footer)
     wall = time.perf_counter() - t0
     if timings is not None:
         stages["host"] = wall - sum(stages.values())

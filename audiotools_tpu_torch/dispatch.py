@@ -7,10 +7,11 @@ classes the port has: WAVE (``formats.wav.WaveAudio``), FLAC
 WavPack (``formats.wavpack.WavPackAudio``).  ``file_type`` sniffs the
 magic bytes as the reference does; ``open`` and ``open_files`` return
 the class's instance, decoding on the device given.  Content of any
-other type raises ``UnknownAudioType``.  ``TYPE_MAP``, ``open_files``
-and ``sorted_tracks`` are the reference's as far as ``track2track``
-uses them; the reference's ``Filename`` only normalises the paths
-``open_files`` is given, which ``os.path.normpath`` does here.
+other type raises ``UnknownAudioType``.  ``TYPE_MAP``, ``open_files``,
+``open_directory`` and ``sorted_tracks`` are the reference's as far as
+the command line uses them; the reference's ``Filename`` only
+normalises the paths ``open_files`` is given, which
+``os.path.normpath`` does here.
 """
 
 from __future__ import annotations
@@ -33,14 +34,12 @@ TYPE_MAP = {cls.NAME: cls for cls in (WaveAudio, FlacAudio, ALACAudio,
 
 
 class UnknownAudioType(UnsupportedFile):
-    """a file whose content is no audio type the port opens"""
+    """a file whose content is no audio type the port opens; its text is
+    the filename, as the reference's UnsupportedFile's is"""
 
     def __init__(self, filename):
         super().__init__(filename)
         self.filename = filename
-
-    def __str__(self):
-        return "unsupported audio type: %s" % (self.filename,)
 
 
 def _m4a_type(file):
@@ -112,11 +111,23 @@ def open(filename, device="cuda"):
 
 
 def sorted_tracks(audiofiles):
-    """the files in the reference's order for files without track or
-    album numbers (the port reads none): those without a tag container
-    first, then those with one, each group by basename"""
-    return sorted(audiofiles, key=lambda f: (
-        f.tag_names() is not None, os.path.basename(f.filename)))
+    """the files in the reference's order: those without metadata first,
+    by basename; then those with, by album number and track number (a
+    number that is None first), a file without a track number by
+    basename"""
+    def sort_key(pair):
+        (track, metadata) = pair
+        basename = os.path.basename(track.filename)
+        if metadata is None:
+            return (0, False, 0, False, 0, basename)
+        album_number = metadata.album_number
+        track_number = metadata.track_number
+        return (1, album_number is not None, album_number or 0,
+                track_number is not None, track_number or 0,
+                basename if track_number is None else "")
+
+    return [track for (track, _metadata) in sorted(
+        ((f, f.get_metadata()) for f in audiofiles), key=sort_key)]
 
 
 def open_files(filename_list, sorted=True, messenger=None, device="cuda"):
@@ -139,3 +150,17 @@ def open_files(filename_list, sorted=True, messenger=None, device="cuda"):
             if messenger is not None:
                 messenger.warning("unable to open \"%s\"" % (filename,))
     return sorted_tracks(opened) if sorted else opened
+
+
+def open_directory(directory, sorted=True, messenger=None, device="cuda"):
+    """yields the audio files under ``directory``, searched recursively,
+    as ``open_files`` opens them (each directory's files sorted when
+    ``sorted``)"""
+    for (basedir, subdirs, filenames) in os.walk(directory):
+        if sorted:
+            subdirs.sort()
+            filenames.sort()
+        yield from open_files([os.path.join(basedir, filename)
+                               for filename in filenames],
+                              sorted=sorted, messenger=messenger,
+                              device=device)

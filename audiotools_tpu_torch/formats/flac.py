@@ -1,15 +1,17 @@
 """FLAC files: metadata blocks and the ``FlacAudio`` class.
 
-A copy of the writer and reader path of the reference's
-``audiotools_tpu/formats/flac.py``: the STREAMINFO, PADDING, SEEKTABLE
-and VORBIS_COMMENT blocks, the ``FlacMetaData`` container,
+A copy of the reference's ``audiotools_tpu/formats/flac.py`` for
+native FLAC: the STREAMINFO, PADDING, APPLICATION, SEEKTABLE,
+VORBIS_COMMENT, CUESHEET and PICTURE blocks, the ``FlacMetaData``
+container (a MetaData over its VORBIS_COMMENT and PICTURE blocks),
 ``seektable_from_offsets``, and ``FlacAudio`` with the reference's
 compression levels "0"-"8", ``from_pcm`` (padding sized for the
 seektable, a seekpoint every 10 s from the encoder's frame offsets,
 the WAVEFORMATEXTENSIBLE_CHANNEL_MASK comment for more than two
-channels or more than 16 bits), ``update_metadata``, ``set_metadata``
-of another FLAC file's blocks, ``to_pcm``, ``verify`` and the
-REPLAYGAIN_* comments (``add_replay_gain``, ``replay_gain``).
+channels or more than 16 bits), ``get/set/update/delete_metadata``,
+``to_pcm``, ``verify``, the REPLAYGAIN_* comments
+(``add_replay_gain``, ``replay_gain``) and foreign RIFF chunks kept as
+APPLICATION "riff" blocks (``from_wave``, ``wave_header_footer``).
 The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
@@ -22,26 +24,23 @@ emit-stage Rice re-search (``ATPU_FLAC_QPACK=0``,
 wire and emit-stage re-search may choose other Rice parameters, so its
 default bytes can differ; the decoded PCM cannot.
 
-Not ported: MetaData conversion to and from other formats, CUESHEET,
-PICTURE and APPLICATION blocks (an unknown block is skipped when
-parsed; a PICTURE block counts among the tags a conversion refuses to
-drop), ID3-wrapped files, Ogg FLAC, and the rest of the reference's
-class.
+Not ported: AIFF chunks (``from_aiff``), CUESHEET conversion from a cue
+sheet (``sheets/``), ``clean``, ID3-wrapped files, Ogg FLAC, and the
+rest of the reference's class.  A block of a reserved type (7-127)
+raises InvalidFLAC when parsed.
 """
 
 from __future__ import annotations
 
-import collections
 import os
 import struct
 import tempfile
 
 from .._device import resolve_device
-from ..audiofile import AudioFile, InvalidFile
-from ..pcm import CHANNEL_MASKS, BufferedPCMReader
-
-VERSION = "0.1.0"
-VENDOR_STRING = "tpu-audio-tools %s" % (VERSION,)
+from ..audiofile import (EncodingError, Image, InvalidFile, MetaData,
+                         ReplayGain, WaveContainer)
+from ..meta.vorbiscomment import VENDOR_STRING, VorbisComment
+from ..pcm import CHANNEL_MASKS, BufferedPCMReader, CounterPCMReader
 
 
 class InvalidFLAC(InvalidFile, ValueError):
@@ -94,6 +93,19 @@ class Flac_STREAMINFO:
     def size(self):
         return 34
 
+    def raw_info(self):
+        return "\n".join(
+            ["STREAMINFO:",
+             "  minimum block size = %d" % (self.minimum_block_size,),
+             "  maximum block size = %d" % (self.maximum_block_size,),
+             "  minimum frame size = %d" % (self.minimum_frame_size,),
+             "  maximum frame size = %d" % (self.maximum_frame_size,),
+             "  sample rate        = %d" % (self.sample_rate,),
+             "  channels           = %d" % (self.channels,),
+             "  bits-per-sample    = %d" % (self.bits_per_sample,),
+             "  total samples      = %d" % (self.total_samples,),
+             "  MD5 sum            = %s" % (self.md5sum.hex(),)])
+
 
 class Flac_PADDING:
     BLOCK_ID = 1
@@ -113,6 +125,41 @@ class Flac_PADDING:
 
     def size(self):
         return self.length
+
+    def raw_info(self):
+        return "PADDING:\n  length = %d" % (self.length,)
+
+
+class Flac_APPLICATION:
+    """an APPLICATION block: a 4-byte application ID and its data"""
+
+    BLOCK_ID = 2
+
+    def __init__(self, application_id, data):
+        self.application_id = application_id
+        self.data = data
+
+    def __eq__(self, block):
+        return (getattr(block, "application_id", None) ==
+                self.application_id and
+                getattr(block, "data", None) == self.data)
+
+    def __repr__(self):
+        return "Flac_APPLICATION(%r, ...)" % (self.application_id,)
+
+    @classmethod
+    def parse(cls, data):
+        return cls(bytes(data[0:4]), bytes(data[4:]))
+
+    def build(self):
+        return self.application_id + self.data
+
+    def size(self):
+        return 4 + len(self.data)
+
+    def raw_info(self):
+        return "APPLICATION:\n  %s (%d bytes)" % (
+            self.application_id.decode("ascii", "replace"), len(self.data))
 
 
 class Flac_SEEKTABLE:
@@ -138,54 +185,24 @@ class Flac_SEEKTABLE:
     def size(self):
         return len(self.seekpoints) * 18
 
+    def raw_info(self):
+        return "\n".join(
+            ["SEEKTABLE:", "  sample offset / byte offset / frame count"] +
+            ["  %d / %d / %d" % tuple(p) for p in self.seekpoints])
 
-class Flac_VORBISCOMMENT:
-    """a VORBIS_COMMENT block: a vendor string and KEY=value comment
-    strings; ``block[key]`` is the list of a key's values (keys match
-    without regard to case)"""
+
+class Flac_VORBISCOMMENT(VorbisComment):
+    """a VORBIS_COMMENT block: a VorbisComment with its byte form
+    (little-endian lengths)"""
 
     BLOCK_ID = 4
 
-    def __init__(self, comment_strings, vendor_string):
-        self.comment_strings = list(comment_strings)
-        self.vendor_string = vendor_string
-
-    def __eq__(self, block):
-        return (isinstance(block, Flac_VORBISCOMMENT) and
-                block.comment_strings == self.comment_strings and
-                block.vendor_string == self.vendor_string)
-
-    def _pairs(self):
-        return [c.split("=", 1) for c in self.comment_strings if "=" in c]
-
-    def __contains__(self, key):
-        return any(k.upper() == key.upper() for (k, _v) in self._pairs())
-
-    def __getitem__(self, key):
-        values = [v for (k, v) in self._pairs() if k.upper() == key.upper()]
-        if not values:
-            raise KeyError(key)
-        return values
-
-    def __setitem__(self, key, values):
-        """replaces the key's values in place, in order; drops those left
-        over and appends the rest as KEY=value"""
-        new_values = list(values)
-        comments = []
-        for comment in self.comment_strings:
-            if "=" in comment:
-                (c_key, _c_value) = comment.split("=", 1)
-                if c_key.upper() == key.upper():
-                    if new_values:
-                        comments.append("%s=%s" % (c_key, new_values.pop(0)))
-                    continue
-            comments.append(comment)
-        comments.extend("%s=%s" % (key.upper(), v) for v in new_values)
-        self.comment_strings = comments
+    def __repr__(self):
+        return "Flac_VORBISCOMMENT(%r, %r)" % (self.comment_strings,
+                                               self.vendor_string)
 
     @classmethod
     def parse(cls, data):
-        """the block from its body (little-endian lengths)"""
         (vendor_length,) = struct.unpack("<I", data[0:4])
         pos = 4 + vendor_length
         vendor = bytes(data[4:pos]).decode("utf-8", "replace")
@@ -213,16 +230,239 @@ class Flac_VORBISCOMMENT:
                 sum(4 + len(c.encode("utf-8"))
                     for c in self.comment_strings))
 
+    @classmethod
+    def converted(cls, metadata):
+        """a Flac_VORBISCOMMENT of another MetaData's fields (another
+        VorbisComment's comments and vendor string as they are)"""
+        if metadata is None:
+            return None
+        if isinstance(metadata, VorbisComment):
+            return cls(metadata.comment_strings[:], metadata.vendor_string)
+        return cls(["%s=%s" % (key, getattr(metadata, attr))
+                    for (attr, key) in cls.ATTRIBUTE_MAP.items()
+                    if getattr(metadata, attr) is not None], VENDOR_STRING)
+
+
+class Flac_CUESHEET:
+    """a CUESHEET block: the catalog number, lead-in, CD-DA flag and the
+    tracks (the lead-out, number 170, among them)"""
+
+    BLOCK_ID = 5
+
+    def __init__(self, catalog_number, lead_in_samples, is_cdda, tracks):
+        self.catalog_number = catalog_number
+        self.lead_in_samples = lead_in_samples
+        self.is_cdda = is_cdda
+        self.tracks = list(tracks)
+
+    def __eq__(self, sheet):
+        return (isinstance(sheet, Flac_CUESHEET) and
+                self.catalog_number == sheet.catalog_number and
+                self.lead_in_samples == sheet.lead_in_samples and
+                self.is_cdda == sheet.is_cdda and
+                self.tracks == sheet.tracks)
+
+    def __repr__(self):
+        return "Flac_CUESHEET(%r, %r, %r, %r)" % (
+            self.catalog_number, self.lead_in_samples, self.is_cdda,
+            self.tracks)
+
+    @classmethod
+    def parse(cls, data):
+        """the block from its body: 128 bytes of catalog number, the
+        lead-in, the flag and 258 reserved bytes, the track count, then
+        the tracks"""
+        (lead_in, flags) = struct.unpack(">QB", data[128:137])
+        tracks = []
+        pos = 396
+        for _ in range(data[395]):
+            (track, pos) = Flac_CUESHEET_track.parse(data, pos)
+            tracks.append(track)
+        return cls(bytes(data[0:128]), lead_in, flags >> 7, tracks)
+
+    def build(self):
+        return (self.catalog_number +
+                struct.pack(">QB", self.lead_in_samples, self.is_cdda << 7) +
+                b"\x00" * 258 + bytes([len(self.tracks)]) +
+                b"".join(t.build() for t in self.tracks))
+
+    def size(self):
+        return 396 + sum(t.size() for t in self.tracks)
+
+    def catalog(self):
+        """the catalog number as a string, or None"""
+        catalog = self.catalog_number.rstrip(b"\x00")
+        return catalog.decode("ascii", "replace") if catalog else None
+
+    def raw_info(self):
+        return "\n".join(
+            ["CUESHEET:",
+             "  catalog number = %s" % (self.catalog(),),
+             "  lead-in samples = %d" % (self.lead_in_samples,),
+             "  is CDDA = %d" % (self.is_cdda,)] +
+            ["  " + repr(t) for t in self.tracks])
+
+
+class Flac_CUESHEET_track:
+    def __init__(self, track_offset, number, ISRC, track_type, pre_emphasis,
+                 index_points):
+        self.track_offset = track_offset
+        self.number = number
+        self.ISRC = ISRC
+        self.track_type = track_type
+        self.pre_emphasis = pre_emphasis
+        self.index_points = list(index_points)
+
+    def __eq__(self, track):
+        return all(getattr(track, attr, None) == getattr(self, attr)
+                   for attr in ("track_offset", "number", "ISRC",
+                                "track_type", "pre_emphasis",
+                                "index_points"))
+
+    def __repr__(self):
+        return "Flac_CUESHEET_track(%r, %r, %r, %r, %r, %r)" % (
+            self.track_offset, self.number, self.ISRC, self.track_type,
+            self.pre_emphasis, self.index_points)
+
+    @classmethod
+    def parse(cls, data, pos):
+        """(the track at ``pos`` of a CUESHEET body: its offset, number,
+        ISRC, the type and pre-emphasis flags and 13 reserved bytes, the
+        index count and the indexes; the position after it)"""
+        (offset, number) = struct.unpack(">QB", data[pos:pos + 9])
+        flags = data[pos + 21]
+        indexes = [Flac_CUESHEET_index.parse(data[i:i + 12])
+                   for i in range(pos + 36, pos + 36 + 12 * data[pos + 35],
+                                  12)]
+        return (cls(offset, number, bytes(data[pos + 9:pos + 21]),
+                    flags >> 7, (flags >> 6) & 1, indexes),
+                pos + 36 + 12 * len(indexes))
+
+    def build(self):
+        return (struct.pack(">QB", self.track_offset, self.number) +
+                self.ISRC +
+                bytes([(self.track_type << 7) | (self.pre_emphasis << 6)]) +
+                b"\x00" * 13 + bytes([len(self.index_points)]) +
+                b"".join(i.build() for i in self.index_points))
+
+    def size(self):
+        return 36 + 12 * len(self.index_points)
+
+
+class Flac_CUESHEET_index:
+    def __init__(self, offset, number):
+        self.offset = offset
+        self.number = number
+
+    def __eq__(self, index):
+        return (getattr(index, "offset", None) == self.offset and
+                getattr(index, "number", None) == self.number)
+
+    def __repr__(self):
+        return "Flac_CUESHEET_index(%r, %r)" % (self.offset, self.number)
+
+    @classmethod
+    def parse(cls, data):
+        (offset, number) = struct.unpack(">QB", data[0:9])
+        return cls(offset, number)
+
+    def build(self):
+        return struct.pack(">QB", self.offset, self.number) + b"\x00" * 3
+
+
+class Flac_PICTURE(Image):
+    """a PICTURE block: an Image with the FLAC picture type"""
+
+    BLOCK_ID = 6
+
+    def __init__(self, picture_type, mime_type, description, width, height,
+                 color_depth, color_count, data):
+        self.picture_type = picture_type
+        Image.__init__(self, data=data, mime_type=mime_type, width=width,
+                       height=height, color_depth=color_depth,
+                       color_count=color_count, description=description,
+                       # front cover, back cover, leaflet page, media
+                       type={3: 0, 4: 1, 5: 2, 6: 3}.get(picture_type, 4))
+
+    def __repr__(self):
+        return ("Flac_PICTURE(picture_type=%r, mime_type=%r, width=%r, "
+                "height=%r)" % (self.picture_type, self.mime_type,
+                                self.width, self.height))
+
+    @classmethod
+    def parse(cls, data):
+        (picture_type, length) = struct.unpack(">II", data[0:8])
+        mime_type = bytes(data[8:8 + length]).decode("ascii", "replace")
+        pos = 8 + length
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        description = bytes(data[pos + 4:pos + 4 + length]).decode(
+            "utf-8", "replace")
+        pos += 4 + length
+        (width, height, color_depth, color_count, length) = struct.unpack(
+            ">5I", data[pos:pos + 20])
+        return cls(picture_type, mime_type, description, width, height,
+                   color_depth, color_count,
+                   bytes(data[pos + 20:pos + 20 + length]))
+
+    def build(self):
+        mime = self.mime_type.encode("ascii")
+        description = self.description.encode("utf-8")
+        return (struct.pack(">II", self.picture_type, len(mime)) + mime +
+                struct.pack(">I", len(description)) + description +
+                struct.pack(">5I", self.width, self.height, self.color_depth,
+                            self.color_count, len(self.data)) + self.data)
+
+    def size(self):
+        return (32 + len(self.mime_type.encode("ascii")) +
+                len(self.description.encode("utf-8")) + len(self.data))
+
+    @classmethod
+    def converted(cls, image):
+        """a Flac_PICTURE of an Image"""
+        return cls(picture_type={0: 3, 1: 4, 2: 5, 3: 6}.get(image.type, 0),
+                   mime_type=image.mime_type, description=image.description,
+                   width=image.width, height=image.height,
+                   color_depth=image.color_depth,
+                   color_count=image.color_count, data=image.data)
+
+    def raw_info(self):
+        return "\n".join(
+            ["PICTURE:",
+             "  picture type = %d" % (self.picture_type,),
+             "  MIME type    = %s" % (self.mime_type,),
+             "  width        = %d" % (self.width,),
+             "  height       = %d" % (self.height,),
+             "  color depth  = %d" % (self.color_depth,),
+             "  color count  = %d" % (self.color_count,),
+             "  bytes        = %d" % (len(self.data),)])
+
 
 BLOCK_CLASSES = {block.BLOCK_ID: block for block in (
-    Flac_STREAMINFO, Flac_PADDING, Flac_SEEKTABLE, Flac_VORBISCOMMENT)}
+    Flac_STREAMINFO, Flac_PADDING, Flac_APPLICATION, Flac_SEEKTABLE,
+    Flac_VORBISCOMMENT, Flac_CUESHEET, Flac_PICTURE)}
 
 
-class FlacMetaData:
-    """a FLAC file's metadata blocks, in file order"""
+class FlacMetaData(MetaData):
+    """a FLAC file's metadata blocks, in file order: a MetaData whose
+    fields are its VORBIS_COMMENT block's and whose images are its
+    PICTURE blocks"""
 
     def __init__(self, blocks):
-        self.block_list = list(blocks)
+        self.__dict__["block_list"] = list(blocks)
+
+    @classmethod
+    def converted(cls, metadata):
+        """a FlacMetaData of another MetaData: copies of another
+        FlacMetaData's blocks, else a VORBIS_COMMENT of its fields, a
+        PICTURE for each image and 4096 bytes of PADDING"""
+        if metadata is None:
+            return None
+        if isinstance(metadata, FlacMetaData):
+            return cls([type(b).parse(b.build()) for b in metadata.block_list])
+        return cls([Flac_VORBISCOMMENT.converted(metadata)] +
+                   [Flac_PICTURE.converted(image)
+                    for image in metadata.images()] +
+                   [Flac_PADDING(4096)])
 
     def has_block(self, block_id):
         """True if a block of the given ID is present"""
@@ -249,11 +489,6 @@ class FlacMetaData:
         """every block of the given ID, in order"""
         return [b for b in self.block_list if b.BLOCK_ID == block_id]
 
-    def copy(self):
-        """a FlacMetaData of copies of the blocks"""
-        return FlacMetaData([type(b).parse(b.build())
-                             for b in self.block_list])
-
     def replace_blocks(self, block_id, blocks):
         """replaces every block of the given ID with ``blocks``, at the
         first one's place (added in ID order if there was none)"""
@@ -270,14 +505,56 @@ class FlacMetaData:
             for block in blocks:
                 self.add_block(block)
             return
-        self.block_list = new_blocks
+        self.__dict__["block_list"] = new_blocks
+
+    def __repr__(self):
+        return "FlacMetaData(%r)" % (self.block_list,)
+
+    def __getattr__(self, attr):
+        if attr in MetaData.FIELDS:
+            try:
+                return getattr(self.get_block(Flac_VORBISCOMMENT.BLOCK_ID),
+                               attr)
+            except IndexError:
+                return None
+        try:
+            return self.__dict__[attr]
+        except KeyError:
+            raise AttributeError(attr)
+
+    def __setattr__(self, attr, value):
+        if attr in MetaData.FIELDS:
+            try:
+                vorbis_comment = self.get_block(Flac_VORBISCOMMENT.BLOCK_ID)
+            except IndexError:
+                vorbis_comment = Flac_VORBISCOMMENT([], VENDOR_STRING)
+                self.add_block(vorbis_comment)
+            setattr(vorbis_comment, attr, value)
+        else:
+            self.__dict__[attr] = value
+
+    def __delattr__(self, attr):
+        if attr in MetaData.FIELDS:
+            try:
+                delattr(self.get_block(Flac_VORBISCOMMENT.BLOCK_ID), attr)
+            except IndexError:
+                pass
+        else:
+            try:
+                del self.__dict__[attr]
+            except KeyError:
+                raise AttributeError(attr)
+
+    def images(self):
+        return self.get_blocks(Flac_PICTURE.BLOCK_ID)
+
+    def raw_info(self):
+        return os.linesep.join(b.raw_info() for b in self.block_list)
 
     @classmethod
-    def parse(cls, file, skipped=None):
+    def parse(cls, file):
         """the blocks of a binary file positioned past the 'fLaC' marker
-        (left at the first frame); blocks of types not ported are
-        skipped, and their IDs appended to the list ``skipped`` when
-        one is given"""
+        (left at the first frame)"""
         blocks = []
         last = 0
         while not last:
@@ -286,15 +563,12 @@ class FlacMetaData:
                 raise InvalidFLAC("truncated FLAC metadata")
             (last, block_type) = (header[0] >> 7, header[0] & 0x7F)
             length = int.from_bytes(header[1:4], "big")
-            if block_type == 127:
+            if block_type not in BLOCK_CLASSES:
                 raise InvalidFLAC("invalid FLAC metadata block type")
             body = file.read(length)
             if len(body) != length:
                 raise InvalidFLAC("truncated FLAC metadata")
-            if block_type in BLOCK_CLASSES:
-                blocks.append(BLOCK_CLASSES[block_type].parse(body))
-            elif skipped is not None:
-                skipped.append(block_type)
+            blocks.append(BLOCK_CLASSES[block_type].parse(body))
         return cls(blocks)
 
     def _sized_blocks(self):
@@ -331,15 +605,67 @@ def seektable_from_offsets(offsets, seekpoint_interval):
     return Flac_SEEKTABLE(seekpoints)
 
 
-# the block that a conversion carries as tags besides VORBIS_COMMENT
-PICTURE_BLOCK_ID = 6
+def riff_chunks_to_blocks(header, footer):
+    """the APPLICATION "riff" blocks of a WAVE's header and footer (the
+    RIFF prologue, each chunk, the data chunk's header): (blocks, the
+    data chunk's size, the RIFF total size); raises EncodingError for
+    bytes that are no such WAVE"""
+    if len(header) < 12:
+        raise EncodingError("container header too short")
+    (_magic, remaining, _form) = struct.unpack("<4sI4s", header[0:12])
+    blocks = [Flac_APPLICATION(b"riff", header[0:12])]
+    total_size = remaining + 8
+    pos = 12
+    fmt_found = False
+    data_chunk_size = None
+    while pos < len(header):
+        if pos + 8 > len(header):
+            raise EncodingError("truncated container chunk")
+        (chunk_id, chunk_size) = struct.unpack("<4sI", header[pos:pos + 8])
+        if not all(0x20 <= b <= 0x7E for b in chunk_id):
+            raise EncodingError("invalid container chunk ID")
+        if chunk_id == b"data":
+            if pos + 8 != len(header):
+                raise EncodingError(
+                    "unexpected data after the PCM chunk header")
+            if not fmt_found:
+                raise EncodingError("no format chunk in header")
+            blocks.append(Flac_APPLICATION(b"riff", header[pos:pos + 8]))
+            data_chunk_size = chunk_size
+            break
+        padded = chunk_size + (chunk_size % 2)
+        chunk = header[pos:pos + 8 + padded]
+        if len(chunk) != 8 + padded:
+            raise EncodingError("truncated container chunk")
+        if chunk_id == b"fmt ":
+            if fmt_found:
+                raise EncodingError("multiple format chunks")
+            fmt_found = True
+        blocks.append(Flac_APPLICATION(b"riff", chunk))
+        pos += 8 + padded
+    if data_chunk_size is None:
+        raise EncodingError("no PCM data chunk in header")
 
-# the five REPLAYGAIN_* comments' values (dB, linear peak)
-ReplayGainValues = collections.namedtuple(
-    "ReplayGainValues", "track_gain track_peak album_gain album_peak")
+    fpos = data_chunk_size % 2      # past the data chunk's pad byte
+    while fpos < len(footer):
+        if fpos + 8 > len(footer):
+            raise EncodingError("truncated container footer")
+        (chunk_id, chunk_size) = struct.unpack("<4sI", footer[fpos:fpos + 8])
+        if not all(0x20 <= b <= 0x7E for b in chunk_id):
+            raise EncodingError("invalid container chunk ID")
+        if chunk_id in (b"fmt ", b"data"):
+            raise EncodingError("duplicate %s chunk in footer" %
+                                (chunk_id.decode("ascii"),))
+        padded = chunk_size + (chunk_size % 2)
+        chunk = footer[fpos:fpos + 8 + padded]
+        if len(chunk) != 8 + padded:
+            raise EncodingError("truncated container footer")
+        blocks.append(Flac_APPLICATION(b"riff", chunk))
+        fpos += 8 + padded
+    return (blocks, data_chunk_size, total_size)
 
 
-class FlacAudio(AudioFile):
+class FlacAudio(WaveContainer):
     """a Free Lossless Audio Codec file, encoded and decoded on a torch
     device
 
@@ -389,7 +715,7 @@ class FlacAudio(AudioFile):
               "max_residual_partition_order": 6}}
 
     def __init__(self, filename, device="cuda"):
-        AudioFile.__init__(self, filename)
+        WaveContainer.__init__(self, filename)
         self.device = resolve_device(device)
         try:
             with open(filename, "rb") as f:
@@ -426,60 +752,32 @@ class FlacAudio(AudioFile):
         channels = self.channels()
         return CHANNEL_MASKS[channels] if channels <= 6 else 0
 
-    def get_metadata(self, skipped=None):
-        """the file's FlacMetaData; the IDs of the blocks not ported are
-        appended to the list ``skipped`` when one is given"""
+    def get_metadata(self):
+        """the file's FlacMetaData"""
         with open(self.filename, "rb") as f:
             if f.read(4) != b"fLaC":
                 raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
-            return FlacMetaData.parse(f, skipped)
-
-    def tag_names(self):
-        """the keys of the VORBIS_COMMENT comments but the channel mask,
-        and "PICTURE" for each picture block"""
-        skipped = []
-        metadata = self.get_metadata(skipped)
-        names = []
-        for vorbis in metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID):
-            for (key, _value) in vorbis._pairs():
-                if key.upper() != "WAVEFORMATEXTENSIBLE_CHANNEL_MASK":
-                    names.append(key)
-        names.extend("PICTURE" for block_id in skipped
-                     if block_id == PICTURE_BLOCK_ID)
-        return names
-
-    def carry_tags_to(self, dest):
-        """FLAC to FLAC carries the VORBIS_COMMENT comments; otherwise as
-        ``AudioFile.carry_tags_to``"""
-        skipped = []
-        metadata = self.get_metadata(skipped)
-        if (isinstance(dest, FlacAudio) and
-                PICTURE_BLOCK_ID not in skipped):
-            dest.set_metadata(metadata)
-        else:
-            AudioFile.carry_tags_to(self, dest)
-
-    def write_blank_tags(self):
-        """an empty VORBIS_COMMENT block, as the reference's
-        ``FlacMetaData.converted`` of a MetaData with no fields gives"""
-        self.set_metadata(FlacMetaData([
-            Flac_VORBISCOMMENT([], VENDOR_STRING), Flac_PADDING(4096)]))
+            return FlacMetaData.parse(f)
 
     def set_metadata(self, metadata):
-        """writes a copy of ``metadata``'s blocks (another file's
-        FlacMetaData) into this file, as the reference's set_metadata
-        does: this file keeps its STREAMINFO and SEEKTABLE blocks, its
+        """writes ``metadata`` (any MetaData, converted) into the file, as
+        the reference's set_metadata does: the file keeps its
+        STREAMINFO, SEEKTABLE, CUESHEET and APPLICATION blocks, its
         vendor string and its channel mask comment, and a PADDING block
         is added where there is none"""
-        new_metadata = metadata.copy()
+        if metadata is None:
+            return
+        new_metadata = FlacMetaData.converted(metadata)
         old_metadata = self.get_metadata()
-        for block_id in (Flac_STREAMINFO.BLOCK_ID, Flac_SEEKTABLE.BLOCK_ID):
+        for block_id in (Flac_STREAMINFO.BLOCK_ID, Flac_SEEKTABLE.BLOCK_ID,
+                         Flac_CUESHEET.BLOCK_ID, Flac_APPLICATION.BLOCK_ID):
             new_metadata.replace_blocks(block_id,
                                         old_metadata.get_blocks(block_id))
         old_vorbis = old_metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID)
         new_vorbis = new_metadata.get_blocks(Flac_VORBISCOMMENT.BLOCK_ID)
         if new_vorbis and old_vorbis:
-            new_vorbis[0].vendor_string = old_vorbis[0].vendor_string
+            new_vorbis[0].__dict__["vendor_string"] = \
+                old_vorbis[0].vendor_string
             if "WAVEFORMATEXTENSIBLE_CHANNEL_MASK" in old_vorbis[0]:
                 new_vorbis[0]["WAVEFORMATEXTENSIBLE_CHANNEL_MASK"] = \
                     old_vorbis[0]["WAVEFORMATEXTENSIBLE_CHANNEL_MASK"]
@@ -487,9 +785,25 @@ class FlacAudio(AudioFile):
             new_metadata.add_block(Flac_PADDING(4096))
         self.update_metadata(new_metadata)
 
+    def delete_metadata(self):
+        """an empty VORBIS_COMMENT block and no PICTURE blocks"""
+        metadata = self.get_metadata()
+        metadata.replace_blocks(Flac_VORBISCOMMENT.BLOCK_ID,
+                                [Flac_VORBISCOMMENT([], VENDOR_STRING)])
+        metadata.replace_blocks(Flac_PICTURE.BLOCK_ID, [])
+        self.update_metadata(metadata)
+
     @classmethod
     def supports_replay_gain(cls):
         return True
+
+    @classmethod
+    def lossless_replay_gain(cls):
+        return True
+
+    @classmethod
+    def can_add_replay_gain(cls, audiofiles):
+        return all(isinstance(f, FlacAudio) for f in audiofiles)
 
     @classmethod
     def add_replay_gain(cls, filenames, progress=None, device="cuda"):
@@ -515,15 +829,15 @@ class FlacAudio(AudioFile):
             track.update_metadata(metadata)
 
     def replay_gain(self):
-        """the REPLAYGAIN_* comments' ReplayGainValues, or None"""
+        """the REPLAYGAIN_* comments' ReplayGain, or None"""
         try:
             vorbis = self.get_metadata().get_block(
                 Flac_VORBISCOMMENT.BLOCK_ID)
-            return ReplayGainValues(
-                float(vorbis["REPLAYGAIN_TRACK_GAIN"][0].split(" ")[0]),
-                float(vorbis["REPLAYGAIN_TRACK_PEAK"][0]),
-                float(vorbis["REPLAYGAIN_ALBUM_GAIN"][0].split(" ")[0]),
-                float(vorbis["REPLAYGAIN_ALBUM_PEAK"][0]))
+            return ReplayGain(
+                vorbis["REPLAYGAIN_TRACK_GAIN"][0].split(" ")[0],
+                vorbis["REPLAYGAIN_TRACK_PEAK"][0],
+                vorbis["REPLAYGAIN_ALBUM_GAIN"][0].split(" ")[0],
+                vorbis["REPLAYGAIN_ALBUM_PEAK"][0])
         except (IndexError, KeyError, ValueError, IOError):
             return None
 
@@ -575,6 +889,56 @@ class FlacAudio(AudioFile):
             if os.path.exists(temp):
                 os.unlink(temp)
             raise
+
+    def has_foreign_wave_chunks(self):
+        """True when the file holds APPLICATION "riff" blocks"""
+        return any(b.application_id == b"riff" for b in
+                   self.get_metadata().get_blocks(Flac_APPLICATION.BLOCK_ID))
+
+    def wave_header_footer(self):
+        """the RIFF header and footer reassembled from the APPLICATION
+        "riff" blocks: those up to the data chunk's header, then the
+        rest (after the data chunk's pad byte, where its size is odd)"""
+        blocks = [b for b in
+                  self.get_metadata().get_blocks(Flac_APPLICATION.BLOCK_ID)
+                  if b.application_id == b"riff"]
+        if not blocks:
+            raise ValueError("no foreign riff chunks")
+        data_bytes = (self.total_frames() * self.channels() *
+                      (self.bits_per_sample() // 8))
+        header = []
+        footer = [b"\x00"] if data_bytes % 2 else []
+        current = header
+        for block in blocks:
+            current.append(block.data)
+            if block.data[0:4] == b"data":
+                current = footer
+        return (b"".join(header), b"".join(footer))
+
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda"):
+        """encodes a new file from a WAVE's header, PCM and footer on
+        ``device``, keeping every chunk as an APPLICATION "riff" block;
+        raises EncodingError (and leaves no file) when the PCM is not
+        the data chunk's size or the parts do not make the RIFF size"""
+        (blocks, data_chunk_size, total_size) = riff_chunks_to_blocks(
+            header, footer)
+        counter = CounterPCMReader(pcmreader)
+        flac = cls.from_pcm(filename, counter, compression, device=device)
+        data_written = counter.bytes_written()
+        if data_written != data_chunk_size:
+            _unlink(filename)
+            raise EncodingError("PCM data size differs from the "
+                                "container's data chunk")
+        if len(header) + data_written + len(footer) != total_size:
+            _unlink(filename)
+            raise EncodingError("container size mismatch")
+        metadata = flac.get_metadata()
+        for block in blocks:
+            metadata.add_block(block)
+        flac.update_metadata(metadata)
+        return flac
 
     def to_pcm(self):
         """a TorchFlacDecoder of the file on the file's device (the
@@ -641,10 +1005,14 @@ class FlacAudio(AudioFile):
             flac.update_metadata(metadata)
             return flac
         except BaseException:
-            try:
-                os.unlink(filename)
-            except OSError:
-                pass
+            _unlink(filename)
             raise
         finally:
             pcmreader.close()
+
+
+def _unlink(filename):
+    try:
+        os.unlink(filename)
+    except OSError:
+        pass

@@ -1,14 +1,15 @@
 """ALAC M4A files: the container writer and ``ALACAudio``.
 
 Port of the reference's ``ALACAudio`` (``audiotools_tpu/formats/m4a.py``)
-with its atom builders and the leaf, tree and meta atom classes of
-``meta/m4a_atoms.py`` that they use: ftyp, then moov (mvhd, trak with
-tkhd and mdia: mdhd, hdlr and minf with smhd, dinf/dref and stbl:
-stsd(alac), stts, stsc, stsz, stco; udta/meta with an ilst naming the
-encoder), then the mdat that ``codecs.alac_fast.encode_mdat_fast``
-writes.  ``ALACAudio`` reads the header from the alac atom and decodes
-with ``codecs.alac_dec.TorchALACDecoder`` on its device.  Metadata
-editing is not ported.
+with its atom builders over ``meta/m4a_atoms``: ftyp, then moov (mvhd,
+trak with tkhd and mdia: mdhd, hdlr and minf with smhd, dinf/dref and
+stbl: stsd(alac), stts, stsc, stsz, stco; udta/meta with an ilst
+naming the encoder), then the mdat that
+``codecs.alac_fast.encode_mdat_fast`` writes.  ``ALACAudio`` reads the
+header from the alac atom, decodes with
+``codecs.alac_dec.TorchALACDecoder`` on its device, and reads and
+writes its tags as the udta/meta atom (``get/set/update/delete_metadata``,
+the stco chunk offsets moved when moov changes size).
 """
 
 from __future__ import annotations
@@ -17,15 +18,16 @@ import contextlib
 import io
 import os
 import struct
+import tempfile
 import time
 
+from .. import VERSION
 from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.alac_fast import encode_mdat_fast
-from ..ref.alac import _find, _top_level, read_m4a_header
-
-# the reference package's version, which the meta atom names
-VERSION = "0.1.0"
+from ..meta.m4a_atoms import (M4A_Leaf_Atom, M4A_META_Atom, M4A_Tree_Atom,
+                              ilst_string_atom, parse_atoms)
+from ..ref.alac import read_m4a_header
 
 BLOCK_SIZE = 4096
 INITIAL_HISTORY = 10
@@ -38,52 +40,6 @@ SUPPORTED_CHANNEL_MASKS = (0x0001, 0x0004, 0x0003, 0x0007, 0x0107,
 
 # seconds from the QuickTime epoch (1904) to the Unix epoch (1970)
 QUICKTIME_EPOCH_OFFSET = 2082844800
-
-
-class LeafAtom:
-    def __init__(self, name, data):
-        self.name = name
-        self.data = data
-
-    def size(self):
-        return len(self.data)
-
-    def build(self):
-        return struct.pack(">I", self.size() + 8) + self.name + self.data
-
-
-class TreeAtom:
-    def __init__(self, name, leaf_atoms):
-        self.name = name
-        self.leaf_atoms = list(leaf_atoms)
-
-    def size(self):
-        return sum(8 + leaf.size() for leaf in self.leaf_atoms)
-
-    def build(self):
-        payload = b"".join(leaf.build() for leaf in self.leaf_atoms)
-        return struct.pack(">I", len(payload) + 8) + self.name + payload
-
-
-class MetaAtom(TreeAtom):
-    """the meta atom: a version and flags word (0) before its children"""
-
-    def __init__(self, leaf_atoms):
-        TreeAtom.__init__(self, b"meta", leaf_atoms)
-
-    def size(self):
-        return 4 + TreeAtom.size(self)
-
-    def build(self):
-        payload = b"".join(leaf.build() for leaf in self.leaf_atoms)
-        return (struct.pack(">I", len(payload) + 12) + b"meta" +
-                b"\x00" * 4 + payload)
-
-
-def ilst_string_atom(name, text):
-    """an ilst text entry"""
-    payload = struct.pack(">I", 1) + b"\x00" * 4 + text.encode("utf-8")
-    return TreeAtom(name, [LeafAtom(b"data", payload)])
 
 
 def write_m4a(file_or_path, pcmreader, block_size=BLOCK_SIZE,
@@ -141,17 +97,17 @@ def ftyp_atom():
 
 def moov_atom(pcmreader, create_date, mdat_offset, mdat_size, block_size,
               total_pcm_frames, frame_byte_sizes):
-    return TreeAtom(b"moov", [
+    return M4A_Tree_Atom(b"moov", [
         mvhd_atom(pcmreader, create_date, total_pcm_frames),
-        TreeAtom(b"trak", [
+        M4A_Tree_Atom(b"trak", [
             tkhd_atom(create_date, total_pcm_frames),
-            TreeAtom(b"mdia", [
+            M4A_Tree_Atom(b"mdia", [
                 mdhd_atom(pcmreader, create_date, total_pcm_frames),
                 hdlr_atom(),
-                TreeAtom(b"minf", [
+                M4A_Tree_Atom(b"minf", [
                     smhd_atom(),
-                    TreeAtom(b"dinf", [dref_atom()]),
-                    TreeAtom(b"stbl", [
+                    M4A_Tree_Atom(b"dinf", [dref_atom()]),
+                    M4A_Tree_Atom(b"stbl", [
                         stsd_atom(pcmreader, mdat_size, block_size,
                                   total_pcm_frames, frame_byte_sizes),
                         stts_atom(total_pcm_frames, block_size),
@@ -159,7 +115,7 @@ def moov_atom(pcmreader, create_date, mdat_offset, mdat_size, block_size,
                         stsz_atom(frame_byte_sizes),
                         stco_atom(mdat_offset, frame_byte_sizes),
                     ])])])]),
-        TreeAtom(b"udta", [meta_atom()])])
+        M4A_Tree_Atom(b"udta", [meta_atom()])])
 
 
 def mvhd_atom(pcmreader, create_date, total_pcm_frames):
@@ -171,7 +127,7 @@ def mvhd_atom(pcmreader, create_date, total_pcm_frames):
                         0x40000000)
     data += struct.pack(">6I", 0, 0, 0, 0, 0, 0)
     data += struct.pack(">I", 2)
-    return LeafAtom(b"mvhd", data)
+    return M4A_Leaf_Atom(b"mvhd", data)
 
 
 def tkhd_atom(create_date, total_pcm_frames):
@@ -182,7 +138,7 @@ def tkhd_atom(create_date, total_pcm_frames):
     data += struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
                         0x40000000)
     data += struct.pack(">II", 0, 0)
-    return LeafAtom(b"tkhd", data)
+    return M4A_Leaf_Atom(b"tkhd", data)
 
 
 def mdhd_atom(pcmreader, create_date, total_pcm_frames):
@@ -191,20 +147,20 @@ def mdhd_atom(pcmreader, create_date, total_pcm_frames):
         language = (language << 5) | (ord(c) - 0x60)
     data = struct.pack(">BxxxIIIIHH", 0, create_date, create_date,
                        pcmreader.sample_rate, total_pcm_frames, language, 0)
-    return LeafAtom(b"mdhd", data)
+    return M4A_Leaf_Atom(b"mdhd", data)
 
 
 def hdlr_atom():
-    return LeafAtom(b"hdlr", b"\x00" * 8 + b"soun" + b"\x00" * 13)
+    return M4A_Leaf_Atom(b"hdlr", b"\x00" * 8 + b"soun" + b"\x00" * 13)
 
 
 def smhd_atom():
-    return LeafAtom(b"smhd", b"\x00" * 8)
+    return M4A_Leaf_Atom(b"smhd", b"\x00" * 8)
 
 
 def dref_atom():
     url = struct.pack(">I", 12) + b"url " + b"\x00\x00\x00\x01"
-    return LeafAtom(b"dref", struct.pack(">BxxxI", 0, 1) + url)
+    return M4A_Leaf_Atom(b"dref", struct.pack(">BxxxI", 0, 1) + url)
 
 
 def stsd_atom(pcmreader, mdat_size, block_size, total_pcm_frames,
@@ -228,7 +184,7 @@ def stsd_atom(pcmreader, mdat_size, block_size, total_pcm_frames,
             struct.pack(">I", 0xAC440000) +             # fixed sample rate
             sub_alac_atom)
     alac_atom = struct.pack(">I", len(alac) + 8) + b"alac" + alac
-    return LeafAtom(b"stsd", struct.pack(">BxxxI", 0, 1) + alac_atom)
+    return M4A_Leaf_Atom(b"stsd", struct.pack(">BxxxI", 0, 1) + alac_atom)
 
 
 def stts_atom(total_pcm_frames, block_size):
@@ -238,7 +194,7 @@ def stts_atom(total_pcm_frames, block_size):
     data = struct.pack(">BxxxI", 0, len(times))
     for (count, duration) in times:
         data += struct.pack(">II", count, duration)
-    return LeafAtom(b"stts", data)
+    return M4A_Leaf_Atom(b"stts", data)
 
 
 def stsc_atom(total_pcm_frames, block_size):
@@ -254,11 +210,11 @@ def stsc_atom(total_pcm_frames, block_size):
     data = struct.pack(">BxxxI", 0, len(blocks))
     for (first, count, desc) in blocks:
         data += struct.pack(">III", first, count, desc)
-    return LeafAtom(b"stsc", data)
+    return M4A_Leaf_Atom(b"stsc", data)
 
 
 def stsz_atom(frame_byte_sizes):
-    return LeafAtom(b"stsz", struct.pack(
+    return M4A_Leaf_Atom(b"stsz", struct.pack(
         ">BxxxII%dI" % (len(frame_byte_sizes),), 0, 0,
         len(frame_byte_sizes), *frame_byte_sizes))
 
@@ -270,16 +226,16 @@ def stco_atom(mdat_offset, frame_byte_sizes):
     for start in range(0, len(frame_byte_sizes), per_chunk):
         offsets.append(offset)
         offset += sum(frame_byte_sizes[start:start + per_chunk])
-    return LeafAtom(b"stco", struct.pack(
+    return M4A_Leaf_Atom(b"stco", struct.pack(
         ">BxxxI%dI" % (len(offsets),), 0, len(offsets), *offsets))
 
 
 def meta_atom():
-    return MetaAtom([
-        LeafAtom(b"hdlr", b"\x00" * 8 + b"mdir" + b"appl" + b"\x00" * 9),
-        TreeAtom(b"ilst", [ilst_string_atom(
+    return M4A_META_Atom(0, 0, [
+        M4A_Leaf_Atom(b"hdlr", b"\x00" * 8 + b"mdir" + b"appl" + b"\x00" * 9),
+        M4A_Tree_Atom(b"ilst", [ilst_string_atom(
             b"\xa9too", "tpu-audio-tools %s" % (VERSION,))]),
-        LeafAtom(b"free", b"\x00" * 1024)])
+        M4A_Leaf_Atom(b"free", b"\x00" * 1024)])
 
 
 class InvalidALAC(InvalidFile, ValueError):
@@ -321,26 +277,78 @@ class ALACAudio(AudioFile):
     def total_frames(self):
         return self.__header["total_pcm_frames"]
 
-    def tag_names(self):
-        """None without a udta/meta atom, else the names of its ilst
-        entries but the encoder's (\xa9too)"""
+    def get_metadata(self):
+        """the moov/udta/meta atom, an M4A_META_Atom, or None"""
         with open(self.filename, "rb") as f:
-            (moov, _mdat) = _top_level(f)
+            atoms = parse_atoms(f.read())
+        for atom in atoms:
+            if atom.name == b"moov":
+                try:
+                    meta = atom.get_child(b"udta").get_child(b"meta")
+                except KeyError:
+                    return None
+                if isinstance(meta, M4A_META_Atom):
+                    return meta
+        return None
+
+    def update_metadata(self, metadata):
+        """writes an M4A_META_Atom back as moov/udta/meta, the whole file
+        rewritten through a temporary file; when the moov atom changes
+        size ahead of the mdat, the stco chunk offsets move with it"""
+        if not isinstance(metadata, M4A_META_Atom):
+            raise ValueError("metadata not from audio file")
+        with open(self.filename, "rb") as f:
+            atoms = parse_atoms(f.read())
+        moov = None
+        for atom in atoms:
+            if atom.name == b"moov":
+                moov = atom
+        if moov is None:
+            raise ValueError("moov atom not found")
+        old_size = moov.size()
         try:
-            meta = _find(moov or b"", b"udta", b"meta")
+            moov.get_child(b"udta").replace_child(metadata)
         except KeyError:
-            return None
+            moov.add_child(M4A_Tree_Atom(b"udta", [metadata]))
+        size_delta = moov.size() - old_size
+        names = [atom.name for atom in atoms]
+        if (size_delta != 0 and b"mdat" in names and
+                names.index(b"mdat") > names.index(b"moov")):
+            try:
+                stco = (moov.get_child(b"trak").get_child(b"mdia")
+                        .get_child(b"minf").get_child(b"stbl")
+                        .get_child(b"stco"))
+            except KeyError:
+                stco = None
+            if stco is not None:
+                (count,) = struct.unpack(">I", stco.data[4:8])
+                offsets = struct.unpack(">%dI" % (count,),
+                                        stco.data[8:8 + 4 * count])
+                stco.data = (stco.data[0:8] + struct.pack(
+                    ">%dI" % (count,), *(o + size_delta for o in offsets)))
+        directory = os.path.dirname(self.filename) or "."
+        (handle, temp) = tempfile.mkstemp(
+            prefix="." + os.path.basename(self.filename) + "-",
+            dir=directory)
         try:
-            ilst = _find(meta[4:], b"ilst")
-        except KeyError:
-            return []
-        (names, pos) = ([], 0)
-        while pos + 8 <= len(ilst):
-            (size, name) = struct.unpack(">I4s", ilst[pos:pos + 8])
-            if name != b"\xa9too":
-                names.append(name.decode("latin-1"))
-            pos += max(size, 8)
-        return names
+            with os.fdopen(handle, "wb") as out:
+                for atom in atoms:
+                    out.write(atom.build())
+            os.chmod(temp, os.stat(self.filename).st_mode)
+            os.replace(temp, self.filename)
+        except BaseException:
+            if os.path.exists(temp):
+                os.unlink(temp)
+            raise
+
+    def set_metadata(self, metadata):
+        """converts ``metadata`` (any MetaData) and writes it"""
+        if metadata is not None:
+            self.update_metadata(M4A_META_Atom.converted(metadata))
+
+    def delete_metadata(self):
+        """the meta atom of a new file: the encoder's name alone"""
+        self.update_metadata(meta_atom())
 
     def to_pcm(self):
         """a TorchALACDecoder of the file on the file's device"""

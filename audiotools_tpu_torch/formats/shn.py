@@ -6,9 +6,11 @@ chunk, then the stream that ``codecs.shn.encode_shn`` writes
 (``encode_samples``, its form for samples in hand), 8- and 16-bit PCM
 only, 8-bit stored unsigned as WAVE has it.  ``ShortenAudio`` reads a
 stream whose VERBATIM head is a WAVE header and decodes with
-``codecs.shn.TorchSHNDecoder`` on its device.  Streams with an AIFF
-head, the AIFF writer and ``from_wave`` (foreign chunks) are not
-ported.
+``codecs.shn.TorchSHNDecoder`` on its device.  A WAVE's foreign RIFF
+chunks travel in the stream's leading and trailing VERBATIM chunks
+(``from_wave``, ``wave_header_footer``).  Shorten holds no tags:
+``get_metadata`` is None.  Streams with an AIFF head and the AIFF
+writer are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import struct
 from .. import _native
 from .._device import resolve_device
 from ..audiofile import EncodingError, InvalidFile, WaveContainer
-from ..codecs.shn import encode_samples, stream_params
+from ..codecs.shn import encode_samples, encode_shn, stream_params
 from ..pcm import read_all, to_pcm_progress
 from .wav import build_fmt
 
@@ -103,6 +105,7 @@ class ShortenAudio(WaveContainer):
             raise InvalidShorten("Shorten streams without a WAVE header "
                                  "are not ported")
         self.__head = head
+        self.__tail = None
         self.__channels = header["channels"]
         self.__bits_per_sample = 8 if header["file_type"] in (1, 2) else 16
         (self.__sample_rate, self.__channel_mask) = stream_params(
@@ -128,21 +131,32 @@ class ShortenAudio(WaveContainer):
     def total_frames(self):
         return self.__total_frames
 
+    def _tail(self):
+        """the trailing VERBATIM bytes (read once: it takes a scan of the
+        whole stream)"""
+        if self.__tail is None:
+            with open(self.filename, "rb") as f:
+                (_head, self.__tail) = _native.shn_split(f.read())
+        return self.__tail
+
     def has_foreign_wave_chunks(self):
         """chunks besides fmt and data in the head, or a tail of
-        trailing chunks (which takes a scan of the whole stream)"""
-        if any(chunk_id not in (b"fmt ", b"data")
-               for (chunk_id, _size) in _wave_chunks(self.__head)):
-            return True
-        with open(self.filename, "rb") as f:
-            (_head, tail) = _native.shn_split(f.read())
-        return len(tail) >= 8
+        trailing chunks"""
+        return (any(chunk_id not in (b"fmt ", b"data")
+                    for (chunk_id, _size) in _wave_chunks(self.__head)) or
+                len(self._tail()) >= 8)
+
+    def wave_header_footer(self):
+        """the leading and trailing VERBATIM bytes"""
+        return (self.__head, self._tail())
 
     def convert(self, target_path, target_class, compression=None,
                 progress=None, device=None):
-        """as ``WaveContainer.convert``; the frame count passed ahead is
-        None when the header gives none, as the reference's"""
-        if self.has_foreign_wave_chunks():
+        """as ``WaveContainer.convert``; without foreign chunks carried,
+        the frame count passed ahead is None when the header gives none,
+        as the reference's"""
+        if (self.has_foreign_wave_chunks() and
+                callable(getattr(target_class, "from_wave", None))):
             return WaveContainer.convert(self, target_path, target_class,
                                          compression, progress, device)
         return target_class.from_pcm(
@@ -176,3 +190,26 @@ class ShortenAudio(WaveContainer):
             except OSError:
                 pass
             raise EncodingError(str(err))
+
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda", block_size=256):
+        """encodes a new file from a WAVE's header, PCM and footer on
+        ``device``, the header and footer in the stream's VERBATIM
+        chunks; ``compression`` is ignored.  Any failure raises
+        EncodingError and leaves no file."""
+        device = resolve_device(device)
+        try:
+            encode_shn(filename, pcmreader, is_big_endian=False,
+                       signed_samples=(pcmreader.bits_per_sample != 8),
+                       header_data=header, footer_data=footer,
+                       block_size=block_size, device=device)
+            return cls(filename, device)
+        except (IOError, ValueError) as err:
+            try:
+                os.unlink(filename)
+            except OSError:
+                pass
+            raise EncodingError(str(err))
+        finally:
+            pcmreader.close()

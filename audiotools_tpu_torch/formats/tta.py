@@ -5,8 +5,9 @@ the TTA1 header with its CRC, the seektable of frame lengths with its
 CRC, then the frames that ``codecs.tta.encode_tta`` writes, with the
 filters on a torch device; ``TrueAudio`` reads the header (past any
 ID3v2 tags) and decodes with ``codecs.tta.TorchTTADecoder`` on its
-device.  ID3 and APE tags are not ported: a file holding any counts
-its tags in ``tag_names``, so that a conversion refuses to drop them.
+device; its tags are the APEv2 tag at the file's end
+(``meta.ape.ApeTaggedAudio``).  Like the reference's, it supports
+ReplayGain in name but adds none: ``add_replay_gain`` does nothing.
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ import struct
 from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.tta import encode_tta
+from ..meta.ape import ApeTaggedAudio
 from ..pcm import CounterPCMReader
 from ..ref.tta import crc32, div_ceil, read_tta_header
-from . import apetag
 
 
 def build_header(channels, bits_per_sample, sample_rate, total_pcm_frames):
@@ -107,7 +108,7 @@ def skip_id3v2(f):
     return 0
 
 
-class TrueAudio(AudioFile):
+class TrueAudio(ApeTaggedAudio, AudioFile):
     """a True Audio file, encoded and decoded on a torch device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the
@@ -143,16 +144,17 @@ class TrueAudio(AudioFile):
     def total_frames(self):
         return self.__header["total_pcm_frames"]
 
-    def tag_names(self):
-        """the APEv2 items' keys, and "ID3v2" for leading ID3v2 tags;
-        None with neither"""
-        keys = apetag.item_keys(self.filename)
-        if self.__stream_offset:
-            return ["ID3v2"] + (keys or [])
-        return keys
+    @classmethod
+    def supports_replay_gain(cls):
+        return True
 
-    def write_blank_tags(self):
-        apetag.append_empty_tag(self.filename)
+    @classmethod
+    def lossless_replay_gain(cls):
+        return True
+
+    @classmethod
+    def can_add_replay_gain(cls, audiofiles):
+        return all(isinstance(f, TrueAudio) for f in audiofiles)
 
     def to_pcm(self):
         """a TorchTTADecoder of the stream on the file's device"""

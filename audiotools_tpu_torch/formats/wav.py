@@ -4,10 +4,11 @@ A copy of the parts of the reference's ``audiotools_tpu/formats/wav.py``
 that the farm, the command line and the Shorten writer reach:
 ``build_fmt`` and ``parse_fmt`` with their constants, ``WaveReader``
 and ``WaveAudio`` (``from_pcm``, ``to_pcm``, ``verify``, the stream
-accessors and ``has_foreign_wave_chunks``) for plain RIFF/WAVE files
-of 8, 16 or 24 bits and 1-8 channels, WAVE_FORMAT_EXTENSIBLE's channel
-mask included.  Channel masks are plain ints here.  Writing foreign
-chunks (``from_wave``) and AIFF are not ported.
+accessors, and the foreign chunks: ``has_foreign_wave_chunks``,
+``wave_header_footer`` and ``from_wave``) for plain RIFF/WAVE files of
+8, 16 or 24 bits and 1-8 channels, WAVE_FORMAT_EXTENSIBLE's channel
+mask included.  Channel masks are plain ints here.  AIFF is not
+ported.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import struct
 
 import numpy as np
 
-from ..audiofile import InvalidFile, WaveContainer
+from ..audiofile import EncodingError, InvalidFile, WaveContainer
 from ..pcm import CHANNEL_MASKS, FRAMELIST_SIZE, CounterPCMReader, FrameList
 
 WAVE_FORMAT_PCM = 0x0001
@@ -75,6 +76,21 @@ def build_fmt(channels, sample_rate, bits_per_sample, channel_mask):
                         bytes_per_second, block_align, bits_per_sample,
                         22, bits_per_sample, int(channel_mask)) +
             b"\x01\x00" + EXTENSIBLE_GUID)
+
+
+def riff_data_size(header):
+    """the data chunk's size in a WAVE's header bytes; raises ValueError
+    for bytes that are no RIFF WAVE header or hold no data chunk"""
+    if len(header) < 12 or header[0:4] != b"RIFF" or header[8:12] != b"WAVE":
+        raise ValueError("invalid wave header")
+    pos = 12
+    while pos + 8 <= len(header):
+        (chunk_id, size) = struct.unpack("<4sI", header[pos:pos + 8])
+        pos += 8
+        if chunk_id == b"data":
+            return size
+        pos += size + (size % 2)
+    raise ValueError("no data chunk found in header")
 
 
 def pcm_to_samples(data, channels, bits_per_sample):
@@ -183,6 +199,49 @@ class WaveAudio(WaveContainer):
 
     def has_foreign_wave_chunks(self):
         return set(self.__chunk_ids) != {b"fmt ", b"data"}
+
+    def wave_header_footer(self):
+        """the file's bytes before the data chunk's PCM and after it (the
+        data chunk's pad byte among them)"""
+        with open(self.filename, "rb") as f:
+            for (chunk_id, chunk_size, offset) in _chunks(f):
+                if chunk_id == b"data":
+                    f.seek(0, 0)
+                    header = f.read(offset)
+                    f.seek(offset + chunk_size, 0)
+                    return (header, f.read())
+        raise ValueError("no data chunk found")
+
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
+                  device=None):
+        """writes a new WAVE file of a header, a PCMReader's PCM and a
+        footer, and returns it; raises EncodingError (and leaves no
+        file) when the PCM is not the header's data chunk's size.
+        ``device`` as in ``from_pcm``."""
+        bps = pcmreader.bits_per_sample
+        try:
+            data_size = riff_data_size(header)
+            with open(filename, "wb") as f:
+                f.write(header)
+                written = 0
+                while True:
+                    framelist = pcmreader.read(FRAMELIST_SIZE)
+                    if framelist.frames == 0:
+                        break
+                    data = samples_to_pcm(framelist.samples, bps)
+                    f.write(data)
+                    written += len(data)
+                f.write(footer)
+            if written != data_size:
+                raise ValueError("PCM data size differs from the header's "
+                                 "data chunk")
+            return cls(filename)
+        except (IOError, ValueError) as err:
+            _unlink(filename)
+            raise EncodingError(str(err))
+        finally:
+            pcmreader.close()
 
     def verify(self, progress=None, sink=None):
         """checks that every chunk is whole (the reference's check),

@@ -6,9 +6,11 @@ its compression modes, each a block size and a pass count, and the
 RIFF header the first block stores; the correlation passes on a torch
 device (``codecs.wavpack.encode_wavpack``).  ``WavPackAudio`` reads the
 first block's header and decodes with
-``codecs.wavpack.TorchWavPackDecoder`` on its device.  APE tags (so
-ReplayGain) and ``from_wave``'s foreign RIFF chunks are not ported: a
-file holding either is refused by a conversion rather than losing them.
+``codecs.wavpack.TorchWavPackDecoder`` on its device.  Its tags are
+the APEv2 tag at the file's end (``meta.ape.ApeTaggedAudio``), where
+``add_replay_gain`` writes the four replaygain_* items from the album
+analysis on the device; a WAVE's foreign RIFF chunks are stored in the
+blocks as its header and footer (``from_wave``, ``wave_header_footer``).
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ import os
 import struct
 
 from .._device import resolve_device
-from ..audiofile import EncodingError, InvalidFile, WaveContainer
+from ..audiofile import EncodingError, InvalidFile, ReplayGain, WaveContainer
 from ..codecs.wavpack import encode_wavpack
+from ..meta.ape import ApeTag, ApeTaggedAudio, ApeTagItem
 from ..pcm import CounterPCMReader
-from ..ref.wavpack import WV_WAVE_HEADER, WavPackDecoder, walk_sub_blocks
-from . import apetag
-
-WV_WAVE_FOOTER = 0x2
+from ..ref.wavpack import (WV_WAVE_FOOTER, WV_WAVE_HEADER, WavPackDecoder,
+                           walk_sub_blocks)
+from .wav import riff_data_size
 
 DEFAULT_COMPRESSION = "standard"
 OPTIONS = {"veryfast": {"block_size": 44100, "correlation_passes": 1},
@@ -34,25 +36,28 @@ OPTIONS = {"veryfast": {"block_size": 44100, "correlation_passes": 1},
 
 
 def write_wavpack(path_or_file, pcmreader, compression=DEFAULT_COMPRESSION,
-                  total_pcm_frames=None, device="cuda", timings=None):
+                  total_pcm_frames=None, device="cuda", timings=None,
+                  wave_header=None, wave_footer=None):
     """encodes a WavPack file from a PCMReader
 
     path_or_file: a path or a writable, seekable binary file.
     compression: a key of OPTIONS.  With total_pcm_frames the block
     headers carry it from the start, as the reference writes them
-    (ValueError when the reader gives another count).  device and
-    timings as in ``codecs.wavpack.encode_wavpack``.  The reader is
-    closed at the end."""
+    (ValueError when the reader gives another count).  device, timings,
+    wave_header and wave_footer as in ``codecs.wavpack.encode_wavpack``.
+    The reader is closed at the end; returns the PCM bytes written."""
     if compression not in OPTIONS:
         raise ValueError("unknown WavPack compression %r" % (compression,))
     counter = CounterPCMReader(pcmreader)
     try:
         encode_wavpack(
             path_or_file, counter, total_pcm_frames=total_pcm_frames or 0,
-            device=device, timings=timings, **OPTIONS[compression])
+            device=device, timings=timings, wave_header=wave_header,
+            wave_footer=wave_footer, **OPTIONS[compression])
         if (total_pcm_frames is not None and
                 counter.frames_written != total_pcm_frames):
             raise ValueError("total PCM frames mismatch")
+        return counter.bytes_written()
     finally:
         pcmreader.close()
 
@@ -61,7 +66,7 @@ class InvalidWavPack(InvalidFile, ValueError):
     """a file that is not a WavPack file this module reads"""
 
 
-class WavPackAudio(WaveContainer):
+class WavPackAudio(ApeTaggedAudio, WaveContainer):
     """a WavPack file, encoded and decoded on a torch device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the
@@ -102,15 +107,9 @@ class WavPackAudio(WaveContainer):
     def total_frames(self):
         return self.__total_frames
 
-    def tag_names(self):
-        """the APEv2 items' keys, None without a tag"""
-        return apetag.item_keys(self.filename)
-
-    def write_blank_tags(self):
-        apetag.append_empty_tag(self.filename)
-
     def wave_header_footer(self):
-        """the RIFF bytes the blocks store before and after the PCM"""
+        """the RIFF bytes the blocks store before and after the PCM;
+        raises ValueError when they store no header"""
         (header, footer) = (b"", b"")
         with open(self.filename, "rb") as f:
             while True:
@@ -124,12 +123,17 @@ class WavPackAudio(WaveContainer):
                         header += data
                     elif nondecoder and function == WV_WAVE_FOOTER:
                         footer += data
+        if not header:
+            raise ValueError("no wave header stored")
         return (header, footer)
 
     def has_foreign_wave_chunks(self):
         """a stored footer, or chunks besides fmt and data in the
         stored header"""
-        (header, footer) = self.wave_header_footer()
+        try:
+            (header, footer) = self.wave_header_footer()
+        except (ValueError, IOError):
+            return False
         if len(footer) >= 8:
             return True
         pos = 12
@@ -168,3 +172,75 @@ class WavPackAudio(WaveContainer):
             except OSError:
                 pass
             raise EncodingError(str(err))
+
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda"):
+        """encodes a new file from a WAVE's header, PCM and footer on
+        ``device``, the header and footer stored in the blocks; raises
+        EncodingError (and leaves no file) when the PCM is not the
+        header's data chunk's size"""
+        device = resolve_device(device)
+        if compression not in cls.COMPRESSION_MODES:
+            compression = cls.DEFAULT_COMPRESSION
+        try:
+            data_size = riff_data_size(header)
+            written = write_wavpack(filename, pcmreader, compression,
+                                    device=device, wave_header=header,
+                                    wave_footer=footer)
+            if written != data_size:
+                raise ValueError("truncated data chunk")
+            return cls(filename, device)
+        except (IOError, ValueError) as err:
+            try:
+                os.unlink(filename)
+            except OSError:
+                pass
+            raise EncodingError(str(err))
+
+    @classmethod
+    def supports_replay_gain(cls):
+        return True
+
+    @classmethod
+    def lossless_replay_gain(cls):
+        return True
+
+    @classmethod
+    def can_add_replay_gain(cls, audiofiles):
+        return all(isinstance(f, WavPackAudio) for f in audiofiles)
+
+    @classmethod
+    def add_replay_gain(cls, filenames, progress=None, device="cuda"):
+        """writes the replaygain_* APEv2 items of the WavPack files
+        named, analysed as one album on ``device``"""
+        from ..dispatch import open_files
+        from ..replaygain import calculate_replay_gain_values
+        tracks = [t for t in open_files(filenames, device=device)
+                  if isinstance(t, cls)]
+        for (track, gain, peak, album_gain, album_peak) in \
+                calculate_replay_gain_values(tracks, progress, device):
+            metadata = track.get_metadata()
+            if metadata is None:
+                metadata = ApeTag([])
+            for (key, value) in (
+                    ("replaygain_track_gain", "%+1.2f dB" % (gain,)),
+                    ("replaygain_track_peak", "%1.6f" % (peak,)),
+                    ("replaygain_album_gain", "%+1.2f dB" % (album_gain,)),
+                    ("replaygain_album_peak", "%1.6f" % (album_peak,))):
+                metadata[key] = ApeTagItem.string(key, value)
+            track.update_metadata(metadata)
+
+    def replay_gain(self):
+        """the replaygain_* items' ReplayGain, or None"""
+        metadata = self.get_metadata()
+        if metadata is None:
+            return None
+        try:
+            return ReplayGain(
+                str(metadata["replaygain_track_gain"]).split(" ")[0],
+                str(metadata["replaygain_track_peak"]),
+                str(metadata["replaygain_album_gain"]).split(" ")[0],
+                str(metadata["replaygain_album_peak"]))
+        except (KeyError, ValueError):
+            return None

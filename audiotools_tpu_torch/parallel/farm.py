@@ -51,20 +51,17 @@ class FarmJob:
     post        : optional callable(dest) run in the worker thread after
                   a successful encode; its return value lands in
                   FarmResult.post
-    metadata    : must be None: metadata (``meta/``) is not ported"""
+    metadata    : optional MetaData written into the destination with
+                  ``set_metadata`` after the encode"""
 
     def __init__(self, source, dest_path, dest_class,
                  compression=None, post=None, metadata=None):
-        if metadata is not None:
-            raise NotImplementedError(
-                "FarmJob(metadata=...): the reference's meta/ (MetaData "
-                "and set_metadata) is not ported to audiotools_tpu_torch")
         self.source = source
         self.dest_path = dest_path
         self.dest_class = dest_class
         self.compression = compression
         self.post = post
-        self.metadata = None
+        self.metadata = metadata
 
 
 class FarmResult:
@@ -92,6 +89,8 @@ def _run_job(job, device):
                                        **kwargs)
     finally:
         reader.close()
+    if job.metadata is not None:
+        dest.set_metadata(job.metadata)
     post = job.post(dest) if job.post is not None else None
     return FarmResult(job, dest=dest, post=post)
 

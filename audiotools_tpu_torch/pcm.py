@@ -143,6 +143,11 @@ class CounterPCMReader:
         self.bits_per_sample = pcmreader.bits_per_sample
         self.frames_written = 0
 
+    def bytes_written(self):
+        """the PCM bytes of the frames passed on"""
+        return (self.frames_written * self.channels *
+                (self.bits_per_sample // 8))
+
     def read(self, pcm_frames):
         framelist = self.pcmreader.read(pcm_frames)
         self.frames_written += framelist.frames
@@ -253,6 +258,30 @@ SPEAKER_BITS = 0x3FFFF
 def mask_speakers(channel_mask):
     """the speaker bits set in a channel mask, in stream order"""
     return [1 << b for b in range(18) if (channel_mask >> b) & 1]
+
+
+# the speakers' names, by bit from the lowest (the reference
+# ChannelMask's attribute names)
+SPEAKER_NAMES = ("front_left", "front_right", "front_center",
+                 "low_frequency", "back_left", "back_right",
+                 "front_left_of_center", "front_right_of_center",
+                 "back_center", "side_left", "side_right", "top_center",
+                 "top_front_left", "top_front_center", "top_front_right",
+                 "top_back_left", "top_back_center", "top_back_right")
+
+
+class ChannelMask(int):
+    """a channel mask with the reference's ``ChannelMask.defined`` and
+    ``channels`` (what ``trackinfo -C`` reads)"""
+
+    def defined(self):
+        """True when the mask names a speaker"""
+        return (self & SPEAKER_BITS) != 0
+
+    def channels(self):
+        """the names of the speakers the mask holds, in stream order"""
+        return [SPEAKER_NAMES[b] for b in range(len(SPEAKER_NAMES))
+                if (self >> b) & 1]
 
 
 def mask_channel_count(channel_mask):

@@ -30,6 +30,8 @@ from ..ops.wv_scan import span
 
 (WV_WAVE_HEADER, WV_TERMS, WV_WEIGHTS, WV_SAMPLES, WV_ENTROPY,
  WV_MD5, WV_SAMPLE_RATE) = (0x1, 0x2, 0x3, 0x4, 0x5, 0x6, 0x7)
+# the RIFF bytes after the PCM: function 2 with the nondecoder flag
+WV_WAVE_FOOTER = 0x2
 WV_INT32_INFO = 0x9
 WV_BITSTREAM = 0xA
 WV_CHANNEL_INFO = 0xD
@@ -565,22 +567,26 @@ def block_parameters(channel_count, channel_mask, correlation_passes):
 
 
 class EncoderContext:
-    def __init__(self, pcmreader, parameters):
+    def __init__(self, pcmreader, parameters, wave_header=None,
+                 wave_footer=None):
         self.pcmreader = pcmreader
         self.block_parameters = parameters
         self.total_frames = 0
         self.block_offsets = []
         self.md5sum = md5()
         self.first_block_written = False
+        self.wave_header = wave_header
+        self.wave_footer = wave_footer
 
 
-def write_wave_header(writer, pcmreader, total_frames):
-    """the RIFF header stored in the first block"""
+def write_wave_header(writer, pcmreader, total_frames, footer_size=0):
+    """the RIFF header stored in the first block, for a stored footer of
+    ``footer_size`` bytes"""
     fmt = build_fmt(pcmreader.channels, pcmreader.sample_rate,
                     pcmreader.bits_per_sample, pcmreader.channel_mask)
     data_size = (total_frames * pcmreader.channels *
                  (pcmreader.bits_per_sample // 8))
-    total_size = 4 + (8 + len(fmt)) + (8 + data_size)
+    total_size = 4 + (8 + len(fmt)) + (8 + data_size) + footer_size
     writer.write_bytes(b"RIFF" + struct.pack("<I", total_size) + b"WAVE" +
                        b"fmt " + struct.pack("<I", len(fmt)) + fmt +
                        b"data" + struct.pack("<I", data_size))
@@ -608,14 +614,18 @@ def correlate_host(jobs):
 
 
 def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
-                   correlation_passes=0, correlate=correlate_host):
+                   correlation_passes=0, correlate=correlate_host,
+                   wave_header=None, wave_footer=None):
     """encodes a WavPack stream from a PCMReader
 
     correlate: called once a frame with the list of (uncorrelated
     channels, CorrelationParameters, coded channel count) of the frame's
     block groups that have passes; returns their correlated channels and
     leaves each pass's quantized weights and stored samples in its
-    parameters, as correlate_host does"""
+    parameters, as correlate_host does.  wave_header, wave_footer: the
+    RIFF bytes to store before and after the PCM (a WAVE's foreign
+    chunks); without a header, one of the fmt and data chunks alone is
+    built and stored"""
     pcmreader = pcm.BufferedPCMReader(pcmreader)
     if isinstance(file_or_path, str):
         output_file = open(file_or_path, "wb")
@@ -627,7 +637,8 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
     context = EncoderContext(pcmreader,
                              block_parameters(pcmreader.channels,
                                               pcmreader.channel_mask,
-                                              correlation_passes))
+                                              correlation_passes),
+                             wave_header, wave_footer)
 
     block_index = 0
     frame = pcmreader.read(block_size)
@@ -661,11 +672,15 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
         block_index += frame.frames
         frame = pcmreader.read(block_size)
 
-    # the final block: the MD5 sum
+    # the final block: the MD5 sum and the stored footer
     sub_blocks = BitstreamRecorder()
     sub_block = BitstreamRecorder()
     sub_block.write_bytes(context.md5sum.digest())
     write_sub_block(sub_blocks, WV_MD5, 1, sub_block)
+    if wave_footer is not None:
+        sub_block.reset()
+        sub_block.write_bytes(wave_footer)
+        write_sub_block(sub_blocks, WV_WAVE_FOOTER, 1, sub_block)
 
     if total_pcm_frames == 0:
         writer.flush()
@@ -678,11 +693,13 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
     sub_blocks.copy(writer)
     writer.flush()
 
-    # the stored RIFF header's sizes, now that the length is known
-    output_file.seek(32 + 2)
-    header_rec = BitstreamRecorder()
-    write_wave_header(header_rec, context.pcmreader, context.total_frames)
-    output_file.write(header_rec.data())
+    # the built RIFF header's sizes, now that the length is known
+    if wave_header is None:
+        output_file.seek(32 + 2)
+        header_rec = BitstreamRecorder()
+        write_wave_header(header_rec, context.pcmreader,
+                          context.total_frames, _footer_size(wave_footer))
+        output_file.write(header_rec.data())
 
     # the total sample count of streamed block headers
     for block_offset in context.block_offsets:
@@ -693,6 +710,10 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
         output_file.close()
     else:
         output_file.seek(0, 2)
+
+
+def _footer_size(wave_footer):
+    return 0 if wave_footer is None else len(wave_footer)
 
 
 def begin_block(context, channels, parameters):
@@ -729,7 +750,11 @@ def begin_block(context, channels, parameters):
 
     # the first block of the file carries the RIFF header
     if not context.first_block_written:
-        write_wave_header(sub_block, context.pcmreader, 0)
+        if context.wave_header is None:
+            write_wave_header(sub_block, context.pcmreader, 0,
+                              _footer_size(context.wave_footer))
+        else:
+            sub_block.write_bytes(context.wave_header)
         write_sub_block(sub_blocks, WV_WAVE_HEADER, 1, sub_block)
         context.first_block_written = True
 

@@ -179,7 +179,25 @@ Its phases each print one line:
     the album (peaks equal to the tracks', gains finite) and
     ``--sample-rate 48000`` on one track (the card's file decoded
     within 1 LSB of the CPU's PCMConverter on under 1e-4 of the
-    samples).  Every kernel must have launched during the phase.
+    samples).  Every kernel must have launched during the phase;
+22. tags and foreign chunks through the command line, on phase 19's
+    album: its tracks written on the card as FLAC -8, ALAC, TTA and
+    WavPack (standard) and each tagged with every field (non-ASCII
+    text) and a PNG front cover; ``track2track -j 2`` of the mixed album
+    with the default name template to each of phase 21's five types
+    (the names the tags give; each file equal to the class's
+    ``from_pcm`` on the card followed by ``set_metadata`` of the
+    source's tags; every field the class holds and the cover equal to
+    the source's, Shorten none); track 1 as a WAVE with a LIST chunk
+    before its data and a chunk after it, to FLAC, WavPack and Shorten
+    and each back to WAVE byte for byte, and to ALAC (equal to
+    ``from_pcm``'s, the chunks dropped); ``--replay-gain`` to WavPack
+    and to FLAC (WavPack's four APEv2 items, its peaks the FLAC run's,
+    its gains within 0.011 dB of them); ``trackinfo`` (plain, ``-L``,
+    ``-C``) and ``tracklength`` over the outputs.  A line with the
+    phase's wall, each target's input Msamples/s and ``set_metadata``
+    seconds across the album, the launches of each kernel over the
+    phase (every one must launch) and the card's peak memory.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -1461,6 +1479,288 @@ def cli_phase(dev, alac_sig):
     return (out, total)
 
 
+# phase 22: the album's classes, in track order (and their qualities),
+# the targets track2track writes the mixed album to, and the PNG cover
+TAG_SOURCES = (("flac", "8"), ("alac", None), ("tta", None),
+               ("wavpack", "standard"))
+TAG_TARGETS = CLI_TYPES
+# the formats that keep a WAVE's foreign chunks (their from_wave)
+CHUNK_CARRIERS = ("flac", "wavpack", "shn")
+# PERF.md section 2's ReplayGain bound, dB
+RG_GAIN_DB = 0.011
+
+
+def png_cover(width, height):
+    """the bytes of a black RGB PNG of width x height pixels"""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body +
+                struct.pack(">I", zlib.crc32(kind + body)))
+    rows = b"".join(b"\x00" * (1 + 3 * width) for _ in range(height))
+    return (b"\x89PNG\r\n\x1a\n" +
+            chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0,
+                                       0, 0)) +
+            chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def album_metadata(number):
+    """track ``number``'s tags: every text field with non-ASCII letters
+    (a "/" in the title), numbers of 4 and 1, a front cover"""
+    from audiotools_tpu_torch.audiofile import Image, MetaData
+    return MetaData(
+        track_name="Sóng %d/Ä" % (number,), track_number=number,
+        track_total=4, album_name="Àlbum Ünïcode", artist_name="Ärtïst",
+        performer_name="Pérformer", composer_name="Cömposer",
+        conductor_name="Cönductor", media="CD",
+        ISRC="USRC1760783%d" % (number,), catalog="Çat-001",
+        copyright="© 2026 Lïbel", publisher="Püblisher", year="2026",
+        date="2026-10-17", album_number=1, album_total=1,
+        comment="Cömment ∞",
+        images=[Image.new(png_cover(16 + number, 16), "cövér", 0)])
+
+
+def riff_wave(path, samples):
+    """a WAVE of 16-bit stereo ``samples`` with a LIST chunk before its
+    data chunk and an odd-sized chunk (with its pad byte) after it"""
+    import struct
+    data = samples.astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 2, SAMPLE_RATE, SAMPLE_RATE * 4, 4, 16)
+    info = b"INFO" + b"ISFT" + struct.pack("<I", 5) + b"tpu!\x00\x00"
+    chunks = (b"fmt " + struct.pack("<I", len(fmt)) + fmt +
+              b"LIST" + struct.pack("<I", len(info)) + info +
+              b"data" + struct.pack("<I", len(data)) + data +
+              b"note" + struct.pack("<I", 5) + b"hello\x00")
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" +
+                chunks)
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def tags_phase(dev, alac_sig):
+    """phase 22 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it: tags and foreign chunks through the command line on ``dev``;
+    returns its line's fields and each kernel's launches over the
+    phase.  On a CPU ``dev`` (a rehearsal with a short signal) the
+    card's memory is not read and no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import dispatch
+    from audiotools_tpu_torch.pcm import reader_from_array
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    per = alac_sig.shape[0] // RG_TITLES
+    tracks = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    in_samples = sum(t.size for t in tracks)
+    on_card = ["--devices", str(dev)]
+    out = dict(tracks=len(tracks), track_seconds=per / SAMPLE_RATE,
+               workers=2, types={})
+    for fn in counters.values():
+        fn.launches = 0
+    if on_cuda:
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(dev)
+    wall_clock = time.time
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tags-") as work:
+        time.time = lambda: CLI_CLOCK
+        try:
+            # 1. the album written and tagged on the card
+            sources = []
+            tag_s = {}
+            for (i, ((type_name, quality), track)) in enumerate(
+                    zip(TAG_SOURCES, tracks)):
+                cls = dispatch.TYPE_MAP[type_name]
+                path = os.path.join(work, "src", "track%d.%s" % (
+                    i, cls.SUFFIX))
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                source = cls.from_pcm(path, reader_from_array(track, 16),
+                                      quality, total_pcm_frames=len(track),
+                                      device=dev)
+                t0 = time.perf_counter()
+                source.set_metadata(album_metadata(i + 1))
+                tag_s[type_name] = time.perf_counter() - t0
+                sources.append(source)
+            out["tag_s"] = tag_s
+            source_tags = [s.get_metadata() for s in sources]
+            titles = [m.track_name for m in source_tags]
+
+            # 2. the mixed album to each class, checked against
+            # from_pcm followed by set_metadata
+            for (type_name, quality) in TAG_TARGETS:
+                cls = dispatch.TYPE_MAP[type_name]
+                dest = os.path.join(work, type_name)
+                outputs = [os.path.join(dest, "%02d - %s.%s" % (
+                    i + 1, titles[i].replace("/", "-"), cls.SUFFIX))
+                    for i in range(len(sources))]
+                t0 = time.perf_counter()
+                (code, lines) = run_cli("track2track", [
+                    "-t", type_name] + (["-q", quality] if quality else []) +
+                    ["-d", dest, "-j", "2"] + on_card +
+                    [s.filename for s in sources])
+                sync(dev)
+                wall = time.perf_counter() - t0
+                if code != 0 or sorted(lines) != sorted(
+                        "%s -> %s" % (s.filename, o)
+                        for (s, o) in zip(sources, outputs)):
+                    raise AssertionError("track2track -t %s of the tagged "
+                                         "album exited %r: %s"
+                                         % (type_name, code, lines))
+                set_s = 0.0
+                again = os.path.join(work, "again." + cls.SUFFIX)
+                for (track, output, tags) in zip(tracks, outputs,
+                                                 source_tags):
+                    made = cls.from_pcm(again, reader_from_array(track, 16),
+                                        quality, total_pcm_frames=len(track),
+                                        device=dev)
+                    t0 = time.perf_counter()
+                    made.set_metadata(tags)
+                    set_s += time.perf_counter() - t0
+                    if read_bytes(again) != read_bytes(output):
+                        raise AssertionError(
+                            "%s differs from %s.from_pcm's file with the "
+                            "source's tags" % (output, cls.__name__))
+                    os.unlink(again)
+                    check_carried(dispatch.open(output, device=dev), tags)
+                out["types"][type_name] = dict(
+                    quality=quality, seconds=wall,
+                    input_Msamples_per_s=in_samples / wall / 1e6,
+                    set_metadata_album_s=set_s)
+
+            # 3. foreign chunks: track 1 as a WAVE with a LIST chunk
+            # before its data and a chunk after it
+            riff = os.path.join(work, "riff", "riff.wav")
+            os.makedirs(os.path.dirname(riff))
+            riff_wave(riff, tracks[0])
+            t0 = time.perf_counter()
+            for type_name in CHUNK_CARRIERS + ("alac",):
+                cls = dispatch.TYPE_MAP[type_name]
+                dest = os.path.join(work, "riff-" + type_name)
+                (code, _lines) = run_cli("track2track", [
+                    "-t", type_name, "-d", dest, "-j", "1"] + CLI_FORMAT +
+                    on_card + [riff])
+                converted = os.path.join(dest, "riff." + cls.SUFFIX)
+                if code != 0:
+                    raise AssertionError("track2track -t %s of the "
+                                         "foreign-chunk WAVE exited %r"
+                                         % (type_name, code))
+                if type_name == "alac":
+                    again = os.path.join(work, "again.m4a")
+                    cls.from_pcm(again, reader_from_array(tracks[0], 16),
+                                 total_pcm_frames=len(tracks[0]), device=dev)
+                    if read_bytes(again) != read_bytes(converted):
+                        raise AssertionError("the foreign-chunk WAVE's ALAC "
+                                             "file is not from_pcm's")
+                    continue
+                back = os.path.join(work, "back-" + type_name)
+                (code, _lines) = run_cli("track2track", [
+                    "-t", "wav", "-d", back, "-j", "1"] + CLI_FORMAT +
+                    on_card + [converted])
+                if code != 0 or read_bytes(os.path.join(
+                        back, "riff.wav")) != read_bytes(riff):
+                    raise AssertionError("the foreign-chunk WAVE did not "
+                                         "come back through %s" % (type_name,))
+            out["foreign_chunks_s"] = time.perf_counter() - t0
+
+            # 4. ReplayGain: WavPack's APEv2 items beside FLAC's comments
+            gains = {}
+            for type_name in ("flac", "wavpack"):
+                dest = os.path.join(work, "rg-" + type_name)
+                t0 = time.perf_counter()
+                (code, _lines) = run_cli("track2track", [
+                    "-t", type_name, "--replay-gain", "-d", dest, "-j",
+                    "2"] + CLI_FORMAT + on_card +
+                    [s.filename for s in sources])
+                if code != 0:
+                    raise AssertionError("track2track -t %s --replay-gain "
+                                         "exited %r" % (type_name, code))
+                out["replay_gain_%s_s" % (type_name,)] = (
+                    time.perf_counter() - t0)
+                gains[type_name] = [dispatch.open(os.path.join(
+                    dest, os.path.splitext(os.path.basename(s.filename))[0]
+                    + "." + dispatch.TYPE_MAP[type_name].SUFFIX),
+                    device=dev) for s in sources]
+            peaks = [np.abs(t).max() / 32768 for t in tracks]
+            out["replay_gain"] = []
+            for (peak, flac, wv) in zip(peaks, gains["flac"],
+                                        gains["wavpack"]):
+                items = {key: str(wv.get_metadata()[key]) for key in (
+                    "replaygain_track_gain", "replaygain_track_peak",
+                    "replaygain_album_gain", "replaygain_album_peak")}
+                (f_rg, w_rg) = (flac.replay_gain(), wv.replay_gain())
+                if (items["replaygain_track_peak"] != "%1.6f" % (peak,) or
+                        items["replaygain_album_peak"] !=
+                        "%1.6f" % (max(peaks),) or
+                        f_rg.track_peak != float("%1.8f" % (peak,)) or
+                        f_rg.album_peak != float("%1.8f" % (max(peaks),)) or
+                        abs(w_rg.track_gain - f_rg.track_gain) > RG_GAIN_DB or
+                        abs(w_rg.album_gain - f_rg.album_gain) > RG_GAIN_DB):
+                    raise AssertionError("%s's ReplayGain %r, FLAC's %r, "
+                                         "the peak %r"
+                                         % (wv.filename, items, f_rg, peak))
+                out["replay_gain"].append(dict(wavpack=items, flac=vars(f_rg)))
+
+            # 5. the read-only tools over the outputs
+            listed = [os.path.join(work, t, f) for (t, _q) in TAG_TARGETS
+                      for f in sorted(os.listdir(os.path.join(work, t)))]
+            for flags in ([], ["-L"], ["-C"]):
+                (code, lines) = run_cli("trackinfo", flags + on_card +
+                                        listed)
+                text_out = "\n".join(lines)
+                if code != 0 or (flags != ["-C"] and not all(
+                        title in text_out for title in titles)):
+                    raise AssertionError("trackinfo %s exited %r: %s"
+                                         % (flags, code, lines[:8]))
+            (code, lines) = run_cli("tracklength", on_card + [
+                os.path.join(work, t) for (t, _q) in TAG_TARGETS])
+            want = len(TAG_TARGETS) * len(tracks) * per / SAMPLE_RATE
+            if code != 0 or lines != ["%d:%02d:%02d" % (
+                    int(want) // 3600, (int(want) // 60) % 60,
+                    int(round(want)) % 60)]:
+                raise AssertionError("tracklength exited %r: %s"
+                                     % (code, lines))
+        finally:
+            time.time = wall_clock
+    launches = {k: fn.launches for (k, fn) in counters.items()}
+    idle = [k for (k, n) in launches.items() if n <= 0]
+    if on_cuda and idle:
+        raise AssertionError("phase 22 never launched %s" % (idle,))
+    out["launches"] = launches
+    out["peak_mem_GB"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                          if on_cuda else None)
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
+def check_carried(output, tags):
+    """``output``'s tags hold ``tags`` on every field its class holds
+    (Shorten none), and each cover's bytes"""
+    from audiotools_tpu_torch.audiofile import MetaData
+    got = output.get_metadata()
+    if output.NAME == "shn":
+        if got is not None:
+            raise AssertionError("%s holds tags" % (output.filename,))
+        return
+    # the fields the class holds: those a full MetaData keeps through it
+    held = type(got).converted(MetaData(**{
+        f: (1 if f in MetaData.INTEGER_FIELDS else "x")
+        for f in MetaData.FIELDS}))
+    for field in MetaData.FIELDS:
+        want = getattr(tags, field) if getattr(held, field) else None
+        if getattr(got, field) != want:
+            raise AssertionError("%s: %s is %r, the source's %r"
+                                 % (output.filename, field,
+                                    getattr(got, field), want))
+    if [i.data for i in got.images()] != [i.data for i in tags.images()]:
+        raise AssertionError("%s's cover is not the source's"
+                             % (output.filename,))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2260,6 +2560,10 @@ def main():
     (fields, cli_launches) = cli_phase(dev, alac_sig)
     line("cli", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
 
+    # ---- 22. tags and foreign chunks through the command line --------------
+    (fields, tags_launches) = tags_phase(dev, alac_sig)
+    line("tags", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -2286,7 +2590,8 @@ def main():
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,
             replaces="audiotools_tpu/ops/" + replaces, launches=kl,
-            cli_launches=cli_launches[kname], **row))
+            cli_launches=cli_launches[kname],
+            tags_launches=tags_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

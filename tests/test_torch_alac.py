@@ -206,7 +206,7 @@ def test_header_parse_matches_reference(monkeypatch, tmp_path,
     from audiotools_tpu_torch.ref.alac import read_m4a_header
     if mdhd_version == 1:
         def mdhd_v1(pcmreader, create_date, total_pcm_frames):
-            return m4a.LeafAtom(b"mdhd", struct.pack(
+            return m4a.M4A_Leaf_Atom(b"mdhd", struct.pack(
                 ">B3xQQIQHH", 1, create_date, create_date,
                 pcmreader.sample_rate, total_pcm_frames, 0x55C4, 0))
         monkeypatch.setattr(m4a, "mdhd_atom", mdhd_v1)

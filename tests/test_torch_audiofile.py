@@ -111,7 +111,8 @@ def test_id3_wrapped_files_are_sniffed_through(files, tmp_path, name):
         assert dispatch.file_type(f).NAME == ref_dispatch.file_type(f).NAME
     if name == "tta":
         track = dispatch.open(path, device="cpu")
-        assert track.tag_names() == ["ID3v2"]
+        assert track.get_metadata() is None
+        assert ref_dispatch.open(path).get_metadata() is None
         assert np.array_equal(farm.verify_track(track), files[1])
 
 
@@ -201,15 +202,15 @@ def test_the_farm_writes_the_reference_farms_files(tmp_path, monkeypatch,
     "%(album_number)d/%(track_total)d %(comment)s%(ISRC)s.%(suffix)s"])
 def test_track_name_is_the_references_for_a_file_without_metadata(template):
     for path in ("a.wav", "dir/b.c.flac"):
-        assert (AudioFile.track_name(path, template, suffix="m4a") ==
+        assert (AudioFile.track_name(path, None, template, suffix="m4a") ==
                 RefAudioFile.track_name(path, None, template, suffix="m4a"))
 
 
 def test_track_name_errors():
     with pytest.raises(UnsupportedTracknameField, match="nosuch"):
-        AudioFile.track_name("a.wav", "%(nosuch)s")
+        AudioFile.track_name("a.wav", None, "%(nosuch)s")
     with pytest.raises(InvalidFilenameFormat):
-        AudioFile.track_name("a.wav", "%(track_number)s %d")
+        AudioFile.track_name("a.wav", None, "%(track_number)s %d")
 
 
 def frame_cmp_cases():

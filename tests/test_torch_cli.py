@@ -29,7 +29,7 @@ from audiotools_tpu.formats.flac import FlacAudio as RefFlacAudio
 from audiotools_tpu.formats.wav import WaveAudio as RefWaveAudio
 from audiotools_tpu import pcm as ref_pcm
 from audiotools_tpu.pcmstream import PCMReader as RefPCMReader
-from audiotools_tpu_torch import pcm
+from audiotools_tpu_torch import dispatch, pcm
 from audiotools_tpu_torch.formats import flac
 from audiotools_tpu_torch.formats.wav import WaveAudio
 from cli_harness import run_tool
@@ -364,16 +364,39 @@ def foreign_chunk_wave(path, arr):
         f.write(bytes(data))
 
 
+def convert_both(args, source):
+    """``track2track`` of the reference into ref/ and of the port into
+    port/ (cwd), each -j 1: the two (exit code, stdout, stderr) and the
+    files each wrote, {name: bytes}"""
+    ref = ref_tool("track2track", *args, "-j", "1", "-d", "ref", source)
+    port = port_tool("track2track", *args, "-j", "1", "-d", "port", source)
+    return (ref, port, {name: read(os.path.join("ref", name))
+                        for name in os.listdir("ref")},
+            {name: read(os.path.join("port", name))
+             for name in os.listdir("port")})
+
+
 @pytest.mark.parametrize("type_name", ["flac", "wavpack", "alac"])
-def test_a_wave_with_foreign_chunks_is_refused(tmp_path, type_name):
-    path = str(tmp_path / "a.wav")
-    foreign_chunk_wave(path, signal(1, 800, SR))
-    out = str(tmp_path / "out")
-    (code, stdout, stderr) = port_tool("track2track", "-t", type_name,
-                                       "-d", out, *FORMAT, path)
-    assert (code, stdout) == (1, "")
-    assert "from_wave" in stderr
-    assert os.listdir(out) == []
+def test_a_wave_with_foreign_chunks_is_refused(tmp_path, monkeypatch,
+                                               type_name):
+    """no longer refused: a WAVE with a LIST chunk after its data chunk
+    converts to the reference's file, the chunk kept by FLAC's and
+    WavPack's from_wave and dropped by ALAC, which has none"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    monkeypatch.chdir(tmp_path)
+    foreign_chunk_wave("a.wav", signal(1, 800, SR))
+    (ref, port, ref_files, port_files) = convert_both(
+        ["-t", type_name] + FORMAT, "a.wav")
+    assert ref[:2] == (0, "a.wav -> ref/a.%s\n" % (
+        dispatch.TYPE_MAP[type_name].SUFFIX,))
+    assert port[:2] == (0, as_port(ref[1])), port[2]
+    assert port_files == ref_files
+    [output] = port_files
+    track = dispatch.open(os.path.join("port", output), device="cpu")
+    if type_name != "alac":
+        assert track.has_foreign_wave_chunks()
 
 
 def tagged_flac(path):
@@ -396,20 +419,34 @@ def test_flac_to_flac_carries_the_comments(tmp_path, monkeypatch):
     assert ref_tool("track2track", *args, "-d", "ref", "t.flac")[0] == 0
     assert port_tool("track2track", *args, "-d", "port", "t.flac")[0] == 0
     assert read("port/t.flac") == read("ref/t.flac")
-    comments = flac.FlacAudio("port/t.flac", device="cpu").tag_names()
-    assert sorted(comments) == ["TITLE", "TRACKNUMBER"]
+    metadata = flac.FlacAudio("port/t.flac", device="cpu").get_metadata()
+    assert sorted(metadata.get_block(4).keys()) == ["TITLE", "TRACKNUMBER"]
+    assert (metadata.track_name, metadata.track_number) == ("A Title", 3)
 
 
 @pytest.mark.parametrize("type_name", ["alac", "tta", "shn", "wavpack"])
-def test_tags_that_cannot_be_carried_fail_the_job(tmp_path, type_name):
-    tagged_flac(str(tmp_path / "t.flac"))
-    out = str(tmp_path / "out")
-    (code, stdout, stderr) = port_tool("track2track", "-t", type_name,
-                                       "-d", out, *FORMAT,
-                                       str(tmp_path / "t.flac"))
-    assert (code, stdout) == (1, "")
-    assert "meta/" in stderr and "TITLE" in stderr
-    assert os.listdir(out) == []
+def test_tags_that_cannot_be_carried_fail_the_job(tmp_path, monkeypatch,
+                                                  type_name):
+    """no job fails for its tags any more: a tagged FLAC converts to the
+    reference's file, the title and number written into the target's
+    tags (none for Shorten, which holds none)"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    monkeypatch.chdir(tmp_path)
+    tagged_flac("t.flac")
+    (ref, port, ref_files, port_files) = convert_both(
+        ["-t", type_name], "t.flac")
+    assert ref[0] == 0 and port[:2] == (0, as_port(ref[1])), port[2]
+    assert port_files == ref_files
+    [output] = port_files
+    assert output == "03 - A Title." + dispatch.TYPE_MAP[type_name].SUFFIX
+    metadata = dispatch.open(os.path.join("port", output),
+                             device="cpu").get_metadata()
+    if type_name == "shn":
+        assert metadata is None
+    else:
+        assert (metadata.track_name, metadata.track_number) == ("A Title", 3)
 
 
 def test_the_tools_default_to_the_card(tmp_path, monkeypatch):

@@ -179,9 +179,28 @@ def test_more_cards_than_there_are_raise(monkeypatch):
         farm.transcode([], devices=["cuda:0", "cuda:1"])
 
 
-def test_metadata_is_not_ported():
-    with pytest.raises(NotImplementedError, match="meta/"):
-        farm.FarmJob("a.wav", "b.flac", FlacAudio, metadata=object())
+def test_metadata_is_not_ported(tmp_path):
+    """ported now: a job's MetaData is written into its destination, as
+    the reference farm's set_metadata writes it"""
+    from audiotools_tpu.audiofile import MetaData as RefMetaData
+    from audiotools_tpu.formats.wav import WaveAudio as RefWaveAudio
+    from audiotools_tpu_torch.audiofile import MetaData
+    source = str(tmp_path / "a.wav")
+    WaveAudio.from_pcm(source, pcm.reader_from_array(
+        np.zeros((3000, 2), dtype=np.int32), 16))
+    tags = dict(track_name="Tïtle", track_number=2, album_name="Àlbum")
+    [result] = farm.transcode([farm.FarmJob(
+        source, str(tmp_path / "b.flac"), FlacAudio,
+        metadata=MetaData(**tags))], devices=["cpu"])
+    assert result.ok, result.error
+    ref = RefFlacAudio.from_pcm(str(tmp_path / "r.flac"),
+                                RefWaveAudio(source).to_pcm())
+    ref.set_metadata(RefMetaData(**tags))
+    got = result.dest.get_metadata()
+    assert (got.track_name, got.track_number, got.album_name) == (
+        "Tïtle", 2, "Àlbum")
+    assert (got.get_block(4).comment_strings ==
+            ref.get_metadata().get_block(4).comment_strings)
 
 
 class _FakeStream:
