@@ -23,7 +23,7 @@ from .._device import resolve_device
 from ..audiofile import EncodingError, InvalidFile, WaveContainer
 from ..codecs.shn import encode_samples, encode_shn, stream_params
 from ..pcm import read_all, to_pcm_progress
-from .wav import build_fmt
+from .wav import build_fmt, wave_chunks
 
 
 def wave_header(channels, sample_rate, bits_per_sample, channel_mask,
@@ -68,18 +68,6 @@ class InvalidShorten(InvalidFile, ValueError):
     """a file that is not a Shorten file this module reads"""
 
 
-def _wave_chunks(head):
-    """(chunk_id, chunk_size) of the RIFF chunks in a WAVE head"""
-    pos = 12
-    while pos + 8 <= len(head):
-        (chunk_id, size) = struct.unpack("<4sI", head[pos:pos + 8])
-        pos += 8
-        yield (chunk_id, size)
-        if chunk_id == b"data":
-            return
-        pos += size + (size % 2)
-
-
 class ShortenAudio(WaveContainer):
     """a Shorten file, encoded and decoded on a torch device
 
@@ -112,7 +100,7 @@ class ShortenAudio(WaveContainer):
             head, self.__channels)
         bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
         self.__total_frames = 0
-        for (chunk_id, size) in _wave_chunks(head):
+        for (chunk_id, size) in wave_chunks(head):
             if chunk_id == b"data":
                 self.__total_frames = size // bytes_per_frame
 
@@ -143,7 +131,7 @@ class ShortenAudio(WaveContainer):
         """chunks besides fmt and data in the head, or a tail of
         trailing chunks"""
         return (any(chunk_id not in (b"fmt ", b"data")
-                    for (chunk_id, _size) in _wave_chunks(self.__head)) or
+                    for (chunk_id, _size) in wave_chunks(self.__head)) or
                 len(self._tail()) >= 8)
 
     def wave_header_footer(self):

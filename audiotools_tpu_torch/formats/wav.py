@@ -78,18 +78,27 @@ def build_fmt(channels, sample_rate, bits_per_sample, channel_mask):
             b"\x01\x00" + EXTENSIBLE_GUID)
 
 
+def wave_chunks(header):
+    """(chunk_id, chunk_size) of the RIFF chunks in a WAVE's header
+    bytes, up to and including the data chunk"""
+    pos = 12
+    while pos + 8 <= len(header):
+        (chunk_id, size) = struct.unpack("<4sI", header[pos:pos + 8])
+        pos += 8
+        yield (chunk_id, size)
+        if chunk_id == b"data":
+            return
+        pos += size + (size % 2)
+
+
 def riff_data_size(header):
     """the data chunk's size in a WAVE's header bytes; raises ValueError
     for bytes that are no RIFF WAVE header or hold no data chunk"""
     if len(header) < 12 or header[0:4] != b"RIFF" or header[8:12] != b"WAVE":
         raise ValueError("invalid wave header")
-    pos = 12
-    while pos + 8 <= len(header):
-        (chunk_id, size) = struct.unpack("<4sI", header[pos:pos + 8])
-        pos += 8
+    for (chunk_id, size) in wave_chunks(header):
         if chunk_id == b"data":
             return size
-        pos += size + (size % 2)
     raise ValueError("no data chunk found in header")
 
 

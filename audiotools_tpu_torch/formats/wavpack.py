@@ -25,7 +25,7 @@ from ..meta.ape import ApeTag, ApeTaggedAudio, ApeTagItem
 from ..pcm import CounterPCMReader
 from ..ref.wavpack import (WV_WAVE_FOOTER, WV_WAVE_HEADER, WavPackDecoder,
                            walk_sub_blocks)
-from .wav import riff_data_size
+from .wav import riff_data_size, wave_chunks
 
 DEFAULT_COMPRESSION = "standard"
 OPTIONS = {"veryfast": {"block_size": 44100, "correlation_passes": 1},
@@ -134,18 +134,9 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
             (header, footer) = self.wave_header_footer()
         except (ValueError, IOError):
             return False
-        if len(footer) >= 8:
-            return True
-        pos = 12
-        while pos + 8 <= len(header):
-            (chunk_id, size) = struct.unpack("<4sI", header[pos:pos + 8])
-            pos += 8
-            if chunk_id not in (b"fmt ", b"data"):
-                return True
-            if chunk_id == b"data":
-                continue
-            pos += size + (size % 2)
-        return False
+        return (len(footer) >= 8 or
+                any(chunk_id not in (b"fmt ", b"data")
+                    for (chunk_id, _size) in wave_chunks(header)))
 
     def to_pcm(self):
         """a TorchWavPackDecoder of the file on the file's device"""

@@ -1545,9 +1545,12 @@ def read_bytes(path):
 def tags_phase(dev, alac_sig):
     """phase 22 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
     it: tags and foreign chunks through the command line on ``dev``;
-    returns its line's fields and each kernel's launches over the
-    phase.  On a CPU ``dev`` (a rehearsal with a short signal) the
-    card's memory is not read and no launch is required."""
+    returns its line's fields and each kernel's launches in the
+    phase's tool runs.  The counts are set to 0 just before each run of
+    a tool and read just after it, so the launches of the checks
+    (from_pcm, set_metadata, the readers) are not among them.  On a CPU
+    ``dev`` (a rehearsal with a short signal) the card's memory is not
+    read and no launch is required."""
     import tempfile
     from audiotools_tpu_torch import dispatch
     from audiotools_tpu_torch.pcm import reader_from_array
@@ -1560,8 +1563,20 @@ def tags_phase(dev, alac_sig):
     on_card = ["--devices", str(dev)]
     out = dict(tracks=len(tracks), track_seconds=per / SAMPLE_RATE,
                workers=2, types={})
-    for fn in counters.values():
-        fn.launches = 0
+    launches = dict.fromkeys(counters, 0)
+
+    def tool(name, args):
+        """run_cli(name, args) with the counts set to 0 just before it
+        and added to ``launches`` just after it: (exit code, lines,
+        this run's launches)"""
+        for fn in counters.values():
+            fn.launches = 0
+        (code, lines) = run_cli(name, args)
+        run = {k: fn.launches for (k, fn) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        return (code, lines, run)
+
     if on_cuda:
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1599,7 +1614,7 @@ def tags_phase(dev, alac_sig):
                     i + 1, titles[i].replace("/", "-"), cls.SUFFIX))
                     for i in range(len(sources))]
                 t0 = time.perf_counter()
-                (code, lines) = run_cli("track2track", [
+                (code, lines, run) = tool("track2track", [
                     "-t", type_name] + (["-q", quality] if quality else []) +
                     ["-d", dest, "-j", "2"] + on_card +
                     [s.filename for s in sources])
@@ -1630,7 +1645,7 @@ def tags_phase(dev, alac_sig):
                 out["types"][type_name] = dict(
                     quality=quality, seconds=wall,
                     input_Msamples_per_s=in_samples / wall / 1e6,
-                    set_metadata_album_s=set_s)
+                    set_metadata_album_s=set_s, launches=run)
 
             # 3. foreign chunks: track 1 as a WAVE with a LIST chunk
             # before its data and a chunk after it
@@ -1641,7 +1656,7 @@ def tags_phase(dev, alac_sig):
             for type_name in CHUNK_CARRIERS + ("alac",):
                 cls = dispatch.TYPE_MAP[type_name]
                 dest = os.path.join(work, "riff-" + type_name)
-                (code, _lines) = run_cli("track2track", [
+                (code, _lines, _run) = tool("track2track", [
                     "-t", type_name, "-d", dest, "-j", "1"] + CLI_FORMAT +
                     on_card + [riff])
                 converted = os.path.join(dest, "riff." + cls.SUFFIX)
@@ -1658,7 +1673,7 @@ def tags_phase(dev, alac_sig):
                                              "file is not from_pcm's")
                     continue
                 back = os.path.join(work, "back-" + type_name)
-                (code, _lines) = run_cli("track2track", [
+                (code, _lines, _run) = tool("track2track", [
                     "-t", "wav", "-d", back, "-j", "1"] + CLI_FORMAT +
                     on_card + [converted])
                 if code != 0 or read_bytes(os.path.join(
@@ -1672,7 +1687,7 @@ def tags_phase(dev, alac_sig):
             for type_name in ("flac", "wavpack"):
                 dest = os.path.join(work, "rg-" + type_name)
                 t0 = time.perf_counter()
-                (code, _lines) = run_cli("track2track", [
+                (code, _lines, _run) = tool("track2track", [
                     "-t", type_name, "--replay-gain", "-d", dest, "-j",
                     "2"] + CLI_FORMAT + on_card +
                     [s.filename for s in sources])
@@ -1709,14 +1724,14 @@ def tags_phase(dev, alac_sig):
             listed = [os.path.join(work, t, f) for (t, _q) in TAG_TARGETS
                       for f in sorted(os.listdir(os.path.join(work, t)))]
             for flags in ([], ["-L"], ["-C"]):
-                (code, lines) = run_cli("trackinfo", flags + on_card +
-                                        listed)
+                (code, lines, _run) = tool("trackinfo", flags + on_card +
+                                           listed)
                 text_out = "\n".join(lines)
                 if code != 0 or (flags != ["-C"] and not all(
                         title in text_out for title in titles)):
                     raise AssertionError("trackinfo %s exited %r: %s"
                                          % (flags, code, lines[:8]))
-            (code, lines) = run_cli("tracklength", on_card + [
+            (code, lines, _run) = tool("tracklength", on_card + [
                 os.path.join(work, t) for (t, _q) in TAG_TARGETS])
             want = len(TAG_TARGETS) * len(tracks) * per / SAMPLE_RATE
             if code != 0 or lines != ["%d:%02d:%02d" % (
@@ -1726,7 +1741,6 @@ def tags_phase(dev, alac_sig):
                                      % (code, lines))
         finally:
             time.time = wall_clock
-    launches = {k: fn.launches for (k, fn) in counters.items()}
     idle = [k for (k, n) in launches.items() if n <= 0]
     if on_cuda and idle:
         raise AssertionError("phase 22 never launched %s" % (idle,))

@@ -379,9 +379,10 @@ def convert_both(args, source):
 @pytest.mark.parametrize("type_name", ["flac", "wavpack", "alac"])
 def test_a_wave_with_foreign_chunks_is_refused(tmp_path, monkeypatch,
                                                type_name):
-    """no longer refused: a WAVE with a LIST chunk after its data chunk
-    converts to the reference's file, the chunk kept by FLAC's and
-    WavPack's from_wave and dropped by ALAC, which has none"""
+    """named for the refusal it once checked, which is gone: a WAVE with
+    a LIST chunk after its data chunk converts to the reference's file,
+    the chunk kept by FLAC's and WavPack's from_wave and dropped by
+    ALAC, which has none"""
     for (key, value) in REFERENCE_ENV.items():
         monkeypatch.setenv(key, value)
     monkeypatch.setattr(time, "time", lambda: CLOCK)
@@ -427,9 +428,10 @@ def test_flac_to_flac_carries_the_comments(tmp_path, monkeypatch):
 @pytest.mark.parametrize("type_name", ["alac", "tta", "shn", "wavpack"])
 def test_tags_that_cannot_be_carried_fail_the_job(tmp_path, monkeypatch,
                                                   type_name):
-    """no job fails for its tags any more: a tagged FLAC converts to the
-    reference's file, the title and number written into the target's
-    tags (none for Shorten, which holds none)"""
+    """named for the refusal it once checked, which is gone: no job
+    fails for its tags, and a tagged FLAC converts to the reference's
+    file, the title and number written into the target's tags (none
+    for Shorten, which holds none)"""
     for (key, value) in REFERENCE_ENV.items():
         monkeypatch.setenv(key, value)
     monkeypatch.setattr(time, "time", lambda: CLOCK)

@@ -180,8 +180,9 @@ def test_more_cards_than_there_are_raise(monkeypatch):
 
 
 def test_metadata_is_not_ported(tmp_path):
-    """ported now: a job's MetaData is written into its destination, as
-    the reference farm's set_metadata writes it"""
+    """named for the refusal it once checked, which is gone: a job's
+    MetaData is written into its destination, as the reference farm's
+    set_metadata writes it"""
     from audiotools_tpu.audiofile import MetaData as RefMetaData
     from audiotools_tpu.formats.wav import WaveAudio as RefWaveAudio
     from audiotools_tpu_torch.audiofile import MetaData

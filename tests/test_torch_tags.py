@@ -327,22 +327,29 @@ def test_tracklength_prints_the_references_total(runs, case):
         "0:00:13" if case == "length" else "0:00:06")
 
 
-def test_a_tag_the_target_cannot_write_raises(tmp_path):
+def test_a_tag_the_target_cannot_write_raises(tmp_path, monkeypatch):
     """a cover of no known image type in an APEv2 tag: converting the
-    track to ALAC raises, as the reference's does, and the job fails"""
-    path = str(tmp_path / "a.tta")
+    track to ALAC raises InvalidImage in set_metadata on both sides.
+    The reference's tool lets it out of main; the port's fails the job
+    with the same text, exit code 1 and no output file."""
+    from audiotools_tpu.meta.image import InvalidImage as RefInvalidImage
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    monkeypatch.chdir(tmp_path)
     track = dispatch.TYPE_MAP["tta"].from_pcm(
-        path, pcm.reader_from_array(signal(1, 800, SR), 16, SR),
+        "a.tta", pcm.reader_from_array(signal(1, 800, SR), 16, SR),
         device="cpu")
     track.update_metadata(ApeTag([ApeTagItem.binary(
         "Cover Art (front)", b"desc\x00not an image")]))
     with pytest.raises(InvalidImage):
         track.get_metadata().images()
-    (code, stdout, stderr) = port_tool(
-        "track2track", "-t", "alac", "-j", "1", "-d", str(tmp_path / "out"),
-        path)
-    assert (code, stdout) == (1, "")
-    assert stderr.startswith("*** Error: ")
+    with pytest.raises(RefInvalidImage) as ref_err:
+        ref_tool("track2track", "-t", "alac", "-j", "1", "-d", "ref",
+                 "a.tta")
+    assert port_tool("track2track", "-t", "alac", "-j", "1", "-d", "port",
+                     "a.tta") == (1, "", "*** Error: %s\n" % (ref_err.value,))
+    assert not os.path.exists("port") or os.listdir("port") == []
 
 
 @pytest.mark.cuda
