@@ -1,5 +1,7 @@
 """The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
-kernels, the converters' host twins, and MD5.
+kernels, the quantized upload wire's scans (``flac_qpack``,
+``flac_qpack_patched``, ``flac_qplan_t``), the converters' host twins,
+and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
 Shorten, WavPack, converter, CRC and MD5 parts of the reference
@@ -349,6 +351,43 @@ def _bind(lib):
     lib.atpu_md5_final.restype = None
     lib.atpu_md5_final.argtypes = [_U8, _U8]
 
+    lib.atpu_flac_qplan.restype = ctypes.c_int32
+    lib.atpu_flac_qplan.argtypes = [
+        _I32,               # blocks [B, n, ch]
+        ctypes.c_int64,     # B
+        ctypes.c_int64,     # n
+        ctypes.c_int64,     # ch
+        ctypes.c_int32,     # bps
+        ctypes.c_int32,     # guard
+        ctypes.c_int32,     # cap_margin
+        ctypes.c_int32,     # noise_extra
+        ctypes.c_int32,     # stereo_trial
+        _I32,               # t_out [B, ch]
+        _I32,               # x0_out [B, ch]
+        _I32,               # or_out [B, V]
+        _U8,                # const_out [B, V]
+        _U8,                # md5_state (nullable)
+    ]
+    lib.atpu_flac_qpack_bits.restype = None
+    lib.atpu_flac_qpack_bits.argtypes = [
+        _I32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _I32,               # t [B, ch]
+        ctypes.c_int32,     # k
+        _U32,               # packed [B, ch, W]
+        ctypes.c_int64,     # W
+    ]
+    lib.atpu_flac_qpack_bits2.restype = ctypes.c_int32
+    lib.atpu_flac_qpack_bits2.argtypes = [
+        _I32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _I32,               # t [B, ch]
+        ctypes.c_int32,     # k_base
+        _U32,               # packed [B, ch, W]
+        ctypes.c_int64,     # W
+        ctypes.c_int32,     # E
+        _I32,               # exc_pos [B, ch, E]
+        _U32,               # exc_val [B, ch, E]
+    ]
+
     return lib
 
 
@@ -361,7 +400,7 @@ def flac_emit_frames2(blocks, frame_numbers, block_sizes, packed,
                       sample_rate, stream_bps, stream_channels,
                       qlp_precision, compact=False,
                       rb_words=None, rb_bits=None,
-                      emit_max_rice=None):
+                      emit_max_rice=None, probe_thr=None, probe_out=None):
     """emits FLAC frames from raw PCM blocks + packed decision rows
 
     blocks: int32 [n_frames, max_block, channels] interleaved PCM
@@ -373,6 +412,12 @@ def flac_emit_frames2(blocks, frame_numbers, block_sizes, packed,
     emit_max_rice: emit-stage exact Rice re-search bound; None derives
             14/30 from stream_bps when ATPU_EMIT_EXACT_RICE is active
             (the default), -1 disables.  Ignored on the splice path.
+    probe_thr/probe_out: optional int32 [n_frames] / uint8 [n_frames],
+            the quantization-floor retry's second stage, read off the
+            exact residuals the emitter derives: a frame with
+            probe_thr >= 0 and a coded subframe whose mean |residual|
+            bit length is <= probe_thr gets probe_out 1 (the caller
+            zeroes probe_out).  Ignored on the splice path.
     returns (frame bytes, per-frame byte lengths int64 array)"""
     lib = get_lib()
     if emit_max_rice is None:
@@ -409,8 +454,14 @@ def flac_emit_frames2(blocks, frame_numbers, block_sizes, packed,
             _as_ptr(rb_words, ctypes.c_uint32),
             _as_ptr(rb_bits, ctypes.c_int64), rb_words.shape[1])
     else:
+        if probe_thr is not None:
+            probe_thr = np.ascontiguousarray(probe_thr, dtype=np.int32)
         total = lib.atpu_flac_emit_frames2(
-            *common, int(emit_max_rice), None, None,
+            *common, int(emit_max_rice),
+            None if probe_thr is None else _as_ptr(probe_thr,
+                                                   ctypes.c_int32),
+            None if probe_out is None else _as_ptr(probe_out,
+                                                   ctypes.c_uint8),
             _as_ptr(out, ctypes.c_uint8),
             _as_ptr(out_ends, ctypes.c_int64), worst)
     if total == -31:
@@ -422,6 +473,106 @@ def flac_emit_frames2(blocks, frame_numbers, block_sizes, packed,
         raise ValueError("frame emit error (code %d)" % (total,))
     lens = np.diff(np.concatenate([[0], out_ends]))
     return (out[:total].tobytes(), lens)
+
+
+def _qplan(blocks, bps, guard, cap_margin, noise_extra, stereo_trial,
+           md5):
+    """the plan scan: (blocks int32 [B, n, ch], raw wire width, t, x0,
+    or_vals, const_flags)"""
+    from ..ops import qpack
+    if guard is None:
+        guard = qpack.guard_bits()
+    if cap_margin is None:
+        cap_margin = qpack.cap_margin()
+    if noise_extra is None:
+        noise_extra = qpack.noise_extra()
+    lib = get_lib()
+    blocks = np.ascontiguousarray(blocks, dtype=np.int32)
+    (B, n, ch) = blocks.shape
+    stereo = bool(stereo_trial and ch == 2)
+    V = 4 if stereo else ch
+    t = np.empty((B, ch), dtype=np.int32)
+    x0 = np.empty((B, ch), dtype=np.int32)
+    or_vals = np.empty((B, V), dtype=np.int32)
+    const_flags = np.empty((B, V), dtype=np.uint8)
+    k = lib.atpu_flac_qplan(
+        _as_ptr(blocks, ctypes.c_int32), B, n, ch, int(bps), int(guard),
+        int(cap_margin), int(noise_extra), 1 if stereo else 0,
+        _as_ptr(t, ctypes.c_int32), _as_ptr(x0, ctypes.c_int32),
+        _as_ptr(or_vals, ctypes.c_int32),
+        _as_ptr(const_flags, ctypes.c_uint8),
+        None if md5 is None else _as_ptr(md5._state, ctypes.c_uint8))
+    return (blocks, int(k), t, x0, or_vals, const_flags.astype(bool))
+
+
+def flac_qpack(blocks, bps, guard, stereo_trial, cap_margin=None,
+               md5=None, noise_extra=None):
+    """plans and bit-packs the plain quantized upload wire
+    (ops/qpack.py) in one scan of the samples
+
+    blocks: int32 [B, n, ch] exact samples; md5: an MD5 that the stream
+    hash of these samples is folded into during the scan, or None;
+    cap_margin, noise_extra: ops/qpack's settings when None.  Returns
+    (packed uint32 [B, ch, W], k, t int32 [B, ch], x0 int32 [B, ch],
+    or_vals int32 [B, V], const_flags bool [B, V]), the words those of
+    ops/qpack.pack"""
+    from ..ops import qpack
+    (blocks, k, t, x0, or_vals, const_flags) = _qplan(
+        blocks, bps, guard, cap_margin, noise_extra, stereo_trial, md5)
+    (B, n, ch) = blocks.shape
+    if n > 1:
+        k = qpack.round_k(k)
+    W = ((n - 1) * k + 31) // 32 + 1 if n > 1 else 1
+    packed = np.zeros((B, ch, W), dtype=np.uint32)
+    if n > 1:
+        get_lib().atpu_flac_qpack_bits(
+            _as_ptr(blocks, ctypes.c_int32), B, n, ch,
+            _as_ptr(t, ctypes.c_int32), int(k),
+            _as_ptr(packed, ctypes.c_uint32), W)
+    return (packed, int(k), t, x0, or_vals, const_flags)
+
+
+def flac_qpack_patched(blocks, bps, guard, stereo_trial, k_base, E,
+                       cap_margin=None, md5=None, noise_extra=None):
+    """flac_qpack's scan with the patched-base wire: every difference
+    packed at ``k_base`` (None: one K_GRID step below the plain width),
+    the wider values as at most ``E`` (position, value) exceptions per
+    (block, channel); n must exceed 1
+
+    returns (packed uint32 [B, ch, W], k_full, t, x0, or_vals,
+    const_flags, exc_pos int32 [B, ch, E], exc_val uint32 [B, ch, E],
+    max_exc, kb): k_full the plain wire's width, kb the base width
+    used.  max_exc > E means the words and exceptions are not valid."""
+    from ..ops import qpack
+    (blocks, k_raw, t, x0, or_vals, const_flags) = _qplan(
+        blocks, bps, guard, cap_margin, noise_extra, stereo_trial, md5)
+    (B, n, ch) = blocks.shape
+    if n <= 1:
+        raise ValueError("patched qpack wire requires n > 1")
+    k_full = qpack.round_k(k_raw)
+    if k_base is None:
+        below = [g for g in qpack.K_GRID if g < k_full]
+        k_base = below[-1] if below else k_full
+    kb = min(int(k_base), k_full)
+    W = ((n - 1) * kb + 31) // 32 + 1
+    packed = np.zeros((B, ch, W), dtype=np.uint32)
+    exc_pos = np.empty((B, ch, E), dtype=np.int32)
+    exc_val = np.empty((B, ch, E), dtype=np.uint32)
+    max_exc = get_lib().atpu_flac_qpack_bits2(
+        _as_ptr(blocks, ctypes.c_int32), B, n, ch,
+        _as_ptr(t, ctypes.c_int32), kb,
+        _as_ptr(packed, ctypes.c_uint32), W, int(E),
+        _as_ptr(exc_pos, ctypes.c_int32), _as_ptr(exc_val, ctypes.c_uint32))
+    return (packed, k_full, t, x0, or_vals, const_flags, exc_pos, exc_val,
+            int(max_exc), kb)
+
+
+def flac_qplan_t(blocks, bps, guard=None, cap_margin=None, noise_extra=0):
+    """the quantization shift t of each (block, channel) alone, from the
+    plan scan (ops/qpack.plan_t's spec); noise_extra=0 gives the base
+    plan the floor retry's first stage compares against"""
+    return _qplan(blocks, bps, guard, cap_margin, noise_extra, False,
+                  None)[2]
 
 
 def flac_decode(data, stream_bps, stream_channels, max_samples,

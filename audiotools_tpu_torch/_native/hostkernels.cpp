@@ -1629,6 +1629,476 @@ uint8_t atpu_crc8(const uint8_t* data, int64_t n, uint8_t initial) {
 }
 
 // ---------------------------------------------------- polyphase FIR --
+// ---------------------------------------------- quantized upload --
+// The FLAC/ALAC quantized upload wire (spec: ops/qpack.py plan_t,
+// variant_sideband, pack, pack_patched): the plan scan with the
+// exact sideband and the MD5 fold, and the two bit packs.
+
+// the per-channel quantization shift t (spec: ops/qpack.plan_t).
+// Noise-adaptive coarsening (noise_extra > 0): blocks whose mean
+// |second difference| is >= 1.6x the mean |first difference| are
+// noise-dominated (white noise gives sqrt(3) ~= 1.73, tonal content
+// <= ~1.0 — differencing amplifies noise but cancels smooth
+// structure), so t gains noise_extra bits and the cap releases by 2;
+// the emit-stage exact entropy re-search keeps coded size unaffected
+// there while the wire width typically halves
+static inline int qplan_t_for(const int32_t* xb, int64_t n,
+                              int32_t bps, int32_t guard,
+                              int32_t cap_margin,
+                              int32_t noise_extra) {
+    if (n <= 2) return 0;
+    uint64_t sum1 = 0, sum2 = 0;
+    for (int64_t i = 2; i < n; i++) {
+        const int32_t d1 = xb[i] - xb[i - 1];
+        const int32_t d2 = d1 - (xb[i - 1] - xb[i - 2]);
+        sum1 += (uint32_t)(d1 < 0 ? -d1 : d1);
+        sum2 += (uint32_t)(d2 < 0 ? -d2 : d2);
+    }
+    const int32_t d0 = xb[1] - xb[0];
+    sum1 += (uint32_t)(d0 < 0 ? -d0 : d0);
+    const uint64_t m = sum2 / (uint64_t)(n - 2);
+    int extra = 0;
+    int margin = cap_margin;
+    // pre-shift (spec: ops/qpack.plan_t): sum2 < 2^(bps+18), so the
+    // 5/8 cross-multiply would wrap uint64 above bps 29 at n = 65535;
+    // shifting both sums by max(0, bps-26) keeps 5*(sum2>>s)*(n-1)
+    // provably < 2^63 for every admitted bps (s == 0 for bps <= 26,
+    // i.e. all real 16/24-bit content incl. side channels)
+    const int pshift = bps > 26 ? bps - 26 : 0;
+    if (noise_extra > 0 && m > 0 &&
+        5 * (sum2 >> pshift) * (uint64_t)(n - 1) >=
+            8 * (sum1 >> pshift) * (uint64_t)(n - 2)) {
+        extra = noise_extra;
+        margin = cap_margin > 2 ? cap_margin - 2 : 0;
+    }
+    const int cap = (bps > margin) ? (bps - margin) : 0;
+    int t = bit_length_u64(m) - 1 - guard + extra;
+    if (t < 0) t = 0;
+    if (t > cap) t = cap;
+    return t;
+}
+
+int32_t atpu_flac_qplan(const int32_t* blocks,   // [B, n, ch]
+                        int64_t B, int64_t n, int64_t ch,
+                        int32_t bps, int32_t guard,
+                        int32_t cap_margin,      // t <= bps - margin
+                        int32_t noise_extra,
+                        int32_t stereo_trial,
+                        int32_t* t_out,          // [B, ch]
+                        int32_t* x0_out,         // [B, ch]
+                        int32_t* or_out,         // [B, V]
+                        uint8_t* const_out,      // [B, V]
+                        uint8_t* md5_state) {    // optional (may be null)
+    // md5_state: when non-null, the stream MD5 (packed little-endian
+    // signed PCM at bps) is folded into this scan while each block is
+    // cache-hot, replacing a separate full pass over the batch
+    const int64_t V = (stereo_trial && ch == 2) ? 4 : ch;
+    uint64_t max_u = 0;
+
+    // per-channel deinterleave buffer: unit-stride scans vectorize
+    // where the strided originals ran scalar; one block-channel is
+    // L1/L2-resident (<= 128 KB at n = 4096, ch <= 8)
+    static thread_local int32_t* chan_buf = nullptr;
+    static thread_local int64_t chan_cap = 0;
+    if (n * ch > chan_cap) {
+        delete[] chan_buf;
+        chan_buf = new int32_t[n * ch];
+        chan_cap = n * ch;
+    }
+
+    for (int64_t b = 0; b < B; b++) {
+        const int32_t* blk = blocks + b * n * ch;
+
+#ifdef ATPU_AVX512
+        // stereo fast path: ONE pass over the interleaved PCM does
+        // the deinterleave (cross-register permutes) AND the L/R/M/S
+        // OR-ne sideband — the loads are shared, and the reductions
+        // run 16-wide
+        if (stereo_trial && ch == 2 && n >= 32) {
+            alignas(64) static const int32_t EVEN[16] = {
+                0, 2, 4, 6, 8, 10, 12, 14,
+                16, 18, 20, 22, 24, 26, 28, 30};
+            alignas(64) static const int32_t ODD[16] = {
+                1, 3, 5, 7, 9, 11, 13, 15,
+                17, 19, 21, 23, 25, 27, 29, 31};
+            const __m512i evp =
+                _mm512_load_si512((const __m512i*)EVEN);
+            const __m512i odp =
+                _mm512_load_si512((const __m512i*)ODD);
+            const int32_t L0s = blk[0];
+            const int32_t R0s = blk[1];
+            const __m512i L0v = _mm512_set1_epi32(L0s);
+            const __m512i R0v = _mm512_set1_epi32(R0s);
+            const __m512i M0v = _mm512_set1_epi32((L0s + R0s) >> 1);
+            const __m512i S0v = _mm512_set1_epi32(L0s - R0s);
+            __m512i orL = _mm512_setzero_si512();
+            __m512i orR = orL, orM = orL, orS = orL;
+            __m512i neL = orL, neR = orL, neM = orL, neS = orL;
+            int32_t* dstL = chan_buf;
+            int32_t* dstR = chan_buf + n;
+            int64_t i = 0;
+            for (; i + 16 <= n; i += 16) {
+                const __m512i a = _mm512_loadu_si512(
+                    (const __m512i*)(blk + i * 2));
+                const __m512i bb = _mm512_loadu_si512(
+                    (const __m512i*)(blk + i * 2 + 16));
+                const __m512i L = _mm512_permutex2var_epi32(
+                    a, evp, bb);
+                const __m512i R = _mm512_permutex2var_epi32(
+                    a, odp, bb);
+                const __m512i M = _mm512_srai_epi32(
+                    _mm512_add_epi32(L, R), 1);
+                const __m512i S = _mm512_sub_epi32(L, R);
+                _mm512_storeu_si512((__m512i*)(dstL + i), L);
+                _mm512_storeu_si512((__m512i*)(dstR + i), R);
+                orL = _mm512_or_si512(orL, L);
+                orR = _mm512_or_si512(orR, R);
+                orM = _mm512_or_si512(orM, M);
+                orS = _mm512_or_si512(orS, S);
+                neL = _mm512_or_si512(neL, _mm512_xor_si512(L, L0v));
+                neR = _mm512_or_si512(neR, _mm512_xor_si512(R, R0v));
+                neM = _mm512_or_si512(neM, _mm512_xor_si512(M, M0v));
+                neS = _mm512_or_si512(neS, _mm512_xor_si512(S, S0v));
+            }
+            int32_t oL = (int32_t)_mm512_reduce_or_epi32(orL);
+            int32_t oR = (int32_t)_mm512_reduce_or_epi32(orR);
+            int32_t oM = (int32_t)_mm512_reduce_or_epi32(orM);
+            int32_t oS = (int32_t)_mm512_reduce_or_epi32(orS);
+            int32_t nL = (int32_t)_mm512_reduce_or_epi32(neL);
+            int32_t nR = (int32_t)_mm512_reduce_or_epi32(neR);
+            int32_t nM = (int32_t)_mm512_reduce_or_epi32(neM);
+            int32_t nS = (int32_t)_mm512_reduce_or_epi32(neS);
+            for (; i < n; i++) {
+                const int32_t L = blk[i * 2];
+                const int32_t R = blk[i * 2 + 1];
+                const int32_t M = (L + R) >> 1;
+                const int32_t S = L - R;
+                dstL[i] = L; dstR[i] = R;
+                oL |= L; oR |= R; oM |= M; oS |= S;
+                nL |= (L ^ L0s); nR |= (R ^ R0s);
+                nM |= (M ^ ((L0s + R0s) >> 1));
+                nS |= (S ^ (L0s - R0s));
+            }
+            or_out[b * V + 0] = oL; or_out[b * V + 1] = oR;
+            or_out[b * V + 2] = oM; or_out[b * V + 3] = oS;
+            const_out[b * V + 0] = (nL == 0);
+            const_out[b * V + 1] = (nR == 0);
+            const_out[b * V + 2] = (nM == 0);
+            const_out[b * V + 3] = (nS == 0);
+
+            if (md5_state != nullptr)
+                atpu_md5_update_pcm(md5_state, blk, n * 2, bps / 8, 1);
+
+            for (int64_t c = 0; c < 2; c++) {
+                const int32_t* xb = chan_buf + c * n;
+                x0_out[b * 2 + c] = xb[0];
+                const int t = qplan_t_for(xb, n, bps, guard,
+                                          cap_margin, noise_extra);
+                t_out[b * 2 + c] = t;
+                uint32_t wid = 0;
+                int32_t prev = xb[0] >> t;
+                for (int64_t j = 1; j < n; j++) {
+                    const int32_t xq = xb[j] >> t;
+                    const int32_t d = xq - prev;
+                    prev = xq;
+                    wid |= ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+                }
+                if ((uint64_t)wid > max_u) max_u = wid;
+            }
+            continue;
+        }
+#endif
+        // deinterleave once (the only strided pass)
+        for (int64_t c = 0; c < ch; c++) {
+            int32_t* dst = chan_buf + c * n;
+            for (int64_t i = 0; i < n; i++)
+                dst[i] = blk[i * ch + c];
+        }
+
+        // exactness sideband over the exact samples (unit-stride);
+        // the mid/side OR-ne pass shares the L/R loads
+        if (stereo_trial && ch == 2) {
+            const int32_t* Lb = chan_buf;
+            const int32_t* Rb = chan_buf + n;
+            const int32_t L0 = Lb[0];
+            const int32_t R0 = Rb[0];
+            const int32_t m0 = (L0 + R0) >> 1;
+            const int32_t s0 = L0 - R0;
+            int32_t orL = 0, orR = 0, orM = 0, orS = 0;
+            int32_t neL = 0, neR = 0, neM = 0, neS = 0;
+            for (int64_t i = 0; i < n; i++) {
+                const int32_t L = Lb[i];
+                const int32_t R = Rb[i];
+                const int32_t M = (L + R) >> 1;
+                const int32_t S = L - R;
+                orL |= L; orR |= R; orM |= M; orS |= S;
+                neL |= (L ^ L0); neR |= (R ^ R0);
+                neM |= (M ^ m0); neS |= (S ^ s0);
+            }
+            or_out[b * V + 0] = orL; or_out[b * V + 1] = orR;
+            or_out[b * V + 2] = orM; or_out[b * V + 3] = orS;
+            const_out[b * V + 0] = (neL == 0);
+            const_out[b * V + 1] = (neR == 0);
+            const_out[b * V + 2] = (neM == 0);
+            const_out[b * V + 3] = (neS == 0);
+        } else {
+            for (int64_t c = 0; c < ch; c++) {
+                const int32_t* xb = chan_buf + c * n;
+                int32_t orv = 0, ne = 0;
+                const int32_t f0 = xb[0];
+                for (int64_t i = 0; i < n; i++) {
+                    orv |= xb[i];
+                    ne |= (xb[i] ^ f0);
+                }
+                or_out[b * V + c] = orv;
+                const_out[b * V + c] = (ne == 0);
+            }
+        }
+
+        if (md5_state != nullptr)
+            atpu_md5_update_pcm(md5_state, blk, n * ch, bps / 8, 1);
+
+        // t from the first/second-difference scan (qplan_t_for);
+        // then the diff width pass
+        for (int64_t c = 0; c < ch; c++) {
+            const int32_t* xb = chan_buf + c * n;
+            x0_out[b * ch + c] = xb[0];
+            const int t = qplan_t_for(xb, n, bps, guard,
+                                      cap_margin, noise_extra);
+            t_out[b * ch + c] = t;
+
+            // max zigzag width of quantized first differences:
+            // max |u| == 2 * max(d, -d - 1); track the OR of both
+            // shifted diffs and read the width off one bit_length
+            uint32_t wid = 0;
+            int32_t prev = xb[0] >> t;
+            for (int64_t i = 1; i < n; i++) {
+                const int32_t xq = xb[i] >> t;
+                const int32_t d = xq - prev;
+                prev = xq;
+                const uint32_t u =
+                    ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+                wid |= u;
+            }
+            if ((uint64_t)wid > max_u) max_u = wid;
+        }
+    }
+    const int k = bit_length_u64(max_u);
+    return k > 0 ? k : 1;
+}
+
+// Bit-packs zigzag first-differences of the quantized samples at
+// width k into little-endian uint32 lanes ([B, ch, W] with
+// W = ceil((n-1)*k/32) + 1, caller-zeroed) — same words as
+// ops/qpack.py pack().
+// packs one scratch row of k-bit tokens into little-endian uint32
+// lanes.  For the word-aligned grid widths (32 % k == 0: k = 4/8/16,
+// the common cases) this is an exact per-word OR chain with no
+// carried accumulator state — fully unrolled, no data-dependent
+// branches; other widths use a 64-bit accumulator drain.
+static void pack_row(const uint32_t* zz, int64_t m, int32_t k,
+                     uint32_t* out) {
+    if (k > 0 && 32 % k == 0) {
+        const int G = 32 / k;              // values per word
+        const int64_t full = m / G;
+        for (int64_t w = 0; w < full; w++) {
+            const uint32_t* v = zz + w * (int64_t)G;
+            uint32_t word = 0;
+            for (int g = 0; g < G; g++)
+                word |= v[g] << (g * k);
+            out[w] = word;
+        }
+        uint32_t word = 0;
+        for (int64_t i = full * G; i < m; i++)
+            word |= zz[i] << ((i - full * G) * k);
+        if (m > full * G)
+            out[full] = word;
+    } else {
+        uint64_t acc = 0;
+        int accbits = 0;
+        for (int64_t i = 0; i < m; i++) {
+            acc |= (uint64_t)zz[i] << accbits;
+            accbits += k;
+            if (accbits >= 32) {
+                *out++ = (uint32_t)acc;
+                acc >>= 32;
+                accbits -= 32;
+            }
+        }
+        if (accbits > 0)
+            *out = (uint32_t)acc;
+    }
+}
+
+// fills zz_all[c*n .. c*n + (n-1)) with the zigzag first differences
+// of channel c quantized at t_row[c] (shared by both pack entries)
+static void qpack_zigzag_block(const int32_t* blk, int64_t n,
+                               int64_t ch, const int32_t* t_row,
+                               uint32_t* zz_all) {
+    {
+#ifdef ATPU_AVX512
+        if (ch == 2) {
+            // both channels' quantized zigzag diffs in ONE pass over
+            // the interleaved PCM: two cross-register permutes
+            // deinterleave 16 pairs/step (the emitter's pattern), so
+            // the strided loads that kept the scalar loop serial
+            // become wide unit-stride ones
+            alignas(64) static const int32_t EVEN[16] = {
+                0, 2, 4, 6, 8, 10, 12, 14,
+                16, 18, 20, 22, 24, 26, 28, 30};
+            alignas(64) static const int32_t ODD[16] = {
+                1, 3, 5, 7, 9, 11, 13, 15,
+                17, 19, 21, 23, 25, 27, 29, 31};
+            const __m512i evp = _mm512_load_si512((const __m512i*)EVEN);
+            const __m512i odp = _mm512_load_si512((const __m512i*)ODD);
+            const __m128i sh0 = _mm_cvtsi64_si128(t_row[0]);
+            const __m128i sh1 = _mm_cvtsi64_si128(t_row[1]);
+            const int tt0 = t_row[0], tt1 = t_row[1];
+            uint32_t* z0 = zz_all;
+            uint32_t* z1 = zz_all + n;
+            int32_t p0 = blk[0] >> tt0;
+            int32_t p1 = blk[1] >> tt1;
+            int64_t i = 1;
+            for (; i + 16 <= n; i += 16) {
+                const __m512i a = _mm512_loadu_si512(
+                    (const __m512i*)(blk + i * 2));
+                const __m512i bb = _mm512_loadu_si512(
+                    (const __m512i*)(blk + i * 2 + 16));
+                const __m512i q0 = _mm512_sra_epi32(
+                    _mm512_permutex2var_epi32(a, evp, bb), sh0);
+                const __m512i q1 = _mm512_sra_epi32(
+                    _mm512_permutex2var_epi32(a, odp, bb), sh1);
+                // previous-quantized vector: lane j-1 of q, lane -1
+                // from the carried scalar
+                const __m512i pr0 = _mm512_alignr_epi32(
+                    q0, _mm512_set1_epi32(p0), 15);
+                const __m512i pr1 = _mm512_alignr_epi32(
+                    q1, _mm512_set1_epi32(p1), 15);
+                const __m512i d0 = _mm512_sub_epi32(q0, pr0);
+                const __m512i d1 = _mm512_sub_epi32(q1, pr1);
+                const __m512i u0 = _mm512_xor_si512(
+                    _mm512_slli_epi32(d0, 1), _mm512_srai_epi32(d0, 31));
+                const __m512i u1 = _mm512_xor_si512(
+                    _mm512_slli_epi32(d1, 1), _mm512_srai_epi32(d1, 31));
+                _mm512_storeu_si512((__m512i*)(z0 + i - 1), u0);
+                _mm512_storeu_si512((__m512i*)(z1 + i - 1), u1);
+                p0 = (int32_t)_mm_cvtsi128_si32(
+                    _mm512_castsi512_si128(_mm512_alignr_epi32(
+                        q0, q0, 15)));
+                p1 = (int32_t)_mm_cvtsi128_si32(
+                    _mm512_castsi512_si128(_mm512_alignr_epi32(
+                        q1, q1, 15)));
+            }
+            for (; i < n; i++) {
+                const int32_t xq0 = blk[i * 2] >> tt0;
+                const int32_t xq1 = blk[i * 2 + 1] >> tt1;
+                const int32_t d0 = xq0 - p0, d1 = xq1 - p1;
+                p0 = xq0; p1 = xq1;
+                z0[i - 1] = ((uint32_t)d0 << 1) ^ (uint32_t)(d0 >> 31);
+                z1[i - 1] = ((uint32_t)d1 << 1) ^ (uint32_t)(d1 >> 31);
+            }
+            return;
+        }
+#endif
+        for (int64_t c = 0; c < ch; c++) {
+            const int tt = t_row[c];
+            const int32_t* src = blk + c;
+            uint32_t* zz = zz_all + c * n;
+            int32_t prev = src[0] >> tt;
+            for (int64_t i = 1; i < n; i++) {
+                const int32_t xq = src[i * ch] >> tt;
+                const int32_t d = xq - prev;   // fits int32: k <= 31
+                prev = xq;
+                zz[i - 1] = ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+            }
+        }
+    }
+}
+
+static thread_local uint32_t* qpack_zz_all = nullptr;
+static thread_local int64_t qpack_zz_cap = 0;
+
+static inline uint32_t* qpack_zz_scratch(int64_t need) {
+    if (need > qpack_zz_cap) {
+        delete[] qpack_zz_all;
+        qpack_zz_all = new uint32_t[need];
+        qpack_zz_cap = need;
+    }
+    return qpack_zz_all;
+}
+
+void atpu_flac_qpack_bits(const int32_t* blocks,   // [B, n, ch]
+                          int64_t B, int64_t n, int64_t ch,
+                          const int32_t* t, int32_t k,
+                          uint32_t* packed, int64_t W) {
+    // two passes per (block, channel): a quantize + zigzag-first-
+    // difference pass into a scratch row (AVX deinterleave for
+    // stereo; shift/sub/xor auto-vectorizes elsewhere), then the
+    // pack_row bit pack above.
+    uint32_t* zz_all = qpack_zz_scratch(n * ch);
+    for (int64_t b = 0; b < B; b++) {
+        const int32_t* blk = blocks + b * n * ch;
+        qpack_zigzag_block(blk, n, ch, t + b * ch, zz_all);
+        for (int64_t c = 0; c < ch; c++)
+            pack_row(zz_all + c * n, n - 1, k,
+                     packed + (b * ch + c) * W);
+    }
+}
+
+// Patched-base wire: packs every diff at the NARROW width k_base and
+// records the rare values needing more bits as (position, full
+// value) exceptions — the device unpack scatters them back before
+// the cumsum, so reconstruction stays exact while the wire drops
+// from k_full to ~k_base bits/sample (content-measured: the zigzag
+// diff distribution's mean bit length sits 2-3 bits under its max).
+// Exceptions beyond E per (block, channel) are counted but not
+// recorded; the caller MUST treat max_count > E as an invalid pack
+// and retry with a larger E or the plain format.  Unused exception
+// slots pad with (pos 0, the true value at pos 0) — scattering a
+// duplicate of an exact value is a no-op.
+int32_t atpu_flac_qpack_bits2(const int32_t* blocks,  // [B, n, ch]
+                              int64_t B, int64_t n, int64_t ch,
+                              const int32_t* t, int32_t k_base,
+                              uint32_t* packed, int64_t W,
+                              int32_t E,
+                              int32_t* exc_pos,       // [B, ch, E]
+                              uint32_t* exc_val) {    // [B, ch, E]
+    uint32_t* zz_all = qpack_zz_scratch(n * ch);
+    const uint32_t mask = (k_base >= 32)
+        ? 0xFFFFFFFFu : ((1u << k_base) - 1u);
+    int32_t max_count = 0;
+    for (int64_t b = 0; b < B; b++) {
+        const int32_t* blk = blocks + b * n * ch;
+        qpack_zigzag_block(blk, n, ch, t + b * ch, zz_all);
+        for (int64_t c = 0; c < ch; c++) {
+            uint32_t* zz = zz_all + c * n;
+            const int64_t m = n - 1;
+            int32_t* pos = exc_pos + (b * ch + c) * E;
+            uint32_t* val = exc_val + (b * ch + c) * E;
+            const uint32_t u0 = m > 0 ? zz[0] : 0;
+            int32_t cnt = 0;
+            for (int64_t i = 0; i < m; i++) {
+                const uint32_t u = zz[i];
+                if (u >> k_base) {
+                    if (cnt < E) {
+                        pos[cnt] = (int32_t)i;
+                        val[cnt] = u;
+                    }
+                    cnt++;
+                    zz[i] = u & mask;
+                }
+            }
+            for (int32_t e = cnt < E ? cnt : E; e < E; e++) {
+                pos[e] = 0;
+                val[e] = u0;   // true u at pos 0 (saved pre-mask)
+            }
+            if (cnt > max_count) max_count = cnt;
+            pack_row(zz, m, k_base, packed + (b * ch + c) * W);
+        }
+    }
+    return max_count;
+}
+
 }  // extern "C"
 
 // ------------------------------------------------------------ decoding --

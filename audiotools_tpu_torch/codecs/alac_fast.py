@@ -7,20 +7,27 @@ C++ emitter (``_native.alac_emit_framesets``); the batchable front
 half, the LPC candidates of every (block, group, leftweight, channel),
 runs on the device (``ops/alac_frames.py``).  Per batch of blocks:
 
-1. the blocks go up as int16 (bps <= 16) or int32 through a pinned
-   host buffer, on a side CUDA stream;
+1. the quantized upload wire, as in the reference (``ATPU_ALAC_QPACK``
+   unset or not "0", and block_size > 2): the LSB shift of a > 16-bit
+   stream runs on the host first, then one C++ scan
+   (``_native.flac_qpack``) plans each (block, channel)'s shift t and
+   packs the zigzag first differences of the shifted samples; the wire
+   goes up in one pinned upload on a side CUDA stream and
+   ``qpack.unpack_wire`` rebuilds ``(x >> t) << t`` on the device.
+   With the wire off the blocks go up as int16 (bps <= 16) or int32;
 2. ``alac_frames.analyze_framesets_packed`` runs on the device and its
    packed candidate rows come back to pinned host memory;
-3. the emitter picks each group's leftweight and order from the
+3. on the wire, the quantization-floor retry (``_floor_retry``): a
+   group whose chosen estimate sits at or above the quantization band
+   is analysed again from the exact samples on the device, and keeps
+   whichever candidate set scores lower;
+4. the emitter picks each group's leftweight and order from the
    candidates' estimates and writes the framesets.
 
 Batch i+1 is submitted before batch i is emitted, so the card works
-on batch i+1 while the host emits batch i.  The device sees the exact
-samples: the reference's quantized upload (its ``ATPU_ALAC_QPACK``
-wire and floor retry) is not ported, so the output equals the
-reference's with ``ATPU_ALAC_QPACK=0``.  A short final block is
-zero-padded to a whole block for the analysis and emitted at its true
-length, as in the reference.
+on batch i+1 while the host emits batch i.  A short final block is
+zero-padded to a whole block for the analysis (and its plan) and
+emitted at its true length, as in the reference.
 
 ``FastALACDecoder`` is the reference's host decoder: the atom parse
 (``ref/alac.read_m4a_header``), frameset decode in C++
@@ -35,29 +42,103 @@ import numpy as np
 import torch
 
 from .. import _native, pcm
-from .._device import resolve_device
-from ..ops import alac_frames, lpc as lpc_ops
+from .._device import COUNT_LOCK, resolve_device
+from ..ops import alac_frames, lpc as lpc_ops, qpack
 from ..ref import alac as oracle
 
 # blocks per device batch: 1024 stereo 4096-sample blocks are 16 MB of
 # int16 upload and about 10 GB of analysis temporaries on the card
 BATCH_FRAMES = 1024
 
-# per-stage seconds reported through encode_mdat_fast(timings=...)
-STAGES = ("upload", "analysis", "fetch", "emit")
+# process-wide counts for reports, added to under _device.COUNT_LOCK:
+# wire batches, and (block, group)s the floor retry analysed again
+wire_batches = 0
+floor_groups = 0
+
+# per-stage seconds reported through encode_mdat_fast(timings=...):
+# qpack (the host scan and wire), the device stages, floor (the floor
+# retry's exact re-analysis) and emit
+STAGES = ("qpack", "upload", "analysis", "fetch", "floor", "emit")
 
 
 class _Batch:
     """one submitted batch: its host blocks and their true lengths, the
-    packed candidates on their way to host memory, and what times its
-    device stages"""
+    wire's t (or None), the packed candidates on their way to host
+    memory, and what times its device stages"""
 
-    def __init__(self, blocks, ns):
+    def __init__(self, blocks, ns, t):
         self.blocks = blocks
         self.ns = ns
+        self.t = t
         self.host = None        # packed candidates
         self.events = None      # CUDA: stage boundary events
         self.cpu_times = None   # CPU: (upload, analysis, fetch) s
+
+
+def _bit_length(v):
+    """bit_length of each value of a non-negative int64 array"""
+    v = np.asarray(v, dtype=np.int64).copy()
+    bl = np.zeros_like(v)
+    while (v > 0).any():
+        bl += v > 0
+        v >>= 1
+    return bl
+
+
+def _pick_scores(rows, min_lw, max_lw, width):
+    """(order [B, width], est [B, width], group score [B]) of packed
+    candidate rows [B, N_LEFTWEIGHTS, 2, COLS]: the emitter's choice of
+    leftweight (lowest summed min(est4, est8), ties to the lowest) and
+    of each channel's order (ref.alac.pick_candidate), batched"""
+    B = rows.shape[0]
+    if width == 1:
+        ch_rows = rows[:, 0, 0:1]                # [B, 1, COLS]
+    else:
+        ests = rows[:, min_lw:max_lw + 1, :, 13:15].astype(np.int64)
+        score = ests.min(axis=3).sum(axis=2)     # [B, L]
+        lw_idx = score.argmin(axis=1) + min_lw
+        ch_rows = rows[np.arange(B), lw_idx]     # [B, 2, COLS]
+    deg = ch_rows[..., 12] != 0
+    est4 = ch_rows[..., 13].astype(np.int64)
+    est8 = ch_rows[..., 14].astype(np.int64)
+    order = np.where(deg | (est4 <= est8), 4, 8)
+    est = np.where(order == 4, est4, est8)
+    return (order, est, est.sum(axis=1))
+
+
+def _floor_retry(packed, blocks, t_arr, layout, bps, lsb_shift,
+                 interlacing_shift, min_lw, max_lw, block_size, exact):
+    """the quantization-floor retry of a fetched batch
+    (ref.alac.floor_limited and group_score, batched): the groups
+    flagged are analysed again by ``exact(blocks, group)`` (packed
+    candidates [b, 1, ...] of the exact samples) and take those rows
+    where they score lower.  Returns (packed, groups re-analysed)."""
+    B = blocks.shape[0]
+    cap = max(bps - lsb_shift - qpack.cap_margin(), 0)
+    retried = 0
+    for (g, (off, width)) in enumerate(layout):
+        tg = t_arr[:B, off:off + width].max(axis=1).astype(np.int64)
+        live = (tg > 0) & (tg < cap)
+        if not live.any():
+            continue
+        (order, est, score_q) = _pick_scores(packed[:B, g], min_lw, max_lw,
+                                             width)
+        count = block_size - 1 - order
+        safe = count > 0
+        m_q = np.where(safe, (est * 64) // np.maximum(count, 1), 0)
+        cand = ((_bit_length(m_q) >= tg[:, None] + 2) & safe &
+                live[:, None]).any(axis=1)
+        idx = np.nonzero(cand)[0]
+        if not len(idx):
+            continue
+        retried += len(idx)
+        rows = exact(np.ascontiguousarray(blocks[idx]), (off, width))[:, 0]
+        (_o, _e, score_e) = _pick_scores(rows, min_lw, max_lw, width)
+        better = score_e < score_q[idx]
+        if better.any():
+            packed = np.array(packed)
+            packed[idx[better], g] = rows[better]
+    return (packed, retried)
 
 
 def encode_mdat_fast(file, pcmreader,
@@ -92,36 +173,64 @@ def encode_mdat_fast(file, pcmreader,
         raise ValueError("bits_per_sample %d unsupported: bps - 16 must "
                          "be a multiple of 8" % (bps,))
     lsb_shift = (bps - 16) if bps > 16 else 0
+    bps_eff = bps - lsb_shift
+    use_wire = qpack.alac_enabled() and block_size > 2
     window = lpc_ops.tukey_window(block_size, dev)
     (np_upload, upload_dtype) = ((np.int16, torch.int16) if bps <= 16
                                  else (np.int32, torch.int32))
     copy_stream = torch.cuda.Stream(dev) if on_cuda else None
     stage_seconds = dict.fromkeys(STAGES, 0.0)
+    lw = (interlacing_shift, min_interlacing_leftweight,
+          max_interlacing_leftweight)
+
+    def exact(blocks, group):
+        """packed candidates of ``blocks``'s exact samples for one
+        group, analysed on the device"""
+        up = torch.from_numpy(blocks.astype(np_upload)).to(dev)
+        return alac_frames.analyze_framesets_packed(
+            up, [group], lsb_shift, *lw, window).cpu().numpy()
 
     def submit(blocks, ns):
         """enqueues one batch's upload, analysis and fetch; returns
         without waiting for the device"""
-        batch = _Batch(blocks, ns)
+        global wire_batches
+        t0 = time.perf_counter()
+        t = wire_shape = None
+        if use_wire:
+            shifted = blocks.astype(np.int32) >> lsb_shift
+            (qwords, k, t, x0, _orv, _cf) = _native.flac_qpack(
+                shifted, bps_eff, qpack.guard_bits(), False)
+            rows = qpack.assemble_wire(qwords, t, x0).view(np.int32)
+            wire_shape = (k, qwords.shape[2])
+            with COUNT_LOCK:
+                wire_batches += 1
+        else:
+            rows = blocks.astype(np_upload)
+        stage_seconds["qpack"] += time.perf_counter() - t0
+        batch = _Batch(blocks, ns, t)
         t0 = time.perf_counter()
         if on_cuda:
-            host = torch.empty(blocks.shape, dtype=upload_dtype,
-                               pin_memory=True)
-            np.copyto(host.numpy(), blocks, casting="unsafe")
+            host = torch.from_numpy(rows).pin_memory()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             with torch.cuda.stream(copy_stream):
                 ev[0].record()
-                dev_blocks = host.to(dev, non_blocking=True)
+                up = host.to(dev, non_blocking=True)
                 ev[1].record()
             compute = torch.cuda.current_stream(dev)
             compute.wait_stream(copy_stream)
-            dev_blocks.record_stream(compute)
+            up.record_stream(compute)
             ev[2].record()
         else:
-            dev_blocks = torch.from_numpy(blocks.astype(np_upload))
+            up = torch.from_numpy(rows)
         t1 = time.perf_counter()
-        packed = alac_frames.analyze_framesets_packed(
-            dev_blocks, layout, lsb_shift, interlacing_shift,
-            min_interlacing_leftweight, max_interlacing_leftweight, window)
+        if use_wire:
+            (qblocks, _o, _c) = qpack.unpack_wire(
+                up, wire_shape[0], wire_shape[1], channels, block_size)
+            packed = alac_frames.analyze_framesets_packed(
+                qblocks, layout, 0, *lw, window)
+        else:
+            packed = alac_frames.analyze_framesets_packed(
+                up, layout, lsb_shift, *lw, window)
         t2 = time.perf_counter()
         if on_cuda:
             ev[3].record()
@@ -142,19 +251,31 @@ def encode_mdat_fast(file, pcmreader,
 
     def emit(batch):
         """waits for one batch's candidates and emits its framesets"""
+        global floor_groups
         if on_cuda:
             ev = batch.events
             ev[4].synchronize()
             ms = (ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]),
                   ev[3].elapsed_time(ev[4]))
-            for (stage, t) in zip(STAGES, ms):
+            for (stage, t) in zip(("upload", "analysis", "fetch"), ms):
                 stage_seconds[stage] += t / 1e3
         else:
-            for (stage, t) in zip(STAGES, batch.cpu_times):
+            for (stage, t) in zip(("upload", "analysis", "fetch"),
+                                  batch.cpu_times):
                 stage_seconds[stage] += t
+        packed = batch.host.numpy()
+        if batch.t is not None:
+            t0 = time.perf_counter()
+            (packed, retried) = _floor_retry(
+                packed, batch.blocks, batch.t, layout, bps, lsb_shift,
+                interlacing_shift, min_interlacing_leftweight,
+                max_interlacing_leftweight, block_size, exact)
+            with COUNT_LOCK:
+                floor_groups += retried
+            stage_seconds["floor"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         (data, lens) = _native.alac_emit_framesets(
-            batch.blocks, batch.ns, layout, batch.host.numpy(), block_size,
+            batch.blocks, batch.ns, layout, packed, block_size,
             initial_history, history_multiplier, maximum_k,
             interlacing_shift, min_interlacing_leftweight,
             max_interlacing_leftweight, bps)

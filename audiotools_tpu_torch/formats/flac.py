@@ -16,13 +16,9 @@ The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
 ``from_pcm`` encodes with the port's ``encode_flac_fast`` on the
-file's device.  Its bytes equal the reference's ``FlacAudio.from_pcm``
-under the reference's device-pack configuration: exact uploads and no
-emit-stage Rice re-search (``ATPU_FLAC_QPACK=0``,
-``ATPU_EMIT_EXACT_RICE=0``; its numpy backend there equals its
-``ATPU_PALLAS=1`` JAX path).  The reference's default quantized upload
-wire and emit-stage re-search may choose other Rice parameters, so its
-default bytes can differ; the decoded PCM cannot.
+file's device, on the route the reference's environment selects (by
+default the quantized upload wire), so its bytes equal the reference's
+``FlacAudio.from_pcm`` under the same ``ATPU_*`` settings.
 
 Not ported: AIFF chunks (``from_aiff``), CUESHEET conversion from a cue
 sheet (``sheets/``), ``clean``, ID3-wrapped files, Ogg FLAC, and the

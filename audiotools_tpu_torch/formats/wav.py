@@ -225,26 +225,20 @@ class WaveAudio(WaveContainer):
     def from_wave(cls, filename, header, pcmreader, footer, compression=None,
                   device=None):
         """writes a new WAVE file of a header, a PCMReader's PCM and a
-        footer, and returns it; raises EncodingError (and leaves no
-        file) when the PCM is not the header's data chunk's size.
-        ``device`` as in ``from_pcm``."""
+        footer, as they are, and returns it: a PCM shorter or longer than
+        the header's data chunk is written as read, as the reference
+        writes it.  Raises EncodingError (and leaves no file) on an I/O
+        or a format error.  ``device`` as in ``from_pcm``."""
         bps = pcmreader.bits_per_sample
         try:
-            data_size = riff_data_size(header)
             with open(filename, "wb") as f:
                 f.write(header)
-                written = 0
                 while True:
                     framelist = pcmreader.read(FRAMELIST_SIZE)
                     if framelist.frames == 0:
                         break
-                    data = samples_to_pcm(framelist.samples, bps)
-                    f.write(data)
-                    written += len(data)
+                    f.write(samples_to_pcm(framelist.samples, bps))
                 f.write(footer)
-            if written != data_size:
-                raise ValueError("PCM data size differs from the header's "
-                                 "data chunk")
             return cls(filename)
         except (IOError, ValueError) as err:
             _unlink(filename)

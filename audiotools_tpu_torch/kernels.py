@@ -162,6 +162,10 @@ def _bind(lib):
     lib.atpu_wv_decorr.restype = ctypes.c_int
     lib.atpu_wv_chain_config.argtypes = [ctypes.c_void_p] * 3
     lib.atpu_wv_chain_config.restype = None
+    lib.atpu_rice_planes.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.atpu_rice_planes.restype = ctypes.c_int
     return lib
 
 
@@ -343,3 +347,20 @@ def wv_chain_config():
     vals = [ctypes.c_int() for _ in range(3)]
     lib.atpu_wv_chain_config(*(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
+
+
+def rice_planes(res, rows, psize, j0, out):
+    """launches csrc/rice_planes.cu: the bit-plane counts and seed sum
+    of the exact Rice ladder for the ``rows`` partitions of ``psize``
+    residuals each in ``res`` into ``out`` [rows, j0 + 1]
+
+    Contiguous int32 CUDA tensors on one device; the caller
+    (ops/flac_frames.rice_planes) validates the arguments."""
+    import torch
+    lib = load()
+    with torch.cuda.device(res.device):
+        rc = lib.atpu_rice_planes(_ptr(res), rows, psize, j0, _ptr(out),
+                                  _stream_ptr(res.device))
+    if rc != 0:
+        raise RuntimeError("rice_planes kernel launch failed: CUDA error %d"
+                           % (rc,))

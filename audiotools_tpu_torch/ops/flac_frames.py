@@ -6,8 +6,13 @@ axes of ``[subframes, block_size]`` tensors.  The decision arrays it
 returns are bit-identical to the reference's numpy path; the C++
 emitter reads them unchanged.
 
-Only the default ``"estimate"`` Rice search is ported.  The reference's
-``ATPU_DEVICE_RICE=exact`` ladder raises NotImplementedError here.
+Both Rice searches of the reference are here (``ATPU_DEVICE_RICE``):
+the default ``"estimate"`` and the ``"exact"`` ladder, whose bit-plane
+counts (``rice_planes``) come from the hand-written kernel
+``csrc/rice_planes.cu`` on a CUDA tensor and from ``rice_planes_plain``
+on a CPU one.  The analysis takes the quantized upload's exact
+sideband (``or_vals``/``const_flags``, see ``ops/qpack.py``) when its
+input is quantized.
 
 Differences in form from the reference (values are the same):
 
@@ -26,6 +31,7 @@ import torch
 
 from . import lpc as lpc_ops
 from .bits import exact_exp2
+from .._device import COUNT_LOCK
 
 (CHOICE_CONSTANT, CHOICE_VERBATIM, CHOICE_FIXED, CHOICE_LPC) = range(4)
 
@@ -60,12 +66,100 @@ def valid_partition_orders(block_size, max_porder, max_pred_order):
     return porders
 
 
-def _check_rice_mode():
-    mode = os.environ.get("ATPU_DEVICE_RICE", "estimate")
-    if mode == "exact":
-        raise NotImplementedError(
-            "ATPU_DEVICE_RICE=exact is not ported to audiotools_tpu_torch "
-            "yet; only the default \"estimate\" Rice search is")
+def rice_mode():
+    """the analysis's Rice search, "estimate" (the default) or "exact"
+    (ATPU_DEVICE_RICE, read as the reference reads it)"""
+    return os.environ.get("ATPU_DEVICE_RICE", "estimate")
+
+
+def zigzag(res):
+    """the Rice coder's unsigned residuals 2r (r >= 0), -2r - 1 (r < 0),
+    as int64 of int32 residuals"""
+    res = res.to(torch.int64)
+    return (res << 1) ^ (res >> 63)
+
+
+def rice_planes_plain(cand_res, parts, J0):
+    """the exact Rice ladder's per-partition sums, one plane at a time
+
+    cand_res: int32 [S, C, n] residuals, n divisible by ``parts``;
+    returns int32 [S, C, parts, J0 + 1]: column r < J0 counts the
+    residuals of the partition whose zigzag value u has bit r set,
+    column J0 is the sum of u >> J0 (the reference's ``w_fin``)"""
+    (S, C, n) = cand_res.shape
+    u = zigzag(cand_res).reshape(S, C, parts, n // parts)
+    cols = [((u >> r) & 1).sum(dim=-1) for r in range(J0)]
+    cols.append((u >> J0).sum(dim=-1))
+    return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+def rice_planes(cand_res, parts, J0):
+    """rice_planes_plain's sums
+
+    A CPU tensor runs rice_planes_plain; a CUDA tensor launches the
+    hand-written kernel (csrc/rice_planes.cu) on the current stream,
+    without synchronising, and counts the launch in
+    ``rice_planes.launches``.  Any other device raises."""
+    if cand_res.device.type == "cpu":
+        return rice_planes_plain(cand_res, parts, J0)
+    if cand_res.device.type != "cuda":
+        raise ValueError("rice_planes: unsupported device %s"
+                         % (cand_res.device,))
+    (S, C, n) = cand_res.shape
+    if n % parts or not 0 <= J0 <= 31:
+        raise ValueError("rice_planes: n=%d parts=%d J0=%d" % (n, parts, J0))
+    from .. import kernels
+    res = cand_res.to(torch.int32).contiguous()
+    out = torch.empty((S, C, parts, J0 + 1), dtype=torch.int32,
+                      device=res.device)
+    if out.numel():
+        kernels.rice_planes(res, S * C * parts, n // parts, J0, out)
+        with COUNT_LOCK:
+            rice_planes.launches += 1
+    return out
+
+
+rice_planes.launches = 0
+
+
+def _rice_search_exact(cand_res, cand_orders, n, porders, max_rice,
+                       max_bps):
+    """the reference's "exact" ladder: every (porder, partition,
+    parameter) sized exactly as 4 + sum(u >> r) + count * (1 + r)
+
+    Parameters stop at J0 = min(max_rice, max_bps + 7): past the point
+    where sum(u >> r) reaches 0 the totals only grow, so the truncation
+    keeps every argmin.  Returns (per-porder totals [S, C] float64, per
+    porder parameters [S, C, parts] int32)."""
+    (S, C, _n) = cand_res.shape
+    pmax = porders[-1]
+    parts_max = 1 << pmax
+    J0 = min(max_rice, max_bps + 7)
+    w_fin = rice_planes(cand_res, parts_max, J0).to(torch.int64)
+    # msb[.., r] = sum(u >> r), descending from the seed column J0
+    msb = [None] * (J0 + 1)
+    msb[J0] = w_fin[..., J0]
+    for r in range(J0 - 1, -1, -1):
+        msb[r] = 2 * msb[r + 1] + w_fin[..., r]
+    levels = [None] * (pmax + 1)
+    levels[pmax] = torch.stack(msb, dim=-1)            # [S,C,parts,J0+1]
+    for p in range(pmax - 1, -1, -1):
+        fine = levels[p + 1]
+        levels[p] = fine[:, :, 0::2] + fine[:, :, 1::2]
+    rr = torch.arange(1, J0 + 2, dtype=torch.int64, device=cand_res.device)
+    totals_by_p = []
+    params_by_p = []
+    for porder in porders:
+        parts = 1 << porder
+        psize = n >> porder
+        counts = torch.full((S, C, parts), psize, dtype=torch.int64,
+                            device=cand_res.device)
+        counts[:, :, 0] = psize - cand_orders.to(torch.int64)
+        totals = levels[porder] + counts[..., None] * rr
+        params_by_p.append(torch.argmin(totals, dim=-1).to(torch.int32))
+        part_bits = 4 + torch.amin(totals, dim=-1)
+        totals_by_p.append(part_bits.sum(dim=2).to(torch.float64))
+    return (totals_by_p, params_by_p)
 
 
 def _pad_last(x, right):
@@ -138,13 +232,17 @@ def _gather(x, idx, dim):
 
 
 def analyze_subframes(X, bps, n, max_lpc_order, qlp_precision, porders,
-                      max_rice, exhaustive, window, max_bps=25):
+                      max_rice, exhaustive, window, or_all=None,
+                      const_flag=None, max_bps=25):
     """runs all subframe trials for a batch of channels
 
-    X: int32 [S, n] exact samples; bps: int32 [S]; window: (hi, lo)
-    f64 pair from lpc.window_to_torch; max_bps: static bound on bits of
-    |X|.  Returns the reference's dict of [S]-leading tensors."""
-    _check_rice_mode()
+    X: int32 [S, n] samples; bps: int32 [S]; window: (hi, lo) f64 pair
+    from lpc.window_to_torch; or_all/const_flag: [S] OR of the exact
+    samples and their is-constant flags, which must be given when X is
+    quantized (they decide wasted bits and CONSTANT subframes), else
+    None to take them from X; max_bps: static bound on bits of |X|.
+    Returns the reference's dict of [S]-leading tensors."""
+    mode = rice_mode()
     S = X.shape[0]
     K = max_lpc_order
     dev = X.device
@@ -153,14 +251,20 @@ def analyze_subframes(X, bps, n, max_lpc_order, qlp_precision, porders,
     bps_f = bps.to(torch.float64)
 
     # ---- constant detection and wasted bits ----------------------------
-    const_flag = torch.all(X == X[:, :1], dim=1)
+    if const_flag is None:
+        const_flag = torch.all(X == X[:, :1], dim=1)
+    else:
+        const_flag = torch.as_tensor(const_flag, device=dev).to(torch.bool)
     const_val = X[:, 0]
-    or_all = X
-    while or_all.shape[1] > 1:
-        half = (or_all.shape[1] + 1) // 2
-        or_all = _pad_last(or_all, 2 * half - or_all.shape[1])
-        or_all = or_all[:, :half] | or_all[:, half:]
-    or_all = or_all[:, 0]
+    if or_all is None:
+        or_all = X
+        while or_all.shape[1] > 1:
+            half = (or_all.shape[1] + 1) // 2
+            or_all = _pad_last(or_all, 2 * half - or_all.shape[1])
+            or_all = or_all[:, :half] | or_all[:, half:]
+        or_all = or_all[:, 0]
+    else:
+        or_all = torch.as_tensor(or_all, device=dev).to(torch.int32)
     wasted = torch.where((or_all == 0) | const_flag, 0,
                          trailing_zeros(or_all))
     Xs = X >> wasted[:, None]
@@ -215,34 +319,38 @@ def analyze_subframes(X, bps, n, max_lpc_order, qlp_precision, porders,
         cand_orders = fixed_order[:, None]
     C = cand_res.shape[1]
 
-    # ---- Rice partition search ("estimate" mode) ----------------------
+    # ---- Rice partition search -----------------------------------------
     orders_f = cand_orders.to(torch.float64)
     pmax = porders[-1]
     parts_max = 1 << pmax
-    seg_abs_by_p = [None] * (pmax + 1)
-    seg_abs_by_p[pmax] = exact_sum(
-        torch.abs(cand_res).reshape(S, C, parts_max, n >> pmax))
-    for p in range(pmax - 1, -1, -1):
-        fine = seg_abs_by_p[p + 1]
-        seg_abs_by_p[p] = fine[:, :, 0::2] + fine[:, :, 1::2]
+    if mode == "exact":
+        (rice_totals, rice_params_by_p) = _rice_search_exact(
+            cand_res, cand_orders, n, porders, max_rice, max_bps)
+    else:
+        seg_abs_by_p = [None] * (pmax + 1)
+        seg_abs_by_p[pmax] = exact_sum(
+            torch.abs(cand_res).reshape(S, C, parts_max, n >> pmax))
+        for p in range(pmax - 1, -1, -1):
+            fine = seg_abs_by_p[p + 1]
+            seg_abs_by_p[p] = fine[:, :, 0::2] + fine[:, :, 1::2]
 
-    rice_totals = []        # per porder: [S, C] f64
-    rice_params_by_p = []   # per porder: [S, C, parts] int32
-    for porder in porders:
-        parts = 1 << porder
-        psize = n >> porder
-        seg_abs = seg_abs_by_p[porder]                     # [S,C,parts]
-        counts = torch.full((S, C, parts), float(psize),
-                            dtype=torch.float64, device=dev)
-        counts[:, :, 0] = psize - orders_f
-        # r = min(smallest r with count*2^r >= sum, max_rice)
-        r = torch.zeros((S, C, parts), dtype=torch.int32, device=dev)
-        for rr in range(max_rice):
-            r += ((counts * float(1 << rr)) < seg_abs).to(torch.int32)
-        est_msb = torch.floor(seg_abs * 2.0 * exact_exp2(-r))
-        part_bits = 4.0 + est_msb + counts * (1.0 + r.to(torch.float64))
-        rice_totals.append(torch.sum(part_bits, dim=2))
-        rice_params_by_p.append(r)
+        rice_totals = []        # per porder: [S, C] f64
+        rice_params_by_p = []   # per porder: [S, C, parts] int32
+        for porder in porders:
+            parts = 1 << porder
+            psize = n >> porder
+            seg_abs = seg_abs_by_p[porder]                 # [S,C,parts]
+            counts = torch.full((S, C, parts), float(psize),
+                                dtype=torch.float64, device=dev)
+            counts[:, :, 0] = psize - orders_f
+            # r = min(smallest r with count*2^r >= sum, max_rice)
+            r = torch.zeros((S, C, parts), dtype=torch.int32, device=dev)
+            for rr in range(max_rice):
+                r += ((counts * float(1 << rr)) < seg_abs).to(torch.int32)
+            est_msb = torch.floor(seg_abs * 2.0 * exact_exp2(-r))
+            part_bits = 4.0 + est_msb + counts * (1.0 + r.to(torch.float64))
+            rice_totals.append(torch.sum(part_bits, dim=2))
+            rice_params_by_p.append(r)
     rice_totals = torch.stack(rice_totals, dim=2)          # [S, C, P]
     best_porder_idx = torch.argmin(rice_totals, dim=2)     # first min
     rice_bits = torch.amin(rice_totals, dim=2)             # [S, C]
@@ -345,11 +453,14 @@ def choose_assignment(lb, rb, ab, db, mid_side):
 
 def analyze_frames_packed(blocks, stereo_trial, bps, n, max_lpc_order,
                           qlp_precision, porders, max_rice, exhaustive,
-                          mid_side, window, return_chosen=False):
+                          mid_side, window, or_vals=None, const_flags=None,
+                          return_chosen=False):
     """full per-frame analysis: variants, subframe trials, channel
     assignment and decision packing
 
-    blocks: int [B, n, ch] exact samples on the target device.
+    blocks: int [B, n, ch] samples on the target device; or_vals /
+    const_flags: [B, V] exact sideband in build_variants' variant
+    order, required when blocks are quantized (ops/qpack.py).
     Returns packed int32 [B, 1 + max_subframes * W] (the reference's
     layout), and with return_chosen=True also the chosen subframes'
     analysis data for bitpack.pack_chosen_residuals."""
@@ -359,9 +470,12 @@ def analyze_frames_packed(blocks, stereo_trial, bps, n, max_lpc_order,
     dev = blocks.device
 
     (X, bps_vec) = build_variants(blocks, stereo_trial, bps)
-    out = analyze_subframes(X, bps_vec, n, K, qlp_precision, list(porders),
-                            max_rice, exhaustive, window,
-                            max_bps=bps + 1 if stereo_trial else bps)
+    out = analyze_subframes(
+        X, bps_vec, n, K, qlp_precision, list(porders), max_rice,
+        exhaustive, window,
+        or_all=None if or_vals is None else or_vals.reshape(-1),
+        const_flag=None if const_flags is None else const_flags.reshape(-1),
+        max_bps=bps + 1 if stereo_trial else bps)
 
     V = 4 if stereo_trial else ch
     sub_bits = out["sub_bits"].reshape(B, V)

@@ -12,6 +12,8 @@ host in float64.  Several processes join through ``torch.distributed``
 (``init_distributed``), with rows gathered across them in rank order
 (``host_local_to_global``) and sliced back (``global_to_host_local``).
 
+``Split`` is also how ``codecs/flac_enc_fast.encode_flac_fast(...,
+devices=)`` spreads one encode's batches over several devices.
 Devices are an explicit list (``cuda_devices`` lists the cards); a
 device may appear more than once.  A CPU device runs the plain
 versions.
@@ -90,15 +92,29 @@ class Split:
     tuples of them) whole on every device: every slice is uploaded,
     computed and its outputs' fetch enqueued, each on its device's own
     stream, before any is waited for.  Outputs (a tensor or a dict of
-    them) come back as numpy arrays, concatenated in row order."""
+    them) come back as numpy arrays, concatenated in row order.
 
-    def __init__(self, devices, compute):
+    ``streams``: one per device (a CUDA stream, or None for a CPU
+    device); a new stream for each CUDA device when None.  With
+    ``upload=False`` compute receives the host (numpy) slices and
+    ``shared`` as given, and moves them itself.  ``submit`` enqueues
+    and returns at once; ``collect`` waits for what it enqueued."""
+
+    def __init__(self, devices, compute, streams=None, upload=True):
         self.devices = resolve_devices(devices)
         self.compute = compute
-        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                        for d in self.devices]
+        self.upload = upload
+        if streams is None:
+            streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                       for d in self.devices]
+        self.streams = list(streams)
 
-    def __call__(self, arrays, shared=()):
+    def _place(self, value, dev):
+        return _to_device(value, dev) if self.upload else value
+
+    def submit(self, arrays, shared=()):
+        """enqueues every slice; returns the pending list that
+        ``collect`` takes: (outputs, done event or None) a slice"""
         arrays = [np.asarray(a) for a in arrays]
         rows = arrays[0].shape[0]
         D = len(self.devices)
@@ -109,20 +125,26 @@ class Split:
         pending = []
         for (i, (dev, stream)) in enumerate(zip(self.devices,
                                                 self.streams)):
-            parts = [a[i * per:(i + 1) * per] for a in arrays]
+            parts = tuple(a[i * per:(i + 1) * per] for a in arrays)
             if stream is None:
-                out = self.compute(dev, *_to_device(tuple(parts), dev),
-                                   *_to_device(tuple(shared), dev))
+                out = self.compute(dev, *self._place(parts, dev),
+                                   *self._place(tuple(shared), dev))
                 pending.append((out, None))
                 continue
             with torch.cuda.device(dev), torch.cuda.stream(stream):
-                out = self.compute(dev, *_to_device(tuple(parts), dev),
-                                   *_to_device(tuple(shared), dev))
+                out = self.compute(dev, *self._place(parts, dev),
+                                   *self._place(tuple(shared), dev))
                 out = ({k: fetch_async(v) for (k, v) in out.items()}
                        if isinstance(out, dict) else fetch_async(out))
-                done = torch.cuda.Event()
+                done = torch.cuda.Event(enable_timing=True)
                 done.record(stream)
             pending.append((out, done))
+        return pending
+
+    @staticmethod
+    def collect(pending):
+        """waits for submit's slices; their outputs concatenated in row
+        order as numpy arrays"""
         outs = []
         for (out, done) in pending:
             if done is not None:
@@ -132,6 +154,9 @@ class Split:
             return {k: np.concatenate([o[k].numpy() for o in outs])
                     for k in outs[0]}
         return np.concatenate([o.numpy() for o in outs])
+
+    def __call__(self, arrays, shared=()):
+        return self.collect(self.submit(arrays, shared))
 
 
 def sharded_analyze(devices, n, max_lpc_order, qlp_precision, porders,

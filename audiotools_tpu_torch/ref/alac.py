@@ -1,7 +1,14 @@
 """What the port's ALAC paths need of the reference's ALAC oracle
-(``audiotools_tpu/ref/alac.py``): the frameset channel layouts, and
-the M4A header parse of its ``ALACDecoder`` together with the stsz
+(``audiotools_tpu/ref/alac.py``): the frameset channel layouts, the
+ALAC half of the quantized-analysis spec (``qpack_enabled``,
+``plan_t``, ``quantize_channel``, ``pick_candidate``,
+``group_score``, ``floor_limited``, ``analysis_channels``), and the
+M4A header parse of its ``ALACDecoder`` together with the stsz
 frame-size table of ``FastALACDecoder._read_frame_sizes``.
+
+The spec functions are scalar, one channel or group at a time; the
+batched encode (``codecs/alac_fast.py``) applies the same rules to a
+batch, and the tests hold the two to each other.
 
 The reference walks the atoms with its bitstream reader; here the
 walk reads the atom headers with ``struct``: the top-level atoms by
@@ -10,7 +17,10 @@ seeking over them (the mdat is never read), and ``moov`` whole.
 
 from __future__ import annotations
 
+import os
 import struct
+
+import numpy as np
 
 # frameset channel-pair groupings per channel count, as (offset,
 # width) in ALAC channel order
@@ -38,6 +48,108 @@ WAVE_ORDER = {
 
 CHANNEL_MASKS = {1: 0x0004, 2: 0x0003, 3: 0x0007, 4: 0x0107,
                  5: 0x0037, 6: 0x003F, 7: 0x013F, 8: 0x00FF}
+
+
+# ---------------------------------------------------------------------
+# quantized-analysis spec: the candidate analysis runs on (x >> t) << t
+# per channel while the emitter's residual recurrences always read the
+# exact samples, so any candidate table gives a lossless stream
+# ---------------------------------------------------------------------
+
+def qpack_enabled():
+    """whether the ALAC quantized analysis is on (ATPU_ALAC_QPACK,
+    default on)"""
+    return os.environ.get("ATPU_ALAC_QPACK", "1") != "0"
+
+
+def qpack_guard():
+    return int(os.environ.get("ATPU_QPACK_GUARD", "0"))
+
+
+def qpack_cap_margin():
+    return int(os.environ.get("ATPU_QPACK_CAP", "6"))
+
+
+def qpack_noise_extra():
+    return int(os.environ.get("ATPU_QPACK_NOISE_EXTRA", "2"))
+
+
+def plan_t(channel, bps_eff, block_size):
+    """the quantization shift t of one (LSB-shifted) channel, over the
+    channel zero-padded to block_size: the FLAC plan's spec
+    (ops/qpack.plan_t), noise-adaptive coarsening included"""
+    n = block_size
+    if n <= 2:
+        return 0
+    x = np.zeros(n, dtype=np.int64)
+    x[:len(channel)] = channel
+    sum1 = int(np.abs(x[1:] - x[:-1]).sum())
+    sum2 = int(np.abs(x[2:] - 2 * x[1:-1] + x[:-2]).sum())
+    m = sum2 // (n - 2)
+    s = max(0, int(bps_eff) - 26)
+    extra = qpack_noise_extra()
+    e = 0
+    marg = qpack_cap_margin()
+    if (extra > 0 and m > 0 and
+            5 * (sum2 >> s) * (n - 1) >= 8 * (sum1 >> s) * (n - 2)):
+        e = extra
+        marg = max(marg - 2, 0)
+    cap = max(int(bps_eff) - marg, 0)
+    return min(max(m.bit_length() - 1 - qpack_guard() + e, 0), cap)
+
+
+def quantize_channel(channel, t):
+    """the analysis input (x >> t) << t"""
+    if t == 0:
+        return list(channel)
+    return [(int(s) >> t) << t for s in channel]
+
+
+def analysis_channels(channels, bps_eff, block_size):
+    """(t_group, the channels the candidate analysis reads): quantized
+    at their planned shifts when the spec is on and the group's largest
+    shift is positive, else the channels as given"""
+    if not qpack_enabled():
+        return (0, channels)
+    ts = [plan_t(c, bps_eff, block_size) for c in channels]
+    t_group = max(ts)
+    if t_group <= 0:
+        return (0, channels)
+    return (t_group, [quantize_channel(c, t) for (c, t) in zip(channels, ts)])
+
+
+def pick_candidate(cand):
+    """(order, qlp, est) of a (qlp4, qlp8, degenerate, est4, est8)
+    candidate: order 4 when degenerate or est4 <= est8"""
+    (qlp4, qlp8, degenerate, est4, est8) = cand
+    if degenerate or est4 <= est8:
+        return (4, qlp4, est4)
+    return (8, qlp8, est8)
+
+
+def group_score(cands):
+    """a group's summed estimate over its chosen candidates"""
+    return sum(pick_candidate(c)[2] for c in cands)
+
+
+def floor_limited(cands, t_group, block_size, bps_eff):
+    """the quantization-floor retry rule: a group whose chosen
+    candidate's estimated mean |residual| has a bit length of at least
+    t_group + 2 is re-analysed exactly (the quantization hurt its
+    fit); a group at the plan's cap (bps_eff - cap margin) or with
+    t_group 0 never is"""
+    if t_group <= 0:
+        return False
+    if t_group >= max(int(bps_eff) - qpack_cap_margin(), 0):
+        return False
+    for cand in cands:
+        (order, _qlp, est) = pick_candidate(cand)
+        count = block_size - 1 - order
+        if count <= 0:
+            continue
+        if ((int(est) * 64) // count).bit_length() >= t_group + 2:
+            return True
+    return False
 
 
 def _atoms(data):

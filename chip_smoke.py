@@ -28,14 +28,16 @@ Its phases each print one line:
    (device_ms, as in phase 6), beside scatter_add_ on the same rows'
    word contributions;
 4. slice identity: a short encode at the main path's options on the
-   card, with the device pack and without it, must give the bytes the
-   port's plain versions give on the CPU (which the tests hold byte
-   for byte against the reference encoder), and decode bit-exactly;
+   card on each route (the default quantized upload wire, the device
+   pack, exact uploads without pack) must give the bytes the port's
+   plain versions give on the CPU on that route (which the tests hold
+   byte for byte against the reference encoder), and decode
+   bit-exactly;
 5. throughput: bench.py's encode (its signal and options, 16 batches
-   of 1024 frames, 12.7 minutes of audio), repeated, each run
-   decode-verified bit-exactly, with the launch counter reset just
-   before each run and read just after, and each run's pack stage
-   seconds;
+   of 1024 frames, 12.7 minutes of audio) on the device-pack route
+   (pack=True), repeated, each run decode-verified bit-exactly, with
+   the launch counter reset just before each run and read just after,
+   and each run's pack stage seconds;
 6. decode kernels vs plain: rice_decode and flac_synth on the card
    against their plain versions on the card, on the records (one row
    per non-empty bucket) and subframe arrays of the port's scan of a
@@ -61,9 +63,10 @@ Its phases each print one line:
     its input and to the CPU decode, through the kernel, with no batch
     on the host route;
 11. ALAC throughput: bench.py's signal in 1024-frameset batches (4
-    batches, 6.3 minutes of audio) encoded and decoded on the card,
-    repeated, every run bit-exact, with stage timings and launch
-    counts, no batch on the host route;
+    batches, 6.3 minutes of audio) encoded (the default route, the
+    quantized upload wire, with its batches and floor retries counted)
+    and decoded on the card, repeated, every run bit-exact, with stage
+    timings and launch counts, no batch on the host route;
 12. TTA kernel vs plain: tta_synth on the card against its plain
     version on the card, on the first decode group (256 frames, 512
     lanes x 46080) of phase 11's signal encoded on the card as a TTA
@@ -151,7 +154,9 @@ Its phases each print one line:
     workers (each a CUDA stream of its own), every job checked by
     ``farm.verify_flac`` (decoded once, MD5 checked, samples equal to
     the source, AccurateRip equal to the port's C++ sums), no decode
-    chunk on the host route, every run's files equal to the first
+    chunk on the host route (the encodes take the default quantized
+    wire, so rice_decode and flac_synth must launch and pack_rows is
+    only counted), every run's files equal to the first
     1-worker run's; three runs at 1 worker and at the best count, one
     at the others, each with its wall, Msamples/s of input PCM,
     speedup over 1 worker, peak card memory (allocated and reserved),
@@ -179,7 +184,8 @@ Its phases each print one line:
     the album (peaks equal to the tracks', gains finite) and
     ``--sample-rate 48000`` on one track (the card's file decoded
     within 1 LSB of the CPU's PCMConverter on under 1e-4 of the
-    samples).  Every kernel must have launched during the phase;
+    samples).  Every kernel of the tools' default routes must have
+    launched during the phase (all but pack_rows and rice_planes);
 22. tags and foreign chunks through the command line, on phase 19's
     album: its tracks written on the card as FLAC -8, ALAC, TTA and
     WavPack (standard) and each tagged with every field (non-ASCII
@@ -197,7 +203,21 @@ Its phases each print one line:
     ``-C``) and ``tracklength`` over the outputs.  A line with the
     phase's wall, each target's input Msamples/s and ``set_metadata``
     seconds across the album, the launches of each kernel over the
-    phase (every one must launch) and the card's peak memory.
+    phase (every one of the default routes must launch) and the card's
+    peak memory;
+23. the default encode routes, on phase 5's signal at bench shape: the
+    FLAC -8 default route (the quantized upload wire), three runs each
+    decoded bit-exactly, with Msamples/s, the stages (qpack, upload,
+    analysis, fetch, emit, floor), the wire and patched-wire batches,
+    the frames the floor retry re-analysed and the overflow retries,
+    beside phase 5's device-pack runs and phase 11's ALAC wire runs;
+    the card's default-route bytes equal to the CPU's on an 8-block
+    slice; one 1024-block batch with ATPU_DEVICE_RICE=exact, decoded
+    bit-exactly, rice_planes counted from 0 across it, then held
+    element for element against rice_planes_plain on the residuals
+    of that run (captured there) and timed as phase 6, beside its
+    bound; and an encode split over ``[cuda:0, cuda:0]`` whose bytes
+    equal one device's.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -1167,8 +1187,10 @@ def farm_phase(dev, sig, enc_rate=None, dec_rate=None):
                 raise AssertionError("farm decodes sent %d chunks to the "
                                      "host route"
                                      % (flac_dec.host_chunks - host0))
+            # the default FLAC route (the quantized upload wire) packs
+            # no residuals on the card: pack_rows is off its path
             if (any(torch.device(d).type == "cuda" for d in devices) and
-                    min(launches) <= 0):
+                    min(launches[1:]) <= 0):
                 raise AssertionError("farm run never launched a kernel of "
                                      "its path: %s" % (launches,))
             files = []
@@ -1299,13 +1321,20 @@ CLI_CLOCK = 1.7e9
 CLI_FORMAT = ["--format", "%(basename)s.%(suffix)s"]
 
 
+# kernels that the tools' default routes do not run: FLAC's default
+# encode takes the quantized upload wire (no device pack) and the
+# estimate Rice search (no bit-plane ladder)
+OFF_CLI_PATH = ("pack_rows", "rice_planes")
+
+
 def kernel_counters():
-    """the eight kernel wrappers, whose ``launches`` count their launches,
+    """the nine kernel wrappers, whose ``launches`` count their launches,
     by the kernels line's names"""
-    from audiotools_tpu_torch.ops import (alac_synth, bitpack, flac_synth,
-                                          rice_decode, tta_scan, tta_synth,
-                                          wv_scan)
+    from audiotools_tpu_torch.ops import (alac_synth, bitpack, flac_frames,
+                                          flac_synth, rice_decode, tta_scan,
+                                          tta_synth, wv_scan)
     return {"pack_rows": bitpack.pack_rows,
+            "rice_planes": flac_frames.rice_planes,
             "rice_decode": rice_decode.decode_partitions,
             "flac_synth": flac_synth.synthesize,
             "alac_synth": alac_synth.synthesize,
@@ -1472,7 +1501,8 @@ def cli_phase(dev, alac_sig):
                                             diff.max()))
         out["sample_rate"] = dict(seconds=sr_s, frames=int(got.shape[0]),
                                   samples_off_by_1=int(np.count_nonzero(diff)))
-    idle = [k for (k, n) in total.items() if n <= 0]
+    idle = [k for (k, n) in total.items()
+            if n <= 0 and k not in OFF_CLI_PATH]
     if on_cuda and idle:
         raise AssertionError("the command line never launched %s" % (idle,))
     out["launches"] = total
@@ -1741,7 +1771,8 @@ def tags_phase(dev, alac_sig):
                                      % (code, lines))
         finally:
             time.time = wall_clock
-    idle = [k for (k, n) in launches.items() if n <= 0]
+    idle = [k for (k, n) in launches.items()
+            if n <= 0 and k not in OFF_CLI_PATH]
     if on_cuda and idle:
         raise AssertionError("phase 22 never launched %s" % (idle,))
     out["launches"] = launches
@@ -1773,6 +1804,181 @@ def check_carried(output, tags):
     if [i.data for i in got.images()] != [i.data for i in tags.images()]:
         raise AssertionError("%s's cover is not the source's"
                              % (output.filename,))
+
+
+class CaptureFirst:
+    """stands in for a kernel wrapper ``fn`` (a module attribute) and
+    keeps a copy of the tensor arguments of its first call; its
+    ``launches`` is ``fn``'s, so the wrapper's own count, which names
+    the module attribute, still lands on ``fn``"""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.first = None
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, value: setattr(self.fn, "launches",
+                                                    value))
+
+    def __call__(self, *args):
+        if self.first is None:
+            self.first = tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args)
+        return self.fn(*args)
+
+
+def default_route_phase(dev, sig, pack_runs, alac_runs):
+    """phase 23: the FLAC encode's default route, the quantized upload
+    wire, at bench shape on ``sig`` (phase 5's signal), three runs each
+    decoded bit for bit, beside phase 5's device-pack runs
+    (``pack_runs``) and phase 11's ALAC encodes (``alac_runs``, whose
+    default route is the ALAC wire); the card's default-route bytes
+    against the CPU's on a short slice; one bench batch with
+    ATPU_DEVICE_RICE=exact, rice_planes counted from 0 across it, then
+    held against its plain version on the residuals of that run; and a
+    two-slice encode over [dev, dev] against one device.  Returns (its
+    line's fields, the kernels line's rice_planes row and launches).
+    On a CPU ``dev`` (a rehearsal with a short signal, ``median_ms``
+    and ``device_ms`` replaced by host timers) the card's memory is not
+    read and no launch is required."""
+    from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.ops import flac_frames
+    from audiotools_tpu_torch.pcm import decode_flac, reader_from_array
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    opts = OPTS
+    (n, frames) = (opts["block_size"], opts["batch_frames"])
+    counted = ("wire_batches", "patched_batches", "floor_frames",
+               "overflow_batches")
+    out = dict(audio_seconds=sig.shape[0] / SAMPLE_RATE,
+               batch_frames=frames)
+
+    # ---- the default route's throughput --------------------------------
+    runs = []
+    for _ in range(THROUGHPUT_RUNS):
+        counts0 = [getattr(port_enc, c) for c in counted]
+        timings = {}
+        buf = io.BytesIO()
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        port_enc.encode_flac_fast(buf, reader_from_array(sig, 16),
+                                  device=dev, timings=timings, **opts)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        data = buf.getvalue()
+        if not np.array_equal(decode_flac(data), sig):
+            raise AssertionError("default-route encode does not decode "
+                                 "bit-exactly")
+        run = dict(wall_s=wall, Msamples_per_s=sig.size / wall / 1e6,
+                   ratio=len(data) / (sig.size * 2), bytes=len(data),
+                   stage_s=timings,
+                   peak_mem_GB=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                if on_cuda else None))
+        for (c, c0) in zip(counted, counts0):
+            run[c] = getattr(port_enc, c) - c0
+        if run["wire_batches"] <= 0:
+            raise AssertionError("the default route never took the wire")
+        runs.append(run)
+        del buf, data
+    rates = [r["Msamples_per_s"] for r in runs]
+    pack_rates = [r["Msamples_per_s"] for r in pack_runs]
+    alac_rates = [r["Msamples_per_s"] for r in alac_runs]
+    out.update(Msamples_per_s=float(np.median(rates)),
+               Msamples_per_s_runs=rates, bit_exact=True,
+               pack_route_Msamples_per_s=float(np.median(pack_rates)),
+               pack_route_ratio=pack_runs[0]["ratio"],
+               alac_Msamples_per_s=float(np.median(alac_rates)),
+               alac_wire_batches=alac_runs[0]["wire_batches"],
+               alac_floor_groups=alac_runs[0]["floor_groups"],
+               alac_stage_s=alac_runs[0]["stage_s"], runs=runs)
+
+    # ---- the card's default-route bytes against the CPU's -------------
+    short = sig[:n * 8 + 1000]
+    small = dict(opts, batch_frames=4)
+    outs = []
+    for device in ("cpu", dev):
+        buf = io.BytesIO()
+        port_enc.encode_flac_fast(buf, reader_from_array(short, 16),
+                                  device=device, **small)
+        outs.append(buf.getvalue())
+    if outs[1] != outs[0]:
+        raise AssertionError("card default-route bytes differ from the "
+                             "CPU's")
+    out["slice"] = dict(frames=int(short.shape[0]), bytes=len(outs[0]),
+                        identical_to_cpu=True)
+
+    # ---- one encode split over two devices -----------------------------
+    batch_sig = sig[:n * frames + 1000]
+    outs = []
+    for devices in (None, [dev, dev]):
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        port_enc.encode_flac_fast(buf, reader_from_array(batch_sig, 16),
+                                  device=dev, devices=devices, **opts)
+        sync(dev)
+        outs.append((buf.getvalue(), time.perf_counter() - t0))
+    if outs[1][0] != outs[0][0]:
+        raise AssertionError("the two-slice encode's bytes differ from "
+                             "one device's")
+    out["two_slices"] = dict(devices=[str(dev)] * 2, identical=True,
+                             one_device_s=outs[0][1],
+                             two_slices_s=outs[1][1])
+
+    # ---- the exact Rice ladder on one bench batch ----------------------
+    kernel = flac_frames.rice_planes
+    capture = CaptureFirst(kernel)
+    batch_sig = sig[:n * frames]
+    os.environ["ATPU_DEVICE_RICE"] = "exact"
+    flac_frames.rice_planes = capture
+    try:
+        buf = io.BytesIO()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        port_enc.encode_flac_fast(buf, reader_from_array(batch_sig, 16),
+                                  device=dev, **opts)
+        sync(dev)
+        exact_s = time.perf_counter() - t0
+        launches = kernel.launches
+    finally:
+        flac_frames.rice_planes = kernel
+        del os.environ["ATPU_DEVICE_RICE"]
+    data = buf.getvalue()
+    if on_cuda and launches <= 0:
+        raise AssertionError("the exact Rice search never launched "
+                             "rice_planes")
+    if not np.array_equal(decode_flac(data), batch_sig):
+        raise AssertionError("the exact-search encode does not decode "
+                             "bit-exactly")
+    (res, parts, j0) = capture.first
+    del capture
+    got = kernel(res, parts, j0)
+    want = flac_frames.rice_planes_plain(res, parts, j0)
+    sync(dev)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("rice_planes kernel != plain version (max abs "
+                             "err %d)" % (err,))
+    del got, want
+    ms = median_ms(lambda: kernel(res, parts, j0))
+    card_ms = device_ms(lambda: kernel(res, parts, j0))
+    plain_ms = median_ms(lambda: flac_frames.rice_planes_plain(
+        res, parts, j0), PLAIN_SYNTH_RUNS)
+    (S, C, nn) = res.shape
+    # residuals read once, counts written once; the zigzag, a bit test
+    # and an add a plane, the seed's shift and add: 2 * j0 + 4 integer
+    # operations a residual
+    (b_ms, b_by) = bound(S * C * nn * 4 + S * C * parts * (j0 + 1) * 4,
+                         S * C * nn * (2 * j0 + 4))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    out["exact_rice"] = dict(frames=int(batch_sig.shape[0]),
+                             bytes=len(data), bit_exact=True,
+                             encode_s=exact_s, launches=launches,
+                             shape=[S, C, nn, parts, j0 + 1],
+                             device_ms=card_ms, equal=True, **row)
+    del res
+    return (out, row, launches)
 
 
 def main():
@@ -1903,31 +2109,36 @@ def main():
     arr[:n] = 1234                      # a CONSTANT stretch
     arr[n:2 * n] = rng.integers(-32768, 32767, (n, 2))   # VERBATIM
     small = dict(opts, batch_frames=8)
-    plain = io.BytesIO()
-    port_enc.encode_flac_fast(plain, reader_from_array(arr, 16),
-                              device="cpu", **small)
-    plain = plain.getvalue()
+    route_bytes = {}
     bitpack.pack_rows.launches = 0
-    for pack in (True, False):
-        buf = io.BytesIO()
-        port_enc.encode_flac_fast(buf, reader_from_array(arr, 16),
-                                  device="cuda", pack=pack, **small)
-        if buf.getvalue() != plain:
+    # each route (None: the default, the quantized upload wire) on the
+    # card against the same route's plain versions on the CPU
+    for pack in (None, True, False):
+        outs = []
+        for device in ("cpu", "cuda"):
+            buf = io.BytesIO()
+            port_enc.encode_flac_fast(buf, reader_from_array(arr, 16),
+                                      device=device, pack=pack, **small)
+            outs.append(buf.getvalue())
+        if outs[1] != outs[0]:
             raise AssertionError("card encode (pack=%s) bytes differ from "
                                  "the plain versions' on the CPU" % (pack,))
+        if not np.array_equal(decode_flac(outs[0]), arr):
+            raise AssertionError("slice encode (pack=%s) does not decode "
+                                 "bit-exactly" % (pack,))
+        route_bytes[str(pack)] = len(outs[0])
+    plain = outs[0]
     slice_launches = bitpack.pack_rows.launches
     if slice_launches <= 0:
         raise AssertionError("slice encode never launched pack_rows")
-    if not np.array_equal(decode_flac(plain), arr):
-        raise AssertionError("slice encode does not decode bit-exactly")
-    line("slice_identity", frames=m, bytes=len(plain), identical=True,
+    line("slice_identity", frames=m, bytes=route_bytes, identical=True,
          bit_exact=True, pack_rows_launches=slice_launches)
 
     # ---- 5. bench-shaped throughput on the main path -------------------
     one_batch = io.BytesIO()
     port_enc.encode_flac_fast(
         one_batch, reader_from_array(program_signal(n * frames), 16),
-        device="cuda", **opts)
+        device="cuda", pack=True, **opts)
     one_batch = one_batch.getvalue()
     sig = program_signal(n * frames * THROUGHPUT_BATCHES)
     n_frames = sig.shape[0]
@@ -1940,7 +2151,7 @@ def main():
         torch.cuda.reset_peak_memory_stats(dev)
         bitpack.pack_rows.launches = 0
         t0 = time.perf_counter()
-        port_enc.encode_flac_fast(out, reader, device="cuda",
+        port_enc.encode_flac_fast(out, reader, device="cuda", pack=True,
                                   timings=timings, **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2236,6 +2447,7 @@ def main():
         timings = {}
         out = io.BytesIO()
         torch.cuda.reset_peak_memory_stats(dev)
+        counts0 = (alac_fast.wire_batches, alac_fast.floor_groups)
         t0 = time.perf_counter()
         m4a.write_m4a(out, reader_from_array(alac_sig, 16), device="cuda",
                       timings=timings)
@@ -2245,6 +2457,8 @@ def main():
         alac_enc_runs.append(dict(
             wall_s=wall, Msamples_per_s=a_frames * 2 / wall / 1e6,
             ratio=len(data) / (alac_sig.size * 2), stage_s=timings,
+            wire_batches=alac_fast.wire_batches - counts0[0],
+            floor_groups=alac_fast.floor_groups - counts0[1],
             peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9))
         host0 = alac_dec.host_chunks
         alac_synth.synthesize.launches = 0
@@ -2578,6 +2792,13 @@ def main():
     (fields, tags_launches) = tags_phase(dev, alac_sig)
     line("tags", nvidia_smi=smi, **fields)
 
+    # ---- 23. the default encode routes and the exact Rice search ---------
+    t0 = time.perf_counter()
+    (fields, planes_row, planes_launches) = default_route_phase(
+        dev, sig, runs, alac_enc_runs)
+    line("default_route", seconds=time.perf_counter() - t0,
+         nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -2599,7 +2820,9 @@ def main():
             ("wv_corr", "wv_chain.cu", "wv_scan.py:268",
              wv_enc_runs[0]["wv_corr_launches"], corr_row),
             ("wv_decorr", "wv_chain.cu", "wv_scan.py:249",
-             wv_dec_runs[0]["wv_decorr_launches"], decorr_row)):
+             wv_dec_runs[0]["wv_decorr_launches"], decorr_row),
+            ("rice_planes", "rice_planes.cu", "flac_frames.py:508",
+             planes_launches, planes_row)):
         kernels_line.append(dict(
             name=kname, route="cuda",
             source="audiotools_tpu_torch/csrc/" + source,

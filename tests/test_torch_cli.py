@@ -18,6 +18,7 @@ import io
 import os
 import re
 import socket
+import struct
 import time
 import urllib.request
 
@@ -489,3 +490,78 @@ def test_the_card_writes_the_cpu_runs_files(runs, tmp_path, monkeypatch):
         for name in files_of(base, case):
             assert read(os.path.join(dest, name)) == read(
                 os.path.join(str(base), "port", case, name)), (case, name)
+
+
+@pytest.mark.parametrize("args", [["-t", "flac", "-q", "8"],
+                                  ["-t", "flac", "-q", "0"],
+                                  ["-t", "alac"]])
+def test_track2track_default_environment_writes_the_references_files(
+        tmp_path, monkeypatch, args):
+    """no ATPU_* variable set: both tools take their default routes, the
+    quantized upload wires, and write the same files"""
+    for key in list(os.environ):
+        if key.startswith("ATPU_"):
+            monkeypatch.delenv(key)
+    monkeypatch.setattr(time, "time", lambda: CLOCK)
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("src")
+    # a tonal track, whose quantized analysis the floor retries repair
+    t = np.arange(2 * SR)
+    tone = np.stack([12000 * np.sin(2 * np.pi * 300 * t / SR),
+                     9000 * np.sin(2 * np.pi * 450 * t / SR)], axis=1)
+    write_wave("src/t.wav", tone.astype(np.int32), SR)
+    write_wave("src/a.wav", signal(4, 2 * SR, SR), SR)
+    sources = ["src/a.wav", "src/t.wav"]
+    ref = ref_tool("track2track", *(args + FORMAT + ["-j", "1", "-d", "ref"]
+                                    + sources))
+    port = port_tool("track2track", *(args + FORMAT + ["-j", "2", "-d",
+                                                       "port"] + sources))
+    assert (ref[0], port[0]) == (0, 0), port[2]
+    names = sorted(os.listdir("ref"))
+    assert len(names) == 2 and sorted(os.listdir("port")) == names
+    for name in names:
+        assert read(os.path.join("port", name)) == read(
+            os.path.join("ref", name)), name
+
+
+@pytest.mark.parametrize("damage", ["truncated", "partial-frame"])
+def test_track2track_to_wave_of_a_short_data_chunk(tmp_path, monkeypatch,
+                                                   damage):
+    """a WAVE with a foreign chunk (so that both tools convert it through
+    ``from_wave``) whose data chunk is cut short, or is not a whole
+    number of frames, converted to WAVE by both tools: the same exit
+    code, lines and files (the reference writes the PCM it reads, as
+    read)"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("src")
+    write_wave("src/w.wav", signal(5, SR // 2, SR), SR)
+    data = read("src/w.wav")
+    pos = data.index(b"data")
+    (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
+    pcm_bytes = data[pos + 8:pos + 8 + size]
+    if damage == "truncated":
+        # the header's size kept, 1001 bytes of PCM gone
+        body = struct.pack("<4sI", b"data", size) + pcm_bytes[:-1001]
+    else:
+        # one byte past the last whole frame, and the pad byte
+        body = (struct.pack("<4sI", b"data", size + 1) + pcm_bytes +
+                b"\x07\x00")
+    chunks = (data[12:pos] + b"LIST" + struct.pack("<I", 10) +
+              b"INFOabcdef" + body)
+    with open("src/w.wav", "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(chunks), b"WAVE") +
+                chunks)
+    ref = ref_tool("track2track", "-t", "wav", *FORMAT, "-j", "1", "-d",
+                   "ref", "src/w.wav")
+    port = port_tool("track2track", "-t", "wav", *FORMAT, "-j", "1", "-d",
+                     "port", "src/w.wav")
+    assert port[:2] == (ref[0], as_port(ref[1])), (ref, port)
+    assert port[2] == as_port(ref[2])
+    names = sorted(os.listdir("ref")) if os.path.isdir("ref") else []
+    assert names
+    assert sorted(os.listdir("port")) == names
+    for name in names:
+        assert read(os.path.join("port", name)) == read(
+            os.path.join("ref", name)), name

@@ -120,10 +120,45 @@ def test_trailing_zeros():
     assert got.tolist() == [32, 0, 1, 2, 2, 31, 30, 5]
 
 
-def test_exact_rice_mode_is_not_ported(monkeypatch):
+@pytest.mark.parametrize("kind", ["tone", "noise", "transient"])
+@pytest.mark.parametrize("bps,channels", [(16, 2), (24, 2), (16, 1)])
+def test_exact_rice_mode_matches_numpy(monkeypatch, kind, bps, channels):
+    """ATPU_DEVICE_RICE=exact: the exact ladder (rice_planes and the
+    descent) against the reference's numpy path"""
     monkeypatch.setenv("ATPU_DEVICE_RICE", "exact")
-    blocks = torch.zeros((1, 256, 2), dtype=torch.int32)
-    window = port_lpc.window_to_torch(ref_lpc.tukey_window_df(256), "cpu")
-    with pytest.raises(NotImplementedError):
-        port.analyze_frames_packed(blocks, True, 16, 256, 4, 12, [0, 1],
-                                   14, True, True, window)
+    blocks = matrix_blocks(kind, bps, channels, 3, 1024)
+    run_both(np, blocks, bps, 1024, 8, 4, exhaustive=True)
+
+
+def test_exact_rice_mode_matches_jax_under_jit(monkeypatch):
+    monkeypatch.setenv("ATPU_DEVICE_RICE", "exact")
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    blocks = matrix_blocks("noise", 16, 2, 4, 256)
+    run_both(jnp, blocks, 16, 256, 4, 2, exhaustive=True, jit=True)
+
+
+@pytest.mark.parametrize("bps,channels", [(16, 2), (24, 1)])
+def test_quantized_input_with_exact_sideband(bps, channels):
+    """quantized blocks with the exact or/constant sideband: wasted
+    bits and CONSTANT choices come from the sideband, as in the
+    reference"""
+    from audiotools_tpu.ops import qpack as ref_qpack
+    blocks = matrix_blocks("tone", bps, channels, 4, 512)
+    blocks[1] <<= 2
+    t = ref_qpack.plan_t(blocks, bps)
+    quantized = ref_qpack.quantize(np, blocks, t)
+    stereo = channels == 2
+    (orv, cf) = ref_qpack.variant_sideband(blocks, stereo)
+    porders = ref.valid_partition_orders(512, 3, 8)
+    window = ref_lpc.tukey_window_df(512)
+    max_rice = 14 if bps <= 16 else 30
+    want = ref.analyze_frames_packed(
+        np, quantized, stereo, bps, 512, 8, 12, porders, max_rice, True,
+        True, window, or_vals=orv, const_flags=cf)
+    got = port.analyze_frames_packed(
+        torch.as_tensor(quantized), stereo, bps, 512, 8, 12, porders,
+        max_rice, True, True, port_lpc.window_to_torch(window, "cpu"),
+        or_vals=torch.as_tensor(orv), const_flags=torch.as_tensor(cf))
+    compare(got, want)

@@ -259,3 +259,92 @@ def test_flac_cuesheet_blocks_parse_and_build_to_equal_bytes():
         (t.number, t.track_offset, [(i.offset, i.number)
                                     for i in t.index_points])
         for t in sheet.tracks]
+
+
+def test_set_metadata_keeps_a_cuesheet_with_index_points(tmp_path):
+    """set_metadata through both packages on a FLAC carrying a CUESHEET
+    with index points: the port's file parses back with every block
+    intact.  The reference counts 9 bytes an index point where the block
+    holds 12 (reference formats/flac.py Flac_CUESHEET_track.size), so
+    its file differs from the port's in three places only: the CUESHEET
+    header's length, 3 bytes an index point short; the PADDING header's
+    length, as much too long (it pads the room it thinks is left); and
+    as many bytes at the head of the first audio frame, which its
+    in-place rewrite of the metadata overwrites with padding zeros"""
+    import numpy as np
+    from audiotools_tpu.formats.flac import FlacAudio as RefFlacAudio
+    from audiotools_tpu_torch.pcm import reader_from_array
+
+    def track(offset, number, isrc, indexes):
+        return (struct.pack(">QB", offset, number) + isrc + b"\x00" * 14 +
+                bytes([len(indexes)]) +
+                b"".join(struct.pack(">QB", o, n) + b"\x00" * 3
+                         for (o, n) in indexes))
+    body = (b"1234567890123".ljust(128, b"\x00") +
+            struct.pack(">QB", 88200, 0x80) + b"\x00" * 258 + bytes([2]) +
+            track(0, 1, b"USRC17607839", [(0, 1), (588 * 30, 2)]) +
+            track(441000, 170, b"\x00" * 12, []))
+    t = np.arange(20000)
+    arr = np.stack([3000 * np.sin(t * 0.05), 2000 * np.sin(t * 0.07)],
+                   axis=1).astype(np.int32)
+    source = str(tmp_path / "source.flac")
+    flac.FlacAudio.from_pcm(source, reader_from_array(arr, 16), "5",
+                            device="cpu")
+    metadata = flac.FlacAudio(source, "cpu").get_metadata()
+    metadata.add_block(flac.Flac_CUESHEET.parse(body))
+    flac.FlacAudio(source, "cpu").update_metadata(metadata)
+    with open(source, "rb") as f:
+        original = f.read()
+
+    (port_path, ref_path) = (str(tmp_path / "port.flac"),
+                             str(tmp_path / "ref.flac"))
+    for path in (port_path, ref_path):
+        with open(path, "wb") as f:
+            f.write(original)
+    flac.FlacAudio(port_path, "cpu").set_metadata(
+        audiofile.MetaData(track_name="A Title", track_number=3))
+    RefFlacAudio(ref_path).set_metadata(
+        ref_audiofile.MetaData(track_name="A Title", track_number=3))
+    with open(port_path, "rb") as f:
+        port_bytes = f.read()
+    with open(ref_path, "rb") as f:
+        ref_bytes = f.read()
+
+    # the port's file: every block back, the CUESHEET byte for byte
+    got = flac.FlacAudio(port_path, "cpu").get_metadata()
+    kept = flac.FlacAudio(source, "cpu").get_metadata()
+    for block_id in (flac.Flac_STREAMINFO.BLOCK_ID,
+                     flac.Flac_SEEKTABLE.BLOCK_ID,
+                     flac.Flac_CUESHEET.BLOCK_ID):
+        assert [b.build() for b in got.get_blocks(block_id)] == [
+            b.build() for b in kept.get_blocks(block_id)]
+    (sheet,) = got.get_blocks(flac.Flac_CUESHEET.BLOCK_ID)
+    assert sheet.build() == body
+    assert (got.track_name, got.track_number) == ("A Title", 3)
+
+    # the reference's file, against the port's
+    short = 3 * 2                       # two index points
+    headers = {}
+    pos = 4
+    while True:
+        (header,) = struct.unpack(">I", port_bytes[pos:pos + 4])
+        (block_id, length) = ((header >> 24) & 0x7F, header & 0xFFFFFF)
+        headers[block_id] = (pos, header)
+        pos += 4 + length
+        if header >> 31:
+            break
+    frames = pos
+    assert port_bytes[frames:frames + 2] == b"\xff\xf8"   # frame sync
+    (cue_at, cue_header) = headers[flac.Flac_CUESHEET.BLOCK_ID]
+    (pad_at, pad_header) = headers[flac.Flac_PADDING.BLOCK_ID]
+    assert cue_header & 0xFFFFFF == len(body)
+    assert len(ref_bytes) == len(port_bytes)
+    assert struct.unpack(">I", ref_bytes[cue_at:cue_at + 4])[0] == \
+        cue_header - short
+    assert struct.unpack(">I", ref_bytes[pad_at:pad_at + 4])[0] == \
+        pad_header + short
+    assert ref_bytes[frames:frames + short] == b"\x00" * short
+    differ = [i for i in range(len(port_bytes))
+              if port_bytes[i] != ref_bytes[i]]
+    assert all(cue_at <= i < cue_at + 4 or pad_at <= i < pad_at + 4 or
+               frames <= i < frames + short for i in differ)

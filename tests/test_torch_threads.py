@@ -136,7 +136,8 @@ def test_fallback_counter_is_exact(monkeypatch, short_switches):
         out = io.BytesIO()
         port_enc.encode_flac_fast(out, pcm.reader_from_array(arr, 16),
                                   device="cpu", block_size=4096,
-                                  max_lpc_order=4, batch_frames=1)
+                                  max_lpc_order=4, batch_frames=1,
+                                  pack=True)
         return out.getvalue()
 
     outs = run_threads(encode)
