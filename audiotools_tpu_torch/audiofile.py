@@ -3,13 +3,16 @@ port's file classes.
 
 The port of the parts of the reference's ``audiotools_tpu/audiofile.py``
 that the command line reaches: ``MetaData`` (the 18 fields, their
-display, ``converted`` and the image list), ``Image``, the
+display, ``converted``, ``clean`` and the image list), ``Image``, the
 ``ReplayGain`` value object, ``AudioFile`` (lengths, ``verify``,
-``convert``, ``track_name``, the metadata and ReplayGain hooks with the
-reference's base behaviour), ``WaveContainer`` (foreign RIFF chunks
-carried through the target's ``from_wave``), and the exceptions the
-reference keeps in its package root.  The tag formats are in ``meta/``
-and the format classes.
+``convert``, ``track_name``, ``clean``, the metadata, cuesheet and
+ReplayGain hooks with the reference's base behaviour),
+``WaveContainer`` (foreign RIFF chunks carried through the target's
+``from_wave``), the CD layout of a cue or TOC sheet (``Sheet``,
+``SheetTrack``, ``SheetIndex``, ``read_sheet``, ``parse_timestamp``,
+``build_timestamp``), and the exceptions the reference keeps in its
+package root.  The tag formats are in ``meta/``, the sheet formats in
+``sheets/``, and the format classes in ``formats/``.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ import decimal
 import os
 
 from .pcm import FRAMELIST_SIZE, to_pcm_progress
-
-# the reference's built-in default for the Filenames/format setting
-FILENAME_FORMAT = "%(track_number)2.2d - %(track_name)s.%(suffix)s"
+# the configured Filenames/format setting, the reference's built-in
+# template when none is set
+from .utils.config import FILENAME_FORMAT
 
 
 class InvalidFile(Exception):
@@ -155,6 +158,15 @@ class MetaData:
             lines.append("Picture : %s" % (image,))
         return os.linesep.join(lines)
 
+    def __delattr__(self, field):
+        if field in self.FIELDS:
+            self.__dict__[field] = None
+        else:
+            try:
+                del self.__dict__[field]
+            except KeyError:
+                raise AttributeError(field)
+
     def raw_info(self):
         """a string of the format's own items"""
         raise NotImplementedError()
@@ -178,9 +190,32 @@ class MetaData:
         fields["images"] = metadata.images()
         return MetaData(**fields)
 
+    @classmethod
+    def supports_images(cls):
+        return True
+
     def images(self):
         """the embedded Image objects"""
         return self.__images__[:]
+
+    def add_image(self, image):
+        """embeds an Image"""
+        if not self.supports_images():
+            raise ValueError("this metadata type does not support images")
+        self.__images__.append(image)
+
+    def delete_image(self, image):
+        """removes an embedded Image"""
+        if not self.supports_images():
+            raise ValueError("this metadata type does not support images")
+        self.__images__.pop(self.__images__.index(image))
+
+    def clean(self):
+        """a (MetaData, fixes performed) pair: a plain MetaData of the
+        fields (no images) and no fixes, as the reference's base class
+        gives; the tag formats find their own problems"""
+        return (MetaData(**{field: getattr(self, field)
+                            for field in MetaData.FIELDS}), [])
 
 
 (FRONT_COVER, BACK_COVER, LEAFLET_PAGE, MEDIA, OTHER) = range(5)
@@ -199,6 +234,12 @@ class Image:
         self.color_count = color_count
         self.description = description
         self.type = type
+
+    def suffix(self):
+        """the file suffix of the image's MIME type"""
+        return {"image/jpeg": "jpg", "image/png": "png", "image/gif": "gif",
+                "image/tiff": "tiff",
+                "image/x-ms-bmp": "bmp"}.get(self.mime_type, "bin")
 
     def type_string(self):
         """the image's type as a display string"""
@@ -265,13 +306,20 @@ class AudioFile:
 
     SUFFIX = ""
     NAME = ""
+    DESCRIPTION = ""
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
+    COMPRESSION_DESCRIPTIONS = {}
 
     device = None
 
     def __init__(self, filename):
         self.filename = filename
+
+    @classmethod
+    def available(cls, system_binaries=None):
+        """True: no class of the port needs an outside program"""
+        return True
 
     def lossless(self):
         return True
@@ -373,6 +421,31 @@ class AudioFile:
         """the file's ReplayGain values, or None"""
         return None
 
+    def set_cuesheet(self, cuesheet):
+        """embeds a Sheet's layout where the class holds one (FLAC)"""
+
+    def get_cuesheet(self):
+        """the embedded Sheet-like layout, or None"""
+        return None
+
+    def clean(self, output_filename=None):
+        """the fixes that the file's tags need, as strings; with
+        ``output_filename``, a copy of the file is written there with
+        its tags cleaned (this file is left as it is)"""
+        metadata = self.get_metadata()
+        if output_filename is None:
+            return [] if metadata is None else metadata.clean()[1]
+        with open(self.filename, "rb") as src, \
+                open(output_filename, "wb") as dst:
+            dst.write(src.read())
+        if metadata is None:
+            return []
+        from .dispatch import open as open_track
+        (cleaned, fixes) = metadata.clean()
+        open_track(output_filename,
+                   device=self.device or "cpu").set_metadata(cleaned)
+        return fixes
+
     def verify(self, progress=None, sink=None):
         """decodes the whole file: raises InvalidFile on a stream error
         or when the frame count is not the header's, else returns True
@@ -431,3 +504,162 @@ class WaveContainer(AudioFile):
                 compression, device=self.device if device is None else device)
         return AudioFile.convert(self, target_path, target_class,
                                  compression, progress, device)
+
+
+class SheetException(ValueError):
+    """a cue sheet or TOC file that does not parse"""
+
+
+def read_sheet(filename):
+    """the Sheet of a .toc or .cue file (a TOC file tried first, its
+    CD_DA header being the easier to spot); raises SheetException"""
+    from .sheets import cue, toc
+    try:
+        return toc.read_tocfile(filename)
+    except SheetException:
+        return cue.read_cuesheet(filename)
+
+
+class Sheet:
+    """a CD's layout: its tracks and catalog number"""
+
+    def __init__(self, sheet_tracks, catalog_number=None):
+        self.__tracks__ = list(sheet_tracks)
+        self.__catalog_number__ = catalog_number
+
+    def __repr__(self):
+        return "Sheet(%s, %s)" % (repr(self.__tracks__),
+                                  repr(self.__catalog_number__))
+
+    def __eq__(self, sheet):
+        if not (hasattr(sheet, "catalog") and callable(sheet.catalog) and
+                self.catalog() == sheet.catalog()):
+            return False
+        if hasattr(sheet, "tracks") and callable(sheet.tracks):
+            return list(self.tracks()) == list(sheet.tracks())
+        return False
+
+    def __len__(self):
+        return len(self.__tracks__)
+
+    def track(self, track_number):
+        """the SheetTrack numbered ``track_number``; KeyError if none"""
+        for track in self.tracks():
+            if track_number == track.number():
+                return track
+        raise KeyError(track_number)
+
+    def tracks(self):
+        return iter(self.__tracks__)
+
+    def catalog(self):
+        """the catalog number, or None"""
+        return self.__catalog_number__
+
+    def image_formatted(self):
+        """True when the tracks' first index points grow, as a CD
+        image's do"""
+        first_indexes = [min(i.offset() for i in t.indexes())
+                         for t in self.tracks()]
+        return all(prev < index for (prev, index) in
+                   zip(first_indexes, first_indexes[1:]))
+
+    def pcm_lengths(self, total_pcm_frames, sample_rate):
+        """each track's length in PCM frames: the distance between index
+        points 1, truncated to whole frames; the last track runs to
+        ``total_pcm_frames``"""
+        if len(self.__tracks__) == 0:
+            return
+        for (prev, track) in zip(self.__tracks__, self.__tracks__[1:]):
+            track_pcm_frames = int((track.index(1).offset() -
+                                    prev.index(1).offset()) * sample_rate)
+            total_pcm_frames -= track_pcm_frames
+            yield track_pcm_frames
+        yield total_pcm_frames
+
+
+class SheetTrack:
+    """a track of a Sheet: its number, index points, audio flag, ISRC"""
+
+    def __init__(self, number, indexes, audio=True, ISRC=None):
+        self.__number__ = number
+        self.__indexes__ = list(indexes)
+        self.__audio__ = audio
+        self.__ISRC__ = ISRC
+
+    def __repr__(self):
+        return "SheetTrack(%s, %s, %s, %s)" % (
+            repr(self.__number__), repr(self.__indexes__),
+            repr(self.__audio__), repr(self.__ISRC__))
+
+    def __eq__(self, track):
+        for method in ["number", "audio", "ISRC"]:
+            if not (hasattr(track, method) and
+                    callable(getattr(track, method)) and
+                    getattr(self, method)() == getattr(track, method)()):
+                return False
+        if hasattr(track, "indexes") and callable(track.indexes):
+            return list(self.indexes()) == list(track.indexes())
+        return False
+
+    def __len__(self):
+        return len(self.__indexes__)
+
+    def index(self, index_number):
+        """the SheetIndex numbered ``index_number``; KeyError if none"""
+        for index in self.indexes():
+            if index_number == index.number():
+                return index
+        raise KeyError(index_number)
+
+    def indexes(self):
+        return iter(self.__indexes__)
+
+    def number(self):
+        return self.__number__
+
+    def ISRC(self):
+        return self.__ISRC__
+
+    def audio(self):
+        return self.__audio__
+
+
+class SheetIndex:
+    """an index point: its number and its offset from the stream's
+    start in seconds, a Fraction"""
+
+    def __init__(self, number, offset):
+        self.__number__ = number
+        self.__offset__ = offset
+
+    def __repr__(self):
+        return "SheetIndex(%s, %s)" % (repr(self.__number__),
+                                       repr(self.__offset__))
+
+    def __eq__(self, index):
+        for method in ["number", "offset"]:
+            if not (hasattr(index, method) and
+                    callable(getattr(index, method)) and
+                    getattr(self, method)() == getattr(index, method)()):
+                return False
+        return True
+
+    def number(self):
+        return self.__number__
+
+    def offset(self):
+        return self.__offset__
+
+
+def parse_timestamp(s):
+    """CD sectors of an "M:S:F" timestamp or a plain integer string"""
+    if ":" in s:
+        (m, sec, f) = map(int, s.split(":"))
+        return (m * 60 * 75) + (sec * 75) + f
+    return int(s)
+
+
+def build_timestamp(i):
+    """the "MM:SS:FF" timestamp of ``i`` CD sectors"""
+    return "%2.2d:%2.2d:%2.2d" % ((i // 75) // 60, (i // 75) % 60, i % 75)

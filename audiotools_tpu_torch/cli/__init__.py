@@ -1,5 +1,6 @@
 """The port's command line: track2track, trackverify, trackcmp,
-trackinfo and tracklength.
+trackinfo, tracklength, tracktag, tracklint, trackrename, coverdump,
+covertag, audiotools-config (``config_tool``), trackcat and tracksplit.
 
 Each tool is a module with a ``main(argv)`` entry point, run as
 ``python -m audiotools_tpu_torch.cli.<tool>``, with the reference's
@@ -7,9 +8,12 @@ options and output lines (``audiotools_tpu/cli``).  Jobs run in the
 farm's worker threads (``parallel.farm.run_jobs``), never in forked
 processes: a child forked after the parent made a CUDA context cannot
 use the card.  ``--devices`` names the torch devices they run on, the
-current card by default.  The reference's configuration files are not
-read: its built-in defaults stand.  Progress rows are not drawn; the
-lines a job prints when it ends are.
+current card by default.  The user's configuration is read as the
+reference reads it (``utils.config``): its default type, filename
+template, qualities and job count.  Progress rows are not drawn; the
+lines a job prints when it ends are.  -I (interactive editing) and -M
+(metadata lookup over the network) are not ported: a tool given one
+exits 1 (``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -27,10 +31,6 @@ try:
     signal.signal(signal.SIGPIPE, signal.SIG_DFL)
 except (ImportError, AttributeError, ValueError):
     pass        # non-POSIX or non-main-thread import
-
-# the reference's built-in default for the System/default_type setting
-DEFAULT_TYPE = "flac"
-
 
 class Messenger:
     """output to stdout, info, warnings and errors to stderr, as the
@@ -68,7 +68,55 @@ def audiofile_type(messenger, type_name):
 
 
 def default_type():
-    return DEFAULT_TYPE
+    """the configured default type, "wav" when the port has no such type"""
+    from ..dispatch import TYPE_MAP
+    from ..utils.config import DEFAULT_TYPE
+    return DEFAULT_TYPE if DEFAULT_TYPE in TYPE_MAP else "wav"
+
+
+def default_jobs():
+    """the default -j: [System] maximum_jobs when it is set, else the
+    farm's DEFAULT_WORKERS (the reference's default is the CPU count;
+    the job count changes no output byte)"""
+    from ..parallel.farm import DEFAULT_WORKERS
+    from ..utils.config import config
+    configured = config.getint_default("System", "maximum_jobs", -1)
+    return configured if configured > 0 else DEFAULT_WORKERS
+
+
+def refuse_unported(msg, options):
+    """True after an error line when -I or -M was asked for"""
+    if getattr(options, "interactive", False):
+        msg.error("-I (interactive mode) is not ported to "
+                  "audiotools_tpu_torch")
+        return True
+    if getattr(options, "metadata_lookup", False):
+        msg.error("-M (metadata lookup) is not ported to "
+                  "audiotools_tpu_torch")
+        return True
+    return False
+
+
+def add_unported_arguments(parser, lookup=True):
+    """-I and (with ``lookup``) -M, which refuse_unported turns away"""
+    parser.add_argument("-I", "--interactive", action="store_true",
+                        default=False, dest="interactive",
+                        help=text.HELP_INTERACTIVE)
+    if lookup:
+        parser.add_argument("-M", "--metadata-lookup", action="store_true",
+                            default=False, dest="metadata_lookup",
+                            help=text.HELP_METADATA_LOOKUP)
+
+
+def output_table(rows):
+    """the lines of the reference's ``output_table``: each row's cells
+    left-justified to their column's widest cell, the line's right end
+    stripped"""
+    widths = [max(len(row[i]) for row in rows if len(row) > i)
+              for i in range(max(len(row) for row in rows))]
+    return ["".join(cell.ljust(width)
+                    for (cell, width) in zip(row, widths)).rstrip()
+            for row in rows]
 
 
 def add_common_arguments(parser):
@@ -81,12 +129,26 @@ def add_common_arguments(parser):
                         help=text.HELP_VERSION)
 
 
-def add_job_arguments(parser):
-    """-j (farm workers) and --devices"""
-    from ..parallel.farm import DEFAULT_WORKERS
-    parser.add_argument("-j", "--joint", dest="max_processes", type=int,
-                        default=DEFAULT_WORKERS, help=text.HELP_JOINT)
+def add_device_argument(parser):
+    """--devices (job_devices reads it)"""
     parser.add_argument("--devices", default=None, help=text.HELP_DEVICES)
+
+
+def first_device(msg, options):
+    """the first of job_devices(options.devices), or None after an error
+    line"""
+    try:
+        return job_devices(options.devices)[0]
+    except (RuntimeError, ValueError) as err:
+        msg.error(str(err))
+        return None
+
+
+def add_job_arguments(parser):
+    """-j (farm workers, default_jobs() when not given) and --devices"""
+    parser.add_argument("-j", "--joint", dest="max_processes", type=int,
+                        default=default_jobs(), help=text.HELP_JOINT)
+    add_device_argument(parser)
 
 
 def job_devices(value):

@@ -2,7 +2,8 @@
 
 The port of the reference's ``audiotools_tpu/cli/track2track.py``:
 -t/-q output type and quality, -o one output or -d a directory with
---format templates filled from each track's tags, -j farm workers over
+--format templates filled from each track's tags (the configured
+template by default), -j farm workers over
 --devices, the sample rate, channel and bits-per-sample conversions,
 and the album ReplayGain pass for the classes that add it.  Each job
 converts as the reference's ``convert`` does, the source's frame count
@@ -22,7 +23,8 @@ import os
 import sys
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
-               audiofile_type, default_type, job_devices, text)
+               add_unported_arguments, audiofile_type, default_type,
+               job_devices, refuse_unported, text)
 
 # one track's conversion: the source's filename, the output and its
 # class and compression, the source's MetaData (or None), and the
@@ -71,12 +73,7 @@ def main(argv=None):
     parser.add_argument("-o", "--output", dest="output", default=None,
                         help=text.HELP_OUTPUT)
     add_job_arguments(parser)
-    parser.add_argument("-I", "--interactive", action="store_true",
-                        default=False, dest="interactive",
-                        help=text.HELP_INTERACTIVE)
-    parser.add_argument("-M", "--metadata-lookup", action="store_true",
-                        default=False, dest="metadata_lookup",
-                        help=text.HELP_METADATA_LOOKUP)
+    add_unported_arguments(parser)
     parser.add_argument("--replay-gain", action="store_true",
                         dest="add_replay_gain", default=False,
                         help=text.HELP_REPLAY_GAIN)
@@ -99,10 +96,7 @@ def main(argv=None):
                              InvalidFilenameFormat, UnsupportedTracknameField)
     from ..parallel.farm import run_jobs
 
-    if options.interactive or options.metadata_lookup:
-        msg.error("%s is not ported to audiotools_tpu_torch" %
-                  ("-I (interactive mode)" if options.interactive else
-                   "-M (metadata lookup)",))
+    if refuse_unported(msg, options):
         return 1
 
     if options.type is None:

@@ -5,8 +5,10 @@ file decoded whole by its class's ``verify`` on the job's device, one
 line a file and a summary table, exit 1 if any file failed.  With
 --accuraterip, CD-format tracks (44.1 kHz, stereo, 16 bits) also get
 their AccurateRip V1 and V2 sums, taken on the same device in the same
-decode.  The reference's lookup of those sums in the online AccurateRip
-database and its --cue check are not ported.
+decode.  ``--cue`` then checks that a cue or TOC sheet's track lengths
+fit the first file (exit 1 with an error line when they do not).  The
+reference's lookup of the sums in the online AccurateRip database is
+not ported.
 
     python -m audiotools_tpu_torch.cli.trackverify out/*.flac
 """
@@ -16,8 +18,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import Messenger, add_common_arguments, add_job_arguments, \
-    job_devices, text
+from . import (Messenger, add_common_arguments, add_job_arguments,
+               job_devices, output_table, text)
 
 
 def verify(filename, accuraterip, device):
@@ -67,10 +69,25 @@ def summary(results):
     rows = [("format ", "success ", "failure")]
     rows.extend((suffix + " ", "%d " % (ok,), "%d" % (bad,))
                 for (suffix, (ok, bad)) in sorted(by_format.items()))
-    widths = [max(len(row[i]) for row in rows) for i in range(3)]
-    return ["".join(cell.ljust(width)
-                    for (cell, width) in zip(row, widths)).rstrip()
-            for row in rows]
+    return output_table(rows)
+
+
+def sheet_fits(cuesheet, filename, device):
+    """None when the cue or TOC sheet's track lengths are all positive
+    and add up to the file's length, else the error line's text"""
+    from .. import dispatch
+    from ..audiofile import SheetException, read_sheet
+    try:
+        sheet = read_sheet(cuesheet)
+        track = dispatch.open(filename, device=device)
+        lengths = list(sheet.pcm_lengths(track.total_frames(),
+                                         track.sample_rate()))
+    except (SheetException, IOError, ValueError) as err:
+        return str(err)
+    if (sum(lengths) != track.total_frames() or
+            any(length <= 0 for length in lengths)):
+        return "cuesheet does not match file length"
+    return None
 
 
 def main(argv=None):
@@ -82,6 +99,8 @@ def main(argv=None):
                         default=False, help=text.HELP_VERIFY_ACCURATERIP)
     parser.add_argument("-t", "--type", action="append",
                         dest="accept_list", default=None, metavar="type")
+    parser.add_argument("--cue", dest="cuesheet", default=None,
+                        help=text.HELP_CUESHEET)
     parser.add_argument("-S", "--no-summary", action="store_true",
                         dest="no_summary", default=False)
     parser.add_argument("filenames", nargs="+")
@@ -128,6 +147,12 @@ def main(argv=None):
         msg.error(str(errors[0]))
         return 1
     results = [result for (result, _error) in outcomes]
+
+    if options.cuesheet is not None and results:
+        error = sheet_fits(options.cuesheet, filenames[0], devices[0])
+        if error is not None:
+            msg.error(error)
+            return 1
 
     if not options.no_summary and results:
         msg.output(text.LAB_TRACKVERIFY_RESULTS)

@@ -10,8 +10,11 @@ seektable, a seekpoint every 10 s from the encoder's frame offsets,
 the WAVEFORMATEXTENSIBLE_CHANNEL_MASK comment for more than two
 channels or more than 16 bits), ``get/set/update/delete_metadata``,
 ``to_pcm``, ``verify``, the REPLAYGAIN_* comments
-(``add_replay_gain``, ``replay_gain``) and foreign RIFF chunks kept as
-APPLICATION "riff" blocks (``from_wave``, ``wave_header_footer``).
+(``add_replay_gain``, ``replay_gain``), foreign RIFF chunks kept as
+APPLICATION "riff" blocks (``from_wave``, ``wave_header_footer``), the
+CUESHEET block made from and read as a ``Sheet`` (``get_cuesheet``,
+``set_cuesheet``), and ``clean`` (the blocks' fixes that tracklint
+reports and makes).
 The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
@@ -20,10 +23,14 @@ file's device, on the route the reference's environment selects (by
 default the quantized upload wire), so its bytes equal the reference's
 ``FlacAudio.from_pcm`` under the same ``ATPU_*`` settings.
 
-Not ported: AIFF chunks (``from_aiff``), CUESHEET conversion from a cue
-sheet (``sheets/``), ``clean``, ID3-wrapped files, Ogg FLAC, and the
-rest of the reference's class.  A block of a reserved type (7-127)
-raises InvalidFLAC when parsed.
+A CUESHEET block is 396 bytes and 36 a track with 12 an index point,
+as it is written.  The reference's ``size`` counts 9 bytes an index
+point (``Flac_CUESHEET_track.size``), so its block headers understate
+a cuesheet with index points; the port does not copy that fault.
+
+Not ported: AIFF chunks (``from_aiff``), ID3-wrapped files, Ogg FLAC,
+and the rest of the reference's class.  A block of a reserved type
+(7-127) raises InvalidFLAC when parsed.
 """
 
 from __future__ import annotations
@@ -31,10 +38,13 @@ from __future__ import annotations
 import os
 import struct
 import tempfile
+from fractions import Fraction
 
+from .. import text
 from .._device import resolve_device
 from ..audiofile import (EncodingError, Image, InvalidFile, MetaData,
-                         ReplayGain, WaveContainer)
+                         ReplayGain, SheetIndex, SheetTrack, WaveContainer)
+from ..utils.config import default_quality
 from ..meta.vorbiscomment import VENDOR_STRING, VorbisComment
 from ..pcm import CHANNEL_MASKS, BufferedPCMReader, CounterPCMReader
 
@@ -181,6 +191,20 @@ class Flac_SEEKTABLE:
     def size(self):
         return len(self.seekpoints) * 18
 
+    def clean(self):
+        """a (Flac_SEEKTABLE, fixes) pair: placeholder points dropped,
+        and each point whose frame offset does not grow"""
+        fixes = []
+        cleaned = []
+        for point in self.seekpoints:
+            if point == (0xFFFFFFFFFFFFFFFF, 0, 0):
+                continue
+            if cleaned and point[0] <= cleaned[-1][0]:
+                fixes.append(text.CLEAN_FLAC_REMOVE_SEEKPOINT)
+            else:
+                cleaned.append(point)
+        return (Flac_SEEKTABLE(cleaned), fixes)
+
     def raw_info(self):
         return "\n".join(
             ["SEEKTABLE:", "  sample offset / byte offset / frame count"] +
@@ -252,11 +276,16 @@ class Flac_CUESHEET:
         self.tracks = list(tracks)
 
     def __eq__(self, sheet):
-        return (isinstance(sheet, Flac_CUESHEET) and
-                self.catalog_number == sheet.catalog_number and
-                self.lead_in_samples == sheet.lead_in_samples and
-                self.is_cdda == sheet.is_cdda and
-                self.tracks == sheet.tracks)
+        if isinstance(sheet, Flac_CUESHEET):
+            return (self.catalog_number == sheet.catalog_number and
+                    self.lead_in_samples == sheet.lead_in_samples and
+                    self.is_cdda == sheet.is_cdda and
+                    self.tracks == sheet.tracks)
+        try:        # another Sheet-like layout
+            return (self.catalog() == sheet.catalog() and
+                    list(self.sheet_tracks()) == list(sheet.tracks()))
+        except AttributeError:
+            return False
 
     def __repr__(self):
         return "Flac_CUESHEET(%r, %r, %r, %r)" % (
@@ -285,10 +314,46 @@ class Flac_CUESHEET:
     def size(self):
         return 396 + sum(t.size() for t in self.tracks)
 
+    @classmethod
+    def converted(cls, sheet, total_pcm_frames, sample_rate):
+        """the block of a Sheet-like layout: its tracks at their first
+        index point, and the lead-out (170) at ``total_pcm_frames``"""
+        catalog = sheet.catalog()
+        if catalog is None:
+            catalog_number = b"\x00" * 128
+        else:
+            if isinstance(catalog, str):
+                catalog = catalog.encode("ascii", "replace")
+            catalog_number = catalog + b"\x00" * (128 - len(catalog))
+        tracks = [Flac_CUESHEET_track.converted(t, sample_rate)
+                  for t in sheet.tracks()]
+        tracks.append(Flac_CUESHEET_track(total_pcm_frames, 170,
+                                          b"\x00" * 12, 0, 0, []))
+        return cls(catalog_number, sample_rate * 2, 1, tracks)
+
     def catalog(self):
         """the catalog number as a string, or None"""
         catalog = self.catalog_number.rstrip(b"\x00")
         return catalog.decode("ascii", "replace") if catalog else None
+
+    def sheet_tracks(self):
+        """the SheetTracks of the tracks but the lead-out, at the sample
+        rate ``get_cuesheet`` noted (44,100 when none)"""
+        sample_rate = getattr(self, "__sample_rate__", 44100)
+        for track in self.tracks:
+            if track.number != 170:
+                yield track.to_sheet_track(sample_rate)
+
+    def pcm_lengths(self, total_pcm_frames, sample_rate):
+        """each track's length in PCM frames, from the tracks' offsets;
+        the last track runs to ``total_pcm_frames``"""
+        offsets = [t.track_offset for t in self.tracks if t.number != 170]
+        if len(offsets) == 0:
+            return
+        for (start, end) in zip(offsets, offsets[1:]):
+            total_pcm_frames -= end - start
+            yield end - start
+        yield total_pcm_frames
 
     def raw_info(self):
         return "\n".join(
@@ -343,6 +408,35 @@ class Flac_CUESHEET_track:
 
     def size(self):
         return 36 + 12 * len(self.index_points)
+
+    @classmethod
+    def converted(cls, sheet_track, sample_rate):
+        """the block's track of a SheetTrack: its offset the first index
+        point's, each index point's offset from it"""
+        ISRC = sheet_track.ISRC()
+        if ISRC is None:
+            ISRC = b"\x00" * 12
+        else:
+            if isinstance(ISRC, str):
+                ISRC = ISRC.encode("ascii", "replace")
+            ISRC = ISRC + b"\x00" * (12 - len(ISRC))
+        indexes = list(sheet_track.indexes())
+        track_offset = int(min(i.offset() for i in indexes) * sample_rate)
+        return cls(track_offset, sheet_track.number(), ISRC,
+                   0 if sheet_track.audio() else 1, 0,
+                   [Flac_CUESHEET_index(int(i.offset() * sample_rate) -
+                                        track_offset, i.number())
+                    for i in indexes])
+
+    def to_sheet_track(self, sample_rate):
+        ISRC = self.ISRC.rstrip(b"\x00")
+        return SheetTrack(
+            self.number,
+            [SheetIndex(i.number, Fraction(self.track_offset + i.offset,
+                                           sample_rate))
+             for i in self.index_points],
+            self.track_type == 0,
+            ISRC.decode("ascii", "replace") if len(ISRC) else None)
 
 
 class Flac_CUESHEET_index:
@@ -411,6 +505,22 @@ class Flac_PICTURE(Image):
     def size(self):
         return (32 + len(self.mime_type.encode("ascii")) +
                 len(self.description.encode("utf-8")) + len(self.data))
+
+    def clean(self):
+        """a (Flac_PICTURE, fixes) pair, the MIME type and metrics taken
+        from the image's own bytes where they differ"""
+        from ..meta.image import image_metrics
+        img = image_metrics(self.data)
+        if (self.mime_type != img.mime_type or self.width != img.width or
+                self.height != img.height or
+                self.color_depth != img.bits_per_pixel or
+                self.color_count != img.color_count):
+            return (Flac_PICTURE(self.picture_type, img.mime_type,
+                                 self.description, img.width, img.height,
+                                 img.bits_per_pixel, img.color_count,
+                                 self.data),
+                    [text.CLEAN_FIX_IMAGE_FIELDS])
+        return (self, [])
 
     @classmethod
     def converted(cls, image):
@@ -544,6 +654,46 @@ class FlacMetaData(MetaData):
     def images(self):
         return self.get_blocks(Flac_PICTURE.BLOCK_ID)
 
+    def add_image(self, image):
+        self.add_block(Flac_PICTURE.converted(image))
+
+    def delete_image(self, image):
+        self.replace_blocks(Flac_PICTURE.BLOCK_ID,
+                            [p for p in self.images() if p != image])
+
+    def clean(self):
+        """a (FlacMetaData, fixes) pair: the VORBIS_COMMENT and SEEKTABLE
+        blocks cleaned, and a second STREAMINFO, VORBIS_COMMENT or
+        SEEKTABLE block dropped"""
+        fixes_performed = []
+        new_blocks = []
+        seen = set()
+        for block in self.block_list:
+            if block.BLOCK_ID == Flac_VORBISCOMMENT.BLOCK_ID:
+                if block.BLOCK_ID in seen:
+                    fixes_performed.append(
+                        text.CLEAN_FLAC_MULTIPLE_VORBISCOMMENT)
+                    continue
+                (cleaned, fixes) = block.clean()
+                fixes_performed.extend(fixes)
+                new_blocks.append(Flac_VORBISCOMMENT(
+                    cleaned.comment_strings, cleaned.vendor_string))
+            elif block.BLOCK_ID == Flac_SEEKTABLE.BLOCK_ID:
+                if block.BLOCK_ID in seen:
+                    fixes_performed.append(text.CLEAN_FLAC_MULTIPLE_SEEKTABLE)
+                    continue
+                (cleaned, fixes) = block.clean()
+                fixes_performed.extend(fixes)
+                new_blocks.append(cleaned)
+            elif (block.BLOCK_ID == Flac_STREAMINFO.BLOCK_ID and
+                    block.BLOCK_ID in seen):
+                fixes_performed.append(text.CLEAN_FLAC_MULTIPLE_STREAMINFO)
+                continue
+            else:
+                new_blocks.append(block)
+            seen.add(block.BLOCK_ID)
+        return (FlacMetaData(new_blocks), fixes_performed)
+
     def raw_info(self):
         return os.linesep.join(b.raw_info() for b in self.block_list)
 
@@ -670,7 +820,9 @@ class FlacAudio(WaveContainer):
 
     SUFFIX = "flac"
     NAME = SUFFIX
+    DESCRIPTION = "Free Lossless Audio Codec"
     COMPRESSION_MODES = tuple(map(str, range(0, 9)))
+    COMPRESSION_DESCRIPTIONS = {"0": text.COMP_FLAC_0, "8": text.COMP_FLAC_8}
     DEFAULT_COMPRESSION = "8"
 
     # the reference's exact per-level options
@@ -886,6 +1038,38 @@ class FlacAudio(WaveContainer):
                 os.unlink(temp)
             raise
 
+    def get_cuesheet(self):
+        """the CUESHEET block (its sheet_tracks at the file's sample
+        rate), or None"""
+        try:
+            cuesheet = self.get_metadata().get_block(Flac_CUESHEET.BLOCK_ID)
+        except IndexError:
+            return None
+        cuesheet.__sample_rate__ = self.sample_rate()
+        return cuesheet
+
+    def set_cuesheet(self, cuesheet):
+        """writes a Sheet-like layout as the file's CUESHEET block"""
+        if cuesheet is None:
+            return
+        metadata = self.get_metadata()
+        metadata.replace_blocks(
+            Flac_CUESHEET.BLOCK_ID,
+            [Flac_CUESHEET.converted(cuesheet, self.total_frames(),
+                                     self.sample_rate())])
+        self.update_metadata(metadata)
+
+    def clean(self, output_filename=None):
+        """the fixes the file's blocks need; with ``output_filename``, a
+        copy of the file written there with its blocks cleaned"""
+        (cleaned, fixes) = self.get_metadata().clean()
+        if output_filename is not None:
+            with open(self.filename, "rb") as old_file, \
+                    open(output_filename, "wb") as new_file:
+                new_file.write(old_file.read())
+            FlacAudio(output_filename, self.device).update_metadata(cleaned)
+        return fixes
+
     def has_foreign_wave_chunks(self):
         """True when the file holds APPLICATION "riff" blocks"""
         return any(b.application_id == b"riff" for b in
@@ -950,14 +1134,16 @@ class FlacAudio(WaveContainer):
         it
 
         compression: one of COMPRESSION_MODES; None or any other value
-        means DEFAULT_COMPRESSION (the reference reads the user's
-        configured default first; the port has no config layer).
+        means the user's configured ``[Quality] flac``, else
+        DEFAULT_COMPRESSION (a configured value that is no mode raises
+        KeyError, as the reference's does).
         total_pcm_frames: the frame count when known ahead, which sizes
         the PADDING block to hold the seektable.  On any failure the
         partial file is removed and the error raised."""
         device = resolve_device(device)
         if compression not in cls.COMPRESSION_MODES:
-            compression = cls.DEFAULT_COMPRESSION
+            compression = (default_quality(cls.NAME) or
+                           cls.DEFAULT_COMPRESSION)
         encoding_options = cls.COMPRESSION_OPTIONS[compression]
         try:
             if pcmreader.channels > 8:

@@ -21,7 +21,7 @@ import struct
 import tempfile
 import time
 
-from .. import VERSION
+from .. import VERSION, text
 from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.alac_fast import encode_mdat_fast
@@ -250,6 +250,8 @@ class ALACAudio(AudioFile):
 
     SUFFIX = "m4a"
     NAME = "alac"
+    DESCRIPTION = "Apple Lossless"
+    COMPRESSION_DESCRIPTIONS = {"": text.COMP_ALAC}
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import os
 import struct
 
-from .. import _native
+from .. import _native, text
 from .._device import resolve_device
 from ..audiofile import EncodingError, InvalidFile, WaveContainer
 from ..codecs.shn import encode_samples, encode_shn, stream_params
@@ -76,6 +76,8 @@ class ShortenAudio(WaveContainer):
 
     SUFFIX = "shn"
     NAME = SUFFIX
+    DESCRIPTION = "Shorten"
+    COMPRESSION_DESCRIPTIONS = {"": text.COMP_SHN}
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
 

@@ -17,6 +17,7 @@ import io
 import os
 import struct
 
+from .. import text
 from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.tta import encode_tta
@@ -116,6 +117,8 @@ class TrueAudio(ApeTaggedAudio, AudioFile):
 
     SUFFIX = "tta"
     NAME = SUFFIX
+    DESCRIPTION = "True Audio"
+    COMPRESSION_DESCRIPTIONS = {"": text.COMP_TTA}
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
 

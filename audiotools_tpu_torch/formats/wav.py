@@ -159,6 +159,7 @@ class WaveAudio(WaveContainer):
 
     SUFFIX = "wav"
     NAME = SUFFIX
+    DESCRIPTION = "Waveform Audio File Format"
 
     def __init__(self, filename):
         WaveContainer.__init__(self, filename)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 import struct
 
+from .. import text
 from .._device import resolve_device
 from ..audiofile import EncodingError, InvalidFile, ReplayGain, WaveContainer
 from ..codecs.wavpack import encode_wavpack
@@ -25,6 +26,7 @@ from ..meta.ape import ApeTag, ApeTaggedAudio, ApeTagItem
 from ..pcm import CounterPCMReader
 from ..ref.wavpack import (WV_WAVE_FOOTER, WV_WAVE_HEADER, WavPackDecoder,
                            walk_sub_blocks)
+from ..utils.config import default_quality
 from .wav import riff_data_size, wave_chunks
 
 DEFAULT_COMPRESSION = "standard"
@@ -74,6 +76,9 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
 
     SUFFIX = "wv"
     NAME = "wavpack"
+    DESCRIPTION = "WavPack"
+    COMPRESSION_DESCRIPTIONS = {"veryfast": text.COMP_WAVPACK_VERYFAST,
+                                "veryhigh": text.COMP_WAVPACK_VERYHIGH}
     DEFAULT_COMPRESSION = DEFAULT_COMPRESSION
     COMPRESSION_MODES = ("veryfast", "fast", "standard", "high",
                          "veryhigh")
@@ -138,6 +143,19 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
                 any(chunk_id not in (b"fmt ", b"data")
                     for (chunk_id, _size) in wave_chunks(header)))
 
+    @classmethod
+    def default_compression(cls, compression):
+        """``compression`` when it is one of COMPRESSION_MODES, else the
+        user's configured ``[Quality] wavpack``, else DEFAULT_COMPRESSION;
+        a configured value that is no mode raises KeyError, as the
+        reference's lookup of its options does"""
+        if compression in cls.COMPRESSION_MODES:
+            return compression
+        compression = default_quality(cls.NAME) or cls.DEFAULT_COMPRESSION
+        if compression not in cls.COMPRESSION_MODES:
+            raise KeyError(compression)
+        return compression
+
     def to_pcm(self):
         """a TorchWavPackDecoder of the file on the file's device"""
         from ..codecs.wavpack import TorchWavPackDecoder
@@ -148,11 +166,10 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
                  total_pcm_frames=None, device="cuda"):
         """encodes a new file from a PCMReader on ``device`` (through
         ``write_wavpack``) and returns it; ``compression`` outside
-        COMPRESSION_MODES means DEFAULT_COMPRESSION.  Any failure
+        COMPRESSION_MODES means ``default_compression``'s.  Any failure
         raises EncodingError and leaves no file."""
         device = resolve_device(device)
-        if compression not in cls.COMPRESSION_MODES:
-            compression = cls.DEFAULT_COMPRESSION
+        compression = cls.default_compression(compression)
         try:
             write_wavpack(filename, pcmreader, compression=compression,
                           total_pcm_frames=total_pcm_frames, device=device)
@@ -170,10 +187,9 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
         """encodes a new file from a WAVE's header, PCM and footer on
         ``device``, the header and footer stored in the blocks; raises
         EncodingError (and leaves no file) when the PCM is not the
-        header's data chunk's size"""
+        header's data chunk's size; ``compression`` as ``from_pcm``'s"""
         device = resolve_device(device)
-        if compression not in cls.COMPRESSION_MODES:
-            compression = cls.DEFAULT_COMPRESSION
+        compression = cls.default_compression(compression)
         try:
             data_size = riff_data_size(header)
             written = write_wavpack(filename, pcmreader, compression,

@@ -5,9 +5,15 @@ A copy of the reference's ``audiotools_tpu/meta/ape.py``: ``ApeTagItem``
 little-endian header and footer, "Track" and "Media" as slashed number
 pairs, the front and back covers as binary items of a description and
 the image) and ``ApeTaggedAudio``, the get/set/update/delete_metadata
-of a class whose files end with the tag.  ``ApeTag.clean`` (tracklint's
-fixes) and ``ApeAudio`` (Monkey's Audio, which neither package decodes)
-are not ported.
+of a class whose files end with the tag, and ``ApeTag.clean``
+(tracklint's fixes).  ``ApeAudio`` (Monkey's Audio, which neither
+package decodes) is not ported.
+
+``clean`` reports its fixes with the reference's strings, where the
+reference's own ``ApeTag.clean`` raises: a local variable there hides
+its ``text`` module, so any tag with something to fix ends in
+AttributeError (UnboundLocalError for a duplicate item before any text
+item).  The port does not copy that fault.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import re
 import struct
 
+from .. import text
 from ..audiofile import Image, MetaData
 
 PREAMBLE = b"APETAGEX"
@@ -358,6 +365,12 @@ class ApeTag(MetaData):
                 image.description.encode('utf-8', 'replace') +
                 b"\x00" + image.data)
 
+    def delete_image(self, image):
+        if (image.type == 0) and ('Cover Art (front)' in self.keys()):
+            del self['Cover Art (front)']
+        elif (image.type == 1) and ('Cover Art (back)' in self.keys()):
+            del self['Cover Art (back)']
+
     def images(self):
         img = []
         if 'Cover Art (front)' in self.keys():
@@ -420,6 +433,51 @@ class ApeTag(MetaData):
                                 len(self.tags), tag_flags(False)) +
                     b"\x00" * 8)
         return out
+
+    def clean(self):
+        """a (ApeTag, fixes performed) pair: duplicate keys dropped, text
+        items stripped of whitespace, "Track" and "Media" of leading
+        zeroes, empty text items dropped"""
+        fixes_performed = []
+        used_tags = set()
+        tag_items = []
+        for tag in self.tags:
+            if tag.key.upper() in used_tags:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_DUPLICATE_TAG % {"field": tag.key})
+                continue
+            used_tags.add(tag.key.upper())
+            if tag.type != 0:
+                tag_items.append(tag)
+                continue
+            value = tag.data.decode('utf-8', 'replace')
+            fix1 = value.rstrip()
+            if fix1 != value:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_TRAILING_WHITESPACE % {"field": tag.key})
+            fix2 = fix1.lstrip()
+            if fix2 != fix1:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_LEADING_WHITESPACE % {"field": tag.key})
+            if tag.key in self.INTEGER_ITEMS:
+                if "/" in fix2:
+                    (number, total) = fix2.split("/", 1)
+                    fix3 = "%s/%s" % (number.rstrip().lstrip("0"),
+                                      total.lstrip().lstrip("0"))
+                else:
+                    fix3 = fix2.lstrip("0")
+                if fix3 != fix2:
+                    fixes_performed.append(
+                        text.CLEAN_REMOVE_LEADING_ZEROES % {"field": tag.key})
+            else:
+                fix3 = fix2
+            if len(fix3) == 0:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_EMPTY_TAG % {"field": tag.key})
+            else:
+                tag_items.append(ApeTagItem.string(tag.key, fix3))
+        return (ApeTag(tag_items, self.contains_header, self.contains_footer),
+                fixes_performed)
 
 
 class ApeTaggedAudio:

@@ -348,6 +348,12 @@ class M4A_META_Atom(MetaData, M4A_Tree_Atom):
                 return
         ilst.leaf_atoms.append(new_atom)
 
+    def delete_image(self, image):
+        ilst = self.ilst_atom()
+        if ilst is not None:
+            ilst.leaf_atoms = [leaf for leaf in ilst.leaf_atoms
+                               if leaf.name != b"covr"]
+
     @classmethod
     def converted(cls, metadata):
         """converts a MetaData object to M4A_META_Atom"""

@@ -4,14 +4,14 @@ mapped onto the MetaData fields.
 A copy of the reference's ``audiotools_tpu/meta/vorbiscomment.py``:
 the map between MetaData fields and comment keys, the key aliases, the
 slashed TRACKNUMBER and DISCNUMBER values, several values to a key
-kept on set.  ``clean`` (tracklint's fixes) is not ported.
+kept on set, and ``clean`` (the fixes tracklint reports and makes).
 """
 
 from __future__ import annotations
 
 import re
 
-from .. import VERSION
+from .. import VERSION, text
 from ..audiofile import MetaData
 
 # the vendor string of the comments the port writes
@@ -286,5 +286,70 @@ class VorbisComment(MetaData):
                     comment_strings.append("%s=%s" % (key, value))
             return cls(comment_strings, VENDOR_STRING)
 
+    @classmethod
+    def supports_images(cls):
+        return False
+
     def images(self):
         return []
+
+    def clean(self):
+        """a (VorbisComment, fixes performed) pair: the known fields'
+        empty values dropped, their values stripped of whitespace, the
+        numbers of leading zeroes"""
+        fixes_performed = []
+        reverse_attr_map = {}
+        for (attr, key) in self.ATTRIBUTE_MAP.items():
+            reverse_attr_map[key] = attr
+            if key in self.ALIASES:
+                for alias in self.ALIASES[key]:
+                    reverse_attr_map[alias] = attr
+
+        cleaned_fields = []
+        for comment_string in self.comment_strings:
+            if "=" not in comment_string:
+                cleaned_fields.append(comment_string)
+                continue
+            (key, value) = comment_string.split("=", 1)
+            if key.upper() not in reverse_attr_map:
+                cleaned_fields.append(comment_string)
+                continue
+            attr = reverse_attr_map[key.upper()]
+            if len(value.strip()) == 0:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_EMPTY_TAG % {"field": key})
+                continue
+            fix1 = value.rstrip()
+            if fix1 != value:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_TRAILING_WHITESPACE % {"field": key})
+            fix2 = fix1.lstrip()
+            if fix2 != fix1:
+                fixes_performed.append(
+                    text.CLEAN_REMOVE_LEADING_WHITESPACE % {"field": key})
+
+            if attr in ("track_number", "album_number"):
+                match = re.match(r'(.*?)\s*/\s*(.*)', fix2)
+                if match is not None:
+                    fix3 = "%s/%s" % (match.group(1).lstrip("0"),
+                                      match.group(2).lstrip("0"))
+                    if fix3 != fix2:
+                        fixes_performed.append(
+                            text.CLEAN_REMOVE_LEADING_WHITESPACE_ZEROES %
+                            {"field": key})
+                else:
+                    fix3 = fix2.lstrip("0")
+                    if fix3 != fix2:
+                        fixes_performed.append(
+                            text.CLEAN_REMOVE_LEADING_ZEROES % {"field": key})
+            elif attr in ("track_total", "album_total"):
+                fix3 = fix2.lstrip("0")
+                if fix3 != fix2:
+                    fixes_performed.append(
+                        text.CLEAN_REMOVE_LEADING_ZEROES % {"field": key})
+            else:
+                fix3 = fix2
+            cleaned_fields.append("%s=%s" % (key, fix3))
+
+        return (self.__class__(cleaned_fields, self.vendor_string),
+                fixes_performed)

@@ -157,6 +157,90 @@ class CounterPCMReader:
         self.pcmreader.close()
 
 
+class PCMCat:
+    """a PCMReader of several PCMReaders one after another (the
+    reference's ``pcmstream.PCMCat``); they must share their sample
+    rate, channel count and bits per sample"""
+
+    def __init__(self, pcmreaders):
+        self.pcmreaders = list(pcmreaders)
+        if len(self.pcmreaders) == 0:
+            raise ValueError("at least one PCMReader is required")
+        for attr in ("sample_rate", "channels", "bits_per_sample"):
+            if len({getattr(r, attr) for r in self.pcmreaders}) != 1:
+                raise ValueError("all readers must have the same %s"
+                                 % (attr.replace("_", " "),))
+        first = self.pcmreaders[0]
+        self.sample_rate = first.sample_rate
+        self.channels = first.channels
+        self.channel_mask = first.channel_mask
+        self.bits_per_sample = first.bits_per_sample
+        self.index = 0
+        self.closed = False
+
+    def read(self, pcm_frames):
+        """the current reader's next frames, the next reader's once it
+        is done; empty when the last is"""
+        if self.closed:
+            raise ValueError("stream is closed")
+        while self.index < len(self.pcmreaders):
+            framelist = self.pcmreaders[self.index].read(pcm_frames)
+            if framelist.frames > 0:
+                return framelist
+            self.index += 1
+        return empty_framelist(self.channels, self.bits_per_sample)
+
+    def close(self):
+        self.closed = True
+        for reader in self.pcmreaders:
+            reader.close()
+
+
+class LimitedPCMReader:
+    """at most ``total_pcm_frames`` frames of a BufferedPCMReader (the
+    reference's ``pcmstream.LimitedPCMReader``); closing it leaves the
+    wrapped reader open"""
+
+    def __init__(self, buffered_pcmreader, total_pcm_frames):
+        self.pcmreader = buffered_pcmreader
+        self.total_pcm_frames = total_pcm_frames
+        self.sample_rate = buffered_pcmreader.sample_rate
+        self.channels = buffered_pcmreader.channels
+        self.channel_mask = buffered_pcmreader.channel_mask
+        self.bits_per_sample = buffered_pcmreader.bits_per_sample
+        self.closed = False
+
+    def read(self, pcm_frames):
+        if self.closed:
+            raise ValueError("stream is closed")
+        if self.total_pcm_frames <= 0:
+            return empty_framelist(self.channels, self.bits_per_sample)
+        frame = self.pcmreader.read(min(pcm_frames, self.total_pcm_frames))
+        self.total_pcm_frames -= frame.frames
+        return frame
+
+    def close(self):
+        self.closed = True
+
+
+def pcm_split(reader, pcm_lengths):
+    """yields a PCMReader of each of ``pcm_lengths`` frames of
+    ``reader`` in turn (the reference's ``pcmstream.pcm_split``): each
+    track's samples are read whole before it is yielded, so that the
+    readers may be consumed in any order or at once, as the reference's
+    spooled copies may; the last may be short where ``reader`` is"""
+    full_data = BufferedPCMReader(reader)
+    try:
+        for pcm_length in pcm_lengths:
+            part = _ArrayReader(
+                read_all(LimitedPCMReader(full_data, pcm_length)),
+                reader.bits_per_sample, reader.sample_rate)
+            part.channel_mask = reader.channel_mask
+            yield part
+    finally:
+        full_data.close()
+
+
 def read_all(pcmreader):
     """every frame a PCMReader has left, as int32 [frames, channels]"""
     pieces = []

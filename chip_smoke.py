@@ -9,8 +9,9 @@ TTA encode with the device filter and decode with device filter
 inversion, Shorten encode with device analysis and decode with device
 synthesis, WavPack encode and decode with the decorrelation passes
 on the card, the converters (ReplayGain, AccurateRip, the
-resampler), and a collection of tracks through the transcode farm.
-Its phases each print one line:
+resampler), a collection of tracks through the transcode farm, and
+the command line's tools, the cue sheet and tag tools among them.
+Its phases each print one line (phase 24 one a tool too):
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -216,8 +217,29 @@ Its phases each print one line:
     bit-exactly, rice_planes counted from 0 across it, then held
     element for element against rice_planes_plain on the residuals
     of that run (captured there) and timed as phase 6, beside its
-    bound; and an encode split over ``[cuda:0, cuda:0]`` whose bytes
-    equal one device's.
+    bound; ``qpack.unpack_wire`` alone on a bench batch's wire (captured
+    in one more encode), timed as phase 6 beside its byte bound; and an
+    encode split over ``[cuda:0, cuda:0]`` whose bytes equal one
+    device's;
+24. the cue sheet and tag tools, on phase 19's album with each title
+    cut to whole CD sectors (588 frames), written as FLAC -8:
+    ``trackcat --cue`` joins them into one FLAC -8 stream with the cue
+    sheet embedded (decoded on the card to the titles; the CUESHEET
+    block the sheet's, its lengths the titles'), ``tracksplit`` splits it
+    by that block to FLAC -8 and to WavPack standard with two workers
+    (each track decoded on the card to its title), ``tracktag
+    --replay-gain`` tags each split album (peaks equal to the port's
+    host twin's, ``ops.converters.rg_window_sums_host``, gains within
+    0.011 dB), ``tracklint --fix --db`` cleans an untidy copy and
+    ``--undo`` gives its bytes back, ``covertag``, ``coverdump`` and
+    ``trackrename`` (names and bytes checked); trackcat and the FLAC
+    split three times (the same bytes, the median's wall), a line a tool
+    with its wall, input Msamples/s and the launches of each kernel,
+    counted from 0 just before each run and read just after (trackcat
+    and the splits must launch rice_decode and flac_synth, the WavPack
+    split wv_corr, its ReplayGain wv_decorr); then a short album (2 s)
+    through the same tools on the card and with ``--devices cpu``,
+    every file byte-equal.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -233,6 +255,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1835,14 +1858,15 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
     default route is the ALAC wire); the card's default-route bytes
     against the CPU's on a short slice; one bench batch with
     ATPU_DEVICE_RICE=exact, rice_planes counted from 0 across it, then
-    held against its plain version on the residuals of that run; and a
-    two-slice encode over [dev, dev] against one device.  Returns (its
+    held against its plain version on the residuals of that run; the
+    wire's ``unpack_wire`` alone on the first batch's wire of one more
+    encode; and a two-slice encode over [dev, dev] against one device.  Returns (its
     line's fields, the kernels line's rice_planes row and launches).
     On a CPU ``dev`` (a rehearsal with a short signal, ``median_ms``
     and ``device_ms`` replaced by host timers) the card's memory is not
     read and no launch is required."""
     from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
-    from audiotools_tpu_torch.ops import flac_frames
+    from audiotools_tpu_torch.ops import flac_frames, qpack
     from audiotools_tpu_torch.pcm import decode_flac, reader_from_array
     dev = torch.device(dev)
     on_cuda = dev.type == "cuda"
@@ -1925,6 +1949,33 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
                              one_device_s=outs[0][1],
                              two_slices_s=outs[1][1])
 
+    # ---- the wire's unpack alone, on one bench batch ------------------
+    unpack = qpack.unpack_wire
+    capture = CaptureFirst(unpack)
+    qpack.unpack_wire = capture
+    try:
+        port_enc.encode_flac_fast(io.BytesIO(), reader_from_array(
+            sig[:n * frames], 16), device=dev, **opts)
+    finally:
+        qpack.unpack_wire = unpack
+    if capture.first is None:
+        raise AssertionError("the default route never unpacked a wire")
+    (wire, k, W, ch, nn, E, V) = capture.first
+    del capture
+    B = wire.shape[0]
+    # the wire read once; the blocks (int32) and constant flags (bool)
+    # written once (the or-values are a view of the wire); two word
+    # gathers, an or, three shifts, a mask, the zigzag's three operations
+    # and the cumsum's add a sample: 11 integer operations
+    (b_ms, b_by) = bound(wire.numel() * 4 + B * nn * ch * 4 + B * V,
+                         B * nn * ch * 11)
+    out["unpack_wire"] = dict(
+        shape=[B, wire.shape[1], k, W, ch, nn, E, V],
+        ms=median_ms(lambda: unpack(wire, k, W, ch, nn, E, V)),
+        device_ms=device_ms(lambda: unpack(wire, k, W, ch, nn, E, V)),
+        bound_ms=b_ms, bound_by=b_by)
+    del wire
+
     # ---- the exact Rice ladder on one bench batch ----------------------
     kernel = flac_frames.rice_planes
     capture = CaptureFirst(kernel)
@@ -1979,6 +2030,317 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
                              device_ms=card_ms, equal=True, **row)
     del res
     return (out, row, launches)
+
+
+# phase 24: the cue sheet and tag tools on phase 19's album, each title
+# cut to whole CD sectors; trackcat and the FLAC split run SHEET_RUNS
+# times (median), the other tools once; then a short album of about
+# SHORT_ALBUM_S seconds through the same tools on the card and the CPU
+SECTOR = 588
+SHEET_RUNS = 3
+# 2 s, not 3: the CPU's plain WavPack loops took most of a 3 s album's
+# 81.8 s (PERF.md, PR 17)
+SHORT_ALBUM_S = 2.0
+# tags tracklint finds untidy: whitespace, leading zeroes, an empty field
+UNTIDY_COMMENTS = ["TITLE= Untidy Title ", "TRACKNUMBER=01",
+                   "TRACKTOTAL=004", "ALBUM=Album  ", "GENRE="]
+
+
+def album_cue(lengths):
+    """a cue sheet of tracks of ``lengths`` frames (whole sectors) one
+    after another, with a catalog number and an ISRC"""
+    from audiotools_tpu_torch.audiofile import build_timestamp
+    lines = ["CATALOG 4006381333931", 'FILE "album.wav" WAVE']
+    start = 0
+    for (k, n) in enumerate(lengths):
+        lines.append("  TRACK %02d AUDIO" % (k + 1,))
+        if k == 0:
+            lines.append("    ISRC USRC17607839")
+        lines.append("    INDEX 01 %s" % (build_timestamp(start // SECTOR),))
+        start += n
+    return "\n".join(lines) + "\n"
+
+
+def host_replay_gain(titles):
+    """each title's gain and peak and the album's, from the port's host
+    twin of the analysis (ops.converters.rg_window_sums_host):
+    ([gains], [peaks], album gain, album peak)"""
+    from audiotools_tpu_torch import replaygain
+    from audiotools_tpu_torch.ops import converters
+    win = int(np.ceil(SAMPLE_RATE * replaygain.RMS_WINDOW_TIME))
+    hists = []
+    for title in titles:
+        x = title.astype(np.float64)
+        sums = converters.rg_window_sums_host(x[:, 0], x[:, 1], SAMPLE_RATE,
+                                              win)
+        hist = np.zeros(12000, dtype=np.int64)
+        values = 1000.0 * np.log10(sums / win * 0.5 + 1e-37)
+        np.add.at(hist, np.clip(values.astype(np.int64), 0, 11999), 1)
+        hists.append(hist)
+    peaks = [float(np.abs(t).max()) / 32768 for t in titles]
+    return ([replaygain._analyze_histogram(h) for h in hists], peaks,
+            replaygain._analyze_histogram(sum(hists)), max(peaks))
+
+
+def check_replay_gain(paths, host, peak_format, dev):
+    """each file's ReplayGain against ``host_replay_gain``'s: the peaks
+    equal as the class writes them, the gains within RG_GAIN_DB"""
+    from audiotools_tpu_torch import dispatch
+    (gains, peaks, album_gain, album_peak) = host
+    worst = 0.0
+    for (path, gain, peak) in zip(paths, gains, peaks):
+        rg = dispatch.open(path, device=dev).replay_gain()
+        if (rg is None or
+                rg.track_peak != float(peak_format % (peak,)) or
+                rg.album_peak != float(peak_format % (album_peak,))):
+            raise AssertionError("%s's ReplayGain %r, the host's peak %r"
+                                 % (path, rg, peak))
+        worst = max(worst, abs(rg.track_gain - gain),
+                    abs(rg.album_gain - album_gain))
+    if worst > RG_GAIN_DB:
+        raise AssertionError("ReplayGain %r dB from the host twin's" %
+                             (worst,))
+    return worst
+
+
+def decoded(path, dev):
+    from audiotools_tpu_torch import dispatch
+    from audiotools_tpu_torch.pcm import read_all
+    return read_all(dispatch.open(path, device=dev).to_pcm())
+
+
+def tree_bytes(root):
+    """{path under root: bytes} of every file under ``root``"""
+    files = {}
+    for (base, _dirs, names) in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            files[os.path.relpath(path, root)] = read_bytes(path)
+    return files
+
+
+def sheet_tools(work, titles, dev, counters, runs=1, record=None,
+                check=True):
+    """trackcat --cue, tracksplit to FLAC -8 and WavPack standard,
+    tracktag --replay-gain on each split, tracklint --fix --db and
+    --undo on an untidy copy, covertag, coverdump and trackrename, all on
+    ``dev``, under ``work`` (the titles written there as FLAC -8 by the
+    caller, ``work``/src/track<k>.flac); trackcat and the FLAC split
+    ``runs`` times.  Each run's launches are counted from 0 and handed
+    with its tool name and wall to ``record``.  Without ``check`` the
+    outputs are not decoded (a run whose files are compared with a
+    checked run's).  Returns the split paths."""
+    from audiotools_tpu_torch.audiofile import read_sheet
+    from audiotools_tpu_torch.formats.flac import (Flac_CUESHEET, FlacAudio,
+                                                   Flac_VORBISCOMMENT)
+    on = ["--devices", str(dev)]
+    lengths = [len(t) for t in titles]
+    sources = [os.path.join(work, "src", "track%d.flac" % k)
+               for k in range(len(titles))]
+    cue = os.path.join(work, "album.cue")
+    with open(cue, "w") as f:
+        f.write(album_cue(lengths))
+
+    def tool(name, args, label=None):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        (code, lines) = run_cli(name, args + on)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for (k, fn) in counters.items()}
+        if code != 0:
+            raise AssertionError("%s %s exited %r: %s"
+                                 % (name, args, code, lines[:4]))
+        if record is not None:
+            record(label or name, wall, launches)
+        return lines
+
+    # trackcat: the titles joined with the sheet embedded
+    cat = os.path.join(work, "cat.flac")
+    first = None
+    for _ in range(runs):
+        if os.path.exists(cat):
+            os.unlink(cat)
+        tool("trackcat", ["-t", "flac", "-q", "8", "--cue", cue, "-o", cat] +
+             sources)
+        first = first or read_bytes(cat)
+        if read_bytes(cat) != first:
+            raise AssertionError("trackcat's runs wrote different files")
+    if check and not np.array_equal(decoded(cat, dev),
+                                    np.concatenate(titles)):
+        raise AssertionError("trackcat's file does not decode to the titles")
+    embedded = FlacAudio(cat, device=dev).get_cuesheet()
+    sheet = read_sheet(cue)
+    if (embedded is None or embedded != sheet or
+            embedded.build() != Flac_CUESHEET.converted(
+                sheet, sum(lengths), SAMPLE_RATE).build() or
+            list(embedded.pcm_lengths(sum(lengths), SAMPLE_RATE)) != lengths
+            or list(sheet.pcm_lengths(sum(lengths), SAMPLE_RATE)) !=
+            lengths):
+        raise AssertionError("the embedded CUESHEET is not the cue sheet's")
+
+    # tracksplit by the embedded CUESHEET, to FLAC -8 and WavPack
+    splits = {}
+    for (type_name, quality, n_runs) in (("flac", "8", runs),
+                                         ("wavpack", "standard", 1)):
+        dest = os.path.join(work, "split-" + type_name)
+        first = None
+        for _ in range(n_runs):
+            if os.path.exists(dest):
+                shutil.rmtree(dest)
+            tool("tracksplit", ["-t", type_name, "-q", quality, "-j", "2",
+                                "-d", dest, cat], "tracksplit_" + type_name)
+            files = tree_bytes(dest)
+            first = first or files
+            if files != first:
+                raise AssertionError("tracksplit's runs wrote different "
+                                     "files")
+        paths = [os.path.join(dest, "%02d - .%s" % (
+            k + 1, "flac" if type_name == "flac" else "wv"))
+            for k in range(len(titles))]
+        if sorted(os.path.join(dest, f) for f in first) != sorted(paths):
+            raise AssertionError("tracksplit's names: %s" % (sorted(first),))
+        for (path, title) in zip(paths, titles if check else ()):
+            if not np.array_equal(decoded(path, dev), title):
+                raise AssertionError("%s does not decode to its title"
+                                     % (path,))
+        splits[type_name] = paths
+
+    # ReplayGain on each split album
+    for (type_name, paths) in splits.items():
+        tool("tracktag", ["--replay-gain"] + paths,
+             "tracktag_rg_" + type_name)
+
+    # tracklint on an untidy copy of the first FLAC track, then --undo
+    untidy = os.path.join(work, "untidy.flac")
+    shutil.copy(splits["flac"][0], untidy)
+    track = FlacAudio(untidy, device=dev)
+    metadata = track.get_metadata()
+    vorbis = metadata.get_block(Flac_VORBISCOMMENT.BLOCK_ID)
+    vorbis.comment_strings.extend(UNTIDY_COMMENTS)
+    track.update_metadata(metadata)
+    before = read_bytes(untidy)
+    db = os.path.join(work, "undo.db")
+    tool("tracklint", ["--fix", "--db", db, untidy])
+    if (FlacAudio(untidy, device=dev).clean() or
+            read_bytes(untidy) == before):
+        raise AssertionError("tracklint --fix left the tags untidy")
+    tool("tracklint", ["--undo", "--db", db, untidy], "tracklint_undo")
+    if read_bytes(untidy) != before:
+        raise AssertionError("tracklint --undo did not give the bytes back")
+
+    # covers and names
+    cover = os.path.join(work, "cover.png")
+    with open(cover, "wb") as f:
+        f.write(png_cover(7, 5))
+    tool("covertag", ["--front-cover", cover] + splits["flac"])
+    dump = os.path.join(work, "dump")
+    tool("coverdump", ["-d", dump] + splits["flac"])
+    dumped = tree_bytes(dump)
+    if sorted(dumped) != ["%02d - -front_cover00.png" % (k + 1,)
+                          for k in range(len(titles))] or any(
+            data != read_bytes(cover) for data in dumped.values()):
+        raise AssertionError("coverdump wrote %s" % (sorted(dumped),))
+    tool("trackrename", ["--format", "%(track_number)2.2d of "
+                         "%(track_total)d.%(suffix)s"] + splits["wavpack"])
+    renamed = sorted(os.listdir(os.path.dirname(splits["wavpack"][0])))
+    if renamed != ["%02d of %d.wv" % (k + 1, len(titles))
+                   for k in range(len(titles))]:
+        raise AssertionError("trackrename's names: %s" % (renamed,))
+    splits["renamed"] = [os.path.join(os.path.dirname(splits["wavpack"][0]),
+                                      name) for name in renamed]
+    return splits
+
+
+def write_titles(work, titles, dev):
+    """each title written as FLAC -8 on ``dev`` into ``work``/src"""
+    from audiotools_tpu_torch.formats.flac import FlacAudio
+    from audiotools_tpu_torch.pcm import reader_from_array
+    os.makedirs(os.path.join(work, "src"))
+    for (k, title) in enumerate(titles):
+        FlacAudio.from_pcm(os.path.join(work, "src", "track%d.flac" % k),
+                           reader_from_array(title, 16), "8",
+                           total_pcm_frames=len(title), device=dev)
+
+
+def sheets_phase(dev, alac_sig):
+    """phase 24 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it, each title cut to whole sectors: the cue sheet and tag tools on
+    ``dev``; returns its line's fields and each kernel's launches in the
+    tool runs.  On a CPU ``dev`` (a rehearsal with a short signal) no
+    launch is required and the short album runs on the CPU twice."""
+    import tempfile
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    per = alac_sig.shape[0] // RG_TITLES // SECTOR * SECTOR
+    titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    in_samples = sum(t.size for t in titles)
+    launches = dict.fromkeys(counters, 0)
+    runs = {}
+
+    def record(label, wall, run):
+        for (k, n) in run.items():
+            launches[k] += n
+        runs.setdefault(label, []).append(dict(wall_s=wall, launches=run))
+
+    out = dict(tracks=len(titles), track_frames=per,
+               track_seconds=per / SAMPLE_RATE, input_samples=in_samples)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sheets-") as work:
+        write_titles(work, titles, dev)
+        splits = sheet_tools(work, titles, dev, counters, SHEET_RUNS, record)
+        host = host_replay_gain(titles)
+        out["replay_gain_flac_max_err_dB"] = check_replay_gain(
+            splits["flac"], host, "%1.8f", dev)
+        out["replay_gain_wavpack_max_err_dB"] = check_replay_gain(
+            splits["renamed"], host, "%1.6f", dev)
+    # the kernels each tool run must have launched
+    needed = {"trackcat": ("rice_decode", "flac_synth"),
+              "tracksplit_flac": ("rice_decode", "flac_synth"),
+              "tracksplit_wavpack": ("rice_decode", "flac_synth", "wv_corr"),
+              "tracktag_rg_flac": ("rice_decode", "flac_synth"),
+              "tracktag_rg_wavpack": ("wv_decorr",)}
+    out["tools"] = {}
+    for (label, tool_runs) in runs.items():
+        for run in tool_runs:
+            idle = [k for k in needed.get(label, ())
+                    if run["launches"][k] <= 0]
+            if on_cuda and idle:
+                raise AssertionError("%s never launched %s" % (label, idle))
+        walls = [r["wall_s"] for r in tool_runs]
+        median = tool_runs[int(np.argsort(walls)[len(walls) // 2])]
+        fields = dict(runs=len(tool_runs), wall_s=median["wall_s"],
+                      wall_s_runs=walls,
+                      input_Msamples_per_s=in_samples / median["wall_s"]
+                      / 1e6, launches=median["launches"])
+        line("sheets_" + label, **fields)
+        out["tools"][label] = fields
+
+    # the short album, on the card and on the CPU: the same files
+    short = max(SHORT_ALBUM_S * SAMPLE_RATE // RG_TITLES // SECTOR, 1)
+    short_titles = [program_signal(int(short) * SECTOR, seed=11 + k)
+                    for k in range(RG_TITLES)]
+    t0 = time.perf_counter()
+    trees = []
+    with tempfile.TemporaryDirectory(prefix="sheets-short-") as work:
+        for (k, device) in enumerate((dev, torch.device("cpu"))):
+            base = os.path.join(work, "run%d" % (k,))
+            write_titles(base, short_titles, dev)
+            sheet_tools(base, short_titles, device, counters, check=k == 0)
+            trees.append(tree_bytes(base))
+    if trees[0] != trees[1]:
+        raise AssertionError("the short album's files differ between the "
+                             "card and the CPU: %s" % sorted(
+                                 k for k in set(trees[0]) | set(trees[1])
+                                 if trees[0].get(k) != trees[1].get(k)))
+    out["short_album"] = dict(seconds=time.perf_counter() - t0,
+                              frames=int(short) * SECTOR * RG_TITLES,
+                              files=len(trees[0]), identical_to_cpu=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
 
 
 def main():
@@ -2799,6 +3161,10 @@ def main():
     line("default_route", seconds=time.perf_counter() - t0,
          nvidia_smi=smi, **fields)
 
+    # ---- 24. the cue sheet and tag tools ---------------------------------
+    (fields, sheets_launches) = sheets_phase(dev, alac_sig)
+    line("sheets", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -2828,7 +3194,8 @@ def main():
             source="audiotools_tpu_torch/csrc/" + source,
             replaces="audiotools_tpu/ops/" + replaces, launches=kl,
             cli_launches=cli_launches[kname],
-            tags_launches=tags_launches[kname], **row))
+            tags_launches=tags_launches[kname],
+            sheets_launches=sheets_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

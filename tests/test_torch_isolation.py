@@ -55,9 +55,10 @@ def test_no_source_imports_the_reference():
 
 def test_port_loads_nothing_of_the_reference():
     """a fresh interpreter imports every port module and chip_smoke,
-    encodes and decodes FLAC, Shorten and TTA, and runs ReplayGain,
+    encodes and decodes FLAC, Shorten and TTA, runs ReplayGain,
     AccurateRip and a resampling PCMConverter through the port on the
-    CPU, and holds no module of jax or of the reference"""
+    CPU, then trackcat --cue, tracksplit, tracktag and tracklint, and
+    holds no module of jax or of the reference"""
     code = (
         "import importlib, io, sys\n"
         "import numpy as np\n"
@@ -97,6 +98,28 @@ def test_port_loads_nothing_of_the_reference():
         "resampled = pcm.read_all(pcm.PCMConverter(pcm.reader_from_array("
         "arr, 16), 48000, 1, 0x4, 16, device='cpu'))\n"
         "assert resampled.shape == (len(arr) * 48000 // 44100, 1)\n"
+        "import os, tempfile\n"
+        "from audiotools_tpu_torch.formats.wav import WaveAudio\n"
+        "from audiotools_tpu_torch.cli import (trackcat, tracklint, "
+        "tracksplit, tracktag)\n"
+        "work = tempfile.mkdtemp()\n"
+        "wav = os.path.join(work, 'a.wav')\n"
+        "WaveAudio.from_pcm(wav, pcm.reader_from_array(arr, 16))\n"
+        "sheet = os.path.join(work, 'a.cue')\n"
+        "open(sheet, 'w').write('FILE \"a.wav\" WAVE\\n  TRACK 01 AUDIO\\n"
+        "    INDEX 01 00:00:00\\n  TRACK 02 AUDIO\\n    INDEX 01 00:00:03\\n')\n"
+        "cat = os.path.join(work, 'cat.flac')\n"
+        "cpu = ['--devices', 'cpu', '-V', 'silent']\n"
+        "assert trackcat.main(['-t', 'flac', '--cue', sheet, '-o', cat, wav,"
+        " wav] + cpu) == 0\n"
+        "out = os.path.join(work, 'out')\n"
+        "assert tracksplit.main(['-t', 'flac', '-d', out, cat] + cpu) == 0\n"
+        "tracks = sorted(os.path.join(out, f) for f in os.listdir(out))\n"
+        "assert len(tracks) == 2\n"
+        "assert tracktag.main(['--album', ' x ', '--replay-gain'] + tracks +"
+        " cpu) == 0\n"
+        "assert tracklint.main(['--fix', '--db', os.path.join(work, 'u.db')]"
+        " + tracks + cpu) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'audiotools_tpu' or "
         "m.startswith('audiotools_tpu.'))\n"
