@@ -1,7 +1,7 @@
 """The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
 kernels, the quantized upload wire's scans (``flac_qpack``,
 ``flac_qpack_patched``, ``flac_qplan_t``), the converters' host twins,
-and MD5.
+the Ogg page CRC and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
 Shorten, WavPack, converter, CRC and MD5 parts of the reference
@@ -340,6 +340,9 @@ def _bind(lib):
     lib.atpu_iir.restype = None
     lib.atpu_iir.argtypes = [_F64, _F64, ctypes.c_int32, _F64, _F64,
                              ctypes.c_int64, _F64]
+
+    lib.atpu_ogg_crc.restype = ctypes.c_uint32
+    lib.atpu_ogg_crc.argtypes = [_U8, ctypes.c_int64, ctypes.c_uint32]
 
     lib.atpu_md5_init.restype = None
     lib.atpu_md5_init.argtypes = [_U8]
@@ -1198,6 +1201,14 @@ def iir(b, a, x, zi):
                        _as_ptr(y, ctypes.c_double), len(x),
                        _as_ptr(z, ctypes.c_double))
     return (y, z)
+
+
+def ogg_crc(data, initial=0):
+    """the Ogg page CRC-32 of ``data`` (polynomial 0x04C11DB7, initial
+    value ``initial``, no final xor)"""
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    return int(get_lib().atpu_ogg_crc(_as_ptr(buf, ctypes.c_uint8),
+                                      len(buf), initial))
 
 
 class MD5:

@@ -12,7 +12,8 @@
 //     emit from packed decision rows (the batched encoder's emitter),
 //     optionally splicing device-packed residual bits;
 //   * atpu_md5_*: MD5 with a fused int32-PCM update;
-//   * atpu_pack_pcm / atpu_unpack_pcm, atpu_crc8 / atpu_crc16;
+//   * atpu_pack_pcm / atpu_unpack_pcm, atpu_crc8 / atpu_crc16,
+//     atpu_ogg_crc (the Ogg page CRC-32);
 //   * atpu_flac_decode: the complete host FLAC frame decoder;
 //   * atpu_flac_scan: the structural scan of the device decode path
 //     (frame/subframe metadata and residual-partition bit spans);
@@ -1400,6 +1401,33 @@ int64_t atpu_flac_emit_frames2rb(const int32_t* blocks,
 
 uint16_t atpu_crc16(const uint8_t* data, int64_t n, uint16_t initial) {
     return crc16_buf(data, n, initial);
+}
+
+// Ogg page CRC-32: polynomial 0x04C11DB7, MSB-first, init 0, no
+// final xor (RFC 3533); the table is built once, on first use, by
+// whichever thread comes first
+static const uint32_t* ogg_crc_table() {
+    static const struct Table {
+        uint32_t v[256];
+        Table() {
+            for (uint32_t b = 0; b < 256; b++) {
+                uint32_t c = b << 24;
+                for (int i = 0; i < 8; i++)
+                    c = (c & 0x80000000u) ? ((c << 1) ^ 0x04C11DB7u)
+                                          : (c << 1);
+                v[b] = c;
+            }
+        }
+    } table;
+    return table.v;
+}
+
+uint32_t atpu_ogg_crc(const uint8_t* data, int64_t n, uint32_t initial) {
+    const uint32_t* table = ogg_crc_table();
+    uint32_t crc = initial;
+    for (int64_t i = 0; i < n; i++)
+        crc = (crc << 8) ^ table[((crc >> 24) ^ data[i]) & 0xFF];
+    return crc;
 }
 
 // ------------------------------------------------------------- MD5 ----

@@ -7,8 +7,9 @@ display, ``converted``, ``clean`` and the image list), ``Image``, the
 ``ReplayGain`` value object, ``AudioFile`` (lengths, ``verify``,
 ``convert``, ``track_name``, ``clean``, the metadata, cuesheet and
 ReplayGain hooks with the reference's base behaviour),
-``WaveContainer`` (foreign RIFF chunks carried through the target's
-``from_wave``), the CD layout of a cue or TOC sheet (``Sheet``,
+``WaveContainer`` and ``AiffContainer`` (foreign RIFF or AIFF chunks
+carried through the target's ``from_wave`` or ``from_aiff``), the CD
+layout of a cue or TOC sheet (``Sheet``,
 ``SheetTrack``, ``SheetIndex``, ``read_sheet``, ``parse_timestamp``,
 ``build_timestamp``), and the exceptions the reference keeps in its
 package root.  The tag formats are in ``meta/``, the sheet formats in
@@ -480,7 +481,9 @@ class WaveContainer(AudioFile):
 
     ``convert`` carries them through the target class's ``from_wave``
     where it has one; a target without one (ALAC, TTA) gets the PCM
-    alone, as the reference's does."""
+    alone, as the reference's does (through the next class's
+    ``convert``: a class that is also an AiffContainer then offers its
+    AIFF chunks)."""
 
     def has_foreign_wave_chunks(self):
         """True when the file holds RIFF chunks besides fmt and data"""
@@ -502,8 +505,41 @@ class WaveContainer(AudioFile):
             return target_class.from_wave(
                 target_path, header, to_pcm_progress(self, progress), footer,
                 compression, device=self.device if device is None else device)
-        return AudioFile.convert(self, target_path, target_class,
-                                 compression, progress, device)
+        # the next class's convert: AiffContainer's for a class that is
+        # both (FLAC, Shorten), else AudioFile's
+        return super().convert(target_path, target_class, compression,
+                               progress, device)
+
+
+class AiffContainer(AudioFile):
+    """an AudioFile which may hold foreign AIFF chunks
+
+    ``convert`` carries them through the target class's ``from_aiff``
+    where it has one (AIFF, FLAC, Shorten); any other target gets the
+    PCM alone, as the reference's does."""
+
+    def has_foreign_aiff_chunks(self):
+        """True when the file holds AIFF chunks besides COMM and SSND"""
+        raise NotImplementedError()
+
+    def aiff_header_footer(self):
+        """the AIFF bytes before and after the PCM, a (header, footer)
+        pair; raises ValueError when the file holds none"""
+        raise NotImplementedError()
+
+    def convert(self, target_path, target_class, compression=None,
+                progress=None, device=None):
+        if (self.has_foreign_aiff_chunks() and
+                callable(getattr(target_class, "from_aiff", None))):
+            try:
+                (header, footer) = self.aiff_header_footer()
+            except (ValueError, IOError) as err:
+                raise EncodingError(str(err))
+            return target_class.from_aiff(
+                target_path, header, to_pcm_progress(self, progress), footer,
+                compression, device=self.device if device is None else device)
+        return super().convert(target_path, target_class, compression,
+                               progress, device)
 
 
 class SheetException(ValueError):

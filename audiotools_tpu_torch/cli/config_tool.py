@@ -49,8 +49,7 @@ SETTINGS = [
 def available_types():
     """the port's classes in the order the reference lists them"""
     from ..dispatch import TYPE_MAP
-    return [TYPE_MAP[name] for name in
-            ("wav", "flac", "shn", "tta", "wavpack", "alac")]
+    return list(TYPE_MAP.values())
 
 
 def main(argv=None):

@@ -7,8 +7,8 @@ template by default), -j farm workers over
 --devices, the sample rate, channel and bits-per-sample conversions,
 and the album ReplayGain pass for the classes that add it.  Each job
 converts as the reference's ``convert`` does, the source's frame count
-passed ahead and its foreign RIFF chunks carried where the target
-takes them, on its worker's device, then writes the source's tags into
+passed ahead and its foreign RIFF or AIFF chunks carried where the
+target takes them, on its worker's device, then writes the source's tags into
 the new file.  -I (interactive editing) and -M (metadata lookup over
 the network) are not ported.
 

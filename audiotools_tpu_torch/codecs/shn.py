@@ -41,6 +41,7 @@ import torch
 
 from .. import _native, pcm
 from .._device import StageMarks, fetch_async, resolve_device
+from ..formats.aiff import parse_comm
 from ..formats.wav import (EXTENSIBLE_GUID, WAVE_FORMAT_EXTENSIBLE,
                            WAVE_FORMAT_PCM)
 from ..ops import shn_scan, shn_synth
@@ -149,17 +150,8 @@ def _wave_params(fmt, default):
 def _aiff_params(comm):
     """the reference's parse_comm: the 80-bit IEEE extended sample rate
     and the default mask of 1-2 channels"""
-    channels = struct.unpack(">H", comm[:2])[0]
-    (sign_exponent, mantissa) = struct.unpack(">HQ", comm[8:18])
-    exponent = sign_exponent & 0x7FFF
-    if exponent == mantissa == 0:
-        rate = 0
-    elif exponent == 0x7FFF:
-        rate = float("nan")
-    else:
-        sign = -1 if (sign_exponent & 0x8000) else 1
-        rate = int(sign * mantissa * (2.0 ** (exponent - 16383 - 63)))
-    return (rate, _DEFAULT_MASKS.get(channels, 0))
+    (_channels, _frames, _bps, rate, mask) = parse_comm(comm)
+    return (rate, mask)
 
 
 class FastSHNDecoder:

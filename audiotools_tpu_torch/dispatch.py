@@ -1,13 +1,16 @@
 """Opening audio files by their content.
 
-A subset of the reference's ``audiotools_tpu/dispatch.py`` for the six
-classes the port has: WAVE (``formats.wav.WaveAudio``), FLAC
-(``formats.flac.FlacAudio``), ALAC (``formats.m4a.ALACAudio``), TTA
-(``formats.tta.TrueAudio``), Shorten (``formats.shn.ShortenAudio``) and
-WavPack (``formats.wavpack.WavPackAudio``).  ``file_type`` sniffs the
-magic bytes as the reference does; ``open`` and ``open_files`` return
-the class's instance, decoding on the device given.  Content of any
-other type raises ``UnknownAudioType``.  ``TYPE_MAP``, ``open_files``,
+A subset of the reference's ``audiotools_tpu/dispatch.py`` for the nine
+classes the port has: WAVE (``formats.wav.WaveAudio``), AIFF
+(``formats.aiff.AiffAudio``), Sun AU (``formats.au.AuAudio``), FLAC and
+Ogg FLAC (``formats.flac.FlacAudio``, ``OggFlacAudio``), ALAC
+(``formats.m4a.ALACAudio``), TTA (``formats.tta.TrueAudio``), Shorten
+(``formats.shn.ShortenAudio``) and WavPack
+(``formats.wavpack.WavPackAudio``).  ``file_type`` sniffs the magic
+bytes as the reference does; ``open`` and ``open_files`` return the
+class's instance, decoding on the device given (WAVE, AIFF and AU are
+read on the host and take none).  Content of any other type raises
+``UnknownAudioType``; an Ogg stream of Vorbis or Opus is such content.  ``TYPE_MAP``, ``open_files``,
 ``open_directory`` and ``sorted_tracks`` are the reference's as far as
 the command line uses them; the reference's ``Filename`` only
 normalises the paths ``open_files`` is given, which
@@ -21,7 +24,9 @@ import os
 
 from ._device import resolve_device
 from .audiofile import InvalidFile, UnsupportedFile
-from .formats.flac import FlacAudio
+from .formats.aiff import AiffAudio
+from .formats.au import AuAudio
+from .formats.flac import FlacAudio, OggFlacAudio
 from .formats.m4a import ALACAudio
 from .formats.shn import ShortenAudio
 from .formats.tta import TrueAudio
@@ -29,8 +34,13 @@ from .formats.wav import WaveAudio
 from .formats.wavpack import WavPackAudio
 from .ref.alac import _find, _top_level
 
-TYPE_MAP = {cls.NAME: cls for cls in (WaveAudio, FlacAudio, ALACAudio,
-                                      TrueAudio, ShortenAudio, WavPackAudio)}
+# in the order the reference lists its classes
+TYPE_MAP = {cls.NAME: cls for cls in (
+    WaveAudio, AiffAudio, AuAudio, FlacAudio, OggFlacAudio, ShortenAudio,
+    TrueAudio, WavPackAudio, ALACAudio)}
+
+# the classes read and written on the host, which take no device
+HOST_CLASSES = (WaveAudio, AiffAudio, AuAudio)
 
 
 class UnknownAudioType(UnsupportedFile):
@@ -64,8 +74,15 @@ def file_type(file):
         if header[4:8] == b"ftyp" and header[8:12] in (b"mp41", b"mp42",
                                                         b"M4A ", b"M4B "):
             return _m4a_type(file)
+        if header[0:4] == b"FORM" and header[8:12] == b"AIFF":
+            return AiffAudio
+        if header[0:4] == b".snd":
+            return AuAudio
         if header[0:4] == b"fLaC":
             return FlacAudio
+        if header[0:4] == b"OggS":
+            # Ogg FLAC; Vorbis and Opus streams are not ported
+            return OggFlacAudio if header[0x1C:0x21] == b"\x7FFLAC" else None
         if header[0:5] == b"ajkg\x02":
             return ShortenAudio
         if header[0:4] == b"wvpk":
@@ -90,7 +107,7 @@ def file_type(file):
 
 
 def _open_class(audio_class, filename, device):
-    if audio_class is WaveAudio:
+    if audio_class in HOST_CLASSES:
         return audio_class(filename)
     return audio_class(filename, device=device)
 

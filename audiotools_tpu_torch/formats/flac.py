@@ -1,40 +1,50 @@
-"""FLAC files: metadata blocks and the ``FlacAudio`` class.
+"""FLAC files: metadata blocks, ``FlacAudio`` and ``OggFlacAudio``.
 
-A copy of the reference's ``audiotools_tpu/formats/flac.py`` for
-native FLAC: the STREAMINFO, PADDING, APPLICATION, SEEKTABLE,
-VORBIS_COMMENT, CUESHEET and PICTURE blocks, the ``FlacMetaData``
-container (a MetaData over its VORBIS_COMMENT and PICTURE blocks),
-``seektable_from_offsets``, and ``FlacAudio`` with the reference's
-compression levels "0"-"8", ``from_pcm`` (padding sized for the
-seektable, a seekpoint every 10 s from the encoder's frame offsets,
-the WAVEFORMATEXTENSIBLE_CHANNEL_MASK comment for more than two
-channels or more than 16 bits), ``get/set/update/delete_metadata``,
-``to_pcm``, ``verify``, the REPLAYGAIN_* comments
-(``add_replay_gain``, ``replay_gain``), foreign RIFF chunks kept as
-APPLICATION "riff" blocks (``from_wave``, ``wave_header_footer``), the
+A copy of the reference's ``audiotools_tpu/formats/flac.py``: the
+STREAMINFO, PADDING, APPLICATION, SEEKTABLE, VORBIS_COMMENT, CUESHEET
+and PICTURE blocks, the ``FlacMetaData`` container (a MetaData over its
+VORBIS_COMMENT and PICTURE blocks), ``seektable_from_offsets``, and
+``FlacAudio`` with the reference's compression levels "0"-"8",
+``from_pcm`` (padding sized for the seektable, a seekpoint every 10 s
+from the encoder's frame offsets, the WAVEFORMATEXTENSIBLE_CHANNEL_MASK
+comment for more than two channels or more than 16 bits),
+``get/set/update/delete_metadata``, ``to_pcm``, ``verify``, the
+REPLAYGAIN_* comments (``add_replay_gain``, ``replay_gain``), foreign
+RIFF and AIFF chunks kept as APPLICATION "riff" and "aiff" blocks
+(``from_wave``, ``from_aiff``, ``wave_header_footer``,
+``aiff_header_footer``, ``convert``'s routing between them), the
 CUESHEET block made from and read as a ``Sheet`` (``get_cuesheet``,
 ``set_cuesheet``), and ``clean`` (the blocks' fixes that tracklint
-reports and makes).
+reports and makes).  A FLAC stream behind ID3v2 tags (stacked ones
+too) opens at its 'fLaC' marker, and rewriting its blocks keeps the
+tags and whatever follows its last frame (an ID3v1 tag).
+``OggFlacAudio`` is FLAC in an Ogg container (``ogg``): a header packet
+with STREAMINFO, a packet a further block, a packet a frame.
 The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
 ``from_pcm`` encodes with the port's ``encode_flac_fast`` on the
 file's device, on the route the reference's environment selects (by
 default the quantized upload wire), so its bytes equal the reference's
-``FlacAudio.from_pcm`` under the same ``ATPU_*`` settings.
+``FlacAudio.from_pcm`` under the same ``ATPU_*`` settings; so do
+``OggFlacAudio``'s, whose frames ``TorchFlacDecoder`` decodes on the
+file's device where the reference decodes them on the host.
 
 A CUESHEET block is 396 bytes and 36 a track with 12 an index point,
 as it is written.  The reference's ``size`` counts 9 bytes an index
 point (``Flac_CUESHEET_track.size``), so its block headers understate
-a cuesheet with index points; the port does not copy that fault.
+a cuesheet with index points; the port does not copy that fault, nor
+the reference's Ogg FLAC header packet count after ``update_metadata``
+(``OggFlacAudio``).
 
-Not ported: AIFF chunks (``from_aiff``), ID3-wrapped files, Ogg FLAC,
-and the rest of the reference's class.  A block of a reserved type
-(7-127) raises InvalidFLAC when parsed.
+Not ported: the rest of the reference's class (``seektable``,
+``metadata_length``).  A block of a reserved type (7-127) raises
+InvalidFLAC when parsed.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import tempfile
@@ -42,9 +52,11 @@ from fractions import Fraction
 
 from .. import text
 from .._device import resolve_device
-from ..audiofile import (EncodingError, Image, InvalidFile, MetaData,
-                         ReplayGain, SheetIndex, SheetTrack, WaveContainer)
+from ..audiofile import (AiffContainer, AudioFile, EncodingError, Image,
+                         InvalidFile, MetaData, ReplayGain, SheetIndex, SheetTrack,
+                         WaveContainer)
 from ..utils.config import default_quality
+from ..meta.id3 import skip_id3v2_comment
 from ..meta.vorbiscomment import VENDOR_STRING, VorbisComment
 from ..pcm import CHANNEL_MASKS, BufferedPCMReader, CounterPCMReader
 
@@ -751,15 +763,27 @@ def seektable_from_offsets(offsets, seekpoint_interval):
     return Flac_SEEKTABLE(seekpoints)
 
 
-def riff_chunks_to_blocks(header, footer):
-    """the APPLICATION "riff" blocks of a WAVE's header and footer (the
-    RIFF prologue, each chunk, the data chunk's header): (blocks, the
-    data chunk's size, the RIFF total size); raises EncodingError for
-    bytes that are no such WAVE"""
+# the containers whose chunks FLAC keeps as APPLICATION blocks: (the
+# blocks' application ID, big-endian sizes, the format chunk's ID, the
+# PCM chunk's ID, the PCM chunk's bytes between its size and the PCM)
+RIFF = (b"riff", False, b"fmt ", b"data", 0)
+AIFF = (b"aiff", True, b"COMM", b"SSND", 8)
+
+
+def chunks_to_blocks(container, header, footer):
+    """the APPLICATION blocks of a RIFF or AIFF container's header and
+    footer (``container`` RIFF or AIFF): the prologue, each chunk, and
+    the PCM chunk's header (AIFF's SSND with its offset and block-size
+    words) as blocks in file order; returns (blocks, the PCM's size in
+    bytes, the container's total size) and raises EncodingError for
+    bytes that are no such container"""
+    (application_id, big_endian, fmt_id, data_id, data_header_extra) = \
+        container
+    order = ">" if big_endian else "<"
     if len(header) < 12:
         raise EncodingError("container header too short")
-    (_magic, remaining, _form) = struct.unpack("<4sI4s", header[0:12])
-    blocks = [Flac_APPLICATION(b"riff", header[0:12])]
+    (_magic, remaining, _form) = struct.unpack(order + "4sI4s", header[0:12])
+    blocks = [Flac_APPLICATION(application_id, header[0:12])]
     total_size = remaining + 8
     pos = 12
     fmt_found = False
@@ -767,51 +791,54 @@ def riff_chunks_to_blocks(header, footer):
     while pos < len(header):
         if pos + 8 > len(header):
             raise EncodingError("truncated container chunk")
-        (chunk_id, chunk_size) = struct.unpack("<4sI", header[pos:pos + 8])
+        (chunk_id, chunk_size) = struct.unpack(order + "4sI",
+                                               header[pos:pos + 8])
         if not all(0x20 <= b <= 0x7E for b in chunk_id):
             raise EncodingError("invalid container chunk ID")
-        if chunk_id == b"data":
-            if pos + 8 != len(header):
+        if chunk_id == data_id:
+            end = pos + 8 + data_header_extra
+            if end != len(header):
                 raise EncodingError(
                     "unexpected data after the PCM chunk header")
             if not fmt_found:
                 raise EncodingError("no format chunk in header")
-            blocks.append(Flac_APPLICATION(b"riff", header[pos:pos + 8]))
-            data_chunk_size = chunk_size
+            blocks.append(Flac_APPLICATION(application_id, header[pos:end]))
+            data_chunk_size = chunk_size - data_header_extra
             break
         padded = chunk_size + (chunk_size % 2)
         chunk = header[pos:pos + 8 + padded]
         if len(chunk) != 8 + padded:
             raise EncodingError("truncated container chunk")
-        if chunk_id == b"fmt ":
+        if chunk_id == fmt_id:
             if fmt_found:
                 raise EncodingError("multiple format chunks")
             fmt_found = True
-        blocks.append(Flac_APPLICATION(b"riff", chunk))
+        blocks.append(Flac_APPLICATION(application_id, chunk))
         pos += 8 + padded
     if data_chunk_size is None:
         raise EncodingError("no PCM data chunk in header")
 
-    fpos = data_chunk_size % 2      # past the data chunk's pad byte
+    fpos = data_chunk_size % 2      # past the PCM chunk's pad byte
     while fpos < len(footer):
         if fpos + 8 > len(footer):
             raise EncodingError("truncated container footer")
-        (chunk_id, chunk_size) = struct.unpack("<4sI", footer[fpos:fpos + 8])
+        (chunk_id, chunk_size) = struct.unpack(order + "4sI",
+                                               footer[fpos:fpos + 8])
         if not all(0x20 <= b <= 0x7E for b in chunk_id):
             raise EncodingError("invalid container chunk ID")
-        if chunk_id in (b"fmt ", b"data"):
+        if chunk_id in (fmt_id, data_id):
             raise EncodingError("duplicate %s chunk in footer" %
                                 (chunk_id.decode("ascii"),))
         padded = chunk_size + (chunk_size % 2)
         chunk = footer[fpos:fpos + 8 + padded]
         if len(chunk) != 8 + padded:
             raise EncodingError("truncated container footer")
-        blocks.append(Flac_APPLICATION(b"riff", chunk))
+        blocks.append(Flac_APPLICATION(application_id, chunk))
         fpos += 8 + padded
     return (blocks, data_chunk_size, total_size)
 
 
-class FlacAudio(WaveContainer):
+class FlacAudio(WaveContainer, AiffContainer):
     """a Free Lossless Audio Codec file, encoded and decoded on a torch
     device
 
@@ -867,26 +894,29 @@ class FlacAudio(WaveContainer):
         self.device = resolve_device(device)
         try:
             with open(filename, "rb") as f:
+                # the bytes up to the first block: the 'fLaC' marker,
+                # behind any ID3v2 tags (stacked ones too)
+                self.__stream_offset = skip_id3v2_comment(f) + 4
                 if f.read(4) != b"fLaC":
                     raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
                 header = f.read(4)
                 if len(header) != 4 or header[0] & 0x7F != 0:
                     raise InvalidFLAC("STREAMINFO block not found")
-                self.__streaminfo = Flac_STREAMINFO.parse(f.read(34))
+                self._streaminfo = Flac_STREAMINFO.parse(f.read(34))
         except OSError as err:
             raise InvalidFLAC(str(err)) from err
 
     def bits_per_sample(self):
-        return self.__streaminfo.bits_per_sample
+        return self._streaminfo.bits_per_sample
 
     def channels(self):
-        return self.__streaminfo.channels
+        return self._streaminfo.channels
 
     def sample_rate(self):
-        return self.__streaminfo.sample_rate
+        return self._streaminfo.sample_rate
 
     def total_frames(self):
-        return self.__streaminfo.total_samples
+        return self._streaminfo.total_samples
 
     def channel_mask(self):
         """the WAVEFORMATEXTENSIBLE_CHANNEL_MASK comment's mask, else the
@@ -900,9 +930,16 @@ class FlacAudio(WaveContainer):
         channels = self.channels()
         return CHANNEL_MASKS[channels] if channels <= 6 else 0
 
+    def _open_stream(self):
+        """the file opened and positioned at its 'fLaC' marker (past any
+        ID3v2 tags)"""
+        f = open(self.filename, "rb")
+        f.seek(self.__stream_offset - 4, 0)
+        return f
+
     def get_metadata(self):
         """the file's FlacMetaData"""
-        with open(self.filename, "rb") as f:
+        with self._open_stream() as f:
             if f.read(4) != b"fLaC":
                 raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
             return FlacMetaData.parse(f)
@@ -993,15 +1030,18 @@ class FlacAudio(WaveContainer):
         """writes ``metadata``'s blocks back to the file: in place when
         they fit the old blocks' room (growing or shrinking the PADDING
         block to fill it), else the whole file is rewritten through a
-        temporary file"""
+        temporary file.  Any ID3v2 tags in front of the stream and
+        whatever follows its last frame (an ID3v1 tag) are kept."""
         if not isinstance(metadata, FlacMetaData):
             raise ValueError("metadata not from audio file")
+        offset = self.__stream_offset
         with open(self.filename, "rb") as f:
+            stream_prefix = f.read(offset - 4)
             if f.read(4) != b"fLaC":
                 raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
             FlacMetaData.parse(f)
             frames_offset = f.tell()
-        old_size = frames_offset - 4
+        old_size = frames_offset - offset
         new_size = metadata.size()
         if metadata.has_block(Flac_PADDING.BLOCK_ID):
             padding = metadata.get_block(Flac_PADDING.BLOCK_ID)
@@ -1014,7 +1054,7 @@ class FlacAudio(WaveContainer):
                 new_size = old_size
         if new_size == old_size:
             with open(self.filename, "r+b") as f:
-                f.seek(4, 0)
+                f.seek(offset, 0)
                 f.write(metadata.build())
             return
         directory = os.path.dirname(self.filename) or "."
@@ -1024,7 +1064,7 @@ class FlacAudio(WaveContainer):
         try:
             with os.fdopen(handle, "wb") as out, \
                     open(self.filename, "rb") as f:
-                out.write(b"fLaC" + metadata.build())
+                out.write(stream_prefix + b"fLaC" + metadata.build())
                 f.seek(frames_offset, 0)
                 while True:
                     chunk = f.read(0x100000)
@@ -1070,20 +1110,28 @@ class FlacAudio(WaveContainer):
             FlacAudio(output_filename, self.device).update_metadata(cleaned)
         return fixes
 
+    def _foreign_blocks(self, application_id):
+        return [b for b in
+                self.get_metadata().get_blocks(Flac_APPLICATION.BLOCK_ID)
+                if b.application_id == application_id]
+
     def has_foreign_wave_chunks(self):
         """True when the file holds APPLICATION "riff" blocks"""
-        return any(b.application_id == b"riff" for b in
-                   self.get_metadata().get_blocks(Flac_APPLICATION.BLOCK_ID))
+        return len(self._foreign_blocks(RIFF[0])) > 0
 
-    def wave_header_footer(self):
-        """the RIFF header and footer reassembled from the APPLICATION
-        "riff" blocks: those up to the data chunk's header, then the
-        rest (after the data chunk's pad byte, where its size is odd)"""
-        blocks = [b for b in
-                  self.get_metadata().get_blocks(Flac_APPLICATION.BLOCK_ID)
-                  if b.application_id == b"riff"]
+    def has_foreign_aiff_chunks(self):
+        """True when the file holds APPLICATION "aiff" blocks"""
+        return len(self._foreign_blocks(AIFF[0])) > 0
+
+    def _header_footer(self, container):
+        """the container's header and footer reassembled from its
+        APPLICATION blocks: those up to the PCM chunk's header, then the
+        rest (after the PCM chunk's pad byte, where its size is odd)"""
+        (application_id, _big_endian, _fmt_id, data_id, _extra) = container
+        blocks = self._foreign_blocks(application_id)
         if not blocks:
-            raise ValueError("no foreign riff chunks")
+            raise ValueError("no foreign %s chunks"
+                             % (application_id.decode("ascii"),))
         data_bytes = (self.total_frames() * self.channels() *
                       (self.bits_per_sample() // 8))
         header = []
@@ -1091,19 +1139,28 @@ class FlacAudio(WaveContainer):
         current = header
         for block in blocks:
             current.append(block.data)
-            if block.data[0:4] == b"data":
+            if block.data[0:4] == data_id:
                 current = footer
         return (b"".join(header), b"".join(footer))
 
+    def wave_header_footer(self):
+        """the RIFF header and footer of the APPLICATION "riff" blocks"""
+        return self._header_footer(RIFF)
+
+    def aiff_header_footer(self):
+        """the AIFF header and footer of the APPLICATION "aiff" blocks"""
+        return self._header_footer(AIFF)
+
     @classmethod
-    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
-                  device="cuda"):
-        """encodes a new file from a WAVE's header, PCM and footer on
-        ``device``, keeping every chunk as an APPLICATION "riff" block;
+    def _from_container(cls, container, filename, header, pcmreader, footer,
+                        compression, device):
+        """encodes a new file from a container's header, PCM and footer
+        on ``device``, keeping every chunk as an APPLICATION block;
         raises EncodingError (and leaves no file) when the PCM is not
-        the data chunk's size or the parts do not make the RIFF size"""
-        (blocks, data_chunk_size, total_size) = riff_chunks_to_blocks(
-            header, footer)
+        the PCM chunk's size or the parts do not make the container's
+        size"""
+        (blocks, data_chunk_size, total_size) = chunks_to_blocks(
+            container, header, footer)
         counter = CounterPCMReader(pcmreader)
         flac = cls.from_pcm(filename, counter, compression, device=device)
         data_written = counter.bytes_written()
@@ -1120,12 +1177,35 @@ class FlacAudio(WaveContainer):
         flac.update_metadata(metadata)
         return flac
 
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda"):
+        """encodes a new file from a WAVE's header, PCM and footer on
+        ``device``, keeping every chunk as an APPLICATION "riff" block"""
+        return cls._from_container(RIFF, filename, header, pcmreader, footer,
+                                   compression, device)
+
+    @classmethod
+    def from_aiff(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda"):
+        """encodes a new file from an AIFF's header, PCM and footer on
+        ``device``, keeping every chunk as an APPLICATION "aiff" block
+        (the SSND chunk's with its offset and block-size words)"""
+        return cls._from_container(AIFF, filename, header, pcmreader, footer,
+                                   compression, device)
+
     def to_pcm(self):
         """a TorchFlacDecoder of the file on the file's device (the
-        STREAMINFO MD5 checked at the end of the stream)"""
+        STREAMINFO MD5 checked at the end of the stream), from its
+        'fLaC' marker on"""
         from ..codecs.flac_dec import TorchFlacDecoder
-        return TorchFlacDecoder(self.filename, self.channel_mask(),
-                                device=self.device)
+        channel_mask = self.channel_mask()
+        f = self._open_stream()
+        try:
+            return TorchFlacDecoder(f, channel_mask, device=self.device)
+        except BaseException:
+            f.close()
+            raise
 
     @classmethod
     def from_pcm(cls, filename, pcmreader, compression=None,
@@ -1191,6 +1271,271 @@ class FlacAudio(WaveContainer):
             raise
         finally:
             pcmreader.close()
+
+
+# the serial number of the one logical stream an Ogg FLAC file holds
+OGG_SERIAL = 0x464C4143
+
+
+class _OggFlacFrames:
+    """a binary stream, for TorchFlacDecoder, of an Ogg FLAC file's FLAC
+    stream: 'fLaC', its STREAMINFO as the last block, then the audio
+    packets' frames, read from the file's pages as they are asked for.
+    As in the reference's decoder, a page that is cut short, or whose
+    capture pattern or CRC is bad, ends the stream: the decoder then
+    finds it short of STREAMINFO's frame count."""
+
+    def __init__(self, filename, header_packets, streaminfo):
+        from ..ogg import PacketReader, PageReader
+        self.file = open(filename, "rb")
+        try:
+            self.packets = PacketReader(PageReader(self.file))
+            for _ in range(1 + header_packets):
+                self.packets.read_packet()
+        except BaseException:
+            self.file.close()
+            raise
+        self.buffer = (b"fLaC" + bytes([0x80]) + (34).to_bytes(3, "big") +
+                       streaminfo.build())
+        self.eof = False
+        self.position = 0
+
+    def tell(self):
+        """the bytes of the FLAC stream read so far"""
+        return self.position
+
+    def read(self, size):
+        pieces = [self.buffer]
+        have = len(self.buffer)
+        while have < size and not self.eof:
+            try:
+                packet = self.packets.read_packet()
+            except (IOError, ValueError):
+                self.eof = True
+                break
+            pieces.append(packet)
+            have += len(packet)
+        data = b"".join(pieces)
+        self.buffer = data[size:]
+        self.position += min(size, len(data))
+        return data[:size]
+
+    def close(self):
+        self.file.close()
+
+
+class OggFlacAudio(FlacAudio):
+    """a FLAC stream in an Ogg container, encoded and decoded on a
+    torch device
+
+    The first packet is 0x7F "FLAC", the mapping's version 1.0, the
+    count of header packets that follow, 'fLaC' and the STREAMINFO
+    block; each further header packet holds one metadata block, and
+    each audio packet one FLAC frame, its pages' granule position the
+    PCM frames up to its end.  ``from_pcm`` encodes with the port's
+    ``encode_flac_fast`` on the file's device; ``to_pcm`` decodes the
+    packets' frames with ``TorchFlacDecoder`` on it.  As the
+    reference's: ``from_pcm`` takes DEFAULT_COMPRESSION where no valid
+    mode is given (not the configured quality), ``set_metadata`` keeps
+    the STREAMINFO block alone, and no MD5 is checked.  Unlike the
+    reference's, ``update_metadata`` keeps the header packet count it
+    wrote, so the object reads its new blocks back."""
+
+    SUFFIX = "oga"
+    NAME = "oggflac"
+    DESCRIPTION = "Ogg FLAC"
+
+    def __init__(self, filename, device="cuda"):
+        from ..ogg import PacketReader, PageReader
+        AudioFile.__init__(self, filename)
+        self.device = resolve_device(device)
+        try:
+            with open(filename, "rb") as f:
+                header = PacketReader(PageReader(f)).read_packet()
+        except (IOError, ValueError) as err:
+            raise InvalidFLAC(str(err)) from err
+        if len(header) < 51 or header[0:5] != b"\x7FFLAC":
+            raise InvalidFLAC("invalid Ogg FLAC header")
+        self.__header_packets = (header[7] << 8) | header[8]
+        self._streaminfo = Flac_STREAMINFO.parse(header[17:51])
+
+    def get_metadata(self):
+        """a FlacMetaData of the STREAMINFO block and the header packets'
+        blocks"""
+        from ..ogg import PacketReader, PageReader
+        blocks = [self._streaminfo]
+        with open(self.filename, "rb") as f:
+            packets = PacketReader(PageReader(f))
+            packets.read_packet()
+            for _ in range(self.__header_packets):
+                packet = packets.read_packet()
+                block_type = packet[0] & 0x7F
+                if block_type not in BLOCK_CLASSES:
+                    raise InvalidFLAC("unsupported metadata block type")
+                blocks.append(BLOCK_CLASSES[block_type].parse(
+                    packet[4:4 + int.from_bytes(packet[1:4], "big")]))
+        return FlacMetaData(blocks)
+
+    def update_metadata(self, metadata):
+        """rewrites the file with ``metadata``'s blocks as its header
+        packets, then its audio pages, numbered on from them"""
+        from ..ogg import PacketReader, PageReader, PageWriter
+        if not isinstance(metadata, FlacMetaData):
+            raise ValueError("metadata not from audio file")
+        with open(self.filename, "rb") as f:
+            packets = PacketReader(PageReader(f))
+            for _ in range(1 + self.__header_packets):
+                packets.read_packet()
+            # each header packet starts a page, so the audio starts on
+            # the page after the last header packet's
+            serial = packets.page.bitstream_serial_number
+            audio_pages = []
+            while True:
+                try:
+                    audio_pages.append(packets.pagereader.read())
+                except IOError:
+                    break
+        directory = os.path.dirname(self.filename) or "."
+        (handle, temp) = tempfile.mkstemp(
+            prefix="." + os.path.basename(self.filename) + "-",
+            dir=directory)
+        try:
+            with os.fdopen(handle, "wb") as out:
+                writer = PageWriter(out)
+                (seq, header_packets) = _write_oggflac_headers(
+                    writer, metadata, serial)
+                for page in audio_pages:
+                    page.sequence_number = seq
+                    seq += 1
+                    writer.write(page)
+            os.chmod(temp, os.stat(self.filename).st_mode)
+            os.replace(temp, self.filename)
+        except BaseException:
+            if os.path.exists(temp):
+                os.unlink(temp)
+            raise
+        self.__header_packets = header_packets
+
+    def set_metadata(self, metadata):
+        """writes ``metadata`` (any MetaData, converted) as the file's
+        blocks, the STREAMINFO block kept"""
+        metadata = FlacMetaData.converted(metadata)
+        if metadata is None:
+            return
+        metadata.replace_blocks(Flac_STREAMINFO.BLOCK_ID, [self._streaminfo])
+        self.update_metadata(metadata)
+
+    def delete_metadata(self):
+        self.set_metadata(MetaData())
+
+    def to_pcm(self):
+        """a TorchFlacDecoder of the packets' frames on the file's device
+        (no MD5 checked, as the reference checks none; the channel mask
+        the default of the channel count, 0 above 6 channels)"""
+        from ..codecs.flac_dec import TorchFlacDecoder
+        stream = _OggFlacFrames(self.filename, self.__header_packets,
+                                self._streaminfo)
+        try:
+            decoder = TorchFlacDecoder(stream, device=self.device)
+        except BaseException:
+            stream.close()
+            raise
+        decoder.md5sum = b"\x00" * 16
+        channels = self.channels()
+        decoder.channel_mask = CHANNEL_MASKS[channels] if channels <= 6 else 0
+        return decoder
+
+    def verify(self, progress=None, sink=None):
+        """decodes the whole stream; raises InvalidFLAC on a page or
+        frame error, or when it holds fewer frames than STREAMINFO
+        announces"""
+        try:
+            return AudioFile.verify(self, progress, sink)
+        except InvalidFile as err:
+            if str(err) == "incorrect PCM frame count":
+                raise InvalidFLAC("truncated Ogg FLAC stream") from err
+            raise InvalidFLAC(str(err)) from err
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None, device="cuda"):
+        """encodes a new file from a PCMReader on ``device`` and returns
+        it: the FLAC stream's STREAMINFO block in the header packets and
+        a packet a frame.  compression: one of COMPRESSION_MODES, else
+        DEFAULT_COMPRESSION; ``total_pcm_frames`` is not needed.  A
+        failed encode raises EncodingError and writes no file."""
+        from ..codecs.flac_enc_fast import encode_flac_fast
+        from ..ogg import Page, PageWriter, packet_to_pages
+        device = resolve_device(device)
+        if compression not in cls.COMPRESSION_MODES:
+            compression = cls.DEFAULT_COMPRESSION
+        raw = io.BytesIO()
+        try:
+            offsets = encode_flac_fast(
+                raw, BufferedPCMReader(pcmreader), padding_size=None,
+                device=device, **cls.COMPRESSION_OPTIONS[compression])
+        except (IOError, ValueError) as err:
+            raise EncodingError(str(err)) from err
+        finally:
+            pcmreader.close()
+        raw.seek(4, 0)
+        metadata = FlacMetaData.parse(raw)
+        frames_offset = raw.tell()
+        flac_data = raw.getvalue()
+        try:
+            with open(filename, "wb") as output:
+                writer = PageWriter(output)
+                (seq, _header_packets) = _write_oggflac_headers(
+                    writer, metadata, OGG_SERIAL)
+                pages = []
+                granule = 0
+                ends = [o for (o, _frames) in offsets[1:]] + [
+                    len(flac_data) - frames_offset]
+                for ((start, pcm_frames), end) in zip(offsets, ends):
+                    granule += pcm_frames
+                    for page in packet_to_pages(
+                            flac_data[frames_offset + start:
+                                      frames_offset + end], OGG_SERIAL, seq):
+                        page.granule_position = granule
+                        pages.append(page)
+                        seq += 1
+                if not pages:
+                    pages = [Page(False, False, False, 0, OGG_SERIAL, seq,
+                                  [])]
+                pages[-1].stream_end = True
+                for page in pages:
+                    writer.write(page)
+        except IOError as err:
+            _unlink(filename)
+            raise EncodingError(str(err)) from err
+        return cls(filename, device)
+
+
+def _write_oggflac_headers(writer, metadata, serial):
+    """writes the header packets of ``metadata`` (a FlacMetaData with a
+    STREAMINFO block), each from a page of its own; returns (the next
+    page's sequence number, the count of header packets after the
+    first)"""
+    from ..ogg import packet_to_pages
+    streaminfo = metadata.get_block(Flac_STREAMINFO.BLOCK_ID)
+    blocks = [b for b in metadata._sized_blocks()
+              if b.BLOCK_ID != Flac_STREAMINFO.BLOCK_ID]
+    first = (b"\x7FFLAC\x01\x00" + len(blocks).to_bytes(2, "big") +
+             b"fLaC" + bytes([Flac_STREAMINFO.BLOCK_ID]) +
+             streaminfo.size().to_bytes(3, "big") + streaminfo.build())
+    pages = list(packet_to_pages(first, serial, 0))
+    pages[0].stream_beginning = True
+    for page in pages:
+        writer.write(page)
+    seq = len(pages)
+    for (i, block) in enumerate(blocks, 1):
+        last = 0x80 if i == len(blocks) else 0
+        packet = (bytes([last | block.BLOCK_ID]) +
+                  block.size().to_bytes(3, "big") + block.build())
+        for page in packet_to_pages(packet, serial, seq):
+            writer.write(page)
+            seq += 1
+    return (seq, len(blocks))
 
 
 def _unlink(filename):

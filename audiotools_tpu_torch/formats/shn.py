@@ -5,12 +5,14 @@ Port of the reference's ``ShortenAudio`` (``audiotools_tpu/formats/shn.py``):
 chunk, then the stream that ``codecs.shn.encode_shn`` writes
 (``encode_samples``, its form for samples in hand), 8- and 16-bit PCM
 only, 8-bit stored unsigned as WAVE has it.  ``ShortenAudio`` reads a
-stream whose VERBATIM head is a WAVE header and decodes with
-``codecs.shn.TorchSHNDecoder`` on its device.  A WAVE's foreign RIFF
-chunks travel in the stream's leading and trailing VERBATIM chunks
-(``from_wave``, ``wave_header_footer``).  Shorten holds no tags:
-``get_metadata`` is None.  Streams with an AIFF head and the AIFF
-writer are not ported.
+stream whose VERBATIM head is a WAVE or an AIFF header (its frame count
+from the data chunk or COMM; 0 for any other head) and decodes with
+``codecs.shn.TorchSHNDecoder`` on its device.  A WAVE's or an AIFF's
+foreign chunks travel in the stream's leading and trailing VERBATIM
+chunks (``from_wave``, ``wave_header_footer``; ``from_aiff``, which
+stores big-endian signed samples as AIFF has them,
+``aiff_header_footer``).  Shorten holds no tags: ``get_metadata`` is
+None.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ import struct
 
 from .. import _native, text
 from .._device import resolve_device
-from ..audiofile import EncodingError, InvalidFile, WaveContainer
+from ..audiofile import (AiffContainer, EncodingError, InvalidFile,
+                         WaveContainer)
 from ..codecs.shn import encode_samples, encode_shn, stream_params
 from ..pcm import read_all, to_pcm_progress
+from .aiff import aiff_chunks, parse_comm
 from .wav import build_fmt, wave_chunks
 
 
@@ -68,7 +72,15 @@ class InvalidShorten(InvalidFile, ValueError):
     """a file that is not a Shorten file this module reads"""
 
 
-class ShortenAudio(WaveContainer):
+def _is_wave(head):
+    return head[0:4] == b"RIFF" and head[8:12] == b"WAVE"
+
+
+def _is_aiff(head):
+    return head[0:4] == b"FORM" and head[8:12] == b"AIFF"
+
+
+class ShortenAudio(WaveContainer, AiffContainer):
     """a Shorten file, encoded and decoded on a torch device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the plain
@@ -91,20 +103,29 @@ class ShortenAudio(WaveContainer):
         except (IOError, ValueError) as err:
             raise InvalidShorten(str(err))
         head = header["head"]
-        if not (head[0:4] == b"RIFF" and head[8:12] == b"WAVE"):
-            raise InvalidShorten("Shorten streams without a WAVE header "
-                                 "are not ported")
         self.__head = head
         self.__tail = None
         self.__channels = header["channels"]
         self.__bits_per_sample = 8 if header["file_type"] in (1, 2) else 16
-        (self.__sample_rate, self.__channel_mask) = stream_params(
-            head, self.__channels)
+        try:
+            (self.__sample_rate, self.__channel_mask) = stream_params(
+                head, self.__channels)
+        except struct.error as err:
+            raise InvalidShorten(str(err)) from err
         bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
         self.__total_frames = 0
-        for (chunk_id, size) in wave_chunks(head):
-            if chunk_id == b"data":
-                self.__total_frames = size // bytes_per_frame
+        if _is_wave(head):
+            for (chunk_id, size) in wave_chunks(head):
+                if chunk_id == b"data":
+                    self.__total_frames = size // bytes_per_frame
+        elif _is_aiff(head):
+            pos = 12
+            for (chunk_id, size) in aiff_chunks(head):
+                if chunk_id == b"COMM":
+                    self.__total_frames = parse_comm(
+                        head[pos + 8:pos + 8 + size])[1]
+                    break
+                pos += 8 + size + (size % 2)
 
     def bits_per_sample(self):
         return self.__bits_per_sample
@@ -130,24 +151,46 @@ class ShortenAudio(WaveContainer):
         return self.__tail
 
     def has_foreign_wave_chunks(self):
-        """chunks besides fmt and data in the head, or a tail of
-        trailing chunks"""
-        return (any(chunk_id not in (b"fmt ", b"data")
-                    for (chunk_id, _size) in wave_chunks(self.__head)) or
-                len(self._tail()) >= 8)
+        """for a WAVE head: chunks besides fmt and data in it, or a tail
+        of trailing chunks"""
+        return _is_wave(self.__head) and (
+            any(chunk_id not in (b"fmt ", b"data")
+                for (chunk_id, _size) in wave_chunks(self.__head)) or
+            len(self._tail()) >= 8)
 
     def wave_header_footer(self):
-        """the leading and trailing VERBATIM bytes"""
+        """the leading and trailing VERBATIM bytes of a WAVE head"""
+        if not _is_wave(self.__head):
+            raise ValueError("no wave header stored")
+        return (self.__head, self._tail())
+
+    def has_foreign_aiff_chunks(self):
+        """for an AIFF head: chunks besides COMM and SSND in it, or a
+        tail of trailing chunks"""
+        return _is_aiff(self.__head) and (
+            any(chunk_id not in (b"COMM", b"SSND")
+                for (chunk_id, _size) in aiff_chunks(self.__head)) or
+            len(self._tail()) >= 8)
+
+    def aiff_header_footer(self):
+        """the leading and trailing VERBATIM bytes of an AIFF head"""
+        if not _is_aiff(self.__head):
+            raise ValueError("no aiff header stored")
         return (self.__head, self._tail())
 
     def convert(self, target_path, target_class, compression=None,
                 progress=None, device=None):
-        """as ``WaveContainer.convert``; without foreign chunks carried,
-        the frame count passed ahead is None when the header gives none,
-        as the reference's"""
+        """as the reference's: a WAVE head's foreign chunks to a target
+        that takes a WAVE's, an AIFF head's to one that takes an
+        AIFF's; else the PCM alone, with the frame count passed ahead
+        None when the header gives none"""
         if (self.has_foreign_wave_chunks() and
                 callable(getattr(target_class, "from_wave", None))):
             return WaveContainer.convert(self, target_path, target_class,
+                                         compression, progress, device)
+        if (self.has_foreign_aiff_chunks() and
+                callable(getattr(target_class, "from_aiff", None))):
+            return AiffContainer.convert(self, target_path, target_class,
                                          compression, progress, device)
         return target_class.from_pcm(
             target_path, to_pcm_progress(self, progress), compression,
@@ -188,12 +231,28 @@ class ShortenAudio(WaveContainer):
         ``device``, the header and footer in the stream's VERBATIM
         chunks; ``compression`` is ignored.  Any failure raises
         EncodingError and leaves no file."""
+        return cls._from_container(filename, header, pcmreader, footer,
+                                   False, pcmreader.bits_per_sample != 8,
+                                   device, block_size)
+
+    @classmethod
+    def from_aiff(cls, filename, header, pcmreader, footer, compression=None,
+                  device="cuda", block_size=256):
+        """encodes a new file from an AIFF's header, PCM and footer on
+        ``device``, as ``from_wave`` does, the samples big-endian and
+        signed as AIFF stores them"""
+        return cls._from_container(filename, header, pcmreader, footer,
+                                   True, True, device, block_size)
+
+    @classmethod
+    def _from_container(cls, filename, header, pcmreader, footer,
+                        is_big_endian, signed_samples, device, block_size):
         device = resolve_device(device)
         try:
-            encode_shn(filename, pcmreader, is_big_endian=False,
-                       signed_samples=(pcmreader.bits_per_sample != 8),
-                       header_data=header, footer_data=footer,
-                       block_size=block_size, device=device)
+            encode_shn(filename, pcmreader, is_big_endian=is_big_endian,
+                       signed_samples=signed_samples, header_data=header,
+                       footer_data=footer, block_size=block_size,
+                       device=device)
             return cls(filename, device)
         except (IOError, ValueError) as err:
             try:

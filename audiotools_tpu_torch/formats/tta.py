@@ -22,6 +22,7 @@ from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.tta import encode_tta
 from ..meta.ape import ApeTaggedAudio
+from ..meta.id3 import skip_id3v2_comment
 from ..pcm import CounterPCMReader
 from ..ref.tta import crc32, div_ceil, read_tta_header
 
@@ -94,21 +95,6 @@ class InvalidTTA(InvalidFile, ValueError):
     """a file that is not a TTA file this module reads"""
 
 
-def skip_id3v2(f):
-    """seeks past the ID3v2 tags at the open file's position; returns
-    the bytes skipped"""
-    start = f.tell()
-    header = f.read(10)
-    if len(header) == 10 and header[0:3] == b"ID3" and header[3] in (2, 3, 4):
-        size = 0
-        for b in header[6:10]:
-            size = (size << 7) | (b & 0x7F)
-        f.seek(start + 10 + size, 0)
-        return 10 + size + skip_id3v2(f)
-    f.seek(start, 0)
-    return 0
-
-
 class TrueAudio(ApeTaggedAudio, AudioFile):
     """a True Audio file, encoded and decoded on a torch device
 
@@ -127,7 +113,7 @@ class TrueAudio(ApeTaggedAudio, AudioFile):
         self.device = resolve_device(device)
         try:
             with open(filename, "rb") as f:
-                self.__stream_offset = skip_id3v2(f)
+                self.__stream_offset = skip_id3v2_comment(f)
                 self.__header = read_tta_header(f)
         except (IOError, ValueError) as err:
             raise InvalidTTA(str(err))

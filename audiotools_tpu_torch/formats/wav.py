@@ -7,8 +7,8 @@ and ``WaveAudio`` (``from_pcm``, ``to_pcm``, ``verify``, the stream
 accessors, and the foreign chunks: ``has_foreign_wave_chunks``,
 ``wave_header_footer`` and ``from_wave``) for plain RIFF/WAVE files of
 8, 16 or 24 bits and 1-8 channels, WAVE_FORMAT_EXTENSIBLE's channel
-mask included.  Channel masks are plain ints here.  AIFF is not
-ported.
+mask included.  Channel masks are plain ints here.  AIFF is in
+``formats/aiff``.
 """
 
 from __future__ import annotations
@@ -16,10 +16,9 @@ from __future__ import annotations
 import os
 import struct
 
-import numpy as np
-
 from ..audiofile import EncodingError, InvalidFile, WaveContainer
-from ..pcm import CHANNEL_MASKS, FRAMELIST_SIZE, CounterPCMReader, FrameList
+from ..pcm import (CHANNEL_MASKS, FRAMELIST_SIZE, CounterPCMReader,
+                   FrameList, bytes_to_samples)
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_EXTENSIBLE = 0xFFFE
@@ -105,22 +104,12 @@ def riff_data_size(header):
 def pcm_to_samples(data, channels, bits_per_sample):
     """little-endian WAVE PCM bytes (8-bit unsigned, else signed) ->
     int32 [frames, channels]"""
-    if bits_per_sample == 8:
-        values = np.frombuffer(data, dtype=np.uint8).astype(np.int32) - 128
-    elif bits_per_sample == 16:
-        values = np.frombuffer(data, dtype="<i2").astype(np.int32)
-    else:
-        raw = np.frombuffer(data, dtype=np.uint8).reshape(-1, 3)
-        values = (raw[:, 0].astype(np.int32) |
-                  (raw[:, 1].astype(np.int32) << 8) |
-                  (raw[:, 2].astype(np.int8).astype(np.int32) << 16))
-    return values.reshape(-1, channels)
+    return bytes_to_samples(data, channels, bits_per_sample,
+                            bits_per_sample != 8, False)
 
 
 def samples_to_pcm(samples, bits_per_sample):
     """int32 [frames, channels] -> little-endian WAVE PCM bytes"""
-    if bits_per_sample == 16:
-        return np.asarray(samples).astype("<i2").tobytes()
     return FrameList(samples, bits_per_sample).to_bytes(
         False, bits_per_sample != 8)
 

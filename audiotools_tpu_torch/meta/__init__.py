@@ -1,5 +1,6 @@
 """The tag formats: the port of the reference's ``audiotools_tpu/meta/``
-without ID3 (which only the lossy formats read).
+without ID3's tags (which only the lossy formats read); ``id3`` holds
+only the skip over ID3v2 tags in front of a FLAC or TTA stream.
 
 ``image`` (``image_metrics`` of JPEG, PNG, GIF, BMP and TIFF bytes),
 ``vorbiscomment`` (``VorbisComment``, FLAC's comments), ``ape``

@@ -46,6 +46,14 @@ class FrameList:
     def to_bytes(self, is_big_endian, is_signed):
         """the samples as packed PCM bytes (8, 16 or 24 bits)"""
         width = self.bits_per_sample // 8
+        if width in (1, 2):
+            values = np.asarray(self.samples).reshape(-1)
+            if not is_signed:
+                values = values + (1 << (self.bits_per_sample - 1))
+            dtype = (("u1" if not is_signed else "i1") if width == 1 else
+                     (">" if is_big_endian else "<") +
+                     ("u2" if not is_signed else "i2"))
+            return values.astype(dtype).tobytes()
         values = self.samples.astype(np.int64).reshape(-1)
         if not is_signed:
             values = values + (1 << (self.bits_per_sample - 1))
@@ -54,6 +62,91 @@ class FrameList:
             shifts = shifts[::-1]
         return ((values[:, None] >> shifts) & 0xFF).astype(
             np.uint8).tobytes()
+
+
+def bytes_to_samples(data, channels, bits_per_sample, signed, big_endian):
+    """packed PCM bytes of 8, 16 or 24 bits -> int32 [frames, channels]"""
+    width = bits_per_sample // 8
+    if width == 1:
+        values = np.frombuffer(data, dtype=np.int8 if signed else np.uint8)
+        values = values.astype(np.int32)
+        if not signed:
+            values -= 128
+    elif width == 2:
+        values = np.frombuffer(data, dtype=(">" if big_endian else "<") +
+                               ("i2" if signed else "u2")).astype(np.int32)
+        if not signed:
+            values -= 1 << 15
+    else:
+        raw = np.frombuffer(data, dtype=np.uint8).reshape(-1, 3)
+        (low, high) = (2, 0) if big_endian else (0, 2)
+        top = raw[:, high].astype(np.int8 if signed else np.uint8)
+        values = (raw[:, low].astype(np.int32) |
+                  (raw[:, 1].astype(np.int32) << 8) |
+                  (top.astype(np.int32) << 16))
+        if not signed:
+            values -= 1 << 23
+    return values.reshape(-1, channels)
+
+
+class PCMReader:
+    """a PCMReader over a binary stream of packed PCM (the reference's
+    ``pcmstream.PCMReader``): ``signed`` and ``big_endian`` give the
+    samples' form; a partial frame at the stream's end is dropped"""
+
+    def __init__(self, file, sample_rate, channels, channel_mask,
+                 bits_per_sample, signed=True, big_endian=False):
+        self.file = file
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.channel_mask = channel_mask
+        self.bits_per_sample = bits_per_sample
+        self.signed = signed
+        self.big_endian = big_endian
+        self.bytes_per_frame = channels * (bits_per_sample // 8)
+
+    def read(self, pcm_frames):
+        """up to max(pcm_frames, 1) frames; empty at the end"""
+        data = self.file.read(max(int(pcm_frames), 1) * self.bytes_per_frame)
+        data = data[:len(data) - len(data) % self.bytes_per_frame]
+        return FrameList(bytes_to_samples(data, self.channels,
+                                          self.bits_per_sample, self.signed,
+                                          self.big_endian),
+                         self.bits_per_sample)
+
+    def close(self):
+        self.file.close()
+
+
+class LimitedFileReader:
+    """at most ``total_bytes`` bytes of a binary file, from its position
+    (the reference's ``pcmstream.LimitedFileReader``)"""
+
+    def __init__(self, file, total_bytes):
+        self.file = file
+        self.remaining = total_bytes
+
+    def read(self, size):
+        data = self.file.read(max(min(size, self.remaining), 0))
+        self.remaining -= len(data)
+        return data
+
+    def close(self):
+        self.file.close()
+
+
+def transfer_framelist_data(pcmreader, to_function, signed=True,
+                            big_endian=False):
+    """passes each of a PCMReader's frame lists to ``to_function`` as
+    packed PCM bytes, until the reader ends (the reference's
+    ``pcmstream.transfer_framelist_data``)"""
+    while True:
+        framelist = pcmreader.read(FRAMELIST_SIZE)
+        if framelist.frames == 0:
+            return
+        to_function(FrameList(framelist.samples,
+                              pcmreader.bits_per_sample).to_bytes(
+                                  big_endian, signed))
 
 
 def empty_framelist(channels, bits_per_sample):

@@ -1,7 +1,8 @@
 """The strings the port's tag and format classes report, copied from
 the reference's ``audiotools_tpu/text.py`` so that they compare equal:
-the fixes ``clean`` finds (which tracklint prints) and the compression
-modes' descriptions (which audiotools-config lists).  The tools' own
+the fixes ``clean`` finds (which tracklint prints), the compression
+modes' descriptions (which audiotools-config lists) and the Ogg page
+errors (which trackverify prints).  The tools' own
 strings are in ``cli/text.py``."""
 
 CLEAN_REMOVE_DUPLICATE_TAG = "removed duplicate tag %(field)s"
@@ -24,3 +25,6 @@ COMP_WAVPACK_VERYHIGH = "slowest encode/decode, best compression"
 COMP_TTA = "fixed compression (True Audio has one mode)"
 COMP_SHN = "fixed compression (Shorten has one mode)"
 COMP_ALAC = "fixed compression (Apple Lossless has one mode)"
+
+ERR_OGG_INVALID_PAGE = "invalid Ogg page marker"
+ERR_OGG_CHECKSUM_MISMATCH = "Ogg page checksum mismatch"

@@ -11,7 +11,7 @@ synthesis, WavPack encode and decode with the decorrelation passes
 on the card, the converters (ReplayGain, AccurateRip, the
 resampler), a collection of tracks through the transcode farm, and
 the command line's tools, the cue sheet and tag tools among them.
-Its phases each print one line (phase 24 one a tool too):
+Its phases each print one line (phases 24 and 25 one a tool run too):
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -129,7 +129,7 @@ Its phases each print one line (phase 24 one a tool too):
     veryhigh stream and a short 6-channel (mask 0x3F) one give the
     same file and PCM on the card and on the CPU;
 19. converters, on phase 11's signal: ReplayGain on the card over the
-    signal cut into an album of four 95.1 s titles (title and album
+    signal cut into an album of four 60 s titles (title and album
     gains, peaks) against the port's host C++ IIR analysis of the same
     titles (peaks equal, at most one window moved between bins a
     title, gains within 0.011 dB); AccurateRip of the same four cuts
@@ -170,7 +170,7 @@ Its phases each print one line (phase 24 one a tool too):
     farmed on the card and on the CPU to the same files; and
     ``parallel.dryrun.dryrun_multichip`` over ``[cuda:0, cuda:0]`` (and
     over every card where there are several);
-21. the command line, on phase 19's album (four 95.1 s WAVE tracks):
+21. the command line, on phase 19's album (four 60 s WAVE tracks):
     for each of FLAC -8, ALAC, TTA, Shorten and WavPack (standard),
     ``track2track -j 2`` in-process on the card, then ``trackverify
     --accuraterip`` over its outputs (every file OK, its sums equal to
@@ -239,7 +239,25 @@ Its phases each print one line (phase 24 one a tool too):
     and the splits must launch rice_decode and flac_synth, the WavPack
     split wv_corr, its ReplayGain wv_decorr); then a short album (2 s)
     through the same tools on the card and with ``--devices cpu``,
-    every file byte-equal.
+    every file byte-equal;
+25. the AIFF, AU and Ogg FLAC containers and ID3-wrapped FLAC through
+    the command line, on phase 19's album written as AIFF (the first
+    title with a NAME chunk before SSND and an ANNO chunk after it):
+    ``track2track -j 2`` to FLAC -8, ALAC, TTA, Shorten, WavPack
+    standard, AU and Ogg FLAC, each back to AIFF (FLAC and Shorten give
+    the AIFF back byte for byte, foreign chunks included; every other
+    type its samples and the titles without chunks whole) and
+    ``trackcmp`` of each output against its AIFF (every pair OK); an
+    8-bit mono title of an odd frame count (a pad byte after SSND's
+    samples) with the same chunks through FLAC and Shorten and back,
+    byte for byte; an Ogg FLAC title tagged twice by ``tracktag`` (tags,
+    then ReplayGain) and decoded on the card to its samples; a FLAC
+    title behind two ID3v2 tags and before an ID3v1 tag decoded on the
+    card, retagged by ``tracktag`` past its padding, the tags around it
+    kept and its samples decoded again.  A line a tool run with its
+    wall, input Msamples/s and the launches of each kernel, counted from
+    0 just before the run and read just after it; every kernel of the
+    tools' default routes must launch during the phase.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -761,9 +779,17 @@ def wavpack_phases(dev, alac_sig, max_sm_mhz, cycles_lib):
 
 
 # phase 19: ReplayGain's titles and AccurateRip's tracks (an album of
-# four cut from phase 11's signal), and the resampler's read sizes
+# four ALBUM_TITLE_S s titles cut from phase 11's signal, which phases
+# 21, 22, 24 and 25 take too), and the resampler's read sizes
 RG_TITLES = 4
+ALBUM_TITLE_S = 60
 RESAMPLE_READS = (4096, 1 << 20)
+
+
+def album_frames(alac_sig):
+    """the frames of each of the album's titles: ALBUM_TITLE_S seconds,
+    or a quarter of a shorter signal"""
+    return min(alac_sig.shape[0] // RG_TITLES, ALBUM_TITLE_S * SAMPLE_RATE)
 
 
 def sync(dev):
@@ -827,10 +853,9 @@ def converter_phase(dev, alac_sig):
     from audiotools_tpu_torch.ops import converters
     from audiotools_tpu_torch.pcm import PCMConverter, reader_from_array
     _native.get_lib()
-    a_frames = alac_sig.shape[0]
-    in_samples = alac_sig.size
-    per = a_frames // RG_TITLES
+    per = album_frames(alac_sig)
     titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    in_samples = sum(t.size for t in titles)
     out = {}
 
     # ---- ReplayGain: the album on the card, the host IIR beside it -----
@@ -1007,7 +1032,7 @@ def converter_phase(dev, alac_sig):
     (want, host_fir_s) = host_resample(alac_sig, 16, SAMPLE_RATE, 48000)
     resample = dict(pair=[SAMPLE_RATE, 48000], outputs=int(want.shape[0]),
                     host_fir_s=host_fir_s,
-                    host_Msamples_per_s=in_samples / host_fir_s / 1e6)
+                    host_Msamples_per_s=alac_sig.size / host_fir_s / 1e6)
     outputs = {}
     for size in RESAMPLE_READS:
         runs = []
@@ -1024,7 +1049,7 @@ def converter_phase(dev, alac_sig):
          resample["share_differing_%d" % size]) = lsb_check(
             got, want, "44.1 -> 48 kHz, reads of %d" % size)
         outputs[size] = got
-        resample["reads_%d" % size] = stage_runs(runs, in_samples)
+        resample["reads_%d" % size] = stage_runs(runs, alac_sig.size)
     resample["read_sizes_differing"] = int(
         (outputs[RESAMPLE_READS[0]] != outputs[RESAMPLE_READS[1]]).sum())
     del outputs, want
@@ -1392,7 +1417,7 @@ def cli_phase(dev, alac_sig):
     dev = torch.device(dev)
     on_cuda = dev.type == "cuda"
     counters = kernel_counters()
-    per = alac_sig.shape[0] // RG_TITLES
+    per = album_frames(alac_sig)
     tracks = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
     in_samples = sum(t.size for t in tracks)
     on_card = ["--devices", str(dev)]
@@ -1610,7 +1635,7 @@ def tags_phase(dev, alac_sig):
     dev = torch.device(dev)
     on_cuda = dev.type == "cuda"
     counters = kernel_counters()
-    per = alac_sig.shape[0] // RG_TITLES
+    per = album_frames(alac_sig)
     tracks = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
     in_samples = sum(t.size for t in tracks)
     on_card = ["--devices", str(dev)]
@@ -2274,7 +2299,7 @@ def sheets_phase(dev, alac_sig):
     dev = torch.device(dev)
     on_cuda = dev.type == "cuda"
     counters = kernel_counters()
-    per = alac_sig.shape[0] // RG_TITLES // SECTOR * SECTOR
+    per = album_frames(alac_sig) // SECTOR * SECTOR
     titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
     in_samples = sum(t.size for t in titles)
     launches = dict.fromkeys(counters, 0)
@@ -2338,6 +2363,220 @@ def sheets_phase(dev, alac_sig):
     out["short_album"] = dict(seconds=time.perf_counter() - t0,
                               frames=int(short) * SECTOR * RG_TITLES,
                               files=len(trees[0]), identical_to_cpu=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
+# phase 25: the types the AIFF album goes to (and their qualities), in
+# the order run; the ones that keep an AIFF's chunks; the 128-byte ID3v1
+# tag put after a FLAC title
+AIFF_TARGETS = (("flac", "8"), ("alac", None), ("tta", None), ("shn", None),
+                ("wavpack", "standard"), ("au", None), ("oggflac", None))
+AIFF_CARRIERS = ("flac", "shn")
+ID3V1_TAG = (b"TAG" + b"Title".ljust(30, b"\x00") + b"Artist".ljust(
+    30, b"\x00") + b"Album".ljust(30, b"\x00") + b"2026" + b"\x00" * 30 +
+    b"\x0c")
+
+
+def id3v2_tag(body_size, version):
+    """an ID3v2 tag of ``version`` of ``body_size`` zero bytes (padding)"""
+    return (b"ID3" + bytes([version, 0, 0]) +
+            bytes((body_size >> shift) & 0x7F for shift in (21, 14, 7, 0)) +
+            b"\x00" * body_size)
+
+
+def aiff_with_chunks(path, samples, bps):
+    """``samples`` written as AIFF at ``path`` with a NAME chunk before
+    SSND and an ANNO chunk after it (each of odd length, so padded)"""
+    import struct
+    from audiotools_tpu_torch.formats.aiff import AiffAudio
+    from audiotools_tpu_torch.pcm import reader_from_array
+    AiffAudio.from_pcm(path, reader_from_array(samples, bps))
+    data = read_bytes(path)
+    comm_end = 12 + 8 + 18
+    name = b"NAME" + struct.pack(">I", 9) + b"port test\x00"
+    anno = b"ANNO" + struct.pack(">I", 5) + b"smoke\x00"
+    body = data[12:comm_end] + name + data[comm_end:] + anno
+    with open(path, "wb") as f:
+        f.write(b"FORM" + struct.pack(">I", 4 + len(body)) + b"AIFF" + body)
+
+
+def containers_phase(dev, alac_sig):
+    """phase 25 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it: the AIFF, AU and Ogg FLAC containers and ID3-wrapped FLAC
+    through the command line on ``dev``; returns its line's fields and
+    each kernel's launches in the tool runs, which are counted from 0
+    just before each run and read just after it.  On a CPU ``dev`` (a
+    rehearsal with a short signal) no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import dispatch
+    from audiotools_tpu_torch.formats.aiff import AiffAudio
+    from audiotools_tpu_torch.pcm import read_all, reader_from_array
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    per = album_frames(alac_sig)
+    tracks = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    # an 8-bit mono title of an odd frame count: an odd byte count of
+    # samples, so a pad byte ends SSND
+    odd = np.clip(alac_sig[:per + 1, 0] >> 8, -128, 127).astype(
+        np.int32)[:, None]
+    on_card = ["--devices", str(dev)]
+    launches = dict.fromkeys(counters, 0)
+    out = dict(tracks=len(tracks), track_seconds=per / SAMPLE_RATE,
+               workers=2, runs={})
+
+    def tool(label, name, args, in_samples):
+        """run_cli(name, args) on the card, its launches counted from 0
+        just before it and read just after it, a line printed with its
+        wall, input Msamples/s and launches; returns (code, lines)"""
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        (code, lines) = run_cli(name, args + on_card)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        run = {k: fn.launches for (k, fn) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        fields = dict(tool=name, wall_s=wall,
+                      input_Msamples_per_s=in_samples / wall / 1e6,
+                      launches=run)
+        line("containers_" + label, **fields)
+        out["runs"][label] = fields
+        if code != 0:
+            raise AssertionError("%s %s exited %r: %s"
+                                 % (name, label, code, lines[:6]))
+        return (code, lines)
+
+    t_phase = time.perf_counter()
+    wall_clock = time.time
+    with tempfile.TemporaryDirectory(prefix="containers-") as work:
+        time.time = lambda: CLI_CLOCK
+        try:
+            # 1. the album as AIFF, title 0 with foreign chunks
+            src = os.path.join(work, "src")
+            os.makedirs(src)
+            sources = [os.path.join(src, "track%d.aiff" % k)
+                       for k in range(len(tracks))]
+            for (k, (path, track)) in enumerate(zip(sources, tracks)):
+                if k == 0:
+                    aiff_with_chunks(path, track, 16)
+                else:
+                    AiffAudio.from_pcm(path, reader_from_array(track, 16))
+            in_samples = sum(t.size for t in tracks)
+
+            # 2. each type and back to AIFF
+            for (type_name, quality) in AIFF_TARGETS:
+                cls = dispatch.TYPE_MAP[type_name]
+                dest = os.path.join(work, type_name)
+                outputs = [os.path.join(dest, "track%d.%s" % (
+                    k, cls.SUFFIX)) for k in range(len(tracks))]
+                (_code, lines) = tool(type_name, "track2track", [
+                    "-t", type_name] + (["-q", quality] if quality else []) +
+                    ["-d", dest, "-j", "2"] + CLI_FORMAT + sources,
+                    in_samples)
+                if sorted(lines) != sorted("%s -> %s" % pair for pair in
+                                           zip(sources, outputs)):
+                    raise AssertionError("track2track -t %s: %s"
+                                         % (type_name, lines))
+                back = os.path.join(work, type_name + "-back")
+                tool(type_name + "_to_aiff", "track2track", [
+                    "-t", "aiff", "-d", back, "-j", "2"] + CLI_FORMAT +
+                    outputs, in_samples)
+                for (k, (source, track)) in enumerate(zip(sources, tracks)):
+                    returned = os.path.join(back, "track%d.aiff" % k)
+                    if type_name in AIFF_CARRIERS or k > 0:
+                        if read_bytes(returned) != read_bytes(source):
+                            raise AssertionError(
+                                "%s did not come back through %s byte for "
+                                "byte" % (source, type_name))
+                    elif not np.array_equal(decoded(returned, dev), track):
+                        raise AssertionError("%s's samples did not come "
+                                             "back through %s"
+                                             % (source, type_name))
+                (_code, lines) = tool(type_name + "_cmp", "trackcmp", [
+                    "-j", "2"] + [path for pair in zip(sources, outputs)
+                                  for path in pair], 2 * in_samples)
+                if sorted(lines[:len(sources)]) != sorted(
+                        "%s <> %s : OK" % pair
+                        for pair in zip(sources, outputs)):
+                    raise AssertionError("trackcmp of the %s files: %s"
+                                         % (type_name, lines))
+
+            # 3. the odd title through FLAC and Shorten, byte for byte
+            odd_path = os.path.join(work, "odd", "odd.aiff")
+            os.makedirs(os.path.dirname(odd_path))
+            aiff_with_chunks(odd_path, odd, 8)
+            for type_name in AIFF_CARRIERS:
+                dest = os.path.join(work, "odd-" + type_name)
+                tool("odd_" + type_name, "track2track", [
+                    "-t", type_name, "-d", dest, "-j", "1"] + CLI_FORMAT +
+                    [odd_path], odd.size)
+                carried = os.path.join(dest, "odd." + dispatch.TYPE_MAP[
+                    type_name].SUFFIX)
+                back = os.path.join(work, "odd-%s-back" % type_name)
+                tool("odd_%s_to_aiff" % type_name, "track2track", [
+                    "-t", "aiff", "-d", back, "-j", "1"] + CLI_FORMAT +
+                    [carried], odd.size)
+                if read_bytes(os.path.join(back, "odd.aiff")) != \
+                        read_bytes(odd_path):
+                    raise AssertionError("the odd title did not come back "
+                                         "through %s" % (type_name,))
+
+            # 4. one Ogg FLAC title tagged twice, decoded on the card
+            oga = os.path.join(work, "oggflac", "track1.oga")
+            tool("tag_oggflac", "tracktag", [
+                "--name=Ogg Title", "--artist=Ogg Artist", "--number=2",
+                oga], tracks[1].size)
+            tool("tag_oggflac_rg", "tracktag", [
+                "--comment=again", "--replay-gain", oga], tracks[1].size)
+            tagged = dispatch.open(oga, device=dev)
+            metadata = tagged.get_metadata()
+            rg = tagged.replay_gain()
+            if (metadata.track_name != "Ogg Title" or
+                    metadata.comment != "again" or rg is None or
+                    rg.track_peak != float("%1.8f" % (
+                        np.abs(tracks[1]).max() / 32768)) or
+                    not np.array_equal(read_all(tagged.to_pcm()),
+                                       tracks[1])):
+                raise AssertionError("the tagged Ogg FLAC title: %r, %r"
+                                     % (metadata, rg))
+            out["oggflac_tags"] = dict(track_name=metadata.track_name,
+                                       replay_gain=vars(rg))
+
+            # 5. an ID3v2-wrapped FLAC with an ID3v1 tag after it
+            prefix = id3v2_tag(64, 3) + id3v2_tag(30, 4)
+            wrapped = os.path.join(work, "id3", "track2.flac")
+            os.makedirs(os.path.dirname(wrapped))
+            with open(wrapped, "wb") as f:
+                f.write(prefix + read_bytes(os.path.join(
+                    work, "flac", "track2.flac")) + ID3V1_TAG)
+            if not np.array_equal(decoded(wrapped, dev), tracks[2]):
+                raise AssertionError("the ID3-wrapped FLAC title does not "
+                                     "decode to its samples")
+            tool("tag_id3_flac", "tracktag", [
+                "--name=" + "Wrapped " * 600, wrapped], tracks[2].size)
+            data = read_bytes(wrapped)
+            track = dispatch.open(wrapped, device=dev)
+            if (not data.startswith(prefix) or
+                    not data.endswith(ID3V1_TAG) or
+                    not track.get_metadata().track_name.startswith(
+                        "Wrapped") or
+                    not np.array_equal(read_all(track.to_pcm()),
+                                       tracks[2]) or not track.verify()):
+                raise AssertionError("the retagged ID3-wrapped FLAC lost its "
+                                     "tags or samples")
+            out["id3_wrapped"] = dict(prefix_bytes=len(prefix),
+                                      trailer_bytes=len(ID3V1_TAG),
+                                      bytes=len(data))
+        finally:
+            time.time = wall_clock
+    idle = [k for (k, n) in launches.items()
+            if n <= 0 and k not in OFF_CLI_PATH]
+    if on_cuda and idle:
+        raise AssertionError("phase 25 never launched %s" % (idle,))
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     return (out, launches)
@@ -3165,6 +3404,10 @@ def main():
     (fields, sheets_launches) = sheets_phase(dev, alac_sig)
     line("sheets", nvidia_smi=smi, **fields)
 
+    # ---- 25. AIFF, AU, Ogg FLAC and ID3-wrapped FLAC through the tools --
+    (fields, containers_launches) = containers_phase(dev, alac_sig)
+    line("containers", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -3195,7 +3438,8 @@ def main():
             replaces="audiotools_tpu/ops/" + replaces, launches=kl,
             cli_launches=cli_launches[kname],
             tags_launches=tags_launches[kname],
-            sheets_launches=sheets_launches[kname], **row))
+            sheets_launches=sheets_launches[kname],
+            containers_launches=containers_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -73,7 +73,8 @@ def files(tmp_path_factory):
 
 
 def test_type_map_names_the_references_classes():
-    assert sorted(dispatch.TYPE_MAP) == sorted(NAMES)
+    assert sorted(dispatch.TYPE_MAP) == sorted(NAMES +
+                                               ["aiff", "au", "oggflac"])
     for (name, cls) in dispatch.TYPE_MAP.items():
         ref = ref_dispatch.TYPE_MAP[name]
         assert (cls.NAME, cls.SUFFIX, cls.DEFAULT_COMPRESSION,
@@ -117,21 +118,21 @@ def test_id3_wrapped_files_are_sniffed_through(files, tmp_path, name):
 
 
 def test_other_types_are_unknown(files, tmp_path):
-    """AIFF, AU and an M4A whose stsd is not ALAC: known to the
-    reference, not opened by the port"""
-    from audiotools_tpu.formats.aiff import AiffAudio
-    from audiotools_tpu.formats.au import AuAudio
-    (paths, arr) = files
-    aiff = str(tmp_path / "a.aiff")
-    AiffAudio.from_pcm(aiff, ref_reader(arr))
-    au = str(tmp_path / "a.au")
-    AuAudio.from_pcm(au, ref_reader(arr))
+    """an M4A whose stsd is not ALAC and an Ogg Vorbis stream: known to
+    the reference, not opened by the port (AIFF and AU are opened since
+    the port has them: tests/test_torch_aiff.py)"""
+    from audiotools_tpu import ogg as ref_ogg
+    (paths, _arr) = files
     aac = str(tmp_path / "aac.m4a")
     data = read(paths["alac"])
     pos = data.index(b"stsd")
     with open(aac, "wb") as f:
         f.write(data[:pos + 16] + b"mp4a" + data[pos + 20:])
-    for (path, ref_name) in ((aiff, "aiff"), (au, "au"), (aac, "m4a")):
+    vorbis = str(tmp_path / "a.ogg")
+    with open(vorbis, "wb") as f:
+        f.write(ref_ogg.Page(False, True, False, 0, 1, 0, [
+            b"\x01vorbis" + b"\x00" * 23]).build())
+    for (path, ref_name) in ((aac, "m4a"), (vorbis, "vorbis")):
         with open(path, "rb") as f:
             assert ref_dispatch.file_type(f).NAME == ref_name
             assert dispatch.file_type(f) is None

@@ -58,7 +58,8 @@ def test_port_loads_nothing_of_the_reference():
     encodes and decodes FLAC, Shorten and TTA, runs ReplayGain,
     AccurateRip and a resampling PCMConverter through the port on the
     CPU, then trackcat --cue, tracksplit, tracktag and tracklint, and
-    holds no module of jax or of the reference"""
+    track2track to AIFF and on to Ogg FLAC, and holds no module of jax
+    or of the reference"""
     code = (
         "import importlib, io, sys\n"
         "import numpy as np\n"
@@ -120,6 +121,15 @@ def test_port_loads_nothing_of_the_reference():
         " cpu) == 0\n"
         "assert tracklint.main(['--fix', '--db', os.path.join(work, 'u.db')]"
         " + tracks + cpu) == 0\n"
+        "from audiotools_tpu_torch.cli import track2track\n"
+        "assert track2track.main(['-t', 'aiff', '-o', os.path.join(work, "
+        "'a.aiff'), wav] + cpu) == 0\n"
+        "assert track2track.main(['-t', 'oggflac', '-q', '0', '-o', "
+        "os.path.join(work, 'a.oga'), os.path.join(work, 'a.aiff')] + cpu)"
+        " == 0\n"
+        "from audiotools_tpu_torch import dispatch\n"
+        "assert np.array_equal(pcm.read_all(dispatch.open(os.path.join("
+        "work, 'a.oga'), device='cpu').to_pcm()), arr)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'audiotools_tpu' or "
         "m.startswith('audiotools_tpu.'))\n"
