@@ -1,10 +1,10 @@
 """The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
 kernels, the quantized upload wire's scans (``flac_qpack``,
 ``flac_qpack_patched``, ``flac_qplan_t``), the converters' host twins,
-the Ogg page CRC and MD5.
+the Ogg page CRC, the MPEG frame walker (``verify_mpeg``) and MD5.
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
-Shorten, WavPack, converter, CRC and MD5 parts of the reference
+Shorten, WavPack, converter, CRC, MPEG and MD5 parts of the reference
 package's host library; the wrappers here are the reference's (``audiotools_tpu/_native``),
 for the entry points the port calls, with the port's own ``shn_header``
 and ``shn_warm_chain``.  The ``wv_*`` wrappers hold the ctypes calls that
@@ -343,6 +343,9 @@ def _bind(lib):
 
     lib.atpu_ogg_crc.restype = ctypes.c_uint32
     lib.atpu_ogg_crc.argtypes = [_U8, ctypes.c_int64, ctypes.c_uint32]
+
+    lib.atpu_verify_mpeg.restype = ctypes.c_int64
+    lib.atpu_verify_mpeg.argtypes = [_U8, ctypes.c_int64, _I64]
 
     lib.atpu_md5_init.restype = None
     lib.atpu_md5_init.argtypes = [_U8]
@@ -1209,6 +1212,22 @@ def ogg_crc(data, initial=0):
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     return int(get_lib().atpu_ogg_crc(_as_ptr(buf, ctypes.c_uint8),
                                       len(buf), initial))
+
+
+def verify_mpeg(data):
+    """walks the MPEG audio frames of a whole file's bytes (ID3v2 tags
+    before them, an ID3v1, APEv2 or Lyrics3 tag after them skipped):
+    (frames, total_samples, sample_rate, channels, layer) of the first
+    frame's stream; raises ValueError on a bad or truncated frame"""
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    info = np.zeros(4, dtype=np.int64)
+    frames = get_lib().atpu_verify_mpeg(_as_ptr(buf, ctypes.c_uint8),
+                                        len(buf),
+                                        _as_ptr(info, ctypes.c_int64))
+    if frames < 0:
+        raise ValueError("MPEG stream error (code %d)" % (frames,))
+    return (int(frames), int(info[0]), int(info[1]), int(info[2]),
+            int(info[3]))
 
 
 class MD5:

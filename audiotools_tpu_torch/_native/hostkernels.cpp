@@ -35,12 +35,13 @@
 //     coder and reader, and one decode decorrelation pass;
 //   * atpu_resample_fir / atpu_accuraterip_update / atpu_iir: the
 //     converters' host twins (the resampler's polyphase FIR, the
-//     AccurateRip V1/V2 sums and the ReplayGain filters' IIR).
+//     AccurateRip V1/V2 sums and the ReplayGain filters' IIR);
+//   * atpu_verify_mpeg: the MPEG audio frame walker (MP3 and MP2
+//     verification and frame counts).
 // The port's own additions: atpu_shn_header (the stream header's
 // fields and leading VERBATIM bytes) and atpu_shn_warm_chain (the device decode's warm-up chain,
 // a Python loop over rows in the reference).
-// The reference's MLP, MPEG and quantized-upload kernels are not
-// copied.
+// The reference's MLP kernels are not copied.
 //
 // Build: g++ -O3 -shared -fPIC (see __init__.py); loaded via ctypes.
 
@@ -6403,6 +6404,161 @@ void atpu_iir(const double* b, const double* a, int32_t n,
         z[n - 2] = b[n - 1] * xi - a[n - 1] * yi;
         y[i] = yi;
     }
+}
+
+}  // extern "C"
+
+// ======================================================================
+// MPEG audio frame walker (role of reference src/verify/mpeg.c:1-351):
+// validates sync/version/layer/bitrate/samplerate consistency frame by
+// frame and accumulates stream statistics without decoding.
+
+namespace mpeg {
+
+// bitrate tables in kbps, [version][layer][index]; version 0 = MPEG1,
+// 1 = MPEG2/2.5; layer index 0 = I, 1 = II, 2 = III
+static const int BITRATES[2][3][16] = {
+    {{0, 32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 384,
+      416, 448, -1},
+     {0, 32, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256, 320,
+      384, -1},
+     {0, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256,
+      320, -1}},
+    {{0, 32, 48, 56, 64, 80, 96, 112, 128, 144, 160, 176, 192, 224,
+      256, -1},
+     {0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 144, 160,
+      -1},
+     {0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 144, 160,
+      -1}}};
+
+static const int SAMPLERATES[4][4] = {
+    {11025, 12000, 8000, -1},     // MPEG2.5
+    {-1, -1, -1, -1},             // reserved
+    {22050, 24000, 16000, -1},    // MPEG2
+    {44100, 48000, 32000, -1}};   // MPEG1
+
+struct FrameInfo {
+    int64_t frame_size;
+    int samples;
+    int sample_rate;
+    int channels;
+    int layer;        // 1, 2, 3
+    int version;      // 1 = MPEG1, 2 = MPEG2, 25 = MPEG2.5
+};
+
+// parses a 4-byte frame header; returns false if invalid
+static bool parse_header(const uint8_t* p, FrameInfo* out) {
+    if (p[0] != 0xFF || (p[1] & 0xE0) != 0xE0) return false;
+    const int version_bits = (p[1] >> 3) & 3;
+    const int layer_bits = (p[1] >> 1) & 3;
+    const int bitrate_idx = (p[2] >> 4) & 0xF;
+    const int rate_idx = (p[2] >> 2) & 3;
+    const int padding = (p[2] >> 1) & 1;
+    const int channel_mode = (p[3] >> 6) & 3;
+    if (version_bits == 1 || layer_bits == 0) return false;
+    if (bitrate_idx == 0 || bitrate_idx == 15) return false;
+    const int layer = 4 - layer_bits;             // 1, 2, 3
+    const bool mpeg1 = (version_bits == 3);
+    const int sample_rate = SAMPLERATES[version_bits][rate_idx];
+    if (sample_rate <= 0) return false;
+    const int bitrate =
+        BITRATES[mpeg1 ? 0 : 1][layer - 1][bitrate_idx] * 1000;
+    if (bitrate <= 0) return false;
+
+    int64_t frame_size;
+    int samples;
+    if (layer == 1) {
+        frame_size = (12 * bitrate / sample_rate + padding) * 4;
+        samples = 384;
+    } else if (layer == 2) {
+        frame_size = 144 * bitrate / sample_rate + padding;
+        samples = 1152;
+    } else {
+        if (mpeg1) {
+            frame_size = 144 * bitrate / sample_rate + padding;
+            samples = 1152;
+        } else {
+            frame_size = 72 * bitrate / sample_rate + padding;
+            samples = 576;
+        }
+    }
+    out->frame_size = frame_size;
+    out->samples = samples;
+    out->sample_rate = sample_rate;
+    out->channels = (channel_mode == 3) ? 1 : 2;
+    out->layer = layer;
+    out->version = mpeg1 ? 1 : (version_bits == 2 ? 2 : 25);
+    return true;
+}
+
+}  // namespace mpeg
+
+extern "C" {
+
+// Walks an MPEG audio stream, validating frame headers.
+//
+// data/len: the complete file contents; leading ID3v2 and trailing
+// ID3v1/APE tags are tolerated.  On success returns the number of
+// frames and fills info[0..3] with (total_samples, sample_rate,
+// channels, layer); returns a negative error code on corruption.
+int64_t atpu_verify_mpeg(const uint8_t* data, int64_t len,
+                         int64_t* info) {
+    using namespace mpeg;
+    int64_t pos = 0;
+    // skip ID3v2 tags
+    while (pos + 10 <= len && data[pos] == 'I' &&
+           data[pos + 1] == 'D' && data[pos + 2] == '3' &&
+           data[pos + 3] >= 2 && data[pos + 3] <= 4) {
+        int64_t size = 0;
+        for (int i = 6; i < 10; i++)
+            size = (size << 7) | (data[pos + i] & 0x7F);
+        pos += 10 + size;
+    }
+    // ignore trailing ID3v1
+    int64_t end = len;
+    if (end - pos >= 128 && end >= 128 &&
+        data[end - 128] == 'T' && data[end - 127] == 'A' &&
+        data[end - 126] == 'G')
+        end -= 128;
+
+    int64_t frames = 0;
+    int64_t total_samples = 0;
+    FrameInfo first{0, 0, 0, 0, 0, 0};
+    while (pos < end) {
+        if (pos + 4 > end) {
+            // trailing partial bytes are corruption unless tag-like
+            return frames > 0 ? -2 : -1;
+        }
+        FrameInfo fi;
+        if (!parse_header(data + pos, &fi)) {
+            // tolerate trailing APE tags
+            if (end - pos >= 8 &&
+                memcmp(data + pos, "APETAGEX", 8) == 0)
+                break;
+            if (end - pos >= 9 &&
+                memcmp(data + pos, "LYRICSBEG", 9) == 0)
+                break;
+            return frames > 0 ? -2 : -1;
+        }
+        if (frames == 0) {
+            first = fi;
+        } else if (fi.sample_rate != first.sample_rate ||
+                   fi.layer != first.layer) {
+            return -3;
+        }
+        if (pos + fi.frame_size > end) return -4;   // truncated frame
+        total_samples += fi.samples;
+        pos += fi.frame_size;
+        frames += 1;
+    }
+    if (frames == 0) return -1;
+    if (info != nullptr) {
+        info[0] = total_samples;
+        info[1] = first.sample_rate;
+        info[2] = first.channels;
+        info[3] = first.layer;
+    }
+    return frames;
 }
 
 }  // extern "C"

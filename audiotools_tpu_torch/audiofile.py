@@ -301,9 +301,9 @@ class ReplayGain:
 class AudioFile:
     """an audio file on disk
 
-    Every class of the port is lossless.  ``device`` is the torch
-    device the file decodes on, None for a class that decodes on the
-    host."""
+    A class is lossless unless it says otherwise (the lossy ones: MP3,
+    MP2, Vorbis, Opus, AAC).  ``device`` is the torch device the file
+    decodes on, None for a class that decodes on the host."""
 
     SUFFIX = ""
     NAME = ""
@@ -311,6 +311,9 @@ class AudioFile:
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
     COMPRESSION_DESCRIPTIONS = {}
+    # the outside programs a class needs, and where to get them
+    BINARIES = ()
+    BINARY_URLS = {}
 
     device = None
 
@@ -319,8 +322,22 @@ class AudioFile:
 
     @classmethod
     def available(cls, system_binaries=None):
-        """True: no class of the port needs an outside program"""
-        return True
+        """True when every program of BINARIES can be run (the classes
+        that need a library instead say whether it is found)"""
+        if system_binaries is None:
+            from .utils.config import BIN as system_binaries
+        return all(system_binaries.can_execute(system_binaries[command])
+                   for command in cls.BINARIES)
+
+    @classmethod
+    def missing_components(cls, messenger):
+        """tells ``messenger`` which programs this class needs"""
+        for binary in cls.BINARIES:
+            messenger.info("program \"%s\" is required to support %s files"
+                           % (binary, cls.NAME))
+            if binary in cls.BINARY_URLS:
+                messenger.info("available from %s" %
+                               (cls.BINARY_URLS[binary],))
 
     def lossless(self):
         return True
@@ -449,7 +466,8 @@ class AudioFile:
 
     def verify(self, progress=None, sink=None):
         """decodes the whole file: raises InvalidFile on a stream error
-        or when the frame count is not the header's, else returns True
+        or, for a lossless class, when the frame count is not the
+        header's, else returns True
 
         ``sink(samples)``, when given, takes each decoded int32
         [frames, channels] array in stream order."""
@@ -471,7 +489,7 @@ class AudioFile:
         finally:
             if decoder is not None:
                 decoder.close()
-        if pcm_frame_count != total_frames:
+        if self.lossless() and pcm_frame_count != total_frames:
             raise InvalidFile("incorrect PCM frame count")
         return True
 

@@ -1,15 +1,18 @@
-"""Little-endian bit readers and writers, for the WavPack container.
+"""Bit readers and writers, for the WavPack container and ID3 tags.
 
 A copy of the parts of the reference's ``audiotools_tpu/bitstream.py``
-that its WavPack reader and writer reach (``ref/wavpack.py``):
-``BitstreamReader`` with ``read``, ``read_signed``, ``read_bytes``,
-``skip_bytes``, ``parse``, ``substream``, ``unary``, marks and ``seek``,
-and ``BitstreamWriter`` / ``BitstreamRecorder`` with ``write``,
-``write_signed``, ``write_bytes``, ``build``, ``byte_align``, ``flush``,
-``copy``, ``bytes`` and ``data``.  Little-endian only: bits are packed
-least significant first, and in a multi-bit value the bits read first
-are the least significant.  Huffman codes, callbacks and big-endian
-streams are not ported.
+that its WavPack reader and writer (``ref/wavpack.py``) and its ID3
+tags (``meta/id3.py``) reach: ``BitstreamReader`` with ``read``,
+``read_signed``, ``read_bytes``, ``skip_bytes``, ``parse``,
+``substream``, ``unary``, marks and ``seek``, and ``BitstreamWriter`` /
+``BitstreamRecorder`` with ``write``, ``write_signed``, ``write_bytes``,
+``build``, ``byte_align``, ``flush``, ``copy``, ``bytes`` and ``data``.
+Each takes the reference's ``little_endian`` argument, False by
+default.  Big-endian: bits are packed most significant first, and in a
+multi-bit value the bits read first are the most significant.
+Little-endian (WavPack's): bits are packed least significant first, and
+in a multi-bit value the bits read first are the least significant.
+Huffman codes and callbacks are not ported.
 
 ``parse`` and ``build`` take the reference's format language: tokens
 ``Nu`` (unsigned), ``Ns`` (signed), ``Np`` (skip bits), ``NP`` (skip
@@ -53,12 +56,13 @@ def parse_format(format_string):
 
 
 class BitstreamReader:
-    """reads little-endian bit fields from a binary file or bytes"""
+    """reads bit fields from a binary file or bytes"""
 
-    def __init__(self, source):
+    def __init__(self, source, little_endian=False):
         if isinstance(source, (bytes, bytearray, memoryview)):
             source = io.BytesIO(bytes(source))
         self.source = source
+        self.little_endian = bool(little_endian)
         self.state = 0          # the unread bits of the current byte
         self.state_bits = 0
         self.marks = []
@@ -80,10 +84,16 @@ class BitstreamReader:
                 self.state = self._next_byte()
                 self.state_bits = 8
             take = min(bits, self.state_bits)
-            value |= (self.state & ((1 << take) - 1)) << shift
-            self.state >>= take
+            if self.little_endian:
+                value |= (self.state & ((1 << take) - 1)) << shift
+                self.state >>= take
+                shift += take
+            else:
+                # the unread bits are the low state_bits of the state
+                value = (value << take) | (
+                    self.state >> (self.state_bits - take))
+                self.state &= (1 << (self.state_bits - take)) - 1
             self.state_bits -= take
-            shift += take
             bits -= take
         return value
 
@@ -139,7 +149,8 @@ class BitstreamReader:
 
     def substream(self, byte_count):
         """a reader over the next byte_count bytes"""
-        return BitstreamReader(self.read_bytes(byte_count))
+        return BitstreamReader(self.read_bytes(byte_count),
+                               self.little_endian)
 
     def byte_align(self):
         self.state = 0
@@ -169,7 +180,8 @@ class BitstreamReader:
 class _Writer:
     """the bit accumulator shared by the writer and the recorder"""
 
-    def __init__(self):
+    def __init__(self, little_endian):
+        self.little_endian = bool(little_endian)
         self.state = 0
         self.state_bits = 0
         self._bits_written = 0
@@ -185,9 +197,13 @@ class _Writer:
         self._bits_written += bits
         while bits > 0:
             take = min(bits, 8 - self.state_bits)
-            self.state |= (value & ((1 << take) - 1)) << self.state_bits
+            if self.little_endian:
+                self.state |= (value & ((1 << take) - 1)) << self.state_bits
+                value >>= take
+            else:
+                self.state = (self.state << take) | (
+                    (value >> (bits - take)) & ((1 << take) - 1))
             self.state_bits += take
-            value >>= take
             bits -= take
             if self.state_bits == 8:
                 self._emit_bytes(bytes((self.state,)))
@@ -237,10 +253,10 @@ class _Writer:
 
 
 class BitstreamWriter(_Writer):
-    """writes little-endian bit fields to a binary file"""
+    """writes bit fields to a binary file"""
 
-    def __init__(self, file):
-        super().__init__()
+    def __init__(self, file, little_endian=False):
+        super().__init__(little_endian)
         self.file = file
         self._pending = bytearray()
 
@@ -259,11 +275,10 @@ class BitstreamWriter(_Writer):
 
 
 class BitstreamRecorder(_Writer):
-    """records little-endian bit fields in memory, to be copied to
-    another writer"""
+    """records bit fields in memory, to be copied to another writer"""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, little_endian=False):
+        super().__init__(little_endian)
         self._bytes = bytearray()
 
     def _emit_bytes(self, data):

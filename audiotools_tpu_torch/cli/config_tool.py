@@ -47,9 +47,10 @@ SETTINGS = [
 
 
 def available_types():
-    """the port's classes in the order the reference lists them"""
-    from ..dispatch import TYPE_MAP
-    return list(TYPE_MAP.values())
+    """every class of the port, available or not, in the order the
+    reference lists them"""
+    from ..dispatch import AVAILABLE_TYPES
+    return list(AVAILABLE_TYPES)
 
 
 def main(argv=None):

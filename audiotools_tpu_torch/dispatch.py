@@ -1,19 +1,25 @@
 """Opening audio files by their content.
 
-A subset of the reference's ``audiotools_tpu/dispatch.py`` for the nine
-classes the port has: WAVE (``formats.wav.WaveAudio``), AIFF
+A subset of the reference's ``audiotools_tpu/dispatch.py`` for the
+port's classes: WAVE (``formats.wav.WaveAudio``), AIFF
 (``formats.aiff.AiffAudio``), Sun AU (``formats.au.AuAudio``), FLAC and
-Ogg FLAC (``formats.flac.FlacAudio``, ``OggFlacAudio``), ALAC
-(``formats.m4a.ALACAudio``), TTA (``formats.tta.TrueAudio``), Shorten
-(``formats.shn.ShortenAudio``) and WavPack
-(``formats.wavpack.WavPackAudio``).  ``file_type`` sniffs the magic
-bytes as the reference does; ``open`` and ``open_files`` return the
-class's instance, decoding on the device given (WAVE, AIFF and AU are
-read on the host and take none).  Content of any other type raises
-``UnknownAudioType``; an Ogg stream of Vorbis or Opus is such content.  ``TYPE_MAP``, ``open_files``,
-``open_directory`` and ``sorted_tracks`` are the reference's as far as
-the command line uses them; the reference's ``Filename`` only
-normalises the paths ``open_files`` is given, which
+Ogg FLAC (``formats.flac.FlacAudio``, ``OggFlacAudio``), Shorten
+(``formats.shn.ShortenAudio``), TTA (``formats.tta.TrueAudio``), WavPack
+(``formats.wavpack.WavPackAudio``), ALAC and AAC
+(``formats.m4a.ALACAudio``, ``M4AAudio``), MP3 and MP2
+(``formats.mp3.MP3Audio``, ``MP2Audio``), Ogg Vorbis
+(``formats.vorbis.VorbisAudio``) and Ogg Opus
+(``formats.opus.OpusAudio``).  ``file_type`` sniffs the magic bytes as
+the reference does, looking past ID3v2 tags in front of FLAC, TTA, MP3
+and MP2 streams; ``open`` and ``open_files`` return the class's
+instance, decoding on the device given (the host classes take none).
+Content of any other type raises ``UnknownAudioType``, and a class that
+is not ``available()`` (a lossy one whose library, or AAC whose
+programs, are not found) raises ``UnsupportedFile`` as the reference's
+does.  ``TYPE_MAP`` holds the available classes in the reference's
+order; ``open_files``, ``open_directory`` and ``sorted_tracks`` are the
+reference's as far as the command line uses them; the reference's
+``Filename`` only normalises the paths ``open_files`` is given, which
 ``os.path.normpath`` does here.
 """
 
@@ -27,20 +33,29 @@ from .audiofile import InvalidFile, UnsupportedFile
 from .formats.aiff import AiffAudio
 from .formats.au import AuAudio
 from .formats.flac import FlacAudio, OggFlacAudio
-from .formats.m4a import ALACAudio
+from .formats.m4a import ALACAudio, M4AAudio
+from .formats.mp3 import MP2Audio, MP3Audio
+from .formats.opus import OpusAudio
 from .formats.shn import ShortenAudio
 from .formats.tta import TrueAudio
+from .formats.vorbis import VorbisAudio
 from .formats.wav import WaveAudio
 from .formats.wavpack import WavPackAudio
 from .ref.alac import _find, _top_level
 
 # in the order the reference lists its classes
-TYPE_MAP = {cls.NAME: cls for cls in (
-    WaveAudio, AiffAudio, AuAudio, FlacAudio, OggFlacAudio, ShortenAudio,
-    TrueAudio, WavPackAudio, ALACAudio)}
+AVAILABLE_TYPES = (WaveAudio, AiffAudio, AuAudio, FlacAudio, OggFlacAudio,
+                   ShortenAudio, TrueAudio, WavPackAudio, ALACAudio,
+                   M4AAudio, MP3Audio, MP2Audio, VorbisAudio, OpusAudio)
 
-# the classes read and written on the host, which take no device
-HOST_CLASSES = (WaveAudio, AiffAudio, AuAudio)
+TYPE_MAP = {cls.NAME: cls for cls in AVAILABLE_TYPES if cls.available()}
+
+# the classes opened on the host, which take no device
+HOST_CLASSES = (WaveAudio, AiffAudio, AuAudio, M4AAudio, MP3Audio,
+                MP2Audio, VorbisAudio, OpusAudio)
+
+# the classes whose streams may follow ID3v2 tags
+ID3_WRAPPABLE = (FlacAudio, TrueAudio, MP3Audio, MP2Audio)
 
 
 class UnknownAudioType(UnsupportedFile):
@@ -53,15 +68,30 @@ class UnknownAudioType(UnsupportedFile):
 
 
 def _m4a_type(file):
-    """ALACAudio when the stsd atom of an M4A file describes ALAC, else
-    None (AAC among them)"""
+    """ALACAudio or M4AAudio as the stsd atom of an M4A file describes
+    ALAC or AAC (mp4a), else None"""
     (moov, _mdat) = _top_level(file)
     try:
         stsd = _find(moov or b"", b"trak", b"mdia", b"minf", b"stbl",
                      b"stsd")
     except KeyError:
         return None
-    return ALACAudio if stsd[12:16] == b"alac" else None
+    return {b"alac": ALACAudio, b"mp4a": M4AAudio}.get(stsd[12:16])
+
+
+def _mpeg_type(header):
+    """MP3Audio or MP2Audio for the frame header of an MPEG-1 layer III
+    or layer II stream, else None"""
+    frame_sync = (header[0] << 3) | (header[1] >> 5)
+    mpeg_id = (header[1] >> 3) & 0x3
+    layer_description = (header[1] >> 1) & 0x3
+    bitrate = (header[2] >> 4) & 0xF
+    sample_rate = (header[2] >> 2) & 0x3
+    emphasis = header[3] & 0x3
+    if (frame_sync != 0x7FF or mpeg_id != 3 or bitrate == 0xF or
+            sample_rate == 3 or emphasis == 2):
+        return None
+    return {1: MP3Audio, 2: MP2Audio}.get(layer_description)
 
 
 def file_type(file):
@@ -80,9 +110,16 @@ def file_type(file):
             return AuAudio
         if header[0:4] == b"fLaC":
             return FlacAudio
+        if len(header) >= 4 and header[0] == 0xFF:
+            return _mpeg_type(header)
         if header[0:4] == b"OggS":
-            # Ogg FLAC; Vorbis and Opus streams are not ported
-            return OggFlacAudio if header[0x1C:0x21] == b"\x7FFLAC" else None
+            if header[0x1C:0x21] == b"\x7FFLAC":
+                return OggFlacAudio
+            if header[0x1C:0x23] == b"\x01vorbis":
+                return VorbisAudio
+            if header[0x1C:0x26] == b"OpusHead\x01":
+                return OpusAudio
+            return None
         if header[0:5] == b"ajkg\x02":
             return ShortenAudio
         if header[0:4] == b"wvpk":
@@ -91,14 +128,13 @@ def file_type(file):
             return WaveAudio
         if len(header) >= 10 and header[0:3] == b"ID3" and \
                 header[3] in (2, 3, 4):
-            # an ID3v2 tag: look past it; only FLAC and TTA (of the
-            # port's classes) may be wrapped so
+            # an ID3v2 tag: look past it
             size = 0
             for b in header[6:10]:
                 size = (size << 7) | (b & 0x7F)
             file.seek(start + 10 + size, 0)
             wrapped = file_type(file)
-            return wrapped if wrapped in (FlacAudio, TrueAudio) else None
+            return wrapped if wrapped in ID3_WRAPPABLE else None
         if header[0:4] == b"TTA1":
             return TrueAudio
         return None
@@ -124,6 +160,8 @@ def open(filename, device="cuda"):
         audio_class = file_type(f)
     if audio_class is None:
         raise UnknownAudioType(filename)
+    if not audio_class.available():
+        raise UnsupportedFile(filename)
     return _open_class(audio_class, filename, device)
 
 
@@ -149,17 +187,26 @@ def sorted_tracks(audiofiles):
 
 def open_files(filename_list, sorted=True, messenger=None, device="cuda"):
     """the audio files named, in sorted_tracks order when ``sorted``,
-    decoding on ``device``; files of unknown type are skipped, and
-    unreadable or invalid ones are reported to ``messenger`` (a
-    warning or an error, as the reference does) and skipped"""
+    decoding on ``device``; files of unknown type are skipped, files
+    of a class that is not available are skipped after the programs
+    it needs are told to ``messenger`` (once a class), and unreadable
+    or invalid ones are reported to ``messenger`` (a warning or an
+    error, as the reference does) and skipped"""
     device = resolve_device(device)
     opened = []
+    unavailable = set()
     for filename in map(os.path.normpath, filename_list):
         try:
             with builtins.open(filename, "rb") as f:
                 audio_class = file_type(f)
-            if audio_class is not None:
+            if audio_class is None:
+                continue
+            if audio_class.available():
                 opened.append(_open_class(audio_class, filename, device))
+            elif (messenger is not None and
+                  audio_class.NAME not in unavailable):
+                audio_class.missing_components(messenger)
+                unavailable.add(audio_class.NAME)
         except InvalidFile as err:
             if messenger is not None:
                 messenger.error(str(err))

@@ -47,7 +47,6 @@ from __future__ import annotations
 import io
 import os
 import struct
-import tempfile
 from fractions import Fraction
 
 from .. import text
@@ -56,6 +55,7 @@ from ..audiofile import (AiffContainer, AudioFile, EncodingError, Image,
                          InvalidFile, MetaData, ReplayGain, SheetIndex, SheetTrack,
                          WaveContainer)
 from ..utils.config import default_quality
+from ..utils.files import TemporaryFile
 from ..meta.id3 import skip_id3v2_comment
 from ..meta.vorbiscomment import VENDOR_STRING, VorbisComment
 from ..pcm import CHANNEL_MASKS, BufferedPCMReader, CounterPCMReader
@@ -1057,26 +1057,15 @@ class FlacAudio(WaveContainer, AiffContainer):
                 f.seek(offset, 0)
                 f.write(metadata.build())
             return
-        directory = os.path.dirname(self.filename) or "."
-        (handle, temp) = tempfile.mkstemp(
-            prefix="." + os.path.basename(self.filename) + "-",
-            dir=directory)
-        try:
-            with os.fdopen(handle, "wb") as out, \
-                    open(self.filename, "rb") as f:
-                out.write(stream_prefix + b"fLaC" + metadata.build())
-                f.seek(frames_offset, 0)
-                while True:
-                    chunk = f.read(0x100000)
-                    if not chunk:
-                        break
-                    out.write(chunk)
-            os.chmod(temp, os.stat(self.filename).st_mode)
-            os.replace(temp, self.filename)
-        except BaseException:
-            if os.path.exists(temp):
-                os.unlink(temp)
-            raise
+        with TemporaryFile(self.filename) as out, \
+                open(self.filename, "rb") as f:
+            out.write(stream_prefix + b"fLaC" + metadata.build())
+            f.seek(frames_offset, 0)
+            while True:
+                chunk = f.read(0x100000)
+                if not chunk:
+                    break
+                out.write(chunk)
 
     def get_cuesheet(self):
         """the CUESHEET block (its sheet_tracks at the file's sample
@@ -1395,25 +1384,14 @@ class OggFlacAudio(FlacAudio):
                     audio_pages.append(packets.pagereader.read())
                 except IOError:
                     break
-        directory = os.path.dirname(self.filename) or "."
-        (handle, temp) = tempfile.mkstemp(
-            prefix="." + os.path.basename(self.filename) + "-",
-            dir=directory)
-        try:
-            with os.fdopen(handle, "wb") as out:
-                writer = PageWriter(out)
-                (seq, header_packets) = _write_oggflac_headers(
-                    writer, metadata, serial)
-                for page in audio_pages:
-                    page.sequence_number = seq
-                    seq += 1
-                    writer.write(page)
-            os.chmod(temp, os.stat(self.filename).st_mode)
-            os.replace(temp, self.filename)
-        except BaseException:
-            if os.path.exists(temp):
-                os.unlink(temp)
-            raise
+        with TemporaryFile(self.filename) as out:
+            writer = PageWriter(out)
+            (seq, header_packets) = _write_oggflac_headers(
+                writer, metadata, serial)
+            for page in audio_pages:
+                page.sequence_number = seq
+                seq += 1
+                writer.write(page)
         self.__header_packets = header_packets
 
     def set_metadata(self, metadata):

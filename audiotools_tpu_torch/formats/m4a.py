@@ -1,4 +1,4 @@
-"""ALAC M4A files: the container writer and ``ALACAudio``.
+"""M4A files: the ALAC container writer, ``ALACAudio`` and ``M4AAudio``.
 
 Port of the reference's ``ALACAudio`` (``audiotools_tpu/formats/m4a.py``)
 with its atom builders over ``meta/m4a_atoms``: ftyp, then moov (mvhd,
@@ -9,7 +9,11 @@ naming the encoder), then the mdat that
 header from the alac atom, decodes with
 ``codecs.alac_dec.TorchALACDecoder`` on its device, and reads and
 writes its tags as the udta/meta atom (``get/set/update/delete_metadata``,
-the stco chunk offsets moved when moov changes size).
+the stco chunk offsets moved when moov changes size).  ``M4AAudio`` is
+the reference's AAC class as far as detection goes: its stream fields
+from the mp4a and mdhd atoms, and ``available()`` True only where the
+faac and faad programs are found, as the reference's; its AAC coding
+through those programs is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ import contextlib
 import io
 import os
 import struct
-import tempfile
 import time
 
 from .. import VERSION, text
@@ -27,7 +30,9 @@ from ..audiofile import AudioFile, EncodingError, InvalidFile
 from ..codecs.alac_fast import encode_mdat_fast
 from ..meta.m4a_atoms import (M4A_Leaf_Atom, M4A_META_Atom, M4A_Tree_Atom,
                               ilst_string_atom, parse_atoms)
-from ..ref.alac import read_m4a_header
+from ..pcm import PCMReaderError
+from ..ref.alac import _find, _top_level, read_m4a_header
+from ..utils.files import TemporaryFile
 
 BLOCK_SIZE = 4096
 INITIAL_HISTORY = 10
@@ -328,20 +333,9 @@ class ALACAudio(AudioFile):
                                         stco.data[8:8 + 4 * count])
                 stco.data = (stco.data[0:8] + struct.pack(
                     ">%dI" % (count,), *(o + size_delta for o in offsets)))
-        directory = os.path.dirname(self.filename) or "."
-        (handle, temp) = tempfile.mkstemp(
-            prefix="." + os.path.basename(self.filename) + "-",
-            dir=directory)
-        try:
-            with os.fdopen(handle, "wb") as out:
-                for atom in atoms:
-                    out.write(atom.build())
-            os.chmod(temp, os.stat(self.filename).st_mode)
-            os.replace(temp, self.filename)
-        except BaseException:
-            if os.path.exists(temp):
-                os.unlink(temp)
-            raise
+        with TemporaryFile(self.filename) as out:
+            for atom in atoms:
+                out.write(atom.build())
 
     def set_metadata(self, metadata):
         """converts ``metadata`` (any MetaData) and writes it"""
@@ -384,6 +378,71 @@ class ALACAudio(AudioFile):
         except (IOError, ValueError) as err:
             _unlink(filename)
             raise EncodingError(str(err))
+
+
+class InvalidM4A(InvalidFile, ValueError):
+    """an M4A file without the AAC atoms M4AAudio reads"""
+
+
+class M4AAudio(AudioFile):
+    """an AAC file in an M4A container, detected but not coded: the
+    reference codes it through the faac and faad programs, and is
+    available only where both are found"""
+
+    SUFFIX = "m4a"
+    NAME = "m4a"
+    DESCRIPTION = "Advanced Audio Coding"
+    DEFAULT_COMPRESSION = "100"
+    COMPRESSION_MODES = tuple(map(str, range(10, 101, 5)))
+    BINARIES = ("faac", "faad")
+    BINARY_URLS = {"faac": "http://www.audiocoding.com/",
+                   "faad": "http://www.audiocoding.com/"}
+
+    def __init__(self, filename):
+        AudioFile.__init__(self, filename)
+        try:
+            with open(filename, "rb") as f:
+                (moov, _mdat) = _top_level(f)
+            stsd = _find(moov or b"", b"trak", b"mdia", b"minf", b"stbl",
+                         b"stsd")
+            mdhd = _find(moov, b"trak", b"mdia", b"mdhd")
+            # the first sample description: its channels, bits per
+            # sample and 16.16 sample rate
+            (self.__channels__, self.__bits_per_sample__) = struct.unpack(
+                ">HH", stsd[32:36])
+            (self.__sample_rate__,) = struct.unpack(">I", stsd[40:44])
+            self.__sample_rate__ >>= 16
+            if mdhd[0] == 0:
+                (self.__length__,) = struct.unpack(">I", mdhd[16:20])
+            else:
+                (self.__length__,) = struct.unpack(">Q", mdhd[24:32])
+        except (IOError, KeyError, IndexError, struct.error) as err:
+            raise InvalidM4A(str(err))
+
+    def lossless(self):
+        return False
+
+    def bits_per_sample(self):
+        return self.__bits_per_sample__
+
+    def channels(self):
+        return self.__channels__
+
+    def sample_rate(self):
+        return self.__sample_rate__
+
+    def total_frames(self):
+        return self.__length__
+
+    def to_pcm(self):
+        return PCMReaderError("AAC decoding is not ported",
+                              self.__sample_rate__, self.__channels__, 0,
+                              self.__bits_per_sample__)
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None, device=None):
+        raise EncodingError("AAC encoding is not ported")
 
 
 def _unlink(filename):

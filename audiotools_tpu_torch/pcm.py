@@ -154,6 +154,27 @@ def empty_framelist(channels, bits_per_sample):
                      bits_per_sample)
 
 
+class PCMReaderError:
+    """a PCMReader whose every read raises ValueError with
+    ``error_message`` (the reference's ``pcmstream.PCMReaderError``):
+    what a lossy class's ``to_pcm`` returns when its decoder cannot
+    open the file"""
+
+    def __init__(self, error_message, sample_rate, channels, channel_mask,
+                 bits_per_sample):
+        self.error_message = error_message
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.channel_mask = channel_mask
+        self.bits_per_sample = bits_per_sample
+
+    def read(self, pcm_frames):
+        raise ValueError(self.error_message)
+
+    def close(self):
+        pass
+
+
 class _ArrayReader:
     """a PCMReader over an int32 sample array [frames, channels]"""
 

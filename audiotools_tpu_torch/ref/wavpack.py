@@ -124,7 +124,7 @@ class WavPackDecoder:
             f = open(file_or_path, "rb")
         else:
             f = file_or_path
-        self.reader = BitstreamReader(f)
+        self.reader = BitstreamReader(f, little_endian=True)
 
         # where the stream starts in an already open file, for seek()
         self._stream_start = self.reader.source.tell()
@@ -321,7 +321,7 @@ def parse_block(header, sub_blocks):
     for (function, nondecoder, data) in walk_sub_blocks(sub_blocks):
         if nondecoder:
             continue
-        reader = BitstreamReader(data)
+        reader = BitstreamReader(data, little_endian=True)
         if function == WV_TERMS:
             terms = []
             deltas = []
@@ -633,7 +633,7 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
     else:
         output_file = file_or_path
         close_file = False
-    writer = BitstreamWriter(output_file)
+    writer = BitstreamWriter(output_file, little_endian=True)
     context = EncoderContext(pcmreader,
                              block_parameters(pcmreader.channels,
                                               pcmreader.channel_mask,
@@ -673,8 +673,8 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
         frame = pcmreader.read(block_size)
 
     # the final block: the MD5 sum and the stored footer
-    sub_blocks = BitstreamRecorder()
-    sub_block = BitstreamRecorder()
+    sub_blocks = BitstreamRecorder(little_endian=True)
+    sub_block = BitstreamRecorder(little_endian=True)
     sub_block.write_bytes(context.md5sum.digest())
     write_sub_block(sub_blocks, WV_MD5, 1, sub_block)
     if wave_footer is not None:
@@ -696,7 +696,7 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
     # the built RIFF header's sizes, now that the length is known
     if wave_header is None:
         output_file.seek(32 + 2)
-        header_rec = BitstreamRecorder()
+        header_rec = BitstreamRecorder(little_endian=True)
         write_wave_header(header_rec, context.pcmreader,
                           context.total_frames, _footer_size(wave_footer))
         output_file.write(header_rec.data())
@@ -745,8 +745,8 @@ def begin_block(context, channels, parameters):
     else:
         uncorrelated = shifted
 
-    sub_blocks = BitstreamRecorder()
-    sub_block = BitstreamRecorder()
+    sub_blocks = BitstreamRecorder(little_endian=True)
+    sub_block = BitstreamRecorder(little_endian=True)
 
     # the first block of the file carries the RIFF header
     if not context.first_block_written:
@@ -808,7 +808,7 @@ def end_block(writer, context, block, correlated, total_pcm_frames,
     """the second half of a block's encode: the entropy variables, the
     residual coder's sub-block, the block header; writes the block"""
     sub_blocks = block["sub_blocks"]
-    sub_block = BitstreamRecorder()
+    sub_block = BitstreamRecorder(little_endian=True)
     write_entropy_variables(sub_block, correlated,
                             parameters.entropy_variables)
     write_sub_block(sub_blocks, WV_ENTROPY, 0, sub_block)

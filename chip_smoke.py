@@ -10,8 +10,9 @@ inversion, Shorten encode with device analysis and decode with device
 synthesis, WavPack encode and decode with the decorrelation passes
 on the card, the converters (ReplayGain, AccurateRip, the
 resampler), a collection of tracks through the transcode farm, and
-the command line's tools, the cue sheet and tag tools among them.
-Its phases each print one line (phases 24 and 25 one a tool run too):
+the command line's tools, the cue sheet and tag tools and the lossy
+types among them.  Its phases each print one line (phases 24 to 26 one
+a tool run too):
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -257,7 +258,23 @@ Its phases each print one line (phases 24 and 25 one a tool run too):
     kept and its samples decoded again.  A line a tool run with its
     wall, input Msamples/s and the launches of each kernel, counted from
     0 just before the run and read just after it; every kernel of the
-    tools' default routes must launch during the phase.
+    tools' default routes must launch during the phase;
+26. the lossy types and ID3 tags through the command line, as far as
+    the machine has their libraries: a line with each library's path
+    as ``ctypes.util.find_library`` finds it (or None) and each lossy
+    class's ``available()``, which must agree with them; phase 19's
+    first two titles written as FLAC -8 on the card; the Opus input
+    chain (``formats.opus.opus_input``: the FLAC decoded on the card,
+    resampled to 48 kHz there) with the Resampler's device and its
+    StageMarks times, held to the CPU's chain on its first 5 s within
+    1 LSB; then for each available type ``track2track -j 2`` from the
+    FLAC titles (rice_decode and flac_synth must launch) and back to
+    FLAC on the card (each output verified, its decoded frames equal
+    to ``total_frames()``, the FLAC's samples the lossy file's), an MP3
+    cut inside its last frame failing ``verify``, and ``tracktag`` and
+    ``trackinfo`` on the MP3 (an ID3v2.3 and ID3v1 pair with a front
+    cover), the Vorbis and the Opus file.  A line a run with its wall,
+    input Msamples/s and launches, counted from 0 just before it.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -2582,6 +2599,221 @@ def containers_phase(dev, alac_sig):
     return (out, launches)
 
 
+# phase 26: the libraries each lossy class needs (ctypes.util names),
+# the types in the order run, and the seconds of phase 19's first
+# titles the FLAC source is cut to
+LOSSY_LIBRARIES = {"mp3": ("mpg123", "mp3lame"), "mp2": ("mpg123", "twolame"),
+                   "vorbis": ("vorbisfile", "vorbis", "vorbisenc", "ogg"),
+                   "opus": ("opus",)}
+LOSSY_TITLES = 2
+# output frames of the Opus input chain the card's run is held to the
+# CPU's on (1 LSB, pcmconverter's bound, on fewer than 1e-4 of them)
+OPUS_CHECK_FRAMES = 5 * 48000
+
+
+def lossy_libraries():
+    """each library's path as ctypes.util.find_library finds it (None
+    when it is absent), and whether each lossy class should be
+    available by them"""
+    import ctypes.util
+    names = sorted({n for libs in LOSSY_LIBRARIES.values() for n in libs})
+    found = {n: ctypes.util.find_library(n) for n in names}
+    expect = {t: all(found[n] is not None for n in libs)
+              for (t, libs) in LOSSY_LIBRARIES.items()}
+    return (found, expect)
+
+
+def lossy_phase(dev, alac_sig):
+    """phase 26 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it: the lossy types through the command line on ``dev``, as far as
+    their libraries are found; returns its line's fields and each
+    kernel's launches in the tool runs, counted from 0 just before each
+    run and read just after it.  The Opus input chain (the FLAC decoded
+    on ``dev``, resampled to 48 kHz there) runs whether libopus is
+    found or not.  On a CPU ``dev`` (a rehearsal with a short signal)
+    no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import dispatch
+    from audiotools_tpu_torch._device import resolve_device
+    from audiotools_tpu_torch.formats.flac import FlacAudio
+    from audiotools_tpu_torch.formats.m4a import M4AAudio
+    from audiotools_tpu_torch.formats.opus import opus_input
+    from audiotools_tpu_torch.pcm import (BufferedPCMReader, LimitedPCMReader,
+                                          read_all, reader_from_array)
+    dev = resolve_device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    per = album_frames(alac_sig)
+    tracks = [alac_sig[k * per:(k + 1) * per] for k in range(LOSSY_TITLES)]
+    in_samples = sum(t.size for t in tracks)
+    on_card = ["--devices", str(dev)]
+    launches = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+
+    (found, expect) = lossy_libraries()
+    available = {cls.NAME: cls.available()
+                 for cls in dispatch.AVAILABLE_TYPES
+                 if cls.NAME in LOSSY_LIBRARIES or cls is M4AAudio}
+    line("lossy_libraries", libraries=found, available=available)
+    for (type_name, want) in expect.items():
+        if available[type_name] != want:
+            raise AssertionError("%s.available() is %r, its libraries %r"
+                                 % (type_name, available[type_name], found))
+    types = [t for t in LOSSY_LIBRARIES if available[t]]
+    out = dict(tracks=len(tracks), track_seconds=per / SAMPLE_RATE,
+               libraries=found, available=available, types=types, runs={})
+
+    def counted(label, fn, samples, extra=dict):
+        """fn() with the launches counted from 0 just before it and read
+        just after it, a line printed with its wall, input Msamples/s,
+        launches and ``extra()`` (read after the run); returns fn's
+        result"""
+        for kernel in counters.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        run = {k: kernel.launches for (k, kernel) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        fields = dict(wall_s=wall, input_Msamples_per_s=samples / wall / 1e6,
+                      launches=run, **extra())
+        line("lossy_" + label, **fields)
+        out["runs"][label] = fields
+        return result
+
+    def tool(label, name, args, samples):
+        (code, lines) = counted(label, lambda: run_cli(name, args + on_card),
+                                samples, lambda: dict(tool=name))
+        if code != 0:
+            raise AssertionError("%s %s exited %r: %s"
+                                 % (name, label, code, lines[:6]))
+        return lines
+
+    def require(label, kernels):
+        idle = [k for k in kernels if out["runs"][label]["launches"][k] <= 0]
+        if on_cuda and idle:
+            raise AssertionError("%s never launched %s" % (label, idle))
+
+    with tempfile.TemporaryDirectory(prefix="lossy-") as work:
+        # 1. the titles as FLAC -8, encoded on the card
+        src = os.path.join(work, "src")
+        os.makedirs(src)
+        sources = [os.path.join(src, "track%d.flac" % k)
+                   for k in range(len(tracks))]
+        for (path, track) in zip(sources, tracks):
+            FlacAudio.from_pcm(path, reader_from_array(track, 16), "8",
+                               device=dev)
+
+        # 2. the Opus input chain alone: a title decoded on the card
+        # (rice_decode, flac_synth) and resampled to 48 kHz there, the
+        # Resampler's upload, FIR and fetch timed by its StageMarks
+        chain = opus_input(FlacAudio(sources[0], device=dev).to_pcm(), dev)
+        resampled = counted("opus_input", lambda: read_all(chain),
+                            tracks[0].size, lambda: dict(
+                                resampler_device=str(chain.device),
+                                stage_s=dict(chain.timings)))
+        require("opus_input", ("rice_decode", "flac_synth"))
+        if (chain.device != dev or resampled.shape !=
+                (tracks[0].shape[0] * 48000 // SAMPLE_RATE, 2)):
+            raise AssertionError("the Opus input chain gave %r on %s"
+                                 % (resampled.shape, chain.device))
+        host = read_all(LimitedPCMReader(BufferedPCMReader(opus_input(
+            reader_from_array(tracks[0], 16), "cpu")), OPUS_CHECK_FRAMES))
+        diff = np.abs(resampled[:len(host)].astype(np.int64) - host)
+        if diff.max() > 1 or (diff > 0).mean() >= 1e-4:
+            raise AssertionError("the card's Opus input differs from the "
+                                 "CPU's: max %d on %d samples"
+                                 % (diff.max(), int((diff > 0).sum())))
+        out["opus_input"] = dict(device=str(chain.device),
+                                 stage_s=dict(chain.timings),
+                                 checked_frames=len(host),
+                                 lsb_differences=int((diff > 0).sum()))
+
+        # 3. each available lossy type and back to FLAC on the card
+        lossy_files = {}
+        for type_name in types:
+            cls = dispatch.TYPE_MAP[type_name]
+            dest = os.path.join(work, type_name)
+            outputs = [os.path.join(dest, "track%d.%s" % (k, cls.SUFFIX))
+                       for k in range(len(tracks))]
+            lines = tool(type_name, "track2track", [
+                "-t", type_name, "-d", dest, "-j", "2"] + CLI_FORMAT +
+                sources, in_samples)
+            if sorted(lines) != sorted("%s -> %s" % pair
+                                       for pair in zip(sources, outputs)):
+                raise AssertionError("track2track -t %s: %s"
+                                     % (type_name, lines))
+            require(type_name, ("rice_decode", "flac_synth"))
+            back = os.path.join(work, type_name + "-back")
+            tool(type_name + "_to_flac", "track2track", [
+                "-t", "flac", "-d", back, "-j", "2"] + CLI_FORMAT + outputs,
+                in_samples)
+            frames = []
+            for (k, output) in enumerate(outputs):
+                track = dispatch.open(output, device=dev)
+                samples = read_all(track.to_pcm())
+                if track.verify() is not True or \
+                        len(samples) != track.total_frames():
+                    raise AssertionError("%s: verify or %d frames against "
+                                         "total_frames %d" % (
+                                             output, len(samples),
+                                             track.total_frames()))
+                returned = os.path.join(back, "track%d.flac" % k)
+                if not np.array_equal(decoded(returned, dev), samples):
+                    raise AssertionError("%s did not come back as FLAC"
+                                         % (output,))
+                frames.append(len(samples))
+            lossy_files[type_name] = outputs
+            out["runs"][type_name]["frames"] = frames
+
+        # 4. an MP3 cut inside its last frame fails verify
+        if "mp3" in lossy_files:
+            data = read_bytes(lossy_files["mp3"][0])
+            cut = os.path.join(work, "cut.mp3")
+            with open(cut, "wb") as f:
+                f.write(data[:-100])
+            try:
+                dispatch.open(cut, device=dev).verify()
+            except dispatch.InvalidFile as err:
+                out["mp3_cut_verify"] = str(err)
+            else:
+                raise AssertionError("a cut MP3 passed verify")
+
+        # 5. tags: an ID3v2.3 and ID3v1 pair with a front cover on the
+        # MP3, comments on Vorbis and Opus, read back by trackinfo
+        cover = os.path.join(work, "cover.png")
+        with open(cover, "wb") as f:
+            f.write(png_cover(8, 6))
+        for type_name in ("mp3", "vorbis", "opus"):
+            if type_name not in lossy_files:
+                continue
+            path = lossy_files[type_name][1]
+            tool("tag_" + type_name, "tracktag", [
+                "--name=Lossy Title", "--artist=Lossy Artist", "--number=2",
+                "--album=Lossy Album"] + (["--front-cover", cover]
+                                          if type_name == "mp3" else []) +
+                [path], tracks[1].size)
+            lines = tool("info_" + type_name, "trackinfo", [path],
+                         tracks[1].size)
+            text = "\n".join(lines)
+            if not all(v in text for v in ("Lossy Title", "Lossy Artist",
+                                           "Lossy Album")):
+                raise AssertionError("trackinfo of the tagged %s: %s"
+                                     % (type_name, lines))
+            metadata = dispatch.open(path, device=dev).get_metadata()
+            if (metadata.track_number != 2 or
+                    len(metadata.images()) != (type_name == "mp3")):
+                raise AssertionError("the tagged %s reads back %r"
+                                     % (type_name, metadata))
+    if on_cuda and launches["rice_decode"] <= 0:
+        raise AssertionError("phase 26 never decoded FLAC on the card")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3408,6 +3640,10 @@ def main():
     (fields, containers_launches) = containers_phase(dev, alac_sig)
     line("containers", nvidia_smi=smi, **fields)
 
+    # ---- 26. the lossy types and ID3 through the tools -------------------
+    (fields, lossy_launches) = lossy_phase(dev, alac_sig)
+    line("lossy", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -3439,7 +3675,8 @@ def main():
             cli_launches=cli_launches[kname],
             tags_launches=tags_launches[kname],
             sheets_launches=sheets_launches[kname],
-            containers_launches=containers_launches[kname], **row))
+            containers_launches=containers_launches[kname],
+            lossy_launches=lossy_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

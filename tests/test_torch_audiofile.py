@@ -23,6 +23,7 @@ from audiotools_tpu_torch import dispatch, pcm
 from audiotools_tpu_torch.accuraterip_checksum import accuraterip_checksums
 from audiotools_tpu_torch.audiofile import (AudioFile, EncodingError,
                                             InvalidFile, InvalidFilenameFormat,
+                                            UnsupportedFile,
                                             UnsupportedTracknameField)
 from audiotools_tpu_torch.parallel import farm
 
@@ -73,8 +74,11 @@ def files(tmp_path_factory):
 
 
 def test_type_map_names_the_references_classes():
-    assert sorted(dispatch.TYPE_MAP) == sorted(NAMES +
-                                               ["aiff", "au", "oggflac"])
+    """the available classes: the reference's names in its order (the
+    lossy ones where their libraries are found, AAC only with faac and
+    faad, as the reference's)"""
+    assert list(dispatch.TYPE_MAP) == list(ref_dispatch.TYPE_MAP)
+    assert set(NAMES + ["aiff", "au", "oggflac"]) <= set(dispatch.TYPE_MAP)
     for (name, cls) in dispatch.TYPE_MAP.items():
         ref = ref_dispatch.TYPE_MAP[name]
         assert (cls.NAME, cls.SUFFIX, cls.DEFAULT_COMPRESSION,
@@ -118,9 +122,12 @@ def test_id3_wrapped_files_are_sniffed_through(files, tmp_path, name):
 
 
 def test_other_types_are_unknown(files, tmp_path):
-    """an M4A whose stsd is not ALAC and an Ogg Vorbis stream: known to
-    the reference, not opened by the port (AIFF and AU are opened since
-    the port has them: tests/test_torch_aiff.py)"""
+    """named for what it once checked, that the port opened no AAC M4A
+    and no Ogg Vorbis stream: both are now the reference's classes, and
+    content that neither package knows (an Ogg Speex stream, an MPEG-2
+    layer III frame) is unknown to both.  An AAC M4A is refused by open
+    where faac and faad are absent, as the reference's is"""
+    from audiotools_tpu import UnsupportedFile as RefUnsupportedFile
     from audiotools_tpu import ogg as ref_ogg
     (paths, _arr) = files
     aac = str(tmp_path / "aac.m4a")
@@ -132,9 +139,25 @@ def test_other_types_are_unknown(files, tmp_path):
     with open(vorbis, "wb") as f:
         f.write(ref_ogg.Page(False, True, False, 0, 1, 0, [
             b"\x01vorbis" + b"\x00" * 23]).build())
-    for (path, ref_name) in ((aac, "m4a"), (vorbis, "vorbis")):
+    for (path, name) in ((aac, "m4a"), (vorbis, "vorbis")):
         with open(path, "rb") as f:
-            assert ref_dispatch.file_type(f).NAME == ref_name
+            assert ref_dispatch.file_type(f).NAME == name
+            assert dispatch.file_type(f).NAME == name
+    if "m4a" not in ref_dispatch.TYPE_MAP:
+        with pytest.raises(UnsupportedFile):
+            dispatch.open(aac, device="cpu")
+        with pytest.raises(RefUnsupportedFile):
+            ref_dispatch.open(aac)
+    speex = str(tmp_path / "s.spx")
+    with open(speex, "wb") as f:
+        f.write(ref_ogg.Page(False, True, False, 0, 1, 0, [
+            b"Speex   " + b"\x00" * 72]).build())
+    mpeg2 = str(tmp_path / "a.mp3")
+    with open(mpeg2, "wb") as f:
+        f.write(b"\xff\xf3\x90\xc4" + b"\x00" * 200)
+    for path in (speex, mpeg2):
+        with open(path, "rb") as f:
+            assert ref_dispatch.file_type(f) is None
             assert dispatch.file_type(f) is None
         with pytest.raises(dispatch.UnknownAudioType):
             dispatch.open(path, device="cpu")

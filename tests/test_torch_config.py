@@ -47,16 +47,21 @@ CASES = {
     "filename-format": ("[Filenames]\nformat = %(track_number)2.2d-"
                         "%(basename)s-%(album_name)s.%(suffix)s\n",
                         ["-t", "flac"], True),
+    # the lossy types' qualities (where their libraries are found)
+    "mp3-quality": ("[Quality]\nmp3 = 0\n", ["-t", "mp3"], True),
+    "opus-quality": ("[Quality]\nopus = 0\n", ["-t", "opus"], True),
 }
 
 
 # the one file each case writes
 NAMES = {"flac-quality": "00 - .flac", "flac-quality-defaults": "00 - .flac",
          "wavpack-quality": "00 - .wv", "default-type": "00 - .wv",
-         "unknown-type": "00 - .wav", "filename-format": "00-a-.flac"}
+         "unknown-type": "00 - .wav", "filename-format": "00-a-.flac",
+         "mp3-quality": "00 - .mp3", "opus-quality": "00 - .opus"}
 # the configured level, then the class's default
 LEVELS = {"flac-quality": ("5", "8"), "flac-quality-defaults": ("5", "8"),
-          "wavpack-quality": ("fast", "standard")}
+          "wavpack-quality": ("fast", "standard"),
+          "mp3-quality": ("0", "2"), "opus-quality": ("0", "10")}
 
 
 def environment(home, pinned):
@@ -112,6 +117,8 @@ def files_in(directory):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_track2track_reads_the_configuration(tmp_path, monkeypatch, case):
     (text, args, pinned) = CASES[case]
+    if args[1:] and args[1] not in dispatch.TYPE_MAP:
+        pytest.skip("the libraries of %s are not found" % (args[1],))
     monkeypatch.chdir(tmp_path)
     home = configured(tmp_path, text)
     ref = run("ref", "track2track", args + ["-j", "1", "-d", "ref", SOURCE],
@@ -245,8 +252,5 @@ def test_config_tool_lists_the_configuration(tmp_path, jobs):
     assert lines[2] == "  maximum jobs : %d" % (3 if jobs == "set" else 2)
     if jobs == "set":
         assert lines[2] == ref_lines[2]
-    (ref_rows, rows) = ([line.split() for line in ref_lines[3:]],
-                        [line.split() for line in lines[3:]])
-    assert rows == [row for row in ref_rows
-                    if not row or row[0] in dispatch.TYPE_MAP or
-                    row[0] in ("type", "Available", "Quality")]
+    # every class, available or not, as the reference lists them
+    assert lines[3:] == ref_lines[3:]

@@ -57,9 +57,10 @@ def test_port_loads_nothing_of_the_reference():
     """a fresh interpreter imports every port module and chip_smoke,
     encodes and decodes FLAC, Shorten and TTA, runs ReplayGain,
     AccurateRip and a resampling PCMConverter through the port on the
-    CPU, then trackcat --cue, tracksplit, tracktag and tracklint, and
-    track2track to AIFF and on to Ogg FLAC, and holds no module of jax
-    or of the reference"""
+    CPU, then trackcat --cue, tracksplit, tracktag and tracklint,
+    track2track to AIFF and on to Ogg FLAC and to each lossy type whose
+    library is found (then tracktag and verify on it), and holds no
+    module of jax or of the reference"""
     code = (
         "import importlib, io, sys\n"
         "import numpy as np\n"
@@ -130,6 +131,14 @@ def test_port_loads_nothing_of_the_reference():
         "from audiotools_tpu_torch import dispatch\n"
         "assert np.array_equal(pcm.read_all(dispatch.open(os.path.join("
         "work, 'a.oga'), device='cpu').to_pcm()), arr)\n"
+        "for name in ('mp3', 'mp2', 'vorbis', 'opus'):\n"
+        "    if name in dispatch.TYPE_MAP:\n"
+        "        dest = os.path.join(work, 'lossy.' + "
+        "dispatch.TYPE_MAP[name].SUFFIX)\n"
+        "        assert track2track.main(['-t', name, '-o', dest, "
+        "os.path.join(work, 'a.aiff')] + cpu) == 0\n"
+        "        assert tracktag.main(['--name', 'x', dest] + cpu) == 0\n"
+        "        assert dispatch.open(dest, device='cpu').verify()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'audiotools_tpu' or "
         "m.startswith('audiotools_tpu.'))\n"

@@ -285,17 +285,28 @@ def test_damaged_streams_fail_as_the_references(tmp_path, pinned):
 
 
 def test_other_ogg_streams_are_not_opened(tmp_path):
-    """an Ogg stream of Vorbis or Opus is content the port does not
-    open (the lossy formats are not ported)"""
-    for head in (b"\x01vorbis" + b"\x00" * 23, b"OpusHead\x01" + b"\x00" * 10):
+    """named for what it once checked, that the port opened no Ogg
+    Vorbis or Opus stream: each is now the reference's class (whose
+    header the class reads when it is available), and an Ogg stream of
+    another codec is unknown to both packages"""
+    from audiotools_tpu import dispatch as ref_dispatch
+    heads = {"vorbis": b"\x01vorbis" + b"\x00" * 23,
+             "opus": b"OpusHead\x01\x02" + b"\x00" * 9,
+             None: b"\x80theora" + b"\x00" * 35}
+    for (name, head) in heads.items():
         page = ogg.Page(False, True, False, 0, 1, 0, [head])
         path = str(tmp_path / "x.ogg")
         with open(path, "wb") as f:
             f.write(page.build())
         with open(path, "rb") as f:
-            assert dispatch.file_type(f) is None
-        with pytest.raises(dispatch.UnknownAudioType):
-            dispatch.open(path, device="cpu")
+            got = dispatch.file_type(f)
+            want = ref_dispatch.file_type(f)
+        assert (got and got.NAME) == (want and want.NAME) == name
+        if name is None:
+            with pytest.raises(dispatch.UnknownAudioType):
+                dispatch.open(path, device="cpu")
+        elif got.available():
+            assert type(dispatch.open(path, device="cpu")) is got
 
 
 OGG_STEPS = [

@@ -335,7 +335,7 @@ def test_bitstream_matches_reference():
     rng = np.random.default_rng(16)
     fields = [(int(b), int(rng.integers(0, 1 << b))) for b in
               rng.integers(1, 33, 200)]
-    rec = bitstream.BitstreamRecorder()
+    rec = bitstream.BitstreamRecorder(True)
     ref_rec = ref_bitstream.BitstreamRecorder(True)
     for w in (rec, ref_rec):
         for (bits, value) in fields:
@@ -346,7 +346,7 @@ def test_bitstream_matches_reference():
         w.write(3, 5)
     assert (rec.data(), rec.bytes()) == (ref_rec.data(), ref_rec.bytes())
     out = io.BytesIO()
-    writer = bitstream.BitstreamWriter(out)
+    writer = bitstream.BitstreamWriter(out, True)
     rec.copy(writer)
     writer.byte_align()
     writer.flush()
@@ -357,8 +357,8 @@ def test_bitstream_matches_reference():
     ref_writer.flush()
     data = out.getvalue()
     assert data == ref_out.getvalue()
-    for reader in (bitstream.BitstreamReader(data),
-                   bitstream.BitstreamReader(io.BytesIO(data))):
+    for reader in (bitstream.BitstreamReader(data, True),
+                   bitstream.BitstreamReader(io.BytesIO(data), True)):
         ref_reader_ = ref_bitstream.BitstreamReader(data, True)
         assert [reader.read(b) for (b, _v) in fields] == \
             [v for (_b, v) in fields]
@@ -377,7 +377,7 @@ def test_bitstream_matches_reference():
             reader.read_bytes(len(data))
     for stop in (0, 1):
         for data in (b"\x0b", b"\xf4\x01"):
-            assert bitstream.BitstreamReader(data).unary(stop) == \
+            assert bitstream.BitstreamReader(data, True).unary(stop) == \
                 ref_bitstream.BitstreamReader(data, True).unary(stop)
 
 
