@@ -346,17 +346,17 @@ def median_ms(fn, runs=TIMING_RUNS):
     return float(np.median(times))
 
 
-def device_ms(fn, runs=TIMING_RUNS):
+def device_ms(fn, runs=TIMING_RUNS, spin=SPIN_CYCLES):
     """median CUDA-event time of fn() over `runs` calls, after one
-    warm-up call, each call enqueued behind a spin kernel: the card's
-    time for fn's work alone, where median_ms also holds the host's
-    time to enqueue it"""
+    warm-up call, each call enqueued behind a spin kernel of ``spin``
+    cycles: the card's time for fn's work alone, where median_ms also
+    holds the host's time to enqueue it"""
     fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         stop.record()
@@ -1892,6 +1892,55 @@ class CaptureFirst:
         return self.fn(*args)
 
 
+def exact_rice_batch(dev, batch_sig):
+    """one FLAC encode of ``batch_sig`` at OPTS on ``dev`` with
+    ATPU_DEVICE_RICE=exact, rice_planes counted from 0 across it:
+    (its bytes, rice_planes' launches, its seconds, the first
+    rice_planes call's arguments (residuals, parts, J0), and the first
+    ``_rice_search_exact`` call's arguments)"""
+    from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.ops import flac_frames
+    from audiotools_tpu_torch.pcm import reader_from_array
+    (kernel, search) = (flac_frames.rice_planes,
+                        flac_frames._rice_search_exact)
+    (capture, capture_search) = (CaptureFirst(kernel), CaptureFirst(search))
+    os.environ["ATPU_DEVICE_RICE"] = "exact"
+    flac_frames.rice_planes = capture
+    flac_frames._rice_search_exact = capture_search
+    try:
+        buf = io.BytesIO()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        port_enc.encode_flac_fast(buf, reader_from_array(batch_sig, 16),
+                                  device=dev, **OPTS)
+        sync(torch.device(dev))
+        exact_s = time.perf_counter() - t0
+        launches = kernel.launches
+    finally:
+        flac_frames.rice_planes = kernel
+        flac_frames._rice_search_exact = search
+        del os.environ["ATPU_DEVICE_RICE"]
+    return (buf.getvalue(), launches, exact_s, capture.first,
+            capture_search.first)
+
+
+def rice_descent_ms(search, counts):
+    """(median_ms, device_ms) of the exact Rice search's torch descent
+    after the bit-plane counts (ops/flac_frames._rice_search_exact with
+    rice_planes standing in by ``counts``), on the arguments ``search``
+    of one call; device_ms behind a spin ten times phase 6's, since the
+    descent enqueues about a hundred launches"""
+    from audiotools_tpu_torch.ops import flac_frames
+    kernel = flac_frames.rice_planes
+    flac_frames.rice_planes = lambda cand_res, parts, J0: counts
+    try:
+        return (median_ms(lambda: flac_frames._rice_search_exact(*search)),
+                device_ms(lambda: flac_frames._rice_search_exact(*search),
+                          spin=10 * SPIN_CYCLES))
+    finally:
+        flac_frames.rice_planes = kernel
+
+
 def default_route_phase(dev, sig, pack_runs, alac_runs):
     """phase 23: the FLAC encode's default route, the quantized upload
     wire, at bench shape on ``sig`` (phase 5's signal), three runs each
@@ -1907,6 +1956,7 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
     On a CPU ``dev`` (a rehearsal with a short signal, ``median_ms``
     and ``device_ms`` replaced by host timers) the card's memory is not
     read and no launch is required."""
+    from audiotools_tpu_torch import kernels
     from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
     from audiotools_tpu_torch.ops import flac_frames, qpack
     from audiotools_tpu_torch.pcm import decode_flac, reader_from_array
@@ -2020,31 +2070,15 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
 
     # ---- the exact Rice ladder on one bench batch ----------------------
     kernel = flac_frames.rice_planes
-    capture = CaptureFirst(kernel)
     batch_sig = sig[:n * frames]
-    os.environ["ATPU_DEVICE_RICE"] = "exact"
-    flac_frames.rice_planes = capture
-    try:
-        buf = io.BytesIO()
-        kernel.launches = 0
-        t0 = time.perf_counter()
-        port_enc.encode_flac_fast(buf, reader_from_array(batch_sig, 16),
-                                  device=dev, **opts)
-        sync(dev)
-        exact_s = time.perf_counter() - t0
-        launches = kernel.launches
-    finally:
-        flac_frames.rice_planes = kernel
-        del os.environ["ATPU_DEVICE_RICE"]
-    data = buf.getvalue()
+    (data, launches, exact_s, (res, parts, j0), search) = exact_rice_batch(
+        dev, batch_sig)
     if on_cuda and launches <= 0:
         raise AssertionError("the exact Rice search never launched "
                              "rice_planes")
     if not np.array_equal(decode_flac(data), batch_sig):
         raise AssertionError("the exact-search encode does not decode "
                              "bit-exactly")
-    (res, parts, j0) = capture.first
-    del capture
     got = kernel(res, parts, j0)
     want = flac_frames.rice_planes_plain(res, parts, j0)
     sync(dev)
@@ -2052,6 +2086,7 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
     if not torch.equal(got, want):
         raise AssertionError("rice_planes kernel != plain version (max abs "
                              "err %d)" % (err,))
+    (descent_ms, descent_device_ms) = rice_descent_ms(search, want)
     del got, want
     ms = median_ms(lambda: kernel(res, parts, j0))
     card_ms = device_ms(lambda: kernel(res, parts, j0))
@@ -2065,11 +2100,16 @@ def default_route_phase(dev, sig, pack_runs, alac_runs):
                          S * C * nn * (2 * j0 + 4))
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=None)
+    ptxas = [k for k in ptxas_summary(kernels.build_log)
+             if k["kernel"].startswith("rice_planes")]
     out["exact_rice"] = dict(frames=int(batch_sig.shape[0]),
                              bytes=len(data), bit_exact=True,
                              encode_s=exact_s, launches=launches,
                              shape=[S, C, nn, parts, j0 + 1],
-                             device_ms=card_ms, equal=True, **row)
+                             device_ms=card_ms, equal=True,
+                             descent_ms=descent_ms,
+                             descent_device_ms=descent_device_ms,
+                             ptxas=ptxas, **row)
     del res
     return (out, row, launches)
 

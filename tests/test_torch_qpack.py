@@ -356,13 +356,27 @@ def test_rice_planes_refuse_other_devices():
 
 @pytest.mark.cuda
 @pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a card")
-@pytest.mark.parametrize("psize,J0", [(64, 14), (18, 30), (4096, 14)])
-def test_rice_planes_kernel_matches_plain(psize, J0):
-    rng = np.random.default_rng(psize)
-    res = torch.as_tensor(rng.integers(-(1 << 20), 1 << 20,
-                                       (3, 4, psize * 4)).astype(np.int32))
-    want = flac_frames.rice_planes_plain(res, 4, J0)
-    got = flac_frames.rice_planes(res.cuda(), 4, J0).cpu()
+@pytest.mark.parametrize("psize,J0,S,C,parts", [
+    (64, 14, 3, 4, 4), (18, 30, 3, 4, 4), (4096, 14, 3, 4, 4),
+    # rows (45) not a multiple of a warp's group of 8; psize 1, 31, 33
+    # and 18 take the masked instance, 64 the whole-step one
+    (1, 0, 3, 5, 3), (31, 31, 3, 5, 3), (33, 14, 3, 5, 3),
+    (18, 0, 3, 5, 3), (64, 31, 3, 5, 3),
+    # the bench batch's partitions over a grid the rows stride several
+    # times (425,984 rows)
+    (64, 14, 512, 13, 64), (18, 14, 512, 13, 64)])
+def test_rice_planes_kernel_matches_plain(psize, J0, S, C, parts):
+    rng = np.random.default_rng(psize * 100 + J0)
+    res = rng.integers(-(1 << 20), 1 << 20, (S, C, psize * parts))
+    res[:, 0] = rng.integers(-(1 << 31), 1 << 31, (S, psize * parts))
+    # INT32_MIN's zigzag is 0xFFFFFFFF, INT32_MAX's 0xFFFFFFFE; a whole
+    # partition of them wraps the int32 seed for small J0
+    res[0, -1, :psize] = -(1 << 31)
+    res[-1, -1, -psize:] = (1 << 31) - 1
+    res[0, 1, ::3] = -(1 << 31)
+    res = torch.as_tensor(res.astype(np.int32))
+    want = flac_frames.rice_planes_plain(res, parts, J0)
+    got = flac_frames.rice_planes(res.cuda(), parts, J0).cpu()
     assert torch.equal(got, want)
 
 

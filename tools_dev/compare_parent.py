@@ -30,10 +30,20 @@ batch of bench.py's signal, 512 lanes x 46080); then one JSON line per
 tree gives the innermost loops of its tta_filter_kernel's SASS
 (cuobjdump -sass), largest first, with their instructions and opcodes
 counted, and --sass DIR also writes each tree's kernel SASS into DIR.
+
+With --rice only rice_planes is compared, on phase 23's input: the
+residuals of the first exact Rice search of one 1024-block FLAC -8
+batch of bench.py's signal under ATPU_DEVICE_RICE=exact (4096 variants
+x 13 candidates x 4096, 64 partitions, J0 14), both outputs also equal
+to rice_planes_plain; the line adds the bound, each tree's ptxas
+registers and spills, and the span of the ladder's torch descent after
+the counts (chip_smoke.rice_descent_ms).  Then one JSON line per
+rice_planes kernel of each tree gives its innermost SASS loops as
+--tta does, and --sass DIR writes their SASS into DIR.
 Usage:
 
     python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack | --tta
-        [--sass DIR]]
+        [--sass DIR] | --rice [--sass DIR]]
 """
 
 import importlib.util
@@ -219,20 +229,32 @@ def tta_lanes(dev):
     return predicted.permute(0, 2, 1).reshape(F * 2, n).contiguous()
 
 
+def sass_functions(kernels, lib_path):
+    """{mangled name: SASS body} of every kernel in the library at
+    `lib_path` (cuobjdump -sass)"""
+    import re
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()),
+                             "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    return {sec.split("\n", 1)[0].strip(): sec
+            for sec in re.split(r"\n\s*Function : ", dump)[1:]}
+
+
 def sass_loops(kernels, lib_path, name, dump_path=None):
     """the innermost loops of kernel `name`'s SASS in the library at
     `lib_path` (cuobjdump -sass), largest first: each loop's first and
     last address, its instructions, and their opcodes counted (the
     IMAD family together under "IMAD*"); with `dump_path` the kernel's
     SASS is written there"""
+    body = next(sec for (fname, sec) in
+                sass_functions(kernels, lib_path).items() if name in fname)
+    return body_loops(body, dump_path)
+
+
+def body_loops(body, dump_path=None):
+    """sass_loops of one kernel's SASS `body`"""
     import re
-    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()),
-                             "cuobjdump")
-    dump = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
-                          capture_output=True, text=True).stdout
-    sections = re.split(r"\n\s*Function : ", dump)
-    body = next(sec for sec in sections[1:]
-                if name in sec.split("\n", 1)[0])
     if dump_path:
         with open(dump_path, "w") as f:
             f.write("Function : " + body)
@@ -302,6 +324,51 @@ def compare_tta(other, mine, dev, sass_dir):
         sys.exit("tta_filter outputs differ")
 
 
+def compare_rice(other, mine, dev, sass_dir):
+    """rice_planes of both trees on phase 23's residuals, the descent
+    after it, and the innermost loops of each build's SASS"""
+    from audiotools_tpu_torch.ops import flac_frames
+    from chip_smoke import (OPTS, bound, exact_rice_batch, program_signal,
+                            ptxas_summary, rice_descent_ms)
+    (n, frames) = (OPTS["block_size"], OPTS["batch_frames"])
+    (_data, _launches, _s, (res, parts, j0), search) = exact_rice_batch(
+        dev, program_signal(n * frames))
+    (S, C, nn) = res.shape
+    (rows, psize) = (S * C * parts, nn // parts)
+    want = flac_frames.rice_planes_plain(res, parts, j0)
+    outs = [torch.empty_like(want) for _ in range(2)]
+    (run_other, run_mine) = (
+        (lambda m=m, o=o: m.rice_planes(res, rows, psize, j0, o))
+        for (m, o) in zip((other, mine), outs))
+    run_other()
+    run_mine()
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(o, want)) for o in outs)
+    line = json.loads(summary("rice_planes", [S, C, nn, parts, j0 + 1],
+                              equal, in_turns(run_other, run_mine)))
+    (line["bound_ms"], line["bound_by"]) = bound(
+        S * C * nn * 4 + rows * (j0 + 1) * 4, S * C * nn * (2 * j0 + 4))
+    for (who, module) in (("other", other), ("this", mine)):
+        line[who + "_ptxas"] = [
+            k for k in ptxas_summary(module.build_log)
+            if k["kernel"].startswith("rice_planes")]
+    (line["descent_ms"], line["descent_device_ms"]) = rice_descent_ms(
+        search, want)
+    print(json.dumps(line), flush=True)
+    for (who, module) in (("other", other), ("this", mine)):
+        functions = sass_functions(mine, module.library_path())
+        for (fname, body) in functions.items():
+            if "rice_planes_kernel" not in fname:
+                continue
+            dump = (os.path.join(sass_dir, "rice_planes_%s_%s.sass"
+                                 % (who, fname)) if sass_dir else None)
+            print(json.dumps({"sass": who, "kernel": fname,
+                              "innermost_loops": body_loops(body, dump)}),
+                  flush=True)
+    if not equal:
+        sys.exit("rice_planes outputs differ")
+
+
 def main():
     argv = sys.argv[1:]
     sass_dir = None
@@ -309,10 +376,10 @@ def main():
         k = argv.index("--sass")
         sass_dir = argv[k + 1]
         argv = argv[:k] + argv[k + 2:]
-    args = [a for a in argv if a not in ("--wavpack", "--tta")]
+    args = [a for a in argv if a not in ("--wavpack", "--tta", "--rice")]
     if len(args) != 1 or not torch.cuda.is_available():
         sys.exit("usage: compare_parent.py OTHER_DIR [--wavpack | --tta "
-                 "[--sass DIR]] (needs a CUDA card)")
+                 "[--sass DIR] | --rice [--sass DIR]] (needs a CUDA card)")
     from audiotools_tpu_torch import kernels as mine
     from chip_smoke import device_ms, median_ms
     other_dir = os.path.abspath(args[0])
@@ -326,10 +393,13 @@ def main():
     if "--wavpack" in argv:
         compare_wavpack(other, mine, dev)
         return
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
     if "--tta" in argv:
-        if sass_dir:
-            os.makedirs(sass_dir, exist_ok=True)
         compare_tta(other, mine, dev, sass_dir)
+        return
+    if "--rice" in argv:
+        compare_rice(other, mine, dev, sass_dir)
         return
 
     from audiotools_tpu_torch.ops import bitpack as my_bitpack
