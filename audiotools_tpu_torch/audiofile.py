@@ -350,6 +350,13 @@ class AudioFile:
         except decimal.DivisionByZero:
             return decimal.Decimal(0)
 
+    def cd_frames(self):
+        """the track's length in CD frames (1/75 s), rounded down"""
+        try:
+            return (self.total_frames() * 75) // self.sample_rate()
+        except ZeroDivisionError:
+            return 0
+
     def get_metadata(self):
         """the file's MetaData, or None for a class that holds none"""
         return None

@@ -1,6 +1,7 @@
 """The port's command line: track2track, trackverify, trackcmp,
 trackinfo, tracklength, tracktag, tracklint, trackrename, coverdump,
-covertag, audiotools-config (``config_tool``), trackcat and tracksplit.
+covertag, audiotools-config (``config_tool``), trackcat, tracksplit,
+and the disc tools cdinfo, cd2track and track2cd.
 
 Each tool is a module with a ``main(argv)`` entry point, run as
 ``python -m audiotools_tpu_torch.cli.<tool>``, with the reference's
@@ -11,9 +12,11 @@ use the card.  ``--devices`` names the torch devices they run on, the
 current card by default.  The user's configuration is read as the
 reference reads it (``utils.config``): its default type, filename
 template, qualities and job count.  Progress rows are not drawn; the
-lines a job prints when it ends are.  -I (interactive editing) and -M
-(metadata lookup over the network) are not ported: a tool given one
-exits 1 (``refuse_unported``).
+lines a job prints when it ends are.  -M looks the album up in
+FreeDB and MusicBrainz (``services.lookup``), with the reference's
+option family (``add_lookup_arguments``).  -I (interactive editing)
+is not ported, since it needs urwid: a tool given it exits 1
+(``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -85,27 +88,59 @@ def default_jobs():
 
 
 def refuse_unported(msg, options):
-    """True after an error line when -I or -M was asked for"""
+    """True after an error line when -I was asked for"""
     if getattr(options, "interactive", False):
         msg.error("-I (interactive mode) is not ported to "
-                  "audiotools_tpu_torch")
-        return True
-    if getattr(options, "metadata_lookup", False):
-        msg.error("-M (metadata lookup) is not ported to "
                   "audiotools_tpu_torch")
         return True
     return False
 
 
 def add_unported_arguments(parser, lookup=True):
-    """-I and (with ``lookup``) -M, which refuse_unported turns away"""
+    """-I, which refuse_unported turns away, and (with ``lookup``) the
+    lookup option family"""
     parser.add_argument("-I", "--interactive", action="store_true",
                         default=False, dest="interactive",
                         help=text.HELP_INTERACTIVE)
     if lookup:
-        parser.add_argument("-M", "--metadata-lookup", action="store_true",
-                            default=False, dest="metadata_lookup",
-                            help=text.HELP_METADATA_LOOKUP)
+        add_lookup_arguments(parser)
+
+
+def add_lookup_arguments(parser):
+    """-M and the options of its lookups (the reference's
+    ``add_lookup_arguments``)"""
+    parser.add_argument("-M", "--metadata-lookup", action="store_true",
+                        default=False, dest="metadata_lookup",
+                        help=text.HELP_METADATA_LOOKUP)
+    parser.add_argument("--musicbrainz-server", dest="musicbrainz_server",
+                        default="musicbrainz.org",
+                        help=text.HELP_MUSICBRAINZ_SERVER)
+    parser.add_argument("--musicbrainz-port", type=int,
+                        dest="musicbrainz_port", default=80)
+    parser.add_argument("--no-musicbrainz", dest="use_musicbrainz",
+                        action="store_false", default=True,
+                        help=text.HELP_NO_MUSICBRAINZ)
+    parser.add_argument("--freedb-server", dest="freedb_server",
+                        default="us.freedb.org", help=text.HELP_FREEDB_SERVER)
+    parser.add_argument("--freedb-port", type=int, dest="freedb_port",
+                        default=80)
+    parser.add_argument("--no-freedb", dest="use_freedb",
+                        action="store_false", default=True,
+                        help=text.HELP_NO_FREEDB)
+    parser.add_argument("-D", "--default", dest="use_default",
+                        action="store_true", default=False,
+                        help=text.HELP_USE_DEFAULT)
+
+
+def lookup_options(options):
+    """the keyword arguments of a ``services.lookup`` call from the
+    lookup options"""
+    return dict(musicbrainz_server=options.musicbrainz_server,
+                musicbrainz_port=options.musicbrainz_port,
+                freedb_server=options.freedb_server,
+                freedb_port=options.freedb_port,
+                use_musicbrainz=options.use_musicbrainz,
+                use_freedb=options.use_freedb)
 
 
 def output_table(rows):

@@ -9,8 +9,10 @@ and the album ReplayGain pass for the classes that add it.  Each job
 converts as the reference's ``convert`` does, the source's frame count
 passed ahead and its foreign RIFF or AIFF chunks carried where the
 target takes them, on its worker's device, then writes the source's tags into
-the new file.  -I (interactive editing) and -M (metadata lookup over
-the network) are not ported.
+the new file.  -M takes the files as one CD and looks it up in
+MusicBrainz and FreeDB (``services.lookup.track_metadata_lookup``):
+the first choice (-D the default one) fills the fields the files'
+tags leave blank.  -I (interactive editing) exits 1.
 
     python -m audiotools_tpu_torch.cli.track2track -t flac -q 8 -d out in.wav
 """
@@ -24,7 +26,7 @@ import sys
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
                add_unported_arguments, audiofile_type, default_type,
-               job_devices, refuse_unported, text)
+               job_devices, lookup_options, refuse_unported, text)
 
 # one track's conversion: the source's filename, the output and its
 # class and compression, the source's MetaData (or None), and the
@@ -142,9 +144,31 @@ def main(argv=None):
             return 1
         return 0
 
+    # the files as one CD: the first choice (-D: the default one) fills
+    # the fields a file's tags leave blank
+    lookup_metadata = None
+    if options.metadata_lookup:
+        from ..services.lookup import track_metadata_lookup
+        choices = track_metadata_lookup(audiofiles, **lookup_options(options))
+        chosen = choices[-1] if options.use_default else choices[0]
+        lookup_metadata = dict(zip(
+            (t.filename for t in dispatch.sorted_tracks(audiofiles)), chosen))
+        if len(choices) > 1 and not options.use_default:
+            msg.info(text.LAB_T2T_USING_METADATA %
+                     {"album": chosen[0].album_name or text.LAB_UNTITLED})
+
     jobs = []
     for track in audiofiles:
         metadata = track.get_metadata()
+        looked_up = (lookup_metadata.get(track.filename)
+                     if lookup_metadata is not None else None)
+        if looked_up is not None:
+            if metadata is not None:
+                for field in looked_up.FIELDS:
+                    if getattr(metadata, field) is None:
+                        setattr(metadata, field, getattr(looked_up, field))
+            else:
+                metadata = looked_up
         try:
             filename = AudioFile.track_name(
                 track.filename, metadata, options.format or FILENAME_FORMAT,

@@ -5,8 +5,11 @@ sources (which must share their sample rate, channel count and bits
 per sample) decoded one after another on the card (``pcm.PCMCat``) and
 encoded as one file of ``-t``'s class there, the frame count passed
 ahead; ``--cue`` then embeds a cue or TOC sheet's layout where the
-class holds one (FLAC's CUESHEET block).  -I and -M exit 1
-(``refuse_unported``).
+class holds one (FLAC's CUESHEET block).  -M takes the sources as one
+CD, looks it up in MusicBrainz and FreeDB
+(``services.lookup.track_metadata_lookup``) and tags the new file with
+the first choice's album, artist and year and its track count (-D the
+default choice's).  -I exits 1 (``refuse_unported``).
 
     python -m audiotools_tpu_torch.cli.trackcat -t flac --cue album.cue \\
         -o album.flac track*.flac
@@ -19,7 +22,7 @@ import sys
 
 from . import (Messenger, add_common_arguments, add_device_argument,
                add_unported_arguments, audiofile_type, default_type,
-               first_device, refuse_unported, text)
+               first_device, lookup_options, refuse_unported, text)
 
 
 def main(argv=None):
@@ -84,6 +87,19 @@ def main(argv=None):
         except SheetException as err:
             msg.error(str(err))
             return 1
+
+    # the album's fields of the chosen entry, the sources taken as one CD
+    if options.metadata_lookup:
+        from ..audiofile import MetaData
+        from ..services.lookup import track_metadata_lookup
+        choices = track_metadata_lookup(audiofiles, **lookup_options(options))
+        chosen = choices[-1] if options.use_default else choices[0]
+        if chosen:
+            first = chosen[0]
+            encoded.set_metadata(MetaData(album_name=first.album_name,
+                                          artist_name=first.artist_name,
+                                          year=first.year,
+                                          track_total=len(chosen)))
     return 0
 
 

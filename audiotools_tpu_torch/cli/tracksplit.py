@@ -7,9 +7,12 @@ on the card and cut there (``pcm.pcm_split``), and each track encoded
 as ``-t``'s class in ``-j`` of the farm's worker threads over
 ``--devices``, named by ``--format`` (the configured template by
 default) from its number, the track total and the source's album,
-artist and year, which it is tagged with; ``--replay-gain`` then
-analyses the tracks as one album on the card.  A line a track written,
-as it is done.  -I and -M exit 1 (``refuse_unported``).
+artist and year, which it is tagged with; -M looks the sheet's layout
+up in MusicBrainz and FreeDB (``services.lookup.sheet_metadata_lookup``)
+and tags each track with the first choice's entry in their place (-D
+the default choice's); ``--replay-gain`` then analyses the tracks as
+one album on the card.  A line a track written, as it is done.  -I
+exits 1 (``refuse_unported``).
 
     python -m audiotools_tpu_torch.cli.tracksplit -t flac -d tracks album.flac
 """
@@ -24,7 +27,7 @@ import threading
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
                add_unported_arguments, audiofile_type, default_type,
-               job_devices, refuse_unported, text)
+               job_devices, lookup_options, refuse_unported, text)
 
 # one track: its index in the sheet, its file and frame count, its tags
 Track = collections.namedtuple("Track", "index dest_path frames metadata")
@@ -120,14 +123,31 @@ def main(argv=None):
     pcm_lengths = list(sheet.pcm_lengths(track.total_frames(),
                                          track.sample_rate()))
     base_metadata = track.get_metadata()
+
+    # each track's entry of the chosen lookup, the sheet's layout taken
+    # as the disc's
+    lookup_metadatas = None
+    if options.metadata_lookup:
+        from ..services.lookup import sheet_metadata_lookup
+        choices = sheet_metadata_lookup(sheet, track.total_frames(),
+                                        track.sample_rate(),
+                                        **lookup_options(options))
+        lookup_metadatas = choices[-1] if options.use_default else choices[0]
+
     os.makedirs(options.dir, exist_ok=True)
     tracks = []
     for (i, frames) in enumerate(pcm_lengths):
-        metadata = MetaData(track_number=i + 1, track_total=len(pcm_lengths))
-        if base_metadata is not None:
-            metadata.album_name = base_metadata.album_name
-            metadata.artist_name = base_metadata.artist_name
-            metadata.year = base_metadata.year
+        if lookup_metadatas is not None and i < len(lookup_metadatas):
+            metadata = lookup_metadatas[i]
+            metadata.track_number = i + 1
+            metadata.track_total = len(pcm_lengths)
+        else:
+            metadata = MetaData(track_number=i + 1,
+                                track_total=len(pcm_lengths))
+            if base_metadata is not None:
+                metadata.album_name = base_metadata.album_name
+                metadata.artist_name = base_metadata.artist_name
+                metadata.year = base_metadata.year
         if options.album_number is not None:
             metadata.album_number = options.album_number
         if options.album_total is not None:

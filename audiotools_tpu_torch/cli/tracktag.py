@@ -6,8 +6,12 @@ for each of the 18 fields and a ``--remove-`` flag for each, ``-r``
 ``--remove-images`` and ``--front-cover``, then ``--replay-gain``: the
 files of each class that holds ReplayGain (FLAC, WavPack) analysed as
 one album on the card (``add_replay_gain(..., device=)``, the first of
-``--devices``) and the values written into their tags.  -I and -M exit
-1 (``refuse_unported``).
+``--devices``) and the values written into their tags.  -M first takes
+the files as one CD, looks it up in MusicBrainz and FreeDB
+(``services.lookup.track_metadata_lookup``) and writes the first
+choice's entries (-D the default one's) into them, each file's own
+fields filling the entry's blanks; the command line's fields then go
+over those.  -I exits 1 (``refuse_unported``).
 
     python -m audiotools_tpu_torch.cli.tracktag --album "An Album" \\
         --replay-gain *.flac
@@ -19,7 +23,8 @@ import argparse
 import sys
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, first_device, refuse_unported, text)
+               add_unported_arguments, first_device, lookup_options,
+               refuse_unported, text)
 
 FIELD_OPTIONS = [
     ("--name", "track_name", text.HELP_TAG_NAME),
@@ -117,6 +122,21 @@ def main(argv=None):
     if len(audiofiles) == 0:
         msg.error(text.ERR_1_FILE_REQUIRED)
         return 1
+
+    # the looked-up entries, each file's own fields filling their blanks,
+    # written before the command line's fields
+    if options.metadata_lookup:
+        from ..dispatch import sorted_tracks
+        from ..services.lookup import track_metadata_lookup
+        choices = track_metadata_lookup(audiofiles, **lookup_options(options))
+        chosen = choices[-1] if options.use_default else choices[0]
+        for (track, looked_up) in zip(sorted_tracks(audiofiles), chosen):
+            existing = track.get_metadata()
+            if existing is not None:
+                for field in existing.FIELDS:
+                    if getattr(looked_up, field) is None:
+                        setattr(looked_up, field, getattr(existing, field))
+            track.set_metadata(looked_up)
 
     for track in audiofiles:
         try:

@@ -5,10 +5,13 @@ file decoded whole by its class's ``verify`` on the job's device, one
 line a file and a summary table, exit 1 if any file failed.  With
 --accuraterip, CD-format tracks (44.1 kHz, stereo, 16 bits) also get
 their AccurateRip V1 and V2 sums, taken on the same device in the same
-decode.  ``--cue`` then checks that a cue or TOC sheet's track lengths
-fit the first file (exit 1 with an error line when they do not).  The
-reference's lookup of the sums in the online AccurateRip database is
-not ported.
+decode; after the jobs the files verified with sums are taken as one CD
+in track order and looked up in the AccurateRip database
+(``services.lookup.accuraterip_lookup``), and a line for each, numbered
+by its place among them as the reference numbers it, says whether its
+sums match an entry (with the entry's confidence), match none, or find
+none.  ``--cue`` then checks that a cue or TOC sheet's track lengths
+fit the first file (exit 1 with an error line when they do not).
 
     python -m audiotools_tpu_torch.cli.trackverify out/*.flac
 """
@@ -90,6 +93,32 @@ def sheet_fits(cuesheet, filename, device):
     return None
 
 
+def database_lines(msg, results, device):
+    """the AccurateRip database's verdict on each result with sums: the
+    files taken as one CD in ``sorted_tracks`` order, the lines numbered
+    by place in ``results`` (as the reference numbers them)"""
+    from ..dispatch import open_files, sorted_tracks
+    from ..services.lookup import accuraterip_lookup
+    verified = [(filename, checksums)
+                for (filename, status, checksums) in results
+                if status == "OK" and checksums is not None]
+    if not verified:
+        return
+    matches = accuraterip_lookup(sorted_tracks(open_files(
+        [f for (f, _c) in verified], messenger=msg, device=device)))
+    for (number, (filename, checksums)) in enumerate(verified, 1):
+        entries = matches.get(number, [])
+        hits = [confidence for (confidence, crc, crc2) in entries
+                if crc in checksums or crc2 in checksums]
+        if hits:
+            msg.info(text.LAB_ACCURATERIP_MATCH %
+                     {"filename": filename, "confidence": max(hits)})
+        elif entries:
+            msg.info(text.LAB_ACCURATERIP_MISMATCH % {"filename": filename})
+        else:
+            msg.info(text.LAB_ACCURATERIP_NOT_FOUND % {"filename": filename})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="trackverify",
                                      description=text.DESC_TRACKVERIFY)
@@ -147,6 +176,9 @@ def main(argv=None):
         msg.error(str(errors[0]))
         return 1
     results = [result for (result, _error) in outcomes]
+
+    if options.accuraterip:
+        database_lines(msg, results, devices[0])
 
     if options.cuesheet is not None and results:
         error = sheet_fits(options.cuesheet, filenames[0], devices[0])

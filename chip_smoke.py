@@ -10,9 +10,9 @@ inversion, Shorten encode with device analysis and decode with device
 synthesis, WavPack encode and decode with the decorrelation passes
 on the card, the converters (ReplayGain, AccurateRip, the
 resampler), a collection of tracks through the transcode farm, and
-the command line's tools, the cue sheet and tag tools and the lossy
-types among them.  Its phases each print one line (phases 24 to 26 one
-a tool run too):
+the command line's tools, the cue sheet and tag tools, the lossy
+types and the disc tools among them.  Its phases each print one line
+(phases 24 to 27 one a tool run too):
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -274,7 +274,27 @@ a tool run too):
     cut inside its last frame failing ``verify``, and ``tracktag`` and
     ``trackinfo`` on the MP3 (an ID3v2.3 and ID3v1 pair with a front
     cover), the Vorbis and the Opus file.  A line a run with its wall,
-    input Msamples/s and launches, counted from 0 just before it.
+    input Msamples/s and launches, counted from 0 just before it;
+27. the disc tools and the lookups, on phase 5's signal cut to whole
+    sectors as a cue/bin image of 11 tracks of unequal lengths (1521.5
+    s), every lookup answered in this process from canned replies
+    (``CannedLookups``: a FreeDB entry and a MusicBrainz release for the
+    disc's IDs, an AccurateRip record of the tracks' sums from the host
+    twin ``_native.accuraterip_update``; phase 21's lookups are answered
+    by it too): ``cdinfo`` (its IDs those the later runs ask for),
+    ``cd2track -M -t flac -q 8 -j 2`` of the whole disc with servers and
+    ports given (each rip decoded on the card to its sectors' samples,
+    tagged with the MusicBrainz choice), the image's reader alone on the
+    host beside it, ``cd2track --offset 6 -t wavpack`` of the first two
+    tracks and the last (the shifted window, silence past the disc's
+    end), ``trackverify --accuraterip -j 2`` of the FLAC rips (each
+    sum the host twin's, each track's confidence line) and
+    ``trackverify -j 2`` of the WavPack rips, ``track2cd --image`` of the
+    FLAC rips (the disc's bin byte for byte, its offsets), and
+    ``track2track -M`` and ``tracktag -M`` over the rips.  A line a run
+    with its wall, input Msamples/s and launches, counted from 0 just
+    before it; rice_decode, flac_synth, wv_corr and wv_decorr must each
+    launch during the phase.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -2854,6 +2874,348 @@ def lossy_phase(dev, alac_sig):
     return (out, launches)
 
 
+# phase 27: the disc image's track count and the seed of its track
+# lengths, the read offset of the WavPack rips, the confidence of the
+# canned AccurateRip record, the servers and ports the rips look up,
+# and the file name template of the tools' outputs
+DISC_TRACKS = 11
+DISC_SEED = 27
+DISC_OFFSET = 6
+DISC_CONFIDENCE = 12
+DISC_SERVERS = ["--musicbrainz-server", "mb.invalid", "--musicbrainz-port",
+                "8080", "--freedb-server", "fdb.invalid", "--freedb-port",
+                "8081"]
+DISC_FORMAT = ["--format", "%(track_number)2.2d - %(track_name)s.%(suffix)s"]
+DISC_ALBUM = "Phase 27 Album"
+
+
+class CannedLookups:
+    """``urllib.request.urlopen`` answered in this process: a FreeDB,
+    MusicBrainz or AccurateRip URL (told apart by its path) gets
+    ``replies[kind]``, any other URL, or a kind with no reply, URLError
+    at once, so that no run waits on a resolver; ``socket.
+    create_connection`` raises.  Every URL asked for is kept in
+    ``urls``.  ``install`` puts both in place, ``remove`` takes them
+    away."""
+
+    def __init__(self):
+        self.replies = {}
+        self.urls = []
+        self.saved = None
+
+    @staticmethod
+    def kind(url):
+        for (part, kind) in (("/~cddb/cddb.cgi?", "freedb"),
+                             ("/ws/2/discid/", "musicbrainz"),
+                             ("/accuraterip/", "accuraterip")):
+            if part in url:
+                return kind
+        return None
+
+    def urlopen(self, url, *args, **kwargs):
+        import urllib.error
+        self.urls.append(url)
+        body = self.replies.get(self.kind(url))
+        if body is None:
+            raise urllib.error.URLError("answered in-process: no reply")
+        return contextlib.closing(io.BytesIO(body))
+
+    @staticmethod
+    def refuse(*args, **kwargs):
+        raise OSError("the smoke opens no socket")
+
+    def install(self):
+        import socket
+        import urllib.request
+        self.saved = (urllib.request.urlopen, socket.create_connection)
+        urllib.request.urlopen = self.urlopen
+        socket.create_connection = self.refuse
+        return self
+
+    def remove(self):
+        import socket
+        import urllib.request
+        (urllib.request.urlopen, socket.create_connection) = self.saved
+
+
+def run_cli_both(tool, args):
+    """a port tool's main(args) run in-process: (exit code, the lines it
+    printed on stdout, those on stderr)"""
+    module = importlib.import_module("audiotools_tpu_torch.cli." + tool)
+    (out, err) = (io.StringIO(), io.StringIO())
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = module.main(list(args))
+    return (code, out.getvalue().splitlines(), err.getvalue().splitlines())
+
+
+def disc_lengths(sectors):
+    """DISC_TRACKS unequal track lengths in sectors, ``sectors`` in all"""
+    rng = np.random.default_rng(DISC_SEED)
+    weights = rng.uniform(0.5, 1.5, DISC_TRACKS)
+    lengths = [int(w) for w in weights / weights.sum() * sectors]
+    lengths[-1] += sectors - sum(lengths)
+    return lengths
+
+
+def disc_replies(disc_id_mb, titles):
+    """the canned FreeDB XMCD entry and MusicBrainz discid XML of a disc:
+    the MusicBrainz release (the first choice) titles each track from
+    ``titles``, the FreeDB entry otherwise"""
+    xmcd = ["# xmcd", "#", "DTITLE=FreeDB Artist / FreeDB Album",
+            "DYEAR=2001"] + ["TTITLE%d=FreeDB Title %d" % (k, k + 1)
+                             for k in range(len(titles))]
+    tracks = "".join(
+        "<track><position>%d</position><recording><title>%s</title>"
+        "</recording></track>" % (k + 1, title)
+        for (k, title) in enumerate(titles))
+    xml = ('<?xml version="1.0" encoding="UTF-8"?>'
+           '<metadata xmlns="http://musicbrainz.org/ns/mmd-2.0#">'
+           '<disc id="%(id)s"><release-list count="1"><release id="r">'
+           '<title>%(album)s</title><artist-credit><name-credit><artist>'
+           '<name>Card Artist</name></artist></name-credit></artist-credit>'
+           '<date>2026-10-18</date><medium-list count="1"><medium>'
+           '<position>1</position><disc-list><disc id="%(id)s"/></disc-list>'
+           '<track-list count="%(n)d">%(tracks)s</track-list></medium>'
+           '</medium-list></release></release-list></disc></metadata>'
+           % {"id": disc_id_mb, "album": DISC_ALBUM, "n": len(titles),
+              "tracks": tracks})
+    return {"freedb": ("\n".join(xmcd) + "\n").encode("utf-8"),
+            "musicbrainz": xml.encode("utf-8")}
+
+
+def files_disc_id(lengths, numbers):
+    """the AccurateRip DiscID that ``services.lookup.accuraterip_lookup``
+    builds for files of ``lengths`` CD frames numbered ``numbers``"""
+    from audiotools_tpu_torch.services import accuraterip, freedb
+    offsets = [int(sum(lengths[:k])) for k in range(len(lengths))]
+    return accuraterip.DiscID(numbers, offsets, sum(lengths), freedb.DiscID(
+        [o + 150 for o in offsets], sum(lengths), len(lengths)))
+
+
+def accuraterip_reply(disc_id, sums, confidence):
+    """an AccurateRip database record of ``disc_id`` holding ``sums``,
+    a (v1, v2) a track, each at ``confidence``"""
+    import struct
+    data = struct.pack("<BIII", len(sums), disc_id.id1(), disc_id.id2(),
+                       disc_id.freedb_disc_id())
+    for (v1, v2) in sums:
+        data += struct.pack("<BII", confidence, v1, v2)
+    return data
+
+
+def disc_phase(dev, sig, lookups):
+    """phase 27 on ``sig``, phase 5's signal: a cue/bin image of it cut
+    to whole sectors as DISC_TRACKS tracks, through the disc tools and
+    the lookups on ``dev`` with every lookup answered by ``lookups``
+    (a CannedLookups in place); returns its line's fields and each
+    kernel's launches over the phase, counted from 0 just before each
+    run and read just after it.  On a CPU ``dev`` (a rehearsal with a
+    short signal) no launch is required."""
+    import filecmp
+    import tempfile
+    from audiotools_tpu_torch import _native, dispatch
+    from audiotools_tpu_torch._device import resolve_device
+    from audiotools_tpu_torch.cdio import CDDA, SECTOR_FRAMES
+    from audiotools_tpu_torch.pcm import read_all
+    from audiotools_tpu_torch.services import freedb, musicbrainz
+    dev = resolve_device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    sectors = len(sig) // SECTOR_FRAMES
+    lengths = disc_lengths(sectors)
+    starts = [int(sum(lengths[:k])) * SECTOR_FRAMES
+              for k in range(len(lengths) + 1)]
+    disc = sig[:starts[-1]]
+    titles = ["Card Track %d" % (k + 1,) for k in range(len(lengths))]
+    on_card = ["--devices", str(dev)]
+    launches = dict.fromkeys(counters, 0)
+    out = dict(tracks=len(lengths), sectors=sectors,
+               seconds_of_audio=starts[-1] / SAMPLE_RATE, runs={})
+    t_phase = time.perf_counter()
+
+    def tool(label, name, args, samples):
+        """a tool run with the launches counted from 0 just before it
+        and read just after it, and its line; returns (stdout lines,
+        stderr lines, the URLs it asked for)"""
+        for kernel in counters.values():
+            kernel.launches = 0
+        asked = len(lookups.urls)
+        t0 = time.perf_counter()
+        (code, lines, errors) = run_cli_both(
+            name, args + (on_card if name != "cdinfo" else []))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        run = {k: kernel.launches for (k, kernel) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        if code != 0:
+            raise AssertionError("%s %s exited %r: %s %s"
+                                 % (name, label, code, lines[:6],
+                                    errors[:6]))
+        fields = dict(tool=name, wall_s=wall,
+                      input_Msamples_per_s=samples / wall / 1e6,
+                      launches=run)
+        line("disc_" + label, **fields)
+        out["runs"][label] = fields
+        return (lines, errors, lookups.urls[asked:])
+
+    with tempfile.TemporaryDirectory(prefix="disc-") as work:
+        cue = os.path.join(work, "disc.cue")
+        bin_path = os.path.join(work, "disc.bin")
+        with open(bin_path, "wb") as f:
+            f.write(disc.astype("<i2").tobytes())
+        with open(cue, "w") as f:
+            f.write('FILE "disc.bin" BINARY\n')
+            for (k, start) in enumerate(starts[:-1]):
+                sector = start // SECTOR_FRAMES
+                f.write("  TRACK %2.2d AUDIO\n    INDEX 01 %2.2d:%2.2d:%2.2d\n"
+                        % (k + 1, sector // 4500, (sector // 75) % 60,
+                           sector % 75))
+        cdda = CDDA(cue)
+        ids = {"freedb": str(freedb.disc_id(cdda)),
+               "musicbrainz": str(musicbrainz.disc_id(cdda)),
+               "accuraterip": str(cdda.accuraterip_disc_id())}
+        cdda.close()
+        tracks = [disc[a:b] for (a, b) in zip(starts, starts[1:])]
+        sums = [_native.accuraterip_update(t, 1, 0, len(t), 0, 0)
+                for t in tracks]
+        lookups.replies = disc_replies(ids["musicbrainz"], titles)
+        lookups.replies["accuraterip"] = accuraterip_reply(
+            files_disc_id(lengths, list(range(1, len(lengths) + 1))), sums,
+            DISC_CONFIDENCE)
+
+        # 1. cdinfo: the IDs the later runs ask for
+        (lines, _errors, _urls) = tool("cdinfo", "cdinfo", ["-c", cue], 0)
+        shown = {"freedb": lines[2].split(": ")[1],
+                 "musicbrainz": lines[3].split(": ")[1],
+                 "accuraterip": lines[4].split(": ")[1]}
+        if lines[0] != "Tracks : %d" % (len(lengths),) or shown != ids:
+            raise AssertionError("cdinfo printed %s" % (lines,))
+
+        # 2. the whole disc ripped to FLAC -8 with the lookup
+        rips = os.path.join(work, "flac")
+        names = [os.path.join(rips, "%2.2d - %s.flac" % (k + 1, title))
+                 for (k, title) in enumerate(titles)]
+        (lines, errors, urls) = tool("cd2track_flac", "cd2track", [
+            "-c", cue, "-M", "-t", "flac", "-q", "8", "-j", "2", "-d",
+            rips] + DISC_SERVERS + DISC_FORMAT, disc.size)
+        if (sorted(lines) != sorted("ripped track %d" % (k + 1,)
+                                    for k in range(len(lengths))) or
+                errors != ["AccurateRip disc ID: " + ids["accuraterip"],
+                           "Using metadata: " + DISC_ALBUM] or
+                [CannedLookups.kind(u) for u in urls] != [
+                    "musicbrainz", "freedb"] or
+                not urls[0].startswith("http://mb.invalid:8080/") or
+                ids["musicbrainz"] not in urls[0] or
+                not urls[1].startswith("http://fdb.invalid:8081/") or
+                ids["freedb"] not in urls[1]):
+            raise AssertionError("cd2track -M: %s %s %s"
+                                 % (lines, errors, urls))
+        for (k, (name, track)) in enumerate(zip(names, tracks)):
+            rip = dispatch.open(name, device=dev)
+            metadata = rip.get_metadata()
+            if ((metadata.track_name, metadata.track_number,
+                 metadata.track_total, metadata.album_name,
+                 metadata.artist_name, metadata.year) !=
+                    (titles[k], k + 1, len(lengths), DISC_ALBUM,
+                     "Card Artist", "2026") or
+                    not np.array_equal(read_all(rip.to_pcm()), track)):
+                raise AssertionError("%s: %r, or its samples are not the "
+                                     "disc's" % (name, metadata))
+        # the image's reader alone, on the host: the rip's share of it
+        t0 = time.perf_counter()
+        cdda = CDDA(cue)
+        for reader in cdda:
+            while reader.read(1 << 18).frames:
+                pass
+        cdda.close()
+        out["reader_s"] = time.perf_counter() - t0
+        out["reader_share_of_rip"] = (out["reader_s"] /
+                                      out["runs"]["cd2track_flac"]["wall_s"])
+
+        # 3. the first two tracks and the last to WavPack, read DISC_OFFSET
+        # frames late: the last window reaches past the disc's end
+        wv_dir = os.path.join(work, "wavpack")
+        picked = [1, 2, len(lengths)]
+        tool("cd2track_wavpack", "cd2track", [
+            "-c", cue, "--offset", str(DISC_OFFSET), "-t", "wavpack", "-j",
+            "2", "-d", wv_dir, "--format", "%(track_number)2.2d.%(suffix)s"] +
+            [str(n) for n in picked],
+            sum(tracks[n - 1].size for n in picked))
+        padded = np.concatenate([disc, np.zeros((DISC_OFFSET, 2), np.int32)])
+        wv_names = [os.path.join(wv_dir, "%2.2d.wv" % (n,)) for n in picked]
+        for (n, name) in zip(picked, wv_names):
+            want = padded[starts[n - 1] + DISC_OFFSET:
+                          starts[n] + DISC_OFFSET]
+            got = read_all(dispatch.open(name, device=dev).to_pcm())
+            if not np.array_equal(got, want):
+                raise AssertionError("%s is not the shifted window" % (name,))
+        if np.any(got[-DISC_OFFSET:]):
+            raise AssertionError("the last window's tail is not silence")
+
+        # 4. the rips verified, their sums looked up: every track matches
+        (lines, errors, urls) = tool("trackverify_flac", "trackverify", [
+            "--accuraterip", "-j", "2"] + names, disc.size)
+        want = ["%s : OK (AccurateRip v1=%08X v2=%08X)" % (name, v1, v2)
+                for (name, (v1, v2)) in zip(names, sums)]
+        confidences = ["%s : AccurateRip confidence %d"
+                       % (name, DISC_CONFIDENCE) for name in names]
+        if (sorted(lines[:len(names)]) != sorted(want) or
+                errors != confidences or len(urls) != 1 or
+                not urls[0].endswith("/" + ids["accuraterip"])):
+            raise AssertionError("trackverify --accuraterip: %s %s %s"
+                                 % (lines, errors, urls))
+        (lines, _errors, _urls) = tool(
+            "trackverify_wavpack", "trackverify", ["-j", "2"] + wv_names,
+            sum(tracks[n - 1].size for n in picked))
+        if sorted(lines[:len(wv_names)]) != sorted("%s : OK" % (name,)
+                                                   for name in wv_names):
+            raise AssertionError("trackverify of the WavPack rips: %s"
+                                 % (lines,))
+
+        # 5. the rips written back as an image: the disc's bin and offsets
+        image = os.path.join(work, "again", "disc")
+        os.makedirs(os.path.dirname(image))
+        tool("track2cd", "track2cd", ["--image", image] + names, disc.size)
+        if not filecmp.cmp(image + ".bin", bin_path, shallow=False):
+            raise AssertionError("track2cd's bin differs from the disc's")
+        again = CDDA(image + ".cue")
+        if again.track_offsets() != [(a // SECTOR_FRAMES,
+                                      (b - a) // SECTOR_FRAMES)
+                                     for (a, b) in zip(starts, starts[1:])]:
+            raise AssertionError("track2cd's cue: %s"
+                                 % (again.track_offsets(),))
+        again.close()
+
+        # 6. track2track -M and tracktag -M over the rips
+        converted = os.path.join(work, "converted")
+        (lines, errors, urls) = tool("track2track_M", "track2track", [
+            "-M", "-t", "flac", "-q", "0", "-j", "2", "-d", converted] +
+            DISC_SERVERS + DISC_FORMAT + names, disc.size)
+        if (sorted(os.listdir(converted)) != [os.path.basename(n)
+                                              for n in names] or
+                errors != ["Using metadata: " + DISC_ALBUM] or
+                [CannedLookups.kind(u) for u in urls] != ["musicbrainz",
+                                                          "freedb"]):
+            raise AssertionError("track2track -M: %s %s %s"
+                                 % (lines, errors, urls))
+        (lines, errors, urls) = tool("tracktag_M", "tracktag", [
+            "-M", "--comment", "phase 27"] + DISC_SERVERS + names, 0)
+        for (k, name) in enumerate(names):
+            metadata = dispatch.open(name, device=dev).get_metadata()
+            if (metadata.track_name, metadata.comment) != (titles[k],
+                                                           "phase 27"):
+                raise AssertionError("tracktag -M left %s with %r"
+                                     % (name, metadata))
+    idle = [k for k in ("rice_decode", "flac_synth", "wv_corr", "wv_decorr")
+            if launches[k] <= 0]
+    if on_cuda and idle:
+        raise AssertionError("phase 27 never launched %s" % (idle,))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3657,6 +4019,9 @@ def main():
     line("farm", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
 
     # ---- 21. the command line --------------------------------------------
+    # from here on every lookup (trackverify --accuraterip's, -M's) is
+    # answered in this process: the card's machine has no network
+    lookups = CannedLookups().install()
     t0 = time.perf_counter()
     (fields, cli_launches) = cli_phase(dev, alac_sig)
     line("cli", seconds=time.perf_counter() - t0, nvidia_smi=smi, **fields)
@@ -3683,6 +4048,11 @@ def main():
     # ---- 26. the lossy types and ID3 through the tools -------------------
     (fields, lossy_launches) = lossy_phase(dev, alac_sig)
     line("lossy", nvidia_smi=smi, **fields)
+
+    # ---- 27. the disc tools and the lookups ------------------------------
+    (fields, disc_launches) = disc_phase(dev, sig, lookups)
+    line("disc", nvidia_smi=smi, **fields)
+    lookups.remove()
 
     forbidden = loaded_forbidden_modules()
     if forbidden:
@@ -3716,7 +4086,8 @@ def main():
             tags_launches=tags_launches[kname],
             sheets_launches=sheets_launches[kname],
             containers_launches=containers_launches[kname],
-            lossy_launches=lossy_launches[kname], **row))
+            lossy_launches=lossy_launches[kname],
+            disc_launches=disc_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

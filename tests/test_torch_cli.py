@@ -8,8 +8,8 @@ get.
 
 The reference encodes FLAC and ALAC on its numpy backend with exact
 uploads and no emit-stage Rice re-search, the configuration the port's
-encoders follow; ALAC's creation time is pinned in both runs.  Its
-AccurateRip database lookup is kept off the network.
+encoders follow; ALAC's creation time is pinned in both runs.  The
+AccurateRip database lookups of both are kept off the network.
 """
 
 import contextlib
@@ -244,11 +244,14 @@ def test_track2track_output_option(runs):
     ("verify-ar-cd", 0), ("cmp", 1), ("cmp-dirs", 0)])
 def test_trackverify_and_trackcmp_print_the_references_lines(runs, case,
                                                              want_code):
-    ((ref_code, ref_out, _), (code, stdout, _stderr)) = runs[1][case]
+    ((ref_code, ref_out, ref_err), (code, stdout, stderr)) = runs[1][case]
     assert code == ref_code == want_code
     assert stdout == ref_out
     if case == "verify-ar-cd":
         assert stdout.count("AccurateRip v1=") == 5
+        # the database lookup, offline: a line a file with sums
+        assert stderr == ref_err
+        assert stderr.count(" : not present in AccurateRip database") == 5
 
 
 def flac_blocks_and_frames(path):
@@ -345,9 +348,12 @@ def test_error_exits_are_the_references(tmp_path, monkeypatch, args, line):
 
 @pytest.mark.parametrize("flag", ["-I", "-M"])
 def test_interactive_and_lookup_are_refused(tmp_path, flag):
+    """-I is refused; -M is ported, and with -I (a lookup's choices
+    edited interactively) it is refused too"""
     path = str(tmp_path / "a.wav")
     write_wave(path, signal(1, 800, SR), SR)
-    (code, stdout, stderr) = port_tool("track2track", flag, "-t", "flac",
+    flags = ["-I"] if flag == "-I" else ["-M", "-I"]
+    (code, stdout, stderr) = port_tool("track2track", *flags, "-t", "flac",
                                        "-d", str(tmp_path / "out"), path)
     assert (code, stdout) == (1, "")
     assert "not ported" in stderr
@@ -719,8 +725,7 @@ def test_tracktag_and_trackinfo_on_a_lossy_type(lossy_runs, name):
     and a lossy file at once (Vorbis and Opus fail it), then trackinfo,
     trackverify
     --accuraterip and trackcmp: the reference's files, lines and exit
-    codes (trackverify's stdout: the reference also reports its
-    database lookup, kept offline here, which the port does not make)"""
+    codes (trackverify's database lookup kept offline)"""
     lossy_available(name)
     (base, out) = lossy_runs
     for case in ("tag", "retag", "cover", "info", "info-n", "info-L",
@@ -732,7 +737,8 @@ def test_tracktag_and_trackinfo_on_a_lossy_type(lossy_runs, name):
     assert read(os.path.join(str(base), q_path)) == \
         read(os.path.join(str(base), q_path.replace("port/", "ref/", 1)))
     (ref, port) = out[("verify", name)]
-    assert port[:2] == (ref[0], as_port(ref[1])) and port[0] == 0
+    assert port == (ref[0], as_port(ref[1]), as_port(ref[2]))
+    assert port[0] == 0
     # Opus decodes at 48 kHz, which AccurateRip's CD sums do not take
     assert ("AccurateRip v1=" in port[1]) == (name != "opus")
     path = "port/%s/a.%s" % (name, LOSSY[name][0])

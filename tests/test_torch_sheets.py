@@ -556,9 +556,12 @@ def test_pcm_cat_and_split_round_trip():
 @pytest.mark.parametrize("flag", ["-I", "-M"])
 def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, tool,
                                             args, flag):
+    """-I is refused; -M is ported, and with -I (its choices edited
+    interactively) it is refused too"""
     monkeypatch.chdir(tmp_path)
     write_wave("a.wav", signal(1, 800, CD), CD)
-    (code, stdout, stderr) = port_tool(tool, flag, *args, "a.wav")
+    flags = ["-I"] if flag == "-I" else ["-M", "-I"]
+    (code, stdout, stderr) = port_tool(tool, *flags, *args, "a.wav")
     assert (code, stdout) == (1, "")
     assert "not ported" in stderr
     assert not os.path.exists("x.flac") and not os.path.exists("x")

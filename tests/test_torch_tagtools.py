@@ -356,6 +356,8 @@ def test_coverdump_no_images(tmp_path):
                                        ("config_tool", "-I")])
 def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, tool,
                                             flag):
+    """-I is refused; -M is ported, and with -I (its choices edited
+    interactively) it is refused too"""
     flac_file = one_flac(tmp_path)
     before = read(flac_file)
     if tool == "config_tool":
@@ -367,7 +369,8 @@ def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, tool,
             code = config_tool.main([flag, "-t", "wav"])
         (stdout, stderr) = (out.getvalue(), err.getvalue())
     else:
-        (code, stdout, stderr) = port_tool(tool, flag, flac_file)
+        flags = ["-I"] if flag == "-I" else ["-M", "-I"]
+        (code, stdout, stderr) = port_tool(tool, *flags, flac_file)
     assert (code, stdout) == (1, "")
     assert "not ported" in stderr
     assert os.listdir(str(tmp_path)) == ["t.flac"]
