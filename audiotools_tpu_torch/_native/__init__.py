@@ -1,10 +1,11 @@
 """The port's host C++ library: FLAC, ALAC, TTA, Shorten and WavPack host
 kernels, the quantized upload wire's scans (``flac_qpack``,
 ``flac_qpack_patched``, ``flac_qplan_t``), the converters' host twins,
-the Ogg page CRC, the MPEG frame walker (``verify_mpeg``) and MD5.
+the Ogg page CRC, the MPEG frame walker (``verify_mpeg``), MD5 and the
+MLP decoder of DVD-Audio titles (``MLPDecoderHandle``).
 
 ``hostkernels.cpp`` beside this file is a copy of the FLAC, ALAC, TTA,
-Shorten, WavPack, converter, CRC, MPEG and MD5 parts of the reference
+Shorten, WavPack, converter, CRC, MPEG, MD5 and MLP parts of the reference
 package's host library; the wrappers here are the reference's (``audiotools_tpu/_native``),
 for the entry points the port calls, with the port's own ``shn_header``
 and ``shn_warm_chain``.  The ``wv_*`` wrappers hold the ctypes calls that
@@ -393,6 +394,16 @@ def _bind(lib):
         _I32,               # exc_pos [B, ch, E]
         _U32,               # exc_val [B, ch, E]
     ]
+    lib.atpu_mlp_new.restype = ctypes.c_void_p
+    lib.atpu_mlp_new.argtypes = []
+    lib.atpu_mlp_free.restype = None
+    lib.atpu_mlp_free.argtypes = [ctypes.c_void_p]
+    lib.atpu_mlp_decode.restype = ctypes.c_int64
+    lib.atpu_mlp_decode.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64)]
 
     return lib
 
@@ -1259,3 +1270,65 @@ class MD5:
             _as_ptr(self._state, ctypes.c_uint8),
             _as_ptr(out, ctypes.c_uint8))
         return out.tobytes()
+
+
+_MLP_ERRORS = {
+    -1: "invalid MLP stream data",
+    -2: "parity mismatch decoding MLP substream",
+    -3: "CRC8 mismatch decoding MLP substream",
+    -4: "I/O error reading MLP stream",
+    -6: "invalid MLP major sync",
+}
+
+
+class MLPDecoderHandle:
+    """a stateful native MLP decoder context
+
+    decode(data) consumes every whole length-prefixed frame in data
+    and returns (samples int32 [n, channels] in WAVE order,
+    consumed_bytes); stream attributes appear after the first
+    major sync"""
+
+    def __init__(self):
+        self._lib = get_lib()
+        self._ctx = self._lib.atpu_mlp_new()
+        self.sample_rate = 0
+        self.channels = 0
+        self.bits_per_sample = 0
+
+    def decode(self, data):
+        buf = np.frombuffer(bytes(data), dtype=np.uint8)
+        # worst case ~2 PCM samples per stream byte at 6 channels;
+        # retry bigger on overflow
+        cap = max(len(buf) * 8, 1 << 16)
+        info = np.zeros(4, dtype=np.int64)
+        while True:
+            out = np.empty(cap, dtype=np.int32)
+            n = self._lib.atpu_mlp_decode(
+                self._ctx, _as_ptr(buf, ctypes.c_uint8), len(buf),
+                _as_ptr(out, ctypes.c_int32), cap,
+                _as_ptr(info, ctypes.c_int64))
+            if n == -5:         # output overflow: grow and retry
+                cap *= 4
+                continue
+            if n < 0:
+                raise ValueError(_MLP_ERRORS.get(
+                    int(n), "MLP decode error (code %d)" % (n,)))
+            break
+        self.sample_rate = int(info[0])
+        self.channels = int(info[1])
+        self.bits_per_sample = int(info[2])
+        consumed = int(info[3])
+        channels = max(self.channels, 1)
+        return (out[:n * channels].reshape(-1, channels), consumed)
+
+    def close(self):
+        if self._ctx is not None:
+            self._lib.atpu_mlp_free(self._ctx)
+            self._ctx = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

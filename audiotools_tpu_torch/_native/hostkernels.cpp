@@ -37,11 +37,12 @@
 //     converters' host twins (the resampler's polyphase FIR, the
 //     AccurateRip V1/V2 sums and the ReplayGain filters' IIR);
 //   * atpu_verify_mpeg: the MPEG audio frame walker (MP3 and MP2
-//     verification and frame counts).
+//     verification and frame counts);
+//   * atpu_mlp_new / atpu_mlp_free / atpu_mlp_decode: the MLP decoder
+//     context of the DVD-Audio title reader.
 // The port's own additions: atpu_shn_header (the stream header's
 // fields and leading VERBATIM bytes) and atpu_shn_warm_chain (the device decode's warm-up chain,
 // a Python loop over rows in the reference).
-// The reference's MLP kernels are not copied.
 //
 // Build: g++ -O3 -shared -fPIC (see __init__.py); loaded via ctypes.
 
@@ -6559,6 +6560,623 @@ int64_t atpu_verify_mpeg(const uint8_t* data, int64_t len,
         info[3] = first.layer;
     }
     return frames;
+}
+
+}  // extern "C"
+
+/* ====================================================================
+ * MLP (Meridian Lossless Packing) decoder
+ *
+ * Fast path mirroring the scalar oracle in ref/mlp.py; a copy of the
+ * reference package's MLP decoder (its src/decoders/mlp.c:124-1109
+ * rebuild).  Frames of 1-2 substreams; blocks carry restart
+ * headers, decoding parameters and Huffman-coded residuals which are
+ * reconstructed through FIR/IIR filters, rematrixed with seeded
+ * noise and reordered to WAVE channel order.
+ * ==================================================================== */
+
+namespace mlp {
+
+
+constexpr int MAXCH = 8;
+
+/* MLP channel index -> WAVE channel index per 5-bit assignment
+ * (reference mlp.c:169-191) */
+static const int8_t WAVE_CHANNEL[0x15][6] = {
+    {0, -1, -1, -1, -1, -1}, {0, 1, -1, -1, -1, -1},
+    {0, 1, 2, -1, -1, -1},   {0, 1, 2, 3, -1, -1},
+    {0, 1, 2, -1, -1, -1},   {0, 1, 2, 3, -1, -1},
+    {0, 1, 2, 3, 4, -1},     {0, 1, 2, -1, -1, -1},
+    {0, 1, 2, 3, -1, -1},    {0, 1, 2, 3, 4, -1},
+    {0, 1, 2, 3, -1, -1},    {0, 1, 2, 3, 4, -1},
+    {0, 1, 2, 3, 4, 5},      {0, 1, 2, 3, -1, -1},
+    {0, 1, 2, 3, 4, -1},     {0, 1, 2, 3, -1, -1},
+    {0, 1, 2, 3, 4, -1},     {0, 1, 2, 3, 4, 5},
+    {0, 1, 3, 4, 2, -1},     {0, 1, 3, 4, 2, -1},
+    {0, 1, 4, 5, 2, 3}};
+
+static const int CHANNEL_COUNT[0x15] =
+    {1, 2, 3, 4, 3, 4, 5, 3, 4, 5, 4, 5, 6, 4, 5, 4, 5, 6, 5, 5, 6};
+
+static const int BPS[3] = {16, 20, 24};
+
+static int sample_rate_of(unsigned field) {
+    switch (field) {
+    case 0: return 48000;
+    case 1: return 96000;
+    case 2: return 192000;
+    case 8: return 44100;
+    case 9: return 88200;
+    case 10: return 176400;
+    default: return 0;
+    }
+}
+
+/* MSB-first CRC-8 over polynomial x^8+x^6+x^5+x+1, init 0x3C
+ * (derived, not copied, from the reference's table) */
+struct Checkdata {
+    uint8_t parity = 0;
+    uint8_t crc = 0x3C;
+    uint8_t final_crc = 0;
+
+    static const uint8_t* table() {
+        static uint8_t t[256];
+        static bool built = false;
+        if (!built) {
+            for (int i = 0; i < 256; i++) {
+                unsigned crc = (unsigned)i;
+                for (int b = 0; b < 8; b++)
+                    crc = (crc & 0x80) ? (((crc << 1) ^ 0x63) & 0xFF)
+                                       : ((crc << 1) & 0xFF);
+                t[i] = (uint8_t)crc;
+            }
+            built = true;
+        }
+        return t;
+    }
+
+    void update(const uint8_t* data, int64_t n) {
+        const uint8_t* t = table();
+        for (int64_t i = 0; i < n; i++) {
+            parity ^= data[i];
+            final_crc = crc ^ data[i];
+            crc = t[final_crc];
+        }
+    }
+};
+
+/* algebraic form of the three Huffman codebooks (see ref/mlp.py):
+ * leading 1 -> dense values from 7; 01 0^m 1 -> top+m;
+ * 00 0^z 1 -> 6-z */
+static const int BOOK_DENSE[4] = {0, 2, 1, 0};
+static const int BOOK_TOP[4] = {0, 11, 9, 8};
+
+static inline int read_huff(BitReader& r, unsigned book) {
+    if (r.get(1)) {
+        const int dense = BOOK_DENSE[book];
+        return 7 + (dense ? (int)r.get(dense) : 0);
+    }
+    if (r.get(1)) {
+        int m = 0;
+        while (!r.get(1)) {
+            if (++m > 6 || r.error) return INT32_MIN;
+        }
+        return BOOK_TOP[book] + m;
+    }
+    int z = 0;
+    while (!r.get(1)) {
+        if (++z > 6 || r.error) return INT32_MIN;
+    }
+    return 6 - z;
+}
+
+static inline int64_t mask_q(int64_t x, unsigned q) {
+    return q ? ((x >> q) << q) : x;
+}
+
+struct Filter {
+    unsigned shift = 0;
+    int order = 0;
+    int32_t coeff[8] = {0};
+    int64_t state[8] = {0};    // state[7] is the most recent value
+
+    void push(int64_t v) {
+        for (int i = 0; i < 7; i++) state[i] = state[i + 1];
+        state[7] = v;
+    }
+    void reset_state() {
+        for (int i = 0; i < 8; i++) state[i] = 0;
+    }
+};
+
+struct Channel {
+    Filter fir, iir;
+    int huffman_offset = 0;
+    unsigned codebook = 0;
+    unsigned huffman_lsbs = 24;
+};
+
+struct Matrix {
+    unsigned out_channel = 0;
+    unsigned lsb_bypass = 0;
+    int32_t coeff[MAXCH] = {0};
+    std::vector<uint8_t> bypassed;
+};
+
+struct Substream {
+    unsigned min_channel = 0, max_channel = 0, max_matrix_channel = 0;
+    unsigned noise_shift = 0;
+    uint32_t noise_seed = 0;
+    unsigned flags[8] = {1, 1, 1, 1, 1, 1, 1, 1};
+    unsigned block_size = 8;
+    std::vector<Matrix> matrix;
+    int output_shift[MAXCH] = {0};
+    unsigned quant[MAXCH] = {0};
+    Channel channel[MAXCH];
+};
+
+struct Context {
+    bool has_sync = false;
+    unsigned assignment = 0;
+    int channels = 0;
+    int bits_per_sample = 0;
+    int sample_rate = 0;
+    unsigned substream_count = 0;
+    Substream ss[2];
+    std::vector<int64_t> chan[MAXCH];
+};
+
+enum {
+    ERR_INVALID = -1,
+    ERR_PARITY = -2,
+    ERR_CRC8 = -3,
+    ERR_IO = -4,
+    ERR_OVERFLOW = -5,
+    ERR_MAJOR_SYNC = -6,
+};
+
+static int read_restart_header(BitReader& r, Substream& ss) {
+    const unsigned sync = (unsigned)r.get(13);
+    const unsigned noise_type = (unsigned)r.get(1);
+    r.get(16);                              /* output timestamp */
+    ss.min_channel = (unsigned)r.get(4);
+    ss.max_channel = (unsigned)r.get(4);
+    ss.max_matrix_channel = (unsigned)r.get(4);
+    ss.noise_shift = (unsigned)r.get(4);
+    ss.noise_seed = (uint32_t)r.get(23);
+    r.get(19);
+    r.get(1);
+    r.get(8);
+    r.get(16);
+    if (sync != 0x18F5 || noise_type != 0) return ERR_INVALID;
+    if (ss.max_channel < ss.min_channel ||
+        ss.max_matrix_channel < ss.max_channel ||
+        ss.max_matrix_channel >= MAXCH)
+        return ERR_INVALID;
+    for (unsigned c = 0; c <= ss.max_matrix_channel; c++) {
+        if (r.get(6) > ss.max_matrix_channel) return ERR_INVALID;
+    }
+    r.get(8);                               /* checksum */
+    return r.error ? ERR_IO : 0;
+}
+
+static int read_filter(BitReader& r, Filter& f, bool is_iir) {
+    const unsigned order = (unsigned)r.get(4);
+    if (order > 8) return ERR_INVALID;
+    if (order == 0) {
+        f.shift = 0;
+        f.order = 0;
+        if (is_iir) f.reset_state();
+        return 0;
+    }
+    f.shift = (unsigned)r.get(4);
+    const unsigned coeff_bits = (unsigned)r.get(5);
+    if (coeff_bits < 1 || coeff_bits > 16) return ERR_INVALID;
+    const unsigned coeff_shift = (unsigned)r.get(3);
+    if (coeff_bits + coeff_shift > 16) return ERR_INVALID;
+    f.order = (int)order;
+    for (unsigned i = 0; i < order; i++)
+        f.coeff[i] = (int32_t)(r.get_signed(coeff_bits) << coeff_shift);
+    if (is_iir) {
+        f.reset_state();
+        if (r.get(1)) {
+            const unsigned state_bits = (unsigned)r.get(4);
+            const unsigned state_shift = (unsigned)r.get(4);
+            /* values appended then reversed: the first value read
+               lands closest to the present (state[7]) */
+            for (unsigned i = 0; i < order; i++) {
+                const int64_t v = state_bits
+                    ? (r.get_signed(state_bits) << state_shift) : 0;
+                f.state[7 - i] = v;
+            }
+        }
+    } else if (r.get(1)) {
+        return ERR_INVALID;
+    }
+    return r.error ? ERR_IO : 0;
+}
+
+static int read_matrix_params(BitReader& r, Substream& ss) {
+    const unsigned count = (unsigned)r.get(4);
+    ss.matrix.clear();
+    for (unsigned m = 0; m < count; m++) {
+        Matrix mat;
+        mat.out_channel = (unsigned)r.get(4);
+        if (mat.out_channel > ss.max_matrix_channel) return ERR_INVALID;
+        const unsigned fractional_bits = (unsigned)r.get(4);
+        if (fractional_bits > 14) return ERR_INVALID;
+        mat.lsb_bypass = (unsigned)r.get(1);
+        for (unsigned c = 0; c < ss.max_matrix_channel + 3u; c++) {
+            if (r.get(1)) {
+                const int64_t v = r.get_signed(fractional_bits + 2);
+                mat.coeff[c] = (int32_t)(v << (14 - fractional_bits));
+            } else {
+                mat.coeff[c] = 0;
+            }
+        }
+        ss.matrix.push_back(mat);
+    }
+    return r.error ? ERR_IO : 0;
+}
+
+static int read_decoding_parameters(BitReader& r, bool header_present,
+                                    Substream& ss) {
+    int err;
+    if (header_present) {
+        if (r.get(1)) {
+            for (int i = 0; i < 8; i++) ss.flags[i] = (unsigned)r.get(1);
+        } else {
+            for (int i = 0; i < 8; i++) ss.flags[i] = 1;
+        }
+    } else if (ss.flags[0] && r.get(1)) {
+        for (int i = 0; i < 8; i++) ss.flags[i] = (unsigned)r.get(1);
+    }
+
+    if (ss.flags[7] && r.get(1)) {
+        ss.block_size = (unsigned)r.get(9);
+        if (ss.block_size < 8) return ERR_INVALID;
+    } else if (header_present) {
+        ss.block_size = 8;
+    }
+
+    if (ss.flags[6] && r.get(1)) {
+        if ((err = read_matrix_params(r, ss)) != 0) return err;
+    } else if (header_present) {
+        ss.matrix.clear();
+    }
+
+    if (ss.flags[5] && r.get(1)) {
+        for (unsigned c = 0; c <= ss.max_matrix_channel; c++)
+            ss.output_shift[c] = (int)r.get_signed(4);
+    } else if (header_present) {
+        for (int c = 0; c < MAXCH; c++) ss.output_shift[c] = 0;
+    }
+
+    if (ss.flags[4] && r.get(1)) {
+        for (unsigned c = 0; c <= ss.max_channel; c++)
+            ss.quant[c] = (unsigned)r.get(4);
+    } else if (header_present) {
+        for (int c = 0; c < MAXCH; c++) ss.quant[c] = 0;
+    }
+
+    for (unsigned c = ss.min_channel; c <= ss.max_channel; c++) {
+        Channel& ch = ss.channel[c];
+        if (r.get(1)) {
+            if (ss.flags[3] && r.get(1)) {
+                if ((err = read_filter(r, ch.fir, false)) != 0)
+                    return err;
+            } else if (header_present) {
+                ch.fir.shift = 0;
+                ch.fir.order = 0;
+            }
+            if (ss.flags[2] && r.get(1)) {
+                if ((err = read_filter(r, ch.iir, true)) != 0)
+                    return err;
+            } else if (header_present) {
+                ch.iir.shift = 0;
+                ch.iir.order = 0;
+                ch.iir.reset_state();
+            }
+            if (ss.flags[1] && r.get(1)) {
+                ch.huffman_offset = (int)r.get_signed(15);
+            } else if (header_present) {
+                ch.huffman_offset = 0;
+            }
+            ch.codebook = (unsigned)r.get(2);
+            ch.huffman_lsbs = (unsigned)r.get(5);
+            if (ch.huffman_lsbs > 24) return ERR_INVALID;
+        } else if (header_present) {
+            ch.fir.shift = 0;
+            ch.fir.order = 0;
+            ch.iir.shift = 0;
+            ch.iir.order = 0;
+            ch.iir.reset_state();
+            ch.huffman_offset = 0;
+            ch.codebook = 0;
+            ch.huffman_lsbs = 24;
+        }
+    }
+    return r.error ? ERR_IO : 0;
+}
+
+static int read_block(BitReader& r, Substream& ss,
+                      std::vector<int64_t>* chan) {
+    int err;
+    if (r.get(1)) {
+        const bool header_present = r.get(1) != 0;
+        if (header_present) {
+            if ((err = read_restart_header(r, ss)) != 0) return err;
+            /* a restart resets all filter warm-up state */
+            for (int c = 0; c < MAXCH; c++) {
+                ss.channel[c].fir.reset_state();
+                ss.channel[c].iir.reset_state();
+            }
+        }
+        if ((err = read_decoding_parameters(r, header_present, ss))
+            != 0)
+            return err;
+    }
+
+    /* per-channel entropy parameters (reference mlp.c:893-918) */
+    int lsb_bits[MAXCH];
+    int64_t offsets[MAXCH];
+    for (unsigned c = ss.min_channel; c <= ss.max_channel; c++) {
+        const Channel& ch = ss.channel[c];
+        lsb_bits[c] = (int)ch.huffman_lsbs - (int)ss.quant[c];
+        if (lsb_bits[c] < 0) return ERR_INVALID;
+        if (ch.codebook) {
+            const int sign_shift = lsb_bits[c] + 2 - (int)ch.codebook;
+            offsets[c] = (int64_t)ch.huffman_offset -
+                         (7LL << lsb_bits[c]) -
+                         (sign_shift >= 0 ? (1LL << sign_shift) : 0);
+        } else {
+            const int sign_shift = lsb_bits[c] - 1;
+            offsets[c] = (int64_t)ch.huffman_offset -
+                         (sign_shift >= 0 ? (1LL << sign_shift) : 0);
+        }
+    }
+
+    /* residual decode + filtering, fused per sample per channel */
+    const unsigned n = ss.block_size;
+    std::vector<int64_t> residual[MAXCH];
+    for (unsigned c = ss.min_channel; c <= ss.max_channel; c++)
+        residual[c].resize(n);
+    for (auto& m : ss.matrix) m.bypassed.reserve(m.bypassed.size() + n);
+
+    for (unsigned i = 0; i < n; i++) {
+        for (auto& m : ss.matrix)
+            m.bypassed.push_back(
+                m.lsb_bypass ? (uint8_t)r.get(1) : 0);
+        for (unsigned c = ss.min_channel; c <= ss.max_channel; c++) {
+            const Channel& ch = ss.channel[c];
+            int msb = 0;
+            if (ch.codebook) {
+                msb = read_huff(r, ch.codebook);
+                if (msb == INT32_MIN) return ERR_INVALID;
+            }
+            const int64_t lsb =
+                lsb_bits[c] ? (int64_t)r.get(lsb_bits[c]) : 0;
+            residual[c][i] =
+                (((int64_t)msb << lsb_bits[c]) + lsb + offsets[c])
+                << ss.quant[c];
+        }
+    }
+    if (r.error) return ERR_IO;
+
+    /* FIR/IIR reconstruction (reference mlp.c:994) */
+    for (unsigned c = ss.min_channel; c <= ss.max_channel; c++) {
+        Channel& ch = ss.channel[c];
+        if (ch.fir.order + ch.iir.order > 8) return ERR_INVALID;
+        unsigned shift;
+        if (ch.fir.shift > 0 && ch.iir.shift > 0) {
+            if (ch.fir.shift != ch.iir.shift) return ERR_INVALID;
+            shift = ch.fir.shift;
+        } else if (ch.fir.order > 0) {
+            shift = ch.fir.shift;
+        } else {
+            shift = ch.iir.shift;
+        }
+        std::vector<int64_t>& out = chan[c];
+        for (unsigned i = 0; i < n; i++) {
+            int64_t acc = 0;
+            for (int j = 0; j < ch.fir.order; j++)
+                acc += (int64_t)ch.fir.coeff[j] * ch.fir.state[7 - j];
+            for (int k = 0; k < ch.iir.order; k++)
+                acc += (int64_t)ch.iir.coeff[k] * ch.iir.state[7 - k];
+            const int64_t shifted = acc >> shift;
+            const int64_t value =
+                mask_q(shifted + residual[c][i], ss.quant[c]);
+            out.push_back(value);
+            ch.fir.push(value);
+            ch.iir.push(value - shifted);
+        }
+    }
+    return 0;
+}
+
+static void rematrix(std::vector<int64_t>* chan, Substream& ss) {
+    const size_t n = chan[0].size();
+    uint32_t seed = ss.noise_seed;
+    std::vector<int64_t> noise0(n), noise1(n);
+    for (size_t i = 0; i < n; i++) {
+        const uint32_t shifted = (seed >> 7) & 0xFFFF;
+        noise0[i] = (int64_t)((int8_t)(seed >> 15)) << ss.noise_shift;
+        noise1[i] = (int64_t)((int8_t)shifted) << ss.noise_shift;
+        seed = ((seed << 16) ^ shifted ^ (shifted << 5));
+    }
+    ss.noise_seed = seed;
+
+    const unsigned mmc = ss.max_matrix_channel;
+    for (auto& m : ss.matrix) {
+        for (size_t i = 0; i < n; i++) {
+            int64_t acc = 0;
+            for (unsigned c = 0; c <= mmc; c++)
+                acc += chan[c][i] * (int64_t)m.coeff[c];
+            acc += noise0[i] * (int64_t)m.coeff[mmc + 1];
+            acc += noise1[i] * (int64_t)m.coeff[mmc + 2];
+            chan[m.out_channel][i] =
+                mask_q(acc >> 14, ss.quant[m.out_channel]) +
+                (m.bypassed.empty() ? 0 : (int64_t)m.bypassed[i]);
+        }
+    }
+}
+
+/* decodes one frame body (without the 4-byte length header);
+ * appends WAVE-ordered interleaved samples to out; returns PCM
+ * frames decoded or a negative error */
+static int64_t decode_frame(Context& ctx, const uint8_t* frame,
+                            int64_t frame_len, int32_t* out,
+                            int64_t out_cap) {
+    BitReader r(frame, frame_len);
+
+    /* major sync (reference mlp.c:415) */
+    if (frame_len >= 28 && frame[0] == 0xF8 && frame[1] == 0x72 &&
+        frame[2] == 0x6F && frame[3] == 0xBB) {
+        r.get(32);
+        const unsigned bps0 = (unsigned)r.get(4);
+        r.get(4);
+        const unsigned rate0 = (unsigned)r.get(4);
+        r.get(4);
+        r.get(11);
+        const unsigned assignment = (unsigned)r.get(5);
+        r.get(48);
+        r.get(1);
+        r.get(15);
+        const unsigned substreams = (unsigned)r.get(4);
+        /* 92 pad bits */
+        r.get(56); r.get(36);
+        if (substreams != 1 && substreams != 2) return ERR_MAJOR_SYNC;
+        if (assignment > 0x14 || bps0 > 2 ||
+            sample_rate_of(rate0) == 0)
+            return ERR_MAJOR_SYNC;
+        if (ctx.has_sync) {
+            if ((int)assignment != (int)ctx.assignment ||
+                BPS[bps0] != ctx.bits_per_sample ||
+                sample_rate_of(rate0) != ctx.sample_rate ||
+                substreams != ctx.substream_count)
+                return ERR_MAJOR_SYNC;
+        } else {
+            ctx.has_sync = true;
+            ctx.assignment = assignment;
+            ctx.bits_per_sample = BPS[bps0];
+            ctx.sample_rate = sample_rate_of(rate0);
+            ctx.channels = CHANNEL_COUNT[assignment];
+            ctx.substream_count = substreams;
+        }
+    }
+    if (!ctx.has_sync) return ERR_MAJOR_SYNC;
+
+    /* substream info blocks */
+    unsigned checkdata_present[2] = {0, 0};
+    unsigned substream_end[2] = {0, 0};
+    for (unsigned s = 0; s < ctx.substream_count; s++) {
+        const unsigned extraword = (unsigned)r.get(1);
+        r.get(1);                           /* nonrestart */
+        checkdata_present[s] = (unsigned)r.get(1);
+        r.get(1);
+        substream_end[s] = (unsigned)r.get(12) * 2;
+        if (extraword) return ERR_INVALID;
+    }
+    if (r.error) return ERR_IO;
+
+    for (int c = 0; c < MAXCH; c++) ctx.chan[c].clear();
+
+    int64_t data_start = r.byte_pos();
+    unsigned offset = 0;
+    for (unsigned s = 0; s < ctx.substream_count; s++) {
+        const unsigned end = substream_end[s];
+        if (end < offset) return ERR_INVALID;
+        unsigned length = end - offset;
+        offset = end;
+        if (data_start + length > frame_len) return ERR_IO;
+        const uint8_t* data = frame + data_start;
+        data_start += length;
+        if (checkdata_present[s]) {
+            if (length < 2) return ERR_INVALID;
+            length -= 2;
+            Checkdata check;
+            check.update(data, length);
+            const uint8_t parity = data[length];
+            const uint8_t crc8 = data[length + 1];
+            if ((uint8_t)(parity ^ check.parity) != 0xA9)
+                return ERR_PARITY;
+            if (check.final_crc != crc8) return ERR_CRC8;
+        }
+
+        Substream& ss = ctx.ss[s];
+        for (auto& m : ss.matrix) m.bypassed.clear();
+        BitReader sub(data, length);
+        for (;;) {
+            const int err = read_block(sub, ss, ctx.chan);
+            if (err != 0) return err;
+            if (sub.get(1)) break;
+            if (sub.error) return ERR_IO;
+        }
+    }
+
+    /* rematrix with the last substream's parameters, apply output
+     * shifts, reorder to WAVE order */
+    Substream& ss = ctx.ss[ctx.substream_count - 1];
+    const int64_t n = (int64_t)ctx.chan[0].size();
+    if (n > 0) rematrix(ctx.chan, ss);
+    for (unsigned c = 0; c <= ss.max_matrix_channel; c++) {
+        const int shift = ss.output_shift[c];
+        if (shift > 0) {
+            for (auto& v : ctx.chan[c]) v <<= shift;
+        } else if (shift < 0) {
+            for (auto& v : ctx.chan[c]) v >>= -shift;
+        }
+    }
+
+    if (n * ctx.channels > out_cap) return ERR_OVERFLOW;
+    const int8_t* order = WAVE_CHANNEL[ctx.assignment];
+    for (int c = 0; c < ctx.channels; c++) {
+        const int w = order[c];
+        const std::vector<int64_t>& src = ctx.chan[c];
+        for (int64_t i = 0; i < n; i++)
+            out[i * ctx.channels + w] = (int32_t)src[i];
+    }
+    return n;
+}
+
+}  // namespace mlp
+
+extern "C" {
+
+void* atpu_mlp_new(void) { return new mlp::Context(); }
+
+void atpu_mlp_free(void* ctx) {
+    delete static_cast<mlp::Context*>(ctx);
+}
+
+/* decodes every whole length-prefixed MLP frame in data;
+ * out receives WAVE-ordered interleaved int32 samples.
+ * info[0..3] = {sample_rate, channels, bits_per_sample, consumed}.
+ * returns total PCM frames decoded, or a negative error code. */
+int64_t atpu_mlp_decode(void* ctx_ptr, const uint8_t* data,
+                        int64_t data_len, int32_t* out,
+                        int64_t out_cap, int64_t* info) {
+    mlp::Context& ctx = *static_cast<mlp::Context*>(ctx_ptr);
+    int64_t pos = 0;
+    int64_t total = 0;
+    while (pos + 4 <= data_len) {
+        const unsigned total_frame_size =
+            ((unsigned)(data[pos] & 0x0F) << 8) | data[pos + 1];
+        const int64_t frame_bytes = (int64_t)total_frame_size * 2;
+        if (frame_bytes < 4 || pos + frame_bytes > data_len) break;
+        const int64_t n = mlp::decode_frame(
+            ctx, data + pos + 4, frame_bytes - 4,
+            out + total * (ctx.channels ? ctx.channels : 1),
+            out_cap - total * (ctx.channels ? ctx.channels : 1));
+        if (n < 0) return n;
+        total += n;
+        pos += frame_bytes;
+    }
+    info[0] = ctx.sample_rate;
+    info[1] = ctx.channels;
+    info[2] = ctx.bits_per_sample;
+    info[3] = pos;
+    return total;
 }
 
 }  // extern "C"

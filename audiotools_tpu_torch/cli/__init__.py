@@ -1,7 +1,8 @@
 """The port's command line: track2track, trackverify, trackcmp,
 trackinfo, tracklength, tracktag, tracklint, trackrename, coverdump,
 covertag, audiotools-config (``config_tool``), trackcat, tracksplit,
-and the disc tools cdinfo, cd2track and track2cd.
+the disc tools cdinfo, cd2track and track2cd, and the DVD-Audio tools
+dvdainfo and dvda2track.
 
 Each tool is a module with a ``main(argv)`` entry point, run as
 ``python -m audiotools_tpu_torch.cli.<tool>``, with the reference's
@@ -11,12 +12,16 @@ processes: a child forked after the parent made a CUDA context cannot
 use the card.  ``--devices`` names the torch devices they run on, the
 current card by default.  The user's configuration is read as the
 reference reads it (``utils.config``): its default type, filename
-template, qualities and job count.  Progress rows are not drawn; the
-lines a job prints when it ends are.  -M looks the album up in
-FreeDB and MusicBrainz (``services.lookup``), with the reference's
-option family (``add_lookup_arguments``).  -I (interactive editing)
-is not ported, since it needs urwid: a tool given it exits 1
-(``refuse_unported``).
+template, qualities and job count.  On a terminal, track2track,
+trackverify, trackcmp and cd2track draw a progress row a running job
+and trackcat one row (``utils.messenger``), as the reference's do: the
+workers write their progress into a slot a job and the thread that
+runs the farm draws the rows; with stdout not a terminal nothing is
+drawn, and each tool prints the lines a job prints when it ends.  -M
+looks the album up in FreeDB and MusicBrainz (``services.lookup``),
+with the reference's option family (``add_lookup_arguments``).  -I
+(interactive editing) is not ported, since it needs urwid: a tool given
+it exits 1 (``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ except (ImportError, AttributeError, ValueError):
 
 class Messenger:
     """output to stdout, info, warnings and errors to stderr, as the
-    reference's ``utils.messenger.Messenger`` writes them"""
+    reference's ``utils.messenger.Messenger`` writes them, and the ANSI
+    helpers that ``utils.messenger``'s progress rows draw with"""
 
     def __init__(self, options=None):
         self.verbosity = getattr(options, "verbosity", None) or "normal"
@@ -57,6 +63,29 @@ class Messenger:
 
     def error(self, s):
         sys.stderr.write("*** Error: %s%s" % (s, os.linesep))
+
+    def ansi_clearline(self):
+        if sys.stdout.isatty():
+            sys.stdout.write("\r\x1b[0K")
+            sys.stdout.flush()
+
+    def ansi_uplines(self, lines):
+        if sys.stdout.isatty():
+            sys.stdout.write("\x1b[%dA" % (lines,))
+
+    def ansi_cleardown(self):
+        if sys.stdout.isatty():
+            sys.stdout.write("\x1b[0J")
+
+    def terminal_size(self, fd=None):
+        """the terminal's size as (height, width), (25, 80) when stdout
+        is not one"""
+        try:
+            size = os.get_terminal_size(
+                fd if fd is not None else sys.stdout.fileno())
+            return (size.lines, size.columns)
+        except (OSError, ValueError):
+            return (25, 80)
 
 
 def audiofile_type(messenger, type_name):

@@ -11,8 +11,9 @@ first.  -M looks the disc up in MusicBrainz and FreeDB
 (``services.lookup.metadata_lookup``) and takes the first choice (-D
 the default one, track numbers alone), which names and tags the files;
 ``--album-number`` and ``--album-total`` go into every track's tags;
-``--replay-gain`` then analyses the rips as one album on the card.  -I
-exits 1 (``refuse_unported``).
+``--replay-gain`` then analyses the rips as one album on the card.  On a
+terminal each track being ripped has a progress row.  -I exits 1
+(``refuse_unported``).
 
     python -m audiotools_tpu_torch.cli.cd2track -c disc.cue -t flac -q 8 \\
         -d rips
@@ -36,13 +37,18 @@ Rip = collections.namedtuple(
     "metadata")
 
 
-def rip_track(job, device):
+def rip_track(job, device, progress=None):
     """rips one track on ``device`` (the reference's ``_rip_track``) and
-    returns its file's path"""
+    returns its file's path; ``progress(current, total)`` after each
+    read of the track"""
     from ..cdio import CDDA, CDTrackReader
+    from ..pcm import PCMReaderProgress
     cdda = CDDA(job.cdrom)
     try:
         reader = CDTrackReader(cdda.cdda, job.number, job.sample_offset)
+        if progress is not None:
+            reader = PCMReaderProgress(reader, reader.__total_frames__,
+                                       progress)
         track = job.dest_class.from_pcm(job.dest_path, reader,
                                         compression=job.compression,
                                         device=device)
@@ -93,6 +99,7 @@ def main(argv=None):
     from ..dispatch import TYPE_MAP
     from ..parallel.farm import run_jobs
     from ..services.lookup import metadata_lookup
+    from ..utils.messenger import ProgressDisplay
 
     if refuse_unported(msg, options):
         return 1
@@ -162,12 +169,18 @@ def main(argv=None):
                         quality, track_metadata))
     cdda.close()
 
+    display = ProgressDisplay(msg)
+
     def done(index, _path, error):
         if error is None:
-            msg.output(text.LAB_RIPPED_TRACK % {"track": jobs[index].number})
+            display.output_line(text.LAB_RIPPED_TRACK %
+                                {"track": jobs[index].number})
 
     outcomes = run_jobs(jobs, rip_track, workers=options.max_processes,
-                        devices=devices, done=done, stop_on_error=True)
+                        devices=devices, done=done, stop_on_error=True,
+                        display=display,
+                        label=lambda job: text.LAB_TRACK_PROGRESS %
+                        {"track": job.number})
     errors = [error for (_path, error) in outcomes if error is not None]
     if errors:
         msg.error(str(errors[0]))

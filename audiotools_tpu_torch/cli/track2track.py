@@ -12,7 +12,9 @@ target takes them, on its worker's device, then writes the source's tags into
 the new file.  -M takes the files as one CD and looks it up in
 MusicBrainz and FreeDB (``services.lookup.track_metadata_lookup``):
 the first choice (-D the default one) fills the fields the files'
-tags leave blank.  -I (interactive editing) exits 1.
+tags leave blank.  On a terminal each running job has a progress row
+(``utils.messenger.ProgressDisplay``), the destination its label.  -I
+(interactive editing) exits 1.
 
     python -m audiotools_tpu_torch.cli.track2track -t flac -q 8 -d out in.wav
 """
@@ -36,18 +38,20 @@ Conversion = collections.namedtuple(
     "sample_rate channels bits_per_sample")
 
 
-def convert(job, device):
+def convert(job, device, progress=None):
     """converts one track on ``device`` (the reference's ``convert``),
-    writes the source's tags into it and returns the new file"""
+    writes the source's tags into it and returns the new file;
+    ``progress(current, total)`` after each read of the source"""
     from .. import dispatch
-    from ..pcm import PCMConverter
+    from ..pcm import PCMConverter, to_pcm_progress
     source = dispatch.open(job.source, device=device)
     if (job.sample_rate is None and job.channels is None and
             job.bits_per_sample is None):
         dest = source.convert(job.dest_path, job.dest_class,
-                              job.compression, device=device)
+                              job.compression, progress=progress,
+                              device=device)
     else:
-        pcmreader = source.to_pcm()
+        pcmreader = to_pcm_progress(source, progress)
         pcmreader = PCMConverter(
             pcmreader, job.sample_rate or pcmreader.sample_rate,
             job.channels or pcmreader.channels,
@@ -97,6 +101,7 @@ def main(argv=None):
     from ..audiofile import (FILENAME_FORMAT, AudioFile,
                              InvalidFilenameFormat, UnsupportedTracknameField)
     from ..parallel.farm import run_jobs
+    from ..utils.messenger import ProgressDisplay
 
     if refuse_unported(msg, options):
         return 1
@@ -191,14 +196,17 @@ def main(argv=None):
             return 1
         jobs.append(job(track, destination, metadata))
 
+    display = ProgressDisplay(msg)
+
     def done(index, _dest, error):
         if error is None:
-            msg.output(text.LAB_T2T_CONVERTED %
-                       {"source": jobs[index].source,
-                        "destination": jobs[index].dest_path})
+            display.output_line(text.LAB_T2T_CONVERTED %
+                                {"source": jobs[index].source,
+                                 "destination": jobs[index].dest_path})
 
     outcomes = run_jobs(jobs, convert, workers=options.max_processes,
-                        devices=devices, done=done, stop_on_error=True)
+                        devices=devices, done=done, stop_on_error=True,
+                        display=display, label=lambda job: job.dest_path)
     errors = [error for (_dest, error) in outcomes if error is not None]
     if errors:
         msg.error(str(errors[0]))

@@ -9,7 +9,9 @@ class holds one (FLAC's CUESHEET block).  -M takes the sources as one
 CD, looks it up in MusicBrainz and FreeDB
 (``services.lookup.track_metadata_lookup``) and tags the new file with
 the first choice's album, artist and year and its track count (-D the
-default choice's).  -I exits 1 (``refuse_unported``).
+default choice's).  On a terminal one progress row is drawn while it
+encodes (``utils.messenger.SingleProgressDisplay``).  -I exits 1
+(``refuse_unported``).
 
     python -m audiotools_tpu_torch.cli.trackcat -t flac --cue album.cue \\
         -o album.flac track*.flac
@@ -46,7 +48,8 @@ def main(argv=None):
 
     from ..audiofile import SheetException, read_sheet
     from ..dispatch import open_files
-    from ..pcm import PCMCat
+    from ..pcm import PCMCat, PCMReaderProgress
+    from ..utils.messenger import SingleProgressDisplay
 
     if refuse_unported(msg, options):
         return 1
@@ -71,11 +74,14 @@ def main(argv=None):
     if output_class is None:
         return 1
 
+    total_frames = sum(f.total_frames() for f in audiofiles)
+    progress = SingleProgressDisplay(msg, options.output)
     try:
         encoded = output_class.from_pcm(
-            options.output, PCMCat([f.to_pcm() for f in audiofiles]),
-            options.quality or None,
-            total_pcm_frames=sum(f.total_frames() for f in audiofiles),
+            options.output, PCMReaderProgress(
+                PCMCat([f.to_pcm() for f in audiofiles]), total_frames,
+                progress.update),
+            options.quality or None, total_pcm_frames=total_frames,
             device=device)
     except Exception as err:  # noqa: BLE001 - reported as the reference does
         msg.error(str(err))

@@ -3,7 +3,8 @@
 The port of the reference's ``audiotools_tpu/cli/trackcmp.py``: each
 pair decoded on the job's device and compared frame by frame
 (``pcm.pcm_frame_cmp``), a line a pair naming the first frame that
-differs, a summary, and exit 1 if any pair differs.
+differs, a summary, and exit 1 if any pair differs.  On a terminal each
+running pair has a progress row.
 
     python -m audiotools_tpu_torch.cli.trackcmp in.wav out/in.flac
 """
@@ -18,18 +19,21 @@ from . import Messenger, add_common_arguments, add_job_arguments, \
     job_devices, text
 
 
-def compare(filename1, filename2, device):
+def compare(filename1, filename2, device, progress=None):
     """(filename1, filename2, the first mismatching frame, None or an
-    error's text)"""
+    error's text); ``progress(current, total)`` after each read of the
+    first file"""
     from .. import dispatch
     from ..audiofile import InvalidFile, UnsupportedFile
-    from ..pcm import pcm_frame_cmp
+    from ..pcm import PCMReaderProgress, pcm_frame_cmp
     try:
         track1 = dispatch.open(filename1, device=device)
         track2 = dispatch.open(filename2, device=device)
     except (IOError, UnsupportedFile, InvalidFile) as err:
         return (filename1, filename2, str(err))
     reader1 = track1.to_pcm()
+    if progress is not None:
+        reader1 = PCMReaderProgress(reader1, track1.total_frames(), progress)
     try:
         reader2 = track2.to_pcm()
         try:
@@ -65,6 +69,7 @@ def main(argv=None):
     msg = Messenger(options)
 
     from ..parallel.farm import run_jobs
+    from ..utils.messenger import ProgressDisplay
 
     paths = options.filenames
     pairs = []
@@ -88,15 +93,18 @@ def main(argv=None):
         msg.error(str(err))
         return 1
 
-    def run(pair, device):
-        return compare(pair[0], pair[1], device)
+    def run(pair, device, progress):
+        return compare(pair[0], pair[1], device, progress)
+
+    display = ProgressDisplay(msg)
 
     def done(_index, result, error):
         if error is None:
-            msg.output(report(result))
+            display.output_line(report(result))
 
     outcomes = run_jobs(pairs, run, workers=options.max_processes,
-                        devices=devices, done=done, stop_on_error=True)
+                        devices=devices, done=done, stop_on_error=True,
+                        display=display, label=lambda pair: "%s <> %s" % pair)
     errors = [error for (_result, error) in outcomes if error is not None]
     if errors:
         msg.error(str(errors[0]))

@@ -11,7 +11,8 @@ in track order and looked up in the AccurateRip database
 by its place among them as the reference numbers it, says whether its
 sums match an entry (with the entry's confidence), match none, or find
 none.  ``--cue`` then checks that a cue or TOC sheet's track lengths
-fit the first file (exit 1 with an error line when they do not).
+fit the first file (exit 1 with an error line when they do not).  On a
+terminal each running job has a progress row, the file its label.
 
     python -m audiotools_tpu_torch.cli.trackverify out/*.flac
 """
@@ -25,8 +26,9 @@ from . import (Messenger, add_common_arguments, add_job_arguments,
                job_devices, output_table, text)
 
 
-def verify(filename, accuraterip, device):
-    """(filename, "OK" or the error, (v1, v2) or None) of one file"""
+def verify(filename, accuraterip, device, progress=None):
+    """(filename, "OK" or the error, (v1, v2) or None) of one file;
+    ``progress(current, total)`` after each read of the decode"""
     from .. import dispatch
     from ..accuraterip_checksum import AccurateRipCRC
     from ..audiofile import InvalidFile, UnsupportedFile
@@ -40,7 +42,8 @@ def verify(filename, accuraterip, device):
         crc = AccurateRipCRC(False, False, 44100, track.total_frames(),
                              device=device)
     try:
-        track.verify(sink=None if crc is None else crc.update_array)
+        track.verify(progress,
+                     sink=None if crc is None else crc.update_array)
         result = "OK"
     except InvalidFile as err:
         result = str(err)
@@ -138,6 +141,7 @@ def main(argv=None):
     msg = Messenger(options)
 
     from ..parallel.farm import run_jobs
+    from ..utils.messenger import ProgressDisplay
 
     try:
         devices = job_devices(options.devices)
@@ -162,15 +166,18 @@ def main(argv=None):
                 kept.append(filename)
         filenames = kept
 
-    def run(filename, device):
-        return verify(filename, options.accuraterip, device)
+    def run(filename, device, progress):
+        return verify(filename, options.accuraterip, device, progress)
+
+    display = ProgressDisplay(msg)
 
     def done(_index, result, error):
         if error is None:
-            msg.output(report(result))
+            display.output_line(report(result))
 
     outcomes = run_jobs(filenames, run, workers=options.max_processes,
-                        devices=devices, done=done, stop_on_error=True)
+                        devices=devices, done=done, stop_on_error=True,
+                        display=display)
     errors = [error for (_result, error) in outcomes if error is not None]
     if errors:
         msg.error(str(errors[0]))

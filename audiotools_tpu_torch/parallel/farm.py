@@ -17,7 +17,10 @@ it runs every job inside ``torch.cuda.device(d)`` and
 ``torch.cuda.stream(s)``, where ``s`` is a stream the worker made for
 itself, so two workers never queue behind one another on the default
 stream.  The device reaches ``dispatch.open``, the destination's
-``from_pcm`` and the decode as their ``device`` argument.
+``from_pcm`` and the decode as their ``device`` argument.  The thread
+that calls ``run_jobs`` reports each job's end and, given a progress
+display, draws a row a running job from the (current, total) slot its
+worker writes: only that thread writes to the terminal.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from .._device import resolve_devices
 # phase 20's rates and peak card memory at 1, 2, 4 and 6 workers on
 # one card (PERF.md)
 DEFAULT_WORKERS = 2
+# seconds between redraws of the progress rows while jobs run
+POLL_S = 0.1
 
 
 class FarmJob:
@@ -96,7 +101,7 @@ def _run_job(job, device):
 
 
 def run_jobs(jobs, run, workers=None, devices=None, done=None,
-             stop_on_error=False):
+             stop_on_error=False, display=None, label=str):
     """runs ``run(job, device)`` for each job in a pool of worker
     threads; returns a (result, error) pair for each job, in job order
 
@@ -105,11 +110,19 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
     absent, or an index past the cards there are, raises), inside a CUDA
     stream of its own on a card.  A job that raises has its exception
     as its error, and its partial output, ``job.dest_path`` when it has
-    one, is removed.  ``done(index, result, error)`` is called under a
-    lock as each job ends, from the worker threads.  With
+    one, is removed.  ``done(index, result, error)`` is called as each
+    job ends, in the thread that called run_jobs.  With
     ``stop_on_error`` no job starts after one has failed; those never
     run have (None, None).  workers: DEFAULT_WORKERS when None, at most
-    one a job."""
+    one a job.
+
+    With ``display`` (a ``utils.messenger.ProgressDisplay``) each job
+    has a row labelled ``label(job)`` while it runs, and is run as
+    ``run(job, device, progress)``: ``progress(current, total)`` writes
+    the job's slot.  The calling thread alone adds, updates, finishes
+    and draws the rows (every POLL_S while a slot changes), finishing a
+    job's row before its ``done``, so that the terminal's sequences of
+    two threads never interleave."""
     devices = resolve_devices(devices)
     jobs = list(jobs)
     if workers is None:
@@ -120,9 +133,17 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
     work = queue_mod.Queue()
     for item in enumerate(jobs):
         work.put(item)
-    lock = threading.Lock()
+    # (index, None) as a job starts, (index, outcome) as it ends, None as
+    # a worker exits
+    events = queue_mod.Queue()
+    slots = {}
     failed = threading.Event()
     failures = []
+
+    def slot_writer(idx):
+        def progress(current, total):
+            slots[idx] = (current, total)
+        return progress
 
     def run_queue(device):
         while not (stop_on_error and failed.is_set()):
@@ -131,7 +152,12 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
             except queue_mod.Empty:
                 return
             try:
-                outcome = (run(job, device), None)
+                if display is None:
+                    outcome = (run(job, device), None)
+                else:
+                    slots[idx] = (0, 1)
+                    events.put((idx, None))
+                    outcome = (run(job, device, slot_writer(idx)), None)
             except Exception as err:  # noqa: BLE001 - reported per job
                 dest_path = getattr(job, "dest_path", None)
                 if dest_path is not None:
@@ -142,9 +168,7 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
                 outcome = (None, err)
                 failed.set()
             outcomes[idx] = outcome
-            if done is not None:
-                with lock:
-                    done(idx, *outcome)
+            events.put((idx, outcome))
 
     def worker(w):
         device = devices[w % len(devices)]
@@ -159,11 +183,41 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
                 stream.synchronize()
         except BaseException as err:  # noqa: B902 - re-raised by run_jobs
             failures.append(err)
+        finally:
+            events.put(None)
 
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
                for w in range(workers)]
     for t in threads:
         t.start()
+    rows = {}
+    drawn = {}
+    running = workers
+    while running:
+        try:
+            event = events.get(timeout=None if display is None else POLL_S)
+        except queue_mod.Empty:
+            event = ()
+        if event is None:
+            running -= 1
+        elif event:
+            (idx, outcome) = event
+            if outcome is None:
+                rows[idx] = display.add_row(label(jobs[idx]))
+            else:
+                if idx in rows:
+                    rows.pop(idx).finish()
+                    drawn.pop(idx, None)
+                if done is not None:
+                    done(idx, *outcome)
+        if rows:
+            state = {idx: slots[idx] for idx in rows}
+            if state != drawn:
+                for (idx, (current, total)) in state.items():
+                    (rows[idx].current, rows[idx].total) = (current,
+                                                            max(total, 1))
+                display.display_rows()
+                drawn = state
     for t in threads:
         t.join()
     if failures:
@@ -177,9 +231,9 @@ def transcode(jobs, workers=None, progress=None, devices=None):
 
     A failed job carries its exception in ``.error`` and its partial
     output is removed; the other jobs still run.  ``progress(done,
-    total)`` is called under a lock after each job, from the worker
-    threads.  workers and devices as in ``run_jobs``.  The encode gets
-    no frame count ahead, as the reference farm's does."""
+    total)`` is called after each job, in the calling thread.  workers
+    and devices as in ``run_jobs``.  The encode gets no frame count
+    ahead, as the reference farm's does."""
     jobs = list(jobs)
     count = [0]
 

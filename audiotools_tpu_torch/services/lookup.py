@@ -226,12 +226,28 @@ def track_metadata_lookup(audiofiles,
     ``dispatch.sorted_tracks`` order): metadata[choice][track] lists,
     the last the default choice of track numbers alone"""
     from ..dispatch import sorted_tracks as sort
+    return lengths_metadata_lookup(
+        [f.cd_frames() for f in sort(audiofiles)],
+        musicbrainz_server=musicbrainz_server,
+        musicbrainz_port=musicbrainz_port, freedb_server=freedb_server,
+        freedb_port=freedb_port, use_musicbrainz=use_musicbrainz,
+        use_freedb=use_freedb)
+
+
+def lengths_metadata_lookup(track_frames,
+                            musicbrainz_server="musicbrainz.org",
+                            musicbrainz_port=80,
+                            freedb_server="us.freedb.org",
+                            freedb_port=80,
+                            use_musicbrainz=True, use_freedb=True):
+    """the MetaData choices for a CD whose tracks are ``track_frames``
+    CD frames long, the first after the 150-frame lead-in (files taken
+    as one CD, or a DVD-Audio title's tracks): metadata[choice][track]
+    lists, the last the default choice of track numbers alone"""
     from .freedb import DiscID as FreeDBDiscID
     from .musicbrainz import DiscID as MBDiscID
 
-    audiofiles = sort(audiofiles)
-    track_count = len(audiofiles)
-    track_frames = [f.cd_frames() for f in audiofiles]
+    track_count = len(track_frames)
     offsets = [150 + sum(track_frames[0:i])
                for i in range(track_count)]
     lead_out_offset = 150 + sum(track_frames)

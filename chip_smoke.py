@@ -11,8 +11,8 @@ synthesis, WavPack encode and decode with the decorrelation passes
 on the card, the converters (ReplayGain, AccurateRip, the
 resampler), a collection of tracks through the transcode farm, and
 the command line's tools, the cue sheet and tag tools, the lossy
-types and the disc tools among them.  Its phases each print one line
-(phases 24 to 27 one a tool run too):
+types, the disc tools and the DVD-Audio tools among them.  Its phases
+each print one line (phases 24 to 28 one a tool run too):
 
 1. device: requires torch.cuda.is_available(); prints the card's name
    and power limit as nvidia-smi reports them, and its SM clock and
@@ -294,7 +294,26 @@ types and the disc tools among them.  Its phases each print one line
     ``track2track -M`` and ``tracktag -M`` over the rips.  A line a run
     with its wall, input Msamples/s and launches, counted from 0 just
     before it; rice_decode, flac_synth, wv_corr and wv_decorr must each
-    launch during the phase.
+    launch during the phase;
+28. DVD-Audio through the command line (``dvda_phase``): an AUDIO_TS
+    written on the host by ``tests/torch_dvda_helpers.py`` from a seeded
+    signal, a 24-bit 96 kHz stereo PCM title of 4 tracks and 180 s
+    (about 106 MB of AOB) and a 48 kHz 16-bit stereo MLP title of 12 s
+    synthesised by the port's ``ref.mlp.MLPEncoder`` (its synthesis time
+    on the line), the titleset's AOB split into ATS_01_1.AOB and
+    ATS_01_2.AOB at a sector boundary inside the PCM title (a real disc
+    splits at 1 GiB; the smoke splits earlier so that the reader walks
+    from one file into the next): ``dvdainfo``, ``dvda2track -t flac -q
+    8 -j 2`` of the PCM title (the sector reader's host seconds, its
+    ``__next_sector__`` and ``__audio_payload__`` summed, timed inside
+    the rip) and of the MLP title (the native MLP decode's host seconds
+    timed inside it), ``dvda2track -t wavpack -j 2`` of the PCM title,
+    each rip decoded on the card to its window of the title sample for
+    sample, the title's reader alone on the host, and ``trackverify -j
+    2`` over the FLAC and the WavPack rips.  A line a run with its wall,
+    input Msamples/s and launches, counted from 0 just before it;
+    rice_decode, flac_synth, wv_corr and wv_decorr must each launch
+    during the phase.
 
 Then it prints one JSON line describing each kernel and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
@@ -3216,6 +3235,257 @@ def disc_phase(dev, sig, lookups):
     return (out, launches)
 
 
+DVDA_PCM_S = 180
+DVDA_RATE = 96000
+DVDA_BPS = 24
+DVDA_TRACKS = 4
+DVDA_MLP_S = 12
+DVDA_MLP_RATE = 48000
+DVDA_MLP_TRACKS = 2
+DVDA_SEED = 28
+
+
+class HostClock:
+    """seconds spent in chosen methods of a class, summed over every call
+    while ``installed`` (a context manager that wraps and restores them)"""
+
+    def __init__(self, cls, names):
+        self.cls = cls
+        self.names = names
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = {name: self.cls.__dict__[name] for name in self.names}
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.seconds[name] += time.perf_counter() - t0
+                    self.calls[name] += 1
+            return wrapper
+
+        for (name, attr) in saved.items():
+            fn = attr.__func__ if isinstance(attr, staticmethod) else attr
+            wrapped = timed(name, fn)
+            setattr(self.cls, name, staticmethod(wrapped)
+                    if isinstance(attr, staticmethod) else wrapped)
+        try:
+            yield self
+        finally:
+            for (name, attr) in saved.items():
+                setattr(self.cls, name, attr)
+
+
+def dvda_track_frames(seconds, rate, tracks, step):
+    """``tracks`` equal track lengths of ``seconds`` in all, each a
+    multiple of ``step`` frames (whole PTS, whole MLP frames)"""
+    frames = int(seconds * rate / tracks) // step * step
+    return [frames] * tracks
+
+
+def dvda_phase(dev, pcm_seconds=DVDA_PCM_S, mlp_seconds=DVDA_MLP_S):
+    """phase 28: an AUDIO_TS built on the host from the tests' own
+    helpers (``tests/torch_dvda_helpers.py``: a 24-bit 96 kHz stereo PCM
+    title of DVDA_TRACKS tracks, ``pcm_seconds`` long, and a 48 kHz 16-bit
+    stereo MLP title synthesised by the port's ``ref.mlp.MLPEncoder``,
+    ``mlp_seconds`` long), its AOB split into two files at a sector
+    boundary inside the PCM title; then ``dvdainfo``, ``dvda2track -t
+    flac -q 8 -j 2`` of both titles and ``-t wavpack`` of the PCM title on
+    ``dev``, and ``trackverify -j 2`` over the rips; every rip decoded
+    on ``dev`` to its window of the title.  Returns its line's fields and
+    each kernel's launches over the phase, counted from 0 just before each
+    run and read just after it.  On a CPU ``dev`` (a rehearsal, with a
+    short ``pcm_seconds``) no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import _native, dispatch, dvda
+    from audiotools_tpu_torch._device import resolve_device
+    from audiotools_tpu_torch.pcm import read_all
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dvda_helpers as helpers
+    dev = resolve_device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    pcm_frames = dvda_track_frames(pcm_seconds, DVDA_RATE, DVDA_TRACKS, 16)
+    mlp_frames = dvda_track_frames(mlp_seconds, DVDA_MLP_RATE,
+                                   DVDA_MLP_TRACKS, 160)
+    out = dict(pcm=dict(seconds_of_audio=sum(pcm_frames) / DVDA_RATE,
+                        rate=DVDA_RATE, bits=DVDA_BPS, tracks=DVDA_TRACKS),
+               mlp=dict(seconds_of_audio=sum(mlp_frames) / DVDA_MLP_RATE,
+                        rate=DVDA_MLP_RATE, bits=16,
+                        tracks=DVDA_MLP_TRACKS), runs={})
+    t_phase = time.perf_counter()
+
+    def tool(label, name, args, samples):
+        """a tool run on ``dev`` with the launches counted from 0 just
+        before it and read just after it, and its line; returns (stdout
+        lines, stderr lines, wall seconds)"""
+        for kernel in counters.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        (code, lines, errors) = run_cli_both(
+            name, args + (["--devices", str(dev)] if name != "dvdainfo"
+                          else []))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        run = {k: kernel.launches for (k, kernel) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        if code != 0:
+            raise AssertionError("%s %s exited %r: %s %s"
+                                 % (name, label, code, lines[:6],
+                                    errors[:6]))
+        fields = dict(tool=name, wall_s=wall,
+                      input_Msamples_per_s=samples / wall / 1e6,
+                      launches=run)
+        line("dvda_" + label, **fields)
+        out["runs"][label] = fields
+        return (lines, errors, wall)
+
+    def check_rips(directory, windows, label):
+        names = sorted(os.listdir(directory))
+        if len(names) != len(windows):
+            raise AssertionError("%s: %s" % (label, names))
+        paths = [os.path.join(directory, n) for n in names]
+        for (path, window) in zip(paths, windows):
+            got = read_all(dispatch.open(path, device=dev).to_pcm())
+            if not np.array_equal(got, window):
+                raise AssertionError("%s does not decode to its window of "
+                                     "the title" % (path,))
+        return paths
+
+    with tempfile.TemporaryDirectory(prefix="dvda-") as work:
+        t0 = time.perf_counter()
+        pcm_sig = helpers.signal(sum(pcm_frames), 2, DVDA_BPS,
+                                 seed=DVDA_SEED)
+        pcm_sectors = helpers.pcm_sectors(pcm_sig, DVDA_BPS, DVDA_RATE)
+        out["pcm"]["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mlp_sig = helpers.signal(sum(mlp_frames), 2, 16, seed=DVDA_SEED + 1)
+        stream = helpers.mlp_stream(mlp_sig, 16, DVDA_MLP_RATE)
+        out["mlp"]["synthesis_s"] = time.perf_counter() - t0
+        mlp_sectors = helpers.mlp_sectors(stream)
+        # a real disc splits its AOBs at 1 GiB; the smoke splits inside
+        # the PCM title so that the reader walks from one file to the next
+        split = -(-(len(pcm_sectors) + len(mlp_sectors)) // helpers.SECTOR
+                  // 2)
+        audio_ts = helpers.write_audio_ts(
+            work, [[(pcm_sectors, pcm_frames, DVDA_RATE),
+                    (mlp_sectors, mlp_frames, DVDA_MLP_RATE)]],
+            aob_sectors=split)
+        del pcm_sectors, mlp_sectors
+        aobs = sorted(n for n in os.listdir(audio_ts) if n.endswith(".AOB"))
+        out["aob_files"] = {n: os.path.getsize(os.path.join(audio_ts, n))
+                            for n in aobs}
+        if aobs != ["ATS_01_1.AOB", "ATS_01_2.AOB"]:
+            raise AssertionError("the AOBs: %s" % (aobs,))
+        title = dvda.DVDAudio(audio_ts)[0][0]
+        spans = [list(t.sectors()) for t in title.tracks]
+        out["pcm"]["sectors"] = title.tracks[-1].last_sector + 1
+        if len({p for span in spans for (p, _a, _b) in span}) < 2:
+            raise AssertionError("the PCM title lies in one AOB: %s"
+                                 % (spans,))
+        pcm_starts = np.cumsum([0] + pcm_frames)
+        mlp_starts = np.cumsum([0] + mlp_frames)
+        pcm_windows = [pcm_sig[a:b] for (a, b) in zip(pcm_starts,
+                                                       pcm_starts[1:])]
+        mlp_windows = [mlp_sig[a:b] for (a, b) in zip(mlp_starts,
+                                                       mlp_starts[1:])]
+
+        # 1. dvdainfo
+        (lines, _errors, _wall) = tool("dvdainfo", "dvdainfo",
+                                       ["-A", audio_ts], 0)
+        seconds = sum(pcm_frames) // DVDA_RATE
+        want = ["Titleset 1:",
+                "  Title 1: %d track(s), %d:%2.2d, %dHz 2ch %d-bit PCM"
+                % (DVDA_TRACKS, seconds // 60, seconds % 60, DVDA_RATE,
+                   DVDA_BPS)]
+        if (lines[:2] != want or
+                "%dHz 2ch 16-bit MLP" % (DVDA_MLP_RATE,) not in
+                lines[2 + DVDA_TRACKS]):
+            raise AssertionError("dvdainfo printed %s" % (lines,))
+
+        # 2. the PCM title to FLAC -8, the sector reader timed inside it
+        flac_dir = os.path.join(work, "flac")
+        reader_clock = HostClock(dvda.DVDATitleReader,
+                                 ("__next_sector__", "__audio_payload__",
+                                  "read"))
+        with reader_clock.installed():
+            (_lines, errors, wall) = tool(
+                "flac8", "dvda2track", ["-A", audio_ts, "-t", "flac", "-q",
+                                        "8", "-j", "2", "-d", flac_dir],
+                pcm_sig.size)
+        if errors != ["extracted track %d" % (k,)
+                      for k in range(1, DVDA_TRACKS + 1)]:
+            raise AssertionError("dvda2track printed %s" % (errors,))
+        out["pcm"]["sector_reader_s"] = (
+            reader_clock.seconds["__next_sector__"] +
+            reader_clock.seconds["__audio_payload__"])
+        out["pcm"]["reader_read_s"] = reader_clock.seconds["read"]
+        out["pcm"]["sector_reads"] = reader_clock.calls["__next_sector__"]
+        out["pcm"]["sector_reader_share_of_rip"] = (
+            out["pcm"]["sector_reader_s"] / wall)
+        flac_rips = check_rips(flac_dir, pcm_windows, "flac8")
+
+        # the title's reader alone, on the host
+        t0 = time.perf_counter()
+        reader = dvda.DVDAudio(audio_ts)[0][0].to_pcm()
+        while reader.read(1 << 18).frames:
+            pass
+        reader.close()
+        out["pcm"]["reader_alone_s"] = time.perf_counter() - t0
+
+        # 3. the MLP title to FLAC -8, its host decode timed inside it
+        mlp_dir = os.path.join(work, "mlp")
+        decode_clock = HostClock(_native.MLPDecoderHandle, ("decode",))
+        mlp_reader_clock = HostClock(dvda.DVDATitleReader,
+                                     ("__next_sector__",
+                                      "__audio_payload__"))
+        with decode_clock.installed(), mlp_reader_clock.installed():
+            (_lines, _errors, wall) = tool(
+                "mlp_flac8", "dvda2track", ["-A", audio_ts, "--title", "2",
+                                            "-t", "flac", "-q", "8", "-j",
+                                            "2", "-d", mlp_dir],
+                mlp_sig.size)
+        out["mlp"]["decode_s"] = decode_clock.seconds["decode"]
+        out["mlp"]["decode_calls"] = decode_clock.calls["decode"]
+        out["mlp"]["decode_Msamples_per_s"] = (
+            mlp_sig.size / max(decode_clock.seconds["decode"], 1e-9) / 1e6)
+        out["mlp"]["sector_reader_s"] = (
+            mlp_reader_clock.seconds["__next_sector__"] +
+            mlp_reader_clock.seconds["__audio_payload__"])
+        mlp_rips = check_rips(mlp_dir, mlp_windows, "mlp_flac8")
+
+        # 4. the PCM title to WavPack
+        wv_dir = os.path.join(work, "wavpack")
+        tool("wavpack", "dvda2track", ["-A", audio_ts, "-t", "wavpack", "-j",
+                                       "2", "-d", wv_dir], pcm_sig.size)
+        wv_rips = check_rips(wv_dir, pcm_windows, "wavpack")
+
+        # 5. trackverify over the rips
+        for (label, paths, samples) in (
+                ("trackverify_flac", flac_rips + mlp_rips,
+                 pcm_sig.size + mlp_sig.size),
+                ("trackverify_wavpack", wv_rips, pcm_sig.size)):
+            (lines, _errors, _wall) = tool(label, "trackverify",
+                                           ["-j", "2"] + paths, samples)
+            if sorted(lines[:len(paths)]) != sorted("%s : OK" % (p,)
+                                                    for p in paths):
+                raise AssertionError("%s: %s" % (label, lines))
+    idle = [k for k in ("rice_decode", "flac_synth", "wv_corr", "wv_decorr")
+            if launches[k] <= 0]
+    if on_cuda and idle:
+        raise AssertionError("phase 28 never launched %s" % (idle,))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4052,6 +4322,10 @@ def main():
     # ---- 27. the disc tools and the lookups ------------------------------
     (fields, disc_launches) = disc_phase(dev, sig, lookups)
     line("disc", nvidia_smi=smi, **fields)
+
+    # ---- 28. DVD-Audio through the tools -----------------------------------
+    (fields, dvda_launches) = dvda_phase(dev)
+    line("dvda", nvidia_smi=smi, **fields)
     lookups.remove()
 
     forbidden = loaded_forbidden_modules()
@@ -4087,7 +4361,8 @@ def main():
             sheets_launches=sheets_launches[kname],
             containers_launches=containers_launches[kname],
             lossy_launches=lossy_launches[kname],
-            disc_launches=disc_launches[kname], **row))
+            disc_launches=disc_launches[kname],
+            dvda_launches=dvda_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

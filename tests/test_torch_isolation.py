@@ -237,3 +237,60 @@ def test_oracle_copy_matches_the_reference(monkeypatch, qpack, bps, ch):
     info = (4096, 4096, 14, 9000, 44100, ch, bps, 123456789, bytes(16))
     assert oracle.build_streaminfo(*info) == ref_oracle.build_streaminfo(
         *info)
+
+
+def test_dvda_slice_loads_nothing_of_the_reference():
+    """a fresh interpreter writes a small AUDIO_TS (a 24-bit PCM title
+    and an MLP title), runs dvdainfo and dvda2track on the CPU, decodes
+    the MLP title with the host decoder and the oracle, descrambles a
+    CPPM pack and draws progress rows on a stand-in terminal, and holds
+    no module of jax or of the reference"""
+    code = (
+        "import io, os, sys, tempfile\n"
+        "import numpy as np\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dvda_helpers as dh\n"
+        "from audiotools_tpu_torch import cppm, dvda, pcm\n"
+        "from audiotools_tpu_torch.cli import dvda2track, dvdainfo\n"
+        "from audiotools_tpu_torch.cli import Messenger\n"
+        "from audiotools_tpu_torch.utils import messenger\n"
+        "work = tempfile.mkdtemp()\n"
+        "a = dh.signal(3200, 2, 24)\n"
+        "m = dh.signal(1600, 2, 16, seed=9)\n"
+        "path = dh.write_audio_ts(work, [[(dh.pcm_sectors(a, 24, 96000), "
+        "[1600, 1600], 96000), (dh.mlp_sectors(dh.mlp_stream(m)), [1600], "
+        "48000)]], aob_sectors=3)\n"
+        "assert dvdainfo.main(['-A', path, '-V', 'silent']) == 0\n"
+        "out = os.path.join(work, 'out')\n"
+        "assert dvda2track.main(['-A', path, '-t', 'wav', '-d', out, "
+        "'--devices', 'cpu', '-V', 'silent']) == 0\n"
+        "assert len(os.listdir(out)) == 2\n"
+        "for oracle in ('0', '1'):\n"
+        "    os.environ['ATPU_MLP_ORACLE'] = oracle\n"
+        "    title = dvda.DVDAudio(path)[0][1]\n"
+        "    assert np.array_equal(pcm.read_all(title.to_pcm()), m)\n"
+        "cipher = dh.synthetic_cipher()\n"
+        "decoder = cppm.CPPMDecoder(5, 7, cipher)\n"
+        "pack = bytes(2048)\n"
+        "assert decoder.decrypt_block(pack)[0] == pack\n"
+        "class Tty(io.StringIO):\n"
+        "    def isatty(self):\n"
+        "        return True\n"
+        "sys.stdout = Tty()\n"
+        "display = messenger.ProgressDisplay(Messenger())\n"
+        "row = display.add_row('x')\n"
+        "row.update(1, 2)\n"
+        "row.finish()\n"
+        "drawn = sys.stdout.getvalue()\n"
+        "sys.stdout = sys.__stdout__\n"
+        "assert ' 50% x' in drawn\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'audiotools_tpu' or "
+        "m.startswith('audiotools_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
