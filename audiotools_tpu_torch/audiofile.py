@@ -11,8 +11,9 @@ ReplayGain hooks with the reference's base behaviour),
 carried through the target's ``from_wave`` or ``from_aiff``), the CD
 layout of a cue or TOC sheet (``Sheet``,
 ``SheetTrack``, ``SheetIndex``, ``read_sheet``, ``parse_timestamp``,
-``build_timestamp``), and the exceptions the reference keeps in its
-package root.  The tag formats are in ``meta/``, the sheet formats in
+``build_timestamp``), ``AlbumMetaData``, ``DummyAudioFile``, and the
+exceptions the reference keeps in its package root, which the package
+root exports as they are.  The tag formats are in ``meta/``, the sheet formats in
 ``sheets/``, and the format classes in ``formats/``.
 """
 
@@ -37,6 +38,41 @@ class UnsupportedFile(Exception):
 
 class EncodingError(IOError):
     """an audio file that cannot be created from a PCMReader"""
+
+    def __init__(self, error_message):
+        IOError.__init__(self, error_message)
+        self.error_message = error_message
+
+
+class UnsupportedBitsPerSample(EncodingError):
+    """an audio file that cannot be created at the given bits per sample"""
+
+    def __init__(self, filename, bits_per_sample):
+        EncodingError.__init__(
+            self, "unsupported bits per sample: %d" % (bits_per_sample,))
+        self.bits_per_sample = bits_per_sample
+
+
+class UnsupportedChannelCount(EncodingError):
+    """an audio file that cannot be created with the given channel count"""
+
+    def __init__(self, filename, channel_count):
+        EncodingError.__init__(
+            self, "unsupported channel count: %d" % (channel_count,))
+        self.channel_count = channel_count
+
+
+class UnsupportedChannelMask(EncodingError):
+    """an audio file that cannot be created with the given channel mask"""
+
+    def __init__(self, filename, mask):
+        EncodingError.__init__(
+            self, "unsupported channel mask: %d" % (int(mask),))
+        self.mask = mask
+
+
+class DecodingError(IOError):
+    """a decoder's to_pcm() that fails"""
 
     def __init__(self, error_message):
         IOError.__init__(self, error_message)
@@ -168,6 +204,11 @@ class MetaData:
             except KeyError:
                 raise AttributeError(field)
 
+    def fields(self):
+        """(attr, value) for each of the 18 fields"""
+        for attr in self.FIELDS:
+            yield (attr, getattr(self, attr))
+
     def raw_info(self):
         """a string of the format's own items"""
         raise NotImplementedError()
@@ -281,6 +322,22 @@ class Image:
 
     def __ne__(self, image):
         return not self.__eq__(image)
+
+
+class AlbumMetaData(dict):
+    """several tracks' MetaData, keyed by track number"""
+
+    def __init__(self, metadata_iter):
+        dict.__init__(self, {m.track_number: m for m in metadata_iter})
+
+    def metadata(self):
+        """one MetaData of the fields every track agrees on"""
+        values = {}
+        for field in MetaData.FIELDS:
+            items = {getattr(track, field) for track in self.values()}
+            if len(items) == 1:
+                values[field] = items.pop()
+        return MetaData(**values)
 
 
 class ReplayGain:
@@ -565,6 +622,28 @@ class AiffContainer(AudioFile):
                 compression, device=self.device if device is None else device)
         return super().convert(target_path, target_class, compression,
                                progress, device)
+
+
+class DummyAudioFile(AudioFile):
+    """a placeholder AudioFile of ``length`` CD sectors and the given
+    metadata, for a disc known only by its layout"""
+
+    def __init__(self, length, metadata):
+        self.__length__ = length
+        self.__metadata__ = metadata
+        AudioFile.__init__(self, "")
+
+    def get_metadata(self):
+        return self.__metadata__
+
+    def cd_frames(self):
+        return self.__length__
+
+    def sample_rate(self):
+        return 44100
+
+    def total_frames(self):
+        return (self.cd_frames() * self.sample_rate()) // 75
 
 
 class SheetException(ValueError):

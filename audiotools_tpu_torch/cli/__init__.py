@@ -2,7 +2,8 @@
 trackinfo, tracklength, tracktag, tracklint, trackrename, coverdump,
 covertag, audiotools-config (``config_tool``), trackcat, tracksplit,
 the disc tools cdinfo, cd2track and track2cd, and the DVD-Audio tools
-dvdainfo and dvda2track.
+dvdainfo and dvda2track, the players trackplay and cdplay, and
+coverview.
 
 Each tool is a module with a ``main(argv)`` entry point, run as
 ``python -m audiotools_tpu_torch.cli.<tool>``, with the reference's
@@ -20,8 +21,12 @@ runs the farm draws the rows; with stdout not a terminal nothing is
 drawn, and each tool prints the lines a job prints when it ends.  -M
 looks the album up in FreeDB and MusicBrainz (``services.lookup``),
 with the reference's option family (``add_lookup_arguments``).  -I
-(interactive editing) is not ported, since it needs urwid: a tool given
-it exits 1 (``refuse_unported``).
+(``add_interactive_argument``) runs the reference's interactive flows:
+trackrename and audiotools-config prompt on stdin; track2track,
+tracktag and cd2track edit in ``ui``'s urwid widgets, and dvda2track,
+trackcat and tracksplit choose a lookup's match with
+``ui.select_metadata``.  Without urwid, the widget flows exit 1 with
+``ui.not_available_message``'s line, at the point the reference's do.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import os
 import sys
 
 from .. import VERSION
+from ..utils import messenger
 from . import text
 
 # restore default SIGPIPE handling so tools piped into head/grep
@@ -40,52 +46,12 @@ try:
 except (ImportError, AttributeError, ValueError):
     pass        # non-POSIX or non-main-thread import
 
-class Messenger:
-    """output to stdout, info, warnings and errors to stderr, as the
-    reference's ``utils.messenger.Messenger`` writes them, and the ANSI
-    helpers that ``utils.messenger``'s progress rows draw with"""
+class Messenger(messenger.Messenger):
+    """the reference tools' ``utils.messenger.Messenger``, made from the
+    parsed options alone"""
 
     def __init__(self, options=None):
-        self.verbosity = getattr(options, "verbosity", None) or "normal"
-
-    def output(self, s):
-        if self.verbosity != "silent":
-            sys.stdout.write("%s%s" % (s, os.linesep))
-            sys.stdout.flush()
-
-    def info(self, s):
-        if self.verbosity not in ("quiet", "silent"):
-            sys.stderr.write("%s%s" % (s, os.linesep))
-
-    def warning(self, s):
-        if self.verbosity != "silent":
-            sys.stderr.write("*** Warning: %s%s" % (s, os.linesep))
-
-    def error(self, s):
-        sys.stderr.write("*** Error: %s%s" % (s, os.linesep))
-
-    def ansi_clearline(self):
-        if sys.stdout.isatty():
-            sys.stdout.write("\r\x1b[0K")
-            sys.stdout.flush()
-
-    def ansi_uplines(self, lines):
-        if sys.stdout.isatty():
-            sys.stdout.write("\x1b[%dA" % (lines,))
-
-    def ansi_cleardown(self):
-        if sys.stdout.isatty():
-            sys.stdout.write("\x1b[0J")
-
-    def terminal_size(self, fd=None):
-        """the terminal's size as (height, width), (25, 80) when stdout
-        is not one"""
-        try:
-            size = os.get_terminal_size(
-                fd if fd is not None else sys.stdout.fileno())
-            return (size.lines, size.columns)
-        except (OSError, ValueError):
-            return (25, 80)
+        messenger.Messenger.__init__(self, "audiotools", options)
 
 
 def audiofile_type(messenger, type_name):
@@ -116,23 +82,11 @@ def default_jobs():
     return configured if configured > 0 else DEFAULT_WORKERS
 
 
-def refuse_unported(msg, options):
-    """True after an error line when -I was asked for"""
-    if getattr(options, "interactive", False):
-        msg.error("-I (interactive mode) is not ported to "
-                  "audiotools_tpu_torch")
-        return True
-    return False
-
-
-def add_unported_arguments(parser, lookup=True):
-    """-I, which refuse_unported turns away, and (with ``lookup``) the
-    lookup option family"""
+def add_interactive_argument(parser):
+    """-I (the tools' interactive modes)"""
     parser.add_argument("-I", "--interactive", action="store_true",
                         default=False, dest="interactive",
                         help=text.HELP_INTERACTIVE)
-    if lookup:
-        add_lookup_arguments(parser)
 
 
 def add_lookup_arguments(parser):
@@ -159,6 +113,56 @@ def add_lookup_arguments(parser):
     parser.add_argument("-D", "--default", dest="use_default",
                         action="store_true", default=False,
                         help=text.HELP_USE_DEFAULT)
+
+
+def urwid_missing(msg):
+    """True after ``ui.not_available_message``'s line where urwid does
+    not import (the widget flows of -I need it)"""
+    from .. import ui
+    if ui.AVAILABLE:
+        return False
+    ui.not_available_message(msg)
+    return True
+
+
+def edit_metadata(labels, choices):
+    """-I's metadata editor: ``ui.MetaDataFiller`` over ``choices`` (a
+    list of MetaData a track each), F1 and F2 moving through the swivel;
+    the edited MetaData a track when the user leaves with enter, None
+    with esc"""
+    import urwid
+    from .. import ui
+    status = urwid.Text("")
+    filler = ui.MetaDataFiller(labels, choices, status)
+    accepted = []
+
+    def unhandled(key):
+        if key == "f1":
+            filler.select_previous_item()
+        elif key == "f2":
+            filler.select_next_item()
+        elif key == "enter":
+            accepted.append(True)
+            raise urwid.ExitMainLoop()
+        elif key == "esc":
+            raise urwid.ExitMainLoop()
+
+    urwid.MainLoop(urwid.Frame(body=filler, footer=status),
+                   ui.urwid_style(), unhandled_input=unhandled).run()
+    return list(filler.populated_metadata()) if accepted else None
+
+
+def chosen_metadata(msg, options, choices):
+    """the lookup choice a tool takes: with -I the one
+    ``ui.select_metadata`` returns (None after ``ui.not_available_message``'s
+    line where urwid is absent), else the first (-D: the last, the
+    default)"""
+    if options.interactive:
+        if urwid_missing(msg):
+            return None
+        from .. import ui
+        return ui.select_metadata(choices, msg)
+    return choices[-1] if options.use_default else choices[0]
 
 
 def lookup_options(options):

@@ -12,8 +12,9 @@ first.  -M looks the disc up in MusicBrainz and FreeDB
 the default one, track numbers alone), which names and tags the files;
 ``--album-number`` and ``--album-total`` go into every track's tags;
 ``--replay-gain`` then analyses the rips as one album on the card.  On a
-terminal each track being ripped has a progress row.  -I exits 1
-(``refuse_unported``).
+terminal each track being ripped has a progress row.  -I edits the
+choices in ``ui``'s MetaDataFiller (match and fields) before any rip;
+without urwid it exits 1 there, as the reference's does.
 
     python -m audiotools_tpu_torch.cli.cd2track -c disc.cue -t flac -q 8 \\
         -d rips
@@ -26,9 +27,9 @@ import collections
 import os
 import sys
 
-from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, job_devices, lookup_options,
-               refuse_unported, text)
+from . import (Messenger, add_common_arguments, add_interactive_argument,
+               add_job_arguments, add_lookup_arguments, edit_metadata,
+               job_devices, lookup_options, text, urwid_missing)
 
 # one track's rip: the image, the track's number, the read offset, the
 # output and its class and compression, and its tags
@@ -76,7 +77,8 @@ def main(argv=None):
     parser.add_argument("--offset", dest="sample_offset", type=int,
                         default=0, help=text.HELP_READ_OFFSET)
     add_job_arguments(parser)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     parser.add_argument("-s", "--speed", dest="speed", type=int,
                         default=None, help=text.HELP_READ_SPEED)
     parser.add_argument("--album-number", type=int, dest="album_number",
@@ -101,8 +103,6 @@ def main(argv=None):
     from ..services.lookup import metadata_lookup
     from ..utils.messenger import ProgressDisplay
 
-    if refuse_unported(msg, options):
-        return 1
     if options.type not in TYPE_MAP:
         msg.error(text.ERR_UNSUPPORTED_TYPE % {"type": options.type})
         return 1
@@ -145,7 +145,14 @@ def main(argv=None):
     if options.album_total is not None:
         for metadata in disc_metadata:
             metadata.album_total = options.album_total
-    if len(choices) > 1:
+    if options.interactive:
+        if urwid_missing(msg):
+            return 1
+        disc_metadata = edit_metadata(
+            ["track %d" % (i + 1,) for i in range(len(cdda))], choices)
+        if disc_metadata is None:
+            return 0
+    elif len(choices) > 1:
         msg.info(text.LAB_USING_METADATA %
                  {"album": disc_metadata[0].album_name or text.LAB_UNTITLED})
 

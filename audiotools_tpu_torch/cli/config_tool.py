@@ -8,7 +8,8 @@ writes it), a line a setting; the next tool run reads it
 job count (the port's: ``cli.default_jobs``), the port's formats and
 their quality modes.  The port has six formats where the reference
 lists more, so a type or quality of another format is refused.  -I
-exits 1 (``refuse_unported``).
+asks for the default type and its quality on stdin first (an empty
+answer keeps the setting), as the reference's does.
 
     python -m audiotools_tpu_torch.cli.config_tool -t flac -q 5
 """
@@ -19,8 +20,8 @@ import argparse
 import os
 import sys
 
-from . import (Messenger, add_common_arguments, add_unported_arguments,
-               default_jobs, output_table, refuse_unported, text)
+from . import (Messenger, add_common_arguments, add_interactive_argument,
+               default_jobs, output_table, text)
 
 # (option, section, key) of each setting a flag writes; "quality"'s key
 # is the type it is for
@@ -90,7 +91,7 @@ def main(argv=None):
                         choices=("1.1", "none"), default=None)
     parser.add_argument("--id3v2-pad", dest="id3_digit_padding",
                         choices=("yes", "no"), default=None)
-    add_unported_arguments(parser, lookup=False)
+    add_interactive_argument(parser)
 
     options = parser.parse_args(argv)
     msg = Messenger(options)
@@ -98,8 +99,15 @@ def main(argv=None):
     from ..dispatch import TYPE_MAP
     from ..utils import config as cfg
 
-    if refuse_unported(msg, options):
-        return 1
+    if options.interactive:
+        current = cfg.DEFAULT_TYPE
+        answer = input("default type [%s]: " % (current,)).strip()
+        if answer:
+            options.default_type = answer
+        quality = input("default quality for %s []: " %
+                        (options.default_type or current,)).strip()
+        if quality:
+            options.quality = quality
 
     changed = False
     if options.default_type is not None:

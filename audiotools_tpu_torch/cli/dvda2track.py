@@ -14,7 +14,9 @@ lengths_metadata_lookup``), and takes the first choice (-D the default
 one); ``--replay-gain`` then analyses the files as one album on the
 card.  -c names a drive for CPPM's key exchange and is accepted and
 unused, as in the reference: the exchange needs the drive's hardware
-(``cppm.authenticate_drive``).  -I exits 1 (``refuse_unported``).
+(``cppm.authenticate_drive``).  -I with -M chooses the lookup's match
+with ``ui.select_metadata``; without urwid it exits 1 there, as the
+reference's does.
 
     python -m audiotools_tpu_torch.cli.dvda2track -A /media/dvd/AUDIO_TS \\
         -t flac -q 8 -d rips
@@ -28,8 +30,8 @@ import os
 import sys
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, job_devices, lookup_options,
-               refuse_unported, text)
+               add_interactive_argument, add_lookup_arguments,
+               chosen_metadata, job_devices, lookup_options, text)
 
 # a title's extraction: its reader, the output class and compression,
 # and for each of its tracks (frames, output path or None to skip, tags)
@@ -93,7 +95,8 @@ def main(argv=None):
     parser.add_argument("--no-replay-gain", action="store_false",
                         dest="add_replay_gain")
     add_job_arguments(parser)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     parser.add_argument("tracks", nargs="*", type=int)
     options = parser.parse_args(argv)
     msg = Messenger(options)
@@ -105,8 +108,6 @@ def main(argv=None):
     from ..pcm import BufferedPCMReader
     from ..services.lookup import lengths_metadata_lookup
 
-    if refuse_unported(msg, options):
-        return 1
     if options.type not in TYPE_MAP:
         msg.error(text.ERR_UNSUPPORTED_TYPE % {"type": options.type})
         return 1
@@ -134,8 +135,9 @@ def main(argv=None):
                         for t in title.tracks]
         choices = lengths_metadata_lookup(track_frames,
                                           **lookup_options(options))
-        lookup_metadatas = (choices[-1] if options.use_default
-                            else choices[0])
+        lookup_metadatas = chosen_metadata(msg, options, choices)
+        if lookup_metadatas is None:
+            return 1
 
     try:
         reader = BufferedPCMReader(title.to_pcm())

@@ -14,7 +14,10 @@ MusicBrainz and FreeDB (``services.lookup.track_metadata_lookup``):
 the first choice (-D the default one) fills the fields the files'
 tags leave blank.  On a terminal each running job has a progress row
 (``utils.messenger.ProgressDisplay``), the destination its label.  -I
-(interactive editing) exits 1.
+(after -M) runs ``ui``'s OutputFiller wizard, where each track's tags,
+the output directory, template, type and quality are edited before
+any conversion; without urwid it exits 1 there, as the reference's
+does.
 
     python -m audiotools_tpu_torch.cli.track2track -t flac -q 8 -d out in.wav
 """
@@ -26,9 +29,10 @@ import collections
 import os
 import sys
 
-from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, audiofile_type, default_type,
-               job_devices, lookup_options, refuse_unported, text)
+from . import (Messenger, add_common_arguments, add_interactive_argument,
+               add_job_arguments, add_lookup_arguments, audiofile_type,
+               default_type, job_devices, lookup_options, text,
+               urwid_missing)
 
 # one track's conversion: the source's filename, the output and its
 # class and compression, the source's MetaData (or None), and the
@@ -79,7 +83,8 @@ def main(argv=None):
     parser.add_argument("-o", "--output", dest="output", default=None,
                         help=text.HELP_OUTPUT)
     add_job_arguments(parser)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     parser.add_argument("--replay-gain", action="store_true",
                         dest="add_replay_gain", default=False,
                         help=text.HELP_REPLAY_GAIN)
@@ -102,9 +107,6 @@ def main(argv=None):
                              InvalidFilenameFormat, UnsupportedTracknameField)
     from ..parallel.farm import run_jobs
     from ..utils.messenger import ProgressDisplay
-
-    if refuse_unported(msg, options):
-        return 1
 
     if options.type is None:
         options.type = default_type()
@@ -162,7 +164,7 @@ def main(argv=None):
             msg.info(text.LAB_T2T_USING_METADATA %
                      {"album": chosen[0].album_name or text.LAB_UNTITLED})
 
-    jobs = []
+    metadatas = []
     for track in audiofiles:
         metadata = track.get_metadata()
         looked_up = (lookup_metadata.get(track.filename)
@@ -174,14 +176,36 @@ def main(argv=None):
                         setattr(metadata, field, getattr(looked_up, field))
             else:
                 metadata = looked_up
-        try:
-            filename = AudioFile.track_name(
-                track.filename, metadata, options.format or FILENAME_FORMAT,
-                suffix=destination_class.SUFFIX)
-        except (UnsupportedTracknameField, InvalidFilenameFormat) as err:
-            msg.error(str(err))
+        metadatas.append(metadata)
+
+    # -I: each track's class, output path, quality and tags from the
+    # wizard
+    specs = None
+    if options.interactive:
+        if urwid_missing(msg):
             return 1
-        destination = os.path.join(options.dir, filename)
+        specs = _output_wizard(audiofiles, metadatas, options,
+                               destination_class, FILENAME_FORMAT)
+        if specs is None:
+            return 0
+
+    jobs = []
+    for (i, track) in enumerate(audiofiles):
+        if specs is not None:
+            (dest_class, destination, quality, metadata) = specs[i]
+            dest_compression = quality or None
+        else:
+            (dest_class, dest_compression, metadata) = (
+                destination_class, compression, metadatas[i])
+            try:
+                filename = AudioFile.track_name(
+                    track.filename, metadata,
+                    options.format or FILENAME_FORMAT,
+                    suffix=destination_class.SUFFIX)
+            except (UnsupportedTracknameField, InvalidFilenameFormat) as err:
+                msg.error(str(err))
+                return 1
+            destination = os.path.join(options.dir, filename)
         if os.path.abspath(destination) == os.path.abspath(track.filename):
             msg.error(text.ERR_OUTPUT_IS_INPUT % {"filename": destination})
             return 1
@@ -194,7 +218,10 @@ def main(argv=None):
             msg.error(text.ERR_MAKEDIRS % {"filename": destination,
                                            "error": err.strerror or err})
             return 1
-        jobs.append(job(track, destination, metadata))
+        jobs.append(Conversion(track.filename, destination, dest_class,
+                               dest_compression, metadata,
+                               options.sample_rate, options.channels,
+                               options.bits_per_sample))
 
     display = ProgressDisplay(msg)
 
@@ -222,6 +249,30 @@ def main(argv=None):
             return 1
         msg.info(text.RG_REPLAYGAIN_ADDED)
     return 0
+
+
+def _output_wizard(audiofiles, metadatas, options, destination_class,
+                   filename_format):
+    """the -I wizard (``ui.OutputFiller``) over the tracks and their
+    tags: (class, path, quality, MetaData) a track, None when cancelled"""
+    import urwid
+    from .. import ui
+    from ..audiofile import MetaData
+    from ..dispatch import Filename
+    filler = ui.OutputFiller(
+        track_labels=[str(t.filename) for t in audiofiles],
+        metadata_choices=[[m if m is not None else MetaData()
+                           for m in metadatas]],
+        input_filenames=[Filename(t.filename) for t in audiofiles],
+        output_directory=options.dir,
+        format_string=options.format or filename_format,
+        output_class=destination_class, quality=options.quality)
+    urwid.MainLoop(filler, ui.urwid_style(),
+                   unhandled_input=filler.handle_text).run()
+    if filler.cancelled():
+        return None
+    return [(cls, str(path), quality, metadata)
+            for (cls, path, quality, metadata) in filler.output_tracks()]
 
 
 if __name__ == "__main__":

@@ -10,8 +10,10 @@ CD, looks it up in MusicBrainz and FreeDB
 (``services.lookup.track_metadata_lookup``) and tags the new file with
 the first choice's album, artist and year and its track count (-D the
 default choice's).  On a terminal one progress row is drawn while it
-encodes (``utils.messenger.SingleProgressDisplay``).  -I exits 1
-(``refuse_unported``).
+encodes (``utils.messenger.SingleProgressDisplay``).  -I with -M
+chooses the lookup's match with ``ui.select_metadata`` (urwid's editor,
+or a prompt on stdin), after the file is written, as the reference's
+does; without urwid it exits 1 there.
 
     python -m audiotools_tpu_torch.cli.trackcat -t flac --cue album.cue \\
         -o album.flac track*.flac
@@ -23,8 +25,9 @@ import argparse
 import sys
 
 from . import (Messenger, add_common_arguments, add_device_argument,
-               add_unported_arguments, audiofile_type, default_type,
-               first_device, lookup_options, refuse_unported, text)
+               add_interactive_argument, add_lookup_arguments,
+               audiofile_type, chosen_metadata, default_type, first_device,
+               lookup_options, text)
 
 
 def main(argv=None):
@@ -39,7 +42,8 @@ def main(argv=None):
                         help=text.HELP_CAT_OUTPUT)
     parser.add_argument("--cue", dest="cuesheet", default=None,
                         help=text.HELP_CUESHEET)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     add_device_argument(parser)
     parser.add_argument("filenames", nargs="+")
 
@@ -51,8 +55,6 @@ def main(argv=None):
     from ..pcm import PCMCat, PCMReaderProgress
     from ..utils.messenger import SingleProgressDisplay
 
-    if refuse_unported(msg, options):
-        return 1
     device = first_device(msg, options)
     if device is None:
         return 1
@@ -99,7 +101,9 @@ def main(argv=None):
         from ..audiofile import MetaData
         from ..services.lookup import track_metadata_lookup
         choices = track_metadata_lookup(audiofiles, **lookup_options(options))
-        chosen = choices[-1] if options.use_default else choices[0]
+        chosen = chosen_metadata(msg, options, choices)
+        if chosen is None:
+            return 1
         if chosen:
             first = chosen[0]
             encoded.set_metadata(MetaData(album_name=first.album_name,

@@ -5,8 +5,9 @@ file renamed in its directory to ``--format`` (the configured
 ``[Filenames] format`` by default) filled from its tags, one line a
 rename; an existing target or a template that does not format ends
 the run with exit 1 and an error line (where the reference's raises).  Host only;
-``--devices`` names the device the files are opened on.  -I exits 1
-(``refuse_unported``).
+``--devices`` names the device the files are opened on.  -I asks
+``<source> -> <destination> ? [y/N]`` on stdin before each rename and
+renames only on y or yes, as the reference's does.
 
     python -m audiotools_tpu_torch.cli.trackrename *.flac
 """
@@ -18,7 +19,7 @@ import os
 import sys
 
 from . import (Messenger, add_common_arguments, add_device_argument,
-               add_unported_arguments, first_device, refuse_unported, text)
+               add_interactive_argument, first_device, text)
 
 
 def main(argv=None):
@@ -29,7 +30,7 @@ def main(argv=None):
     add_common_arguments(parser)
     parser.add_argument("--format", dest="format", default=FILENAME_FORMAT,
                         help=text.HELP_FORMAT)
-    add_unported_arguments(parser, lookup=False)
+    add_interactive_argument(parser)
     add_device_argument(parser)
     parser.add_argument("filenames", nargs="+")
 
@@ -39,8 +40,6 @@ def main(argv=None):
     from ..audiofile import InvalidFilenameFormat, UnsupportedTracknameField
     from ..dispatch import open_files
 
-    if refuse_unported(msg, options):
-        return 1
     device = first_device(msg, options)
     if device is None:
         return 1
@@ -62,6 +61,11 @@ def main(argv=None):
                 msg.error(text.ERR_TRACKRENAME_COLLISION %
                           {"source": new_path})
                 return 1
+            if options.interactive:
+                answer = input("%s -> %s ? [y/N] " %
+                               (track.filename, new_path))
+                if answer.strip().lower() not in ("y", "yes"):
+                    continue
             os.rename(track.filename, new_path)
             msg.output(text.LAB_TRACKRENAME_RENAMED %
                        {"source": track.filename, "destination": new_path})

@@ -12,7 +12,9 @@ up in MusicBrainz and FreeDB (``services.lookup.sheet_metadata_lookup``)
 and tags each track with the first choice's entry in their place (-D
 the default choice's); ``--replay-gain`` then analyses the tracks as
 one album on the card.  A line a track written, as it is done.  -I
-exits 1 (``refuse_unported``).
+with -M chooses the lookup's match with ``ui.select_metadata``; without
+urwid it exits 1 there, before any track is written, as the reference's
+does.
 
     python -m audiotools_tpu_torch.cli.tracksplit -t flac -d tracks album.flac
 """
@@ -26,8 +28,9 @@ import sys
 import threading
 
 from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, audiofile_type, default_type,
-               job_devices, lookup_options, refuse_unported, text)
+               add_interactive_argument, add_lookup_arguments,
+               audiofile_type, chosen_metadata, default_type, job_devices,
+               lookup_options, text)
 
 # one track: its index in the sheet, its file and frame count, its tags
 Track = collections.namedtuple("Track", "index dest_path frames metadata")
@@ -77,7 +80,8 @@ def main(argv=None):
                         help=text.HELP_REPLAY_GAIN)
     parser.add_argument("--no-replay-gain", action="store_false",
                         dest="add_replay_gain", help=text.HELP_NO_REPLAY_GAIN)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     parser.add_argument("filename", nargs=1)
 
     options = parser.parse_args(argv)
@@ -89,8 +93,6 @@ def main(argv=None):
                              UnsupportedTracknameField, read_sheet)
     from ..parallel.farm import run_jobs
 
-    if refuse_unported(msg, options):
-        return 1
     try:
         devices = job_devices(options.devices)
     except (RuntimeError, ValueError) as err:
@@ -132,7 +134,9 @@ def main(argv=None):
         choices = sheet_metadata_lookup(sheet, track.total_frames(),
                                         track.sample_rate(),
                                         **lookup_options(options))
-        lookup_metadatas = choices[-1] if options.use_default else choices[0]
+        lookup_metadatas = chosen_metadata(msg, options, choices)
+        if lookup_metadatas is None:
+            return 1
 
     os.makedirs(options.dir, exist_ok=True)
     tracks = []

@@ -11,7 +11,10 @@ the files as one CD, looks it up in MusicBrainz and FreeDB
 (``services.lookup.track_metadata_lookup``) and writes the first
 choice's entries (-D the default one's) into them, each file's own
 fields filling the entry's blanks; the command line's fields then go
-over those.  -I exits 1 (``refuse_unported``).
+over those.  -I (after -M's writes, as in the reference) edits every
+file's tags, seeded with the command line's fields, in ``ui``'s
+MetaDataFiller and writes them, a line a file; without urwid it exits 1
+there.
 
     python -m audiotools_tpu_torch.cli.tracktag --album "An Album" \\
         --replay-gain *.flac
@@ -22,9 +25,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import (Messenger, add_common_arguments, add_job_arguments,
-               add_unported_arguments, first_device, lookup_options,
-               refuse_unported, text)
+from . import (Messenger, add_common_arguments, add_interactive_argument,
+               add_job_arguments, add_lookup_arguments, edit_metadata,
+               first_device, lookup_options, text, urwid_missing)
 
 FIELD_OPTIONS = [
     ("--name", "track_name", text.HELP_TAG_NAME),
@@ -72,7 +75,8 @@ def main(argv=None):
         parser.add_argument("--remove-" + flag[2:], dest="remove_" + field,
                             action="store_true", default=False)
     add_job_arguments(parser)
-    add_unported_arguments(parser)
+    add_interactive_argument(parser)
+    add_lookup_arguments(parser)
     parser.add_argument("filenames", nargs="+")
 
     options = parser.parse_args(argv)
@@ -80,9 +84,6 @@ def main(argv=None):
 
     from ..audiofile import Image, MetaData
     from ..dispatch import open_files
-
-    if refuse_unported(msg, options):
-        return 1
 
     updates = {}
     for (_flag, field, _help) in FIELD_OPTIONS:
@@ -137,6 +138,32 @@ def main(argv=None):
                     if getattr(looked_up, field) is None:
                         setattr(looked_up, field, getattr(existing, field))
             track.set_metadata(looked_up)
+
+    if options.interactive:
+        if urwid_missing(msg):
+            return 1
+        seeded = []
+        for track in audiofiles:
+            metadata = track.get_metadata()
+            if metadata is None:
+                metadata = MetaData()
+            for (field, value) in updates.items():
+                setattr(metadata, field, value)
+            seeded.append(metadata)
+        edited = edit_metadata([str(t.filename) for t in audiofiles],
+                               [seeded])
+        if edited is None:
+            return 0
+        for (track, metadata) in zip(audiofiles, edited):
+            try:
+                track.set_metadata(metadata)
+                msg.info(text.LAB_TRACKTAG_TAGGED %
+                         {"filename": track.filename})
+            except (IOError, ValueError) as err:
+                msg.error(text.ERR_FILE_MESSAGE %
+                          {"filename": track.filename, "message": err})
+                return 1
+        return 0
 
     for track in audiofiles:
         try:

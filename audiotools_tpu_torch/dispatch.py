@@ -20,7 +20,11 @@ does.  ``TYPE_MAP`` holds the available classes in the reference's
 order; ``open_files``, ``open_directory`` and ``sorted_tracks`` are the
 reference's as far as the command line uses them; the reference's
 ``Filename`` only normalises the paths ``open_files`` is given, which
-``os.path.normpath`` does here.
+``os.path.normpath`` does here.  ``Filename`` itself (a path that
+compares by device and inode where the file exists), ``group_tracks``,
+``filename_to_type`` and the reference's duplicate and ambiguity
+exceptions are its public API, which ``ui``'s output wizards and the
+package root use.
 """
 
 from __future__ import annotations
@@ -58,13 +62,124 @@ HOST_CLASSES = (WaveAudio, AiffAudio, AuAudio, M4AAudio, MP3Audio,
 ID3_WRAPPABLE = (FlacAudio, TrueAudio, MP3Audio, MP2Audio)
 
 
+class DuplicateFile(Exception):
+    """raised if the same file is included more than once"""
+
+    def __init__(self, filename):
+        self.filename = filename
+
+    def __str__(self):
+        return "file \"%s\" included more than once" % (self.filename,)
+
+
+class DuplicateOutputFile(Exception):
+    """raised if the same output file is generated more than once"""
+
+    def __init__(self, filename):
+        self.filename = filename
+
+    def __str__(self):
+        return "output file \"%s\" occurs more than once" % (self.filename,)
+
+
+class OutputFileIsInput(Exception):
+    """raised if an output file is the same as an input file"""
+
+    def __init__(self, filename):
+        self.filename = filename
+
+    def __str__(self):
+        return "\"%s\" cannot be both input and output file" % \
+            (self.filename,)
+
+
+class Filename(tuple):
+    """a filename wrapper which dedups by device/inode when on disk"""
+
+    def __new__(cls, filename):
+        filename = str(filename)
+        try:
+            stat = os.stat(filename)
+            return tuple.__new__(cls, [os.path.normpath(filename),
+                                       stat.st_dev,
+                                       stat.st_ino])
+        except OSError:
+            return tuple.__new__(cls, [os.path.normpath(filename),
+                                       None,
+                                       None])
+
+    def disk_file(self):
+        """returns True if the file exists on disk"""
+        return (self[1] is not None) and (self[2] is not None)
+
+    def basename(self):
+        """returns the basename (no directory) of this file"""
+        return Filename(os.path.basename(self[0]))
+
+    def expanduser(self):
+        """returns a Filename object with user directory expanded"""
+        return Filename(os.path.expanduser(self[0]))
+
+    def __repr__(self):
+        return "Filename(%s, %s, %s)" % \
+            (repr(self[0]), repr(self[1]), repr(self[2]))
+
+    def __eq__(self, filename):
+        if isinstance(filename, Filename):
+            if self.disk_file() and filename.disk_file():
+                return (self[1] == filename[1]) and (self[2] == filename[2])
+            elif (not self.disk_file()) and (not filename.disk_file()):
+                return self[0] == filename[0]
+            else:
+                return False
+        else:
+            return False
+
+    def __ne__(self, filename):
+        return not self == filename
+
+    def __hash__(self):
+        if self.disk_file():
+            return hash((None, self[1], self[2]))
+        else:
+            return hash((self[0], self[1], self[2]))
+
+    def __str__(self):
+        return self[0]
+
+
 class UnknownAudioType(UnsupportedFile):
     """a file whose content is no audio type the port opens; its text is
-    the filename, as the reference's UnsupportedFile's is"""
+    the filename, as the reference's UnsupportedFile's is.  From
+    ``filename_to_type``, the suffix that names no type"""
 
     def __init__(self, filename):
         super().__init__(filename)
         self.filename = filename
+        self.suffix = filename
+
+
+class AmbiguousAudioType(UnknownAudioType):
+    """a suffix ``filename_to_type`` finds several types for"""
+
+    def __init__(self, suffix, type_list):
+        UnknownAudioType.__init__(self, suffix)
+        self.type_list = type_list
+
+
+def filename_to_type(path):
+    """the available class whose SUFFIX is the path's; raises
+    UnknownAudioType (a suffix of none) or AmbiguousAudioType (of
+    several)"""
+    (_base, ext) = os.path.splitext(path)
+    ext = ext[1:]
+    if ext:
+        matches = [cls for cls in TYPE_MAP.values() if cls.SUFFIX == ext]
+        if len(matches) == 1:
+            return matches[0]
+        if matches:
+            raise AmbiguousAudioType(ext, matches)
+    raise UnknownAudioType(ext)
 
 
 def _m4a_type(file):
@@ -228,3 +343,20 @@ def open_directory(directory, sorted=True, messenger=None, device="cuda"):
                                for filename in filenames],
                               sorted=sorted, messenger=messenger,
                               device=device)
+
+
+def group_tracks(tracks):
+    """yields lists of the tracks of one album (number and name), the
+    albums in order, tracks with no metadata together first"""
+    collection = {}
+    for track in tracks:
+        metadata = track.get_metadata()
+        if metadata is not None:
+            key = (metadata.album_number, metadata.album_name)
+        else:
+            key = (None, None)
+        collection.setdefault(key, []).append(track)
+    for key in sorted(collection.keys(),
+                      key=lambda k: ((k[0] is not None, k[0] or 0),
+                                     (k[1] is not None, k[1] or ""))):
+        yield collection[key]

@@ -20,6 +20,9 @@ from . import _native
 # (the reference's FRAMELIST_SIZE)
 FRAMELIST_SIZE = 0x100000 // 4
 
+# bytes a transfer_data call asks of its source at a time
+BUFFER_SIZE = 0x100000
+
 # channel masks of the WAVE/FLAC default layouts, by channel count
 CHANNEL_MASKS = {1: 0x0004, 2: 0x0003, 3: 0x0007, 4: 0x0033,
                  5: 0x0037, 6: 0x003F, 7: 0x013F, 8: 0x063F}
@@ -666,3 +669,157 @@ def pcm_frame_cmp(pcmreader1, pcmreader2):
     if a.shape[0] > 0 or b.shape[0] > 0:
         return frame_number
     return None
+
+
+def pcm_cmp(pcmreader1, pcmreader2):
+    """True when both readers hold the same PCM frames (the reference's
+    ``pcmstream.pcm_cmp``)"""
+    return pcm_frame_cmp(pcmreader1, pcmreader2) is None
+
+
+def stripped_pcm_cmp(pcmreader1, pcmreader2):
+    """True when the readers' packed PCM bytes match once leading and
+    trailing zero bytes are stripped (the reference's
+    ``pcmstream.stripped_pcm_cmp``, the comparison for a tool that pads
+    streams with silence); False when their rates, channel counts or
+    bits per sample differ"""
+    if ((pcmreader1.sample_rate != pcmreader2.sample_rate) or
+            (pcmreader1.channels != pcmreader2.channels) or
+            (pcmreader1.bits_per_sample != pcmreader2.bits_per_sample)):
+        return False
+    import hashlib
+    digests = []
+    for reader in (pcmreader1, pcmreader2):
+        data = io.BytesIO()
+        transfer_framelist_data(reader, data.write)
+        digests.append(hashlib.sha1(data.getvalue().strip(b"\x00")).digest())
+    return digests[0] == digests[1]
+
+
+def transfer_data(from_function, to_function):
+    """passes BUFFER_SIZE byte strings from ``from_function`` to
+    ``to_function`` until it returns an empty one or raises IOError (the
+    reference's ``pcmstream.transfer_data``)"""
+    try:
+        s = from_function(BUFFER_SIZE)
+        while len(s) > 0:
+            to_function(s)
+            s = from_function(BUFFER_SIZE)
+    except IOError:
+        pass
+
+
+def threaded_transfer_framelist_data(pcmreader, to_function, signed=True,
+                                     big_endian=False):
+    """``transfer_framelist_data`` with the reads on a producer thread,
+    at most ten frame lists ahead (the reference's
+    ``pcmstream.threaded_transfer_framelist_data``); an IOError or
+    ValueError of the reader ends the stream"""
+    import queue
+    import threading
+
+    def send_data(q):
+        try:
+            framelist = pcmreader.read(FRAMELIST_SIZE)
+            while framelist.frames > 0:
+                q.put(FrameList(framelist.samples,
+                                pcmreader.bits_per_sample).to_bytes(
+                                    big_endian, signed))
+                framelist = pcmreader.read(FRAMELIST_SIZE)
+        except (IOError, ValueError):
+            pass
+        q.put(None)
+
+    data_queue = queue.Queue(10)
+    thread = threading.Thread(target=send_data, args=(data_queue,),
+                              daemon=True)
+    thread.start()
+    s = data_queue.get()
+    while s is not None:
+        to_function(s)
+        s = data_queue.get()
+    thread.join()
+
+
+def _silence(frames, channels, bits_per_sample):
+    return FrameList(np.zeros((frames, channels), dtype=np.int32),
+                     bits_per_sample)
+
+
+class PCMReaderWindow:
+    """a window of a PCMReader: ``initial_offset`` frames skipped from
+    its start (a negative offset pads the start with as many frames of
+    silence), then ``pcm_frames`` frames, padded with silence where the
+    stream ends first unless ``pad_end`` is False (the reference's
+    ``pcmstream.PCMReaderWindow``)"""
+
+    def __init__(self, pcmreader, initial_offset, pcm_frames, pad_end=True):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = pcmreader.channels
+        self.channel_mask = pcmreader.channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        self.initial_offset = initial_offset
+        self.pcm_frames_remaining = pcm_frames
+        self.pad_end = pad_end
+
+    def _take(self, samples):
+        """at most the window's remaining frames of ``samples``"""
+        if samples.shape[0] > self.pcm_frames_remaining:
+            samples = samples[:self.pcm_frames_remaining]
+        self.pcm_frames_remaining -= samples.shape[0]
+        return FrameList(samples, self.bits_per_sample)
+
+    def read(self, pcm_frames):
+        if self.pcm_frames_remaining <= 0:
+            return empty_framelist(self.channels, self.bits_per_sample)
+        if self.initial_offset < 0:
+            silence = min(-self.initial_offset, pcm_frames)
+            self.initial_offset += silence
+            return self._take(_silence(silence, self.channels,
+                                       self.bits_per_sample).samples)
+        while self.initial_offset > 0:
+            frame = self.pcmreader.read(min(self.initial_offset,
+                                            FRAMELIST_SIZE))
+            if frame.frames == 0:
+                # the stream ended inside the skip: the rest is padding
+                self.initial_offset = 0
+                break
+            if frame.frames <= self.initial_offset:
+                self.initial_offset -= frame.frames
+            else:
+                rest = frame.samples[self.initial_offset:]
+                self.initial_offset = 0
+                return self._take(rest)
+        frame = self.pcmreader.read(pcm_frames)
+        if frame.frames == 0:
+            if not self.pad_end:
+                self.pcm_frames_remaining = 0
+                return frame
+            return self._take(_silence(
+                min(pcm_frames, self.pcm_frames_remaining), self.channels,
+                self.bits_per_sample).samples)
+        return self._take(frame.samples)
+
+    def close(self):
+        self.pcmreader.close()
+
+
+class PCMReaderHead(PCMReaderWindow):
+    """a stream cut, or padded with silence, to exactly ``pcm_frames``
+    frames (the reference's ``pcmstream.PCMReaderHead``)"""
+
+    def __init__(self, pcmreader, pcm_frames):
+        if pcm_frames < 0:
+            raise ValueError("invalid pcm_frames value")
+        PCMReaderWindow.__init__(self, pcmreader, 0, pcm_frames)
+
+
+class PCMReaderDeHead(PCMReaderWindow):
+    """a stream less its first ``pcm_frames`` frames, or with as many
+    frames of silence before it where ``pcm_frames`` is negative (the
+    reference's ``pcmstream.PCMReaderDeHead``)"""
+
+    def __init__(self, pcmreader, pcm_frames):
+        PCMReaderWindow.__init__(self, pcmreader, pcm_frames, 1 << 62,
+                                 pad_end=False)

@@ -9,10 +9,14 @@ upload: the filter runs as one float64 FIR on ``device``
 (``ops.converters.rg_window_sums``), and only the window sums come back,
 to be binned on the host with the reference's own expression.  Peaks
 stay on the host, in the original bit depth.
+
+``ReplayGainReader`` (a PCMReader that applies a gain while playing)
+and ``applicable_replay_gain`` are host numpy, as the reference's are.
 """
 
 from __future__ import annotations
 
+import os
 from bisect import bisect
 
 import numpy as np
@@ -191,3 +195,49 @@ def calculate_replay_gain_values(tracks, progress=None, device="cuda"):
     (album_gain, album_peak) = rg.album_gain()
     for (track, gain, peak) in gains:
         yield (track, gain, peak, album_gain, album_peak)
+
+
+class ReplayGainReader:
+    """a PCMReader applying ``replaygain`` dB to its reader's samples,
+    held below full scale by ``peak`` (the largest sample as a fraction
+    of full scale): each sample scaled, rounded, clipped, and its lowest
+    bit XORed with a random bit, the reference's 1-bit white dither"""
+
+    def __init__(self, pcmreader, replaygain, peak):
+        self.pcmreader = pcmreader
+        self.sample_rate = pcmreader.sample_rate
+        self.channels = pcmreader.channels
+        self.channel_mask = pcmreader.channel_mask
+        self.bits_per_sample = pcmreader.bits_per_sample
+        multiplier = 10.0 ** (replaygain / 20.0)
+        if peak > 0 and (multiplier * peak) > 1.0:
+            multiplier = 1.0 / peak
+        self.multiplier = multiplier
+
+    def read(self, pcm_frames):
+        frame = self.pcmreader.read(pcm_frames)
+        max_value = (1 << (self.bits_per_sample - 1)) - 1
+        min_value = -(1 << (self.bits_per_sample - 1))
+        scaled = np.rint(np.asarray(frame.samples).astype(np.float64) *
+                         self.multiplier)
+        clipped = np.clip(scaled, min_value, max_value).astype(np.int32)
+        dither = (np.frombuffer(os.urandom(clipped.size), dtype=np.uint8) &
+                  1).astype(np.int32).reshape(clipped.shape)
+        return pcm.FrameList(clipped ^ dither, self.bits_per_sample)
+
+    def close(self):
+        self.pcmreader.close()
+
+
+def applicable_replay_gain(tracks):
+    """True when ReplayGain can be computed over ``tracks`` together:
+    one sample rate the analysis supports, and one channel count, 1 or 2
+    (the reference's ``applicable_replay_gain``)"""
+    sample_rates = {track.sample_rate() for track in tracks}
+    if len(sample_rates) != 1 or sample_rates.pop() not in (
+            48000, 44100, 32000, 24000, 22050, 16000, 12000, 11025,
+            8000, 18900, 37800, 56000, 64000, 88200, 96000, 112000,
+            128000, 144000, 176400, 192000):
+        return False
+    channels = {track.channels() for track in tracks}
+    return len(channels) == 1 and channels.pop() in (1, 2)

@@ -1,7 +1,7 @@
 """Replacing a file's contents at once.
 
-The port's copy of ``TemporaryFile`` from the reference's
-``audiotools_tpu/utils/files.py``: the new contents are written to a
+The port's copy of ``TemporaryFile`` and ``make_dirs`` from the
+reference's ``audiotools_tpu/utils/files.py``.  ``TemporaryFile``: the new contents are written to a
 temporary file in the same directory, which ``close`` renames over the
 file, keeping its mode.  Used as a context manager, it is closed when
 the block ends and discarded when the block raises, so a failed rewrite
@@ -68,3 +68,10 @@ class TemporaryFile:
     def __del__(self):
         if getattr(self, "__temp_filename__", None) is not None:
             self.discard()
+
+
+def make_dirs(destination_path):
+    """creates the directories leading to ``destination_path``"""
+    dirname = os.path.dirname(destination_path)
+    if (dirname != '') and (not os.path.isdir(dirname)):
+        os.makedirs(dirname, exist_ok=True)

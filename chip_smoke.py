@@ -332,6 +332,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3486,6 +3487,368 @@ def dvda_phase(dev, pcm_seconds=DVDA_PCM_S, mlp_seconds=DVDA_MLP_S):
     return (out, launches)
 
 
+# phase 29: the types played (their qualities, and the kernels a card
+# decode of each must launch), the seconds of trackplay's FLAC cut and of
+# cdplay's two tracks (their NULL output paces at real time), and the
+# volume played once
+PLAY_TYPES = (("flac", "8", ("rice_decode", "flac_synth")),
+              ("alac", None, ("alac_synth",)), ("tta", None, ("tta_synth",)),
+              ("wavpack", "standard", ("wv_decorr",)), ("shn", None, ()))
+PLAY_CUT_S = 2
+CD_TRACK_S = 1
+PLAY_VOLUME = 0.5
+# seconds a played title may take before the phase fails
+PLAY_WAIT_S = 600
+
+
+def keeping_output(player_mod):
+    """an AudioOutput of ``player_mod`` that keeps each frame list it is
+    given, with the clock at the first, and does not pace"""
+
+    class KeepingOutput(player_mod.AudioOutput):
+        NAME = "KEEP"
+
+        def __init__(self):
+            player_mod.AudioOutput.__init__(self)
+            self.frames = []
+            self.first_s = None
+
+        @classmethod
+        def available(cls):
+            return True
+
+        def play(self, framelist):
+            if self.first_s is None:
+                self.first_s = time.perf_counter()
+            self.frames.append(np.array(framelist.samples))
+
+    return KeepingOutput()
+
+
+def play_title(track, mode=0, volume=1.0):
+    """plays ``track`` to its end through player.Player into a
+    keeping_output: (samples played, ms from play() to the first buffer,
+    wall seconds from play() to the end)"""
+    from audiotools_tpu_torch import player
+    out = keeping_output(player)
+    out.set_volume(volume)
+    ended = threading.Event()
+    p = player.Player(out, next_track_callback=ended.set)
+    try:
+        p.set_replay_gain(mode)
+        p.open(track)
+        t0 = time.perf_counter()
+        p.play()
+        if not ended.wait(PLAY_WAIT_S):
+            raise AssertionError("%s did not play to its end" %
+                                 (track.filename,))
+        wall = time.perf_counter() - t0
+    finally:
+        p.close()
+    return (np.concatenate(out.frames), (out.first_s - t0) * 1e3, wall)
+
+
+def gained(samples, gain, peak):
+    """numpy's clip(rint(x * m)) of ReplayGainReader's multiplier m"""
+    m = 10.0 ** (gain / 20.0)
+    if peak > 0 and m * peak > 1.0:
+        m = 1.0 / peak
+    return np.clip(np.rint(samples.astype(np.float64) * m), -32768,
+                   32767).astype(np.int32)
+
+
+def fresh_python(code, env_extra=None, stdin=None, timeout=600):
+    """``code`` run by a fresh interpreter from the checkout's root:
+    (exit code, stdout, stderr, wall seconds)"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.update(env_extra or {})
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable] + code, cwd=ROOT, env=env,
+                         input=stdin, capture_output=True, text=True,
+                         timeout=timeout)
+    return (out.returncode, out.stdout, out.stderr,
+            time.perf_counter() - t0)
+
+
+# the root's check in a fresh interpreter: its import makes no CUDA
+# context, open() decodes on the device by default, and an
+# ExecProgressQueue runs two FLAC encodes in threads, its results in
+# queue order and its files those one encode writes
+ROOT_CHECK = r"""
+import sys
+import numpy as np
+import torch
+import audiotools_tpu_torch as audiotools
+assert not torch.cuda.is_initialized(), "the import made a CUDA context"
+(flac_path, want_path, work, device) = sys.argv[1:]
+want = np.load(want_path)
+track = (audiotools.open(flac_path) if device == "cuda" else
+         audiotools.open(flac_path, device=device))
+assert str(track.device).startswith(device), track.device
+got = audiotools.pcm.read_all(track.to_pcm())
+assert np.array_equal(got, want), "open().to_pcm() differs from the source"
+
+def encode(dest, progress=None):
+    audiotools.TYPE_MAP["flac"].from_pcm(
+        dest, audiotools.pcm.reader_from_array(want, 16), "8",
+        total_pcm_frames=len(want), device=device)
+    return dest
+
+queue = audiotools.ExecProgressQueue(audiotools.ProgressDisplay(
+    audiotools.SilentMessenger()))
+dests = ["%s/queued%d.flac" % (work, i) for i in range(2)]
+for dest in dests:
+    queue.execute(encode, dest, None, dest=dest)
+assert queue.run(max_processes=2) == dests, "results out of queue order"
+for dest in dests:
+    alone = encode(dest + ".alone.flac")
+    with open(dest, "rb") as a, open(alone, "rb") as b:
+        assert a.read() == b.read(), dest + " differs from one encode's"
+bad = [m for m in sys.modules if m in ("jax", "audiotools_tpu") or
+       m.startswith(("jax.", "audiotools_tpu."))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def playback_phase(dev, alac_sig):
+    """phase 29 on ``alac_sig``, phase 11's signal cut as phase 19 cuts
+    it: playback on ``dev``, the interactive modes' exits and the
+    package root; returns its line's fields and each kernel's launches
+    over the phase.  On a CPU ``dev`` (a rehearsal with a short signal)
+    no launch is required and the card's memory is not read."""
+    import configparser
+    import gc
+    import tempfile
+    from audiotools_tpu_torch import dispatch, player, ui
+    from audiotools_tpu_torch.formats.flac import FlacAudio
+    from audiotools_tpu_torch.pcm import FrameList, reader_from_array
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    devices = ["--devices", str(dev)]
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    per = album_frames(alac_sig)
+    titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    out = dict(titles=len(titles), title_seconds=per / SAMPLE_RATE,
+               types=[])
+    t_phase = time.perf_counter()
+
+    def count(fn):
+        """fn() with the launches counted from 0 just before it: (its
+        result, the launches)"""
+        for kernel in counters.values():
+            kernel.launches = 0
+        result = fn()
+        sync(dev)
+        run = {k: kernel.launches for (k, kernel) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        return (result, run)
+
+    with tempfile.TemporaryDirectory(prefix="play-") as work:
+        # 1. the album on the card as each type, each title played to its
+        # end into a keeping output
+        paths = {}
+        for (type_name, quality, kernels_of) in PLAY_TYPES:
+            cls = dispatch.TYPE_MAP[type_name]
+            paths[type_name] = []
+            for (k, title) in enumerate(titles):
+                path = os.path.join(work, "title%d.%s" % (k, cls.SUFFIX))
+                cls.from_pcm(path, reader_from_array(title, 16), quality,
+                             total_pcm_frames=len(title), device=dev)
+                paths[type_name].append(path)
+
+            def play_all():
+                return [play_title(dispatch.open(path, device=dev))
+                        for path in paths[type_name]]
+
+            (runs, run_launches) = count(play_all)
+            for ((played, _first, _wall), title) in zip(runs, titles):
+                if not np.array_equal(played, title):
+                    raise AssertionError("%s playback differs from the "
+                                         "source" % (type_name,))
+            idle = [k for k in kernels_of if run_launches[k] == 0]
+            if on_cuda and idle:
+                raise AssertionError("%s playback never launched %s"
+                                     % (type_name, idle))
+            wall = sum(r[2] for r in runs)
+            rate = len(titles) * per / wall
+            fields = dict(type=type_name, identical=True,
+                          first_buffer_ms=[r[1] for r in runs],
+                          frames_per_s=rate,
+                          x_realtime=rate / SAMPLE_RATE, wall_s=wall,
+                          launches=run_launches)
+            line("playback_" + type_name, **fields)
+            out["types"].append(fields)
+
+        # 2. the FLAC titles under their ReplayGain, and at half volume
+        FlacAudio.add_replay_gain(paths["flac"], device=dev)
+        gain_runs = {}
+        for (label, mode) in (("track", player.RG_TRACK_GAIN),
+                              ("album", player.RG_ALBUM_GAIN)):
+            walls = []
+            for (path, title) in zip(paths["flac"], titles):
+                track = dispatch.open(path, device=dev)
+                rg = track.replay_gain()
+                (gain, peak) = ((rg.track_gain, rg.track_peak)
+                                if label == "track" else
+                                (rg.album_gain, rg.album_peak))
+                ((played, _first, wall), _run) = count(
+                    lambda: play_title(track, mode))
+                if not np.array_equal(played >> 1,
+                                      gained(title, gain, peak) >> 1):
+                    raise AssertionError("%s gain playback differs from "
+                                         "clip(rint(x * m))" % (label,))
+                walls.append(wall)
+            gain_runs[label] = len(titles) * per / sum(walls)
+        for (path, title) in zip(paths["flac"], titles):
+            ((played, _first, _wall), _run) = count(
+                lambda: play_title(dispatch.open(path, device=dev),
+                                   volume=PLAY_VOLUME))
+            want = player._apply_volume(FrameList(title, 16),
+                                        PLAY_VOLUME).samples
+            if not np.array_equal(played, want):
+                raise AssertionError("playback at volume %s differs from "
+                                     "_apply_volume's" % (PLAY_VOLUME,))
+        rg = dispatch.open(paths["flac"][0], device=dev).replay_gain()
+        out["replay_gain"] = dict(
+            track_gain_dB=rg.track_gain, album_gain_dB=rg.album_gain,
+            track_frames_per_s=gain_runs["track"],
+            album_frames_per_s=gain_runs["album"],
+            equal_but_the_lowest_bit=True, volume=PLAY_VOLUME,
+            volume_identical=True)
+
+        # 3. a stop after the first buffer: no player thread left, the
+        # card's memory back where it was
+        gc.collect()
+        sync(dev)
+        threads = set(threading.enumerate())
+        before = torch.cuda.memory_allocated(dev) if on_cuda else None
+        kept = keeping_output(player)
+        p = player.Player(kept)
+        p.open(dispatch.open(paths["flac"][0], device=dev))
+        p.play()
+        deadline = time.perf_counter() + PLAY_WAIT_S
+        while kept.first_s is None:
+            if time.perf_counter() > deadline:
+                raise AssertionError("no first buffer")
+            time.sleep(0.001)
+        p.stop()
+        p.close()
+        left = [t.name for t in set(threading.enumerate()) - threads]
+        del p, kept
+        gc.collect()
+        sync(dev)
+        after = torch.cuda.memory_allocated(dev) if on_cuda else None
+        if left or after != before:
+            raise AssertionError("a stop left threads %s, card memory %s "
+                                 "-> %s" % (left, before, after))
+        out["stop"] = dict(threads_left=0, memory_allocated_before=before,
+                           memory_allocated_after=after)
+
+        # 4. the tools: trackplay and cdplay pace at real time; -I exits
+        # without urwid; trackrename and audiotools-config prompt
+        cut = os.path.join(work, "cut.flac")
+        FlacAudio.from_pcm(cut, reader_from_array(
+            alac_sig[:PLAY_CUT_S * SAMPLE_RATE], 16), "8", device=dev)
+        FlacAudio.add_replay_gain([cut], device=dev)
+        tools = {}
+        for flags in ([], ["-T"]):
+            (code, stdout, stderr, wall) = fresh_python(
+                ["-m", "audiotools_tpu_torch.cli.trackplay", "-o", "NULL"] +
+                flags + devices + [cut])
+            if (code, stderr.splitlines()) != (0, ["playing " + cut]) or \
+                    wall < PLAY_CUT_S:
+                raise AssertionError("trackplay %s exited %r after %.3f s:"
+                                     " %s %s" % (flags, code, wall, stdout,
+                                                 stderr))
+            tools["trackplay" + "".join(flags)] = dict(wall_s=wall)
+        cd = alac_sig[:2 * CD_TRACK_S * SAMPLE_RATE]
+        with open(os.path.join(work, "cd.bin"), "wb") as f:
+            f.write(cd.astype("<i2").tobytes())
+        cue = os.path.join(work, "cd.cue")
+        with open(cue, "w") as f:
+            f.write('FILE "cd.bin" BINARY\n')
+            for k in range(2):
+                sector = k * CD_TRACK_S * 75
+                f.write("  TRACK %2.2d AUDIO\n    INDEX 01 %2.2d:%2.2d:%2.2d\n"
+                        % (k + 1, sector // 4500, (sector // 75) % 60,
+                           sector % 75))
+        t0 = time.perf_counter()
+        (code, lines, errors) = run_cli_both("cdplay", ["-o", "NULL", "-c",
+                                                        cue])
+        wall = time.perf_counter() - t0
+        if (code, errors) != (0, ["playing track 1", "playing track 2"]) or \
+                wall < 2 * CD_TRACK_S:
+            raise AssertionError("cdplay exited %r after %.3f s: %s %s"
+                                 % (code, wall, lines, errors))
+        tools["cdplay"] = dict(wall_s=wall)
+        if ui.AVAILABLE:
+            raise AssertionError("urwid imports here: -I would wait for "
+                                 "a terminal")
+        refusal = "*** Error: " + ui.ERR_URWID_REQUIRED
+        for (tool, args) in (
+                ("track2track", ["-I", "-t", "flac", "-d",
+                                 os.path.join(work, "i2t")] + devices +
+                 [cut]),
+                ("cd2track", ["-I", "-c", cue, "-d",
+                              os.path.join(work, "icd")] + devices)):
+            (code, lines, errors) = run_cli_both(tool, args)
+            if code != 1 or errors[-1:] != [refusal]:
+                raise AssertionError("%s -I exited %r: %s %s"
+                                     % (tool, code, lines, errors))
+            tools[tool + " -I"] = dict(exit=code, stderr=errors[-1])
+        named = os.path.join(work, "named.flac")
+        FlacAudio.from_pcm(named, reader_from_array(alac_sig[:SAMPLE_RATE],
+                                                    16), device=dev)
+        saved_stdin = sys.stdin
+        sys.stdin = io.StringIO("y\n")
+        try:
+            (code, lines, errors) = run_cli_both(
+                "trackrename", ["-I", "--format", "renamed.%(suffix)s"] +
+                devices + [named])
+        finally:
+            sys.stdin = saved_stdin
+        renamed = os.path.join(work, "renamed.flac")
+        if code != 0 or not os.path.exists(renamed) or \
+                os.path.exists(named):
+            raise AssertionError("trackrename -I exited %r: %s %s"
+                                 % (code, lines, errors))
+        tools["trackrename -I"] = dict(prompt=lines[0])
+        home = os.path.join(work, "home")
+        os.makedirs(home)
+        (code, stdout, stderr, wall) = fresh_python(
+            ["-m", "audiotools_tpu_torch.cli.config_tool", "-I"],
+            env_extra={"HOME": home}, stdin="wavpack\nfast\n")
+        config = configparser.RawConfigParser()
+        config.read(os.path.join(home, ".audiotools.cfg"))
+        if code != 0 or config.get("System", "default_type") != "wavpack" \
+                or config.get("Quality", "wavpack") != "fast":
+            raise AssertionError("audiotools-config -I exited %r: %s %s"
+                                 % (code, stdout, stderr))
+        tools["audiotools-config -I"] = dict(wall_s=wall, prompts=stdout)
+        out["tools"] = tools
+
+        # 5. the package root in a fresh interpreter
+        want = os.path.join(work, "want.npy")
+        np.save(want, titles[0])
+        (code, stdout, stderr, wall) = fresh_python(
+            ["-c", ROOT_CHECK, paths["flac"][0], want, work, dev.type])
+        if code != 0 or stdout.split() != ["ok"]:
+            raise AssertionError("the package root's check exited %r: %s %s"
+                                 % (code, stdout, stderr))
+        out["root"] = dict(cuda_initialized_by_import=False,
+                           open_decodes_on=dev.type, queue_in_order=True,
+                           wall_s=wall)
+    forbidden = loaded_forbidden_modules()
+    if forbidden:
+        raise AssertionError("the port loaded jax or the reference: %s"
+                             % (forbidden,))
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4328,6 +4691,10 @@ def main():
     line("dvda", nvidia_smi=smi, **fields)
     lookups.remove()
 
+    # ---- 29. playback, the interactive modes and the package root --------
+    (fields, playback_launches) = playback_phase(dev, alac_sig)
+    line("playback", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -4362,7 +4729,8 @@ def main():
             containers_launches=containers_launches[kname],
             lossy_launches=lossy_launches[kname],
             disc_launches=disc_launches[kname],
-            dvda_launches=dvda_launches[kname], **row))
+            dvda_launches=dvda_launches[kname],
+            playback_launches=playback_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

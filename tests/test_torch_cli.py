@@ -34,6 +34,7 @@ from audiotools_tpu_torch import dispatch, pcm
 from audiotools_tpu_torch.formats import flac
 from audiotools_tpu_torch.formats.wav import WaveAudio
 from cli_harness import run_tool
+from torch_ui_helpers import canned_lookups, urwid_as
 
 torch.set_num_threads(1)
 
@@ -44,6 +45,8 @@ REFERENCE_ENV = {"ATPU_FLAC_BACKEND": "numpy", "ATPU_FLAC_QPACK": "0",
                  "ATPU_EMIT_EXACT_RICE": "0", "ATPU_ALAC_BACKEND": "numpy",
                  "ATPU_ALAC_QPACK": "0"}
 CLOCK = 1.7e9
+URWID_REQUIRED = ("*** Error: urwid is required for interactive mode; run "
+                  "without -I or install urwid\n")
 
 # (case, track2track arguments, sources); a case writes into its own
 # directory, the port's with --devices cpu
@@ -347,17 +350,25 @@ def test_error_exits_are_the_references(tmp_path, monkeypatch, args, line):
 
 
 @pytest.mark.parametrize("flag", ["-I", "-M"])
-def test_interactive_and_lookup_are_refused(tmp_path, flag):
-    """-I is refused; -M is ported, and with -I (a lookup's choices
-    edited interactively) it is refused too"""
-    path = str(tmp_path / "a.wav")
-    write_wave(path, signal(1, 800, SR), SR)
+def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, flag):
+    """with urwid absent, -I (and -I with -M, a lookup's choices edited
+    interactively) exits 1 with the reference's line, where the
+    reference's does, writing nothing"""
+    monkeypatch.chdir(tmp_path)
+    write_wave("a.wav", signal(1, 800, SR), SR)
     flags = ["-I"] if flag == "-I" else ["-M", "-I"]
-    (code, stdout, stderr) = port_tool("track2track", *flags, "-t", "flac",
-                                       "-d", str(tmp_path / "out"), path)
-    assert (code, stdout) == (1, "")
-    assert "not ported" in stderr
-    assert not os.path.exists(str(tmp_path / "out"))
+    with urwid_as(None), canned_lookups() as server:
+        ref = ref_tool("track2track", *flags, "-t", "flac", "-d", "out",
+                       "a.wav")
+        ref_urls = list(server.urls)
+        port = port_tool("track2track", *flags, "-t", "flac", "-d", "out",
+                         "a.wav")
+    assert port == ref
+    assert port[0] == 1
+    assert port[2].endswith(URWID_REQUIRED)
+    assert server.urls[len(ref_urls):] == ref_urls
+    assert len(ref_urls) == (2 if flag == "-M" else 0)
+    assert os.listdir(".") == ["a.wav"]
 
 
 def foreign_chunk_wave(path, arr):

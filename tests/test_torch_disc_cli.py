@@ -31,6 +31,8 @@ from audiotools_tpu_torch import cdio, dispatch, pcm
 from audiotools_tpu_torch.formats.wav import WaveAudio
 from audiotools_tpu_torch.services import accuraterip, freedb, musicbrainz
 from cli_harness import run_tool
+from test_torch_cli import URWID_REQUIRED
+from torch_ui_helpers import urwid_as
 from torch_disc_helpers import (CannedServer, accuraterip_record,
                                 make_image, make_nrg, musicbrainz_release,
                                 musicbrainz_xml, no_socket, xmcd)
@@ -471,27 +473,45 @@ def test_trackverify_prints_the_references_database_lines(disc_runs, case):
 
 
 def test_interactive_rips_are_refused(tmp_path):
+    """with urwid absent, cd2track -I exits 1 with the reference's lines
+    (the disc ID, then the error), before any rip"""
     (cue, _arr) = make_image(str(tmp_path), [2])
-    (code, stdout, stderr) = port_tool("cd2track", "-I", "-c", cue, "-d",
-                                       str(tmp_path / "out"))
-    assert (code, stdout) == (1, "")
-    assert "not ported" in stderr
-    assert not os.path.exists(str(tmp_path / "out"))
+    out = str(tmp_path / "out")
+    with urwid_as(None):
+        ref = ref_tool("cd2track", "-I", "-c", cue, "-d", out)
+        port = port_tool("cd2track", "-I", "-c", cue, "-d", out)
+    assert port == ref
+    assert port[0] == 1 and port[2].endswith(URWID_REQUIRED)
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("tool", ["track2track", "trackcat", "tracksplit",
                                   "tracktag"])
 def test_interactive_mode_alone_is_refused(tmp_path, monkeypatch, tool):
-    """-I without -M exits 1 with the refusal, writing nothing"""
-    monkeypatch.chdir(tmp_path)
-    WaveAudio.from_pcm("a.wav", pcm.reader_from_array(
-        np.zeros((588, 2), np.int32), 16))
-    before = read("a.wav")
+    """-I without -M and with urwid absent: the reference's exit code,
+    lines and files (its trackcat and tracksplit look at -I only with
+    -M, so trackcat writes its file and tracksplit stops at the missing
+    sheet; track2track and tracktag exit 1 with the error)"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
     args = {"track2track": ["-t", "flac", "-d", "x"],
             "trackcat": ["-t", "flac", "-o", "x.flac"],
             "tracksplit": ["-t", "flac", "-d", "x"],
             "tracktag": ["--name", "x"]}[tool]
-    (code, stdout, stderr) = port_tool(tool, "-I", *args, "a.wav")
-    assert (code, stdout) == (1, "")
-    assert "-I (interactive mode) is not ported" in stderr
-    assert os.listdir(".") == ["a.wav"] and read("a.wav") == before
+    results = {}
+    with urwid_as(None):
+        for (side, run) in (("ref", ref_tool), ("port", port_tool)):
+            os.makedirs(str(tmp_path / side))
+            monkeypatch.chdir(tmp_path / side)
+            WaveAudio.from_pcm("a.wav", pcm.reader_from_array(
+                np.zeros((588, 2), np.int32), 16))
+            results[side] = (run(tool, "-I", *args, "a.wav"),
+                             {name: read(name) for name in os.listdir(".")})
+    assert results["port"] == results["ref"]
+    (code, _stdout, stderr) = results["port"][0]
+    assert code == (0 if tool == "trackcat" else 1)
+    if tool in ("track2track", "tracktag"):
+        assert stderr == URWID_REQUIRED
+    assert sorted(results["port"][1]) == (["a.wav", "x.flac"]
+                                          if tool == "trackcat" else
+                                          ["a.wav"])

@@ -29,6 +29,8 @@ from audiotools_tpu import dvda as ref_dvda
 from audiotools_tpu_torch import cppm, dispatch, dvda, pcm
 from audiotools_tpu_torch.services import musicbrainz
 from cli_harness import run_tool
+from test_torch_cli import URWID_REQUIRED
+from torch_ui_helpers import canned_lookups, urwid_as
 from test_torch_disc_cli import REFERENCE_ENV
 import torch_dvda_helpers as dh
 from torch_disc_helpers import (CannedServer, musicbrainz_release, no_socket,
@@ -430,14 +432,31 @@ def test_dvda2track_names_and_tags_its_files(tool_runs):
         "05 - .wav", "06 - .wav", "07 - .wav"]
 
 
-def test_dvda2track_refuses_interactive_mode(tmp_path):
-    (path, _samples) = build_disc(str(tmp_path), [STRUCTURE[0][:1]])
-    out = str(tmp_path / "out")
-    (code, stdout, stderr) = port_tool("dvda2track", "-I", "-A", path, "-d",
-                                       out)
-    assert (code, stdout) == (1, "")
-    assert "-I (interactive mode) is not ported" in stderr
-    assert not os.path.exists(out)
+@pytest.mark.parametrize("flags", [["-I"], ["-M", "-I"]],
+                         ids=["alone", "with-lookup"])
+def test_dvda2track_refuses_interactive_mode(tmp_path, monkeypatch, flags):
+    """with urwid absent, the reference's dvda2track looks at -I only
+    with -M: alone it rips, with -M it exits 1 with the error after the
+    lookup and before any rip; the port does the same, writing the same
+    files"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(ref_dvda.DVDATrack, "sample_rate",
+                        lambda track: track.title.sample_rate, raising=False)
+    monkeypatch.chdir(tmp_path)
+    (path, _samples) = build_disc(".", [STRUCTURE[0][:1]])
+    with urwid_as(None), canned_lookups() as server:
+        ref = ref_tool("dvda2track", *flags, "-A", path, "-d", "ref")
+        ref_urls = list(server.urls)
+        port = port_tool("dvda2track", *flags, "-A", path, "-d", "port")
+    assert port == (ref[0], as_port(ref[1]), as_port(ref[2]))
+    assert server.urls[len(ref_urls):] == ref_urls
+    assert tree("port") == tree("ref")
+    if flags == ["-I"]:
+        assert port[0] == 0 and len(tree("port")) == 2
+    else:
+        assert port[0] == 1 and port[2].endswith(URWID_REQUIRED)
+        assert tree("port") == {} and len(ref_urls) == 2
 
 
 def test_dvda2track_needs_a_card_or_the_cpu_named(tmp_path):

@@ -294,3 +294,59 @@ def test_dvda_slice_loads_nothing_of_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_playback_slice_loads_nothing_of_the_reference():
+    """a fresh interpreter imports the package root alone (no CUDA
+    context made), then player, ui and parallel.queue; plays a FLAC file
+    through Player and AudioPlayer on the CPU, runs an ExecProgressQueue
+    in threads, trackplay and cdplay to the NULL output and coverview,
+    and holds no module of jax or of the reference"""
+    code = (
+        "import os, sys, tempfile\n"
+        "import torch\n"
+        "import audiotools_tpu_torch as audiotools\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "import numpy as np\n"
+        "from audiotools_tpu_torch import pcm, player, ui\n"
+        "from audiotools_tpu_torch.parallel import queue\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_disc_helpers import make_image\n"
+        "from audiotools_tpu_torch.cli import cdplay, coverview, trackplay\n"
+        "work = tempfile.mkdtemp()\n"
+        "arr = (np.arange(6000 * 2) % 300 - 150).astype(np.int32)"
+        ".reshape(-1, 2)\n"
+        "path = os.path.join(work, 'a.flac')\n"
+        "audiotools.TYPE_MAP['flac'].from_pcm(path, "
+        "pcm.reader_from_array(arr, 16, 22050), device='cpu')\n"
+        "track = audiotools.open(path, device='cpu')\n"
+        "out = player.NULLAudioOutput(realtime=False)\n"
+        "p = player.AudioPlayer(out)\n"
+        "p.set_audiofile(track)\n"
+        "p.play()\n"
+        "while p.state() == player.PLAYER_PLAYING:\n"
+        "    p.output_audio()\n"
+        "assert out.frames_played == 6000\n"
+        "q = audiotools.ExecProgressQueue(audiotools.ProgressDisplay("
+        "audiotools.SilentMessenger()))\n"
+        "for i in range(3):\n"
+        "    q.execute(lambda value, progress=None: value + 1, 'job', None, "
+        "value=i)\n"
+        "assert q.run(2) == [1, 2, 3]\n"
+        "cpu = ['--devices', 'cpu', '-V', 'silent']\n"
+        "assert trackplay.main(['-o', 'NULL', path] + cpu) == 0\n"
+        "(cue, _arr) = make_image(work, [3, 2])\n"
+        "assert cdplay.main(['-o', 'NULL', '-c', cue, '-V', 'silent']) == 0\n"
+        "os.environ.pop('DISPLAY', None)\n"
+        "assert coverview.main([path] + cpu) == 1\n"
+        "assert ui.AVAILABLE in (True, False)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'audiotools_tpu' or "
+        "m.startswith('audiotools_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -37,9 +37,10 @@ from audiotools_tpu_torch import audiofile, dispatch, pcm
 from audiotools_tpu_torch.formats import flac
 from audiotools_tpu_torch.sheets import cue, toc
 from test_sheets import THREE_TRACK_CUE, THREE_TRACK_TOC
-from test_torch_cli import (CLOCK, REFERENCE_ENV, as_port, port_tool, read,
-                            ref_tool, signal, write_wave)
+from test_torch_cli import (CLOCK, REFERENCE_ENV, URWID_REQUIRED, as_port,
+                            port_tool, read, ref_tool, signal, write_wave)
 from test_torch_tags import apetag_and_frames
+from torch_ui_helpers import canned_lookups, urwid_as
 
 torch.set_num_threads(1)
 
@@ -552,19 +553,48 @@ def test_pcm_cat_and_split_round_trip():
 
 @pytest.mark.parametrize("tool,args", [
     ("trackcat", ["-t", "flac", "-o", "x.flac"]),
-    ("tracksplit", ["-t", "flac", "-d", "x"])])
+    ("tracksplit", ["-t", "flac", "-d", "x", "--cue", "a.cue", "-j", "1"])])
 @pytest.mark.parametrize("flag", ["-I", "-M"])
 def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, tool,
                                             args, flag):
-    """-I is refused; -M is ported, and with -I (its choices edited
-    interactively) it is refused too"""
-    monkeypatch.chdir(tmp_path)
-    write_wave("a.wav", signal(1, 800, CD), CD)
+    """with urwid absent, the reference's trackcat and tracksplit look at
+    -I only with -M: -I alone writes the files; with -M (the lookups
+    unreachable) trackcat writes its file, then both exit 1 with the
+    error.  The port gives the same exit codes, lines and files"""
+    for (key, value) in REFERENCE_ENV.items():
+        monkeypatch.setenv(key, value)
     flags = ["-I"] if flag == "-I" else ["-M", "-I"]
-    (code, stdout, stderr) = port_tool(tool, *flags, *args, "a.wav")
-    assert (code, stdout) == (1, "")
-    assert "not ported" in stderr
-    assert not os.path.exists("x.flac") and not os.path.exists("x")
+    results = {}
+    with urwid_as(None), canned_lookups() as server:
+        for (side, run) in (("ref", ref_tool), ("port", port_tool)):
+            os.makedirs(str(tmp_path / side))
+            monkeypatch.chdir(tmp_path / side)
+            write_wave("a.wav", signal(1, 2 * 588, CD), CD)
+            with open("a.cue", "w") as f:
+                f.write('FILE "a.wav" WAVE\n  TRACK 01 AUDIO\n    INDEX 01 '
+                        '00:00:00\n  TRACK 02 AUDIO\n    INDEX 01 00:00:01\n')
+            start = len(server.urls)
+            output = run(tool, *flags, *args, "a.wav")
+            files = {}
+            for (base, _dirs, names) in os.walk("."):
+                for name in names:
+                    files[os.path.join(base, name)] = read(
+                        os.path.join(base, name))
+            results[side] = (output, files, server.urls[start:])
+    assert results["port"] == results["ref"]
+    (code, _stdout, stderr) = results["port"][0]
+    written = sorted(results["port"][1])
+    if flag == "-I":
+        assert code == 0
+        assert written == (["./a.cue", "./a.wav", "./x.flac"]
+                           if tool == "trackcat" else
+                           ["./a.cue", "./a.wav", "./x/01 - .flac",
+                            "./x/02 - .flac"])
+    else:
+        assert code == 1 and stderr.endswith(URWID_REQUIRED)
+        assert len(results["port"][2]) == 2
+        assert written == (["./a.cue", "./a.wav", "./x.flac"]
+                           if tool == "trackcat" else ["./a.cue", "./a.wav"])
 
 
 def test_default_environment_writes_the_references_files(tmp_path,

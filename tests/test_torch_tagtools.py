@@ -25,7 +25,8 @@ import torch
 from audiotools_tpu import dispatch as ref_dispatch
 from audiotools_tpu.formats import flac as ref_flac
 from audiotools_tpu_torch import dispatch
-from test_torch_cli import (CLOCK, REFERENCE_ENV, as_port,
+from torch_ui_helpers import canned_lookups, urwid_as
+from test_torch_cli import (CLOCK, REFERENCE_ENV, URWID_REQUIRED, as_port,
                             flac_blocks_and_frames, port_tool, read, ref_tool,
                             signal)
 from test_torch_tags import apetag_and_frames, full_metadata, png_bytes, \
@@ -350,31 +351,82 @@ def test_coverdump_no_images(tmp_path):
     assert os.listdir(outdir) == []
 
 
+def fresh_tool(side, tool, args, home, answers):
+    """the reference's (``side`` "ref") or the port's tool in a fresh
+    interpreter from the current directory, ``answers`` on its stdin:
+    (exit code, stdout, stderr)"""
+    import subprocess
+    import sys
+    from test_torch_config import REPO, environment
+    if side == "ref":
+        command = [sys.executable, os.path.join(REPO, "tools", tool)]
+    else:
+        command = [sys.executable, "-m", "audiotools_tpu_torch.cli." +
+                   {"audiotools-config": "config_tool"}.get(tool, tool)]
+    out = subprocess.run(command + list(args), capture_output=True,
+                         text=True, timeout=600, input=answers,
+                         env=environment(home, True))
+    return (out.returncode, out.stdout, out.stderr)
+
+
 @pytest.mark.parametrize("tool,flag", [("tracktag", "-I"),
                                        ("tracktag", "-M"),
                                        ("trackrename", "-I"),
+                                       ("trackrename", "-I-no"),
                                        ("config_tool", "-I")])
 def test_interactive_and_lookup_are_refused(tmp_path, monkeypatch, tool,
                                             flag):
-    """-I is refused; -M is ported, and with -I (its choices edited
-    interactively) it is refused too"""
+    """with urwid absent, tracktag -I exits 1 with the reference's line
+    (with -M, after the lookup has written its entries, as the
+    reference's does); trackrename -I asks before each rename and
+    audiotools-config -I asks for the default type and quality on stdin,
+    giving the reference's prompts, lines and files"""
     flac_file = one_flac(tmp_path)
-    before = read(flac_file)
-    if tool == "config_tool":
-        # it takes no files and no --devices; HOME is left alone
-        monkeypatch.setenv("HOME", str(tmp_path))
-        from audiotools_tpu_torch.cli import config_tool
-        (out, err) = (io.StringIO(), io.StringIO())
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            code = config_tool.main([flag, "-t", "wav"])
-        (stdout, stderr) = (out.getvalue(), err.getvalue())
+    results = {}
+    for side in ("ref", "port"):
+        os.makedirs(str(tmp_path / side))
+        shutil.copy(flac_file, str(tmp_path / side / "t.flac"))
+        monkeypatch.chdir(tmp_path / side)
+        if tool == "config_tool":
+            # a fresh interpreter a side: the tool changes the in-memory
+            # configuration that later tools in this process would read
+            home = tmp_path / side / "home"
+            home.mkdir()
+            output = fresh_tool(side, "audiotools-config",
+                                ["-I", "-t", "wav"], home, "flac\n5\n")
+        else:
+            flags = {"-I": ["-I"], "-I-no": ["-I"], "-M": ["-M", "-I"]}[flag]
+            answers = "n\n" if flag == "-I-no" else "y\n"
+            run = ref_tool if side == "ref" else port_tool
+            with urwid_as(None), canned_lookups(), \
+                    monkeypatch.context() as mp:
+                mp.setattr("sys.stdin", io.StringIO(answers))
+                output = run(tool, *flags, "t.flac")
+        files = {}
+        for (base, _dirs, names) in os.walk("."):
+            for name in names:
+                files[os.path.join(base, name)] = read(os.path.join(base,
+                                                                    name))
+        results[side] = (output, files)
+    assert results["port"] == results["ref"]
+    (code, stdout, stderr) = results["port"][0]
+    names = sorted(results["port"][1])
+    if tool == "tracktag":
+        assert (code, stdout, stderr) == (1, "", URWID_REQUIRED)
+        assert names == ["./t.flac"]
+        assert ((results["port"][1]["./t.flac"] == read(flac_file)) ==
+                (flag == "-I"))
+    elif tool == "trackrename":
+        assert code == 0 and stdout.startswith("t.flac -> 00 - .flac ? "
+                                               "[y/N] ")
+        assert names == (["./t.flac"] if flag == "-I-no" else
+                         ["./00 - .flac"])
     else:
-        flags = ["-I"] if flag == "-I" else ["-M", "-I"]
-        (code, stdout, stderr) = port_tool(tool, *flags, flac_file)
-    assert (code, stdout) == (1, "")
-    assert "not ported" in stderr
-    assert os.listdir(str(tmp_path)) == ["t.flac"]
-    assert read(flac_file) == before
+        assert code == 0
+        assert stdout.startswith("default type [flac]: default quality for "
+                                 "flac []: ")
+        config = results["port"][1]["./home/.audiotools.cfg"].decode()
+        assert "default_type = flac" in config and "flac = 5" in config
 
 
 @pytest.mark.parametrize("tool,args", [
