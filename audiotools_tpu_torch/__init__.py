@@ -153,3 +153,20 @@ def calculate_replay_gain(tracks, progress=None, device="cuda"):
     ``tracks``, analysed as one album on ``device``"""
     from .replaygain import calculate_replay_gain_values
     return calculate_replay_gain_values(tracks, progress, device=device)
+
+
+# the submodules the reference's root holds as attributes once imported
+# (``audiotools.pcmstream``, ``audiotools.sheets``, ...), imported here on
+# first use so that importing the root stays light
+_SUBMODULES = frozenset((
+    "_native", "audiofile", "bitstream", "cdio", "cli", "codecs",
+    "dispatch", "formats", "meta", "ogg", "ops", "parallel", "pcm",
+    "pcmstream", "ref", "replaygain", "services", "sheets", "sines",
+    "text", "utils"))
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        import importlib
+        return importlib.import_module("." + name, __name__)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -60,6 +60,13 @@ class AccurateRipCRC:
         self.marks.append(marks)
         self.track_index += samples.shape[0]
 
+    # the single checksum of the reference's one-version classes, which
+    # this two-version class never sets: checksum() is 0, as there
+    checksum_value = 0
+
+    def checksum(self):
+        return self.checksum_value & 0xFFFFFFFF
+
     def checksums(self):
         """(v1, v2), each a 32-bit unsigned int"""
         for marks in self.marks:

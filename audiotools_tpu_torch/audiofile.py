@@ -209,6 +209,18 @@ class MetaData:
         for attr in self.FIELDS:
             yield (attr, getattr(self, attr))
 
+    def filled_fields(self):
+        """(attr, value) for each field that is set"""
+        for (attr, field) in self.fields():
+            if field is not None:
+                yield (attr, field)
+
+    def empty_fields(self):
+        """(attr, None) for each field that is not set"""
+        for (attr, field) in self.fields():
+            if field is None:
+                yield (attr, field)
+
     def raw_info(self):
         """a string of the format's own items"""
         raise NotImplementedError()
@@ -240,6 +252,21 @@ class MetaData:
         """the embedded Image objects"""
         return self.__images__[:]
 
+    def front_covers(self):
+        return [i for i in self.images() if i.type == FRONT_COVER]
+
+    def back_covers(self):
+        return [i for i in self.images() if i.type == BACK_COVER]
+
+    def leaflet_pages(self):
+        return [i for i in self.images() if i.type == LEAFLET_PAGE]
+
+    def media_images(self):
+        return [i for i in self.images() if i.type == MEDIA]
+
+    def other_images(self):
+        return [i for i in self.images() if i.type == OTHER]
+
     def add_image(self, image):
         """embeds an Image"""
         if not self.supports_images():
@@ -258,6 +285,15 @@ class MetaData:
         gives; the tag formats find their own problems"""
         return (MetaData(**{field: getattr(self, field)
                             for field in MetaData.FIELDS}), [])
+
+    def intersection(self, metadata):
+        """a plain MetaData of the fields set to the same value here and
+        in ``metadata``"""
+        return MetaData(**{field: getattr(self, field)
+                           for field in MetaData.FIELDS
+                           if (getattr(self, field) is not None and
+                               getattr(self, field) ==
+                               getattr(metadata, field, None))})
 
 
 (FRONT_COVER, BACK_COVER, LEAFLET_PAGE, MEDIA, OTHER) = range(5)
@@ -354,6 +390,16 @@ class ReplayGain:
             self.track_gain, self.track_peak, self.album_gain,
             self.album_peak)
 
+    def __eq__(self, rg):
+        for attr in ("track_gain", "track_peak", "album_gain", "album_peak"):
+            if not hasattr(rg, attr) or getattr(self, attr) != getattr(rg,
+                                                                       attr):
+                return False
+        return True
+
+    def __ne__(self, rg):
+        return not self.__eq__(rg)
+
 
 class AudioFile:
     """an audio file on disk
@@ -371,6 +417,7 @@ class AudioFile:
     # the outside programs a class needs, and where to get them
     BINARIES = ()
     BINARY_URLS = {}
+    REPLAYGAIN_BINARIES = ()
 
     device = None
 
@@ -395,6 +442,59 @@ class AudioFile:
             if binary in cls.BINARY_URLS:
                 messenger.info("available from %s" %
                                (cls.BINARY_URLS[binary],))
+
+    def bits_per_sample(self):
+        raise NotImplementedError()
+
+    def channels(self):
+        raise NotImplementedError()
+
+    def channel_mask(self):
+        """the channel layout; by default the one of the channel count
+        (1 or 2 only)"""
+        from .pcm import ChannelMask
+        return ChannelMask.from_channels(self.channels())
+
+    def sample_rate(self):
+        raise NotImplementedError()
+
+    def total_frames(self):
+        raise NotImplementedError()
+
+    def seekable(self):
+        """True when the class's decoder can seek"""
+        return False
+
+    def to_pcm(self):
+        raise NotImplementedError()
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None):
+        raise NotImplementedError()
+
+    def __eq__(self, audiofile):
+        """True when both files decode to the same PCM frames"""
+        if not callable(getattr(audiofile, "to_pcm", None)):
+            return False
+        from .pcm import pcm_frame_cmp
+        p1 = p2 = None
+        try:
+            p1 = self.to_pcm()
+            p2 = audiofile.to_pcm()
+            return pcm_frame_cmp(p1, p2) is None
+        except (ValueError, IOError):
+            return False
+        finally:
+            for p in (p1, p2):
+                if p is not None:
+                    try:
+                        p.close()
+                    except Exception:
+                        pass
+
+    def __ne__(self, audiofile):
+        return not self.__eq__(audiofile)
 
     def lossless(self):
         return True
@@ -576,6 +676,11 @@ class WaveContainer(AudioFile):
         pair; raises ValueError when the file holds none"""
         raise NotImplementedError()
 
+    @classmethod
+    def from_wave(cls, filename, header, pcmreader, footer,
+                  compression=None, device=None):
+        raise NotImplementedError()
+
     def convert(self, target_path, target_class, compression=None,
                 progress=None, device=None):
         if (self.has_foreign_wave_chunks() and
@@ -607,6 +712,11 @@ class AiffContainer(AudioFile):
     def aiff_header_footer(self):
         """the AIFF bytes before and after the PCM, a (header, footer)
         pair; raises ValueError when the file holds none"""
+        raise NotImplementedError()
+
+    @classmethod
+    def from_aiff(cls, filename, header, pcmreader, footer,
+                  compression=None, device=None):
         raise NotImplementedError()
 
     def convert(self, target_path, target_class, compression=None,

@@ -378,7 +378,7 @@ class CDTrackReader:
             out[filled:filled + take] = samples[within:within + take]
             filled += take
         self.__position__ += want
-        return pcm.FrameList(out, 16)
+        return pcm.FrameList._wrap(out, 16)
 
     def seek(self, pcm_frame):
         """seeks within the track, returning the position seeked to"""

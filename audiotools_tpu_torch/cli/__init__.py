@@ -54,6 +54,16 @@ class Messenger(messenger.Messenger):
         messenger.Messenger.__init__(self, "audiotools", options)
 
 
+def output_filename(track, destination_dir, output_format, suffix,
+                    metadata):
+    """the path of a converted track: ``track_name`` of its source's
+    filename, ``metadata``, ``output_format`` and ``suffix``, in
+    ``destination_dir``"""
+    from ..audiofile import AudioFile
+    return os.path.join(destination_dir, AudioFile.track_name(
+        track.filename, metadata, output_format, suffix=suffix))
+
+
 def audiofile_type(messenger, type_name):
     """the class a -t/--type argument names, or None after an error"""
     from ..dispatch import TYPE_MAP

@@ -1,210 +1,5 @@
-"""The strings the port's tools print, copied from the reference's
-``audiotools_tpu/text.py`` so that their lines compare equal."""
+"""The strings the port's tools print: the package's ``text`` (every
+string of the reference's), under the module name the tools import
+them from."""
 
-# the two that ``ui`` shows too
-from ..text import ERR_OUTPUT_DUPLICATE_NAME, ERR_OUTPUT_IS_INPUT  # noqa: F401
-
-ERR_1_FILE_REQUIRED = "you must specify at least 1 supported audio file"
-ERR_UNSUPPORTED_AUDIO_TYPE = "unsupported audio type \"%(type)s\""
-ERR_SUPPORTED_TYPES = "supported types: %(types)s"
-ERR_UNSUPPORTED_COMPRESSION = ("\"%(quality)s\" is not a supported "
-                               "compression mode for type \"%(type)s\"")
-ERR_ONE_OUTPUT_FILE = "you may specify only 1 input file for use with -o"
-ERR_MAKEDIRS = "unable to create directory for \"%(filename)s\": %(error)s"
-ERR_PAIRS_REQUIRED = "you must specify pairs of files or 2 directories"
-
-HELP_VERBOSITY = "the verbosity level to execute at"
-HELP_VERSION = "display version number and exit"
-HELP_TYPE = "the audio type to convert to"
-HELP_QUALITY = "the quality to store audio at"
-HELP_DIR = "the directory to store new files in"
-HELP_FORMAT = "the format string for new filenames"
-HELP_OUTPUT = "an output file (single input only)"
-HELP_JOINT = "the maximum number of parallel jobs"
-HELP_METADATA_LOOKUP = ("treat the input files as one album and look up "
-                        "metadata from online services")
-HELP_INTERACTIVE = "edit metadata and output options interactively"
-HELP_SAMPLE_RATE = "convert audio to the given sample rate"
-HELP_CHANNELS = "convert audio to the given channel count"
-HELP_BITS_PER_SAMPLE = "convert audio to the given bits-per-sample"
-HELP_REPLAY_GAIN = "add ReplayGain metadata to output files"
-HELP_NO_REPLAY_GAIN = "do not add ReplayGain metadata"
-HELP_VERIFY_ACCURATERIP = "verify tracks against the AccurateRip database"
-HELP_DEVICES = ("the torch devices to run jobs on: a count N of cards "
-                "(cuda:0 .. cuda:N-1) or a comma list such as cuda:0,cpu "
-                "(default: the current card)")
-
-DESC_TRACK2TRACK = "convert audio files from one format to another"
-LAB_T2T_CONVERTED = "%(source)s -> %(destination)s"
-DESC_TRACKCMP = "compare audio files for PCM equality"
-LAB_TRACKCMP_OK = "%(file1)s <> %(file2)s : OK"
-LAB_TRACKCMP_MISMATCH = ("%(file1)s <> %(file2)s : differ at PCM frame "
-                         "%(frame)d")
-LAB_CMP_MISSING = "%(filename)s: missing"
-DESC_TRACKVERIFY = "verify the losslessness of audio files"
-LAB_TRACKVERIFY_OK = "%(filename)s : OK"
-LAB_TRACKVERIFY_FAILED = "%(filename)s : %(error)s"
-LAB_TRACKVERIFY_RESULTS = "Results:"
-
-RG_ADDING_REPLAYGAIN_WAIT = ("Adding ReplayGain metadata; this may take "
-                             "some time")
-RG_REPLAYGAIN_ADDED = "ReplayGain added"
-
-ERR_FILE_MESSAGE = "%(filename)s: %(message)s"
-DESC_TRACKINFO = "display audio file metadata and attributes"
-HELP_INFO_NO_METADATA = "do not display metadata"
-HELP_INFO_LOW_LEVEL = "display low-level format metadata"
-HELP_INFO_BITRATE = "display the file's bitrate"
-HELP_INFO_PERCENTAGE = "display the wasted-space percentage"
-HELP_INFO_CHANNEL_ASSIGNMENT = "display the file's channel assignment"
-LAB_INFO_ATTRIBS = ("%(filename)s: %(minutes)d:%(seconds)2.2d, "
-                    "%(channels)dch, %(sample_rate)dHz, "
-                    "%(bits_per_sample)d-bit, %(name)s")
-LAB_INFO_CHANNELS = "Assigned Channels:"
-LAB_INFO_CHANNEL = "channel %(channel)d -> %(name)s"
-LAB_INFO_CHANNEL_UNDEFINED = "channel %(channel)d -> undefined"
-LAB_BITRATE_LINE = "%(bitrate)4.4s kbps: %(filename)s"
-LAB_PERCENTAGE_LINE = "%(percent)3.3s%%: %(filename)s"
-DESC_TRACKLENGTH = "display the total length of audio files"
-LAB_TRACKLENGTH_TOTAL = "%(hours)d:%(minutes)2.2d:%(seconds)2.2d"
-
-HELP_CUESHEET = "a cuesheet to embed or split tracks with"
-HELP_CAT_OUTPUT = "the output file to write"
-DESC_TRACKCAT = "concatenate audio files into one"
-ERR_TRACKCAT_SAMPLE_RATES = "all files must have the same sample rate"
-ERR_TRACKCAT_CHANNELS = "all files must have the same channel count"
-ERR_TRACKCAT_BPS = "all files must have the same bits-per-sample"
-DESC_TRACKSPLIT = "split an audio file by cuesheet"
-ERR_TRACKSPLIT_NO_CUESHEET = ("you must specify a cuesheet to split audio "
-                              "with")
-
-DESC_TRACKRENAME = "rename audio files by metadata"
-LAB_TRACKRENAME_RENAMED = "%(source)s -> %(destination)s"
-ERR_TRACKRENAME_COLLISION = "unable to rename \"%(source)s\": target exists"
-
-DESC_TRACKTAG = "update audio file metadata"
-HELP_TAG_NAME = "the track's name"
-HELP_TAG_ARTIST = "the track's artist"
-HELP_TAG_PERFORMER = "the track's performer"
-HELP_TAG_COMPOSER = "the track's composer"
-HELP_TAG_CONDUCTOR = "the track's conductor"
-HELP_TAG_ALBUM = "the track's album name"
-HELP_TAG_NUMBER = "the track's number on the album"
-HELP_TAG_TRACK_TOTAL = "the total number of tracks on the album"
-HELP_TAG_ALBUM_NUMBER = "the album's number in its set"
-HELP_TAG_ALBUM_TOTAL = "the total number of albums in the set"
-HELP_TAG_YEAR = "the album's release year"
-HELP_TAG_DATE = "the track's recording date"
-HELP_TAG_CATALOG = "the album's catalog number"
-HELP_TAG_ISRC = "the track's ISRC code"
-HELP_TAG_PUBLISHER = "the album's publisher"
-HELP_TAG_MEDIA = "the album's source media"
-HELP_TAG_COPYRIGHT = "the track's copyright information"
-HELP_TAG_COMMENT = "a track comment"
-HELP_TAG_COMMENT_FILE = "a file containing a track comment"
-HELP_TAG_REMOVE = "remove all existing metadata first"
-HELP_TAG_FRONT_COVER = "an image file of the album's front cover"
-HELP_TAG_BACK_COVER = "an image file of the album's back cover"
-HELP_TAG_LEAFLET = "an image file of the album's leaflet"
-HELP_TAG_MEDIA_IMAGE = "an image file of the album's media"
-HELP_TAG_OTHER_IMAGE = "another image file associated with the album"
-HELP_TAG_REMOVE_IMAGES = "remove existing images first"
-LAB_TRACKTAG_TAGGED = "tagged %(filename)s"
-ERR_TRACKTAG_COMMENT_IOERROR = "unable to open comment file %(filename)s"
-ERR_TRACKTAG_COMMENT_NOT_UTF8 = "comment file %(filename)s is not UTF-8 text"
-ERR_INVALID_FIELD_VALUE = "invalid value for %(field)s"
-
-DESC_TRACKLINT = "detect and fix broken audio file metadata"
-HELP_LINT_FIX = "fix detected problems"
-HELP_LINT_DB = "the undo database file to store backups in"
-HELP_LINT_UNDO = "undo fixes from the undo database"
-ERR_UNDO_REQUIRES_DB = "--undo requires --db"
-LAB_RESTORED = "* %(filename)s: restored"
-LAB_NO_BACKUP = "* %(filename)s: no stored backup"
-LAB_FIXED = "* %(filename)s: fixed"
-LAB_LINT_MESSAGE = "* %(filename)s: %(message)s"
-
-DESC_COVERDUMP = "extract cover art from an audio file"
-DESC_COVERTAG = "attach cover art to audio files"
-HELP_COVERDUMP_PREFIX = "the prefix for dumped image files"
-ERR_NO_IMAGES_PLAIN = "no images found"
-LAB_DUMPED_IMAGE = "dumped %(output)s"
-
-DESC_CONFIG = "display and edit audiotools configuration"
-LAB_CONFIG_SYSTEM = "System:"
-LAB_CONFIG_DEFAULT_TYPE = "  default type : %(type)s"
-LAB_CONFIG_MAX_JOBS = "  maximum jobs : %(jobs)d"
-LAB_CONFIG_FORMATS = "Available Formats:"
-LAB_CONFIG_SET = "set %(section)s.%(option)s = %(value)s"
-LAB_CONFIG_QUALITY = "Quality Modes:"
-LAB_CONFIG_QUALITY_DEFAULT = "%(mode)s (default)"
-HELP_CONFIG_TYPE = "set the default audio type"
-
-ERR_UNSUPPORTED_TYPE = "unsupported audio type %(type)r"
-HELP_NO_MUSICBRAINZ = "do not query the MusicBrainz service"
-HELP_MUSICBRAINZ_SERVER = "the MusicBrainz server to query"
-HELP_NO_FREEDB = "do not query the FreeDB service"
-HELP_FREEDB_SERVER = "the FreeDB server to query"
-HELP_USE_DEFAULT = ("with -M, use the default blank choice instead of the "
-                    "first service match")
-LAB_T2T_USING_METADATA = "Using metadata: %(album)s"
-LAB_UNTITLED = "(untitled)"
-LAB_ACCURATERIP_MATCH = "%(filename)s : AccurateRip confidence %(confidence)d"
-LAB_ACCURATERIP_MISMATCH = "%(filename)s : AccurateRip MISMATCH"
-LAB_ACCURATERIP_NOT_FOUND = ("%(filename)s : not present in AccurateRip "
-                             "database")
-
-DESC_CD2TRACK = "extract CD audio to files"
-DESC_CDINFO = "display CD information"
-HELP_CDROM = "the CD-ROM device or disc image to read"
-HELP_READ_SPEED = "the speed to read the CD at"
-HELP_READ_OFFSET = "drive read offset, in PCM samples"
-HELP_CD_TRACKS = "track numbers to rip (default: all)"
-ERR_TRACK_NOT_FOUND = "track %(track)d not found on disc"
-LAB_TRACK_PROGRESS = "track %(track)d"
-LAB_RIPPED_TRACK = "ripped track %(track)d"
-LAB_CDINFO_TRACKS = "Tracks : %(count)d"
-LAB_CDINFO_LENGTH = "Length : %(minutes)d:%(seconds)2.2d"
-LAB_CDINFO_FREEDB = "FreeDB ID      : %(id)s"
-LAB_CDINFO_MUSICBRAINZ = "MusicBrainz ID : %(id)s"
-LAB_CDINFO_ACCURATERIP = "AccurateRip ID : %(id)s"
-LAB_CDINFO_HEADER = "#  Offset   Length   Seconds"
-LAB_ACCURATERIP_DISC_ID = "AccurateRip disc ID: %(id)s"
-LAB_USING_METADATA = "Using metadata: %(album)s"
-
-DESC_TRACK2CD = "burn audio files to CD or build a disc image"
-HELP_T2CD_CUESHEET = "the cuesheet to arrange tracks with"
-HELP_T2CD_IMAGE = "write a disc image to the given path instead of burning"
-ERR_T2CD_NO_BURNER_IMAGE = ("no CD burning binary found (cdrdao/cdrecord); "
-                            "image retained at %(cue)s")
-LAB_T2CD_WROTE = "wrote %(cue)s + %(bin)s"
-HELP_SPEED = "the speed to burn the CD at"
-
-DESC_DVDA2TRACK = "extract DVD-Audio titles to files"
-DESC_DVDAINFO = "display DVD-Audio disc information"
-HELP_AUDIO_TS = "the disc's AUDIO_TS directory"
-HELP_DVDA_TITLE = "the title number to extract"
-LAB_DVDA_TITLE = "Title %(title)d"
-LAB_DVDA_TRACK = "title %(title)d - track %(track)2.2d"
-LAB_DVDA_EXTRACTED = "extracted track %(track)d"
-LAB_DVDA_TITLESET = "Titleset %(titleset)d:"
-
-RG_ADDING_REPLAYGAIN = "Adding ReplayGain"
-RG_APPLYING_REPLAYGAIN = "Applying ReplayGain"
-RG_APPLYING_REPLAYGAIN_WAIT = "Applying ReplayGain; this may take some time"
-RG_REPLAYGAIN_APPLIED = "ReplayGain applied"
-
-DESC_TRACKPLAY = "play audio files"
-DESC_CDPLAY = "play audio CDs"
-HELP_PLAY_OUTPUT = "the audio output to play to"
-HELP_PLAY_SHUFFLE = "play files in random order"
-HELP_PLAY_REPEAT = "repeat the playlist endlessly"
-LAB_PLAYING = "playing %(filename)s"
-LAB_STOPPED = "stopped"
-LAB_CDPLAY_TRACK = "playing track %(track)d"
-
-DESC_COVERVIEW = "display an audio file's cover art"
-ERR_NO_IMAGES = "no images found in %(filename)s"
-LAB_VIEWER_UNAVAILABLE = "viewer unavailable (%(error)s); listing instead"
-LAB_COVER_LINE = ("%(index)d: %(type)s %(width)dx%(height)d %(mime)s "
-                  "(%(size)d bytes)")
+from ..text import *  # noqa: F401,F403

@@ -162,7 +162,7 @@ class TorchALACDecoder(FastALACDecoder):
                    max(int(pcm_frames), 1))
         chunk = self._pcm[self._pcm_off:self._pcm_off + take]
         self._pcm_off += take
-        return pcm.FrameList(chunk, self.bits_per_sample)
+        return pcm.FrameList._wrap(chunk, self.bits_per_sample)
 
     def _decode_batch(self, pcm_frames):
         """decodes up to MAX_BATCH_FRAMESETS framesets into the PCM

@@ -397,7 +397,7 @@ class FastALACDecoder:
             raise IOError("truncated ALAC stream")
         self._buffer = self._buffer[consumed:]
         self._remaining -= samples.shape[0]
-        return pcm.FrameList(np.ascontiguousarray(samples),
+        return pcm.FrameList._wrap(np.ascontiguousarray(samples),
                              self.bits_per_sample)
 
     def close(self):

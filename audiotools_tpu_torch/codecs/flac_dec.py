@@ -289,7 +289,7 @@ class TorchFlacDecoder:
         if (self._pcm_off >= buf.shape[0] and self.total_frames and
                 self.decoded_frames >= self.total_frames):
             self._finish()
-        return pcm.FrameList(chunk, self.bits_per_sample)
+        return pcm.FrameList._wrap(chunk, self.bits_per_sample)
 
     def seekable(self):
         return not self.closed
@@ -381,7 +381,7 @@ class TorchFlacDecoder:
         self.decoded_frames += samples.shape[0]
         if self.total_frames and self.decoded_frames >= self.total_frames:
             self._finish()
-        return pcm.FrameList(samples, self.bits_per_sample)
+        return pcm.FrameList._wrap(samples, self.bits_per_sample)
 
     def _check_leftover(self):
         """bytes that hold no complete frame must not pass for the end

@@ -60,6 +60,7 @@ from ..ops import bitpack, flac_frames, lpc as lpc_ops, qpack
 from ..parallel.mesh import Split, cuda_devices
 from ..pcm import BufferedPCMReader
 from ..ref import flac_enc as oracle
+from ..utils.profiling import stage_timer
 
 # process-wide counts for reports, added to under _device.COUNT_LOCK:
 # device-pack batches emitted without their packed bits
@@ -306,6 +307,7 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
                 if devs[0].type == "cuda" else None]
                if len(devs) == 1 else None)
     stage_seconds = dict.fromkeys(STAGES, 0.0)
+    prof = stage_timer("flac_enc_fast[torch]")
     planner = _WirePlanner(bps, stereo_trial)
     submitting = []             # the batch whose slices compute() runs
 
@@ -386,20 +388,24 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
         t = None
         t0 = time.perf_counter()
         if route == "wire":
-            (wire, k, W, E, t, V, patched) = planner.wire(blocks,
-                                                          stream_md5)
-            rows = pad_rows(wire.view(np.int32))
+            with prof("qpack"):
+                (wire, k, W, E, t, V, patched) = planner.wire(blocks,
+                                                              stream_md5)
+                rows = pad_rows(wire.view(np.int32))
             wire_shape = (k, W, E, V)
             with COUNT_LOCK:
                 wire_batches += 1
                 patched_batches += int(patched)
         else:
-            stream_md5.update_pcm(blocks.reshape(-1, channels), bps)
-            rows = pad_rows(blocks.astype(np_upload))
+            with prof("md5"):
+                stream_md5.update_pcm(blocks.reshape(-1, channels), bps)
+            with prof("qpack"):
+                rows = pad_rows(blocks.astype(np_upload))
         stage_seconds["qpack"] += time.perf_counter() - t0
         batch = _Batch(blocks, first_frame, t)
         submitting[:] = [batch]
-        batch.pending = split.submit([rows], (wire_shape,))
+        with prof("submit"):
+            batch.pending = split.submit([rows], (wire_shape,))
         return batch
 
     def exact_packed(blocks):
@@ -516,7 +522,8 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
     def emit(batch):
         """waits for one batch's results and emits its frames"""
         global fallback_batches, floor_frames, overflow_batches
-        outs = split.collect(batch.pending)
+        with prof("fetch"):
+            outs = split.collect(batch.pending)
         for ev in batch.events:
             for (stage, (a, b)) in zip(("upload", "analysis", "pack"),
                                        ((0, 1), (2, 3), (3, 4))):
@@ -547,14 +554,16 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
                 probe_out = np.zeros(B, dtype=np.uint8)
         t_floor = 0.0
         try:
-            (frame_bytes, lens) = emit_rows(
-                blocks, batch.first_frame, compact, True,
-                probe_thr=probe_thr, probe_out=probe_out, **splice)
+            with prof("emit"):
+                (frame_bytes, lens) = emit_rows(
+                    blocks, batch.first_frame, compact, True,
+                    probe_thr=probe_thr, probe_out=probe_out, **splice)
             if probe_out is not None and probe_out.any():
                 t1 = time.perf_counter()
-                (frame_bytes, lens) = restitch_floor(
-                    blocks, probe_out.astype(bool), batch.first_frame,
-                    frame_bytes, lens)
+                with prof("floor"):
+                    (frame_bytes, lens) = restitch_floor(
+                        blocks, probe_out.astype(bool), batch.first_frame,
+                        frame_bytes, lens)
                 t_floor += time.perf_counter() - t1
                 with COUNT_LOCK:
                     floor_frames += int(np.count_nonzero(probe_out))
@@ -562,19 +571,22 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
             # decisions from the quantized analysis implied unsafe Rice
             # parameters: the whole batch again from an exact analysis
             t1 = time.perf_counter()
-            (frame_bytes, lens) = emit_rows(
-                blocks, batch.first_frame, exact_packed(blocks), False)
+            with prof("floor"):
+                (frame_bytes, lens) = emit_rows(
+                    blocks, batch.first_frame, exact_packed(blocks), False)
             t_floor += time.perf_counter() - t1
             with COUNT_LOCK:
                 overflow_batches += 1
-        write_frames(frame_bytes, lens, block_size)
+        with prof("write"):
+            write_frames(frame_bytes, lens, block_size)
         stage_seconds["floor"] += t_floor
         stage_seconds["emit"] += time.perf_counter() - t0 - t_floor
 
     pending = None
     submitted_frames = 0
     while True:
-        framelist = reader.read(block_size * batch_frames)
+        with prof("read"):
+            framelist = reader.read(block_size * batch_frames)
         if framelist.frames == 0:
             break
         total_pcm_frames += framelist.frames
@@ -594,16 +606,22 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
                 emit(pending)
             pending = batch
         if tail.shape[0]:
-            stream_md5.update_pcm(tail, bps)
+            with prof("md5"):
+                stream_md5.update_pcm(tail, bps)
             if pending is not None:
                 emit(pending)
                 pending = None
-            frame_bytes = oracle.encode_frame(
-                reader, options, submitted_frames, tail.astype(np.int64))
+            with prof("emit"):
+                frame_bytes = oracle.encode_frame(
+                    reader, options, submitted_frames,
+                    tail.astype(np.int64))
             submitted_frames += 1
-            write_frames(frame_bytes, [len(frame_bytes)], tail.shape[0])
+            with prof("write"):
+                write_frames(frame_bytes, [len(frame_bytes)],
+                             tail.shape[0])
     if pending is not None:
         emit(pending)
+    prof.report(extra="(%d frames)" % len(frame_sizes))
 
     if frame_sizes:
         (min_frame, max_frame) = (min(frame_sizes), max(frame_sizes))

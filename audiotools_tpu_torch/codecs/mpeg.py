@@ -162,7 +162,7 @@ class MP3Decoder:
         if not data and result != MPG123_OK:
             return pcm.empty_framelist(self.channels, 16)
         samples = np.frombuffer(data, dtype="<i2").astype(np.int32)
-        return pcm.FrameList(
+        return pcm.FrameList._wrap(
             samples.reshape(-1, self.channels), 16)
 
     def close(self):

@@ -154,7 +154,7 @@ class OpusDecoder:
                 got += samples.shape[0]
         if not out:
             return pcm.empty_framelist(self.channels, 16)
-        return pcm.FrameList(
+        return pcm.FrameList._wrap(
             np.ascontiguousarray(np.concatenate(out)), 16)
 
     def close(self):

@@ -200,7 +200,7 @@ class FastSHNDecoder:
         chunk = self.decoded[self.offset:self.offset + max(int(pcm_frames),
                                                            1)]
         self.offset += chunk.shape[0]
-        return pcm.FrameList(np.ascontiguousarray(chunk, dtype=np.int32),
+        return pcm.FrameList._wrap(np.ascontiguousarray(chunk, dtype=np.int32),
                              self.bits_per_sample)
 
     def seekable(self):

@@ -150,7 +150,7 @@ class FastTTADecoder:
         (samples, _consumed) = _native.tta_decode_frame(
             data, n, self.channels, self.bits_per_sample)
         self.remaining -= n
-        return pcm.FrameList(samples, self.bits_per_sample)
+        return pcm.FrameList._wrap(samples, self.bits_per_sample)
 
     def seekable(self):
         return True
@@ -208,7 +208,7 @@ class TorchTTADecoder(FastTTADecoder):
         chunk = self._pcm[self._pcm_off:self._pcm_off + take]
         self._pcm_off += take
         self.remaining -= take
-        return pcm.FrameList(chunk, self.bits_per_sample)
+        return pcm.FrameList._wrap(chunk, self.bits_per_sample)
 
     def _decode_group(self, g0):
         """decodes TTA frames [g0, g0 + DEC_GROUP_FRAMES) from the file;

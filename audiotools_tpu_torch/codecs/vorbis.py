@@ -151,7 +151,7 @@ class VorbisDecoder:
         order = VORBIS_TO_WAVE.get(self.channels)
         if order is not None:
             samples = samples[:, order]
-        return pcm.FrameList(
+        return pcm.FrameList._wrap(
             np.ascontiguousarray(samples), 16)
 
     def close(self):

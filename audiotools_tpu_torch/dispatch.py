@@ -148,6 +148,11 @@ class Filename(tuple):
         return self[0]
 
 
+# the built-in default type (the tools read the configured one,
+# ``utils.config.DEFAULT_TYPE``)
+DEFAULT_TYPE = "flac"
+
+
 class UnknownAudioType(UnsupportedFile):
     """a file whose content is no audio type the port opens; its text is
     the filename, as the reference's UnsupportedFile's is.  From
@@ -157,6 +162,11 @@ class UnknownAudioType(UnsupportedFile):
         super().__init__(filename)
         self.filename = filename
         self.suffix = filename
+
+    def error_msg(self, messenger):
+        """tells ``messenger`` the type is not supported"""
+        from .text import ERR_UNSUPPORTED_AUDIO_TYPE
+        messenger.error(ERR_UNSUPPORTED_AUDIO_TYPE % {"type": self.suffix})
 
 
 class AmbiguousAudioType(UnknownAudioType):

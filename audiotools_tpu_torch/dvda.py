@@ -513,7 +513,7 @@ class DVDATitleReader:
         if samples.shape[0] > self.__remaining__:
             samples = samples[:self.__remaining__]
         self.__remaining__ -= samples.shape[0]
-        return pcm.FrameList(
+        return pcm.FrameList._wrap(
             np.ascontiguousarray(samples, dtype=np.int32),
             self.bits_per_sample)
 
@@ -605,7 +605,7 @@ class MLPTitleReader(DVDATitleReader):
         if len(samples) > self.__remaining__:
             samples = samples[:self.__remaining__]
         self.__remaining__ -= len(samples)
-        return pcm.FrameList(
+        return pcm.FrameList._wrap(
             np.ascontiguousarray(samples, dtype=np.int32),
             self.bits_per_sample)
 

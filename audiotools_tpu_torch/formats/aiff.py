@@ -196,6 +196,9 @@ class AiffAudio(AiffContainer):
     def total_frames(self):
         return self.__total_sample_frames
 
+    def seekable(self):
+        return True
+
     def to_pcm(self):
         """a PCMReader of the SSND chunk's samples"""
         f = open(self.filename, "rb")

@@ -65,6 +65,9 @@ class AuAudio(AudioFile):
         bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
         return self.__data_size // bytes_per_frame if bytes_per_frame else 0
 
+    def seekable(self):
+        return True
+
     def to_pcm(self):
         """a PCMReader of the data's samples"""
         f = open(self.filename, "rb")

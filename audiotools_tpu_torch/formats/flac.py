@@ -49,7 +49,7 @@ import os
 import struct
 from fractions import Fraction
 
-from .. import text
+from .. import _native, text
 from .._device import resolve_device
 from ..audiofile import (AiffContainer, AudioFile, EncodingError, Image,
                          InvalidFile, MetaData, ReplayGain, SheetIndex, SheetTrack,
@@ -85,6 +85,14 @@ class Flac_STREAMINFO:
     def __eq__(self, block):
         return (isinstance(block, Flac_STREAMINFO) and
                 vars(self) == vars(block))
+
+    def copy(self):
+        return Flac_STREAMINFO(self.minimum_block_size,
+                               self.maximum_block_size,
+                               self.minimum_frame_size,
+                               self.maximum_frame_size, self.sample_rate,
+                               self.channels, self.bits_per_sample,
+                               self.total_samples, self.md5sum)
 
     @classmethod
     def parse(cls, data):
@@ -131,6 +139,9 @@ class Flac_PADDING:
     def __init__(self, length):
         self.length = length
 
+    def copy(self):
+        return Flac_PADDING(self.length)
+
     def __eq__(self, block):
         return isinstance(block, Flac_PADDING) and block.length == self.length
 
@@ -156,6 +167,9 @@ class Flac_APPLICATION:
     def __init__(self, application_id, data):
         self.application_id = application_id
         self.data = data
+
+    def copy(self):
+        return Flac_APPLICATION(self.application_id, self.data)
 
     def __eq__(self, block):
         return (getattr(block, "application_id", None) ==
@@ -187,6 +201,9 @@ class Flac_SEEKTABLE:
         """seekpoints is a list of
         (PCM frame offset, byte offset, PCM frame count) triples"""
         self.seekpoints = [tuple(p) for p in seekpoints]
+
+    def copy(self):
+        return Flac_SEEKTABLE(self.seekpoints)
 
     def __eq__(self, block):
         return (isinstance(block, Flac_SEEKTABLE) and
@@ -232,6 +249,10 @@ class Flac_VORBISCOMMENT(VorbisComment):
     def __repr__(self):
         return "Flac_VORBISCOMMENT(%r, %r)" % (self.comment_strings,
                                                self.vendor_string)
+
+    def copy(self):
+        return Flac_VORBISCOMMENT(self.comment_strings[:],
+                                  self.vendor_string)
 
     @classmethod
     def parse(cls, data):
@@ -286,6 +307,10 @@ class Flac_CUESHEET:
         self.lead_in_samples = lead_in_samples
         self.is_cdda = is_cdda
         self.tracks = list(tracks)
+
+    def copy(self):
+        return Flac_CUESHEET(self.catalog_number, self.lead_in_samples,
+                             self.is_cdda, [t.copy() for t in self.tracks])
 
     def __eq__(self, sheet):
         if isinstance(sheet, Flac_CUESHEET):
@@ -356,6 +381,16 @@ class Flac_CUESHEET:
             if track.number != 170:
                 yield track.to_sheet_track(sample_rate)
 
+    def track(self, track_number):
+        """the SheetTrack numbered ``track_number``; KeyError if none"""
+        for track in self.sheet_tracks():
+            if track.number() == track_number:
+                return track
+        raise KeyError(track_number)
+
+    def image_formatted(self):
+        return True
+
     def pcm_lengths(self, total_pcm_frames, sample_rate):
         """each track's length in PCM frames, from the tracks' offsets;
         the last track runs to ``total_pcm_frames``"""
@@ -385,6 +420,12 @@ class Flac_CUESHEET_track:
         self.track_type = track_type
         self.pre_emphasis = pre_emphasis
         self.index_points = list(index_points)
+
+    def copy(self):
+        return Flac_CUESHEET_track(self.track_offset, self.number,
+                                   self.ISRC, self.track_type,
+                                   self.pre_emphasis,
+                                   [i.copy() for i in self.index_points])
 
     def __eq__(self, track):
         return all(getattr(track, attr, None) == getattr(self, attr)
@@ -456,6 +497,9 @@ class Flac_CUESHEET_index:
         self.offset = offset
         self.number = number
 
+    def copy(self):
+        return Flac_CUESHEET_index(self.offset, self.number)
+
     def __eq__(self, index):
         return (getattr(index, "offset", None) == self.offset and
                 getattr(index, "number", None) == self.number)
@@ -485,6 +529,11 @@ class Flac_PICTURE(Image):
                        color_count=color_count, description=description,
                        # front cover, back cover, leaflet page, media
                        type={3: 0, 4: 1, 5: 2, 6: 3}.get(picture_type, 4))
+
+    def copy(self):
+        return Flac_PICTURE(self.picture_type, self.mime_type,
+                            self.description, self.width, self.height,
+                            self.color_depth, self.color_count, self.data)
 
     def __repr__(self):
         return ("Flac_PICTURE(picture_type=%r, mime_type=%r, width=%r, "
@@ -567,6 +616,13 @@ class FlacMetaData(MetaData):
 
     def __init__(self, blocks):
         self.__dict__["block_list"] = list(blocks)
+
+    def added_removed_blocks(self):
+        return self.block_list
+
+    def blocks(self):
+        """an iterator of the metadata blocks, in file order"""
+        return iter(self.block_list)
 
     @classmethod
     def converted(cls, metadata):
@@ -848,6 +904,7 @@ class FlacAudio(WaveContainer, AiffContainer):
     SUFFIX = "flac"
     NAME = SUFFIX
     DESCRIPTION = "Free Lossless Audio Codec"
+    METADATA_CLASS = FlacMetaData
     COMPRESSION_MODES = tuple(map(str, range(0, 9)))
     COMPRESSION_DESCRIPTIONS = {"0": text.COMP_FLAC_0, "8": text.COMP_FLAC_8}
     DEFAULT_COMPRESSION = "8"
@@ -936,6 +993,58 @@ class FlacAudio(WaveContainer, AiffContainer):
         f = open(self.filename, "rb")
         f.seek(self.__stream_offset - 4, 0)
         return f
+
+    def seekable(self):
+        return True
+
+    def metadata_length(self):
+        """the bytes of the metadata blocks, their headers included and
+        the 'fLaC' marker not"""
+        with self._open_stream() as f:
+            if f.read(4) != b"fLaC":
+                raise InvalidFLAC("not a FLAC file (no 'fLaC' marker)")
+            counter = 0
+            last = 0
+            while not last:
+                header = f.read(4)
+                if len(header) != 4:
+                    raise InvalidFLAC("truncated FLAC metadata")
+                last = header[0] >> 7
+                length = int.from_bytes(header[1:4], "big")
+                counter += 4 + length
+                f.seek(length, 1)
+            return counter
+
+    def seektable(self, offsets=None, seekpoint_interval=None):
+        """a Flac_SEEKTABLE of the file's frames: a seekpoint every
+        ``seekpoint_interval`` PCM frames (10 s by default), from
+        ``offsets``, the (byte offset, PCM frames) pairs of the frames,
+        or from a walk of the stream where None"""
+        if seekpoint_interval is None:
+            seekpoint_interval = self.sample_rate() * 10
+        if offsets is None:
+            offsets = self.__walk_frame_offsets__()
+        return seektable_from_offsets(offsets, seekpoint_interval)
+
+    def __walk_frame_offsets__(self):
+        """the (byte offset from the first frame, PCM frames) of each
+        frame, decoded one at a time on the host"""
+        max_block = self._streaminfo.maximum_block_size or 65536
+        with self._open_stream() as f:
+            f.seek(4 + self.metadata_length(), 1)
+            data = memoryview(f.read())
+        offsets = []
+        pos = 0
+        while pos < len(data):
+            # a one-block cap decodes exactly one frame a call
+            (samples, consumed) = _native.flac_decode(
+                data[pos:], self._streaminfo.bits_per_sample,
+                self._streaminfo.channels, max_block, verify_crc=False)
+            if consumed == 0 or samples.shape[0] == 0:
+                break
+            offsets.append((pos, samples.shape[0]))
+            pos += consumed
+        return offsets
 
     def get_metadata(self):
         """the file's FlacMetaData"""
@@ -1333,6 +1442,13 @@ class OggFlacAudio(FlacAudio):
     SUFFIX = "oga"
     NAME = "oggflac"
     DESCRIPTION = "Ogg FLAC"
+
+    @classmethod
+    def supports_cuesheet(cls):
+        return True
+
+    def seekable(self):
+        return False
 
     def __init__(self, filename, device="cuda"):
         from ..ogg import PacketReader, PageReader

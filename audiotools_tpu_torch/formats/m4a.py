@@ -243,6 +243,47 @@ def meta_atom():
         M4A_Leaf_Atom(b"free", b"\x00" * 1024)])
 
 
+def get_m4a_atom(reader, *atoms):
+    """(size, reader) of the payload of the atom at the nested path
+    ``atoms`` (names as bytes) of a BitstreamReader; KeyError when the
+    path is not there"""
+    for (i, next_atom) in enumerate(atoms):
+        try:
+            (length, stream_atom) = reader.parse("32u 4b")
+            while stream_atom != next_atom:
+                if length < 8:
+                    raise KeyError(next_atom)
+                reader.skip_bytes(length - 8)
+                (length, stream_atom) = reader.parse("32u 4b")
+            if i == len(atoms) - 1:
+                return (length - 8, reader.substream(length - 8))
+            reader = reader.substream(length - 8)
+        except IOError:
+            raise KeyError(next_atom)
+
+
+def get_m4a_atom_offset(reader, *atoms):
+    """(offset, size) of the atom at the nested path ``atoms``, its
+    header included, from the reader's position; KeyError when the path
+    is not there"""
+    offset = 0
+    for (i, next_atom) in enumerate(atoms):
+        try:
+            (length, stream_atom) = reader.parse("32u 4b")
+            while stream_atom != next_atom:
+                if length < 8:
+                    raise KeyError(next_atom)
+                reader.skip_bytes(length - 8)
+                offset += length
+                (length, stream_atom) = reader.parse("32u 4b")
+            if i == len(atoms) - 1:
+                return (offset, length)
+            offset += 8
+            reader = reader.substream(length - 8)
+        except IOError:
+            raise KeyError(next_atom)
+
+
 class InvalidALAC(InvalidFile, ValueError):
     """a file that is not an ALAC M4A file this module reads"""
 
@@ -259,6 +300,12 @@ class ALACAudio(AudioFile):
     COMPRESSION_DESCRIPTIONS = {"": text.COMP_ALAC}
     DEFAULT_COMPRESSION = ""
     COMPRESSION_MODES = ("",)
+
+    # the encoder's frame size and its adaptive Rice coder's settings
+    BLOCK_SIZE = BLOCK_SIZE
+    INITIAL_HISTORY = 10
+    HISTORY_MULTIPLIER = 40
+    MAXIMUM_K = 14
 
     def __init__(self, filename, device="cuda"):
         AudioFile.__init__(self, filename)
@@ -283,6 +330,9 @@ class ALACAudio(AudioFile):
 
     def total_frames(self):
         return self.__header["total_pcm_frames"]
+
+    def seekable(self):
+        return True
 
     def get_metadata(self):
         """the moov/udta/meta atom, an M4A_META_Atom, or None"""

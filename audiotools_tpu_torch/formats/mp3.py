@@ -211,6 +211,50 @@ class MP3Audio(AudioFile):
             AudioFile.verify(self, progress, sink)
         return True
 
+    # header-bit lookup tables (MPEG audio spec): indexed by the raw
+    # 2-bit mpeg_id / 2-bit layer / 4-bit bit_rate / 2-bit sample_rate
+    # header fields (None marks reserved values)
+    SAMPLE_RATE = {0: (11025, 12000, 8000, None),     # MPEG-2.5
+                   1: (None, None, None, None),       # reserved
+                   2: (22050, 24000, 16000, None),    # MPEG-2
+                   3: (44100, 48000, 32000, None)}    # MPEG-1
+    BIT_RATE = {
+        3: {  # MPEG-1
+            3: (None, 32000, 64000, 96000, 128000, 160000, 192000,
+                224000, 256000, 288000, 320000, 352000, 384000,
+                416000, 448000, None),               # layer I
+            2: (None, 32000, 48000, 56000, 64000, 80000, 96000,
+                112000, 128000, 160000, 192000, 224000, 256000,
+                320000, 384000, None),               # layer II
+            1: (None, 32000, 40000, 48000, 56000, 64000, 80000,
+                96000, 112000, 128000, 160000, 192000, 224000,
+                256000, 320000, None)},              # layer III
+        2: {  # MPEG-2
+            3: (None, 32000, 48000, 56000, 64000, 80000, 96000,
+                112000, 128000, 144000, 160000, 176000, 192000,
+                224000, 256000, None),
+            2: (None, 8000, 16000, 24000, 32000, 40000, 48000,
+                56000, 64000, 80000, 96000, 112000, 128000,
+                144000, 160000, None),
+            1: (None, 8000, 16000, 24000, 32000, 40000, 48000,
+                56000, 64000, 80000, 96000, 112000, 128000,
+                144000, 160000, None)}}
+    BIT_RATE[0] = BIT_RATE[2]                         # MPEG-2.5
+
+    def frame_length(self, mpeg_id, layer, bit_rate, sample_rate,
+                     pad):
+        """the MPEG frame's length in bytes, from its header's raw
+        mpeg_id, layer, bit rate, sample rate and padding fields"""
+        sample_rate = self.SAMPLE_RATE[mpeg_id][sample_rate]
+        if sample_rate is None:
+            raise ValueError("invalid sample rate")
+        bit_rate = self.BIT_RATE[mpeg_id][layer][bit_rate]
+        if bit_rate is None:
+            raise ValueError("invalid bit rate")
+        if layer == 3:                                # layer I
+            return (((12 * bit_rate) // sample_rate) + pad) * 4
+        return ((144 * bit_rate) // sample_rate) + pad
+
     # ReplayGain through the mp3gain program, when it is found: it
     # rewrites the frames' global gain fields, so the operation is not
     # lossless

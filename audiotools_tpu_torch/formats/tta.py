@@ -133,6 +133,14 @@ class TrueAudio(ApeTaggedAudio, AudioFile):
     def total_frames(self):
         return self.__header["total_pcm_frames"]
 
+    def seekable(self):
+        return True
+
+    def data_size(self):
+        """the stream's bytes: header, seektable and frames"""
+        lengths = self.__header["frame_lengths"]
+        return 22 + len(lengths) * 4 + 4 + sum(lengths)
+
     @classmethod
     def supports_replay_gain(cls):
         return True

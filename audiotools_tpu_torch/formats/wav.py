@@ -18,7 +18,7 @@ import struct
 
 from ..audiofile import EncodingError, InvalidFile, WaveContainer
 from ..pcm import (CHANNEL_MASKS, FRAMELIST_SIZE, CounterPCMReader,
-                   FrameList, bytes_to_samples)
+                   FrameList, LimitedFileReader, PCMReader, bytes_to_samples)
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_EXTENSIBLE = 0xFFFE
@@ -110,37 +110,56 @@ def pcm_to_samples(data, channels, bits_per_sample):
 
 def samples_to_pcm(samples, bits_per_sample):
     """int32 [frames, channels] -> little-endian WAVE PCM bytes"""
-    return FrameList(samples, bits_per_sample).to_bytes(
+    return FrameList._wrap(samples, bits_per_sample).to_bytes(
         False, bits_per_sample != 8)
 
 
-class WaveReader:
+class RIFF_Chunk:
+    """one RIFF chunk: its ID and its data"""
+
+    def __init__(self, chunk_id, chunk_data):
+        self.id = chunk_id
+        self.__data = chunk_data
+
+    def __repr__(self):
+        return "RIFF_Chunk(%r)" % (self.id,)
+
+    def size(self):
+        """the data's size in bytes, the pad byte not counted"""
+        return len(self.__data)
+
+    def total_size(self):
+        """the chunk's size in bytes, its header and pad byte counted"""
+        size = len(self.__data)
+        return 8 + size + (size % 2)
+
+    def data(self):
+        return self.__data
+
+    def verify(self):
+        return True
+
+    def write(self, f):
+        """writes the chunk (header, data, pad byte) to a binary file;
+        returns the bytes written"""
+        f.write(struct.pack("<4sI", self.id, len(self.__data)))
+        f.write(self.__data)
+        if len(self.__data) % 2:
+            f.write(b"\x00")
+        return self.total_size()
+
+
+class WaveReader(PCMReader):
     """a PCMReader over the data chunk of an open WAVE file, positioned
-    at the chunk's first byte; reads at most ``data_length`` bytes"""
+    at the chunk's first byte; reads and seeks within ``data_length``
+    bytes"""
 
     def __init__(self, wave_file, sample_rate, channels, channel_mask,
                  bits_per_sample, data_length):
-        self.file = wave_file
-        self.sample_rate = sample_rate
-        self.channels = channels
-        self.channel_mask = channel_mask
-        self.bits_per_sample = bits_per_sample
-        self.bytes_per_frame = channels * (bits_per_sample // 8)
-        self.remaining = data_length - data_length % self.bytes_per_frame
-
-    def read(self, pcm_frames):
-        """up to max(pcm_frames, 1) frames; empty at the end"""
-        size = min(max(int(pcm_frames), 1) * self.bytes_per_frame,
-                   self.remaining)
-        data = self.file.read(size)
-        data = data[:len(data) - len(data) % self.bytes_per_frame]
-        self.remaining -= len(data)
-        return FrameList(pcm_to_samples(data, self.channels,
-                                        self.bits_per_sample),
-                         self.bits_per_sample)
-
-    def close(self):
-        self.file.close()
+        PCMReader.__init__(self, LimitedFileReader(wave_file, data_length),
+                           sample_rate, channels, channel_mask,
+                           bits_per_sample, signed=bits_per_sample != 8,
+                           big_endian=False)
 
 
 class WaveAudio(WaveContainer):
@@ -195,6 +214,35 @@ class WaveAudio(WaveContainer):
     def total_frames(self):
         bytes_per_frame = self.__channels * (self.__bits_per_sample // 8)
         return self.__data_size // bytes_per_frame if bytes_per_frame else 0
+
+    def seekable(self):
+        return True
+
+    def chunks(self):
+        """yields a RIFF_Chunk for each chunk of the file"""
+        with open(self.filename, "rb") as f:
+            for (chunk_id, chunk_size, offset) in _chunks(f):
+                f.seek(offset, 0)
+                yield RIFF_Chunk(chunk_id, f.read(chunk_size))
+
+    @classmethod
+    def wave_from_chunks(cls, filename, chunk_iter):
+        """writes a new RIFF WAVE file of RIFF_Chunk-like objects, as
+        they are, and returns it"""
+        try:
+            f = open(filename, "wb")
+        except IOError as err:
+            raise EncodingError(str(err))
+        try:
+            f.write(struct.pack("<4sI4s", b"RIFF", 4, b"WAVE"))
+            total = 4
+            for chunk in chunk_iter:
+                total += chunk.write(f)
+            f.seek(4, 0)
+            f.write(struct.pack("<I", total))
+        finally:
+            f.close()
+        return cls(filename)
 
     def has_foreign_wave_chunks(self):
         return set(self.__chunk_ids) != {b"fmt ", b"data"}

@@ -64,6 +64,22 @@ def write_wavpack(path_or_file, pcmreader, compression=DEFAULT_COMPRESSION,
         pcmreader.close()
 
 
+def validate_header(header):
+    """(total size, data size) of a RIFF WAVE header's bytes; raises
+    ValueError for bytes that are no RIFF WAVE header or hold no data
+    chunk"""
+    if len(header) < 12 or header[0:4] != b"RIFF" or \
+            header[8:12] != b"WAVE":
+        raise ValueError("invalid wave header")
+    total_size = struct.unpack("<I", header[4:8])[0] + 8
+    return (total_size, riff_data_size(header))
+
+
+def validate_footer(footer, data_bytes_written):
+    """checks a RIFF WAVE footer's bytes: any are accepted"""
+    return True
+
+
 class InvalidWavPack(InvalidFile, ValueError):
     """a file that is not a WavPack file this module reads"""
 
@@ -111,6 +127,70 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
 
     def total_frames(self):
         return self.__total_frames
+
+    def seekable(self):
+        return True
+
+    def blocks(self, reader=None):
+        """yields (data size, BitstreamReader) of each WavPack block's
+        data after its 32-byte header, from ``reader`` or the file's
+        start"""
+        from ..bitstream import BitstreamReader
+        own_file = None
+        if reader is None:
+            own_file = open(self.filename, "rb")
+            reader = BitstreamReader(own_file, True)
+        try:
+            while True:
+                try:
+                    (wvpk, block_size) = reader.parse("4b 32u 192p")
+                except IOError:
+                    return
+                if wvpk != b"wvpk":
+                    return
+                yield (block_size - 24, reader.substream(block_size - 24))
+        finally:
+            if own_file is not None:
+                own_file.close()
+
+    def sub_blocks(self, reader=None):
+        """yields (function, nondecoder, data size, BitstreamReader) of
+        each sub-block of every block"""
+        for (block_size, block_data) in self.blocks(reader):
+            while block_size > 0:
+                (function, nondecoder, size_1_less, large) = \
+                    block_data.parse("5u 1u 1u 1u")
+                if large:
+                    sub_size = block_data.read(24)
+                    block_size -= 4
+                else:
+                    sub_size = block_data.read(8)
+                    block_size -= 2
+                if size_1_less:
+                    yield (function, nondecoder, sub_size * 2 - 1,
+                           block_data.substream(sub_size * 2 - 1))
+                    block_data.skip(8)
+                else:
+                    yield (function, nondecoder, sub_size * 2,
+                           block_data.substream(sub_size * 2))
+                block_size -= sub_size * 2
+
+    def fmt_chunk(self, reader=None):
+        """a BitstreamReader of the fmt chunk of the RIFF header the file
+        stores; InvalidWavPack when it stores none"""
+        for (function, nondecoder, _size, data) in self.sub_blocks(reader):
+            if function == 1 and nondecoder:
+                (riff, wave) = data.parse("4b 32p 4b")
+                if riff != b"RIFF" or wave != b"WAVE":
+                    raise InvalidWavPack("invalid embedded RIFF")
+                while True:
+                    (chunk_id, chunk_size) = data.parse("4b 32u")
+                    if chunk_id == b"fmt ":
+                        return data.substream(chunk_size)
+                    elif chunk_id == b"data":
+                        raise InvalidWavPack("no fmt chunk stored")
+                    data.skip_bytes(chunk_size + (chunk_size % 2))
+        raise InvalidWavPack("no fmt chunk stored")
 
     def wave_header_footer(self):
         """the RIFF bytes the blocks store before and after the PCM;

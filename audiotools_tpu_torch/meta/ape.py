@@ -49,6 +49,17 @@ class ApeTagItem:
         self.key = key
         self.data = data
 
+    def __eq__(self, item):
+        for attr in ("type", "read_only", "key", "data"):
+            if not hasattr(item, attr) or getattr(self, attr) != getattr(
+                    item, attr):
+                return False
+        return True
+
+    def total_size(self):
+        """the item's size in bytes, its header included"""
+        return 4 + 4 + len(self.key) + 1 + len(self.data)
+
     def copy(self):
         return ApeTagItem(self.type, self.read_only, self.key,
                           self.data)
@@ -84,6 +95,10 @@ class ApeTagItem:
     @classmethod
     def binary(cls, key, data):
         return cls(1, 0, key, data)
+
+    @classmethod
+    def external(cls, key, data):
+        return cls(2, 0, key, data)
 
     @classmethod
     def string(cls, key, data):
@@ -148,11 +163,35 @@ class ApeTag(MetaData):
     def keys(self):
         return [tag.key for tag in self.tags]
 
+    def total_size(self):
+        """the tag's size in bytes, its header and footer included"""
+        size = 32 if self.contains_header else 0
+        size += sum(tag.total_size() for tag in self.tags)
+        if self.contains_footer:
+            size += 32
+        return size
+
+    def __contains__(self, key):
+        return any(tag.key == key for tag in self.tags)
+
     def __getitem__(self, key):
         for tag in self.tags:
             if tag.key == key:
                 return tag
         raise KeyError(key)
+
+    def get(self, key, default):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def index(self, key):
+        """the position of the item ``key`` among the tag's items"""
+        for (i, tag) in enumerate(self.tags):
+            if tag.key == key:
+                return i
+        raise ValueError(key)
 
     def __setitem__(self, key, value):
         for i in range(len(self.tags)):
@@ -556,3 +595,62 @@ def _existing_tag_size(f):
     if flags & (1 << 31):
         total += 32
     return total
+
+
+class ApeAudio:
+    """a Monkey's Audio file, identified only: its stream header gives
+    the attributes, and there is no decoder or encoder, as in the
+    reference (so the class is never available)"""
+
+    SUFFIX = "ape"
+    NAME = SUFFIX
+    DESCRIPTION = "Monkey's Audio"
+    COMPRESSION_MODES = tuple()
+    DEFAULT_COMPRESSION = ""
+
+    def __init__(self, filename):
+        self.filename = filename
+        with open(filename, "rb") as f:
+            header = f.read(76)
+        if header[0:4] != b"MAC ":
+            raise ValueError("invalid Monkey's Audio header")
+        (version,) = struct.unpack("<H", header[4:6])
+        if version < 3980:
+            raise ValueError("unsupported Monkey's Audio version")
+        (blocks_per_frame, final_frame_blocks, total_frames,
+         bits_per_sample, channels,
+         sample_rate) = struct.unpack("<IIIHHI", header[56:76])
+        self.__total_frames = ((total_frames - 1) * blocks_per_frame +
+                               final_frame_blocks if total_frames else 0)
+        self.__bits_per_sample = bits_per_sample
+        self.__channels = channels
+        self.__sample_rate = sample_rate
+
+    @classmethod
+    def available(cls, system_binaries=None):
+        return False
+
+    def bits_per_sample(self):
+        return self.__bits_per_sample
+
+    def channels(self):
+        return self.__channels
+
+    def sample_rate(self):
+        return self.__sample_rate
+
+    def total_frames(self):
+        return self.__total_frames
+
+    def lossless(self):
+        return True
+
+    def to_pcm(self):
+        raise NotImplementedError(
+            "Monkey's Audio decoding is not supported")
+
+    @classmethod
+    def from_pcm(cls, filename, pcmreader, compression=None,
+                 total_pcm_frames=None):
+        raise NotImplementedError(
+            "Monkey's Audio encoding is not supported")

@@ -30,6 +30,10 @@ class M4A_Leaf_Atom:
         return "M4A_Leaf_Atom(%r, %d bytes)" % (self.name,
                                                 len(self.data))
 
+    def __eq__(self, other):
+        return (getattr(other, "name", None) == self.name and
+                getattr(other, "data", None) == self.data)
+
     def copy(self):
         return M4A_Leaf_Atom(self.name, self.data)
 
@@ -49,9 +53,15 @@ class M4A_Tree_Atom:
     def __repr__(self):
         return "M4A_Tree_Atom(%r, %r)" % (self.name, self.leaf_atoms)
 
+    def __iter__(self):
+        return iter(self.leaf_atoms)
+
     def copy(self):
         return M4A_Tree_Atom(self.name,
                              [leaf.copy() for leaf in self.leaf_atoms])
+
+    def __getitem__(self, atom_name):
+        return self.get_child(atom_name)
 
     def get_child(self, atom_name):
         for leaf in self.leaf_atoms:
@@ -59,8 +69,18 @@ class M4A_Tree_Atom:
                 return leaf
         raise KeyError(atom_name)
 
+    def has_child(self, atom_name):
+        return any(leaf.name == atom_name for leaf in self.leaf_atoms)
+
     def add_child(self, atom):
         self.leaf_atoms.append(atom)
+
+    def remove_child(self, atom_name):
+        """removes the first child named ``atom_name``, if any"""
+        for (i, leaf) in enumerate(self.leaf_atoms):
+            if leaf.name == atom_name:
+                del self.leaf_atoms[i]
+                return
 
     def replace_child(self, atom):
         for (i, leaf) in enumerate(self.leaf_atoms):
@@ -68,6 +88,22 @@ class M4A_Tree_Atom:
                 self.leaf_atoms[i] = atom
                 return
         self.leaf_atoms.append(atom)
+
+    def child_offset(self, *path):
+        """the byte offset of the data of the child at ``path`` (atom
+        names, outermost first) within this atom's data"""
+        offset = 0
+        tree = self
+        for name in path:
+            for leaf in tree.leaf_atoms:
+                if leaf.name == name:
+                    offset += 8
+                    tree = leaf
+                    break
+                offset += 8 + leaf.size()
+            else:
+                raise KeyError(name)
+        return offset
 
     def size(self):
         return sum(8 + leaf.size() for leaf in self.leaf_atoms)
@@ -189,6 +225,9 @@ class M4A_META_Atom(MetaData, M4A_Tree_Atom):
             if a.name == b"ilst":
                 return a
         return None
+
+    def has_ilst_atom(self):
+        return self.ilst_atom() is not None
 
     def _ilst_entry(self, name):
         ilst = self.ilst_atom()

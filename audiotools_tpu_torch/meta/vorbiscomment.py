@@ -56,6 +56,12 @@ class VorbisComment(MetaData):
                      for comment in self.comment_strings
                      if "=" in comment})
 
+    def values(self):
+        return [self[key] for key in self.keys()]
+
+    def items(self):
+        return [(key, self[key]) for key in self.keys()]
+
     def __contains__(self, key):
         matching_keys = self.ALIASES.get(key.upper(),
                                          frozenset([key.upper()]))

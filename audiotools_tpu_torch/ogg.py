@@ -18,6 +18,11 @@ import struct
 
 from . import _native, text
 
+
+def ogg_crc(data, initial=0):
+    """the Ogg page CRC-32 of ``data``, continuing from ``initial``"""
+    return _native.ogg_crc(data, initial)
+
 # the page header before its lacing values
 _HEADER = struct.Struct("<4sBBqIIIB")
 

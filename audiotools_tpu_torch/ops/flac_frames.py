@@ -32,6 +32,7 @@ import torch
 from . import lpc as lpc_ops
 from .bits import exact_exp2
 from .._device import COUNT_LOCK
+from ..utils.profiling import named_scope
 
 (CHOICE_CONSTANT, CHOICE_VERBATIM, CHOICE_FIXED, CHOICE_LPC) = range(4)
 
@@ -160,6 +161,46 @@ def _rice_search_exact(cand_res, cand_orders, n, porders, max_rice,
         part_bits = 4 + torch.amin(totals, dim=-1)
         totals_by_p.append(part_bits.sum(dim=2).to(torch.float64))
     return (totals_by_p, params_by_p)
+
+
+def _rice_search(cand_res, cand_orders, n, porders, max_rice, max_bps,
+                 mode):
+    """(per-porder totals [S, C] float64, per-porder parameters
+    [S, C, parts] int32) of the Rice partition search: the exact ladder
+    or the reference's estimate"""
+    if mode == "exact":
+        return _rice_search_exact(cand_res, cand_orders, n, porders,
+                                  max_rice, max_bps)
+    (S, C, _n) = cand_res.shape
+    dev = cand_res.device
+    orders_f = cand_orders.to(torch.float64)
+    pmax = porders[-1]
+    parts_max = 1 << pmax
+    seg_abs_by_p = [None] * (pmax + 1)
+    seg_abs_by_p[pmax] = exact_sum(
+        torch.abs(cand_res).reshape(S, C, parts_max, n >> pmax))
+    for p in range(pmax - 1, -1, -1):
+        fine = seg_abs_by_p[p + 1]
+        seg_abs_by_p[p] = fine[:, :, 0::2] + fine[:, :, 1::2]
+
+    rice_totals = []        # per porder: [S, C] f64
+    rice_params_by_p = []   # per porder: [S, C, parts] int32
+    for porder in porders:
+        parts = 1 << porder
+        psize = n >> porder
+        seg_abs = seg_abs_by_p[porder]                 # [S,C,parts]
+        counts = torch.full((S, C, parts), float(psize),
+                            dtype=torch.float64, device=dev)
+        counts[:, :, 0] = psize - orders_f
+        # r = min(smallest r with count*2^r >= sum, max_rice)
+        r = torch.zeros((S, C, parts), dtype=torch.int32, device=dev)
+        for rr in range(max_rice):
+            r += ((counts * float(1 << rr)) < seg_abs).to(torch.int32)
+        est_msb = torch.floor(seg_abs * 2.0 * exact_exp2(-r))
+        part_bits = 4.0 + est_msb + counts * (1.0 + r.to(torch.float64))
+        rice_totals.append(torch.sum(part_bits, dim=2))
+        rice_params_by_p.append(r)
+    return (rice_totals, rice_params_by_p)
 
 
 def _pad_last(x, right):
@@ -295,15 +336,20 @@ def analyze_subframes(X, bps, n, max_lpc_order, qlp_precision, porders,
     # ---- LPC analysis --------------------------------------------------
     use_lpc = K > 0 and n > K + 1
     if use_lpc:
-        autocorr = lpc_ops.windowed_autocorr_df(Xs, window, K)
+        with named_scope("flac.autocorr"):
+            autocorr = lpc_ops.windowed_autocorr_df(Xs, window, K)
         degenerate = torch.all(autocorr[0] == 0.0, dim=1)
-        (coeffs, errors) = lpc_ops.levinson_df(autocorr, K)
-        (qlp, shifts) = lpc_ops.quantize_all_orders(coeffs, qlp_precision)
+        with named_scope("flac.levinson"):
+            (coeffs, errors) = lpc_ops.levinson_df(autocorr, K)
+        with named_scope("flac.quantize"):
+            (qlp, shifts) = lpc_ops.quantize_all_orders(coeffs,
+                                                        qlp_precision)
         qlp = torch.where(degenerate[:, None, None], 0, qlp)
         shifts = torch.where(degenerate[:, None], 0, shifts)
-        lpc_res = lpc_ops.lpc_residuals(Xs, qlp, shifts, max_bps,
-                                        qlp_precision,
-                                        clip_bits=max_bps + 4)
+        with named_scope("flac.lpc_residuals"):
+            lpc_res = lpc_ops.lpc_residuals(Xs, qlp, shifts, max_bps,
+                                            qlp_precision,
+                                            clip_bits=max_bps + 4)
         cand_res = torch.cat([fixed_res[:, None, :], lpc_res], dim=1)
         del lpc_res
         cand_orders = torch.cat(
@@ -321,36 +367,10 @@ def analyze_subframes(X, bps, n, max_lpc_order, qlp_precision, porders,
 
     # ---- Rice partition search -----------------------------------------
     orders_f = cand_orders.to(torch.float64)
-    pmax = porders[-1]
-    parts_max = 1 << pmax
-    if mode == "exact":
-        (rice_totals, rice_params_by_p) = _rice_search_exact(
-            cand_res, cand_orders, n, porders, max_rice, max_bps)
-    else:
-        seg_abs_by_p = [None] * (pmax + 1)
-        seg_abs_by_p[pmax] = exact_sum(
-            torch.abs(cand_res).reshape(S, C, parts_max, n >> pmax))
-        for p in range(pmax - 1, -1, -1):
-            fine = seg_abs_by_p[p + 1]
-            seg_abs_by_p[p] = fine[:, :, 0::2] + fine[:, :, 1::2]
-
-        rice_totals = []        # per porder: [S, C] f64
-        rice_params_by_p = []   # per porder: [S, C, parts] int32
-        for porder in porders:
-            parts = 1 << porder
-            psize = n >> porder
-            seg_abs = seg_abs_by_p[porder]                 # [S,C,parts]
-            counts = torch.full((S, C, parts), float(psize),
-                                dtype=torch.float64, device=dev)
-            counts[:, :, 0] = psize - orders_f
-            # r = min(smallest r with count*2^r >= sum, max_rice)
-            r = torch.zeros((S, C, parts), dtype=torch.int32, device=dev)
-            for rr in range(max_rice):
-                r += ((counts * float(1 << rr)) < seg_abs).to(torch.int32)
-            est_msb = torch.floor(seg_abs * 2.0 * exact_exp2(-r))
-            part_bits = 4.0 + est_msb + counts * (1.0 + r.to(torch.float64))
-            rice_totals.append(torch.sum(part_bits, dim=2))
-            rice_params_by_p.append(r)
+    parts_max = 1 << porders[-1]
+    with named_scope("flac.rice_search"):
+        (rice_totals, rice_params_by_p) = _rice_search(
+            cand_res, cand_orders, n, porders, max_rice, max_bps, mode)
     rice_totals = torch.stack(rice_totals, dim=2)          # [S, C, P]
     best_porder_idx = torch.argmin(rice_totals, dim=2)     # first min
     rice_bits = torch.amin(rice_totals, dim=2)             # [S, C]

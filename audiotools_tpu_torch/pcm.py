@@ -29,14 +29,58 @@ CHANNEL_MASKS = {1: 0x0004, 2: 0x0003, 3: 0x0007, 4: 0x0033,
 
 
 class FrameList:
-    """int32 PCM samples [frames, channels] in interleaved (WAVE)
-    channel order, with their bits per sample"""
+    """integer PCM samples: int32 [frames, channels] in interleaved (RIFF
+    WAVE) channel order, with their bits per sample
+
+    ``FrameList(data, channels, bits_per_sample, is_big_endian=False,
+    is_signed=True)`` takes packed PCM bytes of 8, 16 or 24 bits, or a
+    sequence of interleaved samples, or an array [frames, channels];
+    the port's readers wrap arrays they already hold with
+    ``FrameList._wrap(samples, bits_per_sample)``, which takes any
+    bits per sample.  ``len()`` is frames * channels and indexing reads
+    the interleaved samples, so an empty FrameList is false; FrameLists
+    compare by value and are unhashable."""
 
     __slots__ = ("samples", "bits_per_sample")
 
-    def __init__(self, samples, bits_per_sample):
-        self.samples = samples
+    def __init__(self, data, channels, bits_per_sample,
+                 is_big_endian=False, is_signed=True):
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            data = bytes(data)
+            if bits_per_sample not in (8, 16, 24):
+                raise ValueError("unsupported bits per sample")
+            if channels < 1:
+                raise ValueError("channel count must be > 0")
+            frame_bytes = (bits_per_sample // 8) * channels
+            if len(data) % frame_bytes:
+                raise ValueError(
+                    "number of bytes %d not divisible by frame size %d" %
+                    (len(data), frame_bytes))
+            self.samples = bytes_to_samples(data, channels, bits_per_sample,
+                                            is_signed, is_big_endian)
+        else:
+            arr = np.asarray(data, dtype=np.int32)
+            if arr.ndim == 1:
+                if channels < 1:
+                    raise ValueError("channel count must be > 0")
+                if len(arr) % channels:
+                    raise ValueError(
+                        "number of samples not divisible by channel count")
+                arr = arr.reshape(-1, channels)
+            elif arr.ndim != 2 or arr.shape[1] != channels:
+                raise ValueError("bad sample array shape")
+            self.samples = arr
+        if bits_per_sample not in (8, 16, 24):
+            raise ValueError("unsupported bits per sample")
         self.bits_per_sample = bits_per_sample
+
+    @classmethod
+    def _wrap(cls, samples, bits_per_sample):
+        """a FrameList over ``samples`` [frames, channels] as they are"""
+        fl = cls.__new__(cls)
+        fl.samples = samples
+        fl.bits_per_sample = bits_per_sample
+        return fl
 
     @property
     def frames(self):
@@ -45,6 +89,92 @@ class FrameList:
     @property
     def channels(self):
         return self.samples.shape[1]
+
+    def __len__(self):
+        return self.samples.size
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [int(v) for v in self.samples.reshape(-1)[i]]
+        n = self.samples.size
+        if i < 0:
+            i += n
+        if not (0 <= i < n):
+            raise IndexError("index out of range")
+        return int(self.samples.reshape(-1)[i])
+
+    def __iter__(self):
+        return iter(self.samples.reshape(-1).tolist())
+
+    def __eq__(self, other):
+        if isinstance(other, FrameList):
+            return (self.bits_per_sample == other.bits_per_sample and
+                    self.samples.shape == other.samples.shape and
+                    bool(np.array_equal(self.samples, other.samples)))
+        return NotImplemented
+
+    def __ne__(self, other):
+        result = self.__eq__(other)
+        if result is NotImplemented:
+            return result
+        return not result
+
+    __hash__ = None
+
+    def __add__(self, other):
+        if not isinstance(other, FrameList):
+            raise TypeError("cannot concatenate FrameList with non-FrameList")
+        if self.channels != other.channels:
+            raise ValueError("both FrameLists must have the same channels")
+        if self.bits_per_sample != other.bits_per_sample:
+            raise ValueError(
+                "both FrameLists must have the same bits_per_sample")
+        return FrameList._wrap(
+            np.concatenate([self.samples, other.samples], axis=0),
+            self.bits_per_sample)
+
+    def __mul__(self, count):
+        return FrameList._wrap(np.tile(self.samples, (int(count), 1)),
+                               self.bits_per_sample)
+
+    def __repr__(self):
+        return ("FrameList(frames=%d, channels=%d, bits_per_sample=%d)" %
+                (self.frames, self.channels, self.bits_per_sample))
+
+    def frame(self, frame_number):
+        """the given PCM frame as a 1-frame FrameList"""
+        if not (0 <= frame_number < self.frames):
+            raise IndexError("invalid frame number")
+        return FrameList._wrap(self.samples[frame_number:frame_number + 1],
+                               self.bits_per_sample)
+
+    def channel(self, channel_number):
+        """the given channel as a 1-channel FrameList"""
+        if not (0 <= channel_number < self.channels):
+            raise IndexError("invalid channel number")
+        return FrameList._wrap(
+            self.samples[:, channel_number:channel_number + 1],
+            self.bits_per_sample)
+
+    def split(self, frame_count):
+        """a (head, tail) pair of FrameLists split at ``frame_count``"""
+        if frame_count < 0:
+            raise IndexError("split point must be positive")
+        return (FrameList._wrap(self.samples[:frame_count],
+                                self.bits_per_sample),
+                FrameList._wrap(self.samples[frame_count:],
+                                self.bits_per_sample))
+
+    def to_float(self):
+        """a FloatFrameList of the samples scaled to [-1.0, 1.0)"""
+        adjustment = 1 << (self.bits_per_sample - 1)
+        return FloatFrameList._wrap(
+            self.samples.astype(np.float64) / adjustment)
+
+    def frame_count(self, byte_count):
+        """the number of whole frames in ``byte_count`` bytes, at least 1"""
+        bytes_per_frame = self.channels * (self.bits_per_sample // 8)
+        return max(byte_count // bytes_per_frame, 1)
 
     def to_bytes(self, is_big_endian, is_signed):
         """the samples as packed PCM bytes (8, 16 or 24 bits)"""
@@ -65,6 +195,180 @@ class FrameList:
             shifts = shifts[::-1]
         return ((values[:, None] >> shifts) & 0xFF).astype(
             np.uint8).tobytes()
+
+
+class FloatFrameList:
+    """floating-point PCM samples: float64 [frames, channels]"""
+
+    __slots__ = ("samples",)
+
+    def __init__(self, data, channels):
+        arr = np.asarray(data, dtype=np.float64)
+        if arr.ndim == 1:
+            if channels < 1:
+                raise ValueError("channel count must be > 0")
+            if len(arr) % channels:
+                raise ValueError(
+                    "number of samples not divisible by channel count")
+            arr = arr.reshape(-1, channels)
+        elif arr.ndim != 2 or arr.shape[1] != channels:
+            raise ValueError("bad sample array shape")
+        self.samples = arr
+
+    @classmethod
+    def _wrap(cls, samples):
+        fl = cls.__new__(cls)
+        fl.samples = samples
+        return fl
+
+    @property
+    def frames(self):
+        return self.samples.shape[0]
+
+    @property
+    def channels(self):
+        return self.samples.shape[1]
+
+    def __len__(self):
+        return self.samples.size
+
+    def __getitem__(self, i):
+        n = self.samples.size
+        if i < 0:
+            i += n
+        if not (0 <= i < n):
+            raise IndexError("index out of range")
+        return float(self.samples.reshape(-1)[i])
+
+    def __iter__(self):
+        return iter(self.samples.reshape(-1).tolist())
+
+    def __eq__(self, other):
+        if isinstance(other, FloatFrameList):
+            return (self.samples.shape == other.samples.shape and
+                    bool(np.array_equal(self.samples, other.samples)))
+        return NotImplemented
+
+    __hash__ = None
+
+    def __add__(self, other):
+        if not isinstance(other, FloatFrameList):
+            raise TypeError("cannot concatenate FloatFrameList "
+                            "with non-FloatFrameList")
+        if self.channels != other.channels:
+            raise ValueError("both FrameLists must have the same channels")
+        return FloatFrameList._wrap(
+            np.concatenate([self.samples, other.samples], axis=0))
+
+    def __mul__(self, count):
+        return FloatFrameList._wrap(np.tile(self.samples, (int(count), 1)))
+
+    def __repr__(self):
+        return ("FloatFrameList(frames=%d, channels=%d)" %
+                (self.frames, self.channels))
+
+    def frame(self, frame_number):
+        if not (0 <= frame_number < self.frames):
+            raise IndexError("invalid frame number")
+        return FloatFrameList._wrap(
+            self.samples[frame_number:frame_number + 1])
+
+    def channel(self, channel_number):
+        if not (0 <= channel_number < self.channels):
+            raise IndexError("invalid channel number")
+        return FloatFrameList._wrap(
+            self.samples[:, channel_number:channel_number + 1])
+
+    def split(self, frame_count):
+        if frame_count < 0:
+            raise IndexError("split point must be positive")
+        return (FloatFrameList._wrap(self.samples[:frame_count]),
+                FloatFrameList._wrap(self.samples[frame_count:]))
+
+    def to_int(self, bits_per_sample):
+        """a FrameList of the samples at ``bits_per_sample``, truncated
+        toward zero and clamped to the sample range"""
+        adjustment = 1 << (bits_per_sample - 1)
+        scaled = np.trunc(self.samples * adjustment)
+        clipped = np.clip(scaled, -adjustment, adjustment - 1)
+        return FrameList._wrap(clipped.astype(np.int32), bits_per_sample)
+
+
+def from_list(list_of_ints, channels, bits_per_sample, is_signed):
+    """a FrameList of a list of interleaved int samples"""
+    arr = np.asarray(list(list_of_ints), dtype=np.int64)
+    if not is_signed:
+        arr = arr - (1 << (bits_per_sample - 1))
+    if channels < 1:
+        raise ValueError("channel count must be > 0")
+    if len(arr) % channels:
+        raise ValueError("number of samples not divisible by channel count")
+    return FrameList._wrap(arr.astype(np.int32).reshape(-1, channels),
+                           bits_per_sample)
+
+
+def from_frames(frames):
+    """a FrameList of a list of 1-frame FrameLists"""
+    frames = list(frames)
+    if len(frames) == 0:
+        raise ValueError("at least one FrameList is required")
+    channels = frames[0].channels
+    bps = frames[0].bits_per_sample
+    for f in frames:
+        if f.frames != 1:
+            raise ValueError("all subframes must be 1 frame long")
+        if f.channels != channels or f.bits_per_sample != bps:
+            raise ValueError("all subframes must have the same "
+                             "channels and bits_per_sample")
+    return FrameList._wrap(
+        np.concatenate([f.samples for f in frames], axis=0), bps)
+
+
+def from_channels(channels):
+    """a FrameList of a list of 1-channel FrameLists"""
+    channels = list(channels)
+    if len(channels) == 0:
+        raise ValueError("at least one FrameList is required")
+    frames = channels[0].frames
+    bps = channels[0].bits_per_sample
+    for c in channels:
+        if c.channels != 1:
+            raise ValueError("all channels must be 1 channel wide")
+        if c.frames != frames or c.bits_per_sample != bps:
+            raise ValueError("all channels must have the same "
+                             "length and bits_per_sample")
+    return FrameList._wrap(
+        np.concatenate([c.samples for c in channels], axis=1), bps)
+
+
+def from_float_frames(frames):
+    """a FloatFrameList of a list of 1-frame FloatFrameLists"""
+    frames = list(frames)
+    if len(frames) == 0:
+        raise ValueError("at least one FloatFrameList is required")
+    channels = frames[0].channels
+    for f in frames:
+        if f.frames != 1:
+            raise ValueError("all subframes must be 1 frame long")
+        if f.channels != channels:
+            raise ValueError("all subframes must have the same channels")
+    return FloatFrameList._wrap(
+        np.concatenate([f.samples for f in frames], axis=0))
+
+
+def from_float_channels(channels):
+    """a FloatFrameList of a list of 1-channel FloatFrameLists"""
+    channels = list(channels)
+    if len(channels) == 0:
+        raise ValueError("at least one FloatFrameList is required")
+    frames = channels[0].frames
+    for c in channels:
+        if c.channels != 1:
+            raise ValueError("all channels must be 1 channel wide")
+        if c.frames != frames:
+            raise ValueError("all channels must have the same length")
+    return FloatFrameList._wrap(
+        np.concatenate([c.samples for c in channels], axis=1))
 
 
 def bytes_to_samples(data, channels, bits_per_sample, signed, big_endian):
@@ -112,10 +416,21 @@ class PCMReader:
         """up to max(pcm_frames, 1) frames; empty at the end"""
         data = self.file.read(max(int(pcm_frames), 1) * self.bytes_per_frame)
         data = data[:len(data) - len(data) % self.bytes_per_frame]
-        return FrameList(bytes_to_samples(data, self.channels,
-                                          self.bits_per_sample, self.signed,
-                                          self.big_endian),
-                         self.bits_per_sample)
+        return FrameList._wrap(bytes_to_samples(data, self.channels,
+                                                self.bits_per_sample,
+                                                self.signed,
+                                                self.big_endian),
+                               self.bits_per_sample)
+
+    def seek(self, pcm_frame):
+        """seeks the stream to ``pcm_frame`` (at least 0) and returns the
+        frame it reached; raises IOError when the stream cannot seek"""
+        pcm_frame = max(int(pcm_frame), 0)
+        try:
+            byte_offset = self.file.seek(pcm_frame * self.bytes_per_frame)
+        except (IOError, OSError, AttributeError):
+            raise IOError("stream is not seekable")
+        return byte_offset // self.bytes_per_frame
 
     def close(self):
         self.file.close()
@@ -128,6 +443,22 @@ class LimitedFileReader:
     def __init__(self, file, total_bytes):
         self.file = file
         self.remaining = total_bytes
+        self.length = total_bytes
+        try:
+            self.start = file.tell()
+        except (IOError, OSError, AttributeError):
+            self.start = None
+
+    def seek(self, byte_offset):
+        """seeks to ``byte_offset`` of the window, clamped to it, and
+        returns the offset reached; raises IOError when the file cannot
+        seek"""
+        if self.start is None:
+            raise IOError("stream is not seekable")
+        byte_offset = max(min(byte_offset, self.length), 0)
+        self.file.seek(self.start + byte_offset, 0)
+        self.remaining = self.length - byte_offset
+        return byte_offset
 
     def read(self, size):
         data = self.file.read(max(min(size, self.remaining), 0))
@@ -147,13 +478,13 @@ def transfer_framelist_data(pcmreader, to_function, signed=True,
         framelist = pcmreader.read(FRAMELIST_SIZE)
         if framelist.frames == 0:
             return
-        to_function(FrameList(framelist.samples,
+        to_function(FrameList._wrap(framelist.samples,
                               pcmreader.bits_per_sample).to_bytes(
                                   big_endian, signed))
 
 
 def empty_framelist(channels, bits_per_sample):
-    return FrameList(np.zeros((0, channels), dtype=np.int32),
+    return FrameList._wrap(np.zeros((0, channels), dtype=np.int32),
                      bits_per_sample)
 
 
@@ -194,7 +525,7 @@ class _ArrayReader:
         start = self.offset
         self.offset = min(start + max(int(pcm_frames), 1),
                           self.samples.shape[0])
-        return FrameList(self.samples[start:self.offset],
+        return FrameList._wrap(self.samples[start:self.offset],
                          self.bits_per_sample)
 
     def close(self):
@@ -224,7 +555,7 @@ class BufferedPCMReader:
         more; asks the wrapped reader for all that is missing in one
         call, and loops because a reader may return less"""
         if self.closed:
-            raise ValueError("stream is closed")
+            return self.read_closed(pcm_frames)
         pieces = [self.buffer] if self.buffer.shape[0] else []
         have = self.buffer.shape[0]
         while have < pcm_frames:
@@ -241,7 +572,10 @@ class BufferedPCMReader:
         else:
             buf = np.concatenate(pieces, axis=0)
         self.buffer = buf[pcm_frames:]
-        return FrameList(buf[:pcm_frames], self.bits_per_sample)
+        return FrameList._wrap(buf[:pcm_frames], self.bits_per_sample)
+
+    def read_closed(self, pcm_frames):
+        raise ValueError("stream is closed")
 
     def close(self):
         self.closed = True
@@ -299,13 +633,19 @@ class PCMCat:
         """the current reader's next frames, the next reader's once it
         is done; empty when the last is"""
         if self.closed:
-            raise ValueError("stream is closed")
+            return self.read_closed(pcm_frames)
         while self.index < len(self.pcmreaders):
             framelist = self.pcmreaders[self.index].read(pcm_frames)
             if framelist.frames > 0:
                 return framelist
             self.index += 1
+        return self.read_finished(pcm_frames)
+
+    def read_finished(self, pcm_frames):
         return empty_framelist(self.channels, self.bits_per_sample)
+
+    def read_closed(self, pcm_frames):
+        raise ValueError("stream is closed")
 
     def close(self):
         self.closed = True
@@ -329,12 +669,15 @@ class LimitedPCMReader:
 
     def read(self, pcm_frames):
         if self.closed:
-            raise ValueError("stream is closed")
+            return self.read_closed(pcm_frames)
         if self.total_pcm_frames <= 0:
             return empty_framelist(self.channels, self.bits_per_sample)
         frame = self.pcmreader.read(min(pcm_frames, self.total_pcm_frames))
         self.total_pcm_frames -= frame.frames
         return frame
+
+    def read_closed(self, pcm_frames):
+        raise ValueError("stream is closed")
 
     def close(self):
         self.closed = True
@@ -456,11 +799,6 @@ def decode_flac(data):
 SPEAKER_BITS = 0x3FFFF
 
 
-def mask_speakers(channel_mask):
-    """the speaker bits set in a channel mask, in stream order"""
-    return [1 << b for b in range(18) if (channel_mask >> b) & 1]
-
-
 # the speakers' names, by bit from the lowest (the reference
 # ChannelMask's attribute names)
 SPEAKER_NAMES = ("front_left", "front_right", "front_center",
@@ -472,23 +810,81 @@ SPEAKER_NAMES = ("front_left", "front_right", "front_center",
 
 
 class ChannelMask(int):
-    """a channel mask with the reference's ``ChannelMask.defined`` and
-    ``channels`` (what ``trackinfo -C`` reads)"""
+    """a channel mask: an int of the speaker bits it holds, with the
+    reference's ``ChannelMask`` members
+
+    A bit outside the 18 speakers is dropped, as the reference drops it.
+    Each speaker is a read-only attribute (``mask.front_left``);
+    ``str()`` lists the speakers' names, ``len()`` counts them, and
+    ``int()``, ``==``, hashing and truth are the mask's."""
+
+    SPEAKER_TO_MASK = {name: 1 << bit
+                       for (bit, name) in enumerate(SPEAKER_NAMES)}
+
+    MASK_TO_SPEAKER = {v: k for (k, v) in SPEAKER_TO_MASK.items()}
+
+    def __new__(cls, mask=0):
+        return int.__new__(cls, int(mask) & SPEAKER_BITS)
+
+    def __repr__(self):
+        return "ChannelMask(%s)" % ",".join(
+            "%s=True" % (field,) for field in self.channels())
+
+    def __str__(self):
+        from . import text
+        return ", ".join(
+            text.MASK_LFE if field == "low_frequency" else
+            getattr(text, "MASK_" + field.upper(), field)
+            for field in self.channels())
+
+    def __len__(self):
+        return bin(self).count("1")
 
     def defined(self):
         """True when the mask names a speaker"""
-        return (self & SPEAKER_BITS) != 0
+        return self != 0
+
+    def undefined(self):
+        """True when the mask names no speaker"""
+        return self == 0
 
     def channels(self):
         """the names of the speakers the mask holds, in stream order"""
         return [SPEAKER_NAMES[b] for b in range(len(SPEAKER_NAMES))
                 if (self >> b) & 1]
 
+    def index(self, channel_name):
+        """the stream index of the named speaker"""
+        return self.channels().index(channel_name)
 
-def mask_channel_count(channel_mask):
-    """the number of speakers a channel mask names (the reference's
-    ``len(ChannelMask(mask))``)"""
-    return bin(channel_mask & SPEAKER_BITS).count("1")
+    @classmethod
+    def from_fields(cls, **fields):
+        """a ChannelMask of speaker=True/False keywords"""
+        mask = 0
+        for (key, value) in fields.items():
+            if key not in cls.SPEAKER_TO_MASK:
+                raise KeyError(key)
+            if value:
+                mask |= cls.SPEAKER_TO_MASK[key]
+        return cls(mask)
+
+    @classmethod
+    def from_channels(cls, channel_count):
+        """the mask of a channel count: 1 or 2 only"""
+        if channel_count == 2:
+            return cls(0x3)
+        elif channel_count == 1:
+            return cls(0x4)
+        raise ValueError("ambiguous channel assignment")
+
+
+def _speaker(bit):
+    return property(lambda self: bool((self >> bit) & 1))
+
+
+for (_bit, _name) in enumerate(SPEAKER_NAMES):
+    setattr(ChannelMask, _name, _speaker(_bit))
+del _bit, _name
 
 
 class PCMReaderProgress:
@@ -526,14 +922,14 @@ class ReorderedPCMReader:
         self.channel_mask = (pcmreader.channel_mask if channel_mask is None
                              else channel_mask)
         if (self.channel_mask != 0 and
-                mask_channel_count(self.channel_mask) != self.channels):
+                len(ChannelMask(self.channel_mask)) != self.channels):
             raise ValueError("channel count and mask mismatch")
         self.bits_per_sample = pcmreader.bits_per_sample
         self.channel_order = list(channel_order)
 
     def read(self, pcm_frames):
         frame = self.pcmreader.read(pcm_frames)
-        return FrameList(frame.samples[:, self.channel_order],
+        return FrameList._wrap(frame.samples[:, self.channel_order],
                          frame.bits_per_sample)
 
     def close(self):
@@ -552,11 +948,11 @@ class RemaskedPCMReader:
         self.channel_mask = channel_mask
         self.bits_per_sample = pcmreader.bits_per_sample
         if pcmreader.channel_mask != 0 and channel_mask != 0:
-            if mask_channel_count(channel_mask) != channel_count:
+            if len(ChannelMask(channel_mask)) != channel_count:
                 raise ValueError("channel count and mask mismatch")
-            have = mask_speakers(pcmreader.channel_mask)
+            have = ChannelMask(pcmreader.channel_mask).channels()
             self.sources = [have.index(s) if s in have else None
-                            for s in mask_speakers(channel_mask)]
+                            for s in ChannelMask(channel_mask).channels()]
         elif channel_count <= pcmreader.channels:
             self.sources = list(range(channel_count))
         else:
@@ -569,7 +965,7 @@ class RemaskedPCMReader:
         for (i, c) in enumerate(self.sources):
             if c is not None:
                 out[:, i] = frame.samples[:, c]
-        return FrameList(out, frame.bits_per_sample)
+        return FrameList._wrap(out, frame.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()
@@ -594,7 +990,7 @@ def PCMConverter(pcmreader, sample_rate, channels, channel_mask,
         raise ValueError("invalid channel count")
     elif bits_per_sample not in (8, 16, 24):
         raise ValueError("invalid bits per sample")
-    if channel_mask != 0 and mask_channel_count(channel_mask) != channels:
+    if channel_mask != 0 and len(ChannelMask(channel_mask)) != channels:
         raise ValueError("channel count and mask mismatch")
 
     if pcmreader.channels > channels:
@@ -722,7 +1118,7 @@ def threaded_transfer_framelist_data(pcmreader, to_function, signed=True,
         try:
             framelist = pcmreader.read(FRAMELIST_SIZE)
             while framelist.frames > 0:
-                q.put(FrameList(framelist.samples,
+                q.put(FrameList._wrap(framelist.samples,
                                 pcmreader.bits_per_sample).to_bytes(
                                     big_endian, signed))
                 framelist = pcmreader.read(FRAMELIST_SIZE)
@@ -742,7 +1138,7 @@ def threaded_transfer_framelist_data(pcmreader, to_function, signed=True,
 
 
 def _silence(frames, channels, bits_per_sample):
-    return FrameList(np.zeros((frames, channels), dtype=np.int32),
+    return FrameList._wrap(np.zeros((frames, channels), dtype=np.int32),
                      bits_per_sample)
 
 
@@ -768,7 +1164,7 @@ class PCMReaderWindow:
         if samples.shape[0] > self.pcm_frames_remaining:
             samples = samples[:self.pcm_frames_remaining]
         self.pcm_frames_remaining -= samples.shape[0]
-        return FrameList(samples, self.bits_per_sample)
+        return FrameList._wrap(samples, self.bits_per_sample)
 
     def read(self, pcm_frames):
         if self.pcm_frames_remaining <= 0:

@@ -42,7 +42,7 @@ class Averager:
         acc = frame.samples.astype(np.int64).sum(axis=1)
         out = (np.sign(acc) *
                (np.abs(acc) // frame.channels)).astype(np.int32)
-        return pcm.FrameList(out.reshape(-1, 1), self.bits_per_sample)
+        return pcm.FrameList._wrap(out.reshape(-1, 1), self.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()
@@ -95,7 +95,7 @@ class Downmixer:
             np.clip(c_round(left), sample_min, sample_max),
             np.clip(c_round(right), sample_min, sample_max)],
             axis=1).astype(np.int32)
-        return pcm.FrameList(out, self.bits_per_sample)
+        return pcm.FrameList._wrap(out, self.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()
@@ -255,7 +255,7 @@ class Resampler:
             self.history = self.history[keep_from:]
             self.consumed += keep_from
         self.next_out = max_out
-        return pcm.FrameList(out.numpy(), self.bits_per_sample)
+        return pcm.FrameList._wrap(out.numpy(), self.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()
@@ -286,7 +286,7 @@ class BPSConverter:
             out = frame.samples << (new - old)
         else:
             out = frame.samples
-        return pcm.FrameList(out.astype(np.int32), new)
+        return pcm.FrameList._wrap(out.astype(np.int32), new)
 
     def close(self):
         self.pcmreader.close()

@@ -419,7 +419,7 @@ def _apply_volume(framelist, volume):
         return framelist
     scaled = (np.asarray(framelist.samples).astype(np.float64) *
               volume).astype(np.int32)
-    return pcm.FrameList(scaled, framelist.bits_per_sample)
+    return pcm.FrameList._wrap(scaled, framelist.bits_per_sample)
 
 
 def _gain_reader(reader, audiofile, mode):

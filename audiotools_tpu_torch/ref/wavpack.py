@@ -221,9 +221,10 @@ class WavPackDecoder:
         """the group's channels as a FrameList, hashed into the MD5"""
         out = np.stack([np.asarray(ch, dtype=np.int64) for ch in channels],
                        axis=1).astype(np.int32)
-        self.md5sum.update(pcm.FrameList(out, self.bits_per_sample).to_bytes(
-            False, self.bits_per_sample > 8))
-        return pcm.FrameList(out, self.bits_per_sample)
+        framelist = pcm.FrameList._wrap(out, self.bits_per_sample)
+        self.md5sum.update(framelist.to_bytes(False,
+                                              self.bits_per_sample > 8))
+        return framelist
 
     def read(self, pcm_frames):
         if self.pcm_finished:

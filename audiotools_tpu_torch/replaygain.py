@@ -26,7 +26,10 @@ from . import pcm
 from ._device import StageMarks, resolve_device
 from .codecs.flac_dec import upload_arrays
 from .ops import converters
-from .ops.replaygain_coeffs import SAMPLE_RATES, YULE
+from .ops.replaygain_coeffs import BUTTER, SAMPLE_RATES, YULE  # noqa: F401
+
+# the filters' highest order (the Yule-Walker filter's)
+MAX_ORDER = 10
 
 RMS_WINDOW_TIME = 0.05
 STEPS_PER_DB = 100.0
@@ -223,7 +226,7 @@ class ReplayGainReader:
         clipped = np.clip(scaled, min_value, max_value).astype(np.int32)
         dither = (np.frombuffer(os.urandom(clipped.size), dtype=np.uint8) &
                   1).astype(np.int32).reshape(clipped.shape)
-        return pcm.FrameList(clipped ^ dither, self.bits_per_sample)
+        return pcm.FrameList._wrap(clipped ^ dither, self.bits_per_sample)
 
     def close(self):
         self.pcmreader.close()

@@ -313,9 +313,25 @@ each print one line (phases 24 to 28 one a tool run too):
     2`` over the FLAC and the WavPack rips.  A line a run with its wall,
     input Msamples/s and launches, counted from 0 just before it;
     rice_decode, flac_synth, wv_corr and wv_decorr must each launch
-    during the phase.
+    during the phase;
+29. playback (``playback_phase``): phase 19's album played as five types
+    through ``player.Player`` on the card, with ReplayGain and at half
+    volume, a stop, the play tools, the ``-I`` exits and the package
+    root in a fresh interpreter;
+30. the reference's API below the root (``api_phase``): the album in
+    the five types and two ``sines`` titles (24-bit 96 kHz stereo,
+    6-channel) in FLAC -8 and WavPack through ``from_pcm``,
+    ``seekable()`` of each file against the reference's answers, the
+    decoders seeked to the start, 4096, the middle, 5000 frames before
+    the end and past it, each window equal to a full decode (ms a seek
+    to its first 4096 frames, the decode kernels' launches),
+    ``seektable()`` equal to the SEEKTABLE written, phase 5's encode
+    with ATPU_PROFILE unset and set in turn (bytes equal, both medians,
+    the stage report) and a ``utils.profiling.trace`` of a one-batch
+    encode that must hold the five ``flac.*`` ranges and pack_rows.
 
-Then it prints one JSON line describing each kernel and, last, the
+Then it prints one JSON line describing each kernel (its launches in
+the main path's run and in phases 21-30) and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
 script exits nonzero without the result line.  It imports nothing of
 jax or of the reference package, and checks so at the end.  Usage:
@@ -3706,7 +3722,7 @@ def playback_phase(dev, alac_sig):
             ((played, _first, _wall), _run) = count(
                 lambda: play_title(dispatch.open(path, device=dev),
                                    volume=PLAY_VOLUME))
-            want = player._apply_volume(FrameList(title, 16),
+            want = player._apply_volume(FrameList._wrap(title, 16),
                                         PLAY_VOLUME).samples
             if not np.array_equal(played, want):
                 raise AssertionError("playback at volume %s differs from "
@@ -3841,6 +3857,293 @@ def playback_phase(dev, alac_sig):
         out["root"] = dict(cuda_initialized_by_import=False,
                            open_decodes_on=dev.type, queue_in_order=True,
                            wall_s=wall)
+    forbidden = loaded_forbidden_modules()
+    if forbidden:
+        raise AssertionError("the port loaded jax or the reference: %s"
+                             % (forbidden,))
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, launches)
+
+
+# phase 30: the types of phase 29's album the seeks run on (their
+# qualities, the decode kernels a card seek must launch and the
+# reference's seekable() answer), the sines titles' seconds, and the
+# profiled encode's runs of each setting
+API_TYPES = (("flac", "8", ("rice_decode", "flac_synth"), True),
+             ("alac", None, ("alac_synth",), True),
+             ("tta", None, ("tta_synth",), True),
+             ("wavpack", "standard", ("wv_decorr",), True),
+             ("shn", None, (), False))
+SINE_S = 5
+PROFILE_RUNS = 3
+SEEK_WINDOW = 4096
+# the named scopes of the FLAC analysis a trace must hold
+FLAC_RANGES = ("flac.autocorr", "flac.levinson", "flac.quantize",
+               "flac.lpc_residuals", "flac.rice_search")
+
+
+def seek_positions(total):
+    """the start, 4096, the middle, 5000 frames before the end and past
+    the end"""
+    return (0, 4096, total // 2, max(total - 5000, 0), total + 10)
+
+
+def read_window(reader, frames):
+    """up to ``frames`` frames of ``reader``, over as many reads as it
+    takes"""
+    pieces = []
+    have = 0
+    while have < frames:
+        framelist = reader.read(frames - have)
+        if framelist.frames == 0:
+            break
+        pieces.append(np.asarray(framelist.samples))
+        have += framelist.frames
+    if not pieces:
+        return np.zeros((0, reader.channels), dtype=np.int32)
+    return np.concatenate(pieces)[:frames]
+
+
+def api_phase(dev, alac_sig, sig, sine_s=SINE_S, profile_runs=PROFILE_RUNS):
+    """phase 30: a program written against the reference's API on
+    ``dev``: phase 29's album (``alac_sig`` cut as phase 19 cuts it) in
+    the five types and two ``sines`` titles (24-bit 96 kHz stereo and
+    6-channel, ``sine_s`` seconds) in FLAC -8 and WavPack, each written
+    by ``from_pcm``; ``seekable()`` of each file; the decoder of the
+    album's first title in each seekable type, and of each sines file,
+    seeked and held to a full decode; FLAC's ``seektable()`` against
+    the SEEKTABLE written; then phase 5's encode of ``sig``
+    ``profile_runs`` times with ATPU_PROFILE unset and set, interleaved,
+    and a trace of a one-batch encode.  Returns the line's fields (the
+    seconds of each part among them) and each kernel's launches over
+    the phase; on a CPU ``dev`` no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import dispatch, sines
+    from audiotools_tpu_torch.codecs import flac_enc_fast as port_enc
+    from audiotools_tpu_torch.formats.flac import FlacAudio, Flac_SEEKTABLE
+    from audiotools_tpu_torch.formats.wavpack import WavPackAudio
+    from audiotools_tpu_torch.pcm import read_all, reader_from_array
+    from audiotools_tpu_torch.utils import profiling
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    per = album_frames(alac_sig)
+    titles = [alac_sig[k * per:(k + 1) * per] for k in range(RG_TITLES)]
+    out = dict(titles=len(titles), title_seconds=per / SAMPLE_RATE,
+               seekable={}, seeks={}, seektables={}, part_s={})
+    t_phase = time.perf_counter()
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part[0]
+        t_part[0] = now
+
+    def count(fn):
+        for kernel in counters.values():
+            kernel.launches = 0
+        result = fn()
+        sync(dev)
+        run = {k: kernel.launches for (k, kernel) in counters.items()}
+        for (k, n) in run.items():
+            launches[k] += n
+        return (result, run)
+
+    def seek_file(path, source, seek):
+        """the file's seekable(), and where ``seek`` and it is seekable
+        each seek's (frame reached, ms to its first SEEK_WINDOW frames),
+        each window held to a full decode"""
+        track = dispatch.open(path, device=dev)
+        if not (seek and track.seekable()):
+            return (track.seekable(), [])
+        decoder = track.to_pcm()
+        full = read_all(decoder)
+        decoder.close()
+        if not np.array_equal(full, source):
+            raise AssertionError("%s does not decode to its source"
+                                 % (path,))
+        decoder = track.to_pcm()
+        seeks = []
+        try:
+            for position in seek_positions(full.shape[0]):
+                t0 = time.perf_counter()
+                reached = decoder.seek(position)
+                window = read_window(decoder, SEEK_WINDOW)
+                ms = (time.perf_counter() - t0) * 1e3
+                if not (0 <= reached <= max(position, 0)) or not \
+                        np.array_equal(window,
+                                       full[reached:reached + SEEK_WINDOW]):
+                    raise AssertionError("%s: the window at %d (reached %d) "
+                                         "differs from a full decode"
+                                         % (path, position, reached))
+                seeks.append((reached, ms))
+        finally:
+            decoder.close()
+        return (True, seeks)
+
+    with tempfile.TemporaryDirectory(prefix="api-") as work:
+        # 1. the album as each type, and the sines titles as FLAC -8 and
+        # WavPack, through from_pcm on the card, their launches
+        # counted too
+        def write_files():
+            files = {}
+            for (type_name, quality, _kernels, _seekable) in API_TYPES:
+                cls = dispatch.TYPE_MAP[type_name]
+                files[type_name] = []
+                for (k, title) in enumerate(titles):
+                    path = os.path.join(work, "title%d.%s" % (k, cls.SUFFIX))
+                    cls.from_pcm(path, reader_from_array(title, 16), quality,
+                                 total_pcm_frames=len(title), device=dev)
+                    files[type_name].append((path, title, k == 0))
+            signals = {
+                "sine_stereo_24_96k": lambda: sines.Sine_Stereo(
+                    24, sine_s * 96000, 96000, 441.0, 0.50, 882.0, 0.49, 1.0),
+                "sine_6ch": lambda: sines.Simple_Sine(
+                    sine_s * SAMPLE_RATE, SAMPLE_RATE, 0x3F, 16,
+                    (6000, 441), (7000, 551), (8000, 661), (9000, 771),
+                    (10000, 881), (11000, 991))}
+            for (label, make) in signals.items():
+                source = read_all(make())
+                for (type_name, cls, quality) in (("flac", FlacAudio, "8"),
+                                                  ("wavpack", WavPackAudio,
+                                                   "standard")):
+                    path = os.path.join(work, "%s.%s" % (label, cls.SUFFIX))
+                    cls.from_pcm(path, make(), quality,
+                                 total_pcm_frames=len(source), device=dev)
+                    files[type_name].append((path, source, True))
+            return files
+
+        (files, encode_run) = count(write_files)
+        out["encode_launches"] = {k: n for (k, n) in encode_run.items() if n}
+        part("encode")
+
+        # 2. seekable() and the seeks, counted a type at a time
+        for (type_name, _quality, kernels_of, seekable) in API_TYPES:
+            (results, run) = count(lambda: [
+                seek_file(path, source, seek)
+                for (path, source, seek) in files[type_name]])
+            answers = {r[0] for r in results}
+            if answers != {seekable}:
+                raise AssertionError("%s seekable() is %s, the reference's "
+                                     "%s" % (type_name, answers, seekable))
+            out["seekable"][type_name] = seekable
+            idle = [k for k in kernels_of if run[k] == 0]
+            if on_cuda and seekable and idle:
+                raise AssertionError("%s seeks never launched %s"
+                                     % (type_name, idle))
+            if seekable:
+                ms = [m for r in results for (_reached, m) in r[1]]
+                out["seeks"][type_name] = dict(
+                    files=sum(1 for r in results if r[1]), seeks=len(ms),
+                    median_ms=float(np.median(ms)), max_ms=max(ms),
+                    reached=[[reached for (reached, _m) in r[1]]
+                             for r in results if r[1]],
+                    launches={k: run[k] for k in kernels_of})
+
+        part("seeks")
+
+        # 3. seektable() against the table from_pcm wrote
+        for (path, _source, _seek) in files["flac"]:
+            track = FlacAudio(path, device=dev)
+            walked = track.seektable().seekpoints
+            written = track.get_metadata().get_block(
+                Flac_SEEKTABLE.BLOCK_ID).seekpoints
+            if walked != written:
+                raise AssertionError("%s: seektable() %s != the written %s"
+                                     % (path, walked[:3], written[:3]))
+            out["seektables"][os.path.basename(path)] = len(walked)
+        part("seektables")
+
+        # 4. phase 5's encode with ATPU_PROFILE unset and set, interleaved
+        def profiled_encode(setting):
+            saved = os.environ.pop("ATPU_PROFILE", None)
+            if setting:
+                os.environ["ATPU_PROFILE"] = "1"
+            report = io.StringIO()
+            try:
+                buf = io.BytesIO()
+                sync(dev)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(report):
+                    port_enc.encode_flac_fast(
+                        buf, reader_from_array(sig, 16), device=dev,
+                        pack=True, **OPTS)
+                sync(dev)
+                return (time.perf_counter() - t0, buf.getvalue(),
+                        report.getvalue())
+            finally:
+                os.environ.pop("ATPU_PROFILE", None)
+                if saved is not None:
+                    os.environ["ATPU_PROFILE"] = saved
+
+        walls = {False: [], True: []}
+        streams = set()
+        reports = []
+        for _ in range(profile_runs):
+            for setting in (False, True):
+                ((wall, data, report), _run) = count(
+                    lambda: profiled_encode(setting))
+                walls[setting].append(wall)
+                streams.add(data)
+                if setting:
+                    reports.append(report)
+                elif report:
+                    raise AssertionError("an encode without ATPU_PROFILE "
+                                         "reported: %r" % (report,))
+        if len(streams) != 1:
+            raise AssertionError("the profiled encode's bytes differ")
+        report_lines = reports[-1].splitlines()
+        if not report_lines or not report_lines[0].startswith(
+                "[ATPU_PROFILE] flac_enc_fast[torch]: wall "):
+            raise AssertionError("no stage report: %r" % (reports[-1],))
+        (off, on) = (float(np.median(walls[False])),
+                     float(np.median(walls[True])))
+        out["profile"] = dict(
+            audio_seconds=sig.shape[0] / SAMPLE_RATE, unset_s=walls[False],
+            set_s=walls[True], median_unset_s=off, median_set_s=on,
+            overhead=on / off - 1, bytes_equal=True,
+            report=report_lines)
+        part("profile")
+
+        # 5. a trace of a one-batch encode
+        trace_dir = os.path.join(work, "traces")
+        saved = os.environ.get("ATPU_TORCH_TRACE")
+        os.environ["ATPU_TORCH_TRACE"] = trace_dir
+        batch = sig[:OPTS["block_size"] * OPTS["batch_frames"]]
+        try:
+            def traced():
+                with profiling.trace("flac_enc") as path:
+                    buf = io.BytesIO()
+                    port_enc.encode_flac_fast(
+                        buf, reader_from_array(batch, 16), device=dev,
+                        pack=True, **OPTS)
+                    sync(dev)
+                return (path, buf.getvalue())
+
+            ((path, data), run) = count(traced)
+        finally:
+            if saved is None:
+                del os.environ["ATPU_TORCH_TRACE"]
+            else:
+                os.environ["ATPU_TORCH_TRACE"] = saved
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {str(e.get("name", "")) for e in events}
+        missing = [r for r in FLAC_RANGES if r not in names]
+        kernels_named = sorted(n for n in names if "pack_rows" in n)
+        if missing or (on_cuda and not kernels_named):
+            raise AssertionError("the trace lacks %s%s" % (
+                missing, "" if kernels_named else " and pack_rows"))
+        if on_cuda and run["pack_rows"] == 0:
+            raise AssertionError("the traced encode never launched "
+                                 "pack_rows")
+        out["trace"] = dict(file=os.path.basename(path),
+                            bytes=os.path.getsize(path), events=len(events),
+                            ranges=list(FLAC_RANGES),
+                            pack_rows_events=kernels_named,
+                            encoded_bytes=len(data))
+        part("trace")
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -4695,6 +4998,10 @@ def main():
     (fields, playback_launches) = playback_phase(dev, alac_sig)
     line("playback", nvidia_smi=smi, **fields)
 
+    # ---- 30. the reference's API below the root: seeks and profiling ----
+    (fields, api_launches) = api_phase(dev, alac_sig, sig)
+    line("api", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -4730,7 +5037,8 @@ def main():
             lossy_launches=lossy_launches[kname],
             disc_launches=disc_launches[kname],
             dvda_launches=dvda_launches[kname],
-            playback_launches=playback_launches[kname], **row))
+            playback_launches=playback_launches[kname],
+            api_launches=api_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -71,7 +71,7 @@ def reader(arr, bps, rate=SR):
 
 def ref_reader(arr, bps, rate=SR):
     """a reference PCMReader of the same samples and channel mask"""
-    return RefPCMReader(io.BytesIO(pcm.FrameList(arr, bps).to_bytes(
+    return RefPCMReader(io.BytesIO(pcm.FrameList._wrap(arr, bps).to_bytes(
         False, True)), rate, arr.shape[1],
         pcm.CHANNEL_MASKS.get(arr.shape[1], 0), bps, signed=True)
 

@@ -259,7 +259,7 @@ def both(make, samples, bps, served, requests):
     sides' reads"""
     results = []
     for (package, wrap) in ((ref, ref_pcm.FrameList._wrap),
-                            (port, pcm.FrameList)):
+                            (port, pcm.FrameList._wrap)):
         source = ChunkReader(samples, bps, served, wrap)
         reader = make(package, source)
         results.append(read_all(reader, requests))
@@ -340,7 +340,7 @@ def test_window_readers_raise_as_the_references():
 
 def reader_pair(samples, bps, rate=44100, served=(4096,)):
     return (ChunkReader(samples, bps, served, ref_pcm.FrameList._wrap),
-            ChunkReader(samples, bps, served, pcm.FrameList))
+            ChunkReader(samples, bps, served, pcm.FrameList._wrap))
 
 
 COMPARISONS = [

@@ -69,7 +69,7 @@ def signal(seed, frames, channels=2, bps=16):
 
 
 def ref_reader(arr, bps=16, rate=SR):
-    return RefPCMReader(io.BytesIO(pcm.FrameList(arr, bps).to_bytes(
+    return RefPCMReader(io.BytesIO(pcm.FrameList._wrap(arr, bps).to_bytes(
         False, True)), rate, arr.shape[1],
         pcm.CHANNEL_MASKS.get(arr.shape[1], 0), bps, signed=True)
 

@@ -100,7 +100,7 @@ def test_buffered_reader_matches_reference():
     arr = signal(16, 2, 20000)
     sizes = [0, 1, 4096, 3, 9000, 6000, 4096, 4096]
     for framelist in (lambda a: ref_pcm.FrameList._wrap(a, 16),
-                      lambda a: pcm.FrameList(a, 16)):
+                      lambda a: pcm.FrameList._wrap(a, 16)):
         got = pcm.BufferedPCMReader(_Ragged(arr, 16, framelist))
         want = BufferedPCMReader(_Ragged(
             arr, 16, lambda a: ref_pcm.FrameList._wrap(a, 16)))
@@ -116,7 +116,7 @@ def test_buffered_reader_matches_reference():
 @pytest.mark.parametrize("bps", [8, 16, 24])
 def test_to_bytes_matches_reference(bps):
     arr = signal(bps, 2, 100)
-    fl = pcm.FrameList(arr, bps)
+    fl = pcm.FrameList._wrap(arr, bps)
     ref = ref_pcm.FrameList._wrap(arr, bps)
     for big_endian in (False, True):
         for signed in (False, True):

@@ -72,7 +72,7 @@ def samples(bps, channels, seed=5, frames=FRAMES):
 def write(path, name, arr, bps):
     reader = pcm.reader_from_array(arr, bps, RATE)
     if name in REFERENCE_WRITERS:
-        raw = pcm.FrameList(arr, bps).to_bytes(False, True)
+        raw = pcm.FrameList._wrap(arr, bps).to_bytes(False, True)
         return REFERENCE_WRITERS[name].from_pcm(path, RefPCMReader(
             io.BytesIO(raw), RATE, arr.shape[1], reader.channel_mask, bps))
     if name == "wav":
@@ -235,7 +235,7 @@ def test_the_volume_path_is_the_references(files, bps, volume):
                          volume=volume)
     sync_ref = sync_run(ref_player, ref_dispatch.open(path), volume=volume)
     assert np.array_equal(sync_port[1], sync_ref[1])
-    framelist = pcm.FrameList(arr, bps)
+    framelist = pcm.FrameList._wrap(arr, bps)
     assert np.array_equal(player._apply_volume(framelist, volume).samples,
                           ref_player._apply_volume(
                               ref_player.pcm.FrameList._wrap(arr, bps),
@@ -381,7 +381,7 @@ def test_threaded_reader_close_joins_its_fill_thread():
             events.append("read")
             time.sleep(0.01)
             events.append("read done")
-            return pcm.FrameList(np.zeros((frames, 1), np.int32), 16)
+            return pcm.FrameList._wrap(np.zeros((frames, 1), np.int32), 16)
 
         def close(self):
             events.append("close")
@@ -435,7 +435,7 @@ def test_the_outputs_are_the_references():
 
 
 def test_the_null_output_paces_unless_told_not_to():
-    framelist = pcm.FrameList(np.zeros((2205, 2), np.int32), 16)
+    framelist = pcm.FrameList._wrap(np.zeros((2205, 2), np.int32), 16)
     for realtime in (True, False):
         out = player.NULLAudioOutput(realtime=realtime)
         out.set_format(22050, 2, 3, 16)

@@ -255,7 +255,7 @@ def test_device_inputs_refuses_what_the_kernels_do_not_take():
 def test_corrupt_md5_raises():
     (arr, data) = stream(2, 2, n=BLOCK + 10, seed=10)
     bad = bytearray(data)
-    digest = hashlib.md5(pcm.FrameList(arr, 16).to_bytes(False, True))
+    digest = hashlib.md5(pcm.FrameList._wrap(arr, 16).to_bytes(False, True))
     bad[data.rindex(digest.digest())] ^= 1
     with pytest.raises(ValueError, match="MD5"):
         wavpack.decode_wavpack(bytes(bad), device="cpu")

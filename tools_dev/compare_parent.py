@@ -40,10 +40,17 @@ registers and spills, and the span of the ladder's torch descent after
 the counts (chip_smoke.rice_descent_ms).  Then one JSON line per
 rice_planes kernel of each tree gives its innermost SASS loops as
 --tta does, and --sass DIR writes their SASS into DIR.
+
+With --parse only the WavPack decode is compared: phase 18's stream
+(380.4 s of bench.py's signal at "standard", written by this tree)
+decoded whole by each tree's TorchWavPackDecoder, in the order other,
+this, this, other, after a short stream through each; the line gives
+each tree's stage seconds (its bitstream parse among them) and walls,
+the decodes equal.
 Usage:
 
     python3 tools_dev/compare_parent.py OTHER_DIR [--wavpack | --tta
-        [--sass DIR] | --rice [--sass DIR]]
+        [--sass DIR] | --rice [--sass DIR] | --parse]
 """
 
 import importlib.util
@@ -53,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -216,6 +224,50 @@ def compare_wavpack(other, mine, dev):
                       in_turns(run_other, run_mine)), flush=True)
 
 
+def compare_parse(other_dir, dev):
+    """phase 18's WavPack decode, whole, with each tree's decoder"""
+    from chip_smoke import ALAC_BATCHES, OPTS, program_signal
+    from audiotools_tpu_torch.codecs import wavpack as my_wavpack
+    from audiotools_tpu_torch.formats.wavpack import write_wavpack
+    from audiotools_tpu_torch.pcm import read_all, reader_from_array
+    other_wavpack = importlib.import_module(
+        load_package(other_dir, "other_port").__name__ + ".codecs.wavpack")
+    sig = program_signal(OPTS["block_size"] * 1024 * ALAC_BATCHES)
+    out = io.BytesIO()
+    write_wavpack(out, reader_from_array(sig, 16), "standard", device=dev)
+    data = out.getvalue()
+    # a short stream through each tree first: its kernels' first use
+    # (their build or load) outside the timed runs
+    warm = io.BytesIO()
+    write_wavpack(warm, reader_from_array(sig[:1 << 18], 16), "standard",
+                  device=dev)
+    for module in (other_wavpack, my_wavpack):
+        read_all(module.TorchWavPackDecoder(io.BytesIO(warm.getvalue()),
+                                            device=dev))
+    runs = {"other": [], "this": []}
+    equal = True
+    for who in ("other", "this", "this", "other"):
+        module = other_wavpack if who == "other" else my_wavpack
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoder = module.TorchWavPackDecoder(io.BytesIO(data), device=dev)
+        samples = read_all(decoder)
+        wall = time.perf_counter() - t0
+        equal = equal and bool(np.array_equal(samples, sig))
+        runs[who].append(dict(wall_s=wall, stage_s=dict(decoder.timings)))
+    print(json.dumps({
+        "compare": "WavPack decode (TorchWavPackDecoder)",
+        "frames": int(sig.shape[0]), "equal": equal,
+        "other_parse_s": float(np.median(
+            [r["stage_s"]["parse"] for r in runs["other"]])),
+        "this_parse_s": float(np.median(
+            [r["stage_s"]["parse"] for r in runs["this"]])),
+        "other_wall_s": float(np.median([r["wall_s"]
+                                         for r in runs["other"]])),
+        "this_wall_s": float(np.median([r["wall_s"] for r in runs["this"]])),
+        "runs": runs}), flush=True)
+
+
 def tta_lanes(dev):
     """phase 14's input: the fixed predictor's output of the first
     256-frame encode batch of bench.py's signal (seed 7), [512, 46080]"""
@@ -376,10 +428,12 @@ def main():
         k = argv.index("--sass")
         sass_dir = argv[k + 1]
         argv = argv[:k] + argv[k + 2:]
-    args = [a for a in argv if a not in ("--wavpack", "--tta", "--rice")]
+    args = [a for a in argv
+            if a not in ("--wavpack", "--tta", "--rice", "--parse")]
     if len(args) != 1 or not torch.cuda.is_available():
         sys.exit("usage: compare_parent.py OTHER_DIR [--wavpack | --tta "
-                 "[--sass DIR] | --rice [--sass DIR]] (needs a CUDA card)")
+                 "[--sass DIR] | --rice [--sass DIR] | --parse] (needs a "
+                 "CUDA card)")
     from audiotools_tpu_torch import kernels as mine
     from chip_smoke import device_ms, median_ms
     other_dir = os.path.abspath(args[0])
@@ -390,6 +444,9 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
+    if "--parse" in argv:
+        compare_parse(other_dir, dev)
+        return
     if "--wavpack" in argv:
         compare_wavpack(other, mine, dev)
         return
