@@ -15,7 +15,12 @@ Port of the reference's ``audiotools_tpu/codecs/shn.py``:
   chains the rows' warm-up samples (``_native.shn_warm_chain``); the
   device inverts the predictors (``ops/shn_synth.synthesize``) and
   interleaves the rows into frames (``ops/shn_synth.interleave``);
-* ``FastSHNDecoder``: the C++ host decoder (``_native.shn_decode``).
+* ``FastSHNDecoder``: the C++ host decoder (``_native.shn_decode``);
+* with ``ATPU_SHN_ORACLE=1``, read at each call, the reference's scalar
+  encoder and decoder (``ref/shn``) on the host in place of both
+  (``encode_shn``/``encode_samples``, ``decoder_for_file``): the same
+  bytes and samples, no kernel launched and no card touched.  Only the
+  variable selects them; a card path that fails raises.
 
 Streams outside the device decode's coverage (QLPC, DIFF0 with means,
 energy above 30: the scan raises ShnDeviceUnsupported) are a format
@@ -33,6 +38,7 @@ the stream for it).
 from __future__ import annotations
 
 import io
+import os
 import struct
 import time
 
@@ -45,6 +51,7 @@ from ..formats.aiff import parse_comm
 from ..formats.wav import (EXTENSIBLE_GUID, WAVE_FORMAT_EXTENSIBLE,
                            WAVE_FORMAT_PCM)
 from ..ops import shn_scan, shn_synth
+from ..ref import shn as oracle
 from .flac_dec import upload_arrays
 
 # per-stage seconds accumulated by encode_shn(timings=...) and in
@@ -54,6 +61,11 @@ DECODE_STAGES = ("scan", "warm", "upload", "synth", "interleave", "fetch")
 
 # the reference decoder's channel masks where the header names none
 _DEFAULT_MASKS = {1: 0x4, 2: 0x3}
+
+
+def _use_oracle():
+    """True when ATPU_SHN_ORACLE is 1"""
+    return os.environ.get("ATPU_SHN_ORACLE", "0") == "1"
 
 
 def _add(timings, stage, seconds):
@@ -71,7 +83,13 @@ def encode_shn(file_or_path, pcmreader, is_big_endian, signed_samples,
     footer_data go into VERBATIM chunks before and after the audio.
     device: "cuda" (raises when no card is usable) or "cpu" (the plain
     versions, for tests).  timings: optional dict that receives seconds
-    per ENCODE_STAGES."""
+    per ENCODE_STAGES.  Under ATPU_SHN_ORACLE=1 the reference's scalar
+    encoder writes the stream on the host (no timings)."""
+    if _use_oracle():
+        oracle.encode_shn(file_or_path, pcmreader, is_big_endian,
+                          signed_samples, header_data, footer_data,
+                          block_size)
+        return
     encode_samples(file_or_path, pcm.read_all(pcmreader),
                    pcmreader.bits_per_sample, is_big_endian, signed_samples,
                    header_data, footer_data, block_size, device, timings)
@@ -82,6 +100,11 @@ def encode_samples(file_or_path, samples, bps, is_big_endian, signed_samples,
                    device="cuda", timings=None):
     """encode_shn of int32 PCM samples [frames, channels] of ``bps``
     bits"""
+    if _use_oracle():
+        oracle.encode_shn(file_or_path, pcm.reader_from_array(samples, bps),
+                          is_big_endian, signed_samples, header_data,
+                          footer_data, block_size)
+        return
     dev = resolve_device(device)
     decisions = None
     if samples.shape[0]:
@@ -273,3 +296,21 @@ def decode_shn(data, device="cuda"):
     dec = TorchSHNDecoder(io.BytesIO(data), device=device)
     dec.seek(0)
     return dec.decoded
+
+
+def decoder_for_file(file_or_path, device="cuda"):
+    """a PCMReader decoding a Shorten path or binary file:
+    TorchSHNDecoder on ``device``, or the scalar SHNDecoder on the host
+    under ATPU_SHN_ORACLE=1"""
+    if _use_oracle():
+        return oracle.SHNDecoder(file_or_path)
+    return TorchSHNDecoder(file_or_path, device=device)
+
+
+def split_stream(data):
+    """(head, tail): the VERBATIM bytes before and after a Shorten
+    stream's PCM (``_native.shn_split``; the scalar decoder's
+    ``pcm_split`` under ATPU_SHN_ORACLE=1)"""
+    if _use_oracle():
+        return oracle.SHNDecoder(io.BytesIO(data)).pcm_split()
+    return _native.shn_split(data)

@@ -19,12 +19,18 @@ Port of the reference's ``audiotools_tpu/codecs/tta.py``:
   hybrid filter and the fixed predictor
   (``tta_synth.inverse_filter_predict``, one lane per frame and
   channel) and undoes the channel decorrelation; 8- and 16-bit
-  streams come back as int16.
+  streams come back as int16;
+* with ``ATPU_TTA_ORACLE=1``, read at each call, the reference's scalar
+  encoder and decoder (``ref/tta``) on the host in place of both
+  (``encode_tta``, ``decoder_for_file``): the same bytes and samples,
+  no kernel launched and no card touched.  Only the variable selects
+  them; a card path that fails raises.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import time
 
 import numpy as np
@@ -58,13 +64,22 @@ STAGES = ("scan", "upload", "synth", "finish", "fetch")
 ENCODE_STAGES = ("upload", "analysis", "fetch", "pack")
 
 
+def _use_oracle():
+    """True when ATPU_TTA_ORACLE is 1"""
+    return os.environ.get("ATPU_TTA_ORACLE", "0") == "1"
+
+
 def encode_tta(file, pcmreader, device="cuda", timings=None):
     """writes TTA frames from a PCMReader to a binary file, with the
     filters on a torch device
 
     device: "cuda" (raises when no card is usable) or "cpu" (the plain
     versions, for tests).  timings: optional dict that receives seconds
-    per ENCODE_STAGES.  Returns the frame lengths in bytes."""
+    per ENCODE_STAGES.  Returns the frame lengths in bytes.  Under
+    ATPU_TTA_ORACLE=1 the reference's scalar encoder writes the frames
+    on the host (no timings)."""
+    if _use_oracle():
+        return oracle.encode_tta(file, pcm.BufferedPCMReader(pcmreader))
     dev = resolve_device(device)
     block_size = oracle.block_size_for(pcmreader.sample_rate)
     bps = pcmreader.bits_per_sample
@@ -283,3 +298,12 @@ def decode_tta(data, device="cuda"):
     if not pieces:
         return np.zeros((0, dec.channels), dtype=np.int32)
     return np.concatenate(pieces, axis=0)
+
+
+def decoder_for_file(file_or_path, device="cuda"):
+    """a PCMReader decoding a TTA path or binary file positioned at the
+    stream's header: TorchTTADecoder on ``device``, or the scalar
+    TTADecoder on the host under ATPU_TTA_ORACLE=1"""
+    if _use_oracle():
+        return oracle.TTADecoder(file_or_path)
+    return TorchTTADecoder(file_or_path, device=device)

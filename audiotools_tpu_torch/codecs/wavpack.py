@@ -19,7 +19,14 @@ Port of the reference's ``audiotools_tpu/codecs/wavpack_jax.py``:
   finishes each block on the host: joint stereo, the CRC, extended
   integers, the stream MD5.  Blocks the device path does not take
   (``device_inputs`` returns None) run the host C++ passes and are
-  counted in ``host_blocks``.
+  counted in ``host_blocks``;
+* with ``ATPU_WV_ORACLE=1``, read at each call, the reference's scalar
+  oracle on the host in place of both: ``encode_wavpack`` correlates
+  with ``ref/wavpack``'s scalar passes and ``decoder_for_file`` gives
+  its ``WavPackDecoder``, whose CRC, residual coder and reader are
+  scalar too (``ref/wavpack._use_native``): the same bytes and samples,
+  no kernel launched and no card touched.  Only the variable selects
+  them; a card path that fails raises.
 """
 
 from __future__ import annotations
@@ -102,6 +109,11 @@ class DeviceCorrelate:
         return results
 
 
+def _use_oracle():
+    """True when ATPU_WV_ORACLE is 1"""
+    return not oracle._use_native()
+
+
 def encode_wavpack(file_or_path, pcmreader, block_size, correlation_passes=0,
                    total_pcm_frames=0, device="cuda", timings=None,
                    wave_header=None, wave_footer=None):
@@ -112,10 +124,14 @@ def encode_wavpack(file_or_path, pcmreader, block_size, correlation_passes=0,
     versions, for tests).  timings: optional dict that receives seconds
     per ENCODE_STAGES.  wave_header, wave_footer: the RIFF bytes to
     store in place of the built header (as ``ref/wavpack.encode_wavpack``
-    takes them).  The bytes are the reference encoder's."""
-    dev = resolve_device(device)
+    takes them).  The bytes are the reference encoder's.  Under
+    ATPU_WV_ORACLE=1 the scalar passes correlate on the host (no
+    timings)."""
     stages = {}
-    correlate = DeviceCorrelate(dev, stages)
+    if _use_oracle():
+        correlate = oracle.correlate_host
+    else:
+        correlate = DeviceCorrelate(resolve_device(device), stages)
     t0 = time.perf_counter()
     oracle.encode_wavpack(file_or_path, pcmreader, block_size,
                           total_pcm_frames=total_pcm_frames,
@@ -256,3 +272,12 @@ def decode_wavpack(data, device="cuda"):
     if not pieces:
         return np.zeros((0, dec.channels), dtype=np.int32)
     return np.concatenate(pieces, axis=0)
+
+
+def decoder_for_file(file_or_path, device="cuda"):
+    """a PCMReader decoding a WavPack path or binary file:
+    TorchWavPackDecoder on ``device``, or the scalar WavPackDecoder on
+    the host under ATPU_WV_ORACLE=1"""
+    if _use_oracle():
+        return oracle.WavPackDecoder(file_or_path)
+    return TorchWavPackDecoder(file_or_path, device=device)

@@ -23,12 +23,16 @@ with STREAMINFO, a packet a further block, a packet a frame.
 The blocks are parsed from and built into bytes with ``struct`` (FLAC
 metadata is big-endian; a VORBIS_COMMENT body is little-endian).
 
-``from_pcm`` encodes with the port's ``encode_flac_fast`` on the
-file's device, on the route the reference's environment selects (by
-default the quantized upload wire), so its bytes equal the reference's
-``FlacAudio.from_pcm`` under the same ``ATPU_*`` settings; so do
-``OggFlacAudio``'s, whose frames ``TorchFlacDecoder`` decodes on the
-file's device where the reference decodes them on the host.
+``from_pcm`` encodes through ``codecs.flac.encode_flac``: the port's
+``encode_flac_fast`` on the file's device, on the route the reference's
+environment selects (by default the quantized upload wire), so its
+bytes equal the reference's ``FlacAudio.from_pcm`` under the same
+``ATPU_*`` settings; so do ``OggFlacAudio``'s, whose frames
+``TorchFlacDecoder`` decodes on the file's device where the reference
+decodes them on the host (``OggFlacDecoder``).  With
+``ATPU_FLAC_ORACLE=1`` both classes encode and decode with the scalar
+oracle on the host (``ref.flac_enc``, ``ref.flac_dec``; Ogg FLAC with
+``OggFlacDecoder``), as the reference's do.
 
 A CUESHEET block is 396 bytes and 36 a track with 12 an index point,
 as it is written.  The reference's ``size`` counts 9 bytes an index
@@ -49,7 +53,9 @@ import os
 import struct
 from fractions import Fraction
 
-from .. import _native, text
+import numpy as np
+
+from .. import _native, pcm, text
 from .._device import resolve_device
 from ..audiofile import (AiffContainer, AudioFile, EncodingError, Image,
                          InvalidFile, MetaData, ReplayGain, SheetIndex, SheetTrack,
@@ -1295,12 +1301,13 @@ class FlacAudio(WaveContainer, AiffContainer):
     def to_pcm(self):
         """a TorchFlacDecoder of the file on the file's device (the
         STREAMINFO MD5 checked at the end of the stream), from its
-        'fLaC' marker on"""
-        from ..codecs.flac_dec import TorchFlacDecoder
+        'fLaC' marker on; the scalar FlacDecoder on the host under
+        ATPU_FLAC_ORACLE=1 (``codecs.flac.decoder_for_file``)"""
+        from ..codecs.flac import decoder_for_file
         channel_mask = self.channel_mask()
         f = self._open_stream()
         try:
-            return TorchFlacDecoder(f, channel_mask, device=self.device)
+            return decoder_for_file(f, channel_mask, device=self.device)
         except BaseException:
             f.close()
             raise
@@ -1344,8 +1351,8 @@ class FlacAudio(WaveContainer, AiffContainer):
             else:
                 padding_size = 4096
 
-            from ..codecs.flac_enc_fast import encode_flac_fast
-            offsets = encode_flac_fast(
+            from ..codecs.flac import encode_flac
+            offsets = encode_flac(
                 filename, BufferedPCMReader(pcmreader),
                 padding_size=padding_size, device=device,
                 **encoding_options)
@@ -1422,6 +1429,63 @@ class _OggFlacFrames:
         self.file.close()
 
 
+class OggFlacDecoder:
+    """a PCMReader decoding an Ogg FLAC file's frames on the host with
+    the C++ frame decoder (``_native.flac_decode``): the reference's Ogg
+    FLAC decoder, which ``OggFlacAudio.to_pcm`` returns under
+    ATPU_FLAC_ORACLE=1.  As the reference's, it checks no MD5, and a
+    page that is cut short or bad ends the stream (IOError when frames
+    are still missing)."""
+
+    def __init__(self, filename):
+        from ..ogg import PacketReader, PageReader
+        self.file = open(filename, "rb")
+        try:
+            self.packets = PacketReader(PageReader(self.file))
+            header = self.packets.read_packet()
+            if (len(header) < 51 or header[0] != 0x7F or
+                    header[1:5] != b"FLAC"):
+                raise ValueError("invalid Ogg FLAC header packet")
+            for _ in range((header[7] << 8) | header[8]):
+                self.packets.read_packet()
+        except BaseException:
+            self.file.close()
+            raise
+        streaminfo = Flac_STREAMINFO.parse(header[17:51])
+        self.sample_rate = streaminfo.sample_rate
+        self.channels = streaminfo.channels
+        self.bits_per_sample = streaminfo.bits_per_sample
+        self.channel_mask = (CHANNEL_MASKS[self.channels]
+                             if self.channels <= 6 else 0)
+        self.remaining = streaminfo.total_samples
+        self.buffer = b""
+        self.eos = False
+
+    def read(self, pcm_frames):
+        """up to max(pcm_frames, 4096) frames, the rest of the stream at
+        most; empty at its end"""
+        if self.remaining <= 0:
+            return pcm.empty_framelist(self.channels, self.bits_per_sample)
+        # top the raw frame buffer up from the Ogg packets
+        while not self.eos and len(self.buffer) < (1 << 20):
+            try:
+                self.buffer += self.packets.read_packet()
+            except (IOError, ValueError):
+                self.eos = True
+        (samples, consumed) = _native.flac_decode(
+            self.buffer, self.bits_per_sample, self.channels,
+            min(max(pcm_frames, 4096), self.remaining))
+        self.buffer = self.buffer[consumed:]
+        if samples.shape[0] == 0 and self.eos:
+            raise IOError("truncated Ogg FLAC stream")
+        self.remaining -= samples.shape[0]
+        return pcm.FrameList._wrap(np.ascontiguousarray(samples),
+                                   self.bits_per_sample)
+
+    def close(self):
+        self.file.close()
+
+
 class OggFlacAudio(FlacAudio):
     """a FLAC stream in an Ogg container, encoded and decoded on a
     torch device
@@ -1432,7 +1496,9 @@ class OggFlacAudio(FlacAudio):
     each audio packet one FLAC frame, its pages' granule position the
     PCM frames up to its end.  ``from_pcm`` encodes with the port's
     ``encode_flac_fast`` on the file's device; ``to_pcm`` decodes the
-    packets' frames with ``TorchFlacDecoder`` on it.  As the
+    packets' frames with ``TorchFlacDecoder`` on it (under
+    ATPU_FLAC_ORACLE=1 the scalar encoder and ``OggFlacDecoder``, on
+    the host).  As the
     reference's: ``from_pcm`` takes DEFAULT_COMPRESSION where no valid
     mode is given (not the configured quality), ``set_metadata`` keeps
     the STREAMINFO block alone, and no MD5 is checked.  Unlike the
@@ -1525,7 +1591,11 @@ class OggFlacAudio(FlacAudio):
     def to_pcm(self):
         """a TorchFlacDecoder of the packets' frames on the file's device
         (no MD5 checked, as the reference checks none; the channel mask
-        the default of the channel count, 0 above 6 channels)"""
+        the default of the channel count, 0 above 6 channels); the host
+        OggFlacDecoder under ATPU_FLAC_ORACLE=1, as the reference's"""
+        from ..codecs.flac import _use_oracle
+        if _use_oracle():
+            return OggFlacDecoder(self.filename)
         from ..codecs.flac_dec import TorchFlacDecoder
         stream = _OggFlacFrames(self.filename, self.__header_packets,
                                 self._streaminfo)
@@ -1557,15 +1627,17 @@ class OggFlacAudio(FlacAudio):
         it: the FLAC stream's STREAMINFO block in the header packets and
         a packet a frame.  compression: one of COMPRESSION_MODES, else
         DEFAULT_COMPRESSION; ``total_pcm_frames`` is not needed.  A
-        failed encode raises EncodingError and writes no file."""
-        from ..codecs.flac_enc_fast import encode_flac_fast
+        failed encode raises EncodingError and writes no file.  The
+        stream is ``codecs.flac.encode_flac``'s (the scalar oracle under
+        ATPU_FLAC_ORACLE=1)."""
+        from ..codecs.flac import encode_flac
         from ..ogg import Page, PageWriter, packet_to_pages
         device = resolve_device(device)
         if compression not in cls.COMPRESSION_MODES:
             compression = cls.DEFAULT_COMPRESSION
         raw = io.BytesIO()
         try:
-            offsets = encode_flac_fast(
+            offsets = encode_flac(
                 raw, BufferedPCMReader(pcmreader), padding_size=None,
                 device=device, **cls.COMPRESSION_OPTIONS[compression])
         except (IOError, ValueError) as err:

@@ -4,10 +4,11 @@ Port of the reference's ``ALACAudio`` (``audiotools_tpu/formats/m4a.py``)
 with its atom builders over ``meta/m4a_atoms``: ftyp, then moov (mvhd,
 trak with tkhd and mdia: mdhd, hdlr and minf with smhd, dinf/dref and
 stbl: stsd(alac), stts, stsc, stsz, stco; udta/meta with an ilst
-naming the encoder), then the mdat that
-``codecs.alac_fast.encode_mdat_fast`` writes.  ``ALACAudio`` reads the
-header from the alac atom, decodes with
-``codecs.alac_dec.TorchALACDecoder`` on its device, and reads and
+naming the encoder), then the mdat that ``codecs.alac.encode_mdat``
+writes (``codecs.alac_fast.encode_mdat_fast`` on a device, the scalar
+oracle under ATPU_ALAC_ORACLE=1).  ``ALACAudio`` reads the header from
+the alac atom, decodes through ``codecs.alac.decoder_for_file``
+(``codecs.alac_dec.TorchALACDecoder`` on its device), and reads and
 writes its tags as the udta/meta atom (``get/set/update/delete_metadata``,
 the stco chunk offsets moved when moov changes size).  ``M4AAudio`` is
 the reference's AAC class as far as detection goes: its stream fields
@@ -27,7 +28,7 @@ import time
 from .. import VERSION, text
 from .._device import resolve_device
 from ..audiofile import AudioFile, EncodingError, InvalidFile
-from ..codecs.alac_fast import encode_mdat_fast
+from ..codecs.alac import decoder_for_file, encode_mdat
 from ..meta.m4a_atoms import (M4A_Leaf_Atom, M4A_META_Atom, M4A_Tree_Atom,
                               ilst_string_atom, parse_atoms)
 from ..pcm import PCMReaderError
@@ -54,7 +55,9 @@ def write_m4a(file_or_path, pcmreader, block_size=BLOCK_SIZE,
     file_or_path: a path or a writable binary file.  create_date: the
     QuickTime creation time written into mvhd, tkhd and mdhd (default:
     now, as the reference).  device, timings: passed to
-    encode_mdat_fast.  The reader is closed at the end, as the
+    ``codecs.alac.encode_mdat`` (encode_mdat_fast's, unused by the
+    scalar oracle under ATPU_ALAC_ORACLE=1).  The reader is closed at
+    the end, as the
     reference's from_pcm closes it.  Raises ValueError for bits per
     sample other than 16 or 24 or a channel mask ALAC cannot carry.
 
@@ -69,7 +72,7 @@ def write_m4a(file_or_path, pcmreader, block_size=BLOCK_SIZE,
         if create_date is None:
             create_date = int(time.time()) + QUICKTIME_EPOCH_OFFSET
         mdat = io.BytesIO()
-        (frame_byte_sizes, total_pcm_frames) = encode_mdat_fast(
+        (frame_byte_sizes, total_pcm_frames) = encode_mdat(
             mdat, pcmreader, block_size=block_size,
             initial_history=INITIAL_HISTORY,
             history_multiplier=HISTORY_MULTIPLIER, maximum_k=MAXIMUM_K,
@@ -397,9 +400,10 @@ class ALACAudio(AudioFile):
         self.update_metadata(meta_atom())
 
     def to_pcm(self):
-        """a TorchALACDecoder of the file on the file's device"""
-        from ..codecs.alac_dec import TorchALACDecoder
-        return TorchALACDecoder(self.filename, device=self.device)
+        """a TorchALACDecoder of the file on the file's device
+        (``codecs.alac.decoder_for_file``: the scalar ALACDecoder on the
+        host under ATPU_ALAC_ORACLE=1)"""
+        return decoder_for_file(self.filename, device=self.device)
 
     @classmethod
     def from_pcm(cls, filename, pcmreader, compression=None,

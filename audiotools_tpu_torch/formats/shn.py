@@ -7,7 +7,8 @@ chunk, then the stream that ``codecs.shn.encode_shn`` writes
 only, 8-bit stored unsigned as WAVE has it.  ``ShortenAudio`` reads a
 stream whose VERBATIM head is a WAVE or an AIFF header (its frame count
 from the data chunk or COMM; 0 for any other head) and decodes with
-``codecs.shn.TorchSHNDecoder`` on its device.  A WAVE's or an AIFF's
+``codecs.shn.TorchSHNDecoder`` on its device (``codecs.shn``'s scalar
+oracle on the host under ATPU_SHN_ORACLE=1).  A WAVE's or an AIFF's
 foreign chunks travel in the stream's leading and trailing VERBATIM
 chunks (``from_wave``, ``wave_header_footer``; ``from_aiff``, which
 stores big-endian signed samples as AIFF has them,
@@ -24,7 +25,8 @@ from .. import _native, text
 from .._device import resolve_device
 from ..audiofile import (AiffContainer, EncodingError, InvalidFile,
                          WaveContainer)
-from ..codecs.shn import encode_samples, encode_shn, stream_params
+from ..codecs.shn import (decoder_for_file, encode_samples, encode_shn,
+                          split_stream, stream_params)
 from ..pcm import read_all, to_pcm_progress
 from .aiff import aiff_chunks, parse_comm
 from .wav import build_fmt, wave_chunks
@@ -147,7 +149,7 @@ class ShortenAudio(WaveContainer, AiffContainer):
         whole stream)"""
         if self.__tail is None:
             with open(self.filename, "rb") as f:
-                (_head, self.__tail) = _native.shn_split(f.read())
+                (_head, self.__tail) = split_stream(f.read())
         return self.__tail
 
     def has_foreign_wave_chunks(self):
@@ -198,9 +200,9 @@ class ShortenAudio(WaveContainer, AiffContainer):
             device=self.device if device is None else device)
 
     def to_pcm(self):
-        """a TorchSHNDecoder of the file on the file's device"""
-        from ..codecs.shn import TorchSHNDecoder
-        return TorchSHNDecoder(self.filename, device=self.device)
+        """a TorchSHNDecoder of the file on the file's device (the scalar
+        SHNDecoder on the host under ATPU_SHN_ORACLE=1)"""
+        return decoder_for_file(self.filename, device=self.device)
 
     @classmethod
     def from_pcm(cls, filename, pcmreader, compression=None,

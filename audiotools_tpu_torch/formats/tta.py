@@ -154,12 +154,13 @@ class TrueAudio(ApeTaggedAudio, AudioFile):
         return all(isinstance(f, TrueAudio) for f in audiofiles)
 
     def to_pcm(self):
-        """a TorchTTADecoder of the stream on the file's device"""
-        from ..codecs.tta import TorchTTADecoder
+        """a TorchTTADecoder of the stream on the file's device (the
+        scalar TTADecoder on the host under ATPU_TTA_ORACLE=1)"""
+        from ..codecs.tta import decoder_for_file
         f = open(self.filename, "rb")
         try:
             f.seek(self.__stream_offset, 0)
-            return TorchTTADecoder(f, device=self.device)
+            return decoder_for_file(f, device=self.device)
         except BaseException:
             f.close()
             raise

@@ -237,9 +237,10 @@ class WavPackAudio(ApeTaggedAudio, WaveContainer):
         return compression
 
     def to_pcm(self):
-        """a TorchWavPackDecoder of the file on the file's device"""
-        from ..codecs.wavpack import TorchWavPackDecoder
-        return TorchWavPackDecoder(self.filename, device=self.device)
+        """a TorchWavPackDecoder of the file on the file's device (the
+        scalar WavPackDecoder on the host under ATPU_WV_ORACLE=1)"""
+        from ..codecs.wavpack import decoder_for_file
+        return decoder_for_file(self.filename, device=self.device)
 
     @classmethod
     def from_pcm(cls, filename, pcmreader, compression=None,

@@ -1,16 +1,21 @@
-"""Scalar FLAC frame encoder: the oracle the batched encoder uses for
-the short tail block, and the STREAMINFO and header serializers.
+"""Scalar FLAC encoder: the oracle behind ATPU_FLAC_ORACLE, whose frame
+encoder the batched encoder uses for the short tail block, and the
+STREAMINFO and header serializers.
 
-Copy of the reference package's ``ref/flac_enc.py``, trimmed to
-``encode_frame``, ``build_streaminfo`` and what they call.  Bits are
+Copy of the reference package's ``ref/flac_enc.py``: ``encode_flac``,
+the scalar whole-stream encoder behind ATPU_FLAC_ORACLE, and the
+``encode_frame`` and ``build_streaminfo`` it is built of.  Bits are
 serialized as (value, nbits) tokens packed MSB-first; unary codes are
 single tokens with implicit leading zeros.
 """
 
 from __future__ import annotations
 
+from hashlib import md5
+
 import numpy as np
 
+from .. import pcm
 from .crc import CRC8_TABLE, CRC16_TABLE
 
 class EncodingOptions:
@@ -132,6 +137,106 @@ def crc16(data):
     for byte in data:
         value = int(table[(value >> 8) ^ byte] ^ ((value << 8) & 0xFFFF))
     return value
+
+
+def encode_flac(file_or_path,
+                pcmreader,
+                block_size=4096,
+                max_lpc_order=8,
+                min_residual_partition_order=0,
+                max_residual_partition_order=5,
+                mid_side=True,
+                adaptive_mid_side=False,
+                exhaustive_model_search=False,
+                disable_verbatim_subframes=False,
+                disable_constant_subframes=False,
+                disable_fixed_subframes=False,
+                disable_lpc_subframes=False,
+                padding_bytes=None):
+    """encodes a FLAC file from a PCMReader
+
+    returns a list of (byte_offset, pcm_frames) pairs per FLAC frame
+    for building seektables (reference src/encoders/flac.c:73)
+    """
+
+    options = EncodingOptions(
+        block_size, max_lpc_order,
+        adaptive_mid_side, mid_side, exhaustive_model_search,
+        min_residual_partition_order, max_residual_partition_order,
+        14 if pcmreader.bits_per_sample <= 16 else 30,
+        disable_verbatim_subframes, disable_constant_subframes,
+        disable_fixed_subframes, disable_lpc_subframes)
+
+    if isinstance(file_or_path, str):
+        output_file = open(file_or_path, "wb")
+        close_file = True
+    else:
+        output_file = file_or_path
+        close_file = False
+
+    streaminfo = dict(minimum_frame_size=(2 ** 24) - 1,
+                      maximum_frame_size=0,
+                      total_pcm_frames=0,
+                      md5=md5())
+
+    pcmreader = pcm.BufferedPCMReader(pcmreader)
+
+    # placeholder STREAMINFO (rewritten at the end)
+    output_file.write(b"fLaC")
+    header_tokens = TokenStream()
+    header_tokens.write(1, 1 if padding_bytes is None else 0)
+    header_tokens.write(7, 0)
+    header_tokens.write(24, 34)
+    output_file.write(header_tokens.to_bytes())
+    streaminfo_offset = output_file.tell()
+    output_file.write(b"\x00" * 34)
+    if padding_bytes is not None:
+        pad = TokenStream()
+        pad.write(1, 1)
+        pad.write(7, 1)
+        pad.write(24, padding_bytes)
+        output_file.write(pad.to_bytes())
+        output_file.write(b"\x00" * padding_bytes)
+
+    frame_offsets = []
+    current_offset = 0
+    frame_number = 0
+
+    frame = pcmreader.read(block_size)
+    while len(frame) > 0:
+        frame_offsets.append((current_offset, frame.frames))
+        streaminfo["total_pcm_frames"] += frame.frames
+        streaminfo["md5"].update(frame.to_bytes(False, True))
+
+        frame_bytes = encode_frame(pcmreader, options, frame_number,
+                                   frame.samples.astype(np.int64))
+        current_offset += len(frame_bytes)
+        streaminfo["minimum_frame_size"] = min(
+            streaminfo["minimum_frame_size"], len(frame_bytes))
+        streaminfo["maximum_frame_size"] = max(
+            streaminfo["maximum_frame_size"], len(frame_bytes))
+        output_file.write(frame_bytes)
+
+        frame_number += 1
+        frame = pcmreader.read(block_size)
+
+    # rewrite STREAMINFO with final values
+    output_file.seek(streaminfo_offset, 0)
+    output_file.write(build_streaminfo(
+        block_size, block_size,
+        streaminfo["minimum_frame_size"],
+        streaminfo["maximum_frame_size"],
+        pcmreader.sample_rate,
+        pcmreader.channels,
+        pcmreader.bits_per_sample,
+        streaminfo["total_pcm_frames"],
+        streaminfo["md5"].digest()))
+    if close_file:
+        output_file.close()
+    else:
+        output_file.seek(0, 2)
+
+    return frame_offsets
 
 
 def build_streaminfo(minimum_block_size, maximum_block_size,

@@ -1,12 +1,19 @@
 """WavPack: the block format, the host encoder and decoder.
 
-The port's copy of the reference's ``audiotools_tpu/ref/wavpack.py``,
-trimmed to its default route, the host C++ (``_native.wv_*``): block and
-sub-block structure, 1-16 decorrelation passes with adaptive weights
-(terms 18/17, 1-8 and the cross-channel -1/-2/-3), the wv_log2/wv_exp2
-storage of weights, samples and entropies, joint stereo, extended
-(wasted-bit) integers, the per-block CRC and the stream MD5.  The
-reference's pure-Python oracle branches are not copied.
+The port's copy of the reference's ``audiotools_tpu/ref/wavpack.py``:
+block and sub-block structure, 1-16 decorrelation passes with adaptive
+weights (terms 18/17, 1-8 and the cross-channel -1/-2/-3), the
+wv_log2/wv_exp2 storage of weights, samples and entropies, joint
+stereo, extended (wasted-bit) integers, the per-block CRC and the
+stream MD5.
+
+The CRC, the residual reader and writer and the correlation and
+decorrelation passes run on the host C++ (``_native.wv_*``), or, with
+``ATPU_WV_ORACLE=1`` (read at each call, ``_use_native``), as the
+reference's scalar Python oracle.  One repair of the reference: the
+scalar residual writer codes Python integers (``_write_egc``), where
+the reference's raised AttributeError on a numpy integer as soon as a
+residual reached the escape code.
 
 Its module-global hooks for device decorrelation are explicit here:
 ``encode_wavpack`` takes a ``correlate`` callable that decorrelates all
@@ -18,6 +25,7 @@ many blocks between them.
 
 from __future__ import annotations
 
+import os
 import struct
 from hashlib import md5
 
@@ -47,6 +55,12 @@ LOG2_TABLE = np.round(256.0 * np.log2(1.0 + np.arange(256) / 256.0)).astype(
     np.int64)
 
 
+def _use_native():
+    """False when ATPU_WV_ORACLE is 1: the scalar oracle runs in place
+    of the host C++"""
+    return os.environ.get("ATPU_WV_ORACLE", "0") != "1"
+
+
 def wv_exp2(value):
     """the 16-bit log-domain value as a linear one"""
     if -32768 <= value < -2304:
@@ -70,6 +84,19 @@ def wv_log2(value):
     return log_val if value > 0 else (0 if value == 0 else -log_val)
 
 
+def apply_weight(weight, sample):
+    return ((weight * sample) + 512) >> 10
+
+
+def update_weight(source, result, delta):
+    if (source == 0) or (result == 0):
+        return 0
+    elif (source ^ result) >= 0:
+        return delta
+    else:
+        return -delta
+
+
 def store_weight(w):
     w = min(max(w, -1024), 1024)
     if w > 0:
@@ -85,6 +112,19 @@ def restore_weight(v):
     elif v == 0:
         return 0
     return v << 3
+
+
+def calculate_crc(channels):
+    """the per-block sample CRC of 1-2 channels: the host C++, or the
+    scalar oracle under ATPU_WV_ORACLE=1"""
+    if _use_native():
+        return _native.wv_crc(channels)
+    crc = 0xFFFFFFFF
+    for frame in zip(*[np.asarray(c, dtype=np.int64).tolist()
+                       for c in channels]):
+        for s in frame:
+            crc = (3 * crc + s) & 0xFFFFFFFF
+    return crc
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +405,8 @@ def parse_block(header, sub_blocks):
         elif function == WV_BITSTREAM:
             if entropies is None:
                 raise ValueError("bitstream before entropy variables")
-            residuals = _native.wv_read_bitstream(
-                data, header.block_samples, 2 if two_ch else 1, entropies)
+            residuals = read_bitstream(reader, data, header.block_samples,
+                                       2 if two_ch else 1, entropies)
 
     if residuals is None:
         raise ValueError("bitstream sub block not found")
@@ -377,6 +417,112 @@ def parse_block(header, sub_blocks):
             "duplicate_bits": duplicate_bits}
 
 
+def read_bitstream(reader, data, block_samples, channel_count, entropies):
+    """the residuals of a bitstream sub-block (``data``, read by
+    ``reader``), block_samples a channel: the host C++, or the scalar
+    oracle under ATPU_WV_ORACLE=1; entropies, [[3], [3]], are updated
+    in place"""
+    if _use_native():
+        return _native.wv_read_bitstream(data, block_samples, channel_count,
+                                         entropies)
+    return _read_bitstream(reader, block_samples, channel_count, entropies)
+
+
+def _read_egc(reader):
+    t = reader.unary(0)
+    if t > 0:
+        p = reader.read(t - 1)
+        return (1 << (t - 1)) + p
+    else:
+        return t
+
+
+def _read_residual(reader, last_u, entropies):
+    if last_u is None:
+        u = reader.unary(0)
+        if u == 16:
+            u += _read_egc(reader)
+        m = u // 2
+    elif (last_u % 2) == 1:
+        u = reader.unary(0)
+        if u == 16:
+            u += _read_egc(reader)
+        m = (u // 2) + 1
+    else:
+        u = None
+        m = 0
+
+    if m == 0:
+        base = 0
+        add = entropies[0] >> 4
+        entropies[0] -= ((entropies[0] + 126) >> 7) * 2
+    elif m == 1:
+        base = (entropies[0] >> 4) + 1
+        add = entropies[1] >> 4
+        entropies[0] += ((entropies[0] + 128) >> 7) * 5
+        entropies[1] -= ((entropies[1] + 62) >> 6) * 2
+    elif m == 2:
+        base = ((entropies[0] >> 4) + 1) + ((entropies[1] >> 4) + 1)
+        add = entropies[2] >> 4
+        entropies[0] += ((entropies[0] + 128) >> 7) * 5
+        entropies[1] += ((entropies[1] + 64) >> 6) * 5
+        entropies[2] -= ((entropies[2] + 30) >> 5) * 2
+    else:
+        base = (((entropies[0] >> 4) + 1) +
+                ((entropies[1] >> 4) + 1) +
+                (((entropies[2] >> 4) + 1) * (m - 2)))
+        add = entropies[2] >> 4
+        entropies[0] += ((entropies[0] + 128) >> 7) * 5
+        entropies[1] += ((entropies[1] + 64) >> 6) * 5
+        entropies[2] += ((entropies[2] + 32) >> 5) * 5
+
+    if add == 0:
+        unsigned = base
+    else:
+        p = add.bit_length() - 1
+        e = (1 << (p + 1)) - add - 1
+        r = reader.read(p)
+        if r >= e:
+            b = reader.read(1)
+            unsigned = base + (r * 2) - e + b
+        else:
+            unsigned = base + r
+
+    if reader.read(1):
+        return (-unsigned - 1, u)
+    else:
+        return (unsigned, u)
+
+
+def _read_bitstream(reader, block_samples, channel_count, entropies):
+    """the scalar residual reader"""
+    residuals = [[] for _ in range(channel_count)]
+    u = None
+    i = 0
+    total = block_samples * channel_count
+    while i < total:
+        if ((u is None) and (entropies[0][0] < 2) and
+                (entropies[1][0] < 2)):
+            zeroes = _read_egc(reader)
+            if zeroes > 0:
+                for _ in range(zeroes):
+                    residuals[i % channel_count].append(0)
+                    i += 1
+                entropies[0][0:3] = [0, 0, 0]
+                entropies[1][0:3] = [0, 0, 0]
+            if i < total:
+                (residual, u) = _read_residual(
+                    reader, u, entropies[i % channel_count])
+                residuals[i % channel_count].append(residual)
+                i += 1
+        else:
+            (residual, u) = _read_residual(
+                reader, u, entropies[i % channel_count])
+            residuals[i % channel_count].append(residual)
+            i += 1
+    return residuals
+
+
 def finish_block(header, parsed, decorrelated):
     """phase 2 of a block's decode: joint stereo undone, the CRC
     checked, extended integers restored, false stereo expanded; returns
@@ -385,7 +531,7 @@ def finish_block(header, parsed, decorrelated):
     if two_ch and header.joint_stereo:
         decorrelated = undo_joint_stereo(decorrelated)
 
-    if _native.wv_crc(decorrelated) != header.CRC:
+    if calculate_crc(decorrelated) != header.CRC:
         raise ValueError("block CRC mismatch")
 
     if header.extended_size_integers:
@@ -440,11 +586,17 @@ def read_decorrelation_samples(reader, terms, two_ch, data_bytes):
 
 
 def decorrelate_host(parsed):
-    """a parsed block's decode decorrelation on the host C++, pass by
-    pass; the residuals when the block has no passes"""
+    """a parsed block's decode decorrelation on the host C++ (the scalar
+    oracle under ATPU_WV_ORACLE=1), pass by pass; the residuals when the
+    block has no passes"""
     residuals = parsed["residuals"]
     if not parsed["terms"]:
         return residuals
+    if not _use_native():
+        return _decorrelate_channels(
+            [np.asarray(r, dtype=np.int64).tolist() for r in residuals],
+            parsed["terms"], parsed["deltas"], parsed["weights"],
+            parsed["samples"])
     cc = len(residuals)
     latest = list(residuals)
     for (term, delta, weights, dec_samples) in zip(
@@ -456,6 +608,104 @@ def decorrelate_host(parsed):
         latest = _native.wv_decorrelate(latest, term, delta, weights[:cc],
                                         dec_samples)
     return latest
+
+
+# the scalar decode passes (ATPU_WV_ORACLE=1)
+
+def _decorrelate_channels(residuals, terms, deltas, weights,
+                          samples_list):
+    if len(residuals) == 2:
+        latest = [r for r in residuals]
+        for (term, delta, weight_pair, dec_samples) in zip(
+                terms, deltas, weights, samples_list):
+            latest = _decorrelation_pass_2ch(latest, term, delta,
+                                             weight_pair, dec_samples)
+        return latest
+    else:
+        latest = residuals[0]
+        for (term, delta, weight_pair, dec_samples) in zip(
+                terms, deltas, weights, samples_list):
+            latest = _decorrelation_pass_1ch(latest, term, delta,
+                                             weight_pair[0],
+                                             dec_samples[0])
+        return [latest]
+
+
+def _decorrelation_pass_1ch(correlated, term, delta, weight,
+                            dec_samples):
+    if term in (17, 18):
+        decorrelated = list(dec_samples[::-1])
+        for i in range(len(correlated)):
+            if term == 18:
+                temp = (3 * decorrelated[i + 1] - decorrelated[i]) >> 1
+            else:
+                temp = 2 * decorrelated[i + 1] - decorrelated[i]
+            decorrelated.append(apply_weight(weight, temp) +
+                                correlated[i])
+            weight += update_weight(temp, correlated[i], delta)
+        return decorrelated[2:]
+    elif 1 <= term <= 8:
+        decorrelated = list(dec_samples)
+        for i in range(len(correlated)):
+            decorrelated.append(apply_weight(weight, decorrelated[i]) +
+                                correlated[i])
+            weight += update_weight(decorrelated[i], correlated[i],
+                                    delta)
+        return decorrelated[term:]
+    else:
+        raise ValueError("unsupported term")
+
+
+def _decorrelation_pass_2ch(correlated, term, delta, weights,
+                            dec_samples):
+    if (17 <= term <= 18) or (1 <= term <= 8):
+        return [_decorrelation_pass_1ch(correlated[0], term, delta,
+                                        weights[0], dec_samples[0]),
+                _decorrelation_pass_1ch(correlated[1], term, delta,
+                                        weights[1], dec_samples[1])]
+    elif -3 <= term <= -1:
+        decorrelated = ([dec_samples[1][0]], [dec_samples[0][0]])
+        weights = list(weights)
+        n = len(correlated[0])
+        for i in range(n):
+            if term == -1:
+                decorrelated[0].append(
+                    apply_weight(weights[0], decorrelated[1][i]) +
+                    correlated[0][i])
+                decorrelated[1].append(
+                    apply_weight(weights[1], decorrelated[0][i + 1]) +
+                    correlated[1][i])
+                weights[0] += update_weight(decorrelated[1][i],
+                                            correlated[0][i], delta)
+                weights[1] += update_weight(decorrelated[0][i + 1],
+                                            correlated[1][i], delta)
+            elif term == -2:
+                decorrelated[1].append(
+                    apply_weight(weights[1], decorrelated[0][i]) +
+                    correlated[1][i])
+                decorrelated[0].append(
+                    apply_weight(weights[0], decorrelated[1][i + 1]) +
+                    correlated[0][i])
+                weights[1] += update_weight(decorrelated[0][i],
+                                            correlated[1][i], delta)
+                weights[0] += update_weight(decorrelated[1][i + 1],
+                                            correlated[0][i], delta)
+            else:  # term == -3
+                decorrelated[0].append(
+                    apply_weight(weights[0], decorrelated[1][i]) +
+                    correlated[0][i])
+                decorrelated[1].append(
+                    apply_weight(weights[1], decorrelated[0][i]) +
+                    correlated[1][i])
+                weights[0] += update_weight(decorrelated[1][i],
+                                            correlated[0][i], delta)
+                weights[1] += update_weight(decorrelated[0][i],
+                                            correlated[1][i], delta)
+            weights[0] = max(min(weights[0], 1024), -1024)
+            weights[1] = max(min(weights[1], 1024), -1024)
+        return [decorrelated[0][1:], decorrelated[1][1:]]
+    else:
+        raise ValueError("unsupported term")
 
 
 def undo_joint_stereo(samples):
@@ -594,8 +844,11 @@ def write_wave_header(writer, pcmreader, total_frames, footer_size=0):
 
 
 def correlate_channels(uncorrelated, params, channel_count):
-    """runs a group's correlation passes on the host C++, updating the
-    parameters in place; returns the correlated channels"""
+    """runs a group's correlation passes on the host C++ (the scalar
+    oracle under ATPU_WV_ORACLE=1), updating the parameters in place;
+    returns the correlated channels"""
+    if not _use_native():
+        return _correlate_scalar(uncorrelated, params, channel_count)
     latest = list(uncorrelated[:channel_count])
     for p in params:
         (latest, weights, samples) = _native.wv_correlate(
@@ -604,6 +857,111 @@ def correlate_channels(uncorrelated, params, channel_count):
         # negative terms keep their stored samples
         p.update_samples(samples if p.term > 0 else p.samples)
     return latest
+
+
+def _correlate_scalar(uncorrelated, params, channel_count):
+    """the scalar correlation passes, updating the parameters in place"""
+    uncorrelated = [np.asarray(c, dtype=np.int64).tolist()
+                    for c in uncorrelated[:channel_count]]
+    if channel_count == 1:
+        latest = uncorrelated[0]
+        for p in params:
+            (latest, weight, samples) = correlation_pass_1ch(
+                latest, p.term, p.delta, p.weights[0], p.samples[0])
+            p.update_weights([weight])
+            p.update_samples([samples])
+        return [latest]
+    else:
+        latest = uncorrelated
+        for p in params:
+            (latest, weights, samples) = correlation_pass_2ch(
+                latest, p.term, p.delta, p.weights, p.samples)
+            p.update_weights(weights)
+            p.update_samples(samples)
+        return latest
+
+
+def correlation_pass_1ch(uncorrelated, term, delta, weight,
+                         correlation_samples):
+    if term in (17, 18):
+        full = [correlation_samples[1],
+                correlation_samples[0]] + list(uncorrelated)
+        correlated = []
+        for i in range(2, len(full)):
+            if term == 18:
+                temp = (3 * full[i - 1] - full[i - 2]) >> 1
+            else:
+                temp = 2 * full[i - 1] - full[i - 2]
+            correlated.append(full[i] - apply_weight(weight, temp))
+            weight += update_weight(temp, correlated[i - 2], delta)
+        return (correlated, weight, list(reversed(correlated[-2:])))
+    elif 1 <= term <= 8:
+        full = list(correlation_samples) + list(uncorrelated)
+        correlated = []
+        for i in range(term, len(full)):
+            correlated.append(full[i] -
+                              apply_weight(weight, full[i - term]))
+            weight += update_weight(full[i - term],
+                                    correlated[i - term], delta)
+        return (correlated, weight, correlated[-term:])
+    else:
+        raise ValueError("unsupported term")
+
+
+def correlation_pass_2ch(uncorrelated, term, delta, weights,
+                         correlation_samples):
+    if (17 <= term <= 18) or (1 <= term <= 8):
+        (un1, w1, s1) = correlation_pass_1ch(
+            uncorrelated[0], term, delta, weights[0],
+            correlation_samples[0])
+        (un2, w2, s2) = correlation_pass_1ch(
+            uncorrelated[1], term, delta, weights[1],
+            correlation_samples[1])
+        return ([un1, un2], [w1, w2], [s1, s2])
+    elif -3 <= term <= -1:
+        full = (list(correlation_samples[1]) + list(uncorrelated[0]),
+                list(correlation_samples[0]) + list(uncorrelated[1]))
+        correlated = [[], []]
+        weights = list(weights)
+        for i in range(1, len(full[0])):
+            if term == -1:
+                correlated[0].append(full[0][i] -
+                                     apply_weight(weights[0],
+                                                  full[1][i - 1]))
+                correlated[1].append(full[1][i] -
+                                     apply_weight(weights[1],
+                                                  full[0][i]))
+                weights[0] += update_weight(full[1][i - 1],
+                                            correlated[0][-1], delta)
+                weights[1] += update_weight(full[0][i],
+                                            correlated[1][-1], delta)
+            elif term == -2:
+                correlated[0].append(full[0][i] -
+                                     apply_weight(weights[0],
+                                                  full[1][i]))
+                correlated[1].append(full[1][i] -
+                                     apply_weight(weights[1],
+                                                  full[0][i - 1]))
+                weights[0] += update_weight(full[1][i],
+                                            correlated[0][-1], delta)
+                weights[1] += update_weight(full[0][i - 1],
+                                            correlated[1][-1], delta)
+            else:  # term == -3
+                correlated[0].append(full[0][i] -
+                                     apply_weight(weights[0],
+                                                  full[1][i - 1]))
+                correlated[1].append(full[1][i] -
+                                     apply_weight(weights[1],
+                                                  full[0][i - 1]))
+                weights[0] += update_weight(full[1][i - 1],
+                                            correlated[0][-1], delta)
+                weights[1] += update_weight(full[0][i - 1],
+                                            correlated[1][-1], delta)
+            weights[0] = max(min(weights[0], 1024), -1024)
+            weights[1] = max(min(weights[1], 1024), -1024)
+        return (correlated, weights, correlation_samples)
+    else:
+        raise ValueError("unsupported term")
 
 
 def correlate_host(jobs):
@@ -738,7 +1096,7 @@ def begin_block(context, channels, parameters):
     else:
         wasted = 0
     shifted = [a >> wasted for a in arrays] if wasted > 0 else arrays
-    crc = _native.wv_crc(shifted)
+    crc = calculate_crc(shifted)
     if len(shifted) == 2:
         # joint stereo: mid = l - r, side = floor((l + r) / 2)
         uncorrelated = [shifted[0] - shifted[1],
@@ -815,8 +1173,7 @@ def end_block(writer, context, block, correlated, total_pcm_frames,
     write_sub_block(sub_blocks, WV_ENTROPY, 0, sub_block)
 
     sub_block.reset()
-    sub_block.write_bytes(_native.wv_write_bitstream(
-        correlated, parameters.entropy_variables))
+    write_bitstream(sub_block, correlated, parameters.entropy_variables)
     write_sub_block(sub_blocks, WV_BITSTREAM, 0, sub_block)
 
     cross_decorrelation = bool(block["params"]) and any(
@@ -911,3 +1268,181 @@ def write_entropy_variables(writer, channels, entropies):
     if len(channels) == 2:
         for e in entropies[1]:
             writer.write(16, wv_log2(e) & 0xFFFF)
+
+
+def _write_egc(writer, value):
+    """an Elias gamma code; value as a Python integer (the reference's
+    raised AttributeError on a numpy one)"""
+    value = int(value)
+    if value > 1:
+        t = value.bit_length()
+        writer.unary(0, t)
+        writer.write(t - 1, value % (1 << (t - 1)))
+    else:
+        writer.unary(0, value)
+
+
+class _Residual:
+    __slots__ = ("zeroes", "m", "offset", "add", "sign")
+
+    def __init__(self, zeroes, m, offset, add, sign):
+        self.zeroes = zeroes
+        self.m = m
+        self.offset = offset
+        self.add = add
+        self.sign = sign
+
+    @classmethod
+    def encode(cls, residual, entropy):
+        if residual >= 0:
+            unsigned = residual
+            sign = 0
+        else:
+            unsigned = -residual - 1
+            sign = 1
+
+        medians = [(e >> 4) + 1 for e in entropy]
+
+        if unsigned < medians[0]:
+            m = 0
+            offset = unsigned
+            add = medians[0] - 1
+            entropy[0] -= ((entropy[0] + 126) >> 7) * 2
+        elif (unsigned - medians[0]) < medians[1]:
+            m = 1
+            offset = unsigned - medians[0]
+            add = medians[1] - 1
+            entropy[0] += ((entropy[0] + 128) >> 7) * 5
+            entropy[1] -= ((entropy[1] + 62) >> 6) * 2
+        elif (unsigned - (medians[0] + medians[1])) < medians[2]:
+            m = 2
+            offset = unsigned - (medians[0] + medians[1])
+            add = medians[2] - 1
+            entropy[0] += ((entropy[0] + 128) >> 7) * 5
+            entropy[1] += ((entropy[1] + 64) >> 6) * 5
+            entropy[2] -= ((entropy[2] + 30) >> 5) * 2
+        else:
+            m = (((unsigned - (medians[0] + medians[1])) //
+                  medians[2]) + 2)
+            offset = (unsigned -
+                      (medians[0] + medians[1] +
+                       ((m - 2) * medians[2])))
+            add = medians[2] - 1
+            entropy[0] += ((entropy[0] + 128) >> 7) * 5
+            entropy[1] += ((entropy[1] + 64) >> 6) * 5
+            entropy[2] += ((entropy[2] + 32) >> 5) * 5
+
+        return cls(zeroes=None, m=m, offset=offset, add=add, sign=sign)
+
+    def flush(self, writer, u_i_2, m_i):
+        """encodes residual_{i-1} given u_{i-2} and m_{i}"""
+        if self.zeroes is not None:
+            _write_egc(writer, self.zeroes)
+
+        if self.m is not None:
+            if (self.m > 0) and (m_i > 0):
+                if (u_i_2 is None) or (u_i_2 % 2 == 0):
+                    u_i_1 = (self.m * 2) + 1
+                else:
+                    u_i_1 = (self.m * 2) - 1
+            elif (self.m == 0) and (m_i > 0):
+                if (u_i_2 is None) or (u_i_2 % 2 == 1):
+                    u_i_1 = 1
+                else:
+                    u_i_1 = None
+            elif (self.m > 0) and (m_i == 0):
+                if (u_i_2 is None) or (u_i_2 % 2 == 0):
+                    u_i_1 = self.m * 2
+                else:
+                    u_i_1 = (self.m - 1) * 2
+            elif (self.m == 0) and (m_i == 0):
+                if (u_i_2 is None) or (u_i_2 % 2 == 1):
+                    u_i_1 = 0
+                else:
+                    u_i_1 = None
+            else:
+                raise ValueError("invalid m")
+
+            if u_i_1 is not None:
+                if u_i_1 < 16:
+                    writer.unary(0, u_i_1)
+                else:
+                    writer.unary(0, 16)
+                    _write_egc(writer, u_i_1 - 16)
+
+            if self.add > 0:
+                p = self.add.bit_length() - 1
+                e = (1 << (p + 1)) - self.add - 1
+                if self.offset < e:
+                    writer.write(p, self.offset)
+                else:
+                    writer.write(p, (self.offset + e) // 2)
+                    writer.write(1, (self.offset + e) % 2)
+
+            writer.write(1, self.sign)
+        else:
+            u_i_1 = None
+
+        return u_i_1
+
+
+def _unary_undefined(prev_u, m):
+    if m is None:
+        return True
+    if (m == 0) and (prev_u is not None) and (prev_u % 2 == 0):
+        return True
+    return False
+
+
+def write_bitstream(writer, channels, entropies):
+    """writes the residual coder's bits of 1-2 channels: the host C++,
+    or the scalar oracle under ATPU_WV_ORACLE=1; entropies, [[3], [3]],
+    are updated in place"""
+    if _use_native():
+        writer.write_bytes(_native.wv_write_bitstream(channels, entropies))
+        return
+    channels = [np.asarray(c, dtype=np.int64).tolist() for c in channels]
+    r_i_1 = _Residual(zeroes=None, m=None, offset=None, add=None,
+                      sign=None)
+    u_i_2 = None
+    i = 0
+    channel_count = len(channels)
+    total = channel_count * len(channels[0])
+
+    while i < total:
+        r = channels[i % channel_count][i // channel_count]
+
+        if ((entropies[0][0] < 2) and (entropies[1][0] < 2) and
+                _unary_undefined(u_i_2, r_i_1.m)):
+            if (r_i_1.zeroes is not None) and (r_i_1.m is None):
+                # in a block of zeroes
+                if r == 0:
+                    r_i_1.zeroes += 1
+                else:
+                    r_i = _Residual.encode(r,
+                                           entropies[i % channel_count])
+                    r_i.zeroes = r_i_1.zeroes
+                    r_i_1 = r_i
+            else:
+                if r == 0:
+                    r_i = _Residual(zeroes=1, m=None, offset=None,
+                                    add=None, sign=None)
+                    u_i_2 = r_i_1.flush(writer, u_i_2, 0)
+                    entropies[0][0:3] = [0, 0, 0]
+                    entropies[1][0:3] = [0, 0, 0]
+                    r_i_1 = r_i
+                else:
+                    r_i = _Residual.encode(r,
+                                           entropies[i % channel_count])
+                    r_i.zeroes = 0
+                    u_i_2 = r_i_1.flush(writer, u_i_2, r_i.m)
+                    r_i_1 = r_i
+        else:
+            r_i = _Residual.encode(r, entropies[i % channel_count])
+            r_i.zeroes = None
+            u_i_2 = r_i_1.flush(writer, u_i_2, r_i.m)
+            r_i_1 = r_i
+
+        i += 1
+
+    r_i_1.flush(writer, u_i_2, 0)

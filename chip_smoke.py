@@ -328,10 +328,21 @@ each print one line (phases 24 to 28 one a tool run too):
     ``seektable()`` equal to the SEEKTABLE written, phase 5's encode
     with ATPU_PROFILE unset and set in turn (bytes equal, both medians,
     the stage report) and a ``utils.profiling.trace`` of a one-batch
-    encode that must hold the five ``flac.*`` ranges and pack_rows.
+    encode that must hold the five ``flac.*`` ranges and pack_rows;
+31. the oracle escape hatches (``oracle_phase``): 2 s of bench.py's
+    signal (1 s for Shorten), 0.25 s each of 8-bit mono, 24-bit 96 kHz
+    stereo and 6-channel sines, 0.25 s of silence and a block and 1-3
+    frames, where each type takes them, in FLAC -8, Ogg FLAC, ALAC,
+    Shorten, TTA and WavPack ``standard``: written on the card and with
+    the codec's ``ATPU_*_ORACLE=1`` (bytes equal; FLAC also through the
+    device pack), each file decoded on the card and under the switch
+    (every decode equal to the input), 0 launches under a switch, each
+    card run of a title that is not silent launching its codec's
+    kernels; ChecksumV1/V2 over phase 19's album equal to
+    AccurateRipCRC on the card.
 
 Then it prints one JSON line describing each kernel (its launches in
-the main path's run and in phases 21-30) and, last, the
+the main path's run and in phases 21-31) and, last, the
 result line {"ok": true, "device": {...}}.  Any failure raises: the
 script exits nonzero without the result line.  It imports nothing of
 jax or of the reference package, and checks so at the end.  Usage:
@@ -4152,6 +4163,270 @@ def api_phase(dev, alac_sig, sig, sine_s=SINE_S, profile_runs=PROFILE_RUNS):
     return (out, launches)
 
 
+# phase 31: the oracle escape hatches.  Each type: its class's name,
+# quality, switch, the kernels its card encode and its card decode must
+# launch on a title that is not silent (Shorten has no hand kernel:
+# its device steps are torch ops), the bits per sample it takes, and
+# the frames a block of its encoder holds and the 1-3 frames its title
+# "tail" holds after one block.  FLAC's card encodes take the default
+# route (the quantized upload wire), whose bytes are the oracle's; a
+# third encode takes the device pack (ATPU_PALLAS=1), the route that
+# launches pack_rows, whose Rice choices differ from the oracle's in
+# the reference too: its bytes are not compared, its decodes are.
+ORACLE_SWITCHES = ("ATPU_FLAC_ORACLE", "ATPU_ALAC_ORACLE", "ATPU_SHN_ORACLE",
+                   "ATPU_TTA_ORACLE", "ATPU_WV_ORACLE")
+ORACLE_TYPES = (
+    ("flac", "8", "ATPU_FLAC_ORACLE", (), ("rice_decode", "flac_synth"),
+     (8, 16, 24), 4096, 1),
+    ("oggflac", "8", "ATPU_FLAC_ORACLE", (), ("rice_decode", "flac_synth"),
+     (8, 16, 24), 4096, 2),
+    ("alac", None, "ATPU_ALAC_ORACLE", (), ("alac_synth",), (16, 24), 4096,
+     3),
+    ("shn", None, "ATPU_SHN_ORACLE", (), (), (8, 16), 256, 1),
+    ("tta", None, "ATPU_TTA_ORACLE", ("tta_filter",), ("tta_synth",),
+     (8, 16, 24), 46080, 2),
+    ("wavpack", "standard", "ATPU_WV_ORACLE", ("wv_corr",), ("wv_decorr",),
+     (8, 16, 24), 44100, 3))
+ORACLE_STEREO_S = 2.0
+ORACLE_SHN_STEREO_S = 1.0
+ORACLE_EDGE_S = 0.25
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with ``values`` set (None: unset), restored after"""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for (k, v) in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for (k, v) in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def oracle_titles(sig, bps_taken, stereo_s, edge_s):
+    """phase 31's titles of one type: {label: (int32 samples, bps, rate,
+    channel mask)}: bench.py's stereo signal, 8-bit mono, 24-bit 96 kHz
+    stereo and 6-channel 16-bit sines where the type takes their bits,
+    and silence"""
+    from audiotools_tpu_torch import sines
+    from audiotools_tpu_torch.pcm import read_all
+    edge = int(edge_s * SAMPLE_RATE)
+    titles = {"stereo16": (sig[:int(stereo_s * SAMPLE_RATE)], 16,
+                           SAMPLE_RATE, 0x3)}
+    if 8 in bps_taken:
+        titles["mono8"] = (read_all(sines.Sine_Mono(
+            8, edge, SAMPLE_RATE, 441.0, 0.61, 661.5, 0.37)), 8,
+            SAMPLE_RATE, 0x4)
+    if 24 in bps_taken:
+        titles["stereo24_96k"] = (read_all(sines.Sine_Stereo(
+            24, int(edge_s * 96000), 96000, 441.0, 0.50, 882.0, 0.49,
+            1.0)), 24, 96000, 0x3)
+    titles["ch6"] = (read_all(sines.Simple_Sine(
+        edge, SAMPLE_RATE, 0x3F, 16, (6000, 441), (7000, 551), (8000, 661),
+        (9000, 771), (10000, 881), (11000, 991))), 16, SAMPLE_RATE, 0x3F)
+    titles["silence"] = (np.zeros((edge, 2), dtype=np.int32), 16,
+                         SAMPLE_RATE, 0x3)
+    return titles
+
+
+def oracle_phase(dev, sig, alac_sig, stereo_s=ORACLE_STEREO_S,
+                 shn_stereo_s=ORACLE_SHN_STEREO_S, edge_s=ORACLE_EDGE_S,
+                 types=ORACLE_TYPES):
+    """phase 31 on ``dev``: each of ``types`` writes each of its titles
+    (``oracle_titles``) through its class's ``from_pcm`` on the card
+    (ALAC through ``write_m4a``, the body of its from_pcm, with
+    CREATE_DATE pinned) and again with its switch set to 1; the bytes
+    must be equal.  FLAC and Ogg FLAC also write it through the device
+    pack (ATPU_PALLAS=1), which must launch pack_rows.  Each file is
+    decoded twice, through ``to_pcm`` on the card and with the switch
+    set; every decode must equal the input sample for sample.  Each
+    kernel's launches are counted from 0 around every run: 0 under a
+    switch, and a card run of a title that is not silent launches its
+    type's kernels.  Then
+    ChecksumV1/V2 over phase 19's album (``alac_sig`` cut as phase 19
+    cuts it) must equal AccurateRipCRC on the card.  Returns the line's
+    fields (a row a type: per title the walls, input Msamples/s,
+    bytes_equal, pcm_equal and launches) and each kernel's launches in
+    the phase's card runs.  On a CPU ``dev`` no launch is required."""
+    import tempfile
+    from audiotools_tpu_torch import accuraterip_checksum as ar
+    from audiotools_tpu_torch import dispatch
+    from audiotools_tpu_torch.formats import m4a
+    from audiotools_tpu_torch.pcm import (FrameList, read_all,
+                                          reader_from_array)
+    from audiotools_tpu_torch.sines import FrameListReader
+    dev = torch.device(dev)
+    on_cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    card_launches = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+    out = dict(types=[], switches=list(ORACLE_SWITCHES))
+    unset = dict.fromkeys(ORACLE_SWITCHES)
+
+    def run(fn):
+        """(fn's result, its wall seconds, each kernel's launches)"""
+        for kernel in counters.values():
+            kernel.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        return (result, wall, {k: c.launches for (k, c) in counters.items()})
+
+    with tempfile.TemporaryDirectory(prefix="oracle-") as work:
+        for (name, quality, switch, enc_kernels, dec_kernels, bps_taken,
+             block, tail) in types:
+            cls = dispatch.TYPE_MAP[name]
+            seconds = shn_stereo_s if name == "shn" else stereo_s
+            titles = oracle_titles(sig, bps_taken, seconds, edge_s)
+            titles["tail"] = (sig[:block + tail], 16, SAMPLE_RATE, 0x3)
+            row = dict(type=name, quality=quality, switch=switch, titles=[])
+            for (label, (samples, bps, rate, mask)) in titles.items():
+                n_in = samples.size
+
+                def encode(path):
+                    reader = FrameListReader(samples, rate, samples.shape[1],
+                                             mask, bps)
+                    if name == "alac":
+                        m4a.write_m4a(path, reader, create_date=CREATE_DATE,
+                                      device=dev)
+                    else:
+                        cls.from_pcm(path, reader, quality, device=dev)
+
+                sides = ("card", "oracle") + (
+                    ("pack",) if name in ("flac", "oggflac") else ())
+                paths = {side: os.path.join(work, "%s.%s.%s" % (
+                    label, side, cls.SUFFIX)) for side in sides}
+                with environment(**unset):
+                    (_r, enc_card_s, enc_card) = run(
+                        lambda: encode(paths["card"]))
+                with environment(**dict(unset, **{switch: "1"})):
+                    (_r, enc_oracle_s, enc_oracle) = run(
+                        lambda: encode(paths["oracle"]))
+                enc_pack = dict.fromkeys(counters, 0)
+                if "pack" in paths:
+                    with environment(**dict(unset, ATPU_PALLAS="1")):
+                        (_r, enc_pack_s, enc_pack) = run(
+                            lambda: encode(paths["pack"]))
+                bytes_equal = (read_bytes(paths["card"]) ==
+                               read_bytes(paths["oracle"]))
+                decodes = {}
+                dec_launches = {}
+                for (side, path) in paths.items():
+                    for (how, env) in (("card", unset),
+                                       ("oracle", dict(unset,
+                                                       **{switch: "1"}))):
+                        with environment(**env):
+                            (pcm_out, wall, counts) = run(
+                                lambda: read_all(cls(path, dev).to_pcm()))
+                        decodes["%s_file_%s_decode" % (side, how)] = (
+                            np.array_equal(pcm_out, samples), wall)
+                        dec_launches[(side, how)] = counts
+                pcm_equal = all(ok for (ok, _w) in decodes.values())
+                oracle_counts = [enc_oracle] + [
+                    c for ((_s, how), c) in dec_launches.items()
+                    if how == "oracle"]
+                oracle_total = {k: sum(c[k] for c in oracle_counts)
+                                for k in counters}
+                card_counts = [enc_card, enc_pack] + [
+                    c for ((_s, how), c) in dec_launches.items()
+                    if how == "card"]
+                for c in card_counts:
+                    for (k, v) in c.items():
+                        card_launches[k] += v
+                t = dict(title=label, frames=int(samples.shape[0]),
+                         channels=int(samples.shape[1]), bps=bps, rate=rate,
+                         bytes=len(read_bytes(paths["card"])),
+                         bytes_equal=bytes_equal, pcm_equal=pcm_equal,
+                         encode_card_s=enc_card_s,
+                         encode_oracle_s=enc_oracle_s,
+                         encode_card_Msamples_per_s=n_in / enc_card_s / 1e6,
+                         encode_oracle_Msamples_per_s=(
+                             n_in / enc_oracle_s / 1e6),
+                         decode_s={k: w for (k, (_ok, w)) in decodes.items()},
+                         decode_Msamples_per_s={
+                             k: n_in / w / 1e6
+                             for (k, (_ok, w)) in decodes.items()},
+                         encode_card_launches={k: v for (k, v) in
+                                               enc_card.items() if v},
+                         encode_pack_launches={k: v for (k, v) in
+                                               enc_pack.items() if v},
+                         decode_card_launches={
+                             k: v for (k, v) in
+                             dec_launches[("card", "card")].items() if v},
+                         oracle_launches=sum(oracle_total.values()))
+                row["titles"].append(t)
+                if not bytes_equal:
+                    raise AssertionError("%s %s: the oracle's bytes differ "
+                                         "from the card's" % (name, label))
+                if not pcm_equal:
+                    raise AssertionError("%s %s: a decode differs from the "
+                                         "input: %s" % (name, label, decodes))
+                if any(oracle_total.values()):
+                    raise AssertionError("%s %s: %s=1 launched %s" % (
+                        name, label, switch, oracle_total))
+                if "pack" in paths:
+                    t["encode_pack_s"] = enc_pack_s
+                    t["pack_bytes"] = len(read_bytes(paths["pack"]))
+                if on_cuda and label != "silence":
+                    missing = [k for k in enc_kernels if not enc_card[k]]
+                    if "pack" in paths and not enc_pack["pack_rows"]:
+                        missing.append("pack_rows")
+                    missing += [k for k in dec_kernels for (side, how) in
+                                dec_launches if how == "card" and
+                                not dec_launches[(side, how)][k]]
+                    if missing:
+                        raise AssertionError("%s %s: the card runs never "
+                                             "launched %s" % (name, label,
+                                                              missing))
+            out["types"].append(row)
+
+    # AccurateRip: the NumPy oracles against AccurateRipCRC on the card
+    per = album_frames(alac_sig)
+    tracks = [(alac_sig[k * per:(k + 1) * per], k == 0, k == RG_TITLES - 1)
+              for k in range(RG_TITLES)]
+    in_samples = sum(t.size for (t, _f, _l) in tracks)
+    (card_sums, card_s, _c) = run(lambda: [ar.accuraterip_checksums(
+        reader_from_array(track, 16), len(track), first, last, device=dev)
+        for (track, first, last) in tracks])
+
+    def oracle_sums():
+        sums = []
+        for (track, first, last) in tracks:
+            pair = (ar.ChecksumV1(first, last, SAMPLE_RATE, len(track)),
+                    ar.ChecksumV2(first, last, SAMPLE_RATE, len(track)))
+            for a in range(0, len(track), 1 << 16):
+                framelist = FrameList._wrap(track[a:a + (1 << 16)], 16)
+                for checksum in pair:
+                    checksum.update(framelist)
+            sums.append(tuple(checksum.checksum() for checksum in pair))
+        return sums
+
+    (numpy_sums, numpy_s, _c) = run(oracle_sums)
+    if [tuple(s) for s in card_sums] != numpy_sums:
+        raise AssertionError("ChecksumV1/V2 %s differ from AccurateRipCRC "
+                             "%s" % (numpy_sums, card_sums))
+    out["accuraterip"] = dict(
+        tracks=len(tracks), frames=per, checksums=numpy_sums, equal=True,
+        card_s=card_s, card_Msamples_per_s=in_samples / card_s / 1e6,
+        oracle_s=numpy_s, oracle_Msamples_per_s=in_samples / numpy_s / 1e6)
+    forbidden = loaded_forbidden_modules()
+    if forbidden:
+        raise AssertionError("the port loaded jax or the reference: %s"
+                             % (forbidden,))
+    out["seconds"] = time.perf_counter() - t_phase
+    return (out, card_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5002,6 +5277,12 @@ def main():
     (fields, api_launches) = api_phase(dev, alac_sig, sig)
     line("api", nvidia_smi=smi, **fields)
 
+    # ---- 31. the oracle escape hatches -------------------------------------
+    (fields, oracle_launches) = oracle_phase(dev, sig, alac_sig)
+    for row in fields.pop("types"):
+        line("oracle", nvidia_smi=smi, **row)
+    line("oracle_phase", nvidia_smi=smi, **fields)
+
     forbidden = loaded_forbidden_modules()
     if forbidden:
         raise AssertionError("the port loaded jax or the reference: %s"
@@ -5038,7 +5319,8 @@ def main():
             disc_launches=disc_launches[kname],
             dvda_launches=dvda_launches[kname],
             playback_launches=playback_launches[kname],
-            api_launches=api_launches[kname], **row))
+            api_launches=api_launches[kname],
+            oracle_launches=oracle_launches[kname], **row))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

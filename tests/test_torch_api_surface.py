@@ -16,13 +16,20 @@ A public name is one the module defines (by ``def``, ``class`` or
 assignment) that does not start with "_"; a public attribute of a
 class is one that does not start with "_", or one of the Python
 protocol methods below that the reference defines in its classes.
-``LEFT_OUT`` is the one list of exclusions, each with its reason.
+``LEFT_OUT`` is the one list of exclusions, each with its reason; it
+is empty.
+
+Every module file of the reference, the compute backend's too, has a
+port module of the same name, apart from the JAX-only modules that
+``JAX_ONLY`` names, each with its port counterpart or the reason it
+has none.
 """
 
 import ast
 import importlib
 import importlib.util
 import inspect
+import os
 import pkgutil
 
 import pytest
@@ -30,17 +37,22 @@ import pytest
 import audiotools_tpu as ref
 
 # the reference's names the port does not carry, with the reason
-LEFT_OUT = {
-    "audiotools_tpu.accuraterip_checksum.ChecksumV1":
-        "the NumPy V1 oracle of AccurateRipCRC: the oracle slice, queued "
-        "in ROADMAP Queue 1",
-    "audiotools_tpu.accuraterip_checksum.ChecksumV2":
-        "the NumPy V2 oracle of AccurateRipCRC: the oracle slice, queued "
-        "in ROADMAP Queue 1",
-    "audiotools_tpu.formats.flac.OggFlacDecoder":
-        "the host Ogg FLAC decoder behind ATPU_FLAC_ORACLE: the oracle "
-        "slice, queued in ROADMAP Queue 1 (OggFlacAudio decodes through "
-        "TorchFlacDecoder)",
+LEFT_OUT = {}
+
+# the reference's module files with no port module of the same name:
+# its JAX-only modules, each with the port's counterpart or the reason
+JAX_ONLY = {
+    "codecs.flac_dec_jax": "codecs/flac_dec.py (TorchFlacDecoder)",
+    "codecs.alac_dec_jax": "codecs/alac_dec.py (TorchALACDecoder)",
+    "codecs.wavpack_jax": "codecs/wavpack.py (encode_wavpack, "
+                          "TorchWavPackDecoder)",
+    "codecs.flac_dec_fast": "codecs/flac_dec.py: the reference's default "
+                            "host C++ decoder; the port decodes on its "
+                            "device, its C++ frame decoder "
+                            "_native.flac_decode",
+    "ops.pallas_bitpack": "ops/bitpack.py and csrc/pack_rows.cu",
+    "codecs.padgrid": "none: it pads a final batch so that XLA compiles "
+                      "fewer shapes, which eager torch does not need",
 }
 
 PUBLIC_PACKAGES = ("formats", "meta", "sheets", "services", "utils")
@@ -127,6 +139,40 @@ def test_the_left_out_names_exist_in_the_reference():
     for key in LEFT_OUT:
         (module, attr) = key.rsplit(".", 1)
         assert hasattr(importlib.import_module(module), attr), key
+
+
+def reference_module_files():
+    """every module file of the reference package, as dotted names
+    below it"""
+    root = os.path.dirname(ref.__file__)
+    names = []
+    for (directory, _dirs, files) in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(directory, name), root)
+                dotted = rel[:-3].replace(os.sep, ".")
+                if dotted.endswith("__init__"):
+                    dotted = dotted[:-len("__init__")].rstrip(".")
+                names.append(dotted)
+    return sorted(names)
+
+
+def full_name(package, name):
+    return package + "." + name if name else package
+
+
+@pytest.mark.parametrize("name", reference_module_files())
+def test_every_reference_module_file_has_a_port_module(name):
+    spec = importlib.util.find_spec(full_name("audiotools_tpu_torch", name))
+    if name in JAX_ONLY:
+        assert spec is None, "%s is ported: take it out of JAX_ONLY" % (name,)
+    else:
+        assert spec is not None
+
+
+def test_the_jax_only_modules_exist_in_the_reference():
+    for name in JAX_ONLY:
+        assert importlib.util.find_spec("audiotools_tpu." + name), name
 
 
 @pytest.mark.parametrize("name", ["sheets", "pcmstream", "sines", "utils",
