@@ -45,6 +45,7 @@ from .. import _native, pcm
 from .._device import COUNT_LOCK, resolve_device
 from ..ops import alac_frames, lpc as lpc_ops, qpack
 from ..ref import alac as oracle
+from ..utils import profiling
 
 # blocks per device batch: 1024 stereo 4096-sample blocks are 16 MB of
 # int16 upload and about 10 GB of analysis temporaries on the card
@@ -55,9 +56,10 @@ BATCH_FRAMES = 1024
 wire_batches = 0
 floor_groups = 0
 
-# per-stage seconds reported through encode_mdat_fast(timings=...):
-# qpack (the host scan and wire), the device stages, floor (the floor
-# retry's exact re-analysis) and emit
+# per-stage seconds reported through encode_mdat_fast(timings=...), a
+# view of the encode's stage sink (utils/profiling): qpack (the host
+# scan and wire), the device stages, floor (the floor retry's exact
+# re-analysis) and emit
 STAGES = ("qpack", "upload", "analysis", "fetch", "floor", "emit")
 
 
@@ -179,7 +181,7 @@ def encode_mdat_fast(file, pcmreader,
     (np_upload, upload_dtype) = ((np.int16, torch.int16) if bps <= 16
                                  else (np.int32, torch.int32))
     copy_stream = torch.cuda.Stream(dev) if on_cuda else None
-    stage_seconds = dict.fromkeys(STAGES, 0.0)
+    stages = profiling.StageTimers("alac_fast[torch]", "alac_enc")
     lw = (interlacing_shift, min_interlacing_leftweight,
           max_interlacing_leftweight)
 
@@ -194,19 +196,18 @@ def encode_mdat_fast(file, pcmreader,
         """enqueues one batch's upload, analysis and fetch; returns
         without waiting for the device"""
         global wire_batches
-        t0 = time.perf_counter()
         t = wire_shape = None
-        if use_wire:
-            shifted = blocks.astype(np.int32) >> lsb_shift
-            (qwords, k, t, x0, _orv, _cf) = _native.flac_qpack(
-                shifted, bps_eff, qpack.guard_bits(), False)
-            rows = qpack.assemble_wire(qwords, t, x0).view(np.int32)
-            wire_shape = (k, qwords.shape[2])
-            with COUNT_LOCK:
-                wire_batches += 1
-        else:
-            rows = blocks.astype(np_upload)
-        stage_seconds["qpack"] += time.perf_counter() - t0
+        with stages("qpack"):
+            if use_wire:
+                shifted = blocks.astype(np.int32) >> lsb_shift
+                (qwords, k, t, x0, _orv, _cf) = _native.flac_qpack(
+                    shifted, bps_eff, qpack.guard_bits(), False)
+                rows = qpack.assemble_wire(qwords, t, x0).view(np.int32)
+                wire_shape = (k, qwords.shape[2])
+                with COUNT_LOCK:
+                    wire_batches += 1
+            else:
+                rows = blocks.astype(np_upload)
         batch = _Batch(blocks, ns, t)
         t0 = time.perf_counter()
         if on_cuda:
@@ -258,30 +259,28 @@ def encode_mdat_fast(file, pcmreader,
             ms = (ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]),
                   ev[3].elapsed_time(ev[4]))
             for (stage, t) in zip(("upload", "analysis", "fetch"), ms):
-                stage_seconds[stage] += t / 1e3
+                stages.add(stage, t / 1e3)
         else:
             for (stage, t) in zip(("upload", "analysis", "fetch"),
                                   batch.cpu_times):
-                stage_seconds[stage] += t
+                stages.add(stage, t)
         packed = batch.host.numpy()
         if batch.t is not None:
-            t0 = time.perf_counter()
-            (packed, retried) = _floor_retry(
-                packed, batch.blocks, batch.t, layout, bps, lsb_shift,
+            with stages("floor"):
+                (packed, retried) = _floor_retry(
+                    packed, batch.blocks, batch.t, layout, bps, lsb_shift,
+                    interlacing_shift, min_interlacing_leftweight,
+                    max_interlacing_leftweight, block_size, exact)
+                with COUNT_LOCK:
+                    floor_groups += retried
+        with stages("emit"):
+            (data, lens) = _native.alac_emit_framesets(
+                batch.blocks, batch.ns, layout, packed, block_size,
+                initial_history, history_multiplier, maximum_k,
                 interlacing_shift, min_interlacing_leftweight,
-                max_interlacing_leftweight, block_size, exact)
-            with COUNT_LOCK:
-                floor_groups += retried
-            stage_seconds["floor"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        (data, lens) = _native.alac_emit_framesets(
-            batch.blocks, batch.ns, layout, packed, block_size,
-            initial_history, history_multiplier, maximum_k,
-            interlacing_shift, min_interlacing_leftweight,
-            max_interlacing_leftweight, bps)
-        file.write(data)
-        frame_byte_sizes.extend(int(v) for v in lens)
-        stage_seconds["emit"] += time.perf_counter() - t0
+                max_interlacing_leftweight, bps)
+            file.write(data)
+            frame_byte_sizes.extend(int(v) for v in lens)
 
     reader = pcm.BufferedPCMReader(pcmreader)
     pending = None
@@ -322,7 +321,7 @@ def encode_mdat_fast(file, pcmreader,
     file.write((sum(frame_byte_sizes) + 8).to_bytes(4, "big"))
     file.seek(end)
     if timings is not None:
-        for (stage, t) in stage_seconds.items():
+        for (stage, t) in stages.view(STAGES).items():
             timings[stage] = timings.get(stage, 0.0) + t
     return (frame_byte_sizes, total_pcm_frames)
 

@@ -34,7 +34,6 @@ in ``host_chunks``.  On the CPU every stage runs the plain versions.
 from __future__ import annotations
 
 import io
-import time
 
 import numpy as np
 import torch
@@ -42,6 +41,8 @@ import torch
 from .. import _native, pcm
 from .._device import COUNT_LOCK, StageMarks, fetch_async, resolve_device
 from ..ops import flac_synth, rice_decode
+from ..utils import profiling
+from ..utils.profiling import span
 
 # frames per device batch
 MAX_BATCH_FRAMES = 1024
@@ -60,13 +61,16 @@ DEVICE_CHUNK_BYTES = 0x1000000
 # compressed bytes per host-decoder read
 HOST_CHUNK_BYTES = 0x200000
 
-# per-stage seconds accumulated in TorchFlacDecoder.timings: the host
-# scan, the host preparation of its arrays (HostBatch), the device
-# stages, and the stream MD5.  On a card the device stages are
+# per-stage seconds in TorchFlacDecoder.timings, a view of the
+# decoder's stage sink (utils/profiling): the host scan, the host
+# preparation of its arrays (HostBatch), the device stages, the stream
+# MD5, the host's enqueue of a batch's device stages (host clock) and
+# the host blocked on a batch's PCM.  On a card the device stages are
 # CUDA-event spans, which include the host's time to enqueue their
 # kernels
-STAGES = ("scan", "prep", "upload", "rice", "assemble", "synth",
-          "reconstruct", "fetch", "md5")
+DEVICE_STAGES = ("upload", "rice", "assemble", "synth", "reconstruct",
+                 "fetch")
+STAGES = ("scan", "prep") + DEVICE_STAGES + ("md5", "enqueue", "wait")
 
 # chunks decoded by the host C++ decoder instead of the device
 # (process-wide count, for reports; added to under _device.COUNT_LOCK)
@@ -228,7 +232,7 @@ class TorchFlacDecoder:
     versions, for tests).  read() decodes MAX_BATCH_FRAMES-deep
     batches and serves the caller from the decoded PCM, never more
     frames than asked; the stream MD5 is checked at the end (not
-    after a seek).  ``timings`` accumulates seconds per STAGES."""
+    after a seek).  ``timings`` holds the seconds of each of STAGES."""
 
     def __init__(self, file_or_path, channel_mask=None, device="cuda"):
         self.device = resolve_device(device)
@@ -263,13 +267,21 @@ class TorchFlacDecoder:
         self.decoded_frames = 0
         self.eof = False
         self.closed = False
-        self.timings = dict.fromkeys(STAGES, 0.0)
+        self.stages = profiling.StageTimers("flac_dec[torch]", "flac_dec")
         self._pcm_buf = None
         self._pcm_off = 0
         self._inflight = None
 
+    @property
+    def timings(self):
+        return self.stages.view(STAGES)
+
     # ---- PCMReader protocol ------------------------------------------
     def read(self, pcm_frames):
+        with profiling.collect(self.stages):
+            return self._read(pcm_frames)
+
+    def _read(self, pcm_frames):
         if self.closed:
             raise ValueError("stream is closed")
         if self._pcm_buf is None or self._pcm_off >= self._pcm_buf.shape[0]:
@@ -303,28 +315,33 @@ class TorchFlacDecoder:
         the end-of-stream MD5 check is disabled."""
         if self.closed:
             raise ValueError("stream is closed")
-        self._pcm_buf = None
-        self._pcm_off = 0
-        self._inflight = None
         pcm_frame = max(int(pcm_frame), 0)
         best = (0, 0)       # (sample_number, byte_offset)
         for (sample_number, byte_offset, _frame_count) in self.seektable:
             if best[0] <= sample_number <= pcm_frame:
                 best = (sample_number, byte_offset)
-        self.file.seek(self.frames_offset + best[1], 0)
-        self.buffer = bytearray()
-        self.buf_off = 0
-        self.eof = False
-        self.decoded_frames = best[0]
-        self.md5sum = b"\x00" * 16
         remaining = pcm_frame - best[0]
         block = self.maximum_block_size or 4096
-        while remaining >= block:
-            framelist = self.read(block)
-            if framelist.frames == 0:
-                break
-            remaining -= framelist.frames
-        return self.decoded_frames
+        # the range's args: the frame asked for, the seekpoint's, and the
+        # frames decoded and discarded between them
+        args = "frame=%d,seekpoint=%d,discarded=%d" % (
+            pcm_frame, best[0], remaining - remaining % block)
+        with profiling.collect(self.stages), span("seek", args=args):
+            self._pcm_buf = None
+            self._pcm_off = 0
+            self._inflight = None
+            self.file.seek(self.frames_offset + best[1], 0)
+            self.buffer = bytearray()
+            self.buf_off = 0
+            self.eof = False
+            self.decoded_frames = best[0]
+            self.md5sum = b"\x00" * 16
+            while remaining >= block:
+                framelist = self._read(block)
+                if framelist.frames == 0:
+                    break
+                remaining -= framelist.frames
+            return self.decoded_frames
 
     def close(self):
         self.closed = True
@@ -413,9 +430,8 @@ class TorchFlacDecoder:
         nxt = self._start_batch(pcm_frames, allow_terminal=False)
         samples = self._fetch(self._inflight)
         self._inflight = nxt if isinstance(nxt, _Inflight) else None
-        t0 = time.perf_counter()
-        self.current_md5.update_pcm(samples, self.bits_per_sample)
-        self.timings["md5"] += time.perf_counter() - t0
+        with span("md5"):
+            self.current_md5.update_pcm(samples, self.bits_per_sample)
         self._pcm_buf = samples
         self._pcm_off = 0
         return None
@@ -426,31 +442,25 @@ class TorchFlacDecoder:
         (host path, end of stream); without, such conditions return
         None and consume nothing, to be met on the next fill."""
         global host_chunks
-        t0 = time.perf_counter()
-        exhausted = self._top_up(DEVICE_CHUNK_BYTES)
+        with span("scan"):
+            exhausted = self._top_up(DEVICE_CHUNK_BYTES)
+            scan = (self._scan() if self.buf_off < len(self.buffer)
+                    else None)
         if self.buf_off >= len(self.buffer):
             if not allow_terminal:
                 return None
             self._finish()
             return self._empty()
-        # the memoryviews below are temporaries: the buffer cannot be
-        # resized while one is alive (so the host path runs after the
-        # except clause, whose traceback holds them)
-        host = False
-        try:
-            scan = _native.flac_scan(
-                memoryview(self.buffer)[self.buf_off:],
-                self.bits_per_sample, self.channels,
-                max_samples=MAX_BATCH_FRAMES * max(
-                    self.maximum_block_size or 65536, 4096),
-                max_frames=MAX_BATCH_FRAMES, max_parts=MAX_PARTS,
-                chunk_codes=CHUNK_CODES)
-            t1 = time.perf_counter()
-            batch = (HostBatch(scan, memoryview(self.buffer)[self.buf_off:],
-                               self.channels, self.bits_per_sample)
-                     if scan["consumed_bytes"] else None)
-        except (_native.CapacityError, _OverflowsBuckets):
-            host = True
+        host = scan is None
+        if not host:
+            try:
+                with span("prep"):
+                    batch = (HostBatch(scan,
+                                       memoryview(self.buffer)[self.buf_off:],
+                                       self.channels, self.bits_per_sample)
+                             if scan["consumed_bytes"] else None)
+            except _OverflowsBuckets:
+                host = True
         if host:
             if not allow_terminal:
                 return None
@@ -469,40 +479,57 @@ class TorchFlacDecoder:
             self._finish()
             return self._empty()
         self.buf_off += scan["consumed_bytes"]
-        self.timings["scan"] += t1 - t0
-        self.timings["prep"] += time.perf_counter() - t1
         if self.stream is None:
             return self._enqueue(batch)
         with torch.cuda.stream(self.stream):
             return self._enqueue(batch)
 
+    def _scan(self):
+        """the host scan of the buffered bytes, or None where a frame
+        passes its capacity.  (The memoryview is a temporary: the buffer
+        cannot be resized while one is alive, so the host path runs after
+        this returns, once the traceback that holds it is gone)"""
+        try:
+            return _native.flac_scan(
+                memoryview(self.buffer)[self.buf_off:],
+                self.bits_per_sample, self.channels,
+                max_samples=MAX_BATCH_FRAMES * max(
+                    self.maximum_block_size or 65536, 4096),
+                max_frames=MAX_BATCH_FRAMES, max_parts=MAX_PARTS,
+                chunk_codes=CHUNK_CODES)
+        except _native.CapacityError:
+            return None
+
     def _enqueue(self, batch):
         """enqueues one batch's device stages and the fetch of its PCM;
         on a card returns without waiting for the device"""
-        marks = StageMarks(self.device)
-        marks.mark()
-        tensors = upload_batch(batch, self.device)
-        marks.mark()
-        vals = decode_residuals(batch, tensors)
-        marks.mark()
-        planes = assemble_residuals(batch, tensors, vals)
-        marks.mark()
-        (shift, order) = tensors["sub"][:2]
-        samples = flac_synth.synthesize(planes, tensors["warmup"],
-                                        tensors["qlp"], shift, order,
-                                        taps=batch.taps)
-        marks.mark()
-        host = reconstruct_batch(batch, tensors, samples)
-        marks.mark()
-        host = fetch_async(host)
-        marks.mark()
-        return _Inflight(batch, host, marks)
+        with span("enqueue"):
+            marks = StageMarks(self.device)
+            marks.mark()
+            tensors = upload_batch(batch, self.device)
+            marks.mark()
+            vals = decode_residuals(batch, tensors)
+            marks.mark()
+            planes = assemble_residuals(batch, tensors, vals)
+            marks.mark()
+            (shift, order) = tensors["sub"][:2]
+            samples = flac_synth.synthesize(planes, tensors["warmup"],
+                                            tensors["qlp"], shift, order,
+                                            taps=batch.taps)
+            marks.mark()
+            host = reconstruct_batch(batch, tensors, samples)
+            marks.mark()
+            host = fetch_async(host)
+            marks.mark()
+            return _Inflight(batch, host, marks)
 
     def _fetch(self, inflight):
         """waits for a batch's PCM in host memory; returns it trimmed
         per frame as int32 [frames, channels]"""
-        for (stage, t) in zip(STAGES[2:], inflight.marks.seconds()):
-            self.timings[stage] += t
+        with span("wait"):
+            seconds = inflight.marks.seconds()
+        for (stage, t) in zip(DEVICE_STAGES, seconds):
+            self.stages.add(stage, t)
         batch = inflight.batch
         out = inflight.host.numpy().astype(np.int32)
         if (batch.block_sizes == batch.n).all():

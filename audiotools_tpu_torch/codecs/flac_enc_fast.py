@@ -60,7 +60,8 @@ from ..ops import bitpack, flac_frames, lpc as lpc_ops, qpack
 from ..parallel.mesh import Split, cuda_devices
 from ..pcm import BufferedPCMReader
 from ..ref import flac_enc as oracle
-from ..utils.profiling import stage_timer
+from ..utils import profiling
+from ..utils.profiling import span
 
 # process-wide counts for reports, added to under _device.COUNT_LOCK:
 # device-pack batches emitted without their packed bits
@@ -73,11 +74,19 @@ floor_frames = 0
 # batches re-analysed exactly after an emit overflow
 overflow_batches = 0
 
-# per-stage seconds reported through encode_flac_fast(timings=...):
-# qpack (the host scan of a batch: the wire, or the MD5 and the upload
-# cast), the device stages, emit, and floor (the exact re-analysis and
-# re-emit of the floor retry and of overflowed batches)
-STAGES = ("qpack", "upload", "analysis", "pack", "fetch", "emit", "floor")
+# per-stage seconds reported through encode_flac_fast(timings=...), a
+# view of the encode's stage sink (utils/profiling): qpack (the host
+# scan of a batch: the wire, or the MD5 and the upload cast), the device
+# stages (CUDA-event spans on a card), emit (a batch's emit, its floor
+# retry left out), floor (the exact re-analysis and re-emit of the floor
+# retry and of overflowed batches), enqueue (the host's enqueue of the
+# wire's unpack, the analysis and compact_decisions, the upload left
+# out) and enqueue_cpu (its thread CPU seconds), wait (the host blocked
+# on a batch's results), floor_analysis (the floor's exact re-analysis
+# on the device, upload to fetch, within floor) and tail (the scalar
+# encoder's tail block)
+STAGES = ("qpack", "upload", "analysis", "pack", "fetch", "emit", "floor",
+          "enqueue", "enqueue_cpu", "wait", "floor_analysis", "tail")
 
 # the patched wire probes one K_GRID step lower every this many batches
 PATCH_PROBE_EVERY = 16
@@ -263,18 +272,33 @@ def encode_flac_fast(file_or_path,
         opened = open(file_or_path, "wb")
     else:
         opened = contextlib.nullcontext(file_or_path)
-    with opened as output_file:
-        return _encode(output_file, pcmreader, devs, block_size,
-                       max_lpc_order, min_residual_partition_order,
-                       max_residual_partition_order, mid_side,
-                       adaptive_mid_side, exhaustive_model_search,
-                       padding_size, batch_frames, pack, timings)
+    stages = profiling.stage_timer("flac_enc_fast[torch]", "flac_enc")
+    with opened as output_file, profiling.collect(stages):
+        offsets = _encode(output_file, pcmreader, devs, block_size,
+                          max_lpc_order, min_residual_partition_order,
+                          max_residual_partition_order, mid_side,
+                          adaptive_mid_side, exhaustive_model_search,
+                          padding_size, batch_frames, pack, stages)
+    if timings is not None:
+        for (stage, t) in timing_view(stages).items():
+            timings[stage] = timings.get(stage, 0.0) + t
+    return offsets
+
+
+def timing_view(stages):
+    """the ``timings`` of an encode's stage sink: STAGES' seconds, emit
+    without the floor retry that its span holds, and the enqueue's
+    thread CPU seconds"""
+    out = stages.view(STAGES)
+    out["emit"] -= out["floor"]
+    out["enqueue_cpu"] = stages.cpu.get("enqueue", 0.0)
+    return out
 
 
 def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
             min_residual_partition_order, max_residual_partition_order,
             mid_side, adaptive_mid_side, exhaustive_model_search,
-            padding_size, batch_frames, pack, timings):
+            padding_size, batch_frames, pack, stages):
     bps = pcmreader.bits_per_sample
     channels = pcmreader.channels
     sample_rate = pcmreader.sample_rate
@@ -306,8 +330,6 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
     streams = ([torch.cuda.current_stream(devs[0])
                 if devs[0].type == "cuda" else None]
                if len(devs) == 1 else None)
-    stage_seconds = dict.fromkeys(STAGES, 0.0)
-    prof = stage_timer("flac_enc_fast[torch]")
     planner = _WirePlanner(bps, stereo_trial)
     submitting = []             # the batch whose slices compute() runs
 
@@ -342,17 +364,18 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
             up = torch.from_numpy(rows)
         t1 = time.perf_counter()
         chosen = None
-        if route == "wire":
-            (k, W, E, V) = wire_shape
-            (qblocks, orv, cflags) = qpack.unpack_wire(
-                up, k, W, channels, block_size, E, V)
-            packed = analyze(qblocks, orv, cflags)
-        elif route == "pack":
-            (packed, chosen) = analyze(up, return_chosen=True)
-        else:
-            packed = analyze(up)
-        outs = {"compact": flac_frames.compact_decisions(
-            packed, max_subframes, max_lpc_order, P)}
+        with span("enqueue"):
+            if route == "wire":
+                (k, W, E, V) = wire_shape
+                (qblocks, orv, cflags) = qpack.unpack_wire(
+                    up, k, W, channels, block_size, E, V)
+                packed = analyze(qblocks, orv, cflags)
+            elif route == "pack":
+                (packed, chosen) = analyze(up, return_chosen=True)
+            else:
+                packed = analyze(up)
+            outs = {"compact": flac_frames.compact_decisions(
+                packed, max_subframes, max_lpc_order, P)}
         if ev is not None:
             ev[3].record(torch.cuda.current_stream(dev))
         t2 = time.perf_counter()
@@ -386,25 +409,22 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
         global wire_batches, patched_batches
         wire_shape = None
         t = None
-        t0 = time.perf_counter()
-        if route == "wire":
-            with prof("qpack"):
+        with span("qpack"):
+            if route == "wire":
                 (wire, k, W, E, t, V, patched) = planner.wire(blocks,
                                                               stream_md5)
                 rows = pad_rows(wire.view(np.int32))
-            wire_shape = (k, W, E, V)
-            with COUNT_LOCK:
-                wire_batches += 1
-                patched_batches += int(patched)
-        else:
-            with prof("md5"):
-                stream_md5.update_pcm(blocks.reshape(-1, channels), bps)
-            with prof("qpack"):
+                wire_shape = (k, W, E, V)
+                with COUNT_LOCK:
+                    wire_batches += 1
+                    patched_batches += int(patched)
+            else:
+                with span("md5"):
+                    stream_md5.update_pcm(blocks.reshape(-1, channels), bps)
                 rows = pad_rows(blocks.astype(np_upload))
-        stage_seconds["qpack"] += time.perf_counter() - t0
         batch = _Batch(blocks, first_frame, t)
         submitting[:] = [batch]
-        with prof("submit"):
+        with span("submit"):
             batch.pending = split.submit([rows], (wire_shape,))
         return batch
 
@@ -412,10 +432,11 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
         """standard decision rows of an exact analysis of ``blocks`` on
         the encode's first device (the floor and overflow retries)"""
         dev = devs[0]
-        up = torch.from_numpy(blocks.astype(np_upload)).to(dev)
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
-            return analyze(up).cpu().numpy()
+        with span("floor_analysis"):
+            up = torch.from_numpy(blocks.astype(np_upload)).to(dev)
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                return analyze(up).cpu().numpy()
 
     def sub_fields(compact, s):
         """(choice, porder, rice [B, P]) of subframe s of compact rows"""
@@ -466,26 +487,27 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
         idx = np.nonzero(flags)[0]
         sub = np.ascontiguousarray(blocks[idx])
         exact = exact_packed(sub)
-        (bytes_b, lens_b) = _native.flac_emit_frames2(
-            sub, (first_frame + idx).astype(np.int64),
-            np.full(len(idx), block_size, dtype=np.int32), exact,
-            max_subframes, Kp, P, sample_rate, bps, channels, precision)
-        pieces = []
-        out_lens = np.empty(len(lens), dtype=np.int64)
-        (oa, ob, ib) = (0, 0, 0)
-        for f in range(len(lens)):
-            if flags[f]:
-                ln = int(lens_b[ib])
-                ib += 1
-                pieces.append(bytes_b[ob:ob + ln])
-                ob += ln
-                oa += int(lens[f])
-            else:
-                ln = int(lens[f])
-                pieces.append(frame_bytes[oa:oa + ln])
-                oa += ln
-            out_lens[f] = ln
-        return (b"".join(pieces), out_lens)
+        with span("floor_emit"):
+            (bytes_b, lens_b) = _native.flac_emit_frames2(
+                sub, (first_frame + idx).astype(np.int64),
+                np.full(len(idx), block_size, dtype=np.int32), exact,
+                max_subframes, Kp, P, sample_rate, bps, channels, precision)
+            pieces = []
+            out_lens = np.empty(len(lens), dtype=np.int64)
+            (oa, ob, ib) = (0, 0, 0)
+            for f in range(len(lens)):
+                if flags[f]:
+                    ln = int(lens_b[ib])
+                    ib += 1
+                    pieces.append(bytes_b[ob:ob + ln])
+                    ob += ln
+                    oa += int(lens[f])
+                else:
+                    ln = int(lens[f])
+                    pieces.append(frame_bytes[oa:oa + ln])
+                    oa += ln
+                out_lens[f] = ln
+            return (b"".join(pieces), out_lens)
 
     # ---- metadata headers (placeholder STREAMINFO) --------------------
     output_file.write(b"fLaC")
@@ -521,20 +543,25 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
 
     def emit(batch):
         """waits for one batch's results and emits its frames"""
-        global fallback_batches, floor_frames, overflow_batches
-        with prof("fetch"):
+        with span("wait"):
             outs = split.collect(batch.pending)
         for ev in batch.events:
             for (stage, (a, b)) in zip(("upload", "analysis", "pack"),
                                        ((0, 1), (2, 3), (3, 4))):
-                stage_seconds[stage] += ev[a].elapsed_time(ev[b]) / 1e3
+                stages.add(stage, ev[a].elapsed_time(ev[b]) / 1e3)
         for (pend, ev) in zip((p for p in batch.pending
                                if p[1] is not None), batch.events):
-            stage_seconds["fetch"] += ev[4].elapsed_time(pend[1]) / 1e3
+            stages.add("fetch", ev[4].elapsed_time(pend[1]) / 1e3)
         for (stage, dt) in zip(("upload", "analysis", "pack"),
                                batch.cpu_times):
-            stage_seconds[stage] += dt
-        t0 = time.perf_counter()
+            stages.add(stage, dt)
+        with span("emit"):
+            emit_batch(batch, outs)
+
+    def emit_batch(batch, outs):
+        """a collected batch's frames, its floor and overflow retries,
+        written"""
+        global fallback_batches, floor_frames, overflow_batches
         blocks = batch.blocks
         B = blocks.shape[0]
         compact = outs["compact"][:B]
@@ -552,40 +579,34 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
             probe_thr = floor_stage1(compact, batch.t, blocks)
             if probe_thr is not None:
                 probe_out = np.zeros(B, dtype=np.uint8)
-        t_floor = 0.0
         try:
-            with prof("emit"):
-                (frame_bytes, lens) = emit_rows(
-                    blocks, batch.first_frame, compact, True,
-                    probe_thr=probe_thr, probe_out=probe_out, **splice)
+            (frame_bytes, lens) = emit_rows(
+                blocks, batch.first_frame, compact, True,
+                probe_thr=probe_thr, probe_out=probe_out, **splice)
             if probe_out is not None and probe_out.any():
-                t1 = time.perf_counter()
-                with prof("floor"):
+                with span("floor"):
                     (frame_bytes, lens) = restitch_floor(
                         blocks, probe_out.astype(bool), batch.first_frame,
                         frame_bytes, lens)
-                t_floor += time.perf_counter() - t1
                 with COUNT_LOCK:
                     floor_frames += int(np.count_nonzero(probe_out))
         except _native.EmitOverflow:
             # decisions from the quantized analysis implied unsafe Rice
             # parameters: the whole batch again from an exact analysis
-            t1 = time.perf_counter()
-            with prof("floor"):
-                (frame_bytes, lens) = emit_rows(
-                    blocks, batch.first_frame, exact_packed(blocks), False)
-            t_floor += time.perf_counter() - t1
+            with span("floor"):
+                exact = exact_packed(blocks)
+                with span("floor_emit"):
+                    (frame_bytes, lens) = emit_rows(
+                        blocks, batch.first_frame, exact, False)
             with COUNT_LOCK:
                 overflow_batches += 1
-        with prof("write"):
+        with span("write"):
             write_frames(frame_bytes, lens, block_size)
-        stage_seconds["floor"] += t_floor
-        stage_seconds["emit"] += time.perf_counter() - t0 - t_floor
 
     pending = None
     submitted_frames = 0
     while True:
-        with prof("read"):
+        with span("read"):
             framelist = reader.read(block_size * batch_frames)
         if framelist.frames == 0:
             break
@@ -606,22 +627,22 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
                 emit(pending)
             pending = batch
         if tail.shape[0]:
-            with prof("md5"):
+            with span("md5"):
                 stream_md5.update_pcm(tail, bps)
             if pending is not None:
                 emit(pending)
                 pending = None
-            with prof("emit"):
+            with span("tail"):
                 frame_bytes = oracle.encode_frame(
                     reader, options, submitted_frames,
                     tail.astype(np.int64))
             submitted_frames += 1
-            with prof("write"):
+            with span("write"):
                 write_frames(frame_bytes, [len(frame_bytes)],
                              tail.shape[0])
     if pending is not None:
         emit(pending)
-    prof.report(extra="(%d frames)" % len(frame_sizes))
+    stages.report(extra="(%d frames)" % len(frame_sizes))
 
     if frame_sizes:
         (min_frame, max_frame) = (min(frame_sizes), max(frame_sizes))
@@ -633,7 +654,4 @@ def _encode(output_file, pcmreader, devs, block_size, max_lpc_order,
         sample_rate, channels, bps, total_pcm_frames,
         stream_md5.digest()))
     output_file.seek(0, 2)
-    if timings is not None:
-        for (stage, t) in stage_seconds.items():
-            timings[stage] = timings.get(stage, 0.0) + t
     return frame_offsets

@@ -20,7 +20,9 @@ stream.  The device reaches ``dispatch.open``, the destination's
 ``from_pcm`` and the decode as their ``device`` argument.  The thread
 that calls ``run_jobs`` reports each job's end and, given a progress
 display, draws a row a running job from the (current, total) slot its
-worker writes: only that thread writes to the terminal.
+worker writes: only that thread writes to the terminal.  Each job runs
+in a span (``utils/profiling``), a range ``atpu.farm.job`` with the
+job's index and its worker's number while a torch profiler records.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from .. import dispatch
 from .._device import resolve_devices
+from ..utils.profiling import span
 
 # farm width when the caller gives none: chosen from chip_smoke.py
 # phase 20's rates and peak card memory at 1, 2, 4 and 6 workers on
@@ -145,28 +148,31 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
             slots[idx] = (current, total)
         return progress
 
-    def run_queue(device):
+    def run_queue(w, device):
         while not (stop_on_error and failed.is_set()):
             try:
                 (idx, job) = work.get_nowait()
             except queue_mod.Empty:
                 return
-            try:
-                if display is None:
-                    outcome = (run(job, device), None)
-                else:
-                    slots[idx] = (0, 1)
-                    events.put((idx, None))
-                    outcome = (run(job, device, slot_writer(idx)), None)
-            except Exception as err:  # noqa: BLE001 - reported per job
-                dest_path = getattr(job, "dest_path", None)
-                if dest_path is not None:
-                    try:
-                        os.unlink(dest_path)   # no partial outputs
-                    except OSError:
-                        pass
-                outcome = (None, err)
-                failed.set()
+            # the job's span: the spans of its codec calls nest in it on
+            # this thread
+            with span("job", "farm", "job=%d,worker=%d" % (idx, w)):
+                try:
+                    if display is None:
+                        outcome = (run(job, device), None)
+                    else:
+                        slots[idx] = (0, 1)
+                        events.put((idx, None))
+                        outcome = (run(job, device, slot_writer(idx)), None)
+                except Exception as err:  # noqa: BLE001 - reported per job
+                    dest_path = getattr(job, "dest_path", None)
+                    if dest_path is not None:
+                        try:
+                            os.unlink(dest_path)   # no partial outputs
+                        except OSError:
+                            pass
+                    outcome = (None, err)
+                    failed.set()
             outcomes[idx] = outcome
             events.put((idx, outcome))
 
@@ -174,12 +180,12 @@ def run_jobs(jobs, run, workers=None, devices=None, done=None,
         device = devices[w % len(devices)]
         try:
             if device.type != "cuda":
-                run_queue(device)
+                run_queue(w, device)
                 return
             with torch.cuda.device(device):
                 stream = torch.cuda.Stream(device)
                 with torch.cuda.stream(stream):
-                    run_queue(device)
+                    run_queue(w, device)
                 stream.synchronize()
         except BaseException as err:  # noqa: B902 - re-raised by run_jobs
             failures.append(err)
