@@ -11,7 +11,8 @@ Port of the reference's ``audiotools_tpu/codecs/wavpack_jax.py``:
   the kernel ``csrc/wv_chain.cu``), and the final weights and stored
   samples come back for the host to quantize into the next block's
   state: one launch and one fetch a frame, whatever the blocks'
-  lengths;
+  lengths.  Its stages are spans (``atpu.wv_enc.<stage>``) into a stage
+  sink whose view is its ``timings``;
 * ``TorchWavPackDecoder``: parses ``batch_blocks`` blocks ahead (the
   sub-block walk and the C++ entropy decode), runs the decode pass
   chains of all of them in one launch (``ops/wv_scan.run_dec_chain``,
@@ -37,9 +38,10 @@ import time
 import numpy as np
 import torch
 
-from .._device import StageMarks, fetch_async, resolve_device
+from .._device import COUNT_LOCK, StageMarks, fetch_async, resolve_device
 from ..ops import wv_scan
 from ..ref import wavpack as oracle
+from ..utils import profiling
 from .flac_dec import upload_arrays
 
 # blocks a device decode batch holds at most (whole block groups): the
@@ -48,11 +50,25 @@ from .flac_dec import upload_arrays
 # not depend on it.  The reference's default (ATPU_WV_DEC_BATCH).
 DEC_BATCH_BLOCKS = 32
 
-# per-stage seconds accumulated by encode_wavpack(timings=...): the
-# device stages of the correlation (CUDA-event spans on a card), and the
-# rest of the encode on the host (PCM reads, decisions, sub-blocks, the
-# residual coder, the CRC and the MD5)
+# process-wide counts, added to under _device.COUNT_LOCK: the frames
+# (PCM reads of block_size) and WavPack blocks encode_wavpack wrote, and
+# the frames whose correlation passes ran on the device and on the host
+# (ATPU_WV_ORACLE=1)
+frames_encoded = 0
+blocks_encoded = 0
+device_frames = 0
+host_frames = 0
+
+# per-stage seconds accumulated by encode_wavpack(timings=...), a view
+# of the encode's stage sink (utils/profiling, component wv_enc): the
+# device stages of the correlation (CUDA-event spans on a card), host
+# (the sum of the HOST_STAGES spans), and the frame loop's spans
+# (ref/wavpack.encode_wavpack): read, md5, decide (begin_block),
+# correlate (the whole ``correlate`` call: DeviceCorrelate's pack,
+# upload, launch, fetch and the state round trip) and write (end_block)
 ENCODE_STAGES = ("upload", "corr", "fetch", "host")
+SPAN_STAGES = ("read", "md5", "decide", "correlate", "write")
+HOST_STAGES = ("read", "md5", "decide", "write")
 
 # per-stage seconds accumulated in TorchWavPackDecoder.timings: the
 # host parse and entropy decode, the device stages, the host finish
@@ -62,10 +78,11 @@ DECODE_STAGES = ("parse", "upload", "decorr", "fetch", "finish", "md5")
 _BATCH_KEYS = ("x", "meta", "chain", "weights", "samples")
 
 
-def _run_batch(fn, blocks, dev, timings, stage):
+def _run_batch(fn, blocks, dev, add, stage):
     """packs the blocks, uploads them, runs fn on the batch tensors and
     fetches its outputs; returns (the batch's host arrays, the outputs
-    as numpy arrays), adding the stages' seconds to timings"""
+    as numpy arrays), passing each stage's seconds to add(stage,
+    seconds)"""
     batch = wv_scan.pack_blocks(blocks)
     marks = StageMarks(dev)
     marks.mark()
@@ -77,26 +94,28 @@ def _run_batch(fn, blocks, dev, timings, stage):
     outs = [fetch_async(t) for t in outs]
     marks.mark()
     for (name, seconds) in zip(("upload", stage, "fetch"), marks.seconds()):
-        timings[name] = timings.get(name, 0.0) + seconds
+        add(name, seconds)
     return (batch, [t.numpy() for t in outs])
 
 
 class DeviceCorrelate:
     """the encoder's ``correlate`` (see ref/wavpack.encode_wavpack) on
-    a torch device: the chains of a frame's blocks in one launch"""
+    a torch device: the chains of a frame's blocks in one launch, the
+    device stages' seconds added to the stage sink ``stages``"""
 
-    def __init__(self, device, timings):
+    def __init__(self, device, stages):
         self.device = device
-        self.timings = timings
+        self.stages = stages
 
     def __call__(self, jobs):
+        global device_frames
         blocks = [(np.stack(uncorrelated[:cc]),
                    [(p.term, p.delta) for p in params],
                    [p.weights for p in params],
                    [p.samples for p in params])
                   for (uncorrelated, params, cc) in jobs]
         (batch, (out, w_out, s_out)) = _run_batch(
-            wv_scan.run_pass_chain, blocks, self.device, self.timings,
+            wv_scan.run_pass_chain, blocks, self.device, self.stages.add,
             "corr")
         results = []
         for (b, ((_u, params, cc), x)) in enumerate(
@@ -106,7 +125,18 @@ class DeviceCorrelate:
                 p.update_samples(s_out[b, p_i, :cc, :wv_scan.span(p.term)]
                                  .tolist())
             results.append(list(x))
+        with COUNT_LOCK:
+            device_frames += 1
         return results
+
+
+def _correlate_on_host(jobs):
+    """the scalar passes' ``correlate`` (ATPU_WV_ORACLE=1), counted in
+    host_frames"""
+    global host_frames
+    with COUNT_LOCK:
+        host_frames += 1
+    return oracle.correlate_host(jobs)
 
 
 def _use_oracle():
@@ -122,27 +152,50 @@ def encode_wavpack(file_or_path, pcmreader, block_size, correlation_passes=0,
 
     device: "cuda" (raises when no card is usable) or "cpu" (the plain
     versions, for tests).  timings: optional dict that receives seconds
-    per ENCODE_STAGES.  wave_header, wave_footer: the RIFF bytes to
-    store in place of the built header (as ``ref/wavpack.encode_wavpack``
-    takes them).  The bytes are the reference encoder's.  Under
-    ATPU_WV_ORACLE=1 the scalar passes correlate on the host (no
-    timings)."""
-    stages = {}
+    per ENCODE_STAGES and SPAN_STAGES.  wave_header, wave_footer: the
+    RIFF bytes to store in place of the built header (as
+    ``ref/wavpack.encode_wavpack`` takes them).  The bytes are the
+    reference encoder's.  Under ATPU_WV_ORACLE=1 the scalar passes
+    correlate on the host (no device stages).  The frames and blocks
+    written and the frames correlated are counted in the module's
+    counters; ATPU_PROFILE prints the stage report."""
+    stages = profiling.stage_timer("wavpack_enc[torch]", "wv_enc")
     if _use_oracle():
-        correlate = oracle.correlate_host
+        correlate = _correlate_on_host
     else:
         correlate = DeviceCorrelate(resolve_device(device), stages)
-    t0 = time.perf_counter()
-    oracle.encode_wavpack(file_or_path, pcmreader, block_size,
-                          total_pcm_frames=total_pcm_frames,
-                          correlation_passes=correlation_passes,
-                          correlate=correlate, wave_header=wave_header,
-                          wave_footer=wave_footer)
-    wall = time.perf_counter() - t0
+    with profiling.collect(stages):
+        oracle.encode_wavpack(file_or_path, pcmreader, block_size,
+                              total_pcm_frames=total_pcm_frames,
+                              correlation_passes=correlation_passes,
+                              correlate=correlate, wave_header=wave_header,
+                              wave_footer=wave_footer)
+    _count_encode(stages, pcmreader, correlation_passes)
     if timings is not None:
-        stages["host"] = wall - sum(stages.values())
-        for stage in ENCODE_STAGES:
-            timings[stage] = timings.get(stage, 0.0) + stages.get(stage, 0.0)
+        for (stage, t) in timing_view(stages).items():
+            timings[stage] = timings.get(stage, 0.0) + t
+    stages.report(extra="(%d frames)" % stages.counts.get("md5", 0))
+
+
+def timing_view(stages):
+    """the ``timings`` of an encode's stage sink: the device stages and
+    the spans' seconds, host the sum of HOST_STAGES"""
+    out = stages.view(ENCODE_STAGES + SPAN_STAGES)
+    out["host"] = sum(out[stage] for stage in HOST_STAGES)
+    return out
+
+
+def _count_encode(stages, pcmreader, correlation_passes):
+    """adds an encode's frames (its md5 spans, one a frame) and blocks
+    (a block a block group a frame) to the module's counters"""
+    global frames_encoded, blocks_encoded
+    frames = stages.counts.get("md5", 0)
+    groups = len(oracle.block_parameters(pcmreader.channels,
+                                         pcmreader.channel_mask,
+                                         correlation_passes))
+    with COUNT_LOCK:
+        frames_encoded += frames
+        blocks_encoded += frames * groups
 
 
 def device_inputs(parsed):
@@ -245,10 +298,13 @@ class TorchWavPackDecoder(oracle.WavPackDecoder):
                 results[k] = parsed["residuals"]
         if blocks:
             (batch, (out,)) = _run_batch(wv_scan.run_dec_chain, blocks,
-                                         self.device, self.timings, "decorr")
+                                         self.device, self._add, "decorr")
             for (k, x) in zip(on_device, wv_scan.unpack(out, batch["meta"])):
                 results[k] = list(x)
         return results
+
+    def _add(self, stage, seconds):
+        self.timings[stage] += seconds
 
     def seek(self, pcm_frame):
         self._queue = []

@@ -35,6 +35,7 @@ from .. import _native, pcm
 from ..bitstream import BitstreamReader, BitstreamRecorder, BitstreamWriter
 from ..formats.wav import build_fmt
 from ..ops.wv_scan import span
+from ..utils.profiling import span as stage_span
 
 (WV_WAVE_HEADER, WV_TERMS, WV_WEIGHTS, WV_SAMPLES, WV_ENTROPY,
  WV_MD5, WV_SAMPLE_RATE) = (0x1, 0x2, 0x3, 0x4, 0x5, 0x6, 0x7)
@@ -984,7 +985,11 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
     parameters, as correlate_host does.  wave_header, wave_footer: the
     RIFF bytes to store before and after the PCM (a WAVE's foreign
     chunks); without a header, one of the fmt and data chunks alone is
-    built and stored"""
+    built and stored.  Each frame's stages are spans (utils/profiling)
+    for the sink the caller binds: read (the PCM read), md5, decide
+    (begin_block: false stereo, wasted bits, joint stereo), correlate
+    (the ``correlate`` call) and write (end_block: the sub-blocks and
+    the residual coder)"""
     pcmreader = pcm.BufferedPCMReader(pcmreader)
     if isinstance(file_or_path, str):
         output_file = open(file_or_path, "wb")
@@ -1000,36 +1005,44 @@ def encode_wavpack(file_or_path, pcmreader, block_size, total_pcm_frames=0,
                              wave_header, wave_footer)
 
     block_index = 0
-    frame = pcmreader.read(block_size)
+    with stage_span("read"):
+        frame = pcmreader.read(block_size)
     while frame.frames > 0:
         context.total_frames += frame.frames
-        context.md5sum.update(
-            frame.to_bytes(False, pcmreader.bits_per_sample >= 16))
+        with stage_span("md5"):
+            context.md5sum.update(
+                frame.to_bytes(False, pcmreader.bits_per_sample >= 16))
 
         blocks = []
         c = 0
-        for parameters in context.block_parameters:
-            channel_data = [frame.samples[:, c + k].astype(np.int64)
-                            for k in range(parameters.channel_count)]
-            blocks.append(begin_block(context, channel_data, parameters))
-            c += parameters.channel_count
+        with stage_span("decide"):
+            for parameters in context.block_parameters:
+                channel_data = [frame.samples[:, c + k].astype(np.int64)
+                                for k in range(parameters.channel_count)]
+                blocks.append(begin_block(context, channel_data,
+                                          parameters))
+                c += parameters.channel_count
         jobs = [(b["uncorrelated"], b["params"], b["channel_count"])
                 for b in blocks if b["params"]]
-        correlated = iter(correlate(jobs) if jobs else [])
-        for (parameters, block) in zip(context.block_parameters, blocks):
-            if total_pcm_frames == 0:
-                writer.flush()
-                context.block_offsets.append(output_file.tell())
-            end_block(writer, context, block,
-                      next(correlated) if block["params"]
-                      else block["uncorrelated"],
-                      total_pcm_frames, block_index,
-                      parameters is context.block_parameters[0],
-                      parameters is context.block_parameters[-1],
-                      parameters)
+        with stage_span("correlate"):
+            correlated = iter(correlate(jobs) if jobs else [])
+        with stage_span("write"):
+            for (parameters, block) in zip(context.block_parameters,
+                                           blocks):
+                if total_pcm_frames == 0:
+                    writer.flush()
+                    context.block_offsets.append(output_file.tell())
+                end_block(writer, context, block,
+                          next(correlated) if block["params"]
+                          else block["uncorrelated"],
+                          total_pcm_frames, block_index,
+                          parameters is context.block_parameters[0],
+                          parameters is context.block_parameters[-1],
+                          parameters)
 
         block_index += frame.frames
-        frame = pcmreader.read(block_size)
+        with stage_span("read"):
+            frame = pcmreader.read(block_size)
 
     # the final block: the MD5 sum and the stored footer
     sub_blocks = BitstreamRecorder(little_endian=True)
